@@ -5,19 +5,34 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-1. card   - the card's name and power limit, from nvidia-smi;
-2. build  - every kernel under deepfm_tpu_torch/csrc, built from source;
-3. kernel - each kernel's wrapper against its plain PyTorch version on the
-            card, at the shapes the serving path gives it (the flagship
-            table, 117,584 x 32, and every serving bucket), with the kernel's
-            time, the plain version's time and the least time the card
-            could take (CUDA events, median over repetitions);
-4. serve  - the full-width DeepFM (117,581 x 39 x 32, MLP 256/128/64, bf16,
-            random weights from --seed) exported, loaded on the card behind
-            the HTTP server, and sent :predict requests of 1, 8 and 100
-            instances; the predictions must be finite and agree with the
-            plain-version forward of the same weights, and every kernel's
-            launch count must have risen during this phase.
+1. card     - the card's name and power limit, from nvidia-smi;
+2. build    - every kernel under deepfm_tpu_torch/csrc, built from source;
+3. kernel   - each kernel's wrapper against its plain PyTorch version on the
+              card, at the shapes its main paths give it: the forward at
+              the flagship table (117,584 x 32) for every serving bucket and
+              the train batches, the backward at the train batches with the
+              13 hot numeric rows of every Criteo record; with the kernel's
+              time, the plain version's time and the least time the card
+              could take (CUDA events, median over repetitions);
+4. serve    - the full-width DeepFM (117,581 x 39 x 32, MLP 256/128/64,
+              bf16, random weights from --seed) exported, loaded on the card
+              behind the HTTP server, and sent :predict requests of 1, 8 and
+              100 instances; the predictions must be finite and agree with
+              the plain-version forward of the same weights, and the forward
+              kernel's launch count must have risen during this phase;
+5. parity   - one loss.backward() of the full-width float32 model on a batch
+              of 1,024 synthetic records through the kernels and through
+              the plain versions, from the same weights: the loss and every
+              gradient must agree;
+6. train    - `python -m deepfm_tpu_torch --task_type train` in-process at
+              full width (bf16, dropout 0.5, Adam, batch 1,024) on synthetic
+              TFRecords written from --seed: losses finite and falling, both
+              kernels launched at least once per step, eval AUC in [0, 1],
+              and the exported servable's probabilities equal to the trained
+              model's; then examples/s, the input-wait share, one step's
+              device time and its split by kernel, and peak memory;
+7. b2       - the bound and the library time of the TPU retrieval kernel B2
+              (not ported yet) at its funnel shapes, as a yardstick.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -28,7 +43,10 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -44,6 +62,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BUCKETS = (8, 32, 128, 512)
+# the train path's batch (DataConfig.batch_size) and a larger one
+TRAIN_BATCHES = (1024, 4096)
 # kernel vs plain, max abs error: emb is the same float32 product in both
 # (exact); y_w and y_v differ only in summation order, relative to magnitude
 TOL_EMB = 1e-6
@@ -54,6 +74,21 @@ TOL_YV_REL = 1e-4
 TOL_PROB = 1e-4
 # sequential repeats of each :predict, for its latency
 SERVE_REPEATS = 30
+# backward kernel vs plain, and the parity step's gradients: max abs error
+# relative to the output's largest magnitude.  The kernel sums duplicate
+# rows with float32 atomics in an order that changes from run to run, the
+# plain version in index order
+TOL_GRAD_REL = 1e-5
+# parity step loss: the same float32 arithmetic, FM sums in another order
+TOL_LOSS_REL = 1e-6
+# the train phase's synthetic data: 48 train batches in 4 files, 8 val
+# batches, the JAX package's Criteo-shaped generator
+TRAIN_FILES, TRAIN_RECORDS_PER_FILE = 4, 12 * 1024
+VAL_RECORDS = 8 * 1024
+LOG_STEPS = 8
+# funnel shapes of the TPU retrieval kernel B2 (benchmarks/funnel.py):
+# 2e6-row int8 corpus, tower dim 32, 8 queries, top 32 x oversample 4
+B2_ROWS, B2_DIM, B2_QUERIES, B2_KOS = 2_000_000, 32, 8, 128
 
 
 def fail(msg: str) -> None:
@@ -119,6 +154,14 @@ def make_ids(rng: np.random.Generator, b: int, f: int, feature_size: int) -> np.
     return ids.astype(np.int64)
 
 
+def make_train_ids(rng: np.random.Generator, b: int, f: int, feature_size: int) -> np.ndarray:
+    """make_ids with the 13 numeric fields set to the ids 1..13 that every
+    Criteo record (and generate_synthetic_ctr) carries: 13 hot rows."""
+    ids = make_ids(rng, b, f, feature_size)
+    ids[:, :13] = np.arange(1, 14)
+    return ids
+
+
 def fused_ctr_bound_ms(fm_w, fm_v, ids32, b: int, f: int) -> tuple[float, str, dict]:
     """Least time for this call: each input read once (only the table rows
     this batch touches, each once), each output written once, over the
@@ -154,8 +197,9 @@ def phase_kernel(seed: int) -> dict:
     rng = np.random.default_rng(seed)
     result = {"per_bucket": {}}
     worst = 0.0
-    for b in BUCKETS:
-        ids64 = torch.from_numpy(make_ids(rng, b, f, cfg.feature_size)).to(dev)
+    for b in BUCKETS + TRAIN_BATCHES:
+        mk = make_train_ids if b in TRAIN_BATCHES else make_ids
+        ids64 = torch.from_numpy(mk(rng, b, f, cfg.feature_size)).to(dev)
         vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)).to(dev)
         # the serving path's ids: narrowed int32, clipped to feature_size-1
         ids32 = narrow_ids(ids64, cfg.feature_size)
@@ -187,6 +231,364 @@ def phase_kernel(seed: int) -> dict:
         print("kernel fused_ctr_forward B=%d %s" % (b, json.dumps(row)))
     result["max_abs_err"] = worst
     return result
+
+
+def fused_ctr_backward_bound_ms(fm_w, fm_v, ids, b: int, f: int,
+                                want_vals: bool) -> tuple[float, str, dict]:
+    """Least time for one backward: g_emb, ids, vals, g_yw, g_yv and each
+    distinct fm_v/fm_w row read once, each distinct gradient row (and
+    d_vals) written once, over the HBM rate; or its float32 operations
+    over the f32 peak.  The wrapper's zero fill is left out (timed on its
+    own line)."""
+    k = fm_v.shape[1]
+    rows = ids.long().clamp(0, fm_v.shape[0] - 1)
+    uniq, counts = torch.unique(rows, return_counts=True)
+    uniq_v = int(uniq.numel())
+    uniq_w = int(torch.unique(rows.clamp(max=fm_w.shape[0] - 1)).numel())
+    nbytes = (b * f * k * 4                          # g_emb
+              + b * f * (ids.element_size() + 4)     # ids, vals
+              + 2 * b * 4                            # g_yw, g_yv
+              + 2 * (uniq_v * k * 4 + uniq_w * 4)    # rows read, grads written
+              + (b * f * 4 if want_vals else 0))     # d_vals
+    # per element: e (1), sum_f e (1), g_e (3), g_e*val (1), the add (1),
+    # d_vals' product and sum (2); per lookup: the fm_w term (2)
+    flops = b * f * k * (7 + (2 if want_vals else 0)) + 2 * b * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": flops, "unique_rows": uniq_v,
+              "lookups": b * f, "max_row_multiplicity": int(counts.max())}
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", detail
+
+
+def backward_kernel_only(lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
+                         d_fm_w, d_fm_v, d_vals) -> None:
+    """The backward kernel alone into preallocated outputs (no zero fill,
+    no launch count): for timing the kernel apart from its wrapper."""
+    b, f = ids.shape
+    rc = lib.fused_ctr_backward(
+        g_emb.data_ptr(), g_yw.data_ptr(), g_yv.data_ptr(), fm_w.data_ptr(),
+        fm_w.shape[0], fm_v.data_ptr(), fm_v.shape[0], fm_v.shape[1],
+        ids.data_ptr(), int(ids.dtype == torch.int64), vals.data_ptr(), b, f,
+        d_fm_w.data_ptr(), d_fm_v.data_ptr(),
+        None if d_vals is None else d_vals.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"fused_ctr_backward launch failed: CUDA error {rc}")
+
+
+def phase_backward(seed: int) -> dict:
+    """fused_ctr_backward against fused_ctr_backward_plain at the train
+    batches, full-width table, three id mixes with the 13 hot rows."""
+    from deepfm_tpu_torch.core.config import ModelConfig
+    from deepfm_tpu_torch.models.deepfm import fm_v_rows
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.ops.embedding import narrow_ids
+
+    cfg = ModelConfig(fused_kernel="auto")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    v_rows, k, f = fm_v_rows(cfg), cfg.embedding_size, cfg.field_size
+    fm_v = torch.randn((v_rows, k), generator=g, device=dev) * 0.05
+    fm_v[cfg.feature_size:] = 0.0
+    fm_w = torch.randn((cfg.feature_size,), generator=g, device=dev) * 0.05
+    rng = np.random.default_rng(seed + 2)
+    lib = fused_ctr._library()
+    result = {"per_batch": {}}
+    worst = 0.0
+    for b in TRAIN_BATCHES:
+        ids64 = torch.from_numpy(make_train_ids(rng, b, f, cfg.feature_size)).to(dev)
+        vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)).to(dev)
+        g_emb = torch.randn((b, f, k), generator=g, device=dev)
+        g_yw = torch.randn((b,), generator=g, device=dev)
+        g_yv = torch.randn((b,), generator=g, device=dev)
+        ids32 = narrow_ids(ids64, cfg.feature_size)
+        raw32 = ids64.clamp(-2**31, 2**31 - 1).to(torch.int32)
+        errs = {}
+        for tag, ids in (("int32_narrowed", ids32), ("int32_raw", raw32), ("int64_raw", ids64)):
+            got = fused_ctr.fused_ctr_backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals)
+            want = fused_ctr.fused_ctr_backward_plain(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals)
+            torch.cuda.synchronize()
+            e = {}
+            for name, a, w in zip(("d_fm_w", "d_fm_v", "d_vals"), got, want):
+                e[name] = float((a - w).abs().max())
+                scale = float(w.abs().max())
+                if not e[name] <= TOL_GRAD_REL * scale:
+                    fail(f"fused_ctr_backward disagrees with its plain version at "
+                         f"B={b} ({tag}): {name} max abs err {e[name]}, scale {scale}")
+                worst = max(worst, e[name])
+            errs[tag] = e
+        # the train path's call: narrowed ids, no d_vals (vals take no grad)
+        d_fm_w, d_fm_v = torch.zeros_like(fm_w), torch.zeros_like(fm_v)
+        d_vals = torch.empty((b, f), device=dev)
+        ms, call_ms = time_ms(lambda: backward_kernel_only(
+            lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, d_fm_w, d_fm_v, None))
+        vals_ms, _ = time_ms(lambda: backward_kernel_only(
+            lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, d_fm_w, d_fm_v, d_vals))
+        wrapper_ms, wrapper_call_ms = time_ms(lambda: fused_ctr.fused_ctr_backward(
+            g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, False))
+        fill_ms, _ = time_ms(lambda: (torch.zeros_like(fm_w), torch.zeros_like(fm_v)))
+        plain_ms, plain_call_ms = time_ms(lambda: fused_ctr.fused_ctr_backward_plain(
+            g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, False), reps=20)
+        # the same call on uniform ids: no hot rows, so no atomic collisions
+        # beyond chance; the difference is what the hot rows cost
+        uniform = torch.randint(0, cfg.feature_size, (b, f), generator=g, device=dev,
+                                dtype=torch.int32)
+        uniform_ms, _ = time_ms(lambda: backward_kernel_only(
+            lib, g_emb, g_yw, g_yv, fm_w, fm_v, uniform, vals, d_fm_w, d_fm_v, None))
+        uniform_bound_ms = fused_ctr_backward_bound_ms(fm_w, fm_v, uniform, b, f, False)[0]
+        bound_ms, bound_by, detail = fused_ctr_backward_bound_ms(
+            fm_w, fm_v, ids32, b, f, False)
+        vals_bound_ms, _, _ = fused_ctr_backward_bound_ms(fm_w, fm_v, ids32, b, f, True)
+        fill_bound_ms = (fm_w.numel() + fm_v.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        row = {"max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "call_ms": call_ms,
+               "plain_call_ms": plain_call_ms, "with_d_vals_ms": vals_ms,
+               "with_d_vals_bound_ms": vals_bound_ms,
+               "wrapper_ms": wrapper_ms, "wrapper_call_ms": wrapper_call_ms,
+               "zero_fill_ms": fill_ms, "zero_fill_bound_ms": fill_bound_ms,
+               "uniform_ids_ms": uniform_ms, "uniform_ids_bound_ms": uniform_bound_ms,
+               **detail}
+        result["per_batch"][b] = row
+        print("kernel fused_ctr_backward B=%d %s" % (b, json.dumps(row)))
+    result["max_abs_err"] = worst
+    return result
+
+
+def write_synthetic(seed: int, train_dir: str, val_dir: str) -> None:
+    """The train phase's TFRecords, from the port's copy of the JAX
+    package's generator."""
+    from deepfm_tpu_torch.data.libsvm import generate_synthetic_ctr
+
+    t0 = time.perf_counter()
+    for i in range(TRAIN_FILES):
+        generate_synthetic_ctr(os.path.join(train_dir, f"train-{i}.tfrecords"),
+                               num_records=TRAIN_RECORDS_PER_FILE, seed=seed * 100 + i)
+    generate_synthetic_ctr(os.path.join(val_dir, "val-0.tfrecords"),
+                           num_records=VAL_RECORDS, seed=seed * 100 + 99)
+    print(f"data: wrote {TRAIN_FILES * TRAIN_RECORDS_PER_FILE} train and "
+          f"{VAL_RECORDS} val records in {time.perf_counter() - t0:.2f} s")
+
+
+def first_batch(data_dir: str, pattern: str, batch: int, dev) -> dict:
+    from deepfm_tpu_torch.data.pipeline import batched_ctr_batches, discover_files, record_stream
+
+    files = discover_files(data_dir, (pattern,), shuffle=False)
+    b = next(batched_ctr_batches(record_stream(files), batch_size=batch, field_size=39))
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def phase_parity(seed: int, train_dir: str) -> dict:
+    """One loss.backward() through the kernels and one through the plain
+    versions (plain forward, autograd backward), same weights, same card."""
+    from deepfm_tpu_torch.core.config import ModelConfig
+    from deepfm_tpu_torch.models import DeepFM
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.train.step import loss_terms
+
+    cfg = ModelConfig(fused_kernel="auto", compute_dtype="float32",
+                      dropout_keep=(1.0, 1.0, 1.0))
+    model = DeepFM(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    model.train()
+    batch = first_batch(train_dir, "train", 1024, "cuda")
+    params = dict(model.named_parameters())
+    out = []
+    for fused in (fused_ctr.fused_ctr_interaction, fused_ctr.fused_ctr_plain):
+        ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
+        logits = model.head(*fused(model.fm_w, model.fm_v, ids, vals))
+        loss, _ = loss_terms(model, logits, batch["label"])
+        out.append((loss, torch.autograd.grad(loss, list(params.values()))))
+    torch.cuda.synchronize()
+    (loss_k, grads_k), (loss_p, grads_p) = out
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    if not (np.isfinite(loss_k) and loss_err <= TOL_LOSS_REL):
+        fail(f"parity: loss through the kernels {loss_k} vs plain {loss_p} "
+             f"(relative {loss_err})")
+    errs = {}
+    for name, a, w in zip(params, grads_k, grads_p):
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        if not err <= TOL_GRAD_REL * scale:
+            fail(f"parity: gradient of {name} max abs err {err}, scale {scale}")
+        errs[name] = err / scale if scale else err
+    print("parity %s" % json.dumps({"loss": loss_k, "loss_rel_err": loss_err,
+                                    "grad_rel_err": errs}))
+    return {"loss_rel_err": loss_err, "max_grad_rel_err": max(errs.values())}
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, io.StringIO()
+
+    def write(self, s):
+        self.lines.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
+    """The main path of this slice: the CLI's train task at full width."""
+    from deepfm_tpu_torch.launch import cli
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.serve.export import load_servable
+    from deepfm_tpu_torch.train.step import predict_step
+
+    argv = ["--task_type", "train", "--training_data_dir", train_dir,
+            "--val_data_dir", val_dir, "--servable_model_dir", servable,
+            "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+            "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}"]
+    print("train: python -m deepfm_tpu_torch " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    # the main path: counts from 0, then the train task, then read
+    fused_ctr.launches = fused_ctr.backward_launches = 0
+    with contextlib.redirect_stdout(tee):
+        state = cli.run(argv)
+    launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    records = [json.loads(x) for x in tee.lines.getvalue().splitlines()
+               if x.startswith("{")]
+    train = [r for r in records if r["kind"] == "train"]
+    done = next(r for r in records if r["kind"] == "train_done")
+    ev = next(r for r in records if r["kind"] == "eval")
+    steps = done["steps"]
+    if not train or not all(np.isfinite(r["loss"]) and np.isfinite(r["ce"]) for r in train):
+        fail(f"train: a logged loss is not finite: {train}")
+    if not train[-1]["ce"] < train[0]["ce"]:
+        fail(f"train: the last window's ce {train[-1]['ce']} is not below the "
+             f"first's {train[0]['ce']}")
+    if launches < steps or backward_launches < steps:
+        fail(f"train: {steps} steps launched fused_ctr_forward {launches} and "
+             f"fused_ctr_backward {backward_launches} times")
+    if not (0.0 <= ev["auc"] <= 1.0 and np.isfinite(ev["loss"])):
+        fail(f"train: eval gave {ev}")
+    print(f"train: {steps} steps; launches on the main path: fused_ctr_forward "
+          f"{launches} (= {steps} train + {launches - steps} eval), "
+          f"fused_ctr_backward {backward_launches}; ce {train[0]['ce']} -> "
+          f"{train[-1]['ce']}; eval auc {ev['auc']} loss {ev['loss']} over "
+          f"{ev['examples']} examples")
+    print("train: end to end %s" % json.dumps({
+        "examples_per_sec": done["examples_per_sec"],
+        "input_wait_share": done["input_wait_share"], "seconds": done["seconds"],
+        "peak_memory_gib": peak_gb}))
+
+    # the servable against the trained model, on one val batch
+    predict, _ = load_servable(servable, device="cuda")
+    batch = first_batch(val_dir, "val", 1024, "cuda")
+    want = predict_step(state.model, batch).cpu().numpy()
+    got = predict(batch["feat_ids"].cpu().numpy(), batch["feat_vals"].cpu().numpy())
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.all(np.isfinite(got)) or err > TOL_PROB:
+        fail(f"train: the servable's probabilities differ from the trained "
+             f"model's by {err} (tolerance {TOL_PROB})")
+    print(f"train: servable probabilities vs the trained model's predict step: "
+          f"max abs diff {err}")
+    decode_ms(train_dir)
+    for b in TRAIN_BATCHES:
+        step_breakdown(state, first_batch(train_dir, "train", b, "cuda"))
+    return {"launches": launches, "backward_launches": backward_launches,
+            "steps": steps, "auc": ev["auc"]}
+
+
+def decode_ms(train_dir: str, reps: int = 5) -> None:
+    """Host time to decode one batch of 1,024 records with the pipeline's
+    pure-Python decoder (median, host clock), alone on the host."""
+    from deepfm_tpu_torch.data.example_proto import decode_ctr_batch
+    from deepfm_tpu_torch.data.pipeline import discover_files, record_stream
+
+    records = []
+    for rec in record_stream(discover_files(train_dir, ("train",), shuffle=False)):
+        records.append(rec)
+        if len(records) == 1024:
+            break
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        decode_ctr_batch(records, 39)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"train: host decode of one 1,024-record batch: median {np.median(times):.3f} ms "
+          f"over {reps} (host clock, no other thread running)")
+
+
+def step_breakdown(state, batch: dict, reps: int = 20) -> None:
+    """One train step with its batch already on the card: device time from
+    CUDA events (median of single steps), and its split by kernel from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepfm_tpu_torch.train.step import train_step
+
+    for _ in range(3):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = _median_event_ms(lambda: train_step(state, batch), 1, reps)
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = {"forward_kernel": 0.0, "backward_kernel": 0.0, "zero_fill": 0.0}
+    total = 0.0
+    for row in prof.key_averages():
+        if row.device_type != DeviceType.CUDA or row.key == "train.optimizer":
+            continue
+        us = row.device_time_total
+        total += us
+        if "fused_ctr_forward_kernel" in row.key:
+            kernels["forward_kernel"] += us
+        elif "fused_ctr_backward_kernel" in row.key:
+            kernels["backward_kernel"] += us
+        elif "FillFunctor" in row.key or "Memset" in row.key:
+            kernels["zero_fill"] += us
+    optimizer = sum(e.device_time_total for e in prof.events()
+                    if e.name == "train.optimizer" and e.device_type == DeviceType.CPU)
+    split = {k: v / n / 1e3 for k, v in kernels.items()}
+    split["optimizer_update"] = optimizer / n / 1e3
+    split["mlp_fwd_bwd_and_rest"] = (total - sum(kernels.values()) - optimizer) / n / 1e3
+    busy_ms = total / n / 1e3
+    if total == 0.0:
+        fail("torch.profiler saw no device time in the train steps")
+    rows = batch["feat_ids"].clamp(0, state.model.cfg.feature_size - 1)
+    multiplicity = int(torch.unique(rows, return_counts=True)[1].max())
+    print("train step breakdown B=%d %s" % (batch["label"].shape[0], json.dumps({
+        "step_device_ms": step_ms, "kernel_busy_ms": busy_ms,
+        "max_row_multiplicity": multiplicity,
+        "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split})))
+
+
+def phase_b2(seed: int) -> dict:
+    """Kernel B2 (retrieval score + running top-k, not ported yet): its
+    bound at the funnel shapes and the time of one PyTorch composition of
+    the same function, torch.topk(q @ (codes * scale)^T), as a yardstick."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    codes = torch.randint(-127, 128, (B2_ROWS, B2_DIM), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand((B2_ROWS,), generator=g, device=dev) * 0.01
+    ids = torch.arange(B2_ROWS, device=dev, dtype=torch.int32)
+    q = torch.randn((B2_QUERIES, B2_DIM), generator=g, device=dev)
+
+    def library():
+        s = q @ (codes.to(torch.float32) * scales[:, None]).T
+        s = torch.where(ids[None, :] >= 0, s, float("-inf"))
+        return torch.topk(s, B2_KOS, dim=1)
+
+    ms, _ = time_ms(library, reps=10, groups=5)
+    nbytes = (B2_ROWS * (B2_DIM + 4 + 4) + B2_QUERIES * B2_DIM * 4
+              + B2_QUERIES * B2_KOS * 8)
+    flops = 2 * B2_QUERIES * B2_ROWS * B2_DIM + B2_ROWS * B2_DIM
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    row = {"rows": B2_ROWS, "dim": B2_DIM, "queries": B2_QUERIES, "kos": B2_KOS,
+           "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": ms}
+    print("b2 yardstick (not ported) %s" % json.dumps(row))
+    return row
 
 
 def post(url: str, body: bytes, timeout: float = 120.0) -> tuple[int, dict]:
@@ -368,21 +770,43 @@ def main(argv: list[str] | None = None) -> int:
         print(f"build {name}: {info['seconds']:.2f} s\n{info['log'].strip()}", file=sys.stderr)
 
     kernel = phase_kernel(args.seed)
+    backward = phase_backward(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        serve = phase_serve(args.seed, workdir)
+        serve = phase_serve(args.seed, os.path.join(workdir, "serve"))
+        train_dir, val_dir = (os.path.join(workdir, d) for d in ("train", "val"))
+        os.makedirs(train_dir)
+        os.makedirs(val_dir)
+        write_synthetic(args.seed, train_dir, val_dir)
+        phase_parity(args.seed, train_dir)
+        train = phase_train(args.seed, train_dir, val_dir,
+                            os.path.join(workdir, "trained_servable"))
+    phase_b2(args.seed)
 
-    big = kernel["per_bucket"][max(BUCKETS)]
+    fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
+    bwd = backward["per_batch"][TRAIN_BATCHES[0]]
     line = {"kernels": [{
         "name": "fused_ctr_forward",
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
-        "launches": serve["launches"],
+        "launches": serve["launches"] + train["launches"],
         "max_abs_err": kernel["max_abs_err"],
-        "ms": big["ms"],
-        "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"],
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_ctr_backward",
+        "route": "cuda",
+        "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
+        "replaces": "deepfm_tpu/ops/pallas_ctr.py:317",
+        "launches": train["backward_launches"],
+        "max_abs_err": backward["max_abs_err"],
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
         "library_ms": None,
     }]}
     print(json.dumps(line))

@@ -2,7 +2,10 @@
 
 A family registers a constructor ``build(cfg, *, device, generator) ->
 nn.Module`` whose module maps ``(feat_ids [B, F], feat_vals [B, F])`` to
-``[B]`` float32 logits.  Only ``deepfm`` is ported so far.
+``[B]`` float32 logits (train or eval mode by ``module.train()`` /
+``module.eval()``), and its regularization penalty ``l2_penalty(module,
+l2_reg) -> scalar tensor``, which the training loss adds to the mean
+cross-entropy.  Only ``deepfm`` is ported so far.
 """
 
 from __future__ import annotations
@@ -15,13 +18,16 @@ from ..core.config import ModelConfig
 class ModelDef(NamedTuple):
     name: str
     build: Callable
+    # (module, l2_reg) -> scalar penalty; each family declares which of its
+    # tables the reference-style L2 applies to
+    l2_penalty: Callable
 
 
 _REGISTRY: dict[str, ModelDef] = {}
 
 
-def register_model(name: str, build: Callable) -> ModelDef:
-    md = ModelDef(name, build)
+def register_model(name: str, build: Callable, l2_penalty: Callable) -> ModelDef:
+    md = ModelDef(name, build, l2_penalty)
     _REGISTRY[name] = md
     return md
 
@@ -34,4 +40,3 @@ def get_model(name_or_cfg: str | ModelConfig) -> ModelDef:
         raise ValueError(
             f"unknown model {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None
-

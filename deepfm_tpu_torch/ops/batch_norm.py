@@ -1,9 +1,16 @@
-"""Infer-mode batch normalization with moving statistics: counterpart of
-``deepfm_tpu/ops/batch_norm.py`` with ``train=False``.
+"""Batch normalization with moving statistics: counterpart of
+``deepfm_tpu/ops/batch_norm.py``.
 
-TF1 ``contrib.layers.batch_norm`` semantics: eval normalizes by the moving
-averages with ``eps = 1e-3``.  Training (batch statistics, moving-average
-updates) comes with the training slice.
+TF1 ``contrib.layers.batch_norm`` semantics, ``eps = 1e-3``:
+
+* train mode normalizes by the batch mean and the biased batch variance and
+  returns the moving averages updated with the TF1 decay,
+  ``decay * old + (1 - decay) * batch``;
+* infer mode normalizes by the moving averages and returns them unchanged.
+
+The function is pure, as in JAX: it returns ``(y, new_state)``.  The
+``BatchNorm`` module (models/deepfm.py) writes the new state into its
+buffers.
 """
 
 from __future__ import annotations
@@ -33,9 +40,22 @@ def bn_init(num_features: int, device: torch.device | str = "cpu") -> tuple[BNPa
 
 
 def batch_norm(
-    x: torch.Tensor, params: BNParams, state: BNState, eps: float = EPS
-) -> torch.Tensor:
-    """x [B, C] normalized by the moving statistics, then scaled and shifted
-    (the JAX package's order of operations)."""
-    inv = torch.reciprocal(torch.sqrt(state.moving_var + eps))
-    return (x - state.moving_mean) * inv * params.scale + params.bias
+    x: torch.Tensor, params: BNParams, state: BNState, *, train: bool = False,
+    decay: float = 0.9, eps: float = EPS,
+) -> tuple[torch.Tensor, BNState]:
+    """x [B, C] normalized, then scaled and shifted (the JAX package's order
+    of operations); returns (y, new state).  The new state carries no
+    autograd history."""
+    if train:
+        mean = x.mean(dim=0)
+        var = x.var(dim=0, unbiased=False)
+        with torch.no_grad():
+            new_state = BNState(
+                decay * state.moving_mean + (1.0 - decay) * mean,
+                decay * state.moving_var + (1.0 - decay) * var,
+            )
+    else:
+        mean, var = state.moving_mean, state.moving_var
+        new_state = state
+    inv = torch.reciprocal(torch.sqrt(var + eps))
+    return (x - mean) * inv * params.scale + params.bias, new_state

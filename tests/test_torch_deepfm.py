@@ -25,7 +25,7 @@ from deepfm_tpu_torch.core.config import ModelConfig
 from deepfm_tpu_torch.models import DeepFM, fm_v_rows, get_model
 
 SMALL = dict(feature_size=1000, field_size=5, embedding_size=8, deep_layers=(16, 8))
-JAX_ONLY = dict(dropout_keep=(1.0, 1.0))  # read by JAX at train time only
+JAX_ONLY = dict(dropout_keep=(1.0, 1.0))  # read at train time only
 TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 
 
@@ -142,4 +142,4 @@ def test_config_validation_and_json_schema(tmp_path):
                                            cin_layers=(4,))})
     (tmp_path / "config.json").write_text(json.dumps(jcfg.to_dict()))
     got = load_config(tmp_path)
-    assert got == ModelConfig(**dict(SMALL, fused_kernel="auto"))
+    assert got == ModelConfig(**dict(SMALL, **JAX_ONLY, fused_kernel="auto"))

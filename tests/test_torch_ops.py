@@ -85,9 +85,9 @@ def test_batch_norm_infer_matches_jax():
     x = rng.normal(size=(12, 6)).astype(np.float32)
     scale, bias, mean = (rng.normal(size=6).astype(np.float32) for _ in range(3))
     var = rng.random(6).astype(np.float32)
-    got = batch_norm(torch.from_numpy(x),
-                     BNParams(torch.from_numpy(scale), torch.from_numpy(bias)),
-                     BNState(torch.from_numpy(mean), torch.from_numpy(var)))
+    got, _ = batch_norm(torch.from_numpy(x),
+                        BNParams(torch.from_numpy(scale), torch.from_numpy(bias)),
+                        BNState(torch.from_numpy(mean), torch.from_numpy(var)))
     want, _ = jax_bn.batch_norm(
         jnp.asarray(x), jax_bn.BNParams(jnp.asarray(scale), jnp.asarray(bias)),
         jax_bn.BNState(jnp.asarray(mean), jnp.asarray(var)), train=False)
