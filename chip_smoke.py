@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases (any failure raises and exits non-zero; nothing is caught):
+Phases (any failure raises and exits non-zero; nothing is caught; they
+run in the order 1, 2, 3, 7, 4, 5, 6, 8):
 
 1. card     - the card's name and power limit, from nvidia-smi;
 2. build    - every kernel under deepfm_tpu_torch/csrc, built from source;
 3. kernel   - each kernel's wrapper against its plain PyTorch version on the
               card, at the shapes its main paths give it: the forward at
-              the flagship table (117,584 x 32) for every serving bucket and
-              the train batches, the backward at the train batches with the
+              the flagship table (117,584 x 32) for every serving bucket,
+              the funnel's rank rows (256, 2,048) and the train batches, the backward at the train batches with the
               13 hot numeric rows of every Criteo record; with the kernel's
               time, the plain version's time and the least time the card
               could take (CUDA events, median over repetitions);
@@ -31,8 +32,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and the exported servable's probabilities equal to the trained
               model's; then examples/s, the input-wait share, one step's
               device time and its split by kernel, and peak memory;
-7. b2       - the bound and the library time of the TPU retrieval kernel B2
-              (not ported yet) at its funnel shapes, as a yardstick.
+7. b2       - kernel B2 (int8 retrieval score + top-k) against its plain
+              version at the served corpus (117,581 rows) and the benchmark
+              corpus (2,000,000), D 32, kos 128, B 8 and 64, and on a mix
+              with equal rows and pad ids: scores within the stated
+              tolerance, rows equal but for near-ties (counted); with its
+              device and call time, the plain time, the least time and the
+              torch.topk composition's time;
+8. funnel   - the full-width recommendation funnel (the flagship ranker,
+              a two-tower query encoder, an int8 index of 117,581 items,
+              top 32 -> 8) built on the card, exported through the recall
+              gate, served over HTTP and sent /v1/recommend with 1, 8 and
+              64 users; the answers must agree with the same payload run
+              through the plain B2 and plain B1 (near-ties counted), both
+              kernels' launch counts must have risen; then the stage
+              times, latency and the device recall@32 against exact f32.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -64,6 +78,8 @@ F32_FLOPS_PER_S = 67e12
 BUCKETS = (8, 32, 128, 512)
 # the train path's batch (DataConfig.batch_size) and a larger one
 TRAIN_BATCHES = (1024, 4096)
+# the funnel's rank stage: buckets 8 and 64 users x top 32 candidates
+RANK_ROWS = (256, 2048)
 # kernel vs plain, max abs error: emb is the same float32 product in both
 # (exact); y_w and y_v differ only in summation order, relative to magnitude
 TOL_EMB = 1e-6
@@ -86,9 +102,26 @@ TOL_LOSS_REL = 1e-6
 TRAIN_FILES, TRAIN_RECORDS_PER_FILE = 4, 12 * 1024
 VAL_RECORDS = 8 * 1024
 LOG_STEPS = 8
-# funnel shapes of the TPU retrieval kernel B2 (benchmarks/funnel.py):
-# 2e6-row int8 corpus, tower dim 32, 8 queries, top 32 x oversample 4
-B2_ROWS, B2_DIM, B2_QUERIES, B2_KOS = 2_000_000, 32, 8, 128
+# kernel B2 at the funnel's shapes: the served corpus (117,581 items) and
+# benchmarks/funnel.py's 2e6-row corpus, tower dim 32, the serving buckets
+# 8 and 64, top 32 x oversample 4
+B2_CORPORA, B2_BATCHES, B2_DIM, B2_KOS = (117_581, 2_000_000), (8, 64), 32, 128
+# kernel vs plain scores, position by position: one float32 dot per row
+# summed in another order than cuBLAS's, dots of unit vectors (|s| <= 1)
+TOL_B2_RTOL, TOL_B2_ATOL = 1e-4, 1e-5
+# the served funnel (benchmarks/funnel.py's geometry at the flagship
+# ranker): two-tower query encoder, int8 index of every ranker item
+FUNNEL_USER_VOCAB, FUNNEL_FIELDS, FUNNEL_TOWER_EMB = 100_000, 3, 16
+FUNNEL_TOWER_LAYERS, FUNNEL_TOWER_DIM = (64,), 32
+FUNNEL_TOP_K, FUNNEL_RETURN_N, FUNNEL_OVERSAMPLE = 32, 8, 4
+FUNNEL_BUCKETS = (8, 64)
+FUNNEL_REQUESTS = (1, 8, 64)
+FUNNEL_REPEATS = 10
+# served retrieval scores vs the plain pipeline's: the same exact f32
+# rescore of the same rows, rounded to 6 decimals in the response
+TOL_RETR = 1e-5
+# device recall@32 of the int8 path against the exact f32 top-32
+RECALL_USERS = 256
 
 
 def fail(msg: str) -> None:
@@ -197,7 +230,7 @@ def phase_kernel(seed: int) -> dict:
     rng = np.random.default_rng(seed)
     result = {"per_bucket": {}}
     worst = 0.0
-    for b in BUCKETS + TRAIN_BATCHES:
+    for b in BUCKETS + RANK_ROWS + TRAIN_BATCHES:
         mk = make_train_ids if b in TRAIN_BATCHES else make_ids
         ids64 = torch.from_numpy(mk(rng, b, f, cfg.feature_size)).to(dev)
         vals = torch.from_numpy(rng.random((b, f)).astype(np.float32)).to(dev)
@@ -560,35 +593,129 @@ def step_breakdown(state, batch: dict, reps: int = 20) -> None:
         "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split})))
 
 
-def phase_b2(seed: int) -> dict:
-    """Kernel B2 (retrieval score + running top-k, not ported yet): its
-    bound at the funnel shapes and the time of one PyTorch composition of
-    the same function, torch.topk(q @ (codes * scale)^T), as a yardstick."""
+def b2_corpus(rows: int, seed: int, ties_and_pads: bool = False):
+    """An int8 corpus on the card: random unit rows, quantized per row as
+    funnel/quant.py does (codes = round(emb / scale), scale = max|row| /
+    127).  With ``ties_and_pads``: ten equal rows, a tie far apart, and
+    pad ids."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 3)
-    codes = torch.randint(-127, 128, (B2_ROWS, B2_DIM), generator=g, device=dev,
-                          dtype=torch.int8)
-    scales = torch.rand((B2_ROWS,), generator=g, device=dev) * 0.01
-    ids = torch.arange(B2_ROWS, device=dev, dtype=torch.int32)
-    q = torch.randn((B2_QUERIES, B2_DIM), generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn((rows, B2_DIM), generator=g, device=dev)
+    emb /= emb.norm(dim=1, keepdim=True)
+    ids = torch.arange(rows, device=dev, dtype=torch.int32)
+    if ties_and_pads:
+        emb[20:30] = emb[7]
+        emb[rows - 12] = emb[5]
+        ids[-1000:] = -1
+        ids[3::97] = -5
+    scales = emb.abs().amax(dim=1) / 127.0
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    codes = torch.round(emb / safe[:, None]).clamp(-127, 127).to(torch.int8)
+    return codes.contiguous(), scales.contiguous(), ids, emb
 
-    def library():
-        s = q @ (codes.to(torch.float32) * scales[:, None]).T
-        s = torch.where(ids[None, :] >= 0, s, float("-inf"))
-        return torch.topk(s, B2_KOS, dim=1)
 
-    ms, _ = time_ms(library, reps=10, groups=5)
-    nbytes = (B2_ROWS * (B2_DIM + 4 + 4) + B2_QUERIES * B2_DIM * 4
-              + B2_QUERIES * B2_KOS * 8)
-    flops = 2 * B2_QUERIES * B2_ROWS * B2_DIM + B2_ROWS * B2_DIM
+def b2_queries(b: int, seed: int, emb=None) -> torch.Tensor:
+    """Unit queries, as the user tower gives them; with ``emb``, query 0
+    is row 7 (the ten equal rows of the tie mix)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((b, B2_DIM), generator=g, device="cuda")
+    if emb is not None:
+        u[0] = emb[7]
+    return (u / u.norm(dim=1, keepdim=True)).contiguous()
+
+
+def retrieval_bound_ms(rows: int, b: int, kos: int) -> tuple[float, str, dict]:
+    """Least time for one call: codes, scales and ids read once, the
+    queries read and the [B, kos] pair written once, over the HBM rate; or
+    the dequantizing multiply and 2·B·R·D FMA flops over the f32 peak."""
+    nbytes = rows * (B2_DIM + 4 + 4) + b * B2_DIM * 4 + b * kos * 8
+    flops = 2 * b * rows * B2_DIM + rows * B2_DIM
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    row = {"rows": B2_ROWS, "dim": B2_DIM, "queries": B2_QUERIES, "kos": B2_KOS,
-           "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": ms}
-    print("b2 yardstick (not ported) %s" % json.dumps(row))
-    return row
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "flops": flops})
+
+
+def b2_pass_split(fn, n: int = 10) -> dict:
+    """Device ms per call of B2's two kernels (pass 1: score and select per
+    row block; pass 2: merge per query), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {"score_select": 0.0, "merge_select": 0.0}
+    for row in prof.key_averages():
+        for name in split:
+            if row.device_type == DeviceType.CUDA and f"{name}_kernel" in row.key:
+                split[name] += row.device_time_total / n / 1e3
+    if not all(split.values()):
+        fail(f"torch.profiler saw no time in one of B2's kernels: {split}")
+    return split
+
+
+def phase_b2(seed: int) -> dict:
+    """Kernel B2 (retrieval_topk) against its plain version on the card at
+    the funnel's corpus (117,581 rows) and the benchmark's (2,000,000),
+    D 32, kos 128, B 8 and 64, plus a mix with ties and pads; with the
+    kernel's device and call time, the plain version's, the least time and
+    one PyTorch composition of the same function, torch.topk(q @ (codes ·
+    scale)^T), which the port never calls."""
+    from deepfm_tpu_torch.ops import retrieval
+
+    def check(tag, u, codes, scales, ids):
+        got = retrieval.retrieval_topk(u, codes, scales, ids, B2_KOS)
+        want = retrieval.retrieval_topk_plain(u, codes, scales, ids, B2_KOS)
+        torch.cuda.synchronize()
+        agree = retrieval.topk_agreement(u, codes, scales, ids, got, want,
+                                         TOL_B2_RTOL, TOL_B2_ATOL)
+        if not agree["ok"]:
+            fail(f"retrieval_topk disagrees with its plain version ({tag}): {agree}")
+        print(f"b2 check {tag}: {json.dumps(agree)} (near-ties: {agree['swapped']} "
+              f"swapped in place, {agree['boundary']} traded at the kos-th score)")
+        return agree, got
+
+    result = {"per_shape": {}, "max_abs_err": 0.0}
+    for rows in B2_CORPORA:
+        codes, scales, ids, emb = b2_corpus(rows, seed + 3)
+        for b in B2_BATCHES:
+            u = b2_queries(b, seed + b)
+            tag = f"R={rows} B={b}"
+            agree, _ = check(tag, u, codes, scales, ids)
+            result["max_abs_err"] = max(result["max_abs_err"], agree["max_abs_err"])
+
+            def library():
+                s = u @ (codes.to(torch.float32) * scales[:, None]).T
+                s = torch.where(ids[None, :] >= 0, s, float("-inf"))
+                return torch.topk(s, B2_KOS, dim=1)
+
+            ms, call_ms = time_ms(
+                lambda: retrieval.retrieval_topk(u, codes, scales, ids, B2_KOS))
+            plain_ms, _ = time_ms(
+                lambda: retrieval.retrieval_topk_plain(u, codes, scales, ids, B2_KOS),
+                reps=5, groups=3)
+            library_ms, _ = time_ms(library, reps=10, groups=5)
+            bound_ms, bound_by, detail = retrieval_bound_ms(rows, b, B2_KOS)
+            row = {"rows": rows, "dim": B2_DIM, "queries": b, "kos": B2_KOS,
+                   "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "max_abs_err": agree["max_abs_err"],
+                   "pass_ms": b2_pass_split(
+                       lambda: retrieval.retrieval_topk(u, codes, scales, ids, B2_KOS)),
+                   **detail}
+            result["per_shape"][(rows, b)] = row
+            print("kernel retrieval_topk %s %s" % (tag, json.dumps(row)))
+        del codes, scales, ids, emb
+    codes, scales, ids, emb = b2_corpus(B2_CORPORA[0], seed + 4, ties_and_pads=True)
+    u = b2_queries(8, seed + 5, emb)
+    agree, got = check("ties and pads", u, codes, scales, ids)
+    top = got[1][0, :10].tolist()
+    if top != sorted(top):
+        fail(f"retrieval_topk: the ten equal rows came back out of row order: {top}")
+    result["max_abs_err"] = max(result["max_abs_err"], agree["max_abs_err"])
+    return result
 
 
 def post(url: str, body: bytes, timeout: float = 120.0) -> tuple[int, dict]:
@@ -743,6 +870,275 @@ def breakdown(model, workdir: str, rng: np.random.Generator) -> None:
             "predict_p50_ms": float(np.percentile(host, 50))})))
 
 
+def build_funnel(seed: int, workdir: str) -> str:
+    """The full-width funnel servable: the flagship ranker (random weights
+    from --seed) over an int8 index of all 117,581 ranker items, encoded on
+    the card through a random two-tower item tower from seeded random item
+    features; top 32 -> 8, oversample 4.  The int8 export runs the recall
+    gate."""
+    from deepfm_tpu_torch.core.config import ModelConfig
+    from deepfm_tpu_torch.funnel import build_index, export_funnel_servable
+    from deepfm_tpu_torch.models import DeepFM, TwoTower
+
+    rank_cfg = ModelConfig(fused_kernel="auto")
+    n = rank_cfg.feature_size
+    query_cfg = ModelConfig(
+        model_name="two_tower", user_vocab_size=FUNNEL_USER_VOCAB, item_vocab_size=n,
+        user_field_size=FUNNEL_FIELDS, item_field_size=FUNNEL_FIELDS,
+        embedding_size=FUNNEL_TOWER_EMB, tower_layers=FUNNEL_TOWER_LAYERS,
+        tower_dim=FUNNEL_TOWER_DIM, compute_dtype="float32")
+    rank = DeepFM(rank_cfg, device="cpu", generator=torch.Generator().manual_seed(seed + 10))
+    query = TwoTower(query_cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(seed + 11))
+    rng = np.random.default_rng(seed + 12)
+    feats = rng.integers(0, n, (n, FUNNEL_FIELDS))
+    t0 = time.perf_counter()
+    index = build_index(query, np.arange(n), feats, np.ones((n, FUNNEL_FIELDS), np.float32))
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_funnel_servable(workdir, rank_cfg, rank.state_dict(), query_cfg,
+                           query.state_dict(), index, top_k=FUNNEL_TOP_K,
+                           return_n=FUNNEL_RETURN_N, retrieval="int8",
+                           oversample=FUNNEL_OVERSAMPLE)
+    with open(os.path.join(workdir, "funnel.json")) as f:
+        section = json.load(f)["retrieval"]
+    print(f"funnel: index of {n} items built on the card in {t_index:.3f} s; "
+          f"export with the recall gate {time.perf_counter() - t0:.3f} s; "
+          f"funnel.json retrieval {json.dumps(section)}")
+    return workdir
+
+
+def funnel_requests(rng: np.random.Generator, n: int) -> tuple[np.ndarray, ...]:
+    """n users: query ids over the user vocabulary (vals 1), and ranking
+    rows drawn like the serve phase's."""
+    uids = rng.integers(0, FUNNEL_USER_VOCAB, (n, FUNNEL_FIELDS))
+    uvals = np.ones((n, FUNNEL_FIELDS), np.float32)
+    fids = make_ids(rng, n, 39, 117_581)
+    fvals = rng.random((n, 39)).astype(np.float32)
+    return uids, uvals, fids, fvals
+
+
+def phase_funnel(seed: int, workdir: str) -> dict:
+    """The funnel served over HTTP on the card, at full width: /v1/recommend
+    with 1, 8 and 64 users, checked against the same payload run through
+    the plain versions of B2 and B1; stage times, latency, device recall."""
+    from deepfm_tpu_torch.funnel.index import build_rank_topn_with, build_retrieve_with
+    from deepfm_tpu_torch.funnel.recall import recall_at_k
+    from deepfm_tpu_torch.models.two_tower import encode_queries
+    from deepfm_tpu_torch.ops import fused_ctr, retrieval
+    from deepfm_tpu_torch.serve.batcher import pick_bucket
+    from deepfm_tpu_torch.serve.server import serve_forever
+
+    servable = build_funnel(seed, workdir)
+    rng = np.random.default_rng(seed + 13)
+    requests = [funnel_requests(rng, n) for n in FUNNEL_REQUESTS]
+
+    # the main path: counts from 0, then load + warm-up + requests
+    fused_ctr.launches = retrieval.launches = 0
+    ready = threading.Event()
+    errors = []
+
+    def run():
+        try:
+            serve_forever(servable, port=0, buckets=FUNNEL_BUCKETS, max_wait_ms=2.0,
+                          device="cuda", ready=ready)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+            ready.set()
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, name="chip-smoke-funnel", daemon=True)
+    thread.start()
+    if not ready.wait(timeout=600) or errors:
+        fail(f"funnel server did not come up: {errors}")
+    print(f"funnel: server up on port {ready.port} in {time.perf_counter() - t0:.2f} s "
+          f"(load, staging, bucket warm-up)")
+    base = f"http://127.0.0.1:{ready.port}"
+    served = []
+    try:
+        if not get(f"{base}/readyz").get("ready"):
+            fail("funnel /readyz is not ready")
+        for uids, uvals, fids, fvals in requests:
+            n = len(uids)
+            body = json.dumps({"instances": [
+                {"user_ids": a.tolist(), "user_vals": b.tolist(),
+                 "feat_ids": c.tolist(), "feat_vals": d.tolist()}
+                for a, b, c, d in zip(uids, uvals, fids, fvals)]}).encode()
+            lat_ms = []
+            for rep in range(1 + FUNNEL_REPEATS):
+                t1 = time.perf_counter()
+                code, doc = post(f"{base}/v1/recommend", body)
+                lat_ms.append((time.perf_counter() - t1) * 1e3)
+                if code != 200:
+                    fail(f"/v1/recommend with {n} users answered {code}: {doc}")
+                if rep == 0:
+                    served.append(doc)
+                elif doc != served[-1]:
+                    fail(f"/v1/recommend with {n} users is not repeatable")
+            print(f"funnel: /v1/recommend {n} users -> 200; first {lat_ms[0]:.3f} ms, "
+                  f"then over {FUNNEL_REPEATS} sequential repeats p50 "
+                  f"{np.percentile(lat_ms[1:], 50):.3f} ms, max {max(lat_ms[1:]):.3f} ms "
+                  f"(host clock, client to client)")
+        code, doc = post(f"{base}/v1/recommend", json.dumps({"instances": [
+            {"user_ids": [1], "user_vals": [1.0], "feat_ids": [1] * 39,
+             "feat_vals": [1.0] * 39}]}).encode())
+        if code != 400:
+            fail(f"a mis-sized recommend body answered {code}, not 400")
+        metrics = get(f"{base}/v1/metrics")
+    finally:
+        ready.server.shutdown()
+        thread.join(timeout=60)
+    fwd_launches, retr_launches = fused_ctr.launches, retrieval.launches
+    if thread.is_alive():
+        fail("funnel server thread did not stop")
+    if fwd_launches <= 0 or retr_launches <= 0:
+        fail(f"the funnel path launched retrieval_topk {retr_launches} and "
+             f"fused_ctr_forward {fwd_launches} times")
+    fm = metrics["funnel"]
+    print(f"funnel: launches on the main path: retrieval_topk {retr_launches}, "
+          f"fused_ctr_forward {fwd_launches}; dispatches by bucket "
+          f"{metrics['batch_size_hist']}")
+    print("funnel: stages (host clock per dispatch, /v1/metrics) %s" % json.dumps({
+        "retrieval_ms": fm["retrieval_ms"], "rank_ms": fm["rank_ms"],
+        "engine_latency_ms": metrics["latency_ms"],
+        "candidates_per_sec": fm["candidates_per_sec"],
+        "score_read_bytes": fm["score_read_bytes"]}))
+
+    # check: the same payload through the plain versions of B2 and B1
+    scorer = ready.scorer
+    ctx, payload = scorer.ctx, scorer.payload
+    fu = ctx.user_fields
+    kernel_retrieve = build_retrieve_with(ctx)
+    rank = build_rank_topn_with(ctx)
+    # every candidate ranked, so a served item is found whatever its place
+    rank_all = build_rank_topn_with(ctx._replace(return_n=ctx.top_k))
+    kos = ctx.top_k * ctx.oversample
+    index = payload["index"]
+    stats = {"rows": 0, "rows_equal": 0, "near_tie_rows": 0, "shortlist_swapped": 0,
+             "shortlist_boundary": 0, "max_rank_err": 0.0, "max_retr_err": 0.0}
+    for (uids, uvals, fids, fvals), doc in zip(requests, served):
+        n = len(uids)
+        b = pick_bucket(FUNNEL_BUCKETS, n)
+        ids = np.zeros((b, fu + 39), np.int64)
+        vals = np.zeros((b, fu + 39), np.float32)
+        ids[:n] = np.concatenate([uids, fids], axis=1)
+        vals[:n] = np.concatenate([uvals, fvals], axis=1)
+        tids, tvals = torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
+        with torch.inference_mode():
+            u = encode_queries(payload["query"], tids[:, :fu], tvals[:, :fu])
+            args = (u, index["item_codes"], index["item_scales"], index["item_ids"], kos)
+            agree = retrieval.topk_agreement(
+                *args[:4], retrieval.retrieval_topk(*args), retrieval.retrieval_topk_plain(*args),
+                TOL_B2_RTOL, TOL_B2_ATOL)
+            ks, kcand = kernel_retrieve(payload, tids[:, :fu], tvals[:, :fu])
+            with plain_kernels():
+                s, cand = kernel_retrieve(payload, tids[:, :fu], tvals[:, :fu])
+                ref = rank(payload, tids[:, fu:], tvals[:, fu:], cand, s).cpu().numpy()
+                # plain B1 on the candidates the kernel pipeline retrieved
+                ref_k = rank_all(payload, tids[:, fu:], tvals[:, fu:], kcand, ks).cpu().numpy()
+        torch.cuda.synchronize()
+        if not agree["ok"]:
+            fail(f"funnel: the served shortlist disagrees with plain B2 for {n} users: {agree}")
+        stats["shortlist_swapped"] += agree["swapped"]
+        stats["shortlist_boundary"] += agree["boundary"]
+        cand_differs = (kcand != cand).any(dim=1).cpu().numpy()
+        items = np.asarray(doc["items"])
+        if items.shape != (n, ctx.return_n) or not np.isfinite(doc["scores"]).all():
+            fail(f"funnel: {n} users answered items of shape {items.shape}")
+        for q in range(n):
+            stats["rows"] += 1
+            if cand_differs[q] and agree["traded"][q] == 0:
+                fail(f"funnel: user {q} of {n}: the kernel's candidates differ from plain "
+                     f"B2's with no near-tie in the user's own shortlist")
+            r_err, t_err = check_served_user(
+                items[q], np.asarray(doc["scores"][q]), np.asarray(doc["retrieval_scores"][q]),
+                ref_k[q], ctx.return_n, f"funnel: user {q} of {n}")
+            stats["max_rank_err"] = max(stats["max_rank_err"], r_err)
+            stats["max_retr_err"] = max(stats["max_retr_err"], t_err)
+            if np.array_equal(items[q], ref[q, 0].astype(np.int64)):
+                stats["rows_equal"] += 1
+            else:
+                # a near-tie in the user's own shortlist or among its ranked
+                # probabilities (both held to their tolerances above)
+                stats["near_tie_rows"] += 1
+    print(f"funnel: served vs plain B2 + plain B1 on the same payload: {json.dumps(stats)}")
+
+    funnel_breakdown(ctx, payload, kernel_retrieve, build_rank_topn_with(ctx), rng)
+
+    # device recall@32 of the int8 path against the exact f32 top-32
+    exact_retrieve = build_retrieve_with(ctx._replace(retrieval_mode="exact"))
+    g = np.random.default_rng(seed + 14)
+    uids = torch.from_numpy(g.integers(0, FUNNEL_USER_VOCAB, (RECALL_USERS, fu))).cuda()
+    uvals = torch.ones((RECALL_USERS, fu), device="cuda")
+    with torch.inference_mode():
+        _, exact_ids = exact_retrieve(payload, uids, uvals)
+        _, int8_ids = kernel_retrieve(payload, uids, uvals)
+    per_user = recall_at_k(int8_ids.cpu().numpy(), exact_ids.cpu().numpy())
+    print(f"funnel: device recall@{ctx.top_k} of int8 vs exact f32 over {RECALL_USERS} "
+          f"users: mean {per_user.mean()}, worst {per_user.min()}")
+    return {"retrieval_launches": retr_launches, "forward_launches": fwd_launches,
+            "recall": float(per_user.mean())}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The funnel's B2 and B1 calls swapped for their plain versions, on the
+    same card, for a reference run of the served payload."""
+    from deepfm_tpu_torch.funnel import index
+    from deepfm_tpu_torch.models import deepfm
+    from deepfm_tpu_torch.ops import fused_ctr, retrieval
+
+    saved = index.retrieval_topk, deepfm.fused_ctr_interaction
+    index.retrieval_topk = retrieval.retrieval_topk_plain
+    deepfm.fused_ctr_interaction = fused_ctr.fused_ctr_plain
+    try:
+        yield
+    finally:
+        index.retrieval_topk, deepfm.fused_ctr_interaction = saved
+
+
+def check_served_user(items, rank_s, retr_s, ranked, n: int, what: str) -> tuple[float, float]:
+    """Hold one user's served top ``n`` to ``ranked`` [3, K], the plain
+    ranking of all the candidates the kernel pipeline retrieved: distinct
+    candidates, each with its own probability (TOL_PROB) and retrieval
+    score (TOL_RETR), in non-increasing order, and none of them below the
+    n-th plain probability by more than TOL_PROB (a rank near-tie may trade
+    places).  Returns the largest probability and retrieval errors."""
+    place = {int(c): j for j, c in enumerate(ranked[0])}
+    if len(set(items.tolist())) != n or any(int(c) not in place for c in items):
+        fail(f"{what} served {items.tolist()}, not {n} distinct retrieved candidates "
+             f"{ranked[0].astype(np.int64).tolist()}")
+    at = [place[int(c)] for c in items]
+    r_err = float(np.abs(rank_s - ranked[1, at]).max())
+    t_err = float(np.abs(retr_s - ranked[2, at]).max())
+    if r_err > TOL_PROB or t_err > TOL_RETR:
+        fail(f"{what}: rank score err {r_err}, retrieval score err {t_err}")
+    if np.any(np.diff(rank_s) > 0) or ranked[1, at].min() < ranked[1, n - 1] - TOL_PROB:
+        fail(f"{what} served {items.tolist()} with probabilities {rank_s.tolist()}; the "
+             f"plain ranking's top {n} is {ranked[0, :n].astype(np.int64).tolist()} "
+             f"with {ranked[1, :n].tolist()}")
+    return r_err, t_err
+
+
+def funnel_breakdown(ctx, payload, retrieve, rank, rng: np.random.Generator) -> None:
+    """Where a funnel dispatch's time goes, per bucket: each stage on the
+    device (graph replay) and as eager calls, kernels included."""
+    fu = ctx.user_fields
+    for b in FUNNEL_BUCKETS:
+        uids, uvals, fids, fvals = (torch.from_numpy(a).cuda()
+                                    for a in funnel_requests(rng, b))
+        with torch.inference_mode():
+            scores, cand = retrieve(payload, uids, uvals)
+            retr_ms, retr_call_ms = time_ms(lambda: retrieve(payload, uids, uvals), reps=20)
+            rank_ms, rank_call_ms = time_ms(
+                lambda: rank(payload, fids, fvals, cand, scores), reps=20)
+        print("funnel breakdown B=%d %s" % (b, json.dumps({
+            "retrieval_ms": retr_ms, "retrieval_call_ms": retr_call_ms,
+            "rank_ms": rank_ms, "rank_call_ms": rank_call_ms,
+            "rank_rows": b * ctx.top_k})))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -771,6 +1167,7 @@ def main(argv: list[str] | None = None) -> int:
 
     kernel = phase_kernel(args.seed)
     backward = phase_backward(args.seed)
+    b2 = phase_b2(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         serve = phase_serve(args.seed, os.path.join(workdir, "serve"))
         train_dir, val_dir = (os.path.join(workdir, d) for d in ("train", "val"))
@@ -780,16 +1177,18 @@ def main(argv: list[str] | None = None) -> int:
         phase_parity(args.seed, train_dir)
         train = phase_train(args.seed, train_dir, val_dir,
                             os.path.join(workdir, "trained_servable"))
-    phase_b2(args.seed)
+        funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
     bwd = backward["per_batch"][TRAIN_BATCHES[0]]
+    # B2 at the served corpus and the smaller serving bucket
+    b2_row = b2["per_shape"][(B2_CORPORA[0], B2_BATCHES[0])]
     line = {"kernels": [{
         "name": "fused_ctr_forward",
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
-        "launches": serve["launches"] + train["launches"],
+        "launches": serve["launches"] + train["launches"] + funnel["forward_launches"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -808,6 +1207,18 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "retrieval_topk",
+        "route": "cuda",
+        "source": "deepfm_tpu_torch/csrc/retrieval_topk.cu",
+        "replaces": "deepfm_tpu/ops/pallas_retrieval.py:173",
+        "launches": funnel["retrieval_launches"],
+        "max_abs_err": b2["max_abs_err"],
+        "ms": b2_row["ms"],
+        "plain_ms": b2_row["plain_ms"],
+        "bound_ms": b2_row["bound_ms"],
+        "bound_by": b2_row["bound_by"],
+        "library_ms": b2_row["library_ms"],
     }]}
     print(json.dumps(line))
     print(card)

@@ -7,10 +7,13 @@ find.  The package imports ``torch`` and never ``jax``, and nothing from
 as its own trimmed copy.
 
     python -m deepfm_tpu_torch --task_type train ...     (launch/cli.py)
-    python -m deepfm_tpu_torch.serve.server --servable DIR
+    python -m deepfm_tpu_torch.serve.server --servable DIR   (:predict, or
+        /v1/recommend for a recommendation funnel servable, funnel/)
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (core/platform.py).  On CUDA tensors the gather + FM
 interaction and its backward always launch the hand-written kernels in
-``csrc/fused_ctr.cu``; on CPU tensors they run their plain PyTorch versions.
+``csrc/fused_ctr.cu``, and the funnel's int8 retrieval score + top-k the
+one in ``csrc/retrieval_topk.cu``; on CPU tensors they run their plain
+PyTorch versions.
 """

@@ -1,5 +1,6 @@
-"""JAX parameter pytree -> the port's ``state_dict``, and a JAX
-``TrainState`` -> the port's train state.
+"""JAX parameter pytree -> the port's ``state_dict``, a JAX ``TrainState``
+-> the port's train state, and a JAX funnel artifact -> the port's funnel
+tree.
 
 The JAX PRNG cannot be reproduced in torch, so parity starts from
 parameters copied out of a JAX init or checkpoint.  ``params_from_jax``
@@ -18,10 +19,17 @@ tensor is checked against the shape the config implies.
 (``ScaleByAdamState`` count/mu/nu, found inside the optimizer's chain
 tuples).  The dropout PRNG key does not carry: the port draws from its own
 ``torch.Generator``.
+
+``two_tower_params_from_jax`` takes the two-tower pytree
+(``{"user_embedding", "item_embedding", "{user,item}_tower": {"layer_<i>":
+{"kernel", "bias"}, "proj": {...}}}``), and ``funnel_from_jax`` a JAX
+``FunnelArtifact`` (``deepfm_tpu/funnel/publish.py``) with its leaves as
+numpy, which it writes as the port's funnel tree.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -29,6 +37,7 @@ import torch
 
 from .core.config import Config, ModelConfig
 from .models.deepfm import fm_v_rows
+from .models.two_tower import item_vocab, user_vocab
 from .train.step import create_train_state
 
 
@@ -41,7 +50,12 @@ def _field(obj, name: str, index: int):
 
 
 def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """``state_dict`` key -> shape for a DeepFM of this config."""
+    """``state_dict`` key -> shape for a model of this config (DeepFM or
+    two-tower, by ``cfg.model_name``)."""
+    if cfg.model_name == "two_tower":
+        return _two_tower_shapes(cfg)
+    if cfg.model_name != "deepfm":
+        raise ValueError(f"no state_dict layout for model {cfg.model_name!r}")
     k = cfg.embedding_size
     shapes = {
         "fm_b": (1,),
@@ -58,6 +72,20 @@ def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         for i, w in enumerate(cfg.deep_layers):
             for leaf in ("scale", "bias", "moving_mean", "moving_var"):
                 shapes[f"bn.layer_{i}.{leaf}"] = (w,)
+    return shapes
+
+
+def _two_tower_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    k = cfg.embedding_size
+    shapes = {"user_embedding": (user_vocab(cfg), k),
+              "item_embedding": (item_vocab(cfg), k)}
+    for side, fields in (("user", cfg.user_field_size), ("item", cfg.item_field_size)):
+        dims = [fields * k, *cfg.tower_layers]
+        for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+            shapes[f"{side}_tower.layer_{i}.kernel"] = (d_in, d_out)
+            shapes[f"{side}_tower.layer_{i}.bias"] = (d_out,)
+        shapes[f"{side}_tower.proj.kernel"] = (dims[-1], cfg.tower_dim)
+        shapes[f"{side}_tower.proj.bias"] = (cfg.tower_dim,)
     return shapes
 
 
@@ -106,6 +134,53 @@ def params_from_jax(params: Mapping, model_state: Mapping,
             flat[f"bn.layer_{i}.moving_mean"] = _field(s, "moving_mean", 0)
             flat[f"bn.layer_{i}.moving_var"] = _field(s, "moving_var", 1)
     return _checked({k: flat[k] for k in expected_shapes(cfg)}, cfg, "")
+
+
+def two_tower_params_from_jax(params: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The port's float32 CPU ``state_dict`` for ``TwoTower(cfg)`` from the
+    JAX two-tower pytree; raises ``ValueError`` on any shape that does not
+    match ``cfg``."""
+    flat = {"user_embedding": params["user_embedding"],
+            "item_embedding": params["item_embedding"]}
+    for side in ("user", "item"):
+        tower = params[f"{side}_tower"]
+        for i in range(len(cfg.tower_layers)):
+            for leaf in ("kernel", "bias"):
+                flat[f"{side}_tower.layer_{i}.{leaf}"] = tower[f"layer_{i}"][leaf]
+        for leaf in ("kernel", "bias"):
+            flat[f"{side}_tower.proj.{leaf}"] = tower["proj"][leaf]
+    return _checked(flat, cfg, "")
+
+
+def _model_config(cfg) -> ModelConfig:
+    """The port's ModelConfig from a JAX ``Config`` (or its ``model``
+    section), read field by field: the JAX dataclass is never imported."""
+    model = getattr(cfg, "model", cfg)
+    if not isinstance(model, Mapping):
+        model = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)}
+    return ModelConfig.from_dict(dict(model))
+
+
+def funnel_from_jax(artifact, directory) -> str:
+    """Write a JAX ``FunnelArtifact`` (``rank_cfg``, ``rank_params``,
+    ``rank_state``, ``query_cfg``, ``query_params``, ``index``, ``meta``;
+    leaves as numpy) as the port's funnel tree under ``directory``:
+    ``rank/`` and ``query/`` in the port's servable format, ``index.npz``
+    and ``funnel.json`` as they were.  Returns the directory."""
+    from .funnel.index import FunnelIndex
+    from .funnel.publish import write_funnel_tree
+
+    rank_cfg = _model_config(artifact.rank_cfg)
+    query_cfg = _model_config(artifact.query_cfg)
+    if query_cfg.model_name != "two_tower":
+        raise ValueError(f"the funnel's query model must be two_tower, "
+                         f"got {query_cfg.model_name!r}")
+    rank = params_from_jax(artifact.rank_params, artifact.rank_state, rank_cfg)
+    query = two_tower_params_from_jax(artifact.query_params, query_cfg)
+    index = FunnelIndex(item_ids=np.asarray(artifact.index.item_ids, np.int32),
+                        item_emb=np.asarray(artifact.index.item_emb, np.float32))
+    return write_funnel_tree(directory, rank_cfg, rank, query_cfg, query, index,
+                             dict(artifact.meta))
 
 
 def _find_adam_state(tree):

@@ -2,7 +2,8 @@
 that single-card training and serving read, with their validation.
 
 * ``ModelConfig`` - the DeepFM hyperparameters, train-time fields included
-  (dropout keep probabilities, batch-norm decay, table L2);
+  (dropout keep probabilities, batch-norm decay, table L2), and the
+  two-tower fields (vocabularies, field counts, tower widths);
 * ``OptimizerConfig`` - every field of the JAX section but ``zero_sharding``
   (ZeRO waits for data-parallel training, ROADMAP A9);
 * ``DataConfig`` - what file mode on one worker reads;
@@ -74,7 +75,17 @@ class ModelConfig:
     batch_norm_decay: float = 0.9
     # L2 on fm_w and fm_v only: l2_reg * (½Σfm_w² + ½Σfm_v²)
     l2_reg: float = 0.0001
-    model_name: str = "deepfm"
+    model_name: str = "deepfm"        # deepfm | two_tower
+    # two-tower retrieval (model_name="two_tower"; ignored by DeepFM):
+    # separate user/item vocabularies and field counts, tower MLP widths,
+    # output dim, and softmax temperature for in-batch negatives
+    user_vocab_size: int = 0          # 0 -> feature_size
+    item_vocab_size: int = 0          # 0 -> feature_size
+    user_field_size: int = 1
+    item_field_size: int = 1
+    tower_layers: tuple[int, ...] = (64, 32)
+    tower_dim: int = 16
+    temperature: float = 0.05
     # MLP dtype; the gathers and FM sums stay float32
     compute_dtype: str = "bfloat16"
     # clip int64 ids to [0, feature_size-1] and narrow them to int32
@@ -88,6 +99,7 @@ class ModelConfig:
     def __post_init__(self):
         object.__setattr__(self, "deep_layers", _parse_int_list(self.deep_layers))
         object.__setattr__(self, "dropout_keep", _parse_float_list(self.dropout_keep))
+        object.__setattr__(self, "tower_layers", _parse_int_list(self.tower_layers))
         if len(self.dropout_keep) < len(self.deep_layers):
             raise ValueError(
                 f"dropout_keep has {len(self.dropout_keep)} entries for "
@@ -108,7 +120,8 @@ class ModelConfig:
                 f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                 f"got {self.compute_dtype!r}"
             )
-        for name in ("feature_size", "field_size", "embedding_size"):
+        for name in ("feature_size", "field_size", "embedding_size",
+                     "user_field_size", "item_field_size", "tower_dim"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
 

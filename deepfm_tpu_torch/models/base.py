@@ -1,11 +1,12 @@
 """Model registry: counterpart of ``deepfm_tpu/models/base.py``.
 
 A family registers a constructor ``build(cfg, *, device, generator) ->
-nn.Module`` whose module maps ``(feat_ids [B, F], feat_vals [B, F])`` to
-``[B]`` float32 logits (train or eval mode by ``module.train()`` /
-``module.eval()``), and its regularization penalty ``l2_penalty(module,
-l2_reg) -> scalar tensor``, which the training loss adds to the mean
-cross-entropy.  Only ``deepfm`` is ported so far.
+nn.Module`` and its regularization penalty ``l2_penalty(module, l2_reg)
+-> scalar tensor``, which the training loss adds to its data loss.  A CTR
+family's module maps ``(feat_ids [B, F], feat_vals [B, F])`` to ``[B]``
+float32 logits (train or eval mode by ``module.train()`` /
+``module.eval()``).  Ported so far: ``deepfm`` and the serving half of
+``two_tower`` (its encoders, models/two_tower.py).
 """
 
 from __future__ import annotations

@@ -5,6 +5,10 @@
                       written by the JAX package are ignored on load)
       params.npz    — float32 arrays keyed by ``state_dict`` name
 
+A DeepFM or a two-tower servable (``model_name`` picks the family); a
+recommendation funnel is a tree of two such servables plus its index
+(funnel/publish.py).
+
 JAX's Orbax checkpoint is not read here (the card's machine has neither
 JAX nor Orbax): convert one with ``convert.params_from_jax`` and write it
 with :func:`export_servable`.
@@ -48,22 +52,31 @@ def export_servable(cfg: ModelConfig, state_dict: dict,
     return directory
 
 
-def load_model(directory: str | os.PathLike, device=None) -> torch.nn.Module:
-    """The servable's model on ``device`` (default: the card), infer mode."""
-    directory = os.path.abspath(directory)
-    cfg = load_config(directory)
-    path = os.path.join(directory, PARAMS_FILE)
+def read_params(directory: str | os.PathLike) -> dict[str, np.ndarray]:
+    """The servable's ``params.npz`` as float32 arrays by ``state_dict``
+    name."""
+    path = os.path.join(os.path.abspath(directory), PARAMS_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"{path} not found: a JAX servable (Orbax params/) must be "
             f"converted with deepfm_tpu_torch.convert.params_from_jax and "
             f"written with export_servable first"
         )
-    device = resolve_device(device)
-    model = get_model(cfg).build(cfg, device=device)
     with np.load(path) as npz:
-        model.load_state_dict({k: torch.from_numpy(npz[k]) for k in npz.files})
+        return {k: npz[k] for k in npz.files}
+
+
+def model_from_state(cfg: ModelConfig, state_dict: dict, device=None) -> torch.nn.Module:
+    """The config's model (any registered family) on ``device`` (default:
+    the card), in eval mode, with ``state_dict``'s weights."""
+    model = get_model(cfg).build(cfg, device=resolve_device(device))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
     return model
+
+
+def load_model(directory: str | os.PathLike, device=None) -> torch.nn.Module:
+    """The servable's model on ``device`` (default: the card), infer mode."""
+    return model_from_state(load_config(directory), read_params(directory), device)
 
 
 def load_servable(directory: str | os.PathLike,
@@ -74,6 +87,12 @@ def load_servable(directory: str | os.PathLike,
     -> probs [B] f32 ndarray`` runs on ``device`` (default: the card) and
     waits for the result.  It uses CUDA on whichever thread calls it."""
     model = load_model(directory, device)
+    if model.cfg.model_name == "two_tower":
+        raise ValueError(
+            f"{directory} is a two-tower servable: it serves as the query "
+            f"encoder of a recommendation funnel (funnel/serve.py), not "
+            f"behind :predict"
+        )
     dev = model.fm_v.device
 
     def predict(feat_ids, feat_vals) -> np.ndarray:

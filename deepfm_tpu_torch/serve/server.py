@@ -14,8 +14,10 @@ thread is the only thread that touches the device.
 
     python -m deepfm_tpu_torch.serve.server --servable DIR --port 8501
 
-runs on the card (``--device cpu`` for the plain CPU path).  No pool,
-hot reload, funnel or retrieval endpoints yet.
+runs on the card (``--device cpu`` for the plain CPU path).  A servable
+with a ``funnel.json`` (funnel/publish.py) serves ``POST /v1/recommend``
+instead of ``:predict`` (funnel/serve.py), tuned by the ``--funnel-*``
+flags.  No pool or hot reload yet.
 """
 
 from __future__ import annotations
@@ -103,13 +105,30 @@ def serve_forever(
     model_name: str = "deepfm", buckets=DEFAULT_BUCKETS,
     max_wait_ms: float = 2.0, max_queue_rows: int | None = None,
     device=None, ready: threading.Event | None = None,
+    funnel: dict | None = None,
 ) -> None:
     """Load the servable on ``device`` (default: the card), warm every
     bucket up, open the socket and serve until ``shutdown()``.
 
     ``ready`` is set once the socket is bound; it then carries ``.port``
     (so a caller can bind port 0) and ``.server`` (call ``.shutdown()`` on
-    it to stop; the engine is closed on the way out)."""
+    it to stop; the engine is closed on the way out).
+
+    A funnel servable goes to ``funnel.serve.serve_funnel`` with the
+    ``funnel_*`` keywords; they are refused for any other servable."""
+    from ..funnel.publish import is_funnel_servable
+
+    if is_funnel_servable(servable_dir):
+        from ..funnel.serve import serve_funnel
+
+        serve_funnel(servable_dir, port=port, host=host, model_name=model_name,
+                     buckets=_parse_buckets(buckets), max_wait_ms=max_wait_ms,
+                     max_queue_rows=max_queue_rows, device=device, ready=ready,
+                     **(funnel or {}))
+        return
+    if funnel:
+        raise ValueError(f"funnel options {sorted(funnel)} apply to funnel "
+                         f"servables; {servable_dir} has no funnel.json")
     predict, cfg = load_servable(servable_dir, device=device)
     scorer = MicroBatcher(predict, cfg.field_size, buckets=_parse_buckets(buckets),
                           max_wait_ms=max_wait_ms, max_queue_rows=max_queue_rows)
@@ -146,11 +165,32 @@ def main(argv: list[str] | None = None) -> int:
                          "bucket); beyond it requests get HTTP 503")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default, needs a Hopper card) or cpu")
+    ap.add_argument("--funnel-top-k", type=int, default=0,
+                    help="funnel servables: candidates retrieved per user "
+                         "(0 = the servable's funnel.json default)")
+    ap.add_argument("--funnel-return-n", type=int, default=0,
+                    help="funnel servables: ranked items returned per user "
+                         "(0 = the servable's funnel.json default)")
+    ap.add_argument("--funnel-retrieval", default="",
+                    choices=("", "exact", "int8", "auto"),
+                    help="funnel retrieval tier: exact f32 scoring, int8 "
+                         "scoring (kernel B2) with an exact f32 rescore of "
+                         "the oversampled shortlist, or auto (int8 from "
+                         "2**20 index rows); '' = the servable's section")
+    ap.add_argument("--funnel-oversample", type=int, default=0,
+                    help="int8 shortlist width multiplier (top_k * "
+                         "oversample candidates reach the rescore; 0 = the "
+                         "servable's value)")
     args = ap.parse_args(argv)
+    funnel = {k: v for k, v in (("top_k", args.funnel_top_k),
+                                ("return_n", args.funnel_return_n),
+                                ("retrieval", args.funnel_retrieval),
+                                ("oversample", args.funnel_oversample)) if v}
     serve_forever(args.servable, port=args.port, host=args.host,
                   model_name=args.model_name, buckets=args.buckets,
                   max_wait_ms=args.max_wait_ms,
-                  max_queue_rows=args.max_queue_rows, device=args.device)
+                  max_queue_rows=args.max_queue_rows, device=args.device,
+                  funnel=funnel)
     return 0
 
 

@@ -5,7 +5,7 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: emb 1e-6 (the same float32 product), y_w 1e-5 and y_v 1e-4
+Tolerances (kernel B1 and B1'; B2's stand above its tests): emb 1e-6 (the same float32 product), y_w 1e-5 and y_v 1e-4
 (sums taken in another order).  Backward: 1e-5 relative to each output's
 largest magnitude, because the kernel adds duplicate rows with float32
 atomics in an order that changes from run to run (the plain version sums
@@ -15,7 +15,7 @@ them in index order), so its gradients are not bit-reproducible.
 import pytest
 import torch
 
-from deepfm_tpu_torch.ops import fused_ctr
+from deepfm_tpu_torch.ops import fused_ctr, retrieval
 
 TOL = {"emb": 1e-6, "y_w": 1e-5, "y_v": 1e-4}
 
@@ -179,3 +179,125 @@ def test_train_step_through_kernels_matches_plain(device, batch_norm):
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-6, atol=0)
     for name, a, w in zip(params, grads_k, grads_p):
         _assert_rel(a, w, name)
+
+
+# ---------------------------------------------------------------------------
+# kernel B2 (ops/retrieval.py, csrc/retrieval_topk.cu)
+#
+# Tolerance: scores within rtol 1e-4 / atol 1e-5 of the plain version's,
+# position by position: one float32 dot per row, summed in another order
+# than cuBLAS's, over unit-normal queries whose dots reach ~10, so rounding
+# reaches ~1e-6 absolute.  Rows equal except near-ties inside that
+# tolerance, which retrieval.topk_agreement checks row by row.
+
+B2_RTOL, B2_ATOL = 1e-4, 1e-5
+
+
+def _b2_problem(device, r, d, b, seed=0, dup=True, pads=True):
+    from deepfm_tpu_torch.funnel.quant import quantize_rows
+
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.randn((r, d), generator=g)
+    emb /= emb.norm(dim=1, keepdim=True)
+    if dup and r > 40:
+        emb[r - 12] = emb[5]                    # an exact tie far apart
+        emb[20:30] = emb[7]                     # ten equal rows
+    ids = torch.arange(r, dtype=torch.int32)
+    if pads:
+        ids[-5:] = -1
+        ids[3] = -7
+    codes, scales = (torch.from_numpy(a) for a in quantize_rows(emb.numpy()))
+    u = torch.randn((b, d), generator=g)
+    u[0] = codes[7].float() * scales[7]         # query 0 sits on the ten ties
+    return [t.to(device) for t in (u, codes, scales, ids)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,b,kos", [
+    (4096, 32, 8, 128), (1000, 16, 1, 1), (3000, 32, 130, 1000), (500, 48, 3, 1000),
+    (117_581, 32, 64, 128), (2048, 128, 9, 37)])
+def test_retrieval_kernel_matches_plain(device, r, d, b, kos):
+    u, codes, scales, ids = _b2_problem(device, r, d, b)
+    before = retrieval.launches
+    got = retrieval.retrieval_topk(u, codes, scales, ids, kos)
+    want = retrieval.retrieval_topk_plain(u, codes, scales, ids, kos)
+    torch.cuda.synchronize()
+    assert retrieval.launches == before + 1
+    assert got[0].shape == got[1].shape == (b, kos)
+    agree = retrieval.topk_agreement(u, codes, scales, ids, got, want, B2_RTOL, B2_ATOL)
+    assert agree["ok"], agree
+    # the ten equal rows come back in row order on query 0
+    if kos >= 10:
+        top = got[1][0, :10].tolist()
+        assert top == sorted(top)
+
+
+@pytest.mark.cuda
+def test_retrieval_kernel_rejects_what_it_does_not_take(device):
+    u, codes, scales, ids = _b2_problem(device, 256, 32, 2)
+    topk = retrieval.retrieval_topk
+    with pytest.raises(ValueError, match="codes must be"):
+        topk(u, codes.float(), scales, ids, 8)
+    with pytest.raises(ValueError, match="ids must be"):
+        topk(u, codes, scales, ids.long(), 8)
+    with pytest.raises(ValueError, match="u must be"):
+        topk(u.double(), codes, scales, ids, 8)
+    with pytest.raises(ValueError, match="scales must be"):
+        topk(u, codes, scales[:-1], ids, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk(u.t().contiguous().t(), codes, scales, ids, 8)
+    with pytest.raises(ValueError, match="is on cpu"):
+        topk(u, codes.cpu(), scales, ids, 8)
+    with pytest.raises(ValueError, match="kos must be"):
+        topk(u, codes, scales, ids, retrieval.MAX_KOS + 1)
+    with pytest.raises(ValueError, match="kos must be"):
+        topk(u, codes, scales, ids, 0)
+    for d in (8, 20, retrieval.MAX_DIM + 16):
+        odd = torch.zeros((256, d), dtype=torch.int8, device=device)
+        with pytest.raises(ValueError, match="dimension"):
+            topk(torch.zeros((2, d), device=device), odd, scales, ids, 8)
+    # codes that start one byte into their allocation
+    flat = torch.zeros((257 * 32 + 1,), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="aligned"):
+        topk(u, flat[1:1 + 256 * 32].view(256, 32), scales, ids, 8)
+
+
+@pytest.mark.cuda
+def test_int8_retrieve_on_the_card_matches_the_cpu(device):
+    """build_retrieve_with in int8 mode, the same payload on the card
+    (kernel B2) and on the CPU (plain): ids equal, scores within 1e-5."""
+    import numpy as np
+
+    from deepfm_tpu_torch.core.config import ModelConfig
+    from deepfm_tpu_torch.funnel import (build_index, build_retrieve_with,
+                                         make_funnel_context, stage_funnel_payload)
+    from deepfm_tpu_torch.models import DeepFM, TwoTower
+
+    rank_cfg = ModelConfig(feature_size=5000, field_size=6, embedding_size=8,
+                           deep_layers=(16,), dropout_keep=(1.0,),
+                           compute_dtype="float32")
+    query_cfg = ModelConfig(model_name="two_tower", user_vocab_size=300,
+                            item_vocab_size=5000, user_field_size=3, item_field_size=3,
+                            tower_layers=(32,), tower_dim=32, embedding_size=8,
+                            compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    items = rng.permutation(5000)[:4000]
+    feats = rng.integers(0, 5000, (4000, 3))
+    user_ids = torch.from_numpy(rng.integers(0, 300, (16, 3)))
+    out = {}
+    for dev in ("cpu", device):
+        query = TwoTower(query_cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        rank = DeepFM(rank_cfg, device=dev, generator=torch.Generator().manual_seed(2))
+        index = build_index(query, items, feats, np.ones((4000, 3), np.float32))
+        ctx = make_funnel_context(rank_cfg, query_cfg, capacity=4096, top_k=32,
+                                  retrieval="int8", oversample=4)
+        payload = stage_funnel_payload(ctx, rank, query, index)
+        uids, uvals = user_ids.to(dev), torch.ones((16, 3), device=dev)
+        before = retrieval.launches
+        with torch.inference_mode():
+            s, cid = build_retrieve_with(ctx)(payload, uids, uvals)
+        out[str(dev)] = (s.cpu(), cid.cpu(), retrieval.launches - before)
+    (s_c, id_c, n_c), (s_g, id_g, n_g) = out["cpu"], out[str(device)]
+    assert (n_c, n_g) == (0, 1)
+    torch.testing.assert_close(s_g, s_c, rtol=0, atol=1e-5)
+    assert torch.equal(id_g, id_c)
