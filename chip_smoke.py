@@ -11,10 +11,12 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 8):
 3. kernel   - each kernel's wrapper against its plain PyTorch version on the
               card, at the shapes its main paths give it: the forward at
               the flagship table (117,584 x 32) for every serving bucket,
-              the funnel's rank rows (256, 2,048) and the train batches, the backward at the train batches with the
-              13 hot numeric rows of every Criteo record; with the kernel's
-              time, the plain version's time and the least time the card
-              could take (CUDA events, median over repetitions);
+              the funnel's rank rows (256, 2,048) and the train batches;
+              the backward at the train batches with the 13 hot numeric
+              rows of every Criteo record, on uniform ids and with every
+              lookup on one row; with the kernel's time, the plain
+              version's time and the least time the card could take (CUDA
+              events, median over repetitions);
 4. serve    - the full-width DeepFM (117,581 x 39 x 32, MLP 256/128/64,
               bf16, random weights from --seed) exported, loaded on the card
               behind the HTTP server, and sent :predict requests of 1, 8 and
@@ -34,11 +36,13 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 8):
               device time and its split by kernel, and peak memory;
 7. b2       - kernel B2 (int8 retrieval score + top-k) against its plain
               version at the served corpus (117,581 rows) and the benchmark
-              corpus (2,000,000), D 32, kos 128, B 8 and 64, and on a mix
-              with equal rows and pad ids: scores within the stated
+              corpus (2,000,000), D 32, kos 128, B 8 and 64, on a mix
+              with equal rows and pad ids, and on inputs that fill or
+              starve its select (all scores equal, 100 live rows, kos 1
+              and 1,024, D 16 and 128): scores within the stated
               tolerance, rows equal but for near-ties (counted); with its
-              device and call time, the plain time, the least time and the
-              torch.topk composition's time;
+              device and call time, its split by kernel, the plain time,
+              the least time and the torch.topk composition's time;
 8. funnel   - the full-width recommendation funnel (the flagship ranker,
               a two-tower query encoder, an int8 index of 117,581 items,
               top 32 -> 8) built on the card, exported through the recall
@@ -309,9 +313,40 @@ def backward_kernel_only(lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
         fail(f"fused_ctr_backward launch failed: CUDA error {rc}")
 
 
+def backward_same_row(lib, g_emb, g_yw, g_yv, fm_w, fm_v, vals, d_fm_w, d_fm_v):
+    """The backward with every lookup on one row (row 7), int32 and int64
+    ids, with d_vals: held to the plain version run in float64, since the
+    B·F float32 terms of that one row sum with a rounding error near the
+    tolerance in any float32 order (the plain version's atomics included).
+    Returns (kernel ms on int32 ids without d_vals, largest abs error)."""
+    from deepfm_tpu_torch.ops import fused_ctr
+
+    b, f = vals.shape
+    worst = 0.0
+    want = fused_ctr.fused_ctr_backward_plain(
+        *(t.double() for t in (g_emb, g_yw, g_yv, fm_w, fm_v)),
+        torch.full((b, f), 7, device=vals.device), vals.double())
+    for dtype in (torch.int32, torch.int64):
+        ids = torch.full((b, f), 7, device=vals.device, dtype=dtype)
+        got = fused_ctr.fused_ctr_backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("d_fm_w", "d_fm_v", "d_vals"), got, want):
+            err, scale = float((a.double() - w).abs().max()), float(w.abs().max())
+            if not err <= TOL_GRAD_REL * scale:
+                fail(f"fused_ctr_backward disagrees with its plain version with every "
+                     f"lookup on one row (B={b}, {dtype}): {name} max abs err {err}, "
+                     f"scale {scale}")
+            worst = max(worst, err)
+    ids = torch.full((b, f), 7, device=vals.device, dtype=torch.int32)
+    ms, _ = time_ms(lambda: backward_kernel_only(
+        lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals, d_fm_w, d_fm_v, None))
+    return ms, worst
+
+
 def phase_backward(seed: int) -> dict:
     """fused_ctr_backward against fused_ctr_backward_plain at the train
-    batches, full-width table, three id mixes with the 13 hot rows."""
+    batches, full-width table: three id types of the train mix (13 hot
+    rows), uniform ids (timed) and every lookup on one row."""
     from deepfm_tpu_torch.core.config import ModelConfig
     from deepfm_tpu_torch.models.deepfm import fm_v_rows
     from deepfm_tpu_torch.ops import fused_ctr
@@ -369,6 +404,9 @@ def phase_backward(seed: int) -> dict:
         uniform_ms, _ = time_ms(lambda: backward_kernel_only(
             lib, g_emb, g_yw, g_yv, fm_w, fm_v, uniform, vals, d_fm_w, d_fm_v, None))
         uniform_bound_ms = fused_ctr_backward_bound_ms(fm_w, fm_v, uniform, b, f, False)[0]
+        same_ms, same_err = backward_same_row(lib, g_emb, g_yw, g_yv, fm_w, fm_v, vals,
+                                              d_fm_w, d_fm_v)
+        worst = max(worst, same_err)
         bound_ms, bound_by, detail = fused_ctr_backward_bound_ms(
             fm_w, fm_v, ids32, b, f, False)
         vals_bound_ms, _, _ = fused_ctr_backward_bound_ms(fm_w, fm_v, ids32, b, f, True)
@@ -380,7 +418,8 @@ def phase_backward(seed: int) -> dict:
                "wrapper_ms": wrapper_ms, "wrapper_call_ms": wrapper_call_ms,
                "zero_fill_ms": fill_ms, "zero_fill_bound_ms": fill_bound_ms,
                "uniform_ids_ms": uniform_ms, "uniform_ids_bound_ms": uniform_bound_ms,
-               **detail}
+               "train_over_uniform": ms / uniform_ms,
+               "same_row_ms": same_ms, "same_row_max_abs_err": same_err, **detail}
         result["per_batch"][b] = row
         print("kernel fused_ctr_backward B=%d %s" % (b, json.dumps(row)))
     result["max_abs_err"] = worst
@@ -593,14 +632,16 @@ def step_breakdown(state, batch: dict, reps: int = 20) -> None:
         "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split})))
 
 
-def b2_corpus(rows: int, seed: int, ties_and_pads: bool = False):
+def b2_corpus(rows: int, seed: int, ties_and_pads: bool = False, dim: int = B2_DIM,
+              all_equal: bool = False, live: int | None = None):
     """An int8 corpus on the card: random unit rows, quantized per row as
     funnel/quant.py does (codes = round(emb / scale), scale = max|row| /
     127).  With ``ties_and_pads``: ten equal rows, a tie far apart, and
-    pad ids."""
+    pad ids; with ``all_equal``: every row the same; with ``live``: only
+    that many rows, spread over the corpus, have an id (the rest pads)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    emb = torch.randn((rows, B2_DIM), generator=g, device=dev)
+    emb = torch.randn((rows, dim), generator=g, device=dev)
     emb /= emb.norm(dim=1, keepdim=True)
     ids = torch.arange(rows, device=dev, dtype=torch.int32)
     if ties_and_pads:
@@ -608,17 +649,23 @@ def b2_corpus(rows: int, seed: int, ties_and_pads: bool = False):
         emb[rows - 12] = emb[5]
         ids[-1000:] = -1
         ids[3::97] = -5
+    if all_equal:
+        emb[:] = emb[0]
+    if live is not None:
+        keep = torch.zeros(rows, dtype=torch.bool, device=dev)
+        keep[torch.linspace(0, rows - 1, live, device=dev).long()] = True
+        ids = torch.where(keep, ids, torch.full_like(ids, -1))
     scales = emb.abs().amax(dim=1) / 127.0
     safe = torch.where(scales > 0, scales, torch.ones_like(scales))
     codes = torch.round(emb / safe[:, None]).clamp(-127, 127).to(torch.int8)
     return codes.contiguous(), scales.contiguous(), ids, emb
 
 
-def b2_queries(b: int, seed: int, emb=None) -> torch.Tensor:
+def b2_queries(b: int, seed: int, emb=None, dim: int = B2_DIM) -> torch.Tensor:
     """Unit queries, as the user tower gives them; with ``emb``, query 0
     is row 7 (the ten equal rows of the tie mix)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    u = torch.randn((b, B2_DIM), generator=g, device="cuda")
+    u = torch.randn((b, dim), generator=g, device="cuda")
     if emb is not None:
         u[0] = emb[7]
     return (u / u.norm(dim=1, keepdim=True)).contiguous()
@@ -636,9 +683,16 @@ def retrieval_bound_ms(rows: int, b: int, kos: int) -> tuple[float, str, dict]:
             {"bytes": nbytes, "flops": flops})
 
 
+# B2's kernels by the names torch.profiler gives them: the counting scans
+# (histogram levels 0-3), the filter scan, the per-query selects, the rank
+B2_KERNELS = {"scan_count": ("scan_kernel<", ", false>"),
+              "scan_filter": ("scan_kernel<", ", true>"),
+              "select": ("select_kernel", ""), "rank": ("rank_kernel", "")}
+
+
 def b2_pass_split(fn, n: int = 10) -> dict:
-    """Device ms per call of B2's two kernels (pass 1: score and select per
-    row block; pass 2: merge per query), from torch.profiler."""
+    """Device ms per call of each of B2's kernels (and its workspace
+    memset), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -646,12 +700,17 @@ def b2_pass_split(fn, n: int = 10) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    split = {"score_select": 0.0, "merge_select": 0.0}
+    split = dict.fromkeys(B2_KERNELS, 0.0)
+    split["memset"] = 0.0
     for row in prof.key_averages():
-        for name in split:
-            if row.device_type == DeviceType.CUDA and f"{name}_kernel" in row.key:
+        if row.device_type != DeviceType.CUDA:
+            continue
+        for name, (stem, mode) in B2_KERNELS.items():
+            if stem in row.key and mode in row.key:
                 split[name] += row.device_time_total / n / 1e3
-    if not all(split.values()):
+        if "Memset" in row.key:
+            split["memset"] += row.device_time_total / n / 1e3
+    if not all(split[name] for name in B2_KERNELS):
         fail(f"torch.profiler saw no time in one of B2's kernels: {split}")
     return split
 
@@ -715,7 +774,42 @@ def phase_b2(seed: int) -> dict:
     if top != sorted(top):
         fail(f"retrieval_topk: the ten equal rows came back out of row order: {top}")
     result["max_abs_err"] = max(result["max_abs_err"], agree["max_abs_err"])
+    result["max_abs_err"] = max(result["max_abs_err"], b2_adversarial(seed))
     return result
+
+
+def b2_adversarial(seed: int) -> float:
+    """B2 on inputs that fill the select's threshold bin or empty it, at
+    the served corpus, B 8: every score equal (the first kos rows, in row
+    order), fewer live rows than kos, kos 1 and 1,024, D 16 and 128.  Each
+    is held to the plain version by topk_agreement and timed."""
+    from deepfm_tpu_torch.ops import retrieval
+
+    rows, worst = B2_CORPORA[0], 0.0
+    cases = (("all scores equal", {"all_equal": True}, B2_KOS),
+             ("100 live rows", {"live": 100}, B2_KOS),
+             ("kos 1", {}, 1), ("kos 1024", {}, 1024),
+             ("D 16", {"dim": 16}, B2_KOS), ("D 128", {"dim": 128}, B2_KOS))
+    for i, (tag, kw, kos) in enumerate(cases):
+        codes, scales, ids, _ = b2_corpus(rows, seed + 20 + i, **kw)
+        u = b2_queries(8, seed + 30 + i, dim=codes.shape[1])
+        got = retrieval.retrieval_topk(u, codes, scales, ids, kos)
+        want = retrieval.retrieval_topk_plain(u, codes, scales, ids, kos)
+        torch.cuda.synchronize()
+        agree = retrieval.topk_agreement(u, codes, scales, ids, got, want,
+                                         TOL_B2_RTOL, TOL_B2_ATOL)
+        if not agree["ok"]:
+            fail(f"retrieval_topk disagrees with its plain version ({tag}): {agree}")
+        if kw.get("all_equal") and got[1].tolist() != [list(range(kos))] * 8:
+            fail(f"retrieval_topk ({tag}): not the first {kos} rows in row order")
+        if "live" in kw and int(torch.isfinite(got[0]).sum()) != 8 * kw["live"]:
+            fail(f"retrieval_topk ({tag}): {int(torch.isfinite(got[0]).sum())} finite "
+                 f"slots, not {8 * kw['live']}")
+        ms, call_ms = time_ms(lambda: retrieval.retrieval_topk(u, codes, scales, ids, kos))
+        print(f"b2 check {tag} (R={rows} B=8 D={codes.shape[1]} kos={kos}): "
+              f"{json.dumps(agree)} ms {ms} call_ms {call_ms}")
+        worst = max(worst, agree["max_abs_err"])
+    return worst
 
 
 def post(url: str, body: bytes, timeout: float = 120.0) -> tuple[int, dict]:

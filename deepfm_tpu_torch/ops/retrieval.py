@@ -30,16 +30,19 @@ import torch
 # kernel launches since import (or since a caller reset them)
 launches = 0
 
-MAX_KOS = 1024   # csrc/retrieval_topk.cu: shared-memory lists of kos keys
+MAX_KOS = 1024   # csrc/retrieval_topk.cu: the candidate buffer holds kos + a row block
 MAX_DIM = 128    # queries staged in shared memory
 DIM_STEP = 16    # a row's codes are read as 16-byte chunks
 _MAX_ROWS = 2**31 - 1  # rows are the low 32 bits of a key, read as int32
-# pass-1 row blocks: enough blocks for two per SM over all query chunks,
-# but at least this many 256-row tiles per block
-_MIN_TILES_PER_BLOCK = 4
+_MAX_BATCH = 65_535    # the rank kernel's grid has one row per query
+# the scans' row blocks: whole 256-row tiles, two blocks per SM over all
+# chunks of 8 queries, at most 4,096 rows (a row block bounds the buffer)
 _TILE = 256
 _QUERIES_PER_BLOCK = 8
-_MAX_ROW_BLOCKS = 1024  # pass 2 seeds its buffer with one list head per block
+_MAX_ROWS_PER_BLOCK = 4096
+# the candidate buffer keeps room for this many keys past kos, so that on
+# spread scores the first digit's bin fits and no second digit is counted
+_MIN_SLACK = 2048
 
 
 def retrieval_topk_plain(u, codes, scales, ids, kos: int):
@@ -143,6 +146,7 @@ def _check_inputs(u, codes, scales, ids, kos: int) -> None:
            f"dimension must be a multiple of {DIM_STEP} in [{DIM_STEP}, {MAX_DIM}], got {d}")
     _check(codes.data_ptr() % 16 == 0, "codes must start 16-byte aligned")
     _check(r <= _MAX_ROWS, f"{r} rows: the kernel indexes at most {_MAX_ROWS}")
+    _check(b <= _MAX_BATCH, f"{b} queries: the kernel takes at most {_MAX_BATCH}")
 
 
 @functools.lru_cache(maxsize=8)
@@ -150,19 +154,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-@functools.lru_cache(maxsize=8)
-def _smem_limit(index: int) -> int:
-    props = torch.cuda.get_device_properties(index)
-    return int(getattr(props, "shared_memory_per_block_optin", 232_448))
-
-
-def row_blocks(rows: int, batch: int, sms: int) -> int:
-    """Pass 1's row blocks: two blocks per SM over all query chunks, each
-    block at least ``_MIN_TILES_PER_BLOCK`` tiles of 256 rows."""
+def scan_plan(rows: int, batch: int, kos: int, sms: int) -> tuple[int, int]:
+    """``(rows_per_block, cap)`` of the kernel's scans: row blocks of whole
+    256-row tiles, enough of them for two blocks per SM over all chunks of
+    8 queries but at most 4,096 rows each; and the per-query candidate
+    buffer, ``kos`` plus the larger of a row block and 2,048 keys (the
+    kernel needs at least ``kos`` plus a row block)."""
     chunks = -(-batch // _QUERIES_PER_BLOCK)
-    want = -(-2 * sms // chunks)
-    most = max(1, -(-rows // (_MIN_TILES_PER_BLOCK * _TILE)))
-    return max(1, min(want, most, _MAX_ROW_BLOCKS))
+    want = max(1, -(-2 * sms // chunks))
+    tiles = max(1, -(-rows // (want * _TILE)))
+    per_block = min(_MAX_ROWS_PER_BLOCK, tiles * _TILE)
+    return per_block, kos + max(per_block, _MIN_SLACK)
 
 
 def _retrieval_topk_cuda(u, codes, scales, ids, kos: int):
@@ -177,17 +179,13 @@ def _retrieval_topk_cuda(u, codes, scales, ids, kos: int):
         return scores, rows
     lib = _library()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    limit = _smem_limit(index)
-    for p in (1, 2):
-        need = lib.retrieval_topk_smem(b, d, kos, p)
-        _check(need <= limit, f"pass {p} needs {need} B of shared memory, the "
-                              f"card allows {limit} (kos {kos}, dimension {d})")
-    nb = row_blocks(r, b, _sm_count(index))
-    workspace = torch.empty((b * nb * kos,), device=dev, dtype=torch.int64)
+    per_block, cap = scan_plan(r, b, kos, _sm_count(index))
+    nbytes = lib.retrieval_topk_workspace(b, r, per_block, cap)
+    workspace = torch.empty((nbytes,), device=dev, dtype=torch.uint8)
     with torch.cuda.device(dev):
         rc = lib.retrieval_topk(
             u.data_ptr(), codes.data_ptr(), scales.data_ptr(), ids.data_ptr(),
-            b, d, r, kos, nb, workspace.data_ptr(), scores.data_ptr(),
+            b, d, r, kos, per_block, cap, workspace.data_ptr(), scores.data_ptr(),
             rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -203,10 +201,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("retrieval_topk")
     if lib.retrieval_topk.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.retrieval_topk.argtypes = [p, p, p, p, i32, i32, i64, i32, i32, p, p, p, p]
+        lib.retrieval_topk.argtypes = [p, p, p, p, i32, i32, i64, i32, i32, i32, p, p, p, p]
         lib.retrieval_topk.restype = ctypes.c_int
-        lib.retrieval_topk_smem.argtypes = [i32, i32, i32, i32]
-        lib.retrieval_topk_smem.restype = ctypes.c_longlong
+        lib.retrieval_topk_workspace.argtypes = [i32, i64, i32, i32]
+        lib.retrieval_topk_workspace.restype = ctypes.c_longlong
         lib.retrieval_topk_error_string.argtypes = [ctypes.c_int]
         lib.retrieval_topk_error_string.restype = ctypes.c_char_p
     return lib

@@ -107,6 +107,32 @@ def test_fused_ctr_backward_kernel_matches_plain(device, dtype, b, f, k, want_va
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("want_vals", [True, False])
+@pytest.mark.parametrize("b,f,k", [(256, 39, 32), (70, 13, 100)])
+def test_fused_ctr_backward_kernel_one_row(device, dtype, want_vals, b, f, k):
+    """Every lookup on one row: every window is one group, and every block
+    sums its windows in one slot of its table.  Held to the plain version
+    in float64, because the B·F
+    float32 terms of that one row round near the tolerance in any float32
+    order."""
+    fm_w, fm_v, ids, vals = _problem(device, 1000, 8, k, b, f, dtype)
+    ids[:] = 7
+    g_emb, g_yw, g_yv = _cotangents(device, b, f, k)
+    got = fused_ctr.fused_ctr_backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
+                                       want_vals)
+    want = fused_ctr.fused_ctr_backward_plain(
+        *(t.double() for t in (g_emb, g_yw, g_yv, fm_w, fm_v)), ids, vals.double(),
+        want_vals)
+    torch.cuda.synchronize()
+    for a, w, name in zip(got, want, ("d_fm_w", "d_fm_v", "d_vals")):
+        if w is None:
+            assert a is None
+        else:
+            _assert_rel(a.double(), w, name)
+
+
+@pytest.mark.cuda
 def test_fused_ctr_autograd_runs_both_kernels(device):
     fm_w, fm_v, ids, vals = _problem(device, 500, 4, 32, 16, 39, torch.int32)
     fm_w.requires_grad_(True)
@@ -301,3 +327,45 @@ def test_int8_retrieve_on_the_card_matches_the_cpu(device):
     assert (n_c, n_g) == (0, 1)
     torch.testing.assert_close(s_g, s_c, rtol=0, atol=1e-5)
     assert torch.equal(id_g, id_c)
+
+
+def _b2_adversarial(device, r, d, seed, all_equal=False, live=None):
+    from deepfm_tpu_torch.funnel.quant import quantize_rows
+
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.randn((r, d), generator=g)
+    emb /= emb.norm(dim=1, keepdim=True)
+    if all_equal:
+        emb[:] = emb[0]
+    ids = torch.arange(r, dtype=torch.int32)
+    if live is not None:
+        keep = torch.zeros(r, dtype=torch.bool)
+        keep[torch.linspace(0, r - 1, live).long()] = True
+        ids = torch.where(keep, ids, torch.full_like(ids, -1))
+    codes, scales = (torch.from_numpy(a) for a in quantize_rows(emb.numpy()))
+    u = torch.randn((8, d), generator=g)
+    return [t.to(device) for t in (u, codes, scales, ids)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,d,kos", [
+    ("all_equal", 32, 128), ("live_100", 32, 128), ("spread", 32, 1),
+    ("spread", 32, 1024), ("spread", 16, 128), ("spread", 128, 128),
+    ("all_equal", 32, 1024)])
+def test_retrieval_kernel_adversarial(device, case, d, kos):
+    """Inputs that fill the select's threshold bin (every score equal: the
+    first kos rows, in row order) or starve it (100 live rows of 20,000),
+    kos 1 and 1,024, D 16 and 128; B 8."""
+    r = 20_000
+    u, codes, scales, ids = _b2_adversarial(
+        device, r, d, seed=kos + d, all_equal=case == "all_equal",
+        live=100 if case == "live_100" else None)
+    got = retrieval.retrieval_topk(u, codes, scales, ids, kos)
+    want = retrieval.retrieval_topk_plain(u, codes, scales, ids, kos)
+    torch.cuda.synchronize()
+    agree = retrieval.topk_agreement(u, codes, scales, ids, got, want, B2_RTOL, B2_ATOL)
+    assert agree["ok"], agree
+    if case == "all_equal":
+        assert got[1].tolist() == [list(range(kos))] * 8
+    if case == "live_100":
+        assert torch.isfinite(got[0]).sum(dim=1).tolist() == [100] * 8

@@ -158,3 +158,53 @@ def test_topk_lex_equals_full_lexsort(seed):
     for k in (1, 7, 50, 299, 300, 400):
         np.testing.assert_array_equal(
             recall.topk_lex(scores, k), np.lexsort((rows, -scores))[:k])
+
+
+def _jax_both(u, codes, scales, ids, kos):
+    """The JAX kernel (interpret mode) and the scan, as numpy."""
+    k = retrieval_topk_kernel(u, codes, scales, ids, kos=kos, tile=128, interpret=True)
+    t = score_topk_tiles(u, codes, scales, ids, kos=kos, tile=128)
+    return [tuple(np.asarray(x) for x in w) for w in (k, t)]
+
+
+@pytest.mark.parametrize("kos", [1, 16, 100])
+def test_all_equal_scores_match_jax(kos):
+    """Every row the same over 300 rows (more than kos): every score ties,
+    so the answer is the first kos rows in row order, in the plain version
+    (the card's referee) and in both JAX versions."""
+    emb, _, _, ids, u = _data(r=300, pads=0, seed=5)
+    codes, scales = jquant.quantize_rows(np.repeat(emb[:1], 300, axis=0))
+    got = _port(u, codes, scales, ids, kos)
+    for want in _jax_both(u, codes, scales, ids, kos):
+        _assert_match(got, want)
+    np.testing.assert_array_equal(got[1], np.tile(np.arange(kos), (u.shape[0], 1)))
+
+
+@pytest.mark.parametrize("live", [0, 5, 12])
+def test_fewer_live_rows_than_kos_match_jax(live):
+    """R 400 > kos 16, but only ``live`` rows have an id (spread over the
+    corpus): ``live`` finite slots per query, the rest -inf."""
+    _, codes, scales, ids, u = _data(r=400, pads=0, seed=6)
+    keep = np.zeros(400, bool)
+    keep[np.linspace(0, 399, live).astype(int)] = True
+    ids = np.where(keep, ids, -1).astype(np.int32)
+    got = _port(u, codes, scales, ids, 16)
+    for want in _jax_both(u, codes, scales, ids, 16):
+        _assert_match(got, want)
+    assert np.isfinite(got[0]).sum(axis=1).tolist() == [live] * u.shape[0]
+
+
+@pytest.mark.parametrize("rows,batch,kos,sms,want", [
+    (117_581, 8, 128, 132, (512, 2176)),      # served corpus, bucket 8
+    (117_581, 64, 128, 132, (3584, 3712)),    # bucket 64: 33 row blocks x 8 chunks
+    (2_000_000, 8, 128, 132, (4096, 4224)),   # capped at 4,096 rows a block
+    (20, 3, 1024, 132, (256, 3072)),          # one tile; room for 2,048 past kos
+    (0, 1, 1, 132, (256, 2049)),              # an empty corpus still has a block
+])
+def test_scan_plan(rows, batch, kos, sms, want):
+    """The kernel's sizing: whole 256-row tiles, two blocks per SM over the
+    chunks of 8 queries, at most 4,096 rows a block; the buffer holds kos
+    plus at least a row block."""
+    per_block, cap = retrieval.scan_plan(rows, batch, kos, sms)
+    assert (per_block, cap) == want
+    assert per_block % 256 == 0 and cap >= kos + per_block

@@ -245,3 +245,16 @@ def test_auc_matches_jax():
     assert exact == jax_auc.exact_auc(labels, preds)
     assert abs(float(auc.auc_value(state)) - exact) < 1e-2
     assert np.isnan(auc.exact_auc(np.ones(3), np.ones(3)))
+
+
+@pytest.mark.parametrize("batch", [32, 5])
+def test_backward_every_lookup_one_row(batch):
+    """Every lookup on row 7 (in range, fm_v unpadded): the whole batch's
+    gradient lands on one row, the case the card's kernel sums in registers
+    and in a shared-memory table before it reaches d_fm_v."""
+    ids = np.full((batch, 6), 7, np.int32)
+    fm_w, fm_v, ids, vals, cot = _problem(ids=ids, seed=11)
+    got = _port_bwd(fm_w, fm_v, ids, vals, cot)
+    kernel = lambda w, v, x: jax_fused(w, v, jnp.asarray(ids), x, True)  # noqa: E731
+    _assert_grads(got, _jax_vjp(kernel, fm_w, fm_v, vals, cot))
+    assert np.count_nonzero(np.abs(got[1]).sum(axis=1)) == 1
