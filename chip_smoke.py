@@ -16,7 +16,9 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 8):
               rows of every Criteo record, on uniform ids and with every
               lookup on one row; with the kernel's time, the plain
               version's time and the least time the card could take (CUDA
-              events, median over repetitions);
+              events, median over repetitions), the forward's layout and
+              share of that bound, and the time of a one-element add (the
+              launch floor);
 4. serve    - the full-width DeepFM (117,581 x 39 x 32, MLP 256/128/64,
               bf16, random weights from --seed) exported, loaded on the card
               behind the HTTP server, and sent :predict requests of 1, 8 and
@@ -263,9 +265,16 @@ def phase_kernel(seed: int) -> dict:
         bound_ms, bound_by, detail = fused_ctr_bound_ms(fm_w, fm_v, ids32, b, f)
         row = {"max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms, "layout": fused_ctr.forward_layout(fm_v, b),
                "call_ms": call_ms, "plain_call_ms": plain_call_ms, **detail}
         result["per_bucket"][b] = row
         print("kernel fused_ctr_forward B=%d %s" % (b, json.dumps(row)))
+    # the launch floor: one in-place add on one element, timed the same way,
+    # is what any kernel launch costs here, whatever its work
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_call_ms = time_ms(lambda: one.add_(1.0))
+    result["launch_floor"] = {"ms": floor_ms, "call_ms": floor_call_ms}
+    print("kernel launch_floor %s" % json.dumps(result["launch_floor"]))
     result["max_abs_err"] = worst
     return result
 

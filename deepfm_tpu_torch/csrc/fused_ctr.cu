@@ -15,32 +15,47 @@
 // What is left out of the TPU design, and why: the 128-lane aligned-window
 // view, the 64-deep DMA semaphore ring, the 65,536-id SMEM chunking and the
 // sort-based dedup plan all exist because Mosaic cannot DMA a 32-float row
-// at an arbitrary HBM offset.  Here a warp reads any row with one coalesced
-// 128-byte load (K = 32: one float per lane), and at the flagship vocabulary
-// the whole 15 MB fm_v fits in the H100's 50 MB L2, so a duplicate id is an
-// L2 hit rather than a second trip to HBM.  No sort, no plan.
-//
-// Design: one warp per batch row, 4 warps per block.  Lanes first load 32
-// (id, val) pairs of the row at once (coalesced), clip the ids, and gather
-// their own fm_w terms; then the warp walks those fields, broadcasting each
-// (row, val) by shuffle, and lanes stride over K reading the fm_v row,
-// writing emb and accumulating sum_f e and sum_f e^2 in registers.  The
-// row loads of 8 fields are issued before any is used, so a warp waits
-// about F/8 memory latencies rather than F.  Warp shuffles reduce y_w and
-// y_v at the end.  K up to 128 (4 floats a lane).
+// at an arbitrary HBM offset.  Here a warp reads rows at any offset (K = 32:
+// 8 lanes of a float4 a row, 4 rows an instruction), and at the flagship
+// vocabulary the whole 15 MB fm_v fits in the H100's 50 MB L2, so a
+// duplicate id is an L2 hit rather than a second trip to HBM.  No sort, no
+// plan.
 //
 // Bound: bytes.  Per lookup the kernel moves 4 B id + 4 B val + 4 B fm_w +
-// 128 B fm_v row read + 128 B emb write, about 268 B at K = 32: at B = 512,
-// F = 39 that is 19,968 lookups, about 5.4 MB, about 1.6 us at the H100
-// SXM's 3.35 TB/s (less where ids repeat: a repeated row is read once from
-// HBM).  The design reads each input and writes each output once,
-// coalesced, and keeps every intermediate (the FM sums) in registers; the
-// operations (4 per element) are far below any compute limit.  At the
-// serving buckets (8..512 rows) the grid is too small to hide memory
-// latency, so the time is a chain of latencies, not bandwidth: measured
-// 5.8-6.3 us at every bucket on an H100 80GB HBM3 at 700 W (PERF.md).
-// More fields in flight per warp (float4 rows, several fields per load
-// instruction) is the next step.
+// 128 B fm_v row read + 128 B emb write, about 268 B at K = 32: at B = 4096,
+// F = 39 the output alone is 20.4 MB, and the bound (distinct rows read
+// once) 8.44 us at the H100 SXM's 3.35 TB/s.  The operations (4 per
+// element) are far below any compute limit.  At the serving buckets (8..512
+// rows) the grid is too small to come near the bound: there the time is the
+// launch and the chain of dependent memory latencies of one warp.
+//
+// Design: every lookup of a batch row in flight at once, so that a warp
+// waits two memory latencies (its ids, then its table rows) before it
+// stores, whatever F is (the earlier design walked a row's fields 8 at a
+// time with a float a lane: about seven at F = 39).
+//   - A row of fm_v is K/4 float4 pieces when K is a multiple of 4 and fm_v
+//     and emb lie on 16 bytes (the vector layout), else K floats (the
+//     scalar layout: K = 1 or 7, or a view that starts at an odd float).
+//     L lanes take a field (K/4 or K rounded up to a power of 2, at most
+//     32, a piece a lane), so a warp instruction reads or writes the rows of
+//     G = 32 / L consecutive fields: at K = 32, 4 fields, and each store
+//     writes 512 contiguous bytes of emb.  The layout is chosen at launch
+//     from K and the pointers (forward_layout), so a misaligned float4
+//     access cannot occur.
+//   - Lane group g takes fields g, g + G, g + 2G, ...: each lane loads its
+//     fields' ids and vals, clips its ids, then issues every fm_v piece and
+//     fm_w load of the round before it uses any.  A round is 40 floats of
+//     rows a lane (10 float4 at K = 32: F = 39 in one round); a larger F
+//     takes rounds one after another, so registers stay bounded.
+//   - The sums stay in registers: each lane sums its fields' e and the
+//     cross terms y_v = sum_k sum_{f' < f} e_f e_f' (half the difference
+//     of (sum_f e)^2 and sum_f e^2, without subtracting two large sums),
+//     a round's first, then joined to the row's with compensated
+//     (Kahan) additions; shuffles join the lane groups, then the warp.
+//   - Small batches: a row takes 4 warps (each every 4th run of G fields,
+//     joined in shared memory) while the grid still fits the card at once,
+//     so the serving buckets spread over 4 times the SMs and each warp
+//     issues a quarter of the loads; 1 warp a row above that.
 //
 // ---------------------------------------------------------------------------
 // Backward (fused_ctr_backward below).
@@ -125,85 +140,277 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxKPerLane = 4;  // K <= 128
-constexpr int kBatch = 8;        // fields whose rows are in flight at once
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <typename IdT>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+// Blocks a SM holds at once of the forward with kSplit warps a row, which
+// its launch bounds make the compiler keep to (8 blocks of 4 warps: 64
+// registers a thread; 4: 128).
+template <int kSplit>
+__host__ __device__ constexpr int forward_blocks_per_sm() {
+  return kSplit == 4 ? 8 : 4;
+}
+
+// The forward's launch: a table row as w-float pieces (4: float4, 1:
+// float), 2^log2_lanes lanes a field, q pieces a lane, split warps a batch
+// row.
+struct ForwardLayout {
+  int w;
+  int log2_lanes;
+  int q;
+  int split;
+};
+
+// The vector layout needs K a multiple of 4 and fm_v and emb on 16 bytes
+// (then every row, and every field of emb, starts on 16 bytes); anything
+// else takes the scalar layout.  L = K / w rounded up to a power of 2, at
+// most 32; a lane takes 1 piece, or 4 (some masked) when a scalar row has
+// more than 32 floats.  The vector layout takes 4 warps a row while that
+// grid fits the card at once (at 132 SMs: up to 1,056 rows), else 1; the
+// scalar layout takes 1.
+ForwardLayout forward_layout(const void* fm_v, int k_dim, const void* emb, int batch) {
+  const bool vec = k_dim % 4 == 0 && reinterpret_cast<uintptr_t>(fm_v) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(emb) % 16 == 0;
+  const int w = vec ? 4 : 1;
+  const int pieces = k_dim / w;
+  int log2_lanes = 0;
+  while ((1 << log2_lanes) < pieces && log2_lanes < 5) ++log2_lanes;
+  int split = 1;
+  if (vec) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (4LL * batch <= static_cast<long long>(forward_blocks_per_sm<4>()) * kWarpsPerBlock * sms) {
+      split = 4;
+    }
+  }
+  return {w, log2_lanes, pieces > kWarp ? kMaxKPerLane : 1, split};
+}
+
+// Fields a lane group has in flight in one round: 40 floats of rows a lane
+// (10 float4 at K = 32: F = 39 in one round), at most 16 fields.
+template <int kW, int kQ>
+__host__ __device__ constexpr int forward_slots() {
+  return 40 / (kW * kQ) < 16 ? 40 / (kW * kQ) : 16;
+}
+
+// sum += x, keeping in `lost` what the rounding of sum dropped (Kahan), so
+// that a long chain of rounds adds no more error than one round.
+__device__ __forceinline__ void add_compensated(float& sum, float& lost, float x) {
+  const float y = x - lost;
+  const float t = sum + y;
+  lost = (t - sum) - y;
+  sum = t;
+}
+
+template <int kW>
+__device__ __forceinline__ void load_piece(const float* p, float (&out)[kW]);
+
+template <>
+__device__ __forceinline__ void load_piece<4>(const float* p, float (&out)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = t.x;
+  out[1] = t.y;
+  out[2] = t.z;
+  out[3] = t.w;
+}
+
+template <>
+__device__ __forceinline__ void load_piece<1>(const float* p, float (&out)[1]) {
+  out[0] = __ldg(p);
+}
+
+template <int kW>
+__device__ __forceinline__ void store_piece(float* p, const float (&in)[kW]);
+
+template <>
+__device__ __forceinline__ void store_piece<4>(float* p, const float (&in)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+}
+
+template <>
+__device__ __forceinline__ void store_piece<1>(float* p, const float (&in)[1]) {
+  *p = in[0];
+}
+
+// kSplit warps take a batch row (1 or 4), each every kSplit-th run of G
+// fields, so a block takes 4 / kSplit rows.  Several warps a row spread a
+// small batch over more of the card; their partial sums meet in shared
+// memory.
+template <typename IdT, int kW, int kQ, int kSplit>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, forward_blocks_per_sm<kSplit>())
 fused_ctr_forward_kernel(const float* __restrict__ fm_w, int64_t w_rows,
                          const float* __restrict__ fm_v, int64_t v_rows,
-                         int k_dim, const IdT* __restrict__ ids,
+                         int k_dim, int log2_lanes, const IdT* __restrict__ ids,
                          const float* __restrict__ vals, int batch,
                          int fields, float* __restrict__ emb,
                          float* __restrict__ y_w, float* __restrict__ y_v) {
+  constexpr int kSlots = (forward_slots<kW, kQ>() + kSplit - 1) / kSplit;
+  constexpr int kShared = kSplit > 1 ? kWarpsPerBlock : 1;
+  __shared__ float s_sum[kShared][kMaxKPerLane * kWarp];
+  __shared__ float s_cross[kShared];
+  __shared__ float s_w[kShared];
   const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= batch) return;  // warp-uniform: the whole warp leaves together
+  const int warp = threadIdx.x / kWarp;
+  const int h = warp % kSplit;  // this warp's share of its row
+  const int row = blockIdx.x * (kWarpsPerBlock / kSplit) + warp / kSplit;
+  // warp-uniform: the whole warp leaves together (with kSplit > 1 it stays
+  // for the block's barrier)
+  if (kSplit == 1 && row >= batch) return;
 
+  const int lanes = 1 << log2_lanes;       // L: lanes a field
+  const int groups = kWarp >> log2_lanes;  // G: fields an instruction
+  const int g = lane >> log2_lanes;
+  const int l = lane & (lanes - 1);
+  const int pieces = k_dim / kW;
+  const int stride = kSlots * kSplit * groups;  // fields a round
+  const int end = row < batch ? fields : 0;
   const IdT* row_ids = ids + static_cast<int64_t>(row) * fields;
   const float* row_vals = vals + static_cast<int64_t>(row) * fields;
   float* row_emb = emb + static_cast<int64_t>(row) * fields * k_dim;
 
-  float sum_e[kMaxKPerLane];
-  float sum_sq[kMaxKPerLane];
+  // y_v = sum_k sum_{f' < f} e_f e_f', which is 0.5 sum_k ((sum_f e)^2 -
+  // sum_f e^2) without the difference of two large sums.  A lane keeps its
+  // pieces of sum_f e over its fields and its pieces' share of y_v.  A round
+  // sums its own fields first; then it joins the lane's sums (two disjoint
+  // sets of fields add their own cross terms and the product of their
+  // sums) with compensated additions, so a large F loses no more digits
+  // than one round.
+  float sum_e[kQ][kW];
+  float lost_e[kQ][kW];  // what rounding took from sum_e (compensated sums)
 #pragma unroll
-  for (int q = 0; q < kMaxKPerLane; ++q) {
-    sum_e[q] = 0.f;
-    sum_sq[q] = 0.f;
+  for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+    for (int c = 0; c < kW; ++c) sum_e[q][c] = lost_e[q][c] = 0.f;
   }
-  float acc_w = 0.f;  // this lane's fields' share of y_w
+  float cross = 0.f;  // this lane's share of y_v
+  float lost_x = 0.f;
+  float acc_w = 0.f;  // this lane's share of y_w
+  float lost_w = 0.f;
 
-  for (int f0 = 0; f0 < fields; f0 += kWarp) {
-    const int f_lane = f0 + lane;
-    int64_t my_row = 0;
-    float my_val = 0.f;
-    if (f_lane < fields) {
-      // clip in the incoming id type first: a wide id must not wrap
-      const int64_t id = static_cast<int64_t>(row_ids[f_lane]);
-      my_row = id < 0 ? 0 : (id >= v_rows ? v_rows - 1 : id);
-      my_val = row_vals[f_lane];
-      const int64_t w_row = my_row < w_rows ? my_row : w_rows - 1;
-      acc_w += __ldg(fm_w + w_row) * my_val;
+  for (int f0 = 0; f0 < end; f0 += stride) {
+    // the round's ids and vals, clipped in the incoming id type first: a
+    // wide id must not wrap
+    int64_t r[kSlots];
+    float x[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int f = f0 + (s * kSplit + h) * groups + g;
+      r[s] = 0;
+      x[s] = 0.f;
+      if (f < fields) {
+        const int64_t id = static_cast<int64_t>(__ldg(row_ids + f));
+        r[s] = id < 0 ? 0 : (id >= v_rows ? v_rows - 1 : id);
+        x[s] = __ldg(row_vals + f);
+      }
     }
-    const int n = min(kWarp, fields - f0);
-    for (int j0 = 0; j0 < n; j0 += kBatch) {
-      // issue the row loads of kBatch fields before using any of them, so
-      // the warp waits one memory latency per batch instead of per field
-      float v[kBatch][kMaxKPerLane];
-      float x[kBatch];
+    // every row piece and fm_w term of the round in flight before any use
+    float v[kSlots][kQ][kW];
+    float w[kSlots];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const bool live = j0 + u < n;  // warp-uniform
-        const int src = live ? j0 + u : 0;
-        const int64_t r = __shfl_sync(kFullMask, my_row, src);
-        x[u] = __shfl_sync(kFullMask, my_val, src);
+    for (int s = 0; s < kSlots; ++s) {
+      const bool live = f0 + (s * kSplit + h) * groups + g < fields;
 #pragma unroll
-        for (int q = 0; q < kMaxKPerLane; ++q) {
-          const int k = lane + q * kWarp;
-          v[u][q] = (live && k < k_dim) ? __ldg(fm_v + r * k_dim + k) : 0.f;
+      for (int q = 0; q < kQ; ++q) {
+        const int p = l + q * lanes;
+        if (live && p < pieces) {
+          load_piece<kW>(fm_v + r[s] * k_dim + p * kW, v[s][q]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kW; ++c) v[s][q][c] = 0.f;
         }
       }
+      // the group's lanes take its slots' fm_w terms in turn
+      w[s] = live && l == (s & (lanes - 1)) ? __ldg(fm_w + (r[s] < w_rows ? r[s] : w_rows - 1))
+                                             : 0.f;
+    }
+    float rs[kQ][kW];  // the round's sum_f e
+    float rx[kQ][kW];  // and its cross terms
+    float rw = 0.f;    // and its fm_w terms
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (j0 + u >= n) break;
-        float* e_out = row_emb + static_cast<int64_t>(f0 + j0 + u) * k_dim;
+    for (int q = 0; q < kQ; ++q) {
 #pragma unroll
-        for (int q = 0; q < kMaxKPerLane; ++q) {
-          const int k = lane + q * kWarp;
-          if (k < k_dim) {
-            const float e = v[u][q] * x[u];
-            e_out[k] = e;
-            sum_e[q] += e;
-            sum_sq[q] += e * e;
+      for (int c = 0; c < kW; ++c) rs[q][c] = rx[q][c] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int f = f0 + (s * kSplit + h) * groups + g;
+      if (f >= fields) continue;
+      float* e_out = row_emb + static_cast<int64_t>(f) * k_dim;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int p = l + q * lanes;
+        if (p < pieces) {
+          float e[kW];
+#pragma unroll
+          for (int c = 0; c < kW; ++c) {
+            e[c] = v[s][q][c] * x[s];
+            rx[q][c] += e[c] * rs[q][c];
+            rs[q][c] += e[c];
           }
+          store_piece<kW>(e_out + p * kW, e);
         }
+      }
+      rw += w[s] * x[s];
+    }
+    add_compensated(acc_w, lost_w, rw);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+      for (int c = 0; c < kW; ++c) {
+        add_compensated(cross, lost_x, rx[q][c] + sum_e[q][c] * rs[q][c]);
+        add_compensated(sum_e[q][c], lost_e[q][c], rs[q][c]);
       }
     }
   }
 
-  float part = 0.f;
+  // join the lane groups (lanes l, l + L, l + 2L, ... hold the same k)
+  for (int off = lanes; off < kWarp; off *= 2) {
+    float dot = 0.f;
 #pragma unroll
-  for (int q = 0; q < kMaxKPerLane; ++q) part += sum_e[q] * sum_e[q] - sum_sq[q];
+    for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+      for (int c = 0; c < kW; ++c) {
+        const float o = __shfl_xor_sync(kFullMask, sum_e[q][c], off);
+        dot += sum_e[q][c] * o;
+        sum_e[q][c] += o;
+      }
+    }
+    cross += __shfl_xor_sync(kFullMask, cross, off) + dot;
+  }
+  float part = g == 0 ? cross : 0.f;  // every group holds the same sums now
+  if (kSplit > 1) {  // join the row's warps the same way, in shared memory
+    if (g == 0) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int p = l + q * lanes;
+#pragma unroll
+        for (int c = 0; c < kW; ++c) {
+          if (p < pieces) s_sum[warp][p * kW + c] = sum_e[q][c];
+        }
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      part += __shfl_xor_sync(kFullMask, part, off);
+      acc_w += __shfl_xor_sync(kFullMask, acc_w, off);
+    }
+    if (lane == 0) {
+      s_cross[warp] = part;
+      s_w[warp] = acc_w;
+    }
+    __syncthreads();
+    if (h != 0 || row >= batch) return;  // warp-uniform
+    part = lane < kSplit ? s_cross[warp + lane] : 0.f;
+    acc_w = lane < kSplit ? s_w[warp + lane] : 0.f;
+    for (int k = lane; k < k_dim; k += kWarp) {
+      float run = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSplit; ++j) {
+        part += s_sum[warp + j][k] * run;
+        run += s_sum[warp + j][k];
+      }
+    }
+  }
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off /= 2) {
     part += __shfl_xor_sync(kFullMask, part, off);
@@ -211,7 +418,44 @@ fused_ctr_forward_kernel(const float* __restrict__ fm_w, int64_t w_rows,
   }
   if (lane == 0) {
     y_w[row] = acc_w;
-    y_v[row] = 0.5f * part;
+    y_v[row] = part;
+  }
+}
+
+template <typename IdT, int kW, int kQ, int kSplit>
+void launch_forward(const float* fm_w, long long w_rows, const float* fm_v,
+                    long long v_rows, int k_dim, int log2_lanes, const void* ids,
+                    const float* vals, int batch, int fields, float* emb, float* y_w,
+                    float* y_v, cudaStream_t s) {
+  constexpr int kRows = kWarpsPerBlock / kSplit;
+  const dim3 grid((batch + kRows - 1) / kRows);
+  fused_ctr_forward_kernel<IdT, kW, kQ, kSplit><<<grid, kWarp * kWarpsPerBlock, 0, s>>>(
+      fm_w, w_rows, fm_v, v_rows, k_dim, log2_lanes, static_cast<const IdT*>(ids), vals,
+      batch, fields, emb, y_w, y_v);
+}
+
+template <typename IdT>
+void launch_forward_ids(const ForwardLayout& lay, const float* fm_w, long long w_rows,
+                        const float* fm_v, long long v_rows, int k_dim, const void* ids,
+                        const float* vals, int batch, int fields, float* emb,
+                        float* y_w, float* y_v, cudaStream_t s) {
+  const int n = lay.log2_lanes;
+  if (lay.w == 4) {  // K <= 128: one float4 a lane
+    if (lay.split == 4) {
+      launch_forward<IdT, 4, 1, 4>(fm_w, w_rows, fm_v, v_rows, k_dim, n, ids, vals, batch,
+                                   fields, emb, y_w, y_v, s);
+    } else {
+      launch_forward<IdT, 4, 1, 1>(fm_w, w_rows, fm_v, v_rows, k_dim, n, ids, vals, batch,
+                                   fields, emb, y_w, y_v, s);
+    }
+    return;
+  }
+  if (lay.q == 1) {
+    launch_forward<IdT, 1, 1, 1>(fm_w, w_rows, fm_v, v_rows, k_dim, n, ids, vals, batch,
+                                 fields, emb, y_w, y_v, s);
+  } else {
+    launch_forward<IdT, 1, kMaxKPerLane, 1>(fm_w, w_rows, fm_v, v_rows, k_dim, n, ids, vals,
+                                            batch, fields, emb, y_w, y_v, s);
   }
 }
 
@@ -683,19 +927,24 @@ int fused_ctr_forward(const float* fm_w, long long w_rows, const float* fm_v,
                       int ids_int64, const float* vals, int batch, int fields,
                       float* emb, float* y_w, float* y_v, void* stream) {
   if (batch <= 0) return 0;
-  const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid((batch + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ForwardLayout lay = forward_layout(fm_v, k_dim, emb, batch);
   if (ids_int64) {
-    fused_ctr_forward_kernel<int64_t><<<grid, block, 0, s>>>(
-        fm_w, w_rows, fm_v, v_rows, k_dim, static_cast<const int64_t*>(ids),
-        vals, batch, fields, emb, y_w, y_v);
+    launch_forward_ids<int64_t>(lay, fm_w, w_rows, fm_v, v_rows, k_dim, ids, vals, batch,
+                                fields, emb, y_w, y_v, s);
   } else {
-    fused_ctr_forward_kernel<int32_t><<<grid, block, 0, s>>>(
-        fm_w, w_rows, fm_v, v_rows, k_dim, static_cast<const int32_t*>(ids),
-        vals, batch, fields, emb, y_w, y_v);
+    launch_forward_ids<int32_t>(lay, fm_w, w_rows, fm_v, v_rows, k_dim, ids, vals, batch,
+                                fields, emb, y_w, y_v, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The layout fused_ctr_forward takes for these pointers, k_dim and batch,
+// as w | (lanes a field) << 8 | (pieces a lane) << 16 | (warps a row) << 24,
+// w the floats of a piece (4: float4, 1: float).
+int fused_ctr_forward_layout(const float* fm_v, int k_dim, const float* emb, int batch) {
+  const ForwardLayout lay = forward_layout(fm_v, k_dim, emb, batch);
+  return lay.w | (1 << lay.log2_lanes) << 8 | lay.q << 16 | lay.split << 24;
 }
 
 // Adds the gradients of one batch into d_fm_w [w_rows] and d_fm_v

@@ -183,6 +183,21 @@ def _forward_cuda(fm_w, fm_v, ids, vals):
     return emb, y_w, y_v
 
 
+def forward_layout(fm_v, batch: int) -> str:
+    """The launch the forward kernel takes for this CUDA fm_v [V, K] and
+    batch (emb, which the wrapper allocates, lies on 16 bytes): ``"vector"``
+    (float4 pieces: K a multiple of 4 and fm_v on 16 bytes) or
+    ``"scalar"``, with the lanes a field, the pieces a lane and the warps a
+    batch row."""
+    k = fm_v.shape[1]
+    code = _library().fused_ctr_forward_layout(fm_v.data_ptr(), k, 0, batch)
+    w, lanes = code & 0xFF, (code >> 8) & 0xFF
+    per_lane, split = (code >> 16) & 0xFF, code >> 24
+    kind = "vector" if w == 4 else "scalar"
+    return (f"{kind} K={k}: {lanes} lanes a field, {per_lane} x {w} floats a "
+            f"lane, {split} warps a row")
+
+
 def fused_ctr_backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
                        want_vals: bool = True):
     """The backward kernel on CUDA tensors: (d_fm_w [Vw], d_fm_v [Vv, K],
@@ -229,6 +244,8 @@ def _library() -> ctypes.CDLL:
         lib.fused_ctr_forward.argtypes = [
             p, i64, p, i64, i32, p, i32, p, i32, i32, p, p, p, p]
         lib.fused_ctr_forward.restype = ctypes.c_int
+        lib.fused_ctr_forward_layout.argtypes = [p, i32, p, i32]
+        lib.fused_ctr_forward_layout.restype = ctypes.c_int
         lib.fused_ctr_backward.argtypes = [
             p, p, p, p, i64, p, i64, i32, p, i32, p, i32, i32, p, p, p, p]
         lib.fused_ctr_backward.restype = ctypes.c_int

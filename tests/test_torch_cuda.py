@@ -39,11 +39,7 @@ def _problem(device, v, pad, k, b, f, dtype, seed=0):
     return fm_w, fm_v, ids, vals
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("b,f,k", [(64, 39, 32), (1, 7, 8), (33, 70, 100), (5, 1, 1)])
-def test_fused_ctr_kernel_matches_plain(device, dtype, b, f, k):
-    fm_w, fm_v, ids, vals = _problem(device, 1000, 8, k, b, f, dtype)
+def _forward_matches_plain(fm_w, fm_v, ids, vals):
     before = fused_ctr.launches
     got = fused_ctr.fused_ctr_interaction(fm_w, fm_v, ids, vals)
     want = fused_ctr.fused_ctr_plain(fm_w, fm_v, ids, vals)
@@ -51,6 +47,56 @@ def test_fused_ctr_kernel_matches_plain(device, dtype, b, f, k):
     assert fused_ctr.launches == before + 1
     for a, w, name in zip(got, want, ("emb", "y_w", "y_v")):
         torch.testing.assert_close(a, w, rtol=TOL[name], atol=TOL[name])
+
+
+# Every layout of the forward: K a multiple of 4 whose float4 row fills 1-32
+# lanes (4, 8, 16, 32, 64, 128) or part of them (48, 100), and the scalar
+# layout (1, 7) with 1 or 8 lanes a field; F within one round, at a round's
+# edge (40 fields at K = 32), past it (70) and past the largest round (512
+# fields at K = 1).  B: on a 132-SM card the float4 layout takes 4 warps a
+# row (a row a block) up to 1,056 rows and 1 (4 rows a block) above; 1,101
+# and 33 are not multiples of 4 rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k", [1, 4, 7, 8, 16, 32, 48, 64, 100, 128])
+@pytest.mark.parametrize("f", [1, 39, 40, 70, 600])
+@pytest.mark.parametrize("b", [1, 33, 1101])
+def test_fused_ctr_kernel_matches_plain(device, dtype, b, f, k):
+    _forward_matches_plain(*_problem(device, 1000, 8, k, b, f, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,k", [(4096, 70, 100), (1101, 600, 128), (4096, 600, 1),
+                                   (33, 600, 32), (4096, 39, 32)])
+def test_fused_ctr_kernel_sums_hold_to_float64(device, b, f, k):
+    """y_w and y_v against the plain version run in float64, at widths
+    where a float32 sum's order shows (long rows of fields or wide rows),
+    within the same tolerances: the kernel's sums must stay as close to
+    the exact ones as its stated tolerance, whatever order it takes."""
+    fm_w, fm_v, ids, vals = _problem(device, 1000, 8, k, b, f, torch.int64)
+    got = fused_ctr.fused_ctr_interaction(fm_w, fm_v, ids, vals)
+    want = fused_ctr.fused_ctr_plain(fm_w.double(), fm_v.double(), ids, vals.double())
+    torch.cuda.synchronize()
+    for a, w, name in zip(got, want, ("emb", "y_w", "y_v")):
+        torch.testing.assert_close(a.double(), w, rtol=TOL[name], atol=TOL[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k", [4, 32, 128])
+def test_fused_ctr_kernel_misaligned_views(device, dtype, k):
+    """fm_v and vals as contiguous views that start 4 bytes past a 16-byte
+    boundary: the launch takes the scalar layout (a float4 load there
+    would fault) and gives the plain version's answer."""
+    fm_w, fm_v, ids, vals = _problem(device, 1000, 8, k, 33, 39, dtype)
+    assert fused_ctr.forward_layout(fm_v, 33).startswith("vector")
+    fm_v_off = torch.empty(fm_v.numel() + 1, device=device)[1:].view(fm_v.shape)
+    vals_off = torch.empty(vals.numel() + 1, device=device)[1:].view(vals.shape)
+    fm_v_off.copy_(fm_v)
+    vals_off.copy_(vals)
+    assert fm_v_off.is_contiguous() and fm_v_off.data_ptr() % 16 == 4
+    assert fused_ctr.forward_layout(fm_v_off, 33).startswith("scalar")
+    _forward_matches_plain(fm_w, fm_v_off, ids, vals_off)
 
 
 @pytest.mark.cuda

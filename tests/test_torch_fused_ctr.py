@@ -69,6 +69,22 @@ def test_matches_jax_kernel_and_oracle(batch):
     assert all(t.dtype == torch.float32 for t in got)
 
 
+@pytest.mark.parametrize("k", [4, 16, 32, 64, 128])
+@pytest.mark.parametrize("f", [39, 40])
+def test_matches_jax_at_kernel_layout_widths(k, f):
+    """The widths the CUDA kernel's float4 layout covers (a row on 1 to 32
+    lanes), at the flagship's 39 fields and at 40, with out-of-range and
+    negative ids."""
+    fm_w, fm_v, ids, vals = _problem(batch=13, v=300, f=f, k=k, seed=k + f)
+    ids[0, 0], ids[1, 1], ids[2, 2] = 10_000, -4, 299
+    got = _port(fm_w, fm_v, ids, vals)
+    clipped = np.clip(ids, 0, 299)
+    _assert_close(got, jax_fused(jnp.asarray(fm_w), jnp.asarray(fm_v),
+                                 jnp.asarray(clipped), jnp.asarray(vals), True))
+    _assert_close(got, _oracle(fm_w, fm_v, ids, vals))
+    assert tuple(got[0].shape) == (13, f, k)
+
+
 def test_heavy_duplicates():
     rng = np.random.default_rng(7)
     ids = (rng.zipf(1.3, size=(64, 11)) % 300).astype(np.int32)
