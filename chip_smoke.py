@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 8):
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 8):
 
 1. card     - the card's name and power limit, from nvidia-smi;
 2. build    - every kernel under deepfm_tpu_torch/csrc, built from source;
@@ -52,7 +52,21 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 8):
               64 users; the answers must agree with the same payload run
               through the plain B2 and plain B1 (near-ties counted), both
               kernels' launch counts must have risen; then the stage
-              times, latency and the device recall@32 against exact f32.
+              times, latency and the device recall@32 against exact f32;
+9. lazy     - the train task of phase 6 with lazy Adam on the tables
+              (optimizer.lazy_embedding_updates): losses finite and
+              falling, both kernels launched at least once per step; one
+              lazy step of the float32 model through the kernels and
+              through the plain versions from the same state (loss, the
+              touched rows' step, m and v agree; every untouched row of
+              the tables, m and v bit for bit as before); B1 and B1' on
+              the compact tables against their plain versions, with B1''s
+              time, bound and zero fill; the lazy step's device time and
+              split beside the dense step's;
+10. ddp     - data-parallel training at world size 1 over NCCL in this
+              process: steps through parallel/spmd.py and through the
+              single-card step from the same weights agree; the fused
+              all-reduce's time on the full-width gradient buffer.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -517,10 +531,7 @@ def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
     from deepfm_tpu_torch.serve.export import load_servable
     from deepfm_tpu_torch.train.step import predict_step
 
-    argv = ["--task_type", "train", "--training_data_dir", train_dir,
-            "--val_data_dir", val_dir, "--servable_model_dir", servable,
-            "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
-            "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}"]
+    argv = train_argv(train_dir, val_dir, servable, seed)
     print("train: python -m deepfm_tpu_torch " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
@@ -568,10 +579,10 @@ def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
     print(f"train: servable probabilities vs the trained model's predict step: "
           f"max abs diff {err}")
     decode_ms(train_dir)
-    for b in TRAIN_BATCHES:
-        step_breakdown(state, first_batch(train_dir, "train", b, "cuda"))
+    split = {b: step_breakdown(state, first_batch(train_dir, "train", b, "cuda"))
+             for b in TRAIN_BATCHES}
     return {"launches": launches, "backward_launches": backward_launches,
-            "steps": steps, "auc": ev["auc"]}
+            "steps": steps, "auc": ev["auc"], "breakdown": split}
 
 
 def decode_ms(train_dir: str, reps: int = 5) -> None:
@@ -594,10 +605,10 @@ def decode_ms(train_dir: str, reps: int = 5) -> None:
           f"over {reps} (host clock, no other thread running)")
 
 
-def step_breakdown(state, batch: dict, reps: int = 20) -> None:
+def step_breakdown(state, batch: dict, reps: int = 20) -> dict:
     """One train step with its batch already on the card: device time from
     CUDA events (median of single steps), and its split by kernel from
-    torch.profiler."""
+    torch.profiler.  Returns the printed numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -635,10 +646,326 @@ def step_breakdown(state, batch: dict, reps: int = 20) -> None:
         fail("torch.profiler saw no device time in the train steps")
     rows = batch["feat_ids"].clamp(0, state.model.cfg.feature_size - 1)
     multiplicity = int(torch.unique(rows, return_counts=True)[1].max())
-    print("train step breakdown B=%d %s" % (batch["label"].shape[0], json.dumps({
+    result = {"step_device_ms": step_ms, "kernel_busy_ms": busy_ms,
+              "max_row_multiplicity": multiplicity,
+              "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split}
+    print("train step breakdown B=%d %s" % (batch["label"].shape[0], json.dumps(result)))
+    return result
+
+
+def train_argv(train_dir: str, val_dir: str, servable: str, seed: int) -> list[str]:
+    return ["--task_type", "train", "--training_data_dir", train_dir,
+            "--val_data_dir", val_dir, "--servable_model_dir", servable,
+            "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+            "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}"]
+
+
+def phase_lazy(seed: int, train_dir: str, val_dir: str, servable: str,
+               dense: dict) -> dict:
+    """The train task at full width with lazy Adam on the tables: the
+    losses, both kernels launched every step, one lazy step through the
+    kernels against the plain versions, and the lazy step's device time
+    and split beside the dense step's (``dense``: the train phase's
+    breakdown at B=1,024)."""
+    from deepfm_tpu_torch.launch import cli
+    from deepfm_tpu_torch.ops import fused_ctr
+
+    argv = train_argv(train_dir, val_dir, servable, seed) + [
+        "--set", "optimizer.lazy_embedding_updates=true"]
+    print("lazy: python -m deepfm_tpu_torch " + " ".join(argv))
+    tee = _Tee(sys.stdout)
+    # the main path: counts from 0, then the train task, then read
+    fused_ctr.launches = fused_ctr.backward_launches = 0
+    with contextlib.redirect_stdout(tee):
+        state = cli.run(argv)
+    launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+    records = [json.loads(x) for x in tee.lines.getvalue().splitlines()
+               if x.startswith("{")]
+    train = [r for r in records if r["kind"] == "train"]
+    done = next(r for r in records if r["kind"] == "train_done")
+    ev = next(r for r in records if r["kind"] == "eval")
+    steps = done["steps"]
+    if state.lazy is None:
+        fail("lazy: the train task did not build the lazy state")
+    if not train or not all(np.isfinite(r["loss"]) and r["loss"] == r["ce"] for r in train):
+        fail(f"lazy: a logged loss is not finite or not the CE alone: {train}")
+    if not train[-1]["ce"] < train[0]["ce"]:
+        fail(f"lazy: the last window's ce {train[-1]['ce']} is not below the "
+             f"first's {train[0]['ce']}")
+    if launches < steps or backward_launches < steps:
+        fail(f"lazy: {steps} steps launched fused_ctr_forward {launches} and "
+             f"fused_ctr_backward {backward_launches} times")
+    print(f"lazy: {steps} steps; launches on the main path: fused_ctr_forward "
+          f"{launches} (= {steps} train + {launches - steps} eval), "
+          f"fused_ctr_backward {backward_launches}; ce {train[0]['ce']} -> "
+          f"{train[-1]['ce']}; eval auc {ev['auc']}; examples/s "
+          f"{done['examples_per_sec']}, input-wait share {done['input_wait_share']}")
+    lazy_parity(seed, train_dir)
+    batch = first_batch(train_dir, "train", TRAIN_BATCHES[0], "cuda")
+    compact = compact_kernels(state, batch, seed)
+    lazy_breakdown(state, batch, dense)
+    return {"launches": launches, "backward_launches": backward_launches,
+            "steps": steps, **compact}
+
+
+def compact_kernels(state, batch: dict, seed: int) -> dict:
+    """B1 and B1' at the shapes the lazy step gives them: the compact tables
+    fm_v[row_id] [B·F, K] and fm_w[row_id] [B·F], each lookup's segment as
+    its id.  Each against its plain version (the forward's tolerances, the
+    backward's TOL_GRAD_REL), then B1''s time (kernel alone, CUDA graph),
+    its plain version's, its bound and the compact zero fill's."""
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.ops.embedding import sort_segments
+
+    model = state.model
+    ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
+    b, f = ids.shape
+    k = model.fm_v.shape[1]
+    order, seg, row_id, valid = sort_segments(ids.reshape(-1).clamp(0, model.fm_w.shape[0] - 1))
+    slot = torch.empty_like(seg).scatter_(0, order, seg).to(torch.int32).view(b, f)
+    fm_w_c, fm_v_c = model.fm_w.detach()[row_id], model.fm_v.detach()[row_id]
+    got = fused_ctr.fused_ctr_interaction(fm_w_c, fm_v_c, slot, vals)
+    want = fused_ctr.fused_ctr_plain(fm_w_c, fm_v_c, slot, vals)
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    g_emb = torch.randn((b, f, k), generator=g, device="cuda")
+    g_yw = torch.randn((b,), generator=g, device="cuda")
+    g_yv = torch.randn((b,), generator=g, device="cuda")
+    got_b = fused_ctr.fused_ctr_backward(g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot, vals, False)
+    want_b = fused_ctr.fused_ctr_backward_plain(g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot,
+                                                vals, False)
+    torch.cuda.synchronize()
+    e = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    if not (e[0] <= TOL_EMB and e[1] <= TOL_YW_REL * (1.0 + float(want[1].abs().max()))
+            and e[2] <= TOL_YV_REL * (1.0 + float(want[2].abs().max()))):
+        fail(f"lazy: fused_ctr_forward on the compact tables disagrees with its plain "
+             f"version: max abs err emb {e[0]}, y_w {e[1]}, y_v {e[2]}")
+    eb = []
+    for name, a, w in zip(("d_fm_w", "d_fm_v"), got_b, want_b):
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        if not err <= TOL_GRAD_REL * scale:
+            fail(f"lazy: fused_ctr_backward on the compact tables: {name} max abs err "
+                 f"{err}, scale {scale}")
+        eb.append(err)
+    if got_b[1][~valid].any():
+        fail("lazy: fused_ctr_backward wrote into a padding segment")
+    lib = fused_ctr._library()
+    d_w, d_v = torch.zeros_like(fm_w_c), torch.zeros_like(fm_v_c)
+    ms, call_ms = time_ms(lambda: backward_kernel_only(
+        lib, g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot, vals, d_w, d_v, None))
+    plain_ms, _ = time_ms(lambda: fused_ctr.fused_ctr_backward_plain(
+        g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot, vals, False), reps=20)
+    fill_ms, _ = time_ms(lambda: (torch.zeros_like(fm_w_c), torch.zeros_like(fm_v_c)))
+    fwd_ms, _ = time_ms(lambda: fused_ctr.fused_ctr_interaction(fm_w_c, fm_v_c, slot, vals))
+    bound_ms, bound_by, detail = fused_ctr_backward_bound_ms(fm_w_c, fm_v_c, slot, b, f,
+                                                             False)
+    row = {"forward_max_abs_err": e, "backward_max_abs_err": eb,
+           "compact_rows": int(row_id.numel()), "distinct_rows": int(valid.sum()),
+           "forward_ms": fwd_ms, "backward_ms": ms, "backward_call_ms": call_ms,
+           "backward_plain_ms": plain_ms, "backward_bound_ms": bound_ms,
+           "backward_bound_by": bound_by, "zero_fill_ms": fill_ms,
+           "zero_fill_mb": (fm_w_c.numel() + fm_v_c.numel()) * 4 / 1e6, **detail}
+    print("lazy compact kernels B=%d %s" % (b, json.dumps(row)))
+    return {"forward_max_abs_err": max(e), "backward_max_abs_err": max(eb)}
+
+
+def _tables(state) -> dict:
+    return {"fm_w": state.model.fm_w, "fm_v": state.model.fm_v,
+            **{f"{s}.{k}": getattr(state.lazy, s)[k] for s in ("m", "v")
+               for k in ("fm_w", "fm_v")}}
+
+
+def lazy_parity(seed: int, train_dir: str) -> None:
+    """One lazy step of the full-width float32 model (dropout off) through
+    the kernels and through the plain versions (plain forward, autograd
+    backward), from the same state after one warm-up step: the loss within
+    TOL_LOSS_REL, fm_w, fm_v, m and v within TOL_GRAD_REL of each tensor's
+    largest magnitude (Adam turns a rounding difference in a near-zero
+    gradient into a step of up to lr, so a row is not held alone), and
+    every untouched row of each bit for bit as before the step."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.data.pipeline import batched_ctr_batches, discover_files, record_stream
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.train import step as step_mod
+
+    cfg = Config.from_dict({
+        "model": {"fused_kernel": "auto", "compute_dtype": "float32",
+                  "dropout_keep": (1.0, 1.0, 1.0)},
+        "optimizer": {"lazy_embedding_updates": True}, "run": {"seed": seed}})
+    files = discover_files(train_dir, ("train",), shuffle=False)
+    warm, batch = (
+        {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        for _, b in zip(range(2), batched_ctr_batches(record_stream(files),
+                                                      batch_size=1024, field_size=39)))
+    kernel = step_mod.create_train_state(cfg, "cuda")
+    step_mod.train_step(kernel, warm)
+    plain = step_mod.create_train_state(cfg, "cuda")
+    plain.model.load_state_dict(kernel.model.state_dict())
+    plain.step, plain.optimizer.count = kernel.step, kernel.optimizer.count
+    for name, slots in kernel.optimizer.slots.items():
+        for slot, t in slots.items():
+            plain.optimizer.slots[name][slot].copy_(t)
+    for key, t in _tables(kernel).items():
+        if "." in key:
+            _tables(plain)[key].copy_(t)
+    before = {k: t.detach().clone() for k, t in _tables(kernel).items()}
+    m_k = step_mod.train_step(kernel, batch)
+    saved = step_mod.fused_ctr_interaction
+    step_mod.fused_ctr_interaction = fused_ctr.fused_ctr_plain
+    try:
+        m_p = step_mod.train_step(plain, batch)
+    finally:
+        step_mod.fused_ctr_interaction = saved
+    torch.cuda.synchronize()
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    if not (np.isfinite(loss_k) and loss_err <= TOL_LOSS_REL):
+        fail(f"lazy: loss through the kernels {loss_k} vs plain {loss_p}")
+    touched = torch.zeros(before["fm_v"].shape[0], dtype=torch.bool, device="cuda")
+    touched[batch["feat_ids"].clamp(0, cfg.model.feature_size - 1).reshape(-1)] = True
+    untouched_rows = 0
+    for state in (kernel, plain):
+        for name, t in _tables(state).items():
+            rows = ~touched[:t.shape[0]]
+            if not torch.equal(t.detach()[rows].view(torch.int32),
+                               before[name][rows].view(torch.int32)):
+                fail(f"lazy: an untouched row of {name} changed")
+            untouched_rows = int(rows.sum())
+    errs = {}
+    for name, a in _tables(kernel).items():
+        a, w = a.detach(), _tables(plain)[name].detach()
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        if not err <= TOL_GRAD_REL * scale:
+            fail(f"lazy: {name} through the kernels vs plain: max abs err {err}, "
+                 f"scale {scale}")
+        errs[name] = err / scale if scale else err
+    print("lazy parity %s" % json.dumps({
+        "loss": loss_k, "loss_rel_err": loss_err, "rel_err": errs,
+        "touched_rows": int(touched.sum()), "untouched_rows_bit_equal": untouched_rows}))
+
+
+def lazy_breakdown(state, batch: dict, dense: dict, reps: int = 20) -> None:
+    """The lazy step with its batch on the card: device time (CUDA events,
+    median of single steps) and its split from torch.profiler: B1 and B1'
+    on the compact tables, the sort/segments/compact gathers, the row
+    update, the rest optimizer, and the MLP with the rest; beside the dense
+    step's at the same batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepfm_tpu_torch.train.step import train_step
+
+    for _ in range(3):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = _median_event_ms(lambda: train_step(state, batch), 1, reps)
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+    labels = {"train.lazy_segments": "sort_segments_gathers",
+              "train.lazy_rows": "row_update", "train.optimizer": "rest_optimizer"}
+    split = {"forward_kernel": 0.0, "backward_kernel": 0.0}
+    total = 0.0
+    for row in prof.key_averages():
+        if row.device_type != DeviceType.CUDA or row.key in labels:
+            continue
+        total += row.device_time_total
+        if "fused_ctr_forward_kernel" in row.key:
+            split["forward_kernel"] += row.device_time_total
+        elif "fused_ctr_backward_kernel" in row.key:
+            split["backward_kernel"] += row.device_time_total
+    for label, name in labels.items():
+        split[name] = sum(e.device_time_total for e in prof.events()
+                          if e.name == label and e.device_type == DeviceType.CPU)
+    split = {k: v / n / 1e3 for k, v in split.items()}
+    busy_ms = total / n / 1e3
+    if total == 0.0:
+        fail("torch.profiler saw no device time in the lazy steps")
+    split["mlp_fills_and_rest"] = busy_ms - sum(split.values())
+    print("lazy step breakdown B=%d %s" % (batch["label"].shape[0], json.dumps({
         "step_device_ms": step_ms, "kernel_busy_ms": busy_ms,
-        "max_row_multiplicity": multiplicity,
-        "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split})))
+        "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split,
+        "dense_step_device_ms": dense["step_device_ms"],
+        "dense_optimizer_ms": dense["split_ms"]["optimizer_update"],
+        "dense_backward_kernel_ms": dense["split_ms"]["backward_kernel"],
+        "dense_zero_fill_ms": dense["split_ms"]["zero_fill"]})))
+
+
+DDP_STEPS = 4
+
+
+def phase_ddp(seed: int, workdir: str) -> dict:
+    """Data-parallel training at world size 1 over NCCL, in this process:
+    DDP_STEPS steps of the full-width model through parallel/spmd.py's step
+    and the same through the single-card step, from the same weights, on
+    batches of distinct ids (B1' then adds no two terms into one row, so
+    both runs are deterministic): the parameters must agree within
+    TOL_GRAD_REL of their largest magnitude.  Then the fused all-reduce's
+    time on the full-width gradient buffer, and both steps' device time."""
+    import torch.distributed as dist
+
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.parallel.mesh import initialize_distributed
+    from deepfm_tpu_torch.train.step import create_train_state, train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(workdir, "store"), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        cfg = Config.from_dict({"model": {"fused_kernel": "auto"}, "run": {"seed": seed}})
+        ctx = initialize_distributed(cfg.mesh, "cuda")
+        if ctx.group is None or ctx.world_size != 1:
+            fail(f"ddp: expected a one-rank group, got {ctx}")
+        dp = spmd.create_dp_train_state(cfg, ctx)
+        one = create_train_state(cfg, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(seed + 5)
+        batches = []
+        for _ in range(DDP_STEPS):
+            ids = torch.randperm(cfg.model.feature_size, generator=g, device="cuda")
+            batches.append({
+                "feat_ids": ids[:1024 * 39].view(1024, 39),
+                "feat_vals": torch.rand((1024, 39), generator=g, device="cuda"),
+                "label": (torch.rand((1024,), generator=g, device="cuda") < 0.25).float()})
+        # the main path: counts from 0, then the data-parallel steps, then read
+        fused_ctr.launches = fused_ctr.backward_launches = 0
+        losses = [float(spmd.train_step(dp, b, ctx)["loss"]) for b in batches]
+        launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+        if launches < DDP_STEPS or backward_launches < DDP_STEPS:
+            fail(f"ddp: {DDP_STEPS} steps launched fused_ctr_forward {launches} and "
+                 f"fused_ctr_backward {backward_launches} times")
+        ref = [float(train_step(one, b)["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        errs = {}
+        for (name, a), w in zip(dp.model.state_dict().items(),
+                                one.model.state_dict().values()):
+            err, scale = float((a - w).abs().max()), float(w.abs().max())
+            if not err <= TOL_GRAD_REL * scale:
+                fail(f"ddp: {name} after {DDP_STEPS} steps: max abs err {err}, "
+                     f"scale {scale}")
+            errs[name] = err / scale if scale else err
+        if not all(np.isfinite(losses)):
+            fail(f"ddp: losses {losses}")
+        grads = sum(p.numel() for p in dp.model.parameters())
+        flat = torch.zeros(grads + 6, device="cuda")
+        for _ in range(3):
+            dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        allreduce_ms = _median_event_ms(lambda: dist.all_reduce(flat), 1, 20)
+        dp_ms = _median_event_ms(lambda: spmd.train_step(dp, batches[0], ctx), 1, 10)
+        one_ms = _median_event_ms(lambda: train_step(one, batches[0]), 1, 10)
+        print("ddp %s" % json.dumps({
+            "world_size": ctx.world_size, "backend": dist.get_backend(), "steps": DDP_STEPS,
+            "losses": losses, "single_card_losses": ref, "max_rel_err": max(errs.values()),
+            "allreduce_buffer_mb": flat.numel() * 4 / 1e6, "allreduce_ms": allreduce_ms,
+            "dp_step_ms": dp_ms, "single_step_ms": one_ms,
+            "launches": {"fused_ctr_forward": launches,
+                         "fused_ctr_backward": backward_launches}}))
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches, "backward_launches": backward_launches}
 
 
 def b2_corpus(rows: int, seed: int, ties_and_pads: bool = False, dim: int = B2_DIM,
@@ -1280,6 +1607,10 @@ def main(argv: list[str] | None = None) -> int:
         phase_parity(args.seed, train_dir)
         train = phase_train(args.seed, train_dir, val_dir,
                             os.path.join(workdir, "trained_servable"))
+        lazy = phase_lazy(args.seed, train_dir, val_dir,
+                          os.path.join(workdir, "lazy_servable"),
+                          train["breakdown"][TRAIN_BATCHES[0]])
+        ddp = phase_ddp(args.seed, workdir)
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
@@ -1291,8 +1622,9 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
-        "launches": serve["launches"] + train["launches"] + funnel["forward_launches"],
-        "max_abs_err": kernel["max_abs_err"],
+        "launches": (serve["launches"] + train["launches"] + lazy["launches"]
+                     + ddp["launches"] + funnel["forward_launches"]),
+        "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -1303,8 +1635,9 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:317",
-        "launches": train["backward_launches"],
-        "max_abs_err": backward["max_abs_err"],
+        "launches": (train["backward_launches"] + lazy["backward_launches"]
+                     + ddp["backward_launches"]),
+        "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

@@ -7,6 +7,8 @@ find.  The package imports ``torch`` and never ``jax``, and nothing from
 as its own trimmed copy.
 
     python -m deepfm_tpu_torch --task_type train ...     (launch/cli.py)
+    python -m torch.distributed.run --nproc_per_node N -m deepfm_tpu_torch ...
+        (data parallel, one rank a card: parallel/)
     python -m deepfm_tpu_torch.serve.server --servable DIR   (:predict, or
         /v1/recommend for a recommendation funnel servable, funnel/)
 

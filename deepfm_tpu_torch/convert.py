@@ -17,8 +17,10 @@ tensor is checked against the shape the config implies.
 
 ``train_state_from_jax`` also carries the step and the optax Adam state
 (``ScaleByAdamState`` count/mu/nu, found inside the optimizer's chain
-tuples).  The dropout PRNG key does not carry: the port draws from its own
-``torch.Generator``.
+tuples), or, with lazy embedding updates, the ``(rest_opt,
+LazyAdamState)`` pair: the Adam state of the non-table parameters and the
+tables' m and v.  The dropout PRNG key does not carry: the port draws from
+its own ``torch.Generator``.
 
 ``two_tower_params_from_jax`` takes the two-tower pytree
 (``{"user_embedding", "item_embedding", "{user,item}_tower": {"layer_<i>":
@@ -91,16 +93,17 @@ def _two_tower_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 
 def _flat_params(params: Mapping, cfg: ModelConfig) -> dict:
     """The trainable leaves of a params-shaped pytree (parameters, or an
-    optimizer moment of them) by ``state_dict`` key."""
-    flat = {"fm_b": params["fm_b"], "fm_w": params["fm_w"],
-            "fm_v": params["fm_v"]}
-    mlp = params["mlp"]
-    for i in range(len(cfg.deep_layers)):
+    optimizer moment of them, whose tree may hold the tables alone or lack
+    them: the lazy path's two states) by ``state_dict`` key."""
+    flat = {k: params[k] for k in ("fm_b", "fm_w", "fm_v") if k in params}
+    if "mlp" in params:
+        mlp = params["mlp"]
+        for i in range(len(cfg.deep_layers)):
+            for leaf in ("kernel", "bias"):
+                flat[f"mlp.layer_{i}.{leaf}"] = mlp[f"layer_{i}"][leaf]
         for leaf in ("kernel", "bias"):
-            flat[f"mlp.layer_{i}.{leaf}"] = mlp[f"layer_{i}"][leaf]
-    for leaf in ("kernel", "bias"):
-        flat[f"mlp.out.{leaf}"] = mlp["out"][leaf]
-    if cfg.batch_norm:
+            flat[f"mlp.out.{leaf}"] = mlp["out"][leaf]
+    if cfg.batch_norm and "bn" in params:
         for i in range(len(cfg.deep_layers)):
             p = params["bn"][f"layer_{i}"]
             flat[f"bn.layer_{i}.scale"] = _field(p, "scale", 0)
@@ -206,15 +209,19 @@ def _find_adam_state(tree):
 def train_state_from_jax(state, cfg: Config, device=None):
     """The port's ``TrainState`` (train/step.py) on ``device`` (default:
     the card) from a JAX ``TrainState`` as numpy (a NamedTuple or a dict of
-    step, params, model_state, opt_state): weights, BN statistics, step and
-    the Adam moments and count.  Every tensor is shape-checked as in
-    :func:`params_from_jax`.  Only Adam state converts so far."""
+    step, params, model_state, opt_state): weights, BN statistics, step,
+    the Adam moments and count, and with lazy embedding updates the
+    ``(rest_opt, LazyAdamState)`` pair's.  Every tensor is shape-checked as
+    in :func:`params_from_jax`.  Only Adam state converts so far."""
     if cfg.optimizer.name.lower() != "adam":
         raise ValueError(
             f"train_state_from_jax converts Adam state only, not "
             f"{cfg.optimizer.name!r}"
         )
-    adam = _find_adam_state(_field(state, "opt_state", 3))
+    opt_state = _field(state, "opt_state", 3)
+    if cfg.optimizer.lazy_embedding_updates:
+        opt_state, lazy = opt_state
+    adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the opt_state")
     out = create_train_state(cfg, device)
@@ -223,8 +230,21 @@ def train_state_from_jax(state, cfg: Config, device=None):
     out.step = int(np.asarray(_field(state, "step", 0)))
     out.optimizer.count = int(np.asarray(_field(adam, "count", 0)))
     for slot, index in (("mu", 1), ("nu", 2)):
-        moments = _checked(_flat_params(_field(adam, slot, index), cfg.model),
-                           cfg.model, f"opt_state {slot} ")
-        for name, t in moments.items():
-            out.optimizer.slots[name][slot].copy_(t)
+        _copy_into({n: s[slot] for n, s in out.optimizer.slots.items()},
+                   _field(adam, slot, index), cfg.model, f"opt_state {slot} ")
+    if out.lazy is not None:
+        for slot, index in (("m", 0), ("v", 1)):
+            _copy_into(getattr(out.lazy, slot), _field(lazy, slot, index), cfg.model,
+                       f"lazy opt_state {slot} ")
     return out
+
+
+def _copy_into(dst: dict, tree: Mapping, cfg: ModelConfig, what: str) -> None:
+    """Copy a params-shaped pytree into the tensors ``dst`` (by
+    ``state_dict`` key), which must name exactly the tree's leaves."""
+    moments = _checked(_flat_params(tree, cfg), cfg, what)
+    if moments.keys() != dst.keys():
+        raise ValueError(f"{what}holds {sorted(moments)}, the port's state "
+                         f"{sorted(dst)}")
+    for name, t in moments.items():
+        dst[name].copy_(t)

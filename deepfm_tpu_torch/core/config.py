@@ -1,26 +1,46 @@
 """Configuration for the port: the sections of ``deepfm_tpu``'s ``Config``
-that single-card training and serving read, with their validation.
+that training (on one card or data parallel) and serving read, with their
+validation.
 
 * ``ModelConfig`` - the DeepFM hyperparameters, train-time fields included
   (dropout keep probabilities, batch-norm decay, table L2), and the
   two-tower fields (vocabularies, field counts, tower widths);
 * ``OptimizerConfig`` - every field of the JAX section but ``zero_sharding``
-  (ZeRO waits for data-parallel training, ROADMAP A9);
-* ``DataConfig`` - what file mode on one worker reads;
+  (ZeRO waits for sharded tables, ROADMAP A9), lazy Adam included;
+* ``DataConfig`` - what file mode reads, on one process or on each rank of
+  a data-parallel run;
+* ``MeshConfig`` - the JAX mesh section, as far as data parallelism over
+  ``torch.distributed`` honours it;
 * ``RunConfig`` - task type, paths, logging cadence and seed;
-* ``Config`` - the four sections, read from and written to the JAX
+* ``Config`` - the five sections, read from and written to the JAX
   ``config.json`` schema (one dict per section).
 
-``Config.from_dict`` and ``load_config`` drop every section and field this
-copy does not carry, so configs and servables written by either package
-load here.  ``load_config`` returns the ``model`` section only, which is
-all a servable needs.
+Reading a JAX config (``Config.from_dict``, ``ModelConfig.from_dict`` and
+so ``load_config``) goes field by field.  A field this copy carries loads.
+A JAX field it does not carry is looked up in ``JAX_ONLY_FIELDS``, the
+port's literal copy of those fields' JAX defaults (the port cannot import
+the JAX dataclasses; a tier-1 test holds the copy against them):
+
+* at its JAX default it loads (and is dropped);
+* at another value it raises, naming the field and the ROADMAP item that
+  ports it, where that value would change what a one-card or
+  data-parallel job computes (``permute_ids``, ``stream_mode``,
+  ``tiered_embeddings``, ...);
+* it loads at any value where it cannot change the result (serving,
+  fleet, checkpoint cadence, ZeRO at one model shard, ...).
+
+A field neither side knows is dropped with a warning, as the JAX reader
+does, so configs and servables written by either package load here.
+``load_config`` returns the ``model`` section only, which is all a
+servable needs.  ``--set`` overrides go through ``with_overrides``, which
+rejects any field this copy does not carry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -53,11 +73,184 @@ def _parse_float_list(s: str | float | Sequence[float]) -> tuple[float, ...]:
     return tuple(float(x) for x in s)
 
 
-def _known_fields(cls, d: dict) -> dict:
-    """The entries of ``d`` that name a field of ``cls``, lists as tuples."""
-    names = {f.name for f in dataclasses.fields(cls)}
-    return {k: tuple(v) if isinstance(v, list) else v
-            for k, v in d.items() if k in names}
+def _tuples(v: Any) -> Any:
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+# Why a JAX field that changes a job's result raises, by ROADMAP item
+_A6 = "not ported yet (ROADMAP A6, the input pipeline's other modes)"
+_A7 = ("the launcher's LOCAL_WORLD_SIZE gives the workers a host "
+       "(ROADMAP A7, python -m torch.distributed.run)")
+_A9 = "not ported yet (ROADMAP A9, sharded tables)"
+
+# Every field of the JAX schema that this copy does not carry, with its JAX
+# default (deepfm_tpu/core/config.py) and, where a value other than the
+# default changes what a one-card or data-parallel job computes, the ROADMAP
+# item that ports it; None marks a field that cannot change the result.
+JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
+    "model": {
+        # read by xdeepfm/dcnv2 only (not ported: get_model raises)
+        "cin_layers": ((128, 128), None),
+        "cross_layers": (3, None),
+        # the table gradient's form and the sharded exchange: same sums
+        "table_grad": ("scatter", None),
+        "shard_exchange": ("auto", None),
+        "shard_exchange_capacity": (0.0, None),
+        "tiered_embeddings": (False, "not ported yet (ROADMAP A11, tiered store)"),
+        # read only with tiered_embeddings on
+        "tiered_hot_slots": (0, None),
+        "tiered_stage_rows": (0, None),
+        "tiered_host_rows": (0, None),
+        "tiered_page_rows": (1024, None),
+        "tiered_cold_url": ("", None),
+    },
+    "optimizer": {
+        # bit-identical to the replicated update at one model shard
+        "zero_sharding": ("auto", None),
+    },
+    "data": {
+        "test_data_dir": ("", _A6),
+        "shuffle_buffer": (0, _A6),
+        "stream_mode": (False, _A6),
+        "multi_path": (False, _A6),
+        # stream-mode channels; file mode reads the directories
+        "training_channel_name": ("training", None),
+        "evaluation_channel_name": ("evaluation", None),
+        "eval_max_batches": (0, _A6),
+        # the native reader's threads: same batches in the same order
+        "parallel_readers": (4, None),
+        "permute_ids": (False, _A6),
+    },
+    "run": {
+        "clear_existing_model": (False, None),
+        "hosts": (("localhost",), None),
+        "current_host": ("localhost", None),
+        # the JAX process's shard count per host; here LOCAL_WORLD_SIZE
+        "workers_per_host": (1, _A7),
+        "steps_per_loop": (1, None),
+        "eval_start_delay_secs": (0, None),
+        "eval_throttle_secs": (0, None),
+        # the port does not checkpoint yet (ROADMAP A6)
+        "checkpoint_every_steps": (1000, None),
+        "keep_checkpoints": (3, None),
+        "profile_dir": ("", None),
+        "serve_port": (8501, None),
+        "serve_host": ("127.0.0.1", None),
+        "serve_item_corpus": ("", None),
+        "serve_workers": (1, None),
+        "serve_buckets": ("8,32,128,512", None),
+        "serve_max_wait_ms": (2.0, None),
+        "serve_reload_url": ("", None),
+        "serve_reload_interval_secs": (2.0, None),
+        "serve_groups": (0, None),
+        "serve_group_data_parallel": (1, None),
+        "serve_group_model_parallel": (0, None),
+        "serve_router_port": (8500, None),
+        "serve_retry_limit": (2, None),
+        "serve_health_interval_secs": (1.0, None),
+        "serve_eject_after": (2, None),
+        "funnel_top_k": (0, None),
+        "funnel_return_n": (0, None),
+        "funnel_retrieval": ("exact", None),
+        "funnel_oversample": (4, None),
+        "funnel_min_recall": (0.95, None),
+        "funnel_pallas": ("auto", None),
+        # the online tasks raise (ROADMAP A10)
+        "online_publish_every_steps": (100, None),
+        "online_max_batches": (0, None),
+        "online_idle_timeout_secs": (0.0, None),
+        "max_restarts": (0, None),
+        "restart_backoff_secs": (5.0, None),
+    },
+    "elastic": {
+        "enabled": (False, "not ported yet (ROADMAP A15, elastic training)"),
+        # read only with elastic training on
+        "prefer_model_parallel": (0, None),
+        "min_devices": (1, None),
+        "poll_interval_secs": (0.25, None),
+        "wait_for_capacity_secs": (0.0, None),
+        "drain_commit": (True, None),
+        "coordinator_url": ("", None),
+        "lease_ttl_secs": (10.0, None),
+        "heartbeat_interval_secs": (1.0, None),
+        "registry_debounce_polls": (2, None),
+        "publisher_split": (False, None),
+        "publish_poll_secs": (0.5, None),
+    },
+    # serving fleets, SLOs, the feedback flywheel and regions: none of them
+    # changes what training computes
+    "fleet": {
+        "tenants": ((), None),
+        "shadow_sample_percent": (100.0, None),
+        "shadow_queue_depth": (128, None),
+    },
+    "slo": {
+        "deadline_ms": (0.0, None),
+        "hedge_after_pct": (95.0, None),
+        "hedge_budget_pct": (5.0, None),
+        "retry_budget_pct": (10.0, None),
+        "shed_shadow_util": (0.6, None),
+        "degrade_util": (0.75, None),
+        "shed_predict_util": (0.9, None),
+        "degrade_floor_pct": (50.0, None),
+        "min_groups": (1, None),
+        "max_groups": (4, None),
+        "scale_up_util": (0.75, None),
+        "scale_down_util": (0.25, None),
+        "scale_up_window_secs": (5.0, None),
+        "scale_down_window_secs": (30.0, None),
+        "cooldown_secs": (10.0, None),
+    },
+    "flywheel": {
+        "enabled": (False, None),
+        "impression_log_url": ("", None),
+        "click_log_url": ("", None),
+        "join_output_url": ("", None),
+        "sample_rate": (1.0, None),
+        "attribution_window_secs": (1800.0, None),
+        "segment_roll_bytes": (1048576, None),
+        "segment_roll_age_secs": (10.0, None),
+        "join_checkpoint_every_segments": (8, None),
+        "queue_depth": (1024, None),
+    },
+    "regions": {
+        "enabled": (False, None),
+        "regions": ((), None),
+        "home_root": ("", None),
+        "front_host": ("127.0.0.1", None),
+        "front_port": (8400, None),
+        "replication_poll_secs": (1.0, None),
+        "probe_interval_secs": (1.0, None),
+        "eject_after": (2, None),
+        "max_version_skew": (2, None),
+        "readmit_version_skew": (0, None),
+        "failover_budget_pct": (10.0, None),
+        "publish_keep_window": (0, None),
+    },
+}
+
+
+def _known_fields(cls, d: dict, section: str) -> dict:
+    """The entries of ``d`` that name a field of ``cls``, lists as tuples.
+    Every other entry is checked against ``JAX_ONLY_FIELDS[section]``: a
+    value that would change the result raises, the rest are dropped."""
+    names = {f.name for f in dataclasses.fields(cls)} if cls else set()
+    jax_only = JAX_ONLY_FIELDS.get(section, {})
+    out = {}
+    for k, v in d.items():
+        if k in names:
+            out[k] = tuple(v) if isinstance(v, list) else v
+        elif k in jax_only:
+            default, item = jax_only[k]
+            if item is not None and _tuples(v) != default:
+                raise ValueError(
+                    f"{section}.{k}={v!r}: {item}; the port runs only "
+                    f"{section}.{k}={default!r}"
+                )
+        else:
+            logging.getLogger(__name__).warning(
+                "config: ignoring unknown field %s.%s", section, k)
+    return out
 
 
 @dataclass(frozen=True)
@@ -129,7 +322,7 @@ class ModelConfig:
     def from_dict(cls, d: dict) -> "ModelConfig":
         """Build from a ``model`` section, dropping fields this copy does
         not carry (the JAX schema has many more)."""
-        return cls(**_known_fields(cls, d))
+        return cls(**_known_fields(cls, d, "model"))
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -154,7 +347,8 @@ class OptimizerConfig:
     # fm_w/fm_v updates are scaled by this (an exact lr split for Adam,
     # Adagrad and Momentum; Ftrl rejects it)
     embedding_lr_multiplier: float = 1.0
-    # touched-rows-only Adam for the tables: not ported yet (ROADMAP A5)
+    # touched-rows-only Adam for fm_w/fm_v (train/lazy.py); Adam only, one
+    # process only (the lazy data-parallel step is ROADMAP A9)
     lazy_embedding_updates: bool = False
     adam_b1: float = 0.9
     adam_b2: float = 0.999
@@ -171,16 +365,16 @@ class OptimizerConfig:
             raise ValueError(
                 f"unknown lr_schedule {self.lr_schedule!r} (constant|cosine|linear)"
             )
-        if self.lazy_embedding_updates:
-            raise ValueError(
-                "optimizer.lazy_embedding_updates is not ported yet "
-                "(ROADMAP A5); the port trains with dense updates"
-            )
 
 
 @dataclass(frozen=True)
 class DataConfig:
-    """File-mode input on one worker (data/pipeline.py)."""
+    """File-mode input (data/pipeline.py).  ``batch_size`` is per process,
+    as in the JAX package (one process a host) and in Horovod (one process
+    a GPU): a data-parallel run of N ranks takes N x ``batch_size`` records
+    a step.  Each rank reads the records that ``data/sharding.py
+    shard_plan`` gives it, round-robin (record i to shard i % n); with
+    ``s3_shard`` the files are taken as already split per host."""
 
     training_data_dir: str = ""
     val_data_dir: str = ""
@@ -191,6 +385,7 @@ class DataConfig:
     # host batches decoded ahead of the train loop by a reader thread
     prefetch_batches: int = 2
     file_patterns: tuple[str, ...] = ("tr", "train")
+    s3_shard: bool = False            # the files are pre-sharded per host
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -198,8 +393,46 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The JAX mesh section, as data-parallel training over
+    ``torch.distributed`` honours it (parallel/mesh.py).  The launcher's
+    environment (``python -m torch.distributed.run``: ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) gives the
+    topology, so ``data_parallel`` is -1 or 0 (every rank) or the world
+    size, checked when the process group starts, and the ``jax.distributed``
+    wiring must stay at its defaults.  Row-sharded tables
+    (``model_parallel > 1``) are ROADMAP A9."""
+
+    data_parallel: int = -1
+    model_parallel: int = 1
+    coordinator_address: str = ""
+    num_processes: int = 1
+    process_id: int = 0
+
+    def __post_init__(self):
+        if self.model_parallel > 1:
+            raise ValueError(
+                f"mesh.model_parallel={self.model_parallel}: {_A9}; the port "
+                f"replicates the tables on every rank"
+            )
+        for name, default in (("coordinator_address", ""), ("num_processes", 1),
+                              ("process_id", 0)):
+            if getattr(self, name) != default:
+                raise ValueError(
+                    f"mesh.{name}={getattr(self, name)!r}: the port takes "
+                    f"the topology from the launcher's environment "
+                    f"(python -m torch.distributed.run), not from "
+                    f"jax.distributed's wiring"
+                )
+
+
+@dataclass(frozen=True)
 class RunConfig:
-    """Task dispatch, paths, logging cadence and seed."""
+    """Task dispatch, paths, logging cadence and seed.  The port does not
+    checkpoint yet (ROADMAP A6), so the JAX section's checkpoint cadence,
+    retention and ``clear_existing_model`` load and are not read; so do
+    ``steps_per_loop``, ``hosts``, ``current_host``, ``profile_dir`` and the
+    serving fields (``JAX_ONLY_FIELDS``)."""
 
     task_type: str = "train"
     model_dir: str = "./model_dir"
@@ -213,6 +446,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     run: RunConfig = field(default_factory=RunConfig)
 
     def with_overrides(self, **sections: dict[str, Any]) -> "Config":
@@ -234,13 +468,18 @@ class Config:
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
-        """Build from the ``config.json`` schema, dropping sections and
-        fields this copy does not carry."""
-        return cls(**{
-            f.name: f.default_factory(**_known_fields(f.default_factory,
-                                                      d.get(f.name, {})))
-            for f in dataclasses.fields(cls)
-        })
+        """Build from the ``config.json`` schema.  A JAX field this copy
+        does not carry raises where its value would change the result, and
+        is dropped otherwise (``JAX_ONLY_FIELDS``)."""
+        sections = {f.name: f.default_factory for f in dataclasses.fields(cls)}
+        for name in d.keys() - sections.keys():
+            if name in JAX_ONLY_FIELDS:
+                _known_fields(None, d[name], name)
+            else:
+                logging.getLogger(__name__).warning(
+                    "config: ignoring unknown section %s", name)
+        return cls(**{name: make(**_known_fields(make, d.get(name, {}), name))
+                      for name, make in sections.items()})
 
     @classmethod
     def from_json(cls, path: str | os.PathLike) -> "Config":

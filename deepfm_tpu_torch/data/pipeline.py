@@ -1,17 +1,20 @@
-"""Host input pipeline, file mode on one worker: a trimmed copy of
+"""Host input pipeline, file mode: a trimmed copy of
 ``deepfm_tpu/data/pipeline.py``.
 
 ``make_input_pipeline`` globs ``<pattern>*.tfrecords`` under the training
 directory, shuffles the FILE list with a seeded RNG (the reference shuffles
-no records), streams the records (``record_stream``), batches them and
-decodes each whole batch (``batched_ctr_batches``), epoch after epoch.
-``eval_batches`` reads ``va*``/``val*``/``eval*`` files in order and keeps
+no records; every rank draws the same order), streams the records
+(``record_stream``) with round-robin record sharding (record i to shard
+i % n, ``dataset.shard`` semantics: data/sharding.py's ``shard_plan`` for
+the worker's topology), batches them and decodes each whole batch
+(``batched_ctr_batches``), epoch after epoch.  ``eval_batches`` reads
+``va*``/``val*``/``eval*`` files in order, sharded the same way, and keeps
 the tail batch.  ``Prefetcher`` runs any batch iterator ahead on a reader
 thread.
 
 Not ported yet (ROADMAP A6): the native C++ reader (host code), object-store
-URLs, FIFO stream mode, record-level shuffling, sharding across workers and
-the resume skip.
+URLs, FIFO stream mode, record-level shuffling, id permutation and the
+resume skip.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Iterable, Iterator
 
 from ..core.config import DataConfig
 from .example_proto import decode_ctr_batch
+from .sharding import ShardDecision, WorkerTopology, shard_plan
 from .tfrecord import read_records
 
 EVAL_PATTERNS = ("va", "val", "eval")
@@ -48,11 +52,20 @@ def discover_files(
 
 
 def record_stream(sources: Iterable[str | os.PathLike], *,
+                  decision: ShardDecision | None = None,
                   verify_crc: bool = False) -> Iterator[bytes]:
-    """The records of every source file, in order.  CRCs are checked only
-    when asked: in pure Python they would cost more than the decode."""
+    """The records of every source file, in order, record i kept when
+    ``i % decision.num_shards == decision.shard_index`` (all of them
+    without a decision).  CRCs are checked only when asked: in pure Python
+    they would cost more than the decode."""
+    n = decision.num_shards if decision else 1
+    mine = decision.shard_index if decision else 0
+    idx = 0
     for src in sources:
-        yield from read_records(src, verify=verify_crc)
+        for rec in read_records(src, verify=verify_crc):
+            if idx % n == mine:
+                yield rec
+            idx += 1
 
 
 def batched_ctr_batches(
@@ -79,12 +92,15 @@ def _decode(buf: list[bytes], field_size: int) -> dict:
 
 
 def make_input_pipeline(
-    cfg: DataConfig, *, field_size: int, data_dir: str | None = None,
-    num_epochs: int | None = None, seed: int = 0,
+    cfg: DataConfig, topo: WorkerTopology | None = None, *, field_size: int,
+    data_dir: str | None = None, num_epochs: int | None = None, seed: int = 0,
 ) -> Iterator[dict]:
-    """Training batches: ``num_epochs`` (default ``cfg.num_epochs``) passes
-    over the files of ``data_dir`` (default ``cfg.training_data_dir``) in
-    one seeded order."""
+    """Training batches of this worker's shard (``topo``; None is one
+    worker): ``num_epochs`` (default ``cfg.num_epochs``) passes over the
+    files of ``data_dir`` (default ``cfg.training_data_dir``) in one seeded
+    order."""
+    decision = None if topo is None else shard_plan(
+        topo, stream_mode=False, pre_sharded=cfg.s3_shard)
     base_dir = data_dir if data_dir is not None else cfg.training_data_dir
     files = discover_files(base_dir, cfg.file_patterns, shuffle=cfg.shuffle_files,
                            seed=seed)
@@ -95,21 +111,25 @@ def make_input_pipeline(
     epochs = cfg.num_epochs if num_epochs is None else num_epochs
     for _ in range(max(1, epochs)):
         yield from batched_ctr_batches(
-            record_stream(files), batch_size=cfg.batch_size, field_size=field_size,
-            drop_remainder=cfg.drop_remainder)
+            record_stream(files, decision=decision), batch_size=cfg.batch_size,
+            field_size=field_size, drop_remainder=cfg.drop_remainder)
 
 
-def eval_batches(cfg: DataConfig, *, field_size: int,
-                 data_dir: str | None = None) -> Iterator[dict]:
-    """Every record of the ``va*``/``val*``/``eval*`` files under
-    ``data_dir`` (default ``cfg.val_data_dir``) once, in file order, the
-    tail batch kept."""
+def eval_batches(cfg: DataConfig, topo: WorkerTopology | None = None, *,
+                 field_size: int, data_dir: str | None = None) -> Iterator[dict]:
+    """The ``va*``/``val*``/``eval*`` records under ``data_dir`` (default
+    ``cfg.val_data_dir``) of this worker's shard (``topo``; None is one
+    worker, which reads every record), once, in file order, the tail batch
+    kept.  Across the workers every record is read once."""
     base = data_dir if data_dir is not None else cfg.val_data_dir
     files = discover_files(base, EVAL_PATTERNS, shuffle=False)
     if not files:
         raise FileNotFoundError(f"no va*/val*/eval* tfrecords under {base!r}")
-    return batched_ctr_batches(record_stream(files), batch_size=cfg.batch_size,
-                               field_size=field_size, drop_remainder=False)
+    decision = None if topo is None else shard_plan(
+        topo, stream_mode=False, pre_sharded=cfg.s3_shard)
+    return batched_ctr_batches(record_stream(files, decision=decision),
+                               batch_size=cfg.batch_size, field_size=field_size,
+                               drop_remainder=False)
 
 
 class Prefetcher:

@@ -9,6 +9,14 @@ A JSON config (the ``config.json`` schema), then the first-class flags and
 (``--device cpu`` runs the kernels' plain versions on the CPU).  The flags
 keep the JAX CLI's names for what the port supports.  Only ``train`` is
 ported: every other task type raises, naming its ROADMAP item.
+
+``--set optimizer.lazy_embedding_updates=true`` trains the tables with lazy
+Adam (train/lazy.py).  Under the launcher the same command trains data
+parallel, one rank a card (NCCL), or one rank a process with
+``--device cpu`` (gloo); ``data.batch_size`` is per rank:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m deepfm_tpu_torch --task_type train ...
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Streaming AUC: counterpart of ``deepfm_tpu/ops/auc.py``.
 
 * the bucketed streaming AUC (``auc_init`` / ``auc_update`` / ``auc_merge``
-  / ``auc_value`` over an ``AUCState``), semantics of
+  / ``auc_value`` over an ``AUCState``, and ``auc_all_reduce``, the merge
+  across the ranks of a process group), semantics of
   ``tf.metrics.auc(num_thresholds=200)``: a fixed threshold grid with
   ±ε end thresholds, accumulated confusion counts, trapezoid ROC
   integration.  The counts stay on the predictions' device, so an eval
@@ -69,6 +70,24 @@ def auc_update(
 def auc_merge(a: AUCState, b: AUCState) -> AUCState:
     """Merge two states (the counts add)."""
     return AUCState(a.counts + b.counts)
+
+
+def auc_all_reduce(state: AUCState, *sums: float | torch.Tensor,
+                   group=None) -> tuple[AUCState, list[float]]:
+    """``auc_merge`` across the ranks of ``group``: one ``all_reduce`` (sum)
+    of the counts, with the caller's own ``sums`` (e.g. an eval's loss sum
+    and example count) riding in the same buffer.  Returns the merged state
+    and the summed ``sums`` as floats.  The counts are whole numbers in
+    float32, so the merge is exact below 2**24 examples a threshold."""
+    import torch.distributed as dist
+
+    dev = state.counts.device
+    extra = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev)
+                         for x in sums]) if sums else state.counts.new_zeros(0)
+    flat = torch.cat([state.counts.reshape(-1), extra])
+    dist.all_reduce(flat, group=group)
+    n = state.counts.numel()
+    return AUCState(flat[:n].view_as(state.counts)), flat[n:].tolist()
 
 
 def auc_value(state: AUCState) -> torch.Tensor:

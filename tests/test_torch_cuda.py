@@ -254,6 +254,159 @@ def test_train_step_through_kernels_matches_plain(device, batch_norm):
 
 
 # ---------------------------------------------------------------------------
+# the lazy step's compact tables and the data-parallel step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 1024])
+def test_fused_ctr_kernels_on_compact_tables(device, b):
+    """B1 and B1' on the lazy step's compact tables: fm_v[row_id] [N, K] and
+    fm_w[row_id] [N] with each lookup's segment as its id.  Forward and
+    backward against the plain versions; the compact gradients are the
+    full-table gradients of the distinct rows, and zero on the padding
+    segments."""
+    from deepfm_tpu_torch.ops.embedding import sort_segments
+
+    v, f, k = 117_581, 39, 32
+    fm_w, fm_v, _, vals = _problem(device, v, 3, k, b, f, torch.int64)
+    g = torch.Generator(device=device).manual_seed(5)
+    ids = torch.where(torch.rand((b, f), generator=g, device=device) < 0.5,
+                      torch.randint(0, 50, (b, f), generator=g, device=device),
+                      torch.randint(0, v, (b, f), generator=g, device=device))
+    ids[:, :13] = torch.arange(1, 14, device=device)
+    order, seg, row_id, valid = sort_segments(ids.reshape(-1))
+    slot = torch.empty_like(seg).scatter_(0, order, seg).to(torch.int32).view(b, f)
+    fm_w_c, fm_v_c = fm_w[row_id], fm_v[row_id]
+    _forward_matches_plain(fm_w_c, fm_v_c, slot, vals)
+    g_emb, g_yw, g_yv = _cotangents(device, b, f, k)
+    got = fused_ctr.fused_ctr_backward(g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot, vals, False)
+    want = fused_ctr.fused_ctr_backward_plain(g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot,
+                                              vals, False)
+    full = fused_ctr.fused_ctr_backward_plain(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
+                                              False)
+    torch.cuda.synchronize()
+    for a, w, name in zip(got[:2], want[:2], ("d_fm_w", "d_fm_v")):
+        _assert_rel(a, w, name)
+    live = valid.nonzero()[:, 0]
+    _assert_rel(got[0][live], full[0][row_id[live]], "d_fm_w vs the full table")
+    _assert_rel(got[1][live], full[1][row_id[live]], "d_fm_v vs the full table")
+    pad = (~valid).nonzero()[:, 0]
+    assert pad.numel() > 0
+    assert not got[0][pad].any() and not got[1][pad].any()
+
+
+def _copy_train_state(dst, src):
+    dst.model.load_state_dict(src.model.state_dict())
+    dst.step, dst.optimizer.count = src.step, src.optimizer.count
+    for name, slots in src.optimizer.slots.items():
+        for slot, t in slots.items():
+            dst.optimizer.slots[name][slot].copy_(t)
+    for mine, theirs in ((dst.lazy.m, src.lazy.m), (dst.lazy.v, src.lazy.v)):
+        for key, t in theirs.items():
+            mine[key].copy_(t)
+
+
+@pytest.mark.cuda
+def test_lazy_step_through_kernels_matches_plain(device, monkeypatch):
+    """One full-width lazy step (117,581 x 39 x 32, B = 1,024, float32 MLP,
+    dropout off) after a warm-up step, through the kernels and through the
+    plain versions from the same state: the loss within 1e-6 relative;
+    fm_w, fm_v and their m and v within 1e-5 of each tensor's largest
+    magnitude (Adam turns a rounding difference in a near-zero gradient
+    into a step of up to lr, so a row is not held alone); every untouched
+    row, and its m and v, bit for bit as before the step."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.train import step as step_mod
+
+    cfg = Config.from_dict({"model": {"fused_kernel": "auto", "compute_dtype": "float32",
+                                      "dropout_keep": (1.0, 1.0, 1.0)},
+                            "optimizer": {"lazy_embedding_updates": True}})
+    g = torch.Generator(device=device).manual_seed(7)
+
+    def batch():
+        ids = torch.randint(0, 117_581, (1024, 39), generator=g, device=device)
+        ids[:, :13] = torch.arange(1, 14, device=device)
+        return {"feat_ids": ids, "feat_vals": torch.rand((1024, 39), generator=g,
+                                                         device=device),
+                "label": (torch.rand((1024,), generator=g, device=device) < 0.25).float()}
+
+    kernel = step_mod.create_train_state(cfg, device)
+    step_mod.train_step(kernel, batch())
+    plain = step_mod.create_train_state(cfg, device)
+    _copy_train_state(plain, kernel)
+    b = batch()
+    before = {k: t.detach().clone() for k, t in (
+        ("fm_w", kernel.model.fm_w), ("fm_v", kernel.model.fm_v),
+        ("m.fm_w", kernel.lazy.m["fm_w"]), ("m.fm_v", kernel.lazy.m["fm_v"]),
+        ("v.fm_w", kernel.lazy.v["fm_w"]), ("v.fm_v", kernel.lazy.v["fm_v"]))}
+    launches = fused_ctr.launches, fused_ctr.backward_launches
+    m_k = step_mod.train_step(kernel, b)
+    assert (fused_ctr.launches, fused_ctr.backward_launches) == (
+        launches[0] + 1, launches[1] + 1)
+    monkeypatch.setattr(step_mod, "fused_ctr_interaction", fused_ctr.fused_ctr_plain)
+    m_p = step_mod.train_step(plain, b)
+    torch.cuda.synchronize()
+    assert fused_ctr.launches == launches[0] + 1
+    torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-6, atol=0)
+    touched = torch.zeros(117_584, dtype=torch.bool, device=device)
+    touched[b["feat_ids"].reshape(-1)] = True
+    for state in (kernel, plain):
+        after = {"fm_w": state.model.fm_w, "fm_v": state.model.fm_v,
+                 "m.fm_w": state.lazy.m["fm_w"], "m.fm_v": state.lazy.m["fm_v"],
+                 "v.fm_w": state.lazy.v["fm_w"], "v.fm_v": state.lazy.v["fm_v"]}
+        for name, t in after.items():
+            rows = ~touched[:t.shape[0]]
+            assert torch.equal(t.detach()[rows].view(torch.int32),
+                               before[name][rows].view(torch.int32)), name
+    for name, a, w in (("fm_w", kernel.model.fm_w, plain.model.fm_w),
+                       ("fm_v", kernel.model.fm_v, plain.model.fm_v)):
+        _assert_rel(a.detach(), w.detach(), name)
+    for slot in ("m", "v"):
+        for key in ("fm_w", "fm_v"):
+            _assert_rel(getattr(kernel.lazy, slot)[key], getattr(plain.lazy, slot)[key],
+                        f"{slot}.{key}")
+
+
+@pytest.mark.cuda
+def test_world1_nccl_step_matches_single_card_step(device, tmp_path):
+    """Three data-parallel steps at world size 1 over NCCL (one fused
+    all-reduce each) against three single-card steps from the same
+    weights, at the flagship width on batches of distinct ids (no float
+    atomics race in B1'): parameters within 1e-5 of their largest
+    magnitude."""
+    import torch.distributed as dist
+
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.parallel.mesh import initialize_distributed
+    from deepfm_tpu_torch.train.step import create_train_state, train_step
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1, device_id=device)
+    try:
+        cfg = Config.from_dict({"model": {"fused_kernel": "auto"}})
+        ctx = initialize_distributed(cfg.mesh, device)
+        assert ctx.world_size == 1 and ctx.group is not None
+        dp = spmd.create_dp_train_state(cfg, ctx)
+        one = create_train_state(cfg, device)
+        g = torch.Generator(device=device).manual_seed(11)
+        for _ in range(3):
+            ids = torch.randperm(117_581, generator=g, device=device)[:1024 * 39]
+            b = {"feat_ids": ids.view(1024, 39),
+                 "feat_vals": torch.rand((1024, 39), generator=g, device=device),
+                 "label": (torch.rand((1024,), generator=g, device=device) < 0.25).float()}
+            m_dp = spmd.train_step(dp, b, ctx)
+            m_one = train_step(one, b)
+            torch.testing.assert_close(m_dp["loss"], m_one["loss"], rtol=1e-6, atol=0)
+        torch.cuda.synchronize()
+        for (name, a), w in zip(dp.model.state_dict().items(),
+                                one.model.state_dict().values()):
+            _assert_rel(a, w, name)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # kernel B2 (ops/retrieval.py, csrc/retrieval_topk.cu)
 #
 # Tolerance: scores within rtol 1e-4 / atol 1e-5 of the plain version's,

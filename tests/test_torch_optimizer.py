@@ -19,9 +19,10 @@ import torch
 from deepfm_tpu.core.config import OptimizerConfig as JaxOptimizerConfig
 from deepfm_tpu.train.optimizer import build_lr_schedule as jax_build_lr_schedule
 from deepfm_tpu.train.optimizer import build_optimizer as jax_build_optimizer
-from deepfm_tpu_torch.core.config import OptimizerConfig
+from deepfm_tpu_torch.core.config import Config, OptimizerConfig
 from deepfm_tpu_torch.train.optimizer import (build_lr_schedule, build_optimizer,
                                               schedule_value)
+from deepfm_tpu_torch.train.step import init_opt_state
 
 TOL = 1e-6
 SHAPES = {"fm_w": (40,), "fm_v": (40, 4), "mlp": {"layer_0": {"kernel": (4, 3),
@@ -136,6 +137,8 @@ def test_rejections():
                                           decay_steps=4))
     with pytest.raises(ValueError, match="unknown optimizer"):
         OptimizerConfig(name="Lamb")
-    with pytest.raises(ValueError, match="not ported yet"):
-        OptimizerConfig(lazy_embedding_updates=True)
+    lazy = Config().with_overrides(optimizer={"name": "Momentum",
+                                              "lazy_embedding_updates": True})
+    with pytest.raises(ValueError, match="Adam optimizer only"):
+        init_opt_state(lazy, params)
     assert build_lr_schedule(OptimizerConfig(learning_rate=0.1)) == 0.1

@@ -205,8 +205,10 @@ def test_config_reads_the_jax_schema():
     assert Config.from_dict(cfg.to_dict()) == cfg
     with pytest.raises(ValueError, match="dropout_keep has 1 entries"):
         ModelConfig(dropout_keep=(0.5,))
+    with pytest.raises(ValueError, match="ROADMAP A9"):
+        cfg.with_overrides(mesh={"model_parallel": 2})
     with pytest.raises(ValueError, match="unknown config section"):
-        cfg.with_overrides(mesh={"data_parallel": 2})
+        cfg.with_overrides(fleet={"shadow_queue_depth": 2})
     with pytest.raises(TypeError):
         cfg.with_overrides(model={"no_such_field": 1})
 
