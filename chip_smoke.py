@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 8):
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 8):
 
 1. card     - the card's name and power limit, from nvidia-smi;
-2. build    - every kernel under deepfm_tpu_torch/csrc, built from source;
+2. build    - every kernel under deepfm_tpu_torch/csrc, built from source
+              with nvcc, and the native record reader with g++;
 3. kernel   - each kernel's wrapper against its plain PyTorch version on the
               card, at the shapes its main paths give it: the forward at
               the flagship table (117,584 x 32) for every serving bucket,
@@ -66,7 +67,23 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 8):
 10. ddp     - data-parallel training at world size 1 over NCCL in this
               process: steps through parallel/spmd.py and through the
               single-card step from the same weights agree; the fused
-              all-reduce's time on the full-width gradient buffer.
+              all-reduce's time on the full-width gradient buffer;
+11. lifecycle - the train task at full width on 24 batches of distinct
+              ids (so B1''s atomics add one term a row and a run is
+              bit-reproducible), a checkpoint every 8 steps, dense Adam and
+              lazy Adam: stopped by a real SIGTERM from inside the loop
+              after step 12 (PreemptedError, checkpoints at 8 and 12, the
+              preempted event), resumed by the same command (resume at
+              12, the end at 24) and held against an uninterrupted run bit
+              for bit (parameters, BN statistics, moments, step); then the
+              eval task (AUC and loss within 1e-6 of the train task's
+              final eval), the infer task (pred.txt, one line a val
+              record, within TOL_PROB of the servable) and the export task
+              (params.npz bit-equal to the train task's); then one timed
+              save of the full-width state (blocking and write time), one
+              1,024-record batch read by the C++ reader and by the Python
+              route, and the train phase's command run with each reader
+              (train_done's examples/s and input-wait share).
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -81,6 +98,7 @@ import contextlib
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -578,31 +596,47 @@ def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
              f"model's by {err} (tolerance {TOL_PROB})")
     print(f"train: servable probabilities vs the trained model's predict step: "
           f"max abs diff {err}")
-    decode_ms(train_dir)
     split = {b: step_breakdown(state, first_batch(train_dir, "train", b, "cuda"))
              for b in TRAIN_BATCHES}
     return {"launches": launches, "backward_launches": backward_launches,
             "steps": steps, "auc": ev["auc"], "breakdown": split}
 
 
-def decode_ms(train_dir: str, reps: int = 5) -> None:
-    """Host time to decode one batch of 1,024 records with the pipeline's
-    pure-Python decoder (median, host clock), alone on the host."""
+def decode_ms(train_dir: str, reps: int = 5) -> dict:
+    """Host time to read and decode one batch of 1,024 records, alone on
+    the host (median over ``reps``, host clock): the pipeline's C++ reader
+    (``NativeCtrReader``: framing, CRC, decode) and its pure-Python route
+    (``record_stream`` + ``decode_ctr_batch``), and the Python decode of
+    records already in memory."""
     from deepfm_tpu_torch.data.example_proto import decode_ctr_batch
-    from deepfm_tpu_torch.data.pipeline import discover_files, record_stream
+    from deepfm_tpu_torch.data.pipeline import batched_ctr_batches, discover_files, record_stream
+    from deepfm_tpu_torch.native import NativeCtrReader
 
+    files = discover_files(train_dir, ("train",), shuffle=False)[:1]
     records = []
-    for rec in record_stream(discover_files(train_dir, ("train",), shuffle=False)):
+    for rec in record_stream(files):
         records.append(rec)
         if len(records) == 1024:
             break
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        decode_ctr_batch(records, 39)
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(f"train: host decode of one 1,024-record batch: median {np.median(times):.3f} ms "
-          f"over {reps} (host clock, no other thread running)")
+
+    def median_ms(fn) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    out = {
+        "native_read_decode_ms": median_ms(lambda: next(iter(NativeCtrReader(
+            files, batch_size=1024, field_size=39)))),
+        "python_read_decode_ms": median_ms(lambda: next(batched_ctr_batches(
+            record_stream(files), batch_size=1024, field_size=39))),
+        "python_decode_only_ms": median_ms(lambda: decode_ctr_batch(records, 39)),
+    }
+    print("decode: one 1,024-record batch, host ms, median of %d (host clock, no "
+          "other thread running) %s" % (reps, json.dumps(out)))
+    return out
 
 
 def step_breakdown(state, batch: dict, reps: int = 20) -> dict:
@@ -654,9 +688,12 @@ def step_breakdown(state, batch: dict, reps: int = 20) -> dict:
 
 
 def train_argv(train_dir: str, val_dir: str, servable: str, seed: int) -> list[str]:
+    """The train task's command line; its checkpoints go beside the
+    servable, so every run starts from nothing."""
     return ["--task_type", "train", "--training_data_dir", train_dir,
             "--val_data_dir", val_dir, "--servable_model_dir", servable,
-            "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+            "--model_dir", servable + ".ckpt", "--num_epochs", "1",
+            "--log_steps", str(LOG_STEPS),
             "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}"]
 
 
@@ -949,7 +986,7 @@ def phase_ddp(seed: int, workdir: str) -> dict:
         if not all(np.isfinite(losses)):
             fail(f"ddp: losses {losses}")
         grads = sum(p.numel() for p in dp.model.parameters())
-        flat = torch.zeros(grads + 6, device="cuda")
+        flat = torch.zeros(grads + 8, device="cuda")  # + 4 metrics and 4 flags
         for _ in range(3):
             dist.all_reduce(flat)
         torch.cuda.synchronize()
@@ -1569,6 +1606,215 @@ def funnel_breakdown(ctx, payload, retrieve, rank, rng: np.random.Generator) -> 
             "rank_rows": b * ctx.top_k})))
 
 
+# the lifecycle phase: 24 steps of 1,024 records in 2 files, each batch's
+# 39,936 ids distinct, a checkpoint every 8 steps, a SIGTERM after step 12.
+# LIFE_ARGS, LIFE_VOCAB, LIFE_BATCH and DEVICE let a rehearsal on the CPU
+# run the phase at a small width; the card runs it as set here
+LIFE_FILES, LIFE_BATCHES_PER_FILE, LIFE_EVERY, LIFE_STOP = 2, 12, 8, 12
+LIFE_STEPS = LIFE_FILES * LIFE_BATCHES_PER_FILE
+LIFE_ARGS: tuple[str, ...] = ()
+LIFE_VOCAB, LIFE_BATCH, DEVICE = 117_581, 1024, "cuda"
+
+
+def write_distinct(seed: int, life_dir: str) -> None:
+    """The lifecycle phase's TFRecords: every batch of 1,024 records holds
+    39,936 distinct ids (a random permutation of the vocabulary), so B1''s
+    float atomics never add two terms into one row and a run is
+    bit-reproducible, as in the ddp phase."""
+    from deepfm_tpu_torch.data.example_proto import serialize_ctr_example
+    from deepfm_tpu_torch.data.tfrecord import TFRecordWriter
+
+    rng = np.random.default_rng(seed + 17)
+    for i in range(LIFE_FILES):
+        with TFRecordWriter(os.path.join(life_dir, f"train-{i}.tfrecords")) as w:
+            for _ in range(LIFE_BATCHES_PER_FILE):
+                ids = rng.permutation(LIFE_VOCAB)[:LIFE_BATCH * 39].reshape(LIFE_BATCH, 39)
+                vals = rng.random((LIFE_BATCH, 39), dtype=np.float32)
+                labels = (rng.random(LIFE_BATCH) < 0.25).astype(np.float32)
+                for r in range(LIFE_BATCH):
+                    w.write(serialize_ctr_example(float(labels[r]), ids[r].tolist(),
+                                                  vals[r].tolist()))
+
+
+def run_logged(argv: list[str], env: dict | None = None):
+    """``cli.run(argv)`` with its JSON lines kept (and printed), the kernels'
+    counts set to 0 just before and read just after: (result or the
+    PreemptedError, lines, forward launches, backward launches)."""
+    from deepfm_tpu_torch.launch import cli
+    from deepfm_tpu_torch.launch.preemption import PreemptedError
+    from deepfm_tpu_torch.ops import fused_ctr
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    tee = _Tee(sys.stdout)
+    fused_ctr.launches = fused_ctr.backward_launches = 0
+    try:
+        with contextlib.redirect_stdout(tee):
+            try:
+                result = cli.run(argv)
+            except PreemptedError as e:
+                result = e
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    lines = [json.loads(x) for x in tee.lines.getvalue().splitlines() if x.startswith("{")]
+    return result, lines, fused_ctr.launches, fused_ctr.backward_launches
+
+
+def _kind(lines: list[dict], kind: str) -> list[dict]:
+    return [r for r in lines if r["kind"] == kind]
+
+
+def state_tensors(state) -> dict:
+    """What a resume must restore: parameters, BN statistics, Adam's
+    moments, the lazy moments."""
+    out = dict(state.model.state_dict())
+    for name, slots in state.optimizer.slots.items():
+        out.update({f"{name}.{s}": t for s, t in slots.items()})
+    if state.lazy is not None:
+        for slot, tables in state.lazy.state_dict().items():
+            out.update({f"lazy.{slot}.{k}": t for k, t in tables.items()})
+    return out
+
+
+def phase_lifecycle(seed: int, workdir: str, val_dir: str, train_dir: str,
+                    servable_dir: str) -> dict:
+    """The train task's lifecycle at full width through ``cli.run``, dense
+    and lazy: (a) stopped by a real SIGTERM from inside the loop after step
+    12, then resumed by the same command; (b) the resumed run held against
+    an uninterrupted one bit for bit; (c) the eval task against the train
+    task's final eval; (d) the infer task's pred.txt against the servable;
+    (e) the export task against the train task's export; (f) the save's
+    blocking and write times, the decode times, and the train phase's
+    command with the C++ reader and with DEEPFM_NO_NATIVE=1."""
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.data.pipeline import eval_batches
+    from deepfm_tpu_torch.core.config import DataConfig
+    from deepfm_tpu_torch.serve.export import load_servable, read_params
+    from deepfm_tpu_torch.train import loop
+    from deepfm_tpu_torch.utils.logging import MetricLogger
+
+    life_dir = os.path.join(workdir, "life")
+    os.makedirs(life_dir)
+    t0 = time.perf_counter()
+    write_distinct(seed, life_dir)
+    print(f"lifecycle: wrote {LIFE_STEPS * LIFE_BATCH} records of distinct ids a batch in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = backward = 0
+
+    class SignalAt(MetricLogger):
+        def step(self, step, *a, **kw):
+            super().step(step, *a, **kw)
+            if step == LIFE_STOP:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def argv(name: str, *extra: str) -> list[str]:
+        return ["--task_type", "train", "--training_data_dir", life_dir,
+                "--val_data_dir", val_dir, "--model_dir", os.path.join(workdir, name),
+                "--servable_model_dir", os.path.join(workdir, name + ".servable"),
+                "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+                "--checkpoint_every_steps", str(LIFE_EVERY),
+                "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}",
+                *LIFE_ARGS, *extra]
+
+    def run(args: list[str], env: dict | None = None, steps: int = 0):
+        nonlocal launches, backward
+        result, lines, fwd, bwd = run_logged(args, env)
+        if fwd < steps or bwd < steps:
+            fail(f"lifecycle: {steps} steps launched fused_ctr_forward {fwd} and "
+                 f"fused_ctr_backward {bwd} times")
+        launches, backward = launches + fwd, backward + bwd
+        return result, lines
+
+    from deepfm_tpu_torch.launch.preemption import PreemptedError
+
+    out = {}
+    for mode, extra in (("dense", ()), ("lazy", ("--set", "optimizer.lazy_embedding_updates=true"))):
+        split = argv(f"{mode}_split", *extra)
+        real = loop.MetricLogger
+        loop.MetricLogger = SignalAt
+        try:
+            stopped, lines = run(split, steps=LIFE_STOP)
+        finally:
+            loop.MetricLogger = real
+        if not isinstance(stopped, PreemptedError):
+            fail(f"lifecycle {mode}: the SIGTERM after step {LIFE_STOP} did not stop "
+                 f"the run: {stopped!r}")
+        steps_on_disk = Checkpointer(os.path.join(workdir, f"{mode}_split")).all_steps()
+        if steps_on_disk != [LIFE_EVERY, LIFE_STOP] or \
+                _kind(lines, "preempted") != [{"kind": "preempted", "step": LIFE_STOP}]:
+            fail(f"lifecycle {mode}: checkpoints {steps_on_disk}, events "
+                 f"{_kind(lines, 'preempted')}")
+        resumed, lines = run(split, steps=LIFE_STEPS - LIFE_STOP)
+        final_eval = _kind(lines, "eval")[-1]
+        if _kind(lines, "resume") != [{"kind": "resume", "step": LIFE_STOP}] or \
+                resumed.step != LIFE_STEPS:
+            fail(f"lifecycle {mode}: resume {_kind(lines, 'resume')}, finished at "
+                 f"{resumed.step}")
+        whole, _ = run(argv(f"{mode}_whole", *extra), steps=LIFE_STEPS)
+        got, want = state_tensors(resumed), state_tensors(whole)
+        if got.keys() != want.keys() or whole.step != resumed.step:
+            fail(f"lifecycle {mode}: the resumed state's tensors or step differ")
+        err = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+        if err != 0.0:
+            fail(f"lifecycle {mode}: resumed vs uninterrupted max abs err {err}")
+        out[mode] = {"resume_max_abs_err": err, "tensors": len(want),
+                     "step": resumed.step, "final_eval": final_eval}
+        # (f) one save of the full-width state, timed
+        ckpt = Checkpointer(os.path.join(workdir, f"{mode}_timed"))
+        ckpt.save(resumed)
+        ckpt.wait_until_finished()
+        out[mode]["save"] = dict(ckpt.last_save)
+        print(f"lifecycle {mode}: stopped at {LIFE_STOP} (checkpoints {steps_on_disk}), "
+              f"resumed to {resumed.step}; resumed vs uninterrupted over {len(want)} "
+              f"tensors: max abs err {err}; save %s" % json.dumps(out[mode]["save"]))
+
+    # (c)-(e) on the dense run's final checkpoint
+    base = argv("dense_split")[2:]
+    result, _ = run(["--task_type", "eval", *base])
+    final = out["dense"]["final_eval"]
+    if abs(result["auc"] - final["auc"]) > 1e-6 or \
+            abs(result["loss"] - final["loss"]) > 1e-6 * abs(final["loss"]) or \
+            result["examples"] != final["examples"]:
+        fail(f"lifecycle: the eval task gave {result}, the train task {final}")
+    path, _ = run(["--task_type", "infer", *base])
+    probs = np.array([float(x) for x in open(path).read().splitlines()])
+    predict, _ = load_servable(os.path.join(workdir, "dense_split.servable"), device=DEVICE)
+    ref = np.concatenate([predict(b["feat_ids"], b["feat_vals"]) for b in eval_batches(
+        DataConfig(batch_size=LIFE_BATCH), field_size=39, data_dir=val_dir)])
+    infer_err = float(np.abs(probs - ref).max()) if probs.shape == ref.shape else np.inf
+    if probs.shape != (VAL_RECORDS,) or not infer_err <= TOL_PROB:
+        fail(f"lifecycle: pred.txt holds {probs.shape[0]} lines, max abs diff "
+             f"{infer_err} from the servable")
+    export_dir = os.path.join(workdir, "exported")
+    run(["--task_type", "export", *base, "--servable_model_dir", export_dir])
+    got, want = read_params(export_dir), read_params(os.path.join(workdir,
+                                                                  "dense_split.servable"))
+    if got.keys() != want.keys() or not all(np.array_equal(got[k], want[k]) for k in want):
+        fail("lifecycle: the export task's params.npz differs from the train task's")
+    print("lifecycle tasks %s" % json.dumps({
+        "eval": result, "train_final_eval": out["dense"]["final_eval"],
+        "infer_lines": int(probs.shape[0]), "infer_max_abs_diff": infer_err,
+        "export_bit_equal": True}))
+
+    # (f) decode, and the train phase's command through each reader
+    out["decode"] = decode_ms(train_dir)
+    readers = {}
+    for reader, env in (("native", None), ("python", {"DEEPFM_NO_NATIVE": "1"})):
+        args = train_argv(train_dir, val_dir, os.path.join(servable_dir, reader),
+                          seed) + list(LIFE_ARGS)
+        _, lines = run(args, env, steps=1)
+        done = _kind(lines, "train_done")[0]
+        readers[reader] = {k: done[k] for k in ("examples_per_sec", "input_wait_share",
+                                                "steps", "seconds")}
+    print("lifecycle readers %s" % json.dumps(readers))
+    out.update(readers=readers, launches=launches, backward_launches=backward)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -1578,6 +1824,7 @@ def main(argv: list[str] | None = None) -> int:
               "the port on an NVIDIA Hopper card", file=sys.stderr)
         return 2
     try:
+        from deepfm_tpu_torch import native
         from deepfm_tpu_torch.core.platform import resolve_device
         from deepfm_tpu_torch.ops import _build
     except ImportError as e:
@@ -1592,6 +1839,8 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {sorted(_build.sources())} in {time.perf_counter() - t0:.2f} s")
+    native_s = native.build()
+    print(f"build: the native record reader ({native.SOURCE}, g++) in {native_s:.2f} s")
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.2f} s\n{info['log'].strip()}", file=sys.stderr)
 
@@ -1611,6 +1860,8 @@ def main(argv: list[str] | None = None) -> int:
                           os.path.join(workdir, "lazy_servable"),
                           train["breakdown"][TRAIN_BATCHES[0]])
         ddp = phase_ddp(args.seed, workdir)
+        life = phase_lifecycle(args.seed, os.path.join(workdir, "lifecycle"), val_dir,
+                               train_dir, os.path.join(workdir, "readers"))
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
@@ -1623,7 +1874,7 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
-                     + ddp["launches"] + funnel["forward_launches"]),
+                     + ddp["launches"] + life["launches"] + funnel["forward_launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -1636,7 +1887,7 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:317",
         "launches": (train["backward_launches"] + lazy["backward_launches"]
-                     + ddp["backward_launches"]),
+                     + ddp["backward_launches"] + life["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -6,7 +6,9 @@ find.  The package imports ``torch`` and never ``jax``, and nothing from
 ``deepfm_tpu``: what it needs from that package's JAX-free modules it keeps
 as its own trimmed copy.
 
-    python -m deepfm_tpu_torch --task_type train ...     (launch/cli.py)
+    python -m deepfm_tpu_torch --task_type train|eval|infer|export ...
+        (launch/cli.py; checkpoints and resume in --model_dir, records
+        read by the C++ reader in native/)
     python -m torch.distributed.run --nproc_per_node N -m deepfm_tpu_torch ...
         (data parallel, one rank a card: parallel/)
     python -m deepfm_tpu_torch.serve.server --servable DIR   (:predict, or

@@ -15,11 +15,12 @@ The batch-norm leaves are NamedTuples in JAX and may come back from a
 checkpoint as dicts or plain sequences; all three are accepted.  Every
 tensor is checked against the shape the config implies.
 
-``train_state_from_jax`` also carries the step and the optax Adam state
-(``ScaleByAdamState`` count/mu/nu, found inside the optimizer's chain
-tuples), or, with lazy embedding updates, the ``(rest_opt,
-LazyAdamState)`` pair: the Adam state of the non-table parameters and the
-tables' m and v.  The dropout PRNG key does not carry: the port draws from
+``train_state_from_jax`` also carries the step and the optimizer's state,
+found inside the optax chain's tuples: Adam's ``ScaleByAdamState``
+count/mu/nu, Adagrad's ``ScaleByRssState``, Momentum's ``TraceState`` or
+the JAX package's ``FtrlState``, or, with lazy embedding updates, the
+``(rest_opt, LazyAdamState)`` pair: the Adam state of the non-table
+parameters and the tables' m and v.  The dropout PRNG key does not carry: the port draws from
 its own ``torch.Generator``.
 
 ``two_tower_params_from_jax`` takes the two-tower pytree
@@ -186,52 +187,76 @@ def funnel_from_jax(artifact, directory) -> str:
                              dict(artifact.meta))
 
 
-def _find_adam_state(tree):
-    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state: the
-    first node, depth first, that has all three fields."""
-    if isinstance(tree, Mapping):
-        if {"count", "mu", "nu"} <= set(tree):
-            return tree
-        children = list(tree.values())
-    elif all(hasattr(tree, f) for f in ("count", "mu", "nu")):
+# the optax node holding each optimizer's slots, by its fields (the
+# port's slot names are the same): ScaleByAdamState, ScaleByRssState,
+# TraceState and the JAX package's FtrlState
+OPT_STATE_FIELDS = {"adam": ("mu", "nu"), "adagrad": ("sum_of_squares",),
+                    "momentum": ("trace",), "ftrl": ("z", "n")}
+
+
+def _has_fields(node, fields) -> bool:
+    if isinstance(node, Mapping):
+        return set(fields) <= set(node)
+    if hasattr(node, "_fields"):  # a NamedTuple
+        return set(fields) <= set(node._fields)
+    if isinstance(node, (tuple, list)):
+        return False
+    return all(hasattr(node, f) for f in fields)
+
+
+def _find_state(tree, fields):
+    """The first node of an optax state, depth first, that has all of
+    ``fields``, or None."""
+    if _has_fields(tree, fields):
         return tree
+    if isinstance(tree, Mapping):
+        children = list(tree.values())
     elif isinstance(tree, (tuple, list)):
         children = list(tree)
     else:
         return None
     for child in children:
-        found = _find_adam_state(child)
+        found = _find_state(child, fields)
         if found is not None:
             return found
     return None
+
+
+def _find_adam_state(tree):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    return _find_state(tree, ("count", "mu", "nu"))
 
 
 def train_state_from_jax(state, cfg: Config, device=None):
     """The port's ``TrainState`` (train/step.py) on ``device`` (default:
     the card) from a JAX ``TrainState`` as numpy (a NamedTuple or a dict of
     step, params, model_state, opt_state): weights, BN statistics, step,
-    the Adam moments and count, and with lazy embedding updates the
-    ``(rest_opt, LazyAdamState)`` pair's.  Every tensor is shape-checked as
-    in :func:`params_from_jax`.  Only Adam state converts so far."""
-    if cfg.optimizer.name.lower() != "adam":
-        raise ValueError(
-            f"train_state_from_jax converts Adam state only, not "
-            f"{cfg.optimizer.name!r}"
-        )
+    the optimizer's slots (Adam's mu and nu, Adagrad's sum_of_squares,
+    Momentum's trace, FTRL's z and n) and count, and with lazy embedding
+    updates the ``(rest_opt, LazyAdamState)`` pair's.  The count is
+    Adam's own, else the lr schedule's (``ScaleByScheduleState``), else the
+    step: without lazy updates every optimizer step is a train step.  Every
+    tensor is shape-checked as in :func:`params_from_jax`."""
+    name = cfg.optimizer.name.lower()
+    fields = OPT_STATE_FIELDS[name]
     opt_state = _field(state, "opt_state", 3)
     if cfg.optimizer.lazy_embedding_updates:
         opt_state, lazy = opt_state
-    adam = _find_adam_state(opt_state)
-    if adam is None:
-        raise ValueError("no ScaleByAdamState (count, mu, nu) in the opt_state")
+    node = _find_state(opt_state, (*fields, "count") if name == "adam" else fields)
+    if node is None:
+        raise ValueError(f"no {cfg.optimizer.name} state ({', '.join(fields)}) in "
+                         f"the opt_state")
     out = create_train_state(cfg, device)
     out.model.load_state_dict(params_from_jax(
         _field(state, "params", 1), _field(state, "model_state", 2), cfg.model))
     out.step = int(np.asarray(_field(state, "step", 0)))
-    out.optimizer.count = int(np.asarray(_field(adam, "count", 0)))
-    for slot, index in (("mu", 1), ("nu", 2)):
+    counter = node if name == "adam" else _find_state(opt_state, ("count",))
+    out.optimizer.count = (out.step if counter is None
+                           else int(np.asarray(_field(counter, "count", 0))))
+    for index, slot in enumerate(fields):
         _copy_into({n: s[slot] for n, s in out.optimizer.slots.items()},
-                   _field(adam, slot, index), cfg.model, f"opt_state {slot} ")
+                   _field(node, slot, index + (name == "adam")), cfg.model,
+                   f"opt_state {slot} ")
     if out.lazy is not None:
         for slot, index in (("m", 0), ("v", 1)):
             _copy_into(getattr(out.lazy, slot), _field(lazy, slot, index), cfg.model,

@@ -27,7 +27,7 @@ the JAX dataclasses; a tier-1 test holds the copy against them):
   data-parallel job computes (``permute_ids``, ``stream_mode``,
   ``tiered_embeddings``, ...);
 * it loads at any value where it cannot change the result (serving,
-  fleet, checkpoint cadence, ZeRO at one model shard, ...).
+  fleet, ZeRO at one model shard, ...).
 
 A field neither side knows is dropped with a warning, as the JAX reader
 does, so configs and servables written by either package load here.
@@ -109,7 +109,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "zero_sharding": ("auto", None),
     },
     "data": {
-        "test_data_dir": ("", _A6),
         "shuffle_buffer": (0, _A6),
         "stream_mode": (False, _A6),
         "multi_path": (False, _A6),
@@ -117,22 +116,14 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "training_channel_name": ("training", None),
         "evaluation_channel_name": ("evaluation", None),
         "eval_max_batches": (0, _A6),
-        # the native reader's threads: same batches in the same order
-        "parallel_readers": (4, None),
         "permute_ids": (False, _A6),
     },
     "run": {
-        "clear_existing_model": (False, None),
         "hosts": (("localhost",), None),
         "current_host": ("localhost", None),
         # the JAX process's shard count per host; here LOCAL_WORLD_SIZE
         "workers_per_host": (1, _A7),
         "steps_per_loop": (1, None),
-        "eval_start_delay_secs": (0, None),
-        "eval_throttle_secs": (0, None),
-        # the port does not checkpoint yet (ROADMAP A6)
-        "checkpoint_every_steps": (1000, None),
-        "keep_checkpoints": (3, None),
         "profile_dir": ("", None),
         "serve_port": (8501, None),
         "serve_host": ("127.0.0.1", None),
@@ -159,8 +150,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "online_publish_every_steps": (100, None),
         "online_max_batches": (0, None),
         "online_idle_timeout_secs": (0.0, None),
-        "max_restarts": (0, None),
-        "restart_backoff_secs": (5.0, None),
     },
     "elastic": {
         "enabled": (False, "not ported yet (ROADMAP A15, elastic training)"),
@@ -378,6 +367,8 @@ class DataConfig:
 
     training_data_dir: str = ""
     val_data_dir: str = ""
+    # the infer task scores te*/test* under it (val_data_dir when empty)
+    test_data_dir: str = ""
     batch_size: int = 1024
     num_epochs: int = 10
     shuffle_files: bool = True        # shuffle the file list, seeded by run.seed
@@ -386,6 +377,9 @@ class DataConfig:
     prefetch_batches: int = 2
     file_patterns: tuple[str, ...] = ("tr", "train")
     s3_shard: bool = False            # the files are pre-sharded per host
+    # C++ readers decoding training files at once (data/parallel_ingest.py):
+    # the same batches in the same order
+    parallel_readers: int = 4
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -428,17 +422,29 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Task dispatch, paths, logging cadence and seed.  The port does not
-    checkpoint yet (ROADMAP A6), so the JAX section's checkpoint cadence,
-    retention and ``clear_existing_model`` load and are not read; so do
-    ``steps_per_loop``, ``hosts``, ``current_host``, ``profile_dir`` and the
-    serving fields (``JAX_ONLY_FIELDS``)."""
+    """Task dispatch, paths, logging cadence and seed, and the train task's
+    lifecycle (train/loop.py): checkpoints in ``model_dir`` every
+    ``checkpoint_every_steps`` steps (0: only at the end), ``keep_checkpoints``
+    of them kept, the directory wiped first with ``clear_existing_model``;
+    eval during training no sooner than ``eval_start_delay_secs`` and at
+    most once per ``eval_throttle_secs`` (0: at the end only); the task
+    rerun after a crash up to ``max_restarts`` times, the waits starting at
+    ``restart_backoff_secs``.  ``steps_per_loop``, ``hosts``,
+    ``current_host``, ``profile_dir`` and the serving fields load and are
+    not read (``JAX_ONLY_FIELDS``)."""
 
     task_type: str = "train"
     model_dir: str = "./model_dir"
     servable_model_dir: str = "./servable"
     log_steps: int = 100
     seed: int = 0
+    clear_existing_model: bool = False
+    eval_start_delay_secs: int = 0
+    eval_throttle_secs: int = 0
+    checkpoint_every_steps: int = 1000
+    keep_checkpoints: int = 3
+    max_restarts: int = 0
+    restart_backoff_secs: float = 5.0
 
 
 @dataclass(frozen=True)

@@ -1,14 +1,24 @@
 """Launcher CLI: counterpart of ``deepfm_tpu/launch/cli.py``.
 
-    python -m deepfm_tpu_torch --task_type train \
-        --training_data_dir D --val_data_dir E --servable_model_dir S \
+    python -m deepfm_tpu_torch --task_type train|eval|infer|export \
+        --training_data_dir D --val_data_dir E --model_dir M \
+        --servable_model_dir S [--test_data_dir T] \
         [--config cfg.json] [--set section.field=value ...] [--device cpu]
 
 A JSON config (the ``config.json`` schema), then the first-class flags and
 ``--set`` overrides, resolve one ``Config``; the task then runs on the card
 (``--device cpu`` runs the kernels' plain versions on the CPU).  The flags
-keep the JAX CLI's names for what the port supports.  Only ``train`` is
-ported: every other task type raises, naming its ROADMAP item.
+keep the JAX CLI's names for what the port supports.  ``train``, ``eval``,
+``infer`` and ``export`` are ported (train/loop.py); every other task type
+raises, naming its ROADMAP item.
+
+``train`` checkpoints into ``--model_dir`` and resumes from it: run the
+same command again after a stop and it goes on from the latest
+checkpoint.  A SIGTERM or SIGINT stops it at the next step with a
+checkpoint and exit code 0 (the handler is installed before the heavy
+imports; a second signal kills the process).  ``--clear_existing_model``
+wipes ``--model_dir`` once, before the first attempt; a crash is retried
+``run.max_restarts`` times (launch/preemption.py), each attempt resuming.
 
 ``--set optimizer.lazy_embedding_updates=true`` trains the tables with lazy
 Adam (train/lazy.py).  Under the launcher the same command trains data
@@ -23,15 +33,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from ..core.config import Config
 
 # task types of the JAX CLI that the port does not run yet
 NOT_PORTED = {
-    "eval": "ROADMAP A6 (standalone eval task)",
-    "infer": "ROADMAP A6 (infer task)",
-    "export": "ROADMAP A6 (export task); `train` exports at its end",
     "serve": "ROADMAP A8: run `python -m deepfm_tpu_torch.serve.server "
              "--servable DIR` over the servable",
     "online-train": "ROADMAP A10 (online training)",
@@ -45,6 +53,7 @@ _FLAG_MAP = {
     "task_type": ("run", "task_type"),
     "training_data_dir": ("data", "training_data_dir"),
     "val_data_dir": ("data", "val_data_dir"),
+    "test_data_dir": ("data", "test_data_dir"),
     "model_dir": ("run", "model_dir"),
     "servable_model_dir": ("run", "servable_model_dir"),
     "batch_size": ("data", "batch_size"),
@@ -58,6 +67,8 @@ _FLAG_MAP = {
     "optimizer": ("optimizer", "name"),
     "model_name": ("model", "model_name"),
     "log_steps": ("run", "log_steps"),
+    "clear_existing_model": ("run", "clear_existing_model"),
+    "checkpoint_every_steps": ("run", "checkpoint_every_steps"),
 }
 
 
@@ -89,10 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="DeepFM training on one NVIDIA Hopper card (PyTorch/CUDA port)",
     )
     p.add_argument("--config", help="JSON config file (Config.to_dict schema)")
-    p.add_argument("--task_type", choices=["train", *NOT_PORTED],
-                   help="task dispatch; only train is ported")
+    p.add_argument("--task_type", choices=["train", "eval", "infer", "export", *NOT_PORTED],
+                   help="task dispatch; train, eval, infer and export are ported")
     p.add_argument("--training_data_dir")
     p.add_argument("--val_data_dir")
+    p.add_argument("--test_data_dir", help="te*/test* records for infer")
     p.add_argument("--model_dir")
     p.add_argument("--servable_model_dir")
     p.add_argument("--batch_size", type=int)
@@ -106,6 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", help="Adam|Adagrad|Momentum|Ftrl")
     p.add_argument("--model_name", help="deepfm")
     p.add_argument("--log_steps", type=int, help="a metrics line every N steps")
+    p.add_argument("--clear_existing_model", action="store_true", default=None,
+                   help="delete --model_dir before training")
+    p.add_argument("--checkpoint_every_steps", type=int,
+                   help="a checkpoint every N steps (0: only at the end)")
     p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
                    help="override any config field, e.g. --set model.batch_norm=true")
     p.add_argument("--device", default="cuda",
@@ -133,31 +149,56 @@ def resolve_config(argv: list[str] | None = None) -> tuple[Config, argparse.Name
 
 
 def run_task(cfg: Config, *, device=None):
-    """Run ``cfg.run.task_type``; returns what the task returns (the train
-    state for ``train``)."""
+    """Run ``cfg.run.task_type`` once; returns what the task returns (the
+    train state for ``train``)."""
     task = cfg.run.task_type
-    if task != "train":
-        raise NotImplementedError(
-            f"task_type={task!r} is not ported yet: "
-            f"{NOT_PORTED.get(task, 'unknown task type')}"
-        )
-    from ..train.loop import run_train
+    if task in NOT_PORTED:
+        raise NotImplementedError(f"task_type={task!r} is not ported yet: "
+                                  f"{NOT_PORTED[task]}")
+    from ..train.loop import run_task as run_loop_task
 
-    return run_train(cfg, device=device)
+    return run_loop_task(cfg, device=device)
 
 
 def run(argv: list[str] | None = None):
-    """Resolve the config from ``argv`` and run its task; returns the task's
-    result (``None`` after ``--print_config``)."""
+    """Resolve the config from ``argv`` and run its task under the crash
+    supervisor; returns the task's result (``None`` after
+    ``--print_config``).  A signalled stop raises ``PreemptedError``."""
     cfg, args = resolve_config(argv)
     if args.print_config:
         print(json.dumps(cfg.to_dict(), indent=2))
         return None
-    return run_task(cfg, device=args.device)
+    from .preemption import install_early_handler, run_with_restarts
+
+    train = cfg.run.task_type == "train"
+    if train:
+        # record a signal that lands during the imports and setup below
+        install_early_handler()
+    from ..checkpoint import maybe_clear
+    from ..utils.logging import MetricLogger
+
+    # once, before the supervisor: a retry resumes from the model_dir, it
+    # must not wipe it.  Rank 0 alone, before any rank joins the group;
+    # eval, infer and export read the model_dir
+    if train and os.environ.get("RANK", "0") == "0":
+        maybe_clear(cfg.run.model_dir, cfg.run.clear_existing_model)
+    cfg = cfg.with_overrides(run={"clear_existing_model": False})
+    return run_with_restarts(
+        lambda: run_task(cfg, device=args.device),
+        max_restarts=cfg.run.max_restarts, backoff_secs=cfg.run.restart_backoff_secs,
+        on_restart=lambda attempt, e: MetricLogger().event(
+            "restart", attempt=attempt, error=f"{type(e).__name__}: {e}"[:200]))
 
 
 def main(argv: list[str] | None = None) -> int:
-    run(argv)
+    """The command line: 0 when the task ended or was stopped by a signal
+    (checkpointed, to be resumed by the same command)."""
+    from .preemption import PreemptedError
+
+    try:
+        run(argv)
+    except PreemptedError:
+        return 0
     return 0
 
 

@@ -9,6 +9,8 @@ A DeepFM or a two-tower servable (``model_name`` picks the family); a
 recommendation funnel is a tree of two such servables plus its index
 (funnel/publish.py).
 
+:func:`write_predictions` writes the infer task's ``pred.txt``.
+
 JAX's Orbax checkpoint is not read here (the card's machine has neither
 JAX nor Orbax): convert one with ``convert.params_from_jax`` and write it
 with :func:`export_servable`.
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -103,3 +105,20 @@ def load_servable(directory: str | os.PathLike,
         return probs.cpu().numpy()
 
     return predict, model.cfg
+
+
+def write_predictions(probs: Iterable, path: str | os.PathLike) -> int:
+    """The infer task's output: one probability a line as ``%.6f``, streamed
+    batch by batch from ``probs`` (arrays or floats); returns the lines
+    written.  An object-store URL raises (ROADMAP A6)."""
+    if "://" in os.fspath(path):
+        raise NotImplementedError(
+            f"{path!r}: writing predictions to an object store is not ported "
+            f"yet (ROADMAP A6); give a local path")
+    count = 0
+    with open(path, "w") as f:
+        for p in probs:
+            for v in np.atleast_1d(np.asarray(p)):
+                f.write(f"{float(v):.6f}\n")
+                count += 1
+    return count

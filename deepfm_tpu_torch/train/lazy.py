@@ -37,12 +37,21 @@ import torch
 
 from ..core.config import OptimizerConfig
 from ..ops.embedding import sort_segments
-from .optimizer import _f32_bias_correction
+from .optimizer import _f32_bias_correction, load_slots
 
 
 class LazyAdamState(NamedTuple):
     m: dict        # per-table first moment, full table shape
     v: dict        # per-table second moment, full table shape
+
+    def state_dict(self) -> dict:
+        """``{"m": {table: tensor}, "v": {...}}``, the live tensors."""
+        return {"m": self.m, "v": self.v}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into these moments, in place."""
+        with torch.no_grad():
+            load_slots({"m": self.m, "v": self.v}, state, "lazy")
 
 
 def init_lazy_state(tables: dict) -> LazyAdamState:

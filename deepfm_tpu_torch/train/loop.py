@@ -1,44 +1,73 @@
-"""Training loop, on one card or on each rank of a data-parallel run:
-counterpart of ``run_train`` and ``run_eval`` in
-``deepfm_tpu/train/loop.py``.
+"""The train, eval, infer and export tasks: counterpart of ``run_train``,
+``run_eval``, ``run_infer``, ``run_export`` and ``run_task`` in
+``deepfm_tpu/train/loop.py``, on one card or on each rank of a
+data-parallel run.  JAX's ``restore_latest`` is ``Checkpointer.restore``
+here: a checkpoint of another table shape raises with the fused_kernel
+hint (the cross-topology reshard is ROADMAP A9/A15).
 
-``run_train`` joins the process group when a launcher started this
-process (parallel/mesh.py; one process and no group otherwise), builds (or
-takes, e.g. from ``convert.train_state_from_jax``) the train state, runs
-the epoch loop over this rank's shard of the training files through the
-synchronous data-parallel step (parallel/spmd.py: the single-card step
-without a group), with a metrics line every ``run.log_steps`` steps,
-evaluates once over ``data.val_data_dir`` with the streaming AUC, and
-exports a servable to ``run.servable_model_dir`` (serve/export.py), which
-the port's server loads.  At the end of the loop it logs a ``train_done``
-line: world size, steps, global examples, seconds, global examples per
-second and the share of the loop spent waiting on the input pipeline.
+``run_train`` is the train task's whole lifecycle:
 
-Every rank runs the same number of steps (the step's has-next flag), and
-rank 0 alone logs and exports; the metrics it logs are the cross-rank
+* a :class:`PreemptionGuard` is installed before any setup, so a SIGTERM
+  or SIGINT during it is caught too;
+* the process joins its group when a launcher started it
+  (parallel/mesh.py), clears ``run.model_dir`` with
+  ``run.clear_existing_model``, builds the train state (weights from
+  ``run.seed``, broadcast from rank 0) and, when ``run.model_dir`` holds a
+  checkpoint, restores the latest one (a ``resume`` event);
+* the epoch loop passes over the ``state.step`` batches the restored run
+  already trained on (the resume skip, undecoded), then steps through
+  the synchronous data-parallel step (parallel/spmd.py; the single-card
+  step without a group), with a metrics line every ``run.log_steps``
+  steps, a checkpoint each time the step crosses a multiple of
+  ``run.checkpoint_every_steps`` (checkpoint/ckpt.py, written on a
+  thread), and an eval over ``data.val_data_dir`` no sooner than
+  ``run.eval_start_delay_secs`` after the start and then at most once per
+  ``run.eval_throttle_secs`` (0: at the end only);
+* after the loop, a ``train_done`` line (world size, steps, global
+  examples, seconds, global examples per second, the share of the loop
+  spent waiting on the input pipeline) and a final checkpoint;
+* stopped by a signal, it logs ``preempted`` and raises
+  :class:`PreemptedError` (the next run of the same command resumes);
+  else the final eval and the servable export (serve/export.py).
+
+A run is bit-reproducible across a stop and a resume: the checkpoint
+holds the weights, the BN statistics, the optimizer's slots and count,
+the lazy moments and each rank's dropout generator, and the skip is
+counted in steps, never in what the reader thread decoded ahead.  Every
+rank runs the same steps and stops, evaluates and saves at the same step
+(the flags of the step's all-reduce); rank 0 alone logs, writes
+checkpoints and exports, and the metrics it logs are the cross-rank
 means.  Eval reads each validation record once across the ranks and
 merges the AUC counts and loss sums in one all-reduce.
 
-Not ported yet (ROADMAP A6): periodic checkpoints, resume, in-training
-eval, and the standalone eval/infer/export tasks.
+The ``eval``, ``infer`` and ``export`` tasks restore the latest checkpoint
+of ``run.model_dir``: ``eval`` logs the AUC and loss over the validation
+files, ``infer`` writes one probability a line of every ``te*``/``test*``
+record (else ``va*``/``val*``) under ``data.test_data_dir`` (else
+``data.val_data_dir``) to ``pred.txt`` there, and ``export`` writes the
+servable.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Iterator
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..checkpoint import make_checkpointer, maybe_clear
 from ..core.config import Config
-from ..data.pipeline import Prefetcher, eval_batches, make_input_pipeline
+from ..data.pipeline import Prefetcher, discover_files, eval_batches, make_input_pipeline
+from ..launch.preemption import PreemptedError, PreemptionGuard
 from ..ops.auc import auc_all_reduce, auc_init, auc_value
 from ..parallel import spmd
 from ..parallel.mesh import DistContext, initialize_distributed, shutdown
-from ..serve.export import export_servable
+from ..serve.export import export_servable, write_predictions
 from ..utils.logging import MetricLogger
-from .step import TrainState, eval_step
+from .step import TrainState, eval_step, predict_step
 
 
 def _tensors(batches: Iterator[dict], pin: bool = False) -> Iterator[dict]:
@@ -57,6 +86,9 @@ class _Silent:
     """The logger of ranks other than 0: writes nothing, reads nothing."""
 
     def step(self, *args, **kwargs) -> None:
+        pass
+
+    def seed_step(self, step: int) -> None:
         pass
 
     def event(self, *args, **kwargs) -> None:
@@ -96,25 +128,48 @@ def run_eval(model: nn.Module, cfg: Config, *, log: MetricLogger | None = None,
 
 def run_train(cfg: Config, *, device=None, state: TrainState | None = None,
               log: MetricLogger | None = None) -> TrainState:
-    """The train task: epoch loop, final eval, export.  Returns the state."""
-    ctx = initialize_distributed(cfg.mesh, device)
-    try:
-        return _train(cfg, ctx, state, log)
-    finally:
-        shutdown(ctx)
+    """The train task (module docstring); returns the state.  ``state``
+    replaces the fresh one (e.g. ``convert.train_state_from_jax``'s) where
+    ``run.model_dir`` holds no checkpoint.  Raises PreemptedError when a
+    signal stopped it, after its checkpoint."""
+    with PreemptionGuard() as guard:
+        ctx = initialize_distributed(cfg.mesh, device)
+        try:
+            return _train(cfg, ctx, state, log, guard)
+        finally:
+            shutdown(ctx)
 
 
 def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
-           log: MetricLogger | None) -> TrainState:
-    if state is None:
-        state = spmd.create_dp_train_state(cfg, ctx)
-    dev = state.model.fm_v.device
+           log: MetricLogger | None, guard: PreemptionGuard) -> TrainState:
     if ctx.rank != 0:
         log = _Silent()
     log = log or MetricLogger(log_steps=cfg.run.log_steps)
+    if cfg.run.clear_existing_model:
+        if ctx.rank == 0:
+            maybe_clear(cfg.run.model_dir, True)
+        if ctx.group is not None:  # no rank looks for a checkpoint before
+            dist.barrier(group=ctx.group)
+    ckpt = make_checkpointer(cfg.run.model_dir, max_to_keep=cfg.run.keep_checkpoints,
+                             ctx=ctx)
+    if state is None:
+        state = spmd.create_dp_train_state(cfg, ctx)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        log.event("resume", step=state.step)
+        log.seed_step(state.step)
+    dev = state.model.fm_v.device
     host = make_input_pipeline(cfg.data, ctx.topology, field_size=cfg.model.field_size,
-                               seed=cfg.run.seed)
+                               seed=cfg.run.seed, skip_batches=state.step)
     host = _tensors(host, pin=dev.type == "cuda")
+    every = cfg.run.checkpoint_every_steps
+    eval_on = bool(cfg.data.val_data_dir) and cfg.run.eval_throttle_secs > 0
+    next_eval = time.time() + max(cfg.run.eval_start_delay_secs,
+                                  cfg.run.eval_throttle_secs)
+
+    def eval_due() -> bool:
+        return eval_on and time.time() >= next_eval
+
     steps = examples = 0
     wait_s = 0.0
     t0 = time.perf_counter()
@@ -127,29 +182,128 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
             wait_s += time.perf_counter() - t
             return batch
 
-        batch = take()
-        while batch is not None:
+        # a signal during setup skips the loop; the state is still saved
+        batch = None if guard.should_stop else take()
+        go_on, stop = spmd.agree(ctx, has_next=batch is not None,
+                                 stop=guard.should_stop)
+        while go_on and not stop:
             # the next batch is taken before this step, so the step can
             # tell the other ranks whether this one goes on
             nxt = take()
             metrics = spmd.train_step(state, to_device(batch, dev), ctx,
-                                      has_next=nxt is not None)
+                                      has_next=nxt is not None,
+                                      stop=guard.should_stop, eval_now=eval_due())
             go_on = metrics.pop("all_have_next")
+            stop, eval_now = metrics.pop("any_stop"), metrics.pop("eval_now")
+            alone = ctx.world_size == 1  # reads its flags late, as JAX does
             b = metrics.pop("examples")
             steps += 1
             examples += b
             log.step(state.step, b, metrics)
-            batch = nxt if go_on else None
+            if every and state.step % every == 0:
+                ckpt.save(state)
+            if eval_due() if alone else eval_now:
+                run_eval(state.model, cfg, log=log, ctx=ctx)
+                next_eval = time.time() + cfg.run.eval_throttle_secs
+            stop = guard.should_stop if alone else stop
+            batch = nxt
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     loop_s = time.perf_counter() - t0
     log.event("train_done", step=state.step, steps=steps, world_size=ctx.world_size,
               examples=examples, seconds=loop_s, examples_per_sec=examples / loop_s,
               input_wait_share=wait_s / loop_s)
+    ckpt.save(state)
+    if stop:
+        log.event("preempted", step=state.step)
+        ckpt.close()
+        raise PreemptedError(f"preempted at step {state.step}")
     if cfg.data.val_data_dir:
         run_eval(state.model, cfg, log=log, ctx=ctx)
     if cfg.run.servable_model_dir and ctx.rank == 0:
         path = export_servable(cfg.model, state.model.state_dict(),
                                cfg.run.servable_model_dir)
         log.event("export", path=path)
+    ckpt.close()
     return state
+
+
+def _restored(cfg: Config, ctx: DistContext) -> TrainState:
+    """A fresh train state with the latest checkpoint of ``run.model_dir``
+    loaded; raises FileNotFoundError without one."""
+    return make_checkpointer(cfg.run.model_dir, ctx=ctx).restore(
+        spmd.create_dp_train_state(cfg, ctx))
+
+
+def run_eval_task(cfg: Config, *, device=None, log: MetricLogger | None = None) -> dict:
+    """The eval task: the latest checkpoint's AUC and loss over the
+    validation files (an ``eval`` event), on every rank of the group."""
+    ctx = initialize_distributed(cfg.mesh, device)
+    try:
+        state = _restored(cfg, ctx)
+        log = log or (MetricLogger() if ctx.rank == 0 else None)
+        return run_eval(state.model, cfg, log=log, ctx=ctx)
+    finally:
+        shutdown(ctx)
+
+
+def run_infer(cfg: Config, *, device=None, output_path: str | None = None,
+              log: MetricLogger | None = None) -> str:
+    """The infer task: the latest checkpoint's probability for every
+    ``te*``/``test*`` record under ``data.test_data_dir`` (else
+    ``data.val_data_dir``), or, where there is none, every ``va*``/``val*``
+    record, one a line in file order, to ``output_path`` (default
+    ``pred.txt`` in that directory); returns the path.  A single-process
+    job, as in JAX: it raises in a group of more than one rank."""
+    ctx = initialize_distributed(cfg.mesh, device)
+    try:
+        if ctx.world_size > 1:
+            raise RuntimeError(
+                "task_type=infer is a single-process batch job; run it "
+                "without torch.distributed.run (the checkpoint restores on "
+                "one process)")
+        state = _restored(cfg, ctx)
+        base = cfg.data.test_data_dir or cfg.data.val_data_dir
+        patterns = ("te", "test")
+        if not discover_files(base, patterns, shuffle=False):
+            patterns = ("va", "val")
+        out = output_path or os.path.join(base, "pred.txt")
+        dev = state.model.fm_v.device
+        batches = eval_batches(cfg.data, field_size=cfg.model.field_size, data_dir=base,
+                               patterns=patterns)
+        n = write_predictions(
+            (predict_step(state.model, to_device(b, dev)).cpu().numpy()
+             for b in _tensors(batches)), out)
+        (log or MetricLogger()).event("infer", path=out, examples=n)
+        return out
+    finally:
+        shutdown(ctx)
+
+
+def run_export(cfg: Config, *, device=None, log: MetricLogger | None = None) -> str:
+    """The export task: the latest checkpoint as a servable in
+    ``run.servable_model_dir``; returns its path."""
+    ctx = initialize_distributed(cfg.mesh, device)
+    try:
+        state = _restored(cfg, ctx)
+        path = cfg.run.servable_model_dir
+        if ctx.rank == 0:
+            path = export_servable(cfg.model, state.model.state_dict(), path)
+            (log or MetricLogger()).event("export", path=path)
+        return path
+    finally:
+        shutdown(ctx)
+
+
+TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
+         "export": run_export}
+
+
+def run_task(cfg: Config, *, device=None):
+    """Run ``cfg.run.task_type`` (train, eval, infer or export); returns
+    the task's result: the train state, the eval metrics, the pred.txt path
+    or the servable path."""
+    task = cfg.run.task_type
+    if task not in TASKS:
+        raise ValueError(f"unknown task_type {task!r} ({'|'.join(TASKS)})")
+    return TASKS[task](cfg, device=device)

@@ -120,6 +120,19 @@ class Optimizer:
         """The update for one parameter, lr applied; updates ``slots``."""
         raise NotImplementedError
 
+    def state_dict(self) -> dict:
+        """``{"count": int, "slots": {param: {slot: tensor}}}``: the live
+        slot tensors, not copies (as ``torch.optim``'s ``state_dict``)."""
+        return {"count": self.count, "slots": self.slots}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into this optimizer's slots, in place
+        and onto their device; the parameters, slots and shapes must be
+        this optimizer's."""
+        load_slots(self.slots, state["slots"], "optimizer")
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, torch.Tensor]) -> None:
@@ -208,6 +221,22 @@ class Ftrl(Optimizer):
         z.copy_(z_new)
         n.copy_(n_new)
         return w_new - p
+
+
+def load_slots(dst: dict, src: dict, what: str) -> None:
+    """Copy ``src`` (nested dicts of tensors) into the same-shaped nested
+    dict of tensors ``dst``, in place; raises naming the first mismatch."""
+    if dst.keys() != src.keys():
+        raise ValueError(f"{what} state holds {sorted(src)}, expected {sorted(dst)}")
+    for key, d in dst.items():
+        if isinstance(d, dict):
+            load_slots(d, src[key], f"{what}.{key}")
+            continue
+        t = torch.as_tensor(src[key])
+        if t.shape != d.shape:
+            raise ValueError(f"{what}.{key}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(d.shape)}")
+        d.copy_(t)
 
 
 _OPTIMIZERS = {"adam": Adam, "adagrad": Adagrad, "momentum": Momentum, "ftrl": Ftrl}

@@ -25,6 +25,12 @@ class MetricLogger:
         self._examples_since = 0
         self._step_at_last_log = 0
 
+    def seed_step(self, step: int) -> None:
+        """Start counting at a resumed ``step``: the first line comes at the
+        next boundary, with a per-step time over the steps run since."""
+        self._step_at_last_log = step
+        self._t_last = time.perf_counter()
+
     def step(self, step: int, batch_size: int, metrics: Mapping[str, Any]) -> None:
         """Count ``batch_size`` examples for ``step``; write a line when a
         ``log_steps`` boundary was crossed since the last one."""

@@ -73,3 +73,71 @@ def dp_train_files(rank: int, world: int, store: str, out: str, argv: list) -> N
                     "step": state.step}, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor a resume must restore, by name, the generator's too."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for name, slots in state.optimizer.slots.items():
+        out.update({f"opt.{name}.{s}": t for s, t in slots.items()})
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def dp_lifecycle(rank: int, world: int, store: str, out: str, argv: list,
+                 stop_rank: int, stop_after: int) -> None:
+    """The CLI's train task three times in one group: uninterrupted in
+    ``<out>/whole``, evaluating after every step by rank 0's clock while
+    the other ranks' clocks stand still; then in ``<out>/split``, stopped
+    by a SIGTERM that only rank ``stop_rank`` receives, after its step
+    ``stop_after``; then the same command again, which resumes.  Saves
+    each run's end and how many evals each rank ran."""
+    import signal
+    import time
+
+    from deepfm_tpu_torch.launch import cli
+    from deepfm_tpu_torch.launch.preemption import PreemptedError
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.train import loop
+
+    real_step, real_eval, real_time = spmd.train_step, loop.run_eval, time.time
+    evals = []
+
+    def counted_eval(*a, **kw):
+        evals.append(1)
+        return real_eval(*a, **kw)
+
+    def step_then_signal(state, *a, **kw):
+        metrics = real_step(state, *a, **kw)
+        if rank == stop_rank and state.step == stop_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return metrics
+
+    _join(rank, world, store)
+    try:
+        result = {}
+        whole = argv + ["--model_dir", os.path.join(out, "whole"), "--device", "cpu"]
+        split = argv + ["--model_dir", os.path.join(out, "split"), "--device", "cpu"]
+        loop.run_eval = counted_eval
+        if rank != 0:
+            time.time = lambda: 0.0
+        try:
+            result["whole"] = _state_tensors(cli.run(
+                whole + ["--set", "run.eval_throttle_secs=1e-9"]))
+        finally:
+            loop.run_eval, time.time = real_eval, real_time
+        result["evals"] = len(evals)
+        spmd.train_step = step_then_signal
+        try:
+            cli.run(split)
+            result["preempted"] = None
+        except PreemptedError as e:
+            result["preempted"] = str(e)
+        finally:
+            spmd.train_step = real_step
+        state = cli.run(split)
+        result["resumed"] = _state_tensors(state)
+        result["step"] = state.step
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

@@ -43,7 +43,6 @@ RAISING = [
     ("data", "stream_mode", True, "A6"),
     ("data", "multi_path", True, "A6"),
     ("data", "eval_max_batches", 8, "A6"),
-    ("data", "test_data_dir", "/data/test", "A6"),
     ("model", "tiered_embeddings", True, "A11"),
     ("elastic", "enabled", True, "A15"),
     ("run", "workers_per_host", 2, "A7"),

@@ -161,6 +161,7 @@ def test_uneven_shards_end_together_and_eval_merges_across_ranks(tmp_path):
                            field_size=F, seed=2)
     argv = ["--task_type", "train", "--training_data_dir", str(data),
             "--val_data_dir", str(data), "--servable_model_dir", str(tmp_path / "s"),
+            "--model_dir", str(tmp_path / "model"),
             "--feature_size", str(V), "--field_size", str(F), "--embedding_size",
             str(K), "--deep_layers", "16,8", "--batch_size", "4", "--num_epochs", "1",
             "--log_steps", "1"]
@@ -227,7 +228,8 @@ def test_torch_distributed_run_trains_evaluates_and_exports(tmp_path):
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "2", "-m", "deepfm_tpu_torch", "--task_type", "train",
          "--device", "cpu", "--training_data_dir", str(data), "--val_data_dir",
-         str(data), "--servable_model_dir", str(servable), "--feature_size", str(V),
+         str(data), "--servable_model_dir", str(servable), "--model_dir",
+         str(tmp_path / "model"), "--feature_size", str(V),
          "--field_size", str(F), "--embedding_size", str(K), "--deep_layers", "16,8",
          "--batch_size", "16", "--log_steps", "2", "--num_epochs", "1",
          "--set", "model.batch_norm=true"],

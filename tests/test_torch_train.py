@@ -157,7 +157,7 @@ def test_train_state_from_jax_checks_shapes_and_optimizer():
     wide = cfg.with_overrides(model={"embedding_size": 16})
     with pytest.raises(ValueError, match="fm_v"):
         train_state_from_jax(jstate, wide, device="cpu")
-    with pytest.raises(ValueError, match="Adam state only"):
+    with pytest.raises(ValueError, match="no Adagrad state"):
         train_state_from_jax(jstate, cfg.with_overrides(optimizer={"name": "Adagrad"}),
                              device="cpu")
 
@@ -268,7 +268,8 @@ def test_cli_trains_on_the_cpu_end_to_end(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "deepfm_tpu_torch", "--task_type", "train",
          "--device", "cpu", "--training_data_dir", str(data), "--val_data_dir",
-         str(data), "--servable_model_dir", str(servable), "--feature_size", str(V),
+         str(data), "--servable_model_dir", str(servable), "--model_dir",
+         str(tmp_path / "model"), "--feature_size", str(V),
          "--field_size", str(F), "--embedding_size", str(K), "--deep_layers", "16,8",
          "--dropout", "0.5,0.5", "--batch_size", "32", "--num_epochs", "2",
          "--log_steps", "4", "--set", "model.batch_norm=true",
@@ -293,8 +294,8 @@ def test_cli_trains_on_the_cpu_end_to_end(tmp_path):
 def test_cli_refuses_what_is_not_ported():
     from deepfm_tpu_torch.launch.cli import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        run(["--task_type", "eval", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        run(["--task_type", "online-train", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="serve.server"):
         run(["--task_type", "serve", "--device", "cpu"])
     if not torch.cuda.is_available():
