@@ -21,11 +21,31 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 8):
               share of that bound, and the time of a one-element add (the
               launch floor);
 4. serve    - the full-width DeepFM (117,581 x 39 x 32, MLP 256/128/64,
-              bf16, random weights from --seed) exported, loaded on the card
-              behind the HTTP server, and sent :predict requests of 1, 8 and
-              100 instances; the predictions must be finite and agree with
-              the plain-version forward of the same weights, and the forward
-              kernel's launch count must have risen during this phase;
+              bf16, random weights from --seed) exported and served on the
+              card over HTTP with hot reload from a publish root: every
+              bucket's forward a CUDA graph in each of two weight slots (8
+              graphs), sent :predict requests of 1, 8 and 100 instances,
+              which must be finite, repeatable and agree with the plain
+              forward of the same weights; the graphs must have replayed
+              the forward kernel (its runs on this path are the replays
+              times the launches captured into a graph; the warm-ups before
+              capture and the captures are printed apart) and the requests
+              launched it eagerly no time.
+              Then (a) each bucket's graphed dispatch against the eager
+              kernel forward (1e-6) and the plain one (1e-4), with its host
+              ms beside the eager predict's and the forward's device and
+              call ms; (g) /metrics parsed as Prometheus text and a traced
+              request's queue and dispatch spans; (c) :predict and
+              :predict_binary p50 at 1, 8 and 100 instances on the graphed
+              server and on an eager micro-batcher over load_model; (d) 16
+              closed-loop clients in another process for 3 s against each
+              (requests/s, p50, p99); (e) versions 1 and 2 published through
+              the port's ModelPublisher and swapped in under concurrent
+              :predict traffic, every response within 1e-4 of the plain
+              answer of the version it reports or the one before, all on
+              version 2 after, the graph count 8 after each swap, with the
+              swap, stage and canary ms; (f) a NaN version rolled back and
+              a version with a corrupted params.npz refused on its hash;
 5. parity   - one loss.backward() of the full-width float32 model on a batch
               of 1,024 synthetic records through the kernels and through
               the plain versions, from the same weights: the loss and every
@@ -126,6 +146,9 @@ TOL_YV_REL = 1e-4
 # served probabilities vs the plain forward on the same padded bucket: the
 # MLP input is bit-equal, only the FM sums' order differs
 TOL_PROB = 1e-4
+# a bucket graph's probabilities vs the eager kernel forward it captured:
+# the same kernels on the same inputs
+TOL_GRAPH = 1e-6
 # sequential repeats of each :predict, for its latency
 SERVE_REPEATS = 30
 # backward kernel vs plain, and the parity step's gradients: max abs error
@@ -1199,18 +1222,154 @@ def get(url: str) -> dict:
         return json.load(r)
 
 
+def _serve_thread(servable: str, name: str, **kw):
+    """serve_forever on the card in a thread; returns its ready event (with
+    .port, .server, .scorer, .predictor, .swapper) and the thread."""
+    from deepfm_tpu_torch.serve.server import serve_forever
+
+    ready = threading.Event()
+    errors = []
+
+    def run():
+        try:
+            serve_forever(servable, port=0, buckets=BUCKETS, max_wait_ms=2.0,
+                          device="cuda", ready=ready, **kw)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+            ready.set()
+
+    thread = threading.Thread(target=run, name=name, daemon=True)
+    thread.start()
+    if not ready.wait(timeout=600) or errors:
+        fail(f"server did not come up: {errors}")
+    return ready, thread
+
+
+def _instances_body(ids: np.ndarray, vals: np.ndarray) -> bytes:
+    return json.dumps({"instances": [{"feat_ids": i.tolist(), "feat_vals": v.tolist()}
+                                     for i, v in zip(ids, vals)]}).encode()
+
+
+class _Client:
+    """One keep-alive connection to a server on this host."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+    def post(self, path: str, body: bytes, headers: dict | None = None):
+        self.conn.request("POST", path, body, headers or {})
+        r = self.conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+
+    def close(self):
+        self.conn.close()
+
+
+def http_p50(port: int, requests, repeats: int = SERVE_REPEATS) -> dict:
+    """:predict and :predict_binary p50 (ms, host clock, client to client,
+    one keep-alive connection, sequential) for each request size."""
+    from deepfm_tpu_torch.serve.server import encode_binary_request
+
+    client = _Client(port)
+    out = {}
+    try:
+        for ids, vals in requests:
+            for path, body in ((":predict", _instances_body(ids, vals)),
+                               (":predict_binary", encode_binary_request(ids, vals))):
+                lat = []
+                for _ in range(1 + repeats):
+                    t0 = time.perf_counter()
+                    code, _, raw = client.post(f"/v1/models/deepfm{path}", body)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    if code != 200:
+                        fail(f"{path} with {len(ids)} instances answered {code}: {raw[:200]}")
+                out[f"{path[1:]} n={len(ids)}"] = float(np.percentile(lat[1:], 50))
+    finally:
+        client.close()
+    return out
+
+
+# the closed-loop load generator, run in its own process so that its
+# threads do not share the server's interpreter lock:
+#   python -c LOAD_CLIENT port path body_file content_type threads seconds
+LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+port, path, body_file, ctype = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+threads, seconds = int(sys.argv[5]), float(sys.argv[6])
+body = open(body_file, "rb").read()
+lat, bad, lock = [], [], threading.Lock()
+start = threading.Barrier(threads + 1)
+def worker():
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    mine = []
+    start.wait()
+    end = time.perf_counter() + seconds
+    while True:
+        t0 = time.perf_counter()
+        if t0 >= end:
+            break
+        conn.request("POST", path, body, {"Content-Type": ctype})
+        r = conn.getresponse()
+        r.read()
+        if r.status != 200:
+            bad.append(r.status)
+            break
+        mine.append(time.perf_counter() - t0)
+    conn.close()
+    with lock:
+        lat.extend(mine)
+ts = [threading.Thread(target=worker) for _ in range(threads)]
+for t in ts:
+    t.start()
+start.wait()
+t0 = time.perf_counter()
+for t in ts:
+    t.join()
+wall = time.perf_counter() - t0
+lat.sort()
+q = lambda p: 1e3 * lat[min(len(lat) - 1, int(p * (len(lat) - 1)))] if lat else None
+print(json.dumps({"requests": len(lat), "seconds": wall, "rps": len(lat) / wall,
+                  "p50_ms": q(0.5), "p99_ms": q(0.99), "errors": len(bad)}))
+"""
+LOAD_THREADS, LOAD_SECONDS, LOAD_ROWS = 16, 3.0, 8
+
+
+def closed_loop(port: int, body: bytes, binary: bool, workdir: str) -> dict:
+    """16 client threads in another process, each posting one request after
+    the other for LOAD_SECONDS: requests/s, p50 and p99 (host clock)."""
+    path = os.path.join(workdir, "load_body.bin")
+    with open(path, "wb") as f:
+        f.write(body)
+    out = subprocess.run(
+        [sys.executable, "-c", LOAD_CLIENT, str(port),
+         "/v1/models/deepfm:" + ("predict_binary" if binary else "predict"), path,
+         "application/octet-stream" if binary else "application/json",
+         str(LOAD_THREADS), str(LOAD_SECONDS)],
+        capture_output=True, text=True, timeout=300, check=True)
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    if doc["errors"] or not doc["requests"]:
+        fail(f"closed-loop load failed: {doc}")
+    return doc
+
+
 def phase_serve(seed: int, workdir: str) -> dict:
+    """The full-width DeepFM served over HTTP through the bucket graphs,
+    with hot reload from a publish root; then the graphs against the eager
+    and plain forwards, the obs surface, the graphed server against an
+    eager one, hot swaps under traffic and the reloader's refusals."""
     from deepfm_tpu_torch.core.config import ModelConfig
     from deepfm_tpu_torch.models import DeepFM
     from deepfm_tpu_torch.ops import fused_ctr
-    from deepfm_tpu_torch.serve.batcher import pick_bucket
-    from deepfm_tpu_torch.serve.export import export_servable, load_model
-    from deepfm_tpu_torch.serve.server import serve_forever
+    from deepfm_tpu_torch.serve.export import export_servable
 
     cfg = ModelConfig(fused_kernel="auto")
+    servable = os.path.join(workdir, "v0")
+    publish = os.path.join(workdir, "publish")
     t0 = time.perf_counter()
     model = DeepFM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
-    export_servable(cfg, model.state_dict(), workdir)
+    export_servable(cfg, model.state_dict(), servable)
     del model
     print(f"serve: exported the full-width servable in {time.perf_counter() - t0:.2f} s")
 
@@ -1221,26 +1380,19 @@ def phase_serve(seed: int, workdir: str) -> dict:
         vals = rng.random((n, cfg.field_size)).astype(np.float32)
         requests.append((ids, vals))
 
-    # the main path: counts from 0, then load + warm-up + requests
-    fused_ctr.launches = 0
-    ready = threading.Event()
-    errors = []
-
-    def run():
-        try:
-            serve_forever(workdir, port=0, buckets=BUCKETS, max_wait_ms=2.0,
-                          device="cuda", ready=ready)
-        except BaseException as e:  # reported by the main thread
-            errors.append(e)
-            ready.set()
-
+    # the main path: counts from 0, then load + graph capture + warm-up +
+    # requests through the graphs.  B1 runs there inside the graphs' replays,
+    # which its wrapper does not see: its runs are replays x the launches a
+    # replay holds (the wrapper counts the captured launches apart)
+    fused_ctr.launches = fused_ctr.captured = 0
     t0 = time.perf_counter()
-    thread = threading.Thread(target=run, name="chip-smoke-server", daemon=True)
-    thread.start()
-    if not ready.wait(timeout=600) or errors:
-        fail(f"server did not come up: {errors}")
+    ready, thread = _serve_thread(servable, "chip-smoke-server", reload_url=publish,
+                                  reload_interval_secs=0.1)
+    predictor = ready.predictor
+    warm_launches, captured = fused_ctr.launches, fused_ctr.captured
+    start_replays = predictor.replays
     print(f"serve: server up on port {ready.port} in {time.perf_counter() - t0:.2f} s "
-          f"(load + bucket warm-up)")
+          f"(load + {predictor.graph_count} graph captures + warm-up)")
     base = f"http://127.0.0.1:{ready.port}"
     served = []
     try:
@@ -1249,9 +1401,7 @@ def phase_serve(seed: int, workdir: str) -> dict:
         if not get(f"{base}/readyz").get("ready"):
             fail("/readyz is not ready")
         for ids, vals in requests:
-            body = json.dumps({"instances": [
-                {"feat_ids": i.tolist(), "feat_vals": v.tolist()}
-                for i, v in zip(ids, vals)]}).encode()
+            body = _instances_body(ids, vals)
             lat_ms = []
             for rep in range(1 + SERVE_REPEATS):
                 t1 = time.perf_counter()
@@ -1268,6 +1418,9 @@ def phase_serve(seed: int, workdir: str) -> dict:
                   f"{lat_ms[0]:.3f} ms, then over {SERVE_REPEATS} sequential "
                   f"repeats p50 {np.percentile(lat_ms[1:], 50):.3f} ms, "
                   f"max {max(lat_ms[1:]):.3f} ms (host clock, client to client)")
+        eager, replays = fused_ctr.launches, predictor.replays
+        per_replay = predictor.kernel_launches_per_replay
+        launches = replays * per_replay
         code, doc = post(f"{base}/v1/models/deepfm:predict",
                          b'{"instances": [{"feat_ids": [1, 2], "feat_vals": [1.0]}]}')
         if code != 400:
@@ -1275,66 +1428,310 @@ def phase_serve(seed: int, workdir: str) -> dict:
         metrics = get(f"{base}/v1/metrics")
         if get(f"{base}/healthz").get("status") != "alive":
             fail("/healthz is not alive")
+        if per_replay <= 0 or replays <= start_replays:
+            fail(f"the served path replayed {replays} graphs ({start_replays} at start-up), "
+                 f"each holding {per_replay} fused_ctr_forward launches")
+        if captured != per_replay * predictor.graph_count or eager != warm_launches:
+            fail(f"fused_ctr_forward: {captured} launches captured into "
+                 f"{predictor.graph_count} graphs; {warm_launches} eager at start-up, "
+                 f"{eager} after the requests (the graphed path launches none)")
+        print(f"serve: fused_ctr_forward runs on the main path: {launches} = {replays} "
+              f"graph replays ({start_replays} warm-up, {replays - start_replays} "
+              f"requests) x {per_replay}; not counted: {warm_launches} eager side-stream "
+              f"warm-ups before capture, {captured} recorded into the graphs; dispatches "
+              f"by bucket: {metrics['batch_size_hist']}; latency_ms: {metrics['latency_ms']}")
+        # (b) one graph a (slot, bucket)
+        if predictor.graph_count != 2 * len(BUCKETS):
+            fail(f"{predictor.graph_count} graphs after precompile, not {2 * len(BUCKETS)}")
+        print(f"serve graphs: {predictor.graph_count} after precompile")
+        check_served(cfg, servable, requests, served)
+        breakdown(cfg, servable, ready, rng)                       # (a)
+        serve_obs(base)                                            # (g)
+        ab = serve_ab(cfg, servable, ready, requests, workdir)     # (c), (d)
+        swap = serve_reload(cfg, servable, publish, ready, seed, workdir)  # (e), (f)
     finally:
         ready.server.shutdown()
         thread.join(timeout=60)
-    launches = fused_ctr.launches
     if thread.is_alive():
         fail("server thread did not stop")
-    if launches <= 0:
-        fail("the served path launched fused_ctr_forward no time")
-    print(f"serve: fused_ctr_forward launches on the main path: {launches}; "
-          f"dispatches by bucket: {metrics['batch_size_hist']}; "
-          f"latency_ms: {metrics['latency_ms']}")
+    return {"launches": launches, "replays": replays, "ab": ab, "swap": swap}
 
-    # check: the plain forward of the same weights on the same padded bucket
-    ref = load_model(workdir, device="cuda")
+
+def check_served(cfg, servable: str, requests, served) -> None:
+    """The served predictions against the plain forward of the same weights
+    on the same padded bucket."""
+    from deepfm_tpu_torch.serve.batcher import pick_bucket
+    from deepfm_tpu_torch.serve.export import load_model
+
+    ref = load_model(servable, device="cuda")
     max_err = 0.0
     for (ids, vals), got in zip(requests, served):
         n = len(ids)
         if got.shape != (n,) or not np.all(np.isfinite(got)):
             fail(f"predictions for {n} instances: shape {got.shape}, finite "
                  f"{bool(np.all(np.isfinite(got)))}")
-        b = pick_bucket(BUCKETS, n)
-        pid = np.zeros((b, cfg.field_size), np.int64)
-        pval = np.zeros((b, cfg.field_size), np.float32)
-        pid[:n], pval[:n] = ids, vals
-        with torch.inference_mode():
-            i, v = ref.prepare(torch.from_numpy(pid).cuda(), torch.from_numpy(pval).cuda())
-            want = torch.sigmoid(ref.head(*fused_ctr.fused_ctr_plain(ref.fm_w, ref.fm_v, i, v)))
-        err = float(np.abs(want.cpu().numpy()[:n] - got).max())
+        want = plain_probs(ref, ids, vals, pick_bucket(BUCKETS, n))
+        err = float(np.abs(want - got).max())
         max_err = max(max_err, err)
         if err > TOL_PROB:
             fail(f"served predictions for {n} instances differ from the plain "
                  f"forward by {err} (tolerance {TOL_PROB})")
     print(f"serve: predictions finite; max abs diff vs the plain forward {max_err}")
-    breakdown(ref, workdir, rng)
-    return {"launches": launches, "max_prob_err": max_err}
 
 
-def breakdown(model, workdir: str, rng: np.random.Generator) -> None:
-    """Where a dispatch's time goes, per bucket: the whole forward on the
-    device (graph replay) and as eager calls, and the servable's predict
-    (numpy in, host-to-device copy, forward, sigmoid, copy back) on the
-    host clock.  Compare with the kernel's own times above."""
-    from deepfm_tpu_torch.serve.export import load_servable
+def plain_probs(model, ids: np.ndarray, vals: np.ndarray, bucket: int,
+                fused=None) -> np.ndarray:
+    """``model``'s probabilities for the rows, zero-padded to ``bucket`` as
+    a dispatch pads them, through the plain B1 (or ``fused``)."""
+    from deepfm_tpu_torch.ops import fused_ctr
 
-    cfg = model.cfg
-    predict, _ = load_servable(workdir, device="cuda")
+    n, f = ids.shape
+    pid = np.zeros((bucket, f), np.int64)
+    pval = np.zeros((bucket, f), np.float32)
+    pid[:n], pval[:n] = ids, vals
+    fused = fused or fused_ctr.fused_ctr_plain
+    with torch.inference_mode():
+        i, v = model.prepare(torch.from_numpy(pid).cuda(), torch.from_numpy(pval).cuda())
+        return torch.sigmoid(model.head(*fused(model.fm_w, model.fm_v, i, v))).cpu().numpy()[:n]
+
+
+def breakdown(cfg, servable: str, ready, rng: np.random.Generator) -> None:
+    """(a) Where a dispatch's time goes, per bucket, on the serve mix: the
+    forward on the device (graph replay of the eager forward) and as eager
+    calls; the graphed dispatch (pinned copies in, replay, copy out, on the
+    server's worker thread) against the eager servable's predict (numpy in,
+    copy, eager forward, copy back), host clock, with the graphed answer's
+    largest difference from the eager kernel forward and the plain one."""
+    from deepfm_tpu_torch.serve.export import load_model, load_servable
+
+    model = load_model(servable, device="cuda")
+    predict, _ = load_servable(servable, device="cuda")
+    predictor, run = ready.predictor, ready.scorer.run_on_worker
     for b in BUCKETS:
         ids = make_ids(rng, b, cfg.field_size, cfg.feature_size)
         vals = rng.random((b, cfg.field_size)).astype(np.float32)
         tids, tvals = torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
         with torch.inference_mode():
             fwd_ms, fwd_call_ms = time_ms(lambda: model(tids, tvals), reps=20)
-        host = []
+
+        def graphed():
+            times, out = [], None
+            for _ in range(30):
+                t0 = time.perf_counter()
+                out = predictor.predict_with(0, ids, vals)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return out, float(np.percentile(times, 50))
+
+        got, graphed_ms = run(graphed)
+        eager = []
         for _ in range(30):
             t0 = time.perf_counter()
-            predict(ids, vals)
-            host.append((time.perf_counter() - t0) * 1e3)
+            want_k = predict(ids, vals)
+            eager.append((time.perf_counter() - t0) * 1e3)
+        want_p = plain_probs(model, ids, vals, b)
+        err_k = float(np.abs(got - want_k).max())
+        err_p = float(np.abs(got - want_p).max())
+        if err_k > TOL_GRAPH or err_p > TOL_PROB:
+            fail(f"graphed dispatch at bucket {b}: {err_k} from the eager kernel forward "
+                 f"(tolerance {TOL_GRAPH}), {err_p} from the plain (tolerance {TOL_PROB})")
         print("breakdown B=%d %s" % (b, json.dumps({
             "forward_ms": fwd_ms, "forward_call_ms": fwd_call_ms,
-            "predict_p50_ms": float(np.percentile(host, 50))})))
+            "graphed_dispatch_p50_ms": graphed_ms,
+            "predict_p50_ms": float(np.percentile(eager, 50)),
+            "graphed_vs_eager_kernel_max_abs": err_k,
+            "graphed_vs_plain_max_abs": err_p})))
+
+
+def serve_obs(base: str) -> None:
+    """(g) /metrics parses as Prometheus text; a request with a trace id
+    gets it back and its queue and dispatch spans are in the ring."""
+    with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    samples = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            if line.split()[1] not in ("HELP", "TYPE"):
+                fail(f"/metrics: bad comment line {line!r}")
+            continue
+        name, value = line.rsplit(" ", 1)
+        if not name or name[0] in "{ " or not np.isfinite(float(value)):
+            fail(f"/metrics: bad sample line {line!r}")
+        samples[name] = float(value)
+    if samples.get('deepfm_serve_requests_total{engine="predict"}', 0) <= 0:
+        fail("/metrics counts no request")
+    trace_id = "c41b5e0fc41b5e0f"
+    req = urllib.request.Request(
+        f"{base}/v1/models/deepfm:predict",
+        data=b'{"instances": [{"feat_ids": ' + json.dumps([1] * 39).encode()
+        + b', "feat_vals": ' + json.dumps([1.0] * 39).encode() + b"}]}",
+        headers={"X-Trace-Id": trace_id})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        if r.headers.get("X-Trace-Id") != trace_id:
+            fail("the traced response does not carry its trace id")
+    traces = [t for t in get(f"{base}/v1/trace/recent")["traces"] if t["trace_id"] == trace_id]
+    spans = sorted(s["name"] for t in traces for s in t["spans"])
+    if spans != ["predict.dispatch", "predict.queue"]:
+        fail(f"the traced request's spans are {spans}")
+    flight = get(f"{base}/v1/flight")["events"]
+    print(f"serve obs: /metrics {len(samples)} samples parsed; trace {trace_id} spans "
+          f"{[(s['name'], s['duration_ms']) for t in traces for s in t['spans']]}; "
+          f"flight events {len(flight)}")
+
+
+def serve_ab(cfg, servable: str, ready, requests, workdir: str) -> dict:
+    """(c), (d) The graphed server against an eager micro-batcher over
+    load_model in the same process: :predict and :predict_binary p50 at
+    1, 8 and 100 instances, then a closed loop of 16 clients on each."""
+    from deepfm_tpu_torch.serve.batcher import MicroBatcher
+    from deepfm_tpu_torch.serve.export import load_servable
+    from deepfm_tpu_torch.serve.server import (ScoringHTTPServer, encode_binary_request,
+                                               make_handler)
+
+    predict, _ = load_servable(servable, device="cuda")
+    eager = MicroBatcher(predict, cfg.field_size, buckets=BUCKETS, max_wait_ms=2.0,
+                         name="eager")
+    eager.precompile()
+    httpd = ScoringHTTPServer(("127.0.0.1", 0), make_handler(eager, "deepfm"))
+    thread = threading.Thread(target=httpd.serve_forever, name="chip-smoke-eager",
+                              daemon=True)
+    thread.start()
+    rng = np.random.default_rng(99)
+    ids = make_ids(rng, LOAD_ROWS, cfg.field_size, cfg.feature_size)
+    vals = rng.random((LOAD_ROWS, cfg.field_size)).astype(np.float32)
+    out = {}
+    try:
+        ports = {"graphed": ready.port, "eager": httpd.server_address[1]}
+        for name, port in ports.items():
+            out[name] = {"p50_ms": http_p50(port, requests)}
+        for name, port in ports.items():
+            for binary in (False, True):
+                body = (encode_binary_request(ids, vals) if binary
+                        else _instances_body(ids, vals))
+                out[name][f"load_{'binary' if binary else 'json'}"] = closed_loop(
+                    port, body, binary, workdir)
+        for name in ports:
+            print(f"serve http {name}: {json.dumps(out[name])}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        eager.close()
+    return out
+
+
+def serve_reload(cfg, servable: str, publish: str, ready, seed: int, workdir: str) -> dict:
+    """(e) Versions 1 and 2, published through the port's ModelPublisher
+    with their own weights, swap in under concurrent :predict traffic:
+    every response equals the plain answer of the version it reports or
+    the one before it (1e-4), and after the swaps every response is the new
+    version's; the graph count stays 8.  (f) A version with NaN weights is
+    rolled back, one with a corrupted params.npz refused on its hash."""
+    from deepfm_tpu_torch.models import DeepFM
+    from deepfm_tpu_torch.online.publisher import ModelPublisher, version_location
+    from deepfm_tpu_torch.serve.export import load_model, model_from_state
+
+    swapper, predictor = ready.swapper, ready.predictor
+    states = [None] + [DeepFM(cfg, device="cpu", generator=torch.Generator().manual_seed(
+        seed + v)).state_dict() for v in (1, 2)]
+    models = [load_model(servable, device="cuda")] + [
+        model_from_state(cfg, states[v], "cuda") for v in (1, 2)]
+    rng = np.random.default_rng(seed + 5)
+    clients = []
+    for k, n in enumerate((1, 3, 8, 20)):
+        ids = make_ids(rng, n, cfg.field_size, cfg.feature_size)
+        vals = rng.random((n, cfg.field_size)).astype(np.float32)
+        # each version's plain answer at every bucket the rows may land in
+        want = [{b: plain_probs(m, ids, vals, b) for b in BUCKETS if b >= n} for m in models]
+        clients.append((_instances_body(ids, vals), want))
+    stop = threading.Event()
+    bad, counts = [], [0] * 3
+    lock = threading.Lock()
+
+    def client(body, want):
+        conn = _Client(ready.port)
+        try:
+            while not stop.is_set():
+                code, _, raw = conn.post("/v1/models/deepfm:predict", body)
+                doc = json.loads(raw)
+                if code != 200:
+                    bad.append(f"{code}: {doc}")
+                    return
+                got = np.asarray(doc["predictions"], np.float32)
+                mv = doc["model_version"]
+                ok = [v for v in {mv, max(0, mv - 1)} if any(
+                    float(np.abs(got - w).max()) <= TOL_PROB for w in want[v].values())]
+                with lock:
+                    counts[mv] += 1
+                if not ok:
+                    bad.append(f"reported version {mv}: matches neither it nor the one before")
+                    return
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=c, daemon=True) for c in clients]
+    for t in threads:
+        t.start()
+    pub = ModelPublisher(publish)
+    for v in (1, 2):
+        time.sleep(0.3)
+        pub.publish(cfg, states[v], step=v)
+        deadline = time.monotonic() + 120
+        while swapper.status()["swaps_total"] < v:  # swapped and drained
+            if time.monotonic() > deadline or bad:
+                fail(f"version {v} did not swap in: {swapper.status()} {bad[:2]}")
+            time.sleep(0.01)
+        st = swapper.status()
+        print(f"serve reload: version {v} live; last_swap_ms {st['last_swap_ms']}, "
+              f"last_stage_ms {st['last_stage_ms']}, last_canary_ms {st['last_canary_ms']}, "
+              f"graphs {predictor.graph_count}, slot {st['live_slot']}")
+        if predictor.graph_count != 2 * len(BUCKETS):
+            fail(f"{predictor.graph_count} graphs after swap {v}")
+    time.sleep(0.3)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    if bad or any(t.is_alive() for t in threads):
+        fail(f"responses during the swaps: {bad[:3]}")
+    # after the swaps: every response is version 2's
+    conn = _Client(ready.port)
+    try:
+        for body, want in clients:
+            code, _, raw = conn.post("/v1/models/deepfm:predict", body)
+            doc = json.loads(raw)
+            got = np.asarray(doc["predictions"], np.float32)
+            if doc["model_version"] != 2 or not any(
+                    float(np.abs(got - w).max()) <= TOL_PROB for w in want[2].values()):
+                fail(f"after the swaps a response is not version 2's: {doc}")
+    finally:
+        conn.close()
+    st = swapper.status()
+    swap = {k: st[k] for k in ("last_swap_ms", "last_stage_ms", "last_canary_ms")}
+    print(f"serve reload: responses by reported version {counts}, all the old or the new "
+          f"version's within {TOL_PROB}; {json.dumps(swap)}")
+
+    # (f) refusals, polled by hand
+    swapper.stop()
+    nan_state = dict(states[2])
+    nan_state["fm_v"] = torch.full_like(states[2]["fm_v"], float("nan"))
+    pub.publish(cfg, nan_state, step=3)
+    if swapper.poll_once() or swapper.status()["model_version"] != 2 \
+            or "non-finite" not in (swapper.status()["last_error"] or ""):
+        fail(f"a NaN version was not rolled back: {swapper.status()}")
+    pub.publish(cfg, states[1], step=4)
+    path = os.path.join(version_location(publish, 4), "params.npz")
+    with np.load(path) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    arrays["fm_b"] = arrays["fm_b"] + 1.0  # the bytes no longer match the manifest
+    np.savez(path, **arrays)
+    if swapper.poll_once() or "hash mismatch" not in (swapper.status()["last_error"] or ""):
+        fail(f"a corrupted version was not refused on its hash: {swapper.status()}")
+    st = swapper.status()
+    if st["model_version"] != 2 or st["rollbacks_total"] != 2 or predictor.graph_count != 8:
+        fail(f"after the refusals: {st}")
+    print(f"serve refusals: NaN version rolled back, corrupted version refused on its "
+          f"hash; live version {st['model_version']}, rollbacks {st['rollbacks_total']}, "
+          f"graphs {predictor.graph_count}")
+    return swap
 
 
 def build_funnel(seed: int, workdir: str) -> str:

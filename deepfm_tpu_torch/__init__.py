@@ -6,13 +6,15 @@ find.  The package imports ``torch`` and never ``jax``, and nothing from
 ``deepfm_tpu``: what it needs from that package's JAX-free modules it keeps
 as its own trimmed copy.
 
-    python -m deepfm_tpu_torch --task_type train|eval|infer|export ...
+    python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve ...
         (launch/cli.py; checkpoints and resume in --model_dir, records
         read by the C++ reader in native/)
     python -m torch.distributed.run --nproc_per_node N -m deepfm_tpu_torch ...
         (data parallel, one rank a card: parallel/)
-    python -m deepfm_tpu_torch.serve.server --servable DIR   (:predict, or
-        /v1/recommend for a recommendation funnel servable, funnel/)
+    python -m deepfm_tpu_torch.serve.server --servable DIR   (:predict and
+        :predict_binary through one CUDA graph a bucket, serve/graphs.py;
+        hot reload with --reload-url from online/publisher.py's versions;
+        /metrics and traces, obs/; /v1/recommend for a funnel servable)
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (core/platform.py).  On CUDA tensors the gather + FM

@@ -23,6 +23,10 @@ the JAX package's ``FtrlState``, or, with lazy embedding updates, the
 parameters and the tables' m and v.  The dropout PRNG key does not carry: the port draws from
 its own ``torch.Generator``.
 
+``params_to_jax`` is the inverse of ``params_from_jax``: the JAX-layout
+numpy ``(params, model_state)`` tree of a DeepFM ``state_dict``, which the
+publisher hashes (online/publisher.py ``param_tree_hash``).
+
 ``two_tower_params_from_jax`` takes the two-tower pytree
 (``{"user_embedding", "item_embedding", "{user,item}_tower": {"layer_<i>":
 {"kernel", "bias"}, "proj": {...}}}``), and ``funnel_from_jax`` a JAX
@@ -138,6 +142,42 @@ def params_from_jax(params: Mapping, model_state: Mapping,
             flat[f"bn.layer_{i}.moving_mean"] = _field(s, "moving_mean", 0)
             flat[f"bn.layer_{i}.moving_var"] = _field(s, "moving_var", 1)
     return _checked({k: flat[k] for k in expected_shapes(cfg)}, cfg, "")
+
+
+def params_to_jax(state_dict: Mapping, cfg: ModelConfig) -> tuple[dict, dict]:
+    """The JAX-layout ``(params, model_state)`` of a DeepFM ``state_dict``
+    (tensors or arrays), as float32 numpy: the tree ``init_deepfm`` builds,
+    fm_v with its pad rows as the config gives them, Linear kernels
+    ``[in, out]`` (the port keeps JAX's layout, so nothing transposes), the
+    batch-norm leaves as ``BNParams``/``BNState`` NamedTuples, and
+    ``model_state`` ``{}`` without batch norm.  Shapes are checked against
+    ``cfg``."""
+    from .ops.batch_norm import BNParams, BNState
+
+    if cfg.model_name != "deepfm":
+        raise ValueError(f"params_to_jax takes a DeepFM state_dict, got "
+                         f"model {cfg.model_name!r}")
+    want = expected_shapes(cfg)
+    if set(state_dict) != set(want):
+        raise ValueError(
+            f"state_dict keys differ from the config's: missing "
+            f"{sorted(set(want) - set(state_dict))}, unexpected "
+            f"{sorted(set(state_dict) - set(want))}")
+    flat = {k: _checked({k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                         else v}, cfg, "")[k].numpy() for k, v in state_dict.items()}
+    n = len(cfg.deep_layers)
+    mlp = {f"layer_{i}": {leaf: flat[f"mlp.layer_{i}.{leaf}"] for leaf in ("kernel", "bias")}
+           for i in range(n)}
+    mlp["out"] = {leaf: flat[f"mlp.out.{leaf}"] for leaf in ("kernel", "bias")}
+    params = {"fm_b": flat["fm_b"], "fm_w": flat["fm_w"], "fm_v": flat["fm_v"], "mlp": mlp}
+    model_state: dict = {}
+    if cfg.batch_norm:
+        params["bn"] = {f"layer_{i}": BNParams(flat[f"bn.layer_{i}.scale"],
+                                               flat[f"bn.layer_{i}.bias"]) for i in range(n)}
+        model_state["bn"] = {f"layer_{i}": BNState(flat[f"bn.layer_{i}.moving_mean"],
+                                                   flat[f"bn.layer_{i}.moving_var"])
+                             for i in range(n)}
+    return params, model_state
 
 
 def two_tower_params_from_jax(params: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:

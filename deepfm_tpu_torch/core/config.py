@@ -11,7 +11,8 @@ validation.
   a data-parallel run;
 * ``MeshConfig`` - the JAX mesh section, as far as data parallelism over
   ``torch.distributed`` honours it;
-* ``RunConfig`` - task type, paths, logging cadence and seed;
+* ``RunConfig`` - task type, paths, logging cadence, seed, the train
+  task's lifecycle and the serve task's single-process fields;
 * ``Config`` - the five sections, read from and written to the JAX
   ``config.json`` schema (one dict per section).
 
@@ -125,15 +126,8 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "workers_per_host": (1, _A7),
         "steps_per_loop": (1, None),
         "profile_dir": ("", None),
-        "serve_port": (8501, None),
-        "serve_host": ("127.0.0.1", None),
-        "serve_item_corpus": ("", None),
-        "serve_workers": (1, None),
-        "serve_buckets": ("8,32,128,512", None),
-        "serve_max_wait_ms": (2.0, None),
-        "serve_reload_url": ("", None),
-        "serve_reload_interval_secs": (2.0, None),
-        "serve_groups": (0, None),
+        # the shard-group pool's members and router (ROADMAP A14; the
+        # serve task refuses run.serve_groups > 0)
         "serve_group_data_parallel": (1, None),
         "serve_group_model_parallel": (0, None),
         "serve_router_port": (8500, None),
@@ -430,8 +424,9 @@ class RunConfig:
     most once per ``eval_throttle_secs`` (0: at the end only); the task
     rerun after a crash up to ``max_restarts`` times, the waits starting at
     ``restart_backoff_secs``.  ``steps_per_loop``, ``hosts``,
-    ``current_host``, ``profile_dir`` and the serving fields load and are
-    not read (``JAX_ONLY_FIELDS``)."""
+    ``current_host``, ``profile_dir`` and the pool's serving fields load
+    and are not read (``JAX_ONLY_FIELDS``).  The ``serve_*`` fields here
+    configure the serve task (train/loop.py ``run_serve``)."""
 
     task_type: str = "train"
     model_dir: str = "./model_dir"
@@ -445,6 +440,19 @@ class RunConfig:
     keep_checkpoints: int = 3
     max_restarts: int = 0
     restart_backoff_secs: float = 5.0
+    # the serve task (serve/server.py serve_forever): bind address, buckets,
+    # batching wait, a two-tower corpus and hot reload from a local publish
+    # root.  serve_workers > 1 (process pool) and serve_groups > 0 (shard-
+    # group pool) are ROADMAP A14: the serve task raises on them
+    serve_port: int = 8501
+    serve_host: str = "127.0.0.1"
+    serve_item_corpus: str = ""
+    serve_workers: int = 1
+    serve_buckets: str = "8,32,128,512"
+    serve_max_wait_ms: float = 2.0
+    serve_reload_url: str = ""
+    serve_reload_interval_secs: float = 2.0
+    serve_groups: int = 0
 
 
 @dataclass(frozen=True)

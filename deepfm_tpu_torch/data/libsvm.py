@@ -1,5 +1,7 @@
-"""Synthetic Criteo-shaped TFRecords: ``generate_synthetic_ctr``, copied from
-``deepfm_tpu/data/libsvm.py`` (same records for the same arguments)."""
+"""libsvm lines and synthetic Criteo-shaped TFRecords:
+``parse_libsvm_line`` (the stdin scorer's reader) and
+``generate_synthetic_ctr``, copied from ``deepfm_tpu/data/libsvm.py``
+(same records for the same arguments)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,18 @@ import numpy as np
 
 from .example_proto import serialize_ctr_example
 from .tfrecord import TFRecordWriter
+
+
+def parse_libsvm_line(line: str) -> tuple[float, list[int], list[float]]:
+    """``label id:val id:val ...`` -> (label, ids, values)."""
+    data = line.split()
+    label = float(data[0])
+    ids, values = [], []
+    for fea in data[1:]:
+        i, v = fea.split(":")
+        ids.append(int(i))
+        values.append(float(v))
+    return label, ids, values
 
 
 def generate_synthetic_ctr(

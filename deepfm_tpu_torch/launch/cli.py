@@ -1,6 +1,6 @@
 """Launcher CLI: counterpart of ``deepfm_tpu/launch/cli.py``.
 
-    python -m deepfm_tpu_torch --task_type train|eval|infer|export \
+    python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve \
         --training_data_dir D --val_data_dir E --model_dir M \
         --servable_model_dir S [--test_data_dir T] \
         [--config cfg.json] [--set section.field=value ...] [--device cpu]
@@ -9,8 +9,12 @@ A JSON config (the ``config.json`` schema), then the first-class flags and
 ``--set`` overrides, resolve one ``Config``; the task then runs on the card
 (``--device cpu`` runs the kernels' plain versions on the CPU).  The flags
 keep the JAX CLI's names for what the port supports.  ``train``, ``eval``,
-``infer`` and ``export`` are ported (train/loop.py); every other task type
-raises, naming its ROADMAP item.
+``infer``, ``export`` and ``serve`` are ported (train/loop.py); every other
+task type raises, naming its ROADMAP item.  ``serve`` runs
+``serve/server.py serve_forever`` over ``--servable_model_dir`` with the
+``run.serve_*`` fields (``--set run.serve_port=8501``,
+``run.serve_reload_url=PUB``, ...); ``run.serve_workers > 1`` and
+``run.serve_groups > 0`` raise (ROADMAP A14).
 
 ``train`` checkpoints into ``--model_dir`` and resumes from it: run the
 same command again after a stop and it goes on from the latest
@@ -40,8 +44,6 @@ from ..core.config import Config
 
 # task types of the JAX CLI that the port does not run yet
 NOT_PORTED = {
-    "serve": "ROADMAP A8: run `python -m deepfm_tpu_torch.serve.server "
-             "--servable DIR` over the servable",
     "online-train": "ROADMAP A10 (online training)",
     "online_train": "ROADMAP A10 (online training)",
     "feedback-train": "ROADMAP A10 (online training over the flywheel's stream)",
@@ -97,11 +99,12 @@ def parse_set_pairs(pairs: list[str], sections: dict[str, dict]) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="deepfm_tpu_torch",
-        description="DeepFM training on one NVIDIA Hopper card (PyTorch/CUDA port)",
+        description="DeepFM training and serving on NVIDIA Hopper cards (PyTorch/CUDA port)",
     )
     p.add_argument("--config", help="JSON config file (Config.to_dict schema)")
-    p.add_argument("--task_type", choices=["train", "eval", "infer", "export", *NOT_PORTED],
-                   help="task dispatch; train, eval, infer and export are ported")
+    p.add_argument("--task_type",
+                   choices=["train", "eval", "infer", "export", "serve", *NOT_PORTED],
+                   help="task dispatch; train, eval, infer, export and serve are ported")
     p.add_argument("--training_data_dir")
     p.add_argument("--val_data_dir")
     p.add_argument("--test_data_dir", help="te*/test* records for infer")

@@ -16,7 +16,10 @@ VJP).
 
 There is no fallback from the card to the plain versions.  ``launches`` and
 ``backward_launches`` count each kernel's launches, so a caller can show
-that a path ran through the kernels.
+that a path ran through the kernels.  A forward recorded into a CUDA graph
+does not run until the graph replays, so it counts in ``captured``, not
+in ``launches``: a caller that replays graphs counts their runs itself
+(serve/graphs.py).
 
 Id clipping: ids clip to ``[0, fm_v rows - 1]`` for ``emb`` (a padded fm_v's
 zero rows are reachable by int32 ids past ``feature_size``), and that row
@@ -34,9 +37,11 @@ import torch
 from .embedding import dense_lookup, scaled_embedding
 from .fm import fm_first_order, fm_second_order
 
-# kernel launches since import (or since a caller reset them)
+# kernel launches since import (or since a caller reset them), and the
+# forwards recorded into CUDA graphs instead
 launches = 0
 backward_launches = 0
+captured = 0
 
 _MAX_K = 128  # csrc/fused_ctr.cu: 4 floats a lane
 _INT_MAX = 2**31 - 1
@@ -160,7 +165,7 @@ def _raise_on(rc: int, lib, name: str) -> None:
 
 
 def _forward_cuda(fm_w, fm_v, ids, vals):
-    global launches
+    global launches, captured
     _check_inputs(fm_w, fm_v, ids, vals, "fused_ctr_interaction")
     dev = fm_v.device
     v_rows, k = fm_v.shape
@@ -178,8 +183,12 @@ def _forward_cuda(fm_w, fm_v, ids, vals):
             b, f, emb.data_ptr(), y_w.data_ptr(), y_v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
+        capturing = torch.cuda.is_current_stream_capturing()
     _raise_on(rc, lib, "fused_ctr_forward")
-    launches += 1
+    if capturing:
+        captured += 1
+    else:
+        launches += 1
     return emb, y_w, y_v
 
 

@@ -9,6 +9,11 @@ A DeepFM or a two-tower servable (``model_name`` picks the family); a
 recommendation funnel is a tree of two such servables plus its index
 (funnel/publish.py).
 
+:func:`load_servable` is the eager predict (the eval, infer and stdin
+paths, and the CPU); :func:`build_graphed_batcher` is what the server
+runs: the micro-batcher over the CUDA-graphed predict (serve/graphs.py),
+and :func:`load_batching_servable` its embeddable form;
+:func:`load_retrieval_servable` loads a two-tower servable's encoders.
 :func:`write_predictions` writes the infer task's ``pred.txt``.
 
 JAX's Orbax checkpoint is not read here (the card's machine has neither
@@ -20,7 +25,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Iterable
+from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -91,8 +96,9 @@ def load_servable(directory: str | os.PathLike,
     model = load_model(directory, device)
     if model.cfg.model_name == "two_tower":
         raise ValueError(
-            f"{directory} is a two-tower servable: it serves as the query "
-            f"encoder of a recommendation funnel (funnel/serve.py), not "
+            f"{directory} is a two-tower servable: load it with "
+            f"load_retrieval_servable (:encode_user/:encode_item/:retrieve), "
+            f"or as the query encoder of a recommendation funnel, not "
             f"behind :predict"
         )
     dev = model.fm_v.device
@@ -105,6 +111,84 @@ def load_servable(directory: str | os.PathLike,
         return probs.cpu().numpy()
 
     return predict, model.cfg
+
+
+class GraphedServable(NamedTuple):
+    """What :func:`build_graphed_batcher` returns."""
+    batcher: object      # serve.batcher.MicroBatcher over the graphed predict
+    predictor: object    # serve.graphs.GraphedPredictor, captured
+    holder: object       # serve.reload.SwappableParams: the live slot
+    cfg: ModelConfig
+    warm: dict           # {"capture": {graph: s}, "warm": {bucket: s}}
+
+
+def build_graphed_batcher(directory: str | os.PathLike, *, device=None,
+                          buckets: tuple[int, ...] | None = None,
+                          max_wait_ms: float = 2.0,
+                          max_queue_rows: int | None = None,
+                          registry=None) -> GraphedServable:
+    """A CTR servable behind the micro-batching engine over the graphed
+    predict, its bucket graphs captured on the engine's worker thread and
+    one zero batch a bucket run through them before it returns: on the
+    card every bucket's forward is a CUDA graph (serve/graphs.py); on the
+    CPU the same engine runs the model eagerly.
+    The predictor and the live-slot holder come with it, for a
+    :class:`~.reload.HotSwapper`.  ``serve_forever`` and
+    :func:`load_batching_servable` both build their engine here."""
+    from .batcher import DEFAULT_BUCKETS, MicroBatcher
+    from .reload import load_swappable_servable
+
+    buckets = DEFAULT_BUCKETS if buckets is None else tuple(buckets)
+    predict, predictor, holder, cfg = load_swappable_servable(
+        directory, device=device, buckets=buckets)
+    batcher = MicroBatcher(predict, cfg.field_size, buckets=buckets,
+                           max_wait_ms=max_wait_ms, max_queue_rows=max_queue_rows,
+                           registry=registry)
+    try:
+        warm = {"capture": batcher.run_on_worker(predictor.precompile),
+                "warm": batcher.precompile()}
+    except BaseException:
+        batcher.close()
+        raise
+    return GraphedServable(batcher, predictor, holder, cfg, warm)
+
+
+def load_batching_servable(directory: str | os.PathLike, *, device=None,
+                           buckets: tuple[int, ...] | None = None,
+                           max_wait_ms: float = 2.0,
+                           max_queue_rows: int | None = None):
+    """A CTR servable behind the micro-batching engine, its bucket graphs
+    captured before any traffic: ``(MicroBatcher, ModelConfig)``.  The
+    embeddable form of what ``serve_forever`` runs behind HTTP."""
+    built = build_graphed_batcher(directory, device=device, buckets=buckets,
+                                  max_wait_ms=max_wait_ms,
+                                  max_queue_rows=max_queue_rows)
+    return built.batcher, built.cfg
+
+
+def load_retrieval_servable(directory: str | os.PathLike, device=None
+                            ) -> tuple[Callable, Callable, ModelConfig]:
+    """A two-tower servable: ``(encode_user, encode_item, config)``.
+    ``encode_user(user_ids [B, Fu] int64, user_vals [B, Fu] f32) -> [B, D]
+    f32`` (L2-normalized) on ``device`` (default: the card), and likewise
+    for items; each waits for its result."""
+    from ..models.two_tower import encode_tower
+
+    model = load_model(directory, device)
+    if model.cfg.model_name != "two_tower":
+        raise ValueError(f"servable holds model {model.cfg.model_name!r}; use "
+                         f"load_servable")
+    dev = model.user_embedding.device
+
+    def encoder(side: str) -> Callable:
+        def encode(ids, vals) -> np.ndarray:
+            tids = torch.as_tensor(np.asarray(ids, np.int64)).to(dev)
+            tvals = torch.as_tensor(np.asarray(vals, np.float32)).to(dev)
+            with torch.inference_mode():
+                return encode_tower(model, tids, tvals, side=side).cpu().numpy()
+        return encode
+
+    return encoder("user"), encoder("item"), model.cfg
 
 
 def write_predictions(probs: Iterable, path: str | os.PathLike) -> int:

@@ -1,5 +1,6 @@
-"""The train, eval, infer and export tasks: counterpart of ``run_train``,
-``run_eval``, ``run_infer``, ``run_export`` and ``run_task`` in
+"""The train, eval, infer, export and serve tasks: counterpart of
+``run_train``, ``run_eval``, ``run_infer``, ``run_export``, the serve
+branch and ``run_task`` in
 ``deepfm_tpu/train/loop.py``, on one card or on each rank of a
 data-parallel run.  JAX's ``restore_latest`` is ``Checkpointer.restore``
 here: a checkpoint of another table shape raises with the fused_kernel
@@ -295,14 +296,32 @@ def run_export(cfg: Config, *, device=None, log: MetricLogger | None = None) -> 
         shutdown(ctx)
 
 
+def run_serve(cfg: Config, *, device=None) -> None:
+    """The serve task: ``serve/server.py serve_forever`` over
+    ``run.servable_model_dir`` with the ``run.serve_*`` fields, until the
+    process stops.  The process pool (``run.serve_workers > 1``) and the
+    shard-group pool (``run.serve_groups > 0``) raise (ROADMAP A14)."""
+    from ..serve.server import POOL_NOT_PORTED, serve_forever
+
+    r = cfg.run
+    if r.serve_workers > 1 or r.serve_groups > 0:
+        raise NotImplementedError(f"run.serve_workers={r.serve_workers}, "
+                                  f"run.serve_groups={r.serve_groups}: {POOL_NOT_PORTED}")
+    serve_forever(r.servable_model_dir, port=r.serve_port, host=r.serve_host,
+                  buckets=r.serve_buckets, max_wait_ms=r.serve_max_wait_ms,
+                  item_corpus=r.serve_item_corpus or None,
+                  reload_url=r.serve_reload_url or None,
+                  reload_interval_secs=r.serve_reload_interval_secs, device=device)
+
+
 TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
-         "export": run_export}
+         "export": run_export, "serve": run_serve}
 
 
 def run_task(cfg: Config, *, device=None):
-    """Run ``cfg.run.task_type`` (train, eval, infer or export); returns
-    the task's result: the train state, the eval metrics, the pred.txt path
-    or the servable path."""
+    """Run ``cfg.run.task_type`` (train, eval, infer, export or serve);
+    returns the task's result: the train state, the eval metrics, the
+    pred.txt path or the servable path (serve blocks and returns None)."""
     task = cfg.run.task_type
     if task not in TASKS:
         raise ValueError(f"unknown task_type {task!r} ({'|'.join(TASKS)})")

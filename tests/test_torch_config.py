@@ -137,3 +137,26 @@ def test_servable_configs_of_both_packages_load(tmp_path):
     port.mkdir()
     (port / "config.json").write_text(json.dumps({"model": got.to_dict()}))
     assert load_config(port) == got
+
+
+SERVE_FIELDS = {"serve_port": 9001, "serve_host": "0.0.0.0", "serve_item_corpus": "c.jsonl",
+                "serve_workers": 1, "serve_buckets": "4,16", "serve_max_wait_ms": 0.5,
+                "serve_reload_url": "/pub", "serve_reload_interval_secs": 0.3,
+                "serve_groups": 0}
+
+
+def test_the_serve_task_fields_are_carried_and_the_pools_raise():
+    """The single-process run.serve_* fields are the port's own (the serve
+    task reads them); the pools' fields stay JAX-only, and the serve task
+    refuses serve_workers > 1 and serve_groups > 0, naming ROADMAP A14."""
+    from deepfm_tpu_torch.train.loop import run_serve
+
+    assert not set(SERVE_FIELDS) & set(JAX_ONLY_FIELDS["run"])
+    assert {"serve_group_data_parallel", "serve_router_port"} <= set(JAX_ONLY_FIELDS["run"])
+    d = JaxConfig().to_dict()
+    d["run"].update(SERVE_FIELDS)
+    cfg = Config.from_dict(json.loads(json.dumps(d)))
+    assert {k: getattr(cfg.run, k) for k in SERVE_FIELDS} == SERVE_FIELDS
+    for pool in ({"serve_workers": 2}, {"serve_groups": 1}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+            run_serve(cfg.with_overrides(run=pool), device="cpu")

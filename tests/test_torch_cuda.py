@@ -568,3 +568,153 @@ def test_retrieval_kernel_adversarial(device, case, d, kos):
         assert got[1].tolist() == [list(range(kos))] * 8
     if case == "live_100":
         assert torch.isfinite(got[0]).sum(dim=1).tolist() == [100] * 8
+
+
+# ---------------------------------------------------------------------------
+# serving: the bucket graphs of serve/graphs.py and the hot swap over them
+
+SERVE_BUCKETS = (8, 32, 128, 512)
+
+
+def _serve_cfg():
+    from deepfm_tpu_torch.core.config import ModelConfig
+
+    return ModelConfig(feature_size=5000, field_size=39, embedding_size=32,
+                       deep_layers=(64, 32), dropout_keep=(1.0, 1.0),
+                       batch_norm=True, fused_kernel="auto")
+
+
+def _serve_state(seed):
+    from deepfm_tpu_torch.models import DeepFM
+
+    model = DeepFM(_serve_cfg(), device="cpu", generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():  # BN statistics away from their init
+        g = torch.Generator().manual_seed(seed + 1)
+        for name, buf in model.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+    return model.state_dict()
+
+
+def _serve_rows(b, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-10, 5100, (b, 39)).astype(np.int64)
+    return ids, rng.random((b, 39)).astype(np.float32)
+
+
+def _eager(state, ids, vals, device, plain=False):
+    """The eager forward of ``state`` through the kernel (or its plain
+    version) on the card."""
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    model = model_from_state(_serve_cfg(), state, device)
+    with torch.inference_mode():
+        i, v = model.prepare(torch.from_numpy(ids).to(device), torch.from_numpy(vals).to(device))
+        fused = fused_ctr.fused_ctr_plain if plain else fused_ctr.fused_ctr_interaction
+        return torch.sigmoid(model.head(*fused(model.fm_w, model.fm_v, i, v))).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_graphed_predict_matches_the_eager_forward_at_every_bucket(device):
+    """Each slot's graph of each bucket against the eager kernel forward
+    (1e-6) and the plain forward (1e-4) of the same weights, on rows that
+    fill the bucket and rows that leave part of it padded."""
+    import numpy as np
+
+    from deepfm_tpu_torch.serve.graphs import WARMUP_CALLS, GraphedPredictor
+
+    state = _serve_state(0)
+    pred = GraphedPredictor(_serve_cfg(), state, device=device, buckets=SERVE_BUCKETS)
+    with pytest.raises(RuntimeError, match="precompile"):
+        pred.predict_with(0, *_serve_rows(8, 0))
+    launches, captured = fused_ctr.launches, fused_ctr.captured
+    pred.precompile()
+    assert pred.graph_count == 2 * len(SERVE_BUCKETS) and pred.kernel_launches_per_replay == 1
+    # the side-stream warm-ups run B1; the captures only record it
+    assert fused_ctr.launches == launches + WARMUP_CALLS * pred.graph_count
+    assert fused_ctr.captured == captured + pred.graph_count
+    for b in SERVE_BUCKETS:
+        for n in (b, b - 3):
+            ids, vals = _serve_rows(n, seed=b + n)
+            launches = fused_ctr.launches
+            for slot in (0, 1):
+                got = pred.predict_with(slot, ids, vals)
+                assert got.shape == (n,) and np.isfinite(got).all()
+                np.testing.assert_allclose(got, _eager(state, ids, vals, device),
+                                           rtol=0, atol=1e-6)
+                np.testing.assert_allclose(got, _eager(state, ids, vals, device, plain=True),
+                                           rtol=0, atol=1e-4)
+            assert fused_ctr.launches == launches + 2  # the eager references only
+    ids, vals = _serve_rows(1100, seed=7)  # chunked 512 + 512 + 76 -> 128
+    np.testing.assert_allclose(pred.predict_with(0, ids, vals), _eager(state, ids, vals, device),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_swaps_keep_the_graphs_and_the_canary_uses_the_idle_slot(device, tmp_path):
+    """Two published versions swap in under traffic: the graph count stays
+    8, every traffic answer is the old or the new version's, the canary
+    replays only the idle slot, and after each swap the answers are the new
+    version's."""
+    import threading
+
+    import numpy as np
+
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.serve.export import build_graphed_batcher, export_servable
+    from deepfm_tpu_torch.serve.reload import HotSwapper
+
+    states = [_serve_state(s) for s in (0, 1, 2)]
+    servable = export_servable(_serve_cfg(), states[0], tmp_path / "v0")
+    batcher, predictor, holder, cfg, _ = build_graphed_batcher(
+        servable, device=device, buckets=SERVE_BUCKETS, max_wait_ms=0.5)
+    canary_slots = []
+    real = predictor.predict_with
+
+    def run(job):
+        def traced():
+            predictor.predict_with = lambda slot, i, v: (canary_slots.append(
+                (slot, holder.get())), real(slot, i, v))[1]
+            try:
+                return job()
+            finally:
+                predictor.predict_with = real
+        return batcher.run_on_worker(traced)
+
+    ids, vals = _serve_rows(5, seed=11)
+    want = [_eager(s, ids, vals, device) for s in states]
+    stop = threading.Event()
+    bad, answers = [], []
+
+    def client():
+        while not stop.is_set():
+            got = batcher.score(ids, vals)
+            match = [v for v, w in enumerate(want) if np.allclose(got, w, rtol=0, atol=1e-6)]
+            answers.append(match)
+            if not match:
+                bad.append(got)
+
+    try:
+        assert predictor.graph_count == 8
+        swapper = HotSwapper(holder, predictor, str(tmp_path / "publish"), cfg, run=run,
+                             staging_dir=str(tmp_path / "staging"))
+        threads = [threading.Thread(target=client) for _ in range(3)]
+        for t in threads:
+            t.start()
+        pub = ModelPublisher(str(tmp_path / "publish"))
+        for v in (1, 2):
+            pub.publish(cfg, states[v])
+            assert swapper.poll_once() is True, swapper.status()
+            assert predictor.graph_count == 8 and holder.version == v
+            np.testing.assert_allclose(batcher.score(ids, vals), want[v], rtol=0, atol=1e-6)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad and answers
+        # the canary replayed the slot that was idle at the time, twice
+        assert {(s, live) for s, live in canary_slots} == {(1, 0), (0, 1)}
+    finally:
+        stop.set()
+        batcher.close()

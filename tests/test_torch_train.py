@@ -296,8 +296,9 @@ def test_cli_refuses_what_is_not_ported():
 
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         run(["--task_type", "online-train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="serve.server"):
-        run(["--task_type", "serve", "--device", "cpu"])
+    # the serve task is ported; its process and shard-group pools are not
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        run(["--task_type", "serve", "--device", "cpu", "--set", "run.serve_workers=2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(["--task_type", "train", "--training_data_dir", "/nonexistent"])
