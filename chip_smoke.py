@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 8):
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 12, 8):
 
 1. card     - the card's name and power limit, from nvidia-smi;
 2. build    - every kernel under deepfm_tpu_torch/csrc, built from source
@@ -103,7 +103,35 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 8):
               save of the full-width state (blocking and write time), one
               1,024-record batch read by the C++ reader and by the Python
               route, and the train phase's command run with each reader
-              (train_done's examples/s and input-wait share).
+              (train_done's examples/s and input-wait share);
+12. online  - online training at full width (dropout 0.5, Adam 5e-4,
+              batch 1,024) through the CLI in its own processes, on an
+              event log of 32 segments of 1,024 records of distinct ids
+              written by the port's SegmentWriter (the second half by a
+              thread while the trainer follows): `--task_type online-train`
+              commits and publishes every 8 steps; a graphed serve process
+              (`--task_type serve`, hot reload from the publish root) starts
+              on its first version; a SIGTERM after the second publish must
+              end it with exit 0 and online_done, and the same command again
+              must log online_resume at the committed cursor, under 4
+              closed-loop clients of 1, 3, 8 and 20 rows.  Every response
+              must be of a published version and within 1e-4 of the plain
+              answer of that version or the one before, the server must end
+              on the last version with 8 graphs throughout, B1 and B1' must
+              launch once a step in each trainer, the final commit must equal
+              one pass over the records cut at the committed cursor bit for
+              bit (parameters, moments, step, cursor), and the last
+              manifest's param_hash must be that state's.  Then the
+              flywheel: 4,096 impressions and their clicks (25% in the
+              window, 5% late, 64 orphans, sampled at 0.5) through
+              `python -m deepfm_tpu_torch.flywheel.join --drain` (positives,
+              negatives, flips and orphans as generated) and
+              `--task_type feedback-train` on its output (every joined
+              record trained, a version published).  Its `online` line
+              holds the card, the trainers' examples/s, input-wait share,
+              commit and publish ms, the freshness (a manifest's marker to
+              the first response of its version), the swap, stage and
+              canary ms, the join's records/s and the phase's seconds.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -1490,8 +1518,9 @@ def plain_probs(model, ids: np.ndarray, vals: np.ndarray, bucket: int,
     pval = np.zeros((bucket, f), np.float32)
     pid[:n], pval[:n] = ids, vals
     fused = fused or fused_ctr.fused_ctr_plain
+    dev = model.fm_v.device
     with torch.inference_mode():
-        i, v = model.prepare(torch.from_numpy(pid).cuda(), torch.from_numpy(pval).cuda())
+        i, v = model.prepare(torch.from_numpy(pid).to(dev), torch.from_numpy(pval).to(dev))
         return torch.sigmoid(model.head(*fused(model.fm_w, model.fm_v, i, v))).cpu().numpy()[:n]
 
 
@@ -2212,6 +2241,457 @@ def phase_lifecycle(seed: int, workdir: str, val_dir: str, train_dir: str,
     return out
 
 
+# the online phase: 32 segments of 1,024 records (each segment's 39,936 ids
+# distinct, as write_distinct's batches), a commit and a publish every 8
+# steps, a SIGTERM after the trainer's second publish, the same command
+# again, and the flywheel's join feeding feedback-train.  It reads
+# LIFE_ARGS, LIFE_VOCAB, LIFE_BATCH and DEVICE too, so a rehearsal on the
+# CPU runs it at a small width
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ONLINE_SEGMENTS, ONLINE_EVERY, ONLINE_IDLE_S = 32, 8, 3.0
+ONLINE_WRITE_EVERY_S = 0.3  # the writer thread's pace over the second half
+ONLINE_STOP_DELAY_S = 0.05  # from the second publish to the SIGTERM
+ONLINE_ROWS = (1, 3, 8, 20)  # the closed-loop clients' request sizes
+FEEDBACK_IMPRESSIONS, FEEDBACK_WINDOW_S, FEEDBACK_SAMPLE = 4096, 60.0, 0.5
+
+
+def online_records(seed: int, seq: int) -> list[bytes]:
+    """Segment ``seq``'s LIFE_BATCH records: 39 distinct ids a record and
+    across the segment, so B1''s float atomics add at most two terms into
+    a row even in a batch that spans two segments (after a cut), and a run
+    is bit-reproducible."""
+    from deepfm_tpu_torch.data.example_proto import serialize_ctr_example
+
+    rng = np.random.default_rng([seed, 23, seq])
+    ids = rng.permutation(LIFE_VOCAB)[:LIFE_BATCH * 39].reshape(LIFE_BATCH, 39)
+    vals = rng.random((LIFE_BATCH, 39), dtype=np.float32)
+    labels = (rng.random(LIFE_BATCH) < 0.25).astype(np.float32)
+    return [serialize_ctr_example(float(labels[r]), ids[r].tolist(), vals[r].tolist())
+            for r in range(LIFE_BATCH)]
+
+
+def write_online(stream: str, segments, pace_s: float = 0.0) -> None:
+    """Publish each list of records as the next segment of ``stream``
+    through the port's SegmentWriter, ``pace_s`` apart."""
+    from deepfm_tpu_torch.online.stream import SegmentWriter
+
+    writer = SegmentWriter(stream, roll_bytes=0, roll_age_secs=0)
+    for records in segments:
+        for r in records:
+            writer.append(r)
+        writer.flush()
+        time.sleep(pace_s)
+
+
+class _Cli:
+    """``python -m deepfm_tpu_torch ARGV`` in its own process; a thread
+    keeps its JSON lines (printing all but the per-step ``train`` lines),
+    its standard error goes to a file."""
+
+    def __init__(self, name: str, argv: list[str], workdir: str):
+        self.name, self.lines = name, []
+        self.err_path = os.path.join(workdir, f"{name}.stderr")
+        self._cond = threading.Condition()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen([sys.executable, "-m", "deepfm_tpu_torch", *argv],
+                                         cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                         stderr=err, text=True)
+        self._reader = threading.Thread(target=self._read, name=f"{name}-stdout", daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            with self._cond:
+                self.lines.append(rec)
+                self._cond.notify_all()
+            if rec["kind"] != "train":
+                print(f"online {self.name}: {line.strip()}")
+        with self._cond:
+            self._cond.notify_all()
+
+    def kind(self, kind: str) -> list[dict]:
+        with self._cond:
+            return [r for r in self.lines if r["kind"] == kind]
+
+    def wait_for(self, kind: str, n: int = 1, timeout: float = 600) -> dict:
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while len([r for r in self.lines if r["kind"] == kind]) < n:
+                if not self._reader.is_alive() or time.monotonic() > deadline:
+                    self.fail(f"no {n} {kind!r} lines")
+                self._cond.wait(0.5)
+        return self.kind(kind)[n - 1]
+
+    def finish(self, timeout: float = 300) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.fail(f"did not end within {timeout} s")
+        self._reader.join(timeout=60)
+        return rc
+
+    def fail(self, msg: str) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        with open(self.err_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"online {self.name}: {msg} (exit {self.proc.returncode}); stderr:\n{tail}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_online(seed: int, workdir: str, card: str) -> dict:
+    """Online training at full width through the CLI, into a graphed server
+    in another process: (a) 16 segments, then `--task_type online-train`
+    (a commit and a publish every 8 steps); on its first version a serve
+    process with hot reload from the publish root, and a writer thread
+    appending the other 16 segments; (b) a SIGTERM after the second
+    publish (exit 0, online_done), then the same command again
+    (online_resume at the committed cursor) under 4 closed-loop clients of
+    1, 3, 8 and 20 rows; (c) every response within 1e-4 of the plain
+    answer of the version it reports or the one before, every reported
+    version published, the server on the last version and its graph count
+    8 throughout, B1 and B1' launched once a step in each trainer, the
+    final commit bit-equal to one pass over the records cut at the
+    committed cursor (parameters, moments, step, cursor) and the last
+    manifest's param_hash that state's; (d) the flywheel: impressions and
+    clicks through `python -m deepfm_tpu_torch.flywheel.join --drain`, then
+    `--task_type feedback-train` on its output."""
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.convert import params_to_jax
+    from deepfm_tpu_torch.launch.cli import resolve_config
+    from deepfm_tpu_torch.online import (OnlinePayload, StreamCursor, latest_manifest,
+                                         list_versions, param_tree_hash, version_location)
+    from deepfm_tpu_torch.online.stream import segment_name
+    from deepfm_tpu_torch.online.trainer import replay_to_state
+    from deepfm_tpu_torch.serve.export import load_model
+    from deepfm_tpu_torch.train.step import create_train_state
+
+    t_phase = time.perf_counter()
+    stream, pub, ckpt = (os.path.join(workdir, d) for d in ("events", "publish", "ckpt"))
+    os.makedirs(workdir)
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    argv = ["--task_type", "online-train", "--training_data_dir", stream,
+            "--model_dir", ckpt, "--servable_model_dir", pub,
+            "--batch_size", str(LIFE_BATCH), "--log_steps", str(ONLINE_EVERY),
+            "--checkpoint_every_steps", str(ONLINE_EVERY),
+            "--set", f"run.online_publish_every_steps={ONLINE_EVERY}",
+            "--set", f"run.online_idle_timeout_secs={ONLINE_IDLE_S}",
+            "--set", "regions.publish_keep_window=64",  # every version stays to be checked
+            "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}",
+            *LIFE_ARGS, *device_args]
+    t0 = time.perf_counter()
+    records = [online_records(seed, seq) for seq in range(ONLINE_SEGMENTS)]
+    half = ONLINE_SEGMENTS // 2
+    write_online(stream, records[:half])
+    print(f"online: wrote {half} segments of {LIFE_BATCH} records in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    clis: list[_Cli] = []  # every process started here, stopped on the way out
+    stop = threading.Event()
+    try:
+        # (a) the trainer, the server on its first version, the writer thread
+        first = _Cli("trainer1", argv, workdir)
+        clis.append(first)
+        first.wait_for("publish")
+        port = _free_port()
+        server = _Cli("server", ["--task_type", "serve", "--servable_model_dir",
+                                 version_location(pub, 1), "--set", f"run.serve_port={port}",
+                                 "--set", f"run.serve_reload_url={pub}",
+                                 "--set", "run.serve_reload_interval_secs=0.05", *device_args],
+                      workdir)
+        clis.append(server)
+        writer = threading.Thread(target=write_online, args=(stream, records[half:],
+                                                             ONLINE_WRITE_EVERY_S),
+                                  name="online-writer", daemon=True)
+        writer.start()
+        # (b) SIGTERM 50 ms after the second publish, while the trainer reads
+        # the next batch's records if the writer got ahead: it then trains them
+        # as a short batch before its final commit
+        first.wait_for("publish", 2)
+        time.sleep(ONLINE_STOP_DELAY_S)
+        first.proc.send_signal(signal.SIGTERM)
+        if first.finish() != 0:
+            first.fail("SIGTERM did not end it with exit 0")
+        done1 = first.wait_for("online_done")
+        cut = StreamCursor(done1["segment"], done1["record"])
+
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 600
+        while True:
+            try:
+                if get(f"{base}/readyz").get("ready"):
+                    break
+            except OSError:
+                pass
+            if server.proc.poll() is not None or time.monotonic() > deadline:
+                server.fail("the server did not come up")
+            time.sleep(0.2)
+        rng = np.random.default_rng(seed + 29)
+        requests = [(make_ids(rng, n, 39, LIFE_VOCAB),
+                     rng.random((n, 39)).astype(np.float32)) for n in ONLINE_ROWS]
+        responses, bad, samples = [], [], []
+        lock = threading.Lock()
+
+        def client(k: int) -> None:
+            conn = _Client(port)
+            body = _instances_body(*requests[k])
+            try:
+                while not stop.is_set():
+                    code, _, raw = conn.post("/v1/models/deepfm:predict", body)
+                    t = time.time()
+                    if code != 200:
+                        bad.append(f"{code}: {raw[:200]}")
+                        return
+                    doc = json.loads(raw)
+                    with lock:
+                        responses.append((k, doc["model_version"],
+                                          np.asarray(doc["predictions"], np.float32), t))
+            finally:
+                conn.close()
+
+        def monitor() -> None:
+            while not stop.is_set():
+                samples.append(get(f"{base}/v1/metrics")["reload"])
+                stop.wait(0.1)
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(len(ONLINE_ROWS))]
+        threads.append(threading.Thread(target=monitor, daemon=True))
+        for t in threads:
+            t.start()
+        t_clients = time.time()
+        second = _Cli("trainer2", argv, workdir)
+        clis.append(second)
+        resume = second.wait_for("online_resume")
+        if (resume["segment"], resume["record"]) != tuple(cut) or resume["step"] != done1["step"]:
+            second.fail(f"resumed at {resume}, the first run committed {done1}")
+        if second.finish() != 0:
+            second.fail("it did not end with exit 0")
+        done2 = second.wait_for("online_done")
+        writer.join(timeout=60)
+        versions = list_versions(pub)
+        deadline = time.monotonic() + 120
+        while not samples or samples[-1]["model_version"] != versions[-1]:
+            if time.monotonic() > deadline or bad:
+                fail(f"online: the server did not reach version {versions[-1]}: "
+                     f"{samples[-1:]} {bad[:2]}")
+            time.sleep(0.05)
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        if bad or any(t.is_alive() for t in threads):
+            fail(f"online: client errors {bad[:3]}")
+        final_status = get(f"{base}/v1/metrics")["reload"]
+        server.proc.send_signal(signal.SIGTERM)
+        server.finish(timeout=60)
+    finally:
+        stop.set()
+        for cli in clis:
+            if cli.proc.poll() is None:
+                cli.proc.kill()
+                cli.proc.wait(timeout=60)
+
+    # (c) the checks
+    graphs = 2 * len(BUCKETS) if DEVICE == "cuda" else 0
+    if {s["graphs"] for s in samples} != {graphs} or final_status["rollbacks_total"]:
+        fail(f"online: graph counts {sorted({s['graphs'] for s in samples})}, status "
+             f"{final_status}")
+    if versions != list(range(1, versions[-1] + 1)):
+        fail(f"online: published versions {versions}")
+    want = {}
+    for v in versions:
+        model = load_model(version_location(pub, v), device=DEVICE)
+        want[v] = [[plain_probs(model, ids, vals, b) for b in BUCKETS if b >= len(ids)]
+                   for ids, vals in requests]
+        del model
+    served, worst = {}, 0.0
+    for k, mv, got, t in responses:
+        if mv not in want:
+            fail(f"online: a response reports version {mv}, never published ({versions})")
+        errs = [float(np.abs(got - w).max()) for v in (mv, mv - 1) if v in want
+                for w in want[v][k]]
+        if min(errs) > TOL_PROB:
+            fail(f"online: a response of version {mv} matches neither it nor the one "
+                 f"before (min abs err {min(errs)})")
+        worst = max(worst, min(errs))
+        served[mv] = min(served.get(mv, t), t)
+    marker = {v: os.path.getmtime(os.path.join(pub, f"MANIFEST-{v:08d}.json"))
+              for v in versions}
+    fresh = [1e3 * (served[v] - marker[v]) for v in versions
+             if v in served and marker[v] > t_clients]
+    if not fresh:
+        fail("online: no version was published and served while the clients ran")
+
+    launches = backward = 0
+    for name, done in (("trainer1", done1), ("trainer2", done2)):
+        if DEVICE == "cuda" and not (done["forward_launches"] == done["backward_launches"]
+                                     == done["applied"] > 0):
+            fail(f"online {name}: {done['applied']} steps launched fused_ctr_forward "
+                 f"{done['forward_launches']} and fused_ctr_backward "
+                 f"{done['backward_launches']} times")
+        launches += done["forward_launches"]
+        backward += done["backward_launches"]
+    cfg, _ = resolve_config(argv)
+    oracle = replay_to_state(cfg, cuts=[cut], device=DEVICE)
+    final = Checkpointer(ckpt).restore(
+        OnlinePayload.wrap(create_train_state(cfg, DEVICE), StreamCursor()))
+    got, ref = state_tensors(final.train), state_tensors(oracle)
+    end = StreamCursor(segment_name(ONLINE_SEGMENTS - 1), LIFE_BATCH)
+    if got.keys() != ref.keys() or not final.step == oracle.step == done2["step"] \
+            or final.cursor() != end:
+        fail(f"online: the final commit (step {final.step}, {final.cursor()}) against one "
+             f"cut pass (step {oracle.step}, {end})")
+    err = max(float((got[k].float() - ref[k].float()).abs().max()) for k in ref)
+    if err != 0.0:
+        fail(f"online: the resumed run vs one pass cut at {cut}: max abs err {err}")
+    manifest = latest_manifest(pub)
+    if manifest.param_hash != param_tree_hash(*params_to_jax(oracle.model.state_dict(),
+                                                             cfg.model)) \
+            or manifest.step != oracle.step or manifest.cursor != end._asdict():
+        fail(f"online: the last manifest {manifest} is not the final state's")
+    print(f"online: stopped at {tuple(cut)} (step {done1['step']}), resumed to step "
+          f"{final.step}; the final commit equals one pass cut there over {len(ref)} "
+          f"tensors, bit for bit; {len(responses)} responses, all of a published version "
+          f"and within {TOL_PROB} of it or the one before (max {worst}); versions "
+          f"{versions}, the server on {final_status['model_version']}")
+
+    # (d) the flywheel: join, then feedback-train on its output
+    feedback = phase_feedback(seed, workdir, device_args)
+    launches += feedback.pop("forward_launches")
+    backward += feedback.pop("backward_launches")
+    swaps = [s for s in samples if s["last_swap_ms"] is not None]
+    last = {s["model_version"]: s for s in swaps}
+    line = {
+        "card": card,
+        "records": ONLINE_SEGMENTS * LIFE_BATCH, "segments": ONLINE_SEGMENTS,
+        "stop_cursor": list(cut), "stop_batch_rows": done1["examples"] - LIFE_BATCH * (
+            done1["applied"] - 1),
+        "trainers": [{**{k: d[k] for k in (
+            "applied", "examples", "examples_per_sec", "input_wait_share", "commits",
+            "commit_ms_p50", "commit_ms_max", "publishes", "publish_ms_p50",
+            "publish_ms_max")},
+            # the train lines: examples/s over each 8 steps, the commit and
+            # publish of the step before them included
+            "examples_per_sec_by_8_steps": [r["examples_per_sec"] for r in cli.kind("train")]}
+            for d, cli in ((done1, first), (done2, second))],
+        "freshness_ms_p50": float(np.percentile(fresh, 50)), "freshness_ms_max": max(fresh),
+        "freshness_versions": len(fresh), "versions": len(versions),
+        "swaps": final_status["swaps_total"],
+        "swap_ms": [last[v]["last_swap_ms"] for v in sorted(last)],
+        "stage_ms": [last[v]["last_stage_ms"] for v in sorted(last)],
+        "canary_ms": [last[v]["last_canary_ms"] for v in sorted(last)],
+        "responses": len(responses), "responses_outside_versions": 0,
+        "max_abs_err": worst, "graphs": graphs,
+        **feedback,
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    print("online " + json.dumps(line))
+    return {**line, "launches": launches, "backward_launches": backward}
+
+
+def phase_feedback(seed: int, workdir: str, device_args: list[str]) -> dict:
+    """The flywheel at width 39: 4,096 impressions in 4 segments, 25% of
+    them clicked inside the window, 5% clicked after it (label flips), 64
+    clicks of impressions never shown (orphans), sampled at 0.5; the join
+    CLI one shot with --drain, then feedback-train on its output.  The
+    segments' publish times (mtimes) are set, so the schedule is fixed."""
+    from deepfm_tpu_torch.flywheel.records import (impression_sampled, serialize_click,
+                                                   serialize_impression)
+    from deepfm_tpu_torch.online import list_versions
+    from deepfm_tpu_torch.online.stream import SegmentWriter
+
+    imps, clicks, joined = (os.path.join(workdir, d) for d in ("imps", "clicks", "joined"))
+    rng = np.random.default_rng(seed + 31)
+    pids = [f"fb-{i}#0" for i in range(FEEDBACK_IMPRESSIONS)]
+    clicked = rng.random(len(pids)) < 0.25
+    late = (rng.random(len(pids)) < 0.05) & ~clicked
+    ghosts = [f"ghost-{i}#0" for i in range(64)]
+    t0 = float(int(time.time()) - 10_000)
+
+    def segment(root: str, recs: list[bytes], at: float) -> None:
+        writer = SegmentWriter(root, roll_bytes=0, roll_age_secs=0)
+        for r in recs:
+            writer.append(r)
+        name = writer.flush()
+        os.utime(os.path.join(root, name), (t0 + at, t0 + at))
+
+    per = FEEDBACK_IMPRESSIONS // 4
+    for s in range(4):
+        segment(imps, [serialize_impression(
+            impression_id=p, trace_id=p.rsplit("#", 1)[0], tenant="base", model_version=1,
+            ids=rng.integers(0, LIFE_VOCAB, 39).tolist(),
+            values=rng.random(39, dtype=np.float32).tolist(), score=0.5,
+            deadline_class="default", ts_ms=int((t0 + s) * 1000))
+            for p in pids[s * per:(s + 1) * per]], s)
+    def click(p: str, at: float) -> bytes:
+        return serialize_click(impression_id=p, ts_ms=int((t0 + at) * 1000))
+
+    segment(clicks, [click(p, 30) for p, c in zip(pids, clicked) if c]
+            + [click(p, 30) for p in ghosts[:32]], 30)
+    segment(clicks, [click(p, 100) for p in ghosts[32:]], 100)
+    segment(clicks, [click(p, 200) for p, c in zip(pids, late) if c], 200)
+    kept = np.array([impression_sampled(p.rsplit("#", 1)[0], FEEDBACK_SAMPLE) for p in pids])
+    expect = {"positive_total": int((kept & clicked).sum()),
+              "negative_total": int((kept & ~clicked).sum()),
+              "flip_total": int((kept & late).sum()),
+              "orphan_click_total": sum(impression_sampled(g.rsplit("#", 1)[0],
+                                                           FEEDBACK_SAMPLE) for g in ghosts)}
+    n_records = FEEDBACK_IMPRESSIONS + int(clicked.sum()) + int(late.sum()) + len(ghosts)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    out = subprocess.run([sys.executable, "-m", "deepfm_tpu_torch.flywheel.join",
+                          "--impressions", imps, "--clicks", clicks, "--out", joined,
+                          "--window", str(FEEDBACK_WINDOW_S),
+                          "--sample-rate", str(FEEDBACK_SAMPLE), "--drain"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"online join: exit {out.returncode}\n{out.stderr[-3000:]}")
+    stats = json.loads(out.stdout)
+    got = {k: stats[k] for k in expect}
+    if got != expect or stats["emitted_total"] != int(kept.sum()) \
+            or stats["pending_window"] or stats["early_clicks"]:
+        fail(f"online join: {stats}, expected {expect} and {int(kept.sum())} emitted")
+    trainer = _Cli("feedback", [
+        "--task_type", "feedback-train", "--model_dir", os.path.join(workdir, "fb_ckpt"),
+        "--servable_model_dir", os.path.join(workdir, "fb_publish"),
+        "--batch_size", str(LIFE_BATCH), "--log_steps", str(ONLINE_EVERY),
+        "--set", f"flywheel.join_output_url={joined}",
+        "--set", "run.online_idle_timeout_secs=1", "--set", "model.fused_kernel=auto",
+        "--set", f"run.seed={seed}", *LIFE_ARGS, *device_args], workdir)
+    if trainer.finish() != 0:
+        trainer.fail("it did not end with exit 0")
+    done = trainer.wait_for("online_done")
+    published = list_versions(os.path.join(workdir, "fb_publish"))
+    if done["examples"] != stats["emitted_total"] or not published or (
+            DEVICE == "cuda" and not done["forward_launches"] == done["backward_launches"]
+            == done["applied"] > 0):
+        fail(f"online feedback-train: {done}, versions {published}, "
+             f"{stats['emitted_total']} joined records")
+    print(f"online feedback: join {json.dumps(got)}, {stats['emitted_total']} labeled "
+          f"records from {FEEDBACK_IMPRESSIONS} impressions in {stats['seconds']:.3f} s; "
+          f"feedback-train consumed all in {done['applied']} steps, versions {published}")
+    return {"join_records_per_sec": n_records / stats["seconds"],
+            "join_emitted": stats["emitted_total"], "join_flips": stats["flip_total"],
+            "feedback_steps": done["applied"], "feedback_versions": len(published),
+            "forward_launches": done["forward_launches"],
+            "backward_launches": done["backward_launches"]}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -2259,6 +2739,7 @@ def main(argv: list[str] | None = None) -> int:
         ddp = phase_ddp(args.seed, workdir)
         life = phase_lifecycle(args.seed, os.path.join(workdir, "lifecycle"), val_dir,
                                train_dir, os.path.join(workdir, "readers"))
+        online = phase_online(args.seed, os.path.join(workdir, "online"), card)
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
@@ -2271,7 +2752,8 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
-                     + ddp["launches"] + life["launches"] + funnel["forward_launches"]),
+                     + ddp["launches"] + life["launches"] + online["launches"]
+                     + funnel["forward_launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2284,7 +2766,8 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:317",
         "launches": (train["backward_launches"] + lazy["backward_launches"]
-                     + ddp["backward_launches"] + life["backward_launches"]),
+                     + ddp["backward_launches"] + life["backward_launches"]
+                     + online["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -9,6 +9,11 @@ as its own trimmed copy.
     python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve ...
         (launch/cli.py; checkpoints and resume in --model_dir, records
         read by the C++ reader in native/)
+    python -m deepfm_tpu_torch --task_type online-train|feedback-train ...
+        (online/trainer.py: an event log in, {weights, cursor} commits and
+        published versions out)
+    python -m deepfm_tpu_torch.flywheel.join --impressions I --clicks C --out J
+        (the delayed-label join feedback-train trains on)
     python -m torch.distributed.run --nproc_per_node N -m deepfm_tpu_torch ...
         (data parallel, one rank a card: parallel/)
     python -m deepfm_tpu_torch.serve.server --servable DIR   (:predict and

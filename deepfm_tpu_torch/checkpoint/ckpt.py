@@ -12,6 +12,15 @@ holds ``state.pt`` (``torch.save``, read back with ``weights_only=True``):
      "generators": [the dropout generator state of each rank],
      "world_size": int}
 
+An online commit (``online/trainer.py OnlinePayload``: the train state,
+the stream cursor and the writer's fencing token) adds one entry to the
+same file, so weights and cursor land in one atomic step directory:
+
+     "online": {"cursor_segment": uint8 [256], "cursor_len": int32,
+                "cursor_record": int64, "fence_token": int64}
+
+A plain train checkpoint has no ``online`` entry and keeps its format.
+
 The step is written under a temporary name and renamed into place once
 the file is synced, so a crash never leaves a half checkpoint that
 :meth:`Checkpointer.latest_step` would pick.
@@ -20,12 +29,13 @@ Saves are asynchronous, as in JAX: :meth:`Checkpointer.save` returns once
 every tensor is copied to the host (pinned memory, then a synchronize),
 because the optimizer updates the state in place on the next step; the
 file is written on a writer thread, and the next ``save``, ``restore`` or
-``close`` waits for it.  In a data-parallel run every rank calls ``save``
-(the ranks' generator states reach rank 0 through the group) and rank 0
-alone writes; every rank restores from the same directory.  Restored at
-another world size, the weights and moments are the checkpoint's, but
-each rank keeps its fresh dropout generator: the dropout masks then
-cannot match the original run's.
+``close`` waits for it.  ``save(..., block=True)`` writes, syncs and
+renames before it returns (the online commit).  In a data-parallel run
+every rank calls ``save`` (the ranks' generator states reach rank 0
+through the group) and rank 0 alone writes; every rank restores from the
+same directory.  Restored at another world size, the weights and moments
+are the checkpoint's, but each rank keeps its fresh dropout generator:
+the dropout masks then cannot match the original run's.
 
 The cadence is the caller's (the train loop's ``checkpoint_every_steps``);
 a step already on disk is not written again.
@@ -38,6 +48,7 @@ import shutil
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -45,6 +56,8 @@ from ..parallel.mesh import DistContext
 from ..train.step import TrainState
 
 STATE_FILE = "state.pt"
+# the leaves an online payload adds to a train state (online/trainer.py)
+ONLINE_KEYS = ("cursor_segment", "cursor_len", "cursor_record", "fence_token")
 _A15 = ("object-store model directories are not ported yet "
         "(ROADMAP A15, checkpoint/remote.py); give a local directory")
 _FM_V_HINT = (
@@ -59,6 +72,14 @@ _FM_V_HINT = (
 
 def _is_url(path) -> bool:
     return "://" in os.fspath(path)
+
+
+def _split(payload) -> tuple[TrainState, dict | None]:
+    """A train state, or an online payload's train state and its
+    ``ONLINE_KEYS`` leaves."""
+    if isinstance(payload, TrainState):
+        return payload, None
+    return payload.train, {k: getattr(payload, k) for k in ONLINE_KEYS}
 
 
 def _to_host(tree, pinned: list):
@@ -128,26 +149,31 @@ class Checkpointer:
         dist.all_gather(out, on, group=self._group)
         return [t.cpu() for t in out]
 
-    def save(self, state: TrainState, *, block: bool = False) -> bool:
-        """Save ``state`` at ``state.step``; returns whether this process
-        wrote it (False on ranks other than 0, and for a step already on
-        disk).  Returns once the state is on the host; ``block=True`` also
-        waits for the write.  In a data-parallel run every rank calls it."""
+    def save(self, state, *, block: bool = False) -> bool:
+        """Save ``state`` (a :class:`TrainState` or an online payload) at
+        its train step; returns whether this process wrote it (False on
+        ranks other than 0, and for a step already on disk).  Returns once
+        the state is on the host; ``block=True`` also waits for the write.
+        In a data-parallel run every rank calls it."""
         self.wait_until_finished()
         t0 = time.perf_counter()
+        state, online = _split(state)
         generators = self._generator_states(state)
         step = int(state.step)
         if self._rank != 0 or step in self._steps():
             return False
         pinned: list = []
-        payload = _to_host({
+        tree = {
             "step": step,
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "lazy": None if state.lazy is None else state.lazy.state_dict(),
             "generators": generators,
             "world_size": self._world,
-        }, pinned)
+        }
+        if online is not None:
+            tree["online"] = {k: torch.from_numpy(np.array(v)) for k, v in online.items()}
+        payload = _to_host(tree, pinned)
         for dev in set(pinned):
             torch.cuda.synchronize(dev)
         self.last_save = {"step": step, "blocking_s": time.perf_counter() - t0,
@@ -195,17 +221,26 @@ class Checkpointer:
 
     # -- restore -------------------------------------------------------------
 
-    def restore(self, target: TrainState, step: int | None = None) -> TrainState:
+    def restore(self, target, step: int | None = None):
         """Load step ``step`` (default: the latest) into ``target`` in place
-        (its tensors keep their devices) and return it.  Raises
-        FileNotFoundError without a checkpoint, and names the mismatch when
-        the checkpoint's shapes or optimizer are not ``target``'s."""
+        (its tensors keep their devices) and return it.  ``target`` is a
+        :class:`TrainState`, or an online payload, which comes back with the
+        checkpoint's cursor and fencing token beside the restored state.
+        Raises FileNotFoundError without a checkpoint, and names the
+        mismatch when the checkpoint's shapes, optimizer or kind (train
+        checkpoint or online commit) are not ``target``'s."""
         self.wait_until_finished()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint to restore in {self.directory}")
         payload = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
                              map_location="cpu", weights_only=True)
+        full, online = target, None
+        if not isinstance(target, TrainState):
+            target, online = target.train, payload.get("online")
+            if online is None:
+                raise ValueError(f"checkpoint {step} is a train checkpoint, not an online "
+                                 f"commit: it holds no stream cursor")
         try:
             target.model.load_state_dict(payload["model"])
         except RuntimeError as e:
@@ -225,7 +260,10 @@ class Checkpointer:
         generators = payload["generators"]
         if len(generators) == self._world:
             target.generator.set_state(generators[self._rank])
-        return target
+        if online is None:
+            return target
+        return full._replace(step=target.step, train=target,
+                             **{k: online[k].numpy() for k in ONLINE_KEYS})
 
     def close(self) -> None:
         self.wait_until_finished()

@@ -12,9 +12,13 @@ validation.
 * ``MeshConfig`` - the JAX mesh section, as far as data parallelism over
   ``torch.distributed`` honours it;
 * ``RunConfig`` - task type, paths, logging cadence, seed, the train
-  task's lifecycle and the serve task's single-process fields;
-* ``Config`` - the five sections, read from and written to the JAX
-  ``config.json`` schema (one dict per section).
+  task's lifecycle, the serve task's single-process fields and the
+  online tasks' cadence;
+* ``FlywheelConfig`` - the delayed-label join and ``feedback-train``;
+* ``RegionsConfig`` - the publish root's ``publish_keep_window``;
+* ``Config`` - the seven sections, read from and written to the JAX
+  ``config.json`` schema (one dict per section), with JAX's check that
+  ``feedback-train`` names the join's output.
 
 Reading a JAX config (``Config.from_dict``, ``ModelConfig.from_dict`` and
 so ``load_config``) goes field by field.  A field this copy carries loads.
@@ -42,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -140,10 +145,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "funnel_oversample": (4, None),
         "funnel_min_recall": (0.95, None),
         "funnel_pallas": ("auto", None),
-        # the online tasks raise (ROADMAP A10)
-        "online_publish_every_steps": (100, None),
-        "online_max_batches": (0, None),
-        "online_idle_timeout_secs": (0.0, None),
     },
     "elastic": {
         "enabled": (False, "not ported yet (ROADMAP A15, elastic training)"),
@@ -160,8 +161,8 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "publisher_split": (False, None),
         "publish_poll_secs": (0.5, None),
     },
-    # serving fleets, SLOs, the feedback flywheel and regions: none of them
-    # changes what training computes
+    # serving fleets, SLOs and regions: none of them changes what training
+    # computes
     "fleet": {
         "tenants": ((), None),
         "shadow_sample_percent": (100.0, None),
@@ -184,18 +185,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "scale_down_window_secs": (30.0, None),
         "cooldown_secs": (10.0, None),
     },
-    "flywheel": {
-        "enabled": (False, None),
-        "impression_log_url": ("", None),
-        "click_log_url": ("", None),
-        "join_output_url": ("", None),
-        "sample_rate": (1.0, None),
-        "attribution_window_secs": (1800.0, None),
-        "segment_roll_bytes": (1048576, None),
-        "segment_roll_age_secs": (10.0, None),
-        "join_checkpoint_every_segments": (8, None),
-        "queue_depth": (1024, None),
-    },
     "regions": {
         "enabled": (False, None),
         "regions": ((), None),
@@ -208,7 +197,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "max_version_skew": (2, None),
         "readmit_version_skew": (0, None),
         "failover_budget_pct": (10.0, None),
-        "publish_keep_window": (0, None),
     },
 }
 
@@ -453,6 +441,77 @@ class RunConfig:
     serve_reload_url: str = ""
     serve_reload_interval_secs: float = 2.0
     serve_groups: int = 0
+    # the online-train and feedback-train tasks (online/trainer.py): a
+    # commit and a publish every online_publish_every_steps steps (0: a
+    # publish only at the end), a stop after online_max_batches batches (0:
+    # none) or online_idle_timeout_secs without a new event (0: never)
+    online_publish_every_steps: int = 100
+    online_max_batches: int = 0
+    online_idle_timeout_secs: float = 0.0
+
+
+@dataclass(frozen=True)
+class FlywheelConfig:
+    """The data flywheel (``flywheel/``), with JAX's validation: the join
+    (``python -m deepfm_tpu_torch.flywheel.join``) matches the click log to
+    the impression log inside an attribution window into
+    ``join_output_url``, which ``task_type=feedback-train`` trains on.
+    ``enabled``, ``queue_depth`` and the segment roll arm the serving
+    pool's impression logger, which waits for the pool (ROADMAP A14): the
+    port's single-process server logs no impressions, as JAX's does not."""
+
+    enabled: bool = False
+    impression_log_url: str = ""
+    click_log_url: str = ""
+    join_output_url: str = ""
+    # fraction of impression ids kept, hash-stable per id
+    # (flywheel/records.py impression_sampled)
+    sample_rate: float = 1.0
+    # how long after its segment's publish time an impression may still
+    # take a click; past it the join emits a negative
+    attribution_window_secs: float = 1800.0
+    segment_roll_bytes: int = 1 << 20
+    segment_roll_age_secs: float = 10.0
+    # the join commits {cursors, pending window} after this many segments
+    join_checkpoint_every_segments: int = 8
+    queue_depth: int = 1024
+
+    def __post_init__(self):
+        def finite_positive(name: str, what: str = "") -> None:
+            v = getattr(self, name)
+            if not (v > 0 and math.isfinite(v)):
+                raise ValueError(f"flywheel.{name} must be finite and > 0, got {v}{what}")
+
+        if not (0.0 < self.sample_rate <= 1.0 and math.isfinite(self.sample_rate)):
+            raise ValueError(f"flywheel.sample_rate must be in (0, 1], got {self.sample_rate}")
+        finite_positive("attribution_window_secs")
+        if self.segment_roll_bytes < 1:
+            raise ValueError(
+                f"flywheel.segment_roll_bytes must be >= 1, got {self.segment_roll_bytes}")
+        finite_positive("segment_roll_age_secs", " — an age-less roll strands a trickle "
+                        "of impressions in the writer buffer")
+        for name in ("join_checkpoint_every_segments", "queue_depth"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"flywheel.{name} must be >= 1, got {getattr(self, name)}")
+        if self.enabled and not self.impression_log_url:
+            raise ValueError("flywheel.enabled needs flywheel.impression_log_url — the "
+                             "logger has nowhere to publish segments")
+
+
+@dataclass(frozen=True)
+class RegionsConfig:
+    """The one field of JAX's ``regions`` section that a publisher reads:
+    ``publish_keep_window`` widens the publish root's retention to
+    ``max(keep, publish_keep_window)`` versions (online/publisher.py).  The
+    cross-region front and replicator are not ported; their fields load
+    and are not read (``JAX_ONLY_FIELDS``)."""
+
+    publish_keep_window: int = 0
+
+    def __post_init__(self):
+        if self.publish_keep_window < 0:
+            raise ValueError(f"regions.publish_keep_window must be >= 0, got "
+                             f"{self.publish_keep_window}")
 
 
 @dataclass(frozen=True)
@@ -462,6 +521,17 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     run: RunConfig = field(default_factory=RunConfig)
+    flywheel: FlywheelConfig = field(default_factory=FlywheelConfig)
+    regions: RegionsConfig = field(default_factory=RegionsConfig)
+
+    def __post_init__(self):
+        # feedback-train is the online trainer on the join's output
+        if (self.run.task_type in ("feedback-train", "feedback_train")
+                and not self.flywheel.join_output_url):
+            raise ValueError(
+                "task_type=feedback-train needs flywheel.join_output_url — the "
+                "joined labeled stream the online trainer tails (run `python -m "
+                "deepfm_tpu_torch.flywheel.join` to produce it)")
 
     def with_overrides(self, **sections: dict[str, Any]) -> "Config":
         """A new Config with per-section field overrides, e.g.

@@ -1,6 +1,7 @@
 """Launcher CLI: counterpart of ``deepfm_tpu/launch/cli.py``.
 
-    python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve \
+    python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve|\
+        online-train|feedback-train \
         --training_data_dir D --val_data_dir E --model_dir M \
         --servable_model_dir S [--test_data_dir T] \
         [--config cfg.json] [--set section.field=value ...] [--device cpu]
@@ -8,9 +9,17 @@
 A JSON config (the ``config.json`` schema), then the first-class flags and
 ``--set`` overrides, resolve one ``Config``; the task then runs on the card
 (``--device cpu`` runs the kernels' plain versions on the CPU).  The flags
-keep the JAX CLI's names for what the port supports.  ``train``, ``eval``,
-``infer``, ``export`` and ``serve`` are ported (train/loop.py); every other
-task type raises, naming its ROADMAP item.  ``serve`` runs
+keep the JAX CLI's names for what the port supports.  Every task type but
+``publish`` (the elastic publisher, ROADMAP A15, which raises) is ported
+(train/loop.py).  ``online-train`` tails the event log in
+``--training_data_dir``, commits {weights, cursor} into ``--model_dir`` and
+publishes versions into ``--servable_model_dir`` every
+``run.online_publish_every_steps`` steps (online/trainer.py), until
+SIGTERM/SIGINT (a final commit and publish, exit 0),
+``run.online_max_batches`` or ``run.online_idle_timeout_secs``; the same
+command again resumes at the committed cursor.  ``feedback-train`` runs it
+on ``flywheel.join_output_url``, the output of ``python -m
+deepfm_tpu_torch.flywheel.join``.  ``serve`` runs
 ``serve/server.py serve_forever`` over ``--servable_model_dir`` with the
 ``run.serve_*`` fields (``--set run.serve_port=8501``,
 ``run.serve_reload_url=PUB``, ...); ``run.serve_workers > 1`` and
@@ -42,12 +51,10 @@ import sys
 
 from ..core.config import Config
 
+PORTED = ("train", "eval", "infer", "export", "serve", "online-train", "online_train",
+          "feedback-train", "feedback_train")
 # task types of the JAX CLI that the port does not run yet
 NOT_PORTED = {
-    "online-train": "ROADMAP A10 (online training)",
-    "online_train": "ROADMAP A10 (online training)",
-    "feedback-train": "ROADMAP A10 (online training over the flywheel's stream)",
-    "feedback_train": "ROADMAP A10 (online training over the flywheel's stream)",
     "publish": "ROADMAP A15 (elastic trainer/publisher split)",
 }
 
@@ -88,7 +95,7 @@ def parse_set_pairs(pairs: list[str], sections: dict[str, dict]) -> dict:
         if "=" not in pair or "." not in pair.split("=", 1)[0]:
             raise SystemExit(
                 f"--set expects section.key=value, got {pair!r} "
-                f"(sections: model, optimizer, data, run)"
+                f"(sections: model, optimizer, data, mesh, run, flywheel, regions)"
             )
         key, value = pair.split("=", 1)
         section, name = key.split(".", 1)
@@ -102,9 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="DeepFM training and serving on NVIDIA Hopper cards (PyTorch/CUDA port)",
     )
     p.add_argument("--config", help="JSON config file (Config.to_dict schema)")
-    p.add_argument("--task_type",
-                   choices=["train", "eval", "infer", "export", "serve", *NOT_PORTED],
-                   help="task dispatch; train, eval, infer, export and serve are ported")
+    p.add_argument("--task_type", choices=[*PORTED, *NOT_PORTED],
+                   help="task dispatch; all but publish are ported")
     p.add_argument("--training_data_dir")
     p.add_argument("--val_data_dir")
     p.add_argument("--test_data_dir", help="te*/test* records for infer")

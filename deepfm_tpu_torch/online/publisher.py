@@ -19,8 +19,10 @@ version whose staged weights do not match it.  A JAX publisher's root
 reads here unchanged (its version trees hold Orbax payloads, which the
 port converts with ``convert.params_from_jax``).
 
-Retention keeps the newest ``keep`` versions, deleting manifest first, so
-a half-deleted version is invisible.  Object-store roots (a URL) raise:
+Retention keeps the newest ``max(keep, keep_window)`` versions, deleting
+manifest first, so a half-deleted version is invisible; ``keep_window``
+(``regions.publish_keep_window``) widens it so that a reader catching up
+still finds the versions it is behind by.  Object-store roots (a URL) raise:
 ROADMAP A6 and A15.  Tiered publishes and the publisher's fence are
 ROADMAP A11 and A15.
 """
@@ -50,7 +52,7 @@ def check_local_root(root: str) -> str:
     """``root`` if it is a local directory path; a URL raises."""
     if "://" in str(root):
         raise NotImplementedError(
-            f"{root!r}: object-store publish roots are not ported yet "
+            f"{root!r}: object-store roots are not ported yet "
             f"(ROADMAP A6, A15); give a local directory")
     return str(root)
 
@@ -164,14 +166,15 @@ def fetch_version(root: str, version: int, staging_dir: str) -> str:
 
 class ModelPublisher:
     """Single-writer publisher of versioned port servables under a local
-    ``root``, keeping the newest ``keep`` versions (the cross-region
-    ``keep_window`` comes with the regions)."""
+    ``root``, keeping the newest ``max(keep, keep_window)`` versions."""
 
-    def __init__(self, root: str, *, keep: int = 3):
+    def __init__(self, root: str, *, keep: int = 3, keep_window: int = 0):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
+        if keep_window < 0:
+            raise ValueError(f"keep_window must be >= 0, got {keep_window}")
         self.root = check_local_root(root)
-        self._keep = keep
+        self._keep = max(keep, keep_window)
         os.makedirs(self.root, exist_ok=True)
 
     def next_version(self) -> int:

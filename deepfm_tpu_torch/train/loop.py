@@ -1,10 +1,11 @@
-"""The train, eval, infer, export and serve tasks: counterpart of
-``run_train``, ``run_eval``, ``run_infer``, ``run_export``, the serve
-branch and ``run_task`` in
+"""The train, eval, infer, export, serve, online-train and feedback-train
+tasks: counterpart of ``run_train``, ``run_eval``, ``run_infer``,
+``run_export``, the serve and online branches and ``run_task`` in
 ``deepfm_tpu/train/loop.py``, on one card or on each rank of a
-data-parallel run.  JAX's ``restore_latest`` is ``Checkpointer.restore``
-here: a checkpoint of another table shape raises with the fused_kernel
-hint (the cross-topology reshard is ROADMAP A9/A15).
+data-parallel run (the online tasks on one card: online/trainer.py).
+JAX's ``restore_latest`` is ``Checkpointer.restore`` here: a checkpoint of
+another table shape raises with the fused_kernel hint (the cross-topology
+reshard is ROADMAP A9/A15).
 
 ``run_train`` is the train task's whole lifecycle:
 
@@ -314,14 +315,35 @@ def run_serve(cfg: Config, *, device=None) -> None:
                   reload_interval_secs=r.serve_reload_interval_secs, device=device)
 
 
+def run_online(cfg: Config, *, device=None) -> TrainState:
+    """The online-train task (``online/trainer.py run_online_train``): tail
+    the event log at ``data.training_data_dir``, committing into
+    ``run.model_dir`` and publishing versions into
+    ``run.servable_model_dir`` for a hot-reloading server."""
+    from ..online.trainer import run_online_train
+
+    return run_online_train(cfg, device=device)
+
+
+def run_feedback(cfg: Config, *, device=None) -> TrainState:
+    """The feedback-train task: the same online trainer on the flywheel's
+    delayed-label join output (``flywheel.join_output_url``, which the
+    config requires) instead of a hand-fed event log."""
+    return run_online(cfg.with_overrides(data={"training_data_dir": cfg.flywheel.join_output_url},
+                                         run={"task_type": "online-train"}), device=device)
+
+
 TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
-         "export": run_export, "serve": run_serve}
+         "export": run_export, "serve": run_serve,
+         "online-train": run_online, "online_train": run_online,
+         "feedback-train": run_feedback, "feedback_train": run_feedback}
 
 
 def run_task(cfg: Config, *, device=None):
-    """Run ``cfg.run.task_type`` (train, eval, infer, export or serve);
-    returns the task's result: the train state, the eval metrics, the
-    pred.txt path or the servable path (serve blocks and returns None)."""
+    """Run ``cfg.run.task_type`` (train, eval, infer, export, serve,
+    online-train or feedback-train); returns the task's result: the train
+    state, the eval metrics, the pred.txt path or the servable path (serve
+    blocks and returns None)."""
     task = cfg.run.task_type
     if task not in TASKS:
         raise ValueError(f"unknown task_type {task!r} ({'|'.join(TASKS)})")

@@ -88,7 +88,8 @@ INERT = {
     "elastic": {"prefer_model_parallel": 4},
     "fleet": {"shadow_sample_percent": 5.0},
     "slo": {"deadline_ms": 50.0},
-    "flywheel": {"enabled": True, "sample_rate": 0.5},
+    # carried since the online tasks were ported; a filled-in section loads
+    "flywheel": {"enabled": True, "sample_rate": 0.5, "impression_log_url": "/tmp/imps"},
     "regions": {"enabled": True, "front_port": 9400},
 }
 
@@ -160,3 +161,29 @@ def test_the_serve_task_fields_are_carried_and_the_pools_raise():
     for pool in ({"serve_workers": 2}, {"serve_groups": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP A14"):
             run_serve(cfg.with_overrides(run=pool), device="cpu")
+
+
+ONLINE_FIELDS = {"run": {"online_publish_every_steps": 8, "online_max_batches": 3,
+                         "online_idle_timeout_secs": 2.5},
+                 "regions": {"publish_keep_window": 6},
+                 "flywheel": {"join_output_url": "/j", "click_log_url": "/c",
+                              "attribution_window_secs": 60.0,
+                              "join_checkpoint_every_segments": 2}}
+
+
+def test_the_online_fields_are_carried_not_dropped():
+    """run.online_*, regions.publish_keep_window and the flywheel section
+    change what the online tasks do, so the port carries them (a JAX value
+    loads as itself) and they left JAX_ONLY_FIELDS; the rest of regions
+    stays JAX-only."""
+    assert "flywheel" not in JAX_ONLY_FIELDS
+    assert not set(ONLINE_FIELDS["run"]) & set(JAX_ONLY_FIELDS["run"])
+    assert "publish_keep_window" not in JAX_ONLY_FIELDS["regions"]
+    assert {"enabled", "max_version_skew"} <= set(JAX_ONLY_FIELDS["regions"])
+    d = JaxConfig().to_dict()
+    for section, fields in ONLINE_FIELDS.items():
+        d[section].update(fields)
+    cfg = Config.from_dict(json.loads(json.dumps(d)))
+    for section, fields in ONLINE_FIELDS.items():
+        assert {k: getattr(getattr(cfg, section), k) for k in fields} == fields
+    assert Config.from_dict(cfg.to_dict()) == cfg

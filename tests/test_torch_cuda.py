@@ -718,3 +718,58 @@ def test_swaps_keep_the_graphs_and_the_canary_uses_the_idle_slot(device, tmp_pat
     finally:
         stop.set()
         batcher.close()
+
+
+# ---------------------------------------------------------------------------
+# the online trainer
+
+
+@pytest.mark.cuda
+def test_online_trainer_on_the_card_launches_the_kernels_and_matches_the_cpu(device,
+                                                                               tmp_path):
+    """The online trainer on the card at a small width (V = 1,000, F = 10,
+    K = 8, MLP (16,), batch 64, float32, dropout off, Adam lr 5e-4) over 4
+    segments of 64 records: B1 and B1′ launch once on every step, and the
+    committed state equals the same run on the CPU through the plain
+    versions within the train tests' 1e-5 (absolute, float32), cursor and
+    step equal."""
+    import numpy as np
+
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.online import OnlineTrainer, StreamCursor, append_segment
+    from deepfm_tpu_torch.online.stream import segment_name
+
+    rng = np.random.default_rng(5)
+    for seq in range(4):
+        ids = rng.permutation(1000)[:640].reshape(64, 10)
+        append_segment(str(tmp_path / "stream"), (rng.random(64) < 0.3).astype(np.float32),
+                       ids, rng.random((64, 10), dtype=np.float32), seq=seq)
+
+    def run(dev):
+        cfg = Config.from_dict({
+            "model": {"feature_size": 1000, "field_size": 10, "embedding_size": 8,
+                      "deep_layers": (16,), "dropout_keep": (1.0,),
+                      "compute_dtype": "float32", "fused_kernel": "auto"},
+            "data": {"training_data_dir": str(tmp_path / "stream"), "batch_size": 64},
+            "run": {"model_dir": str(tmp_path / dev / "ckpt"), "log_steps": 1000,
+                    "servable_model_dir": str(tmp_path / dev / "publish"),
+                    "checkpoint_every_steps": 1, "online_publish_every_steps": 2}})
+        counts = []
+        state = OnlineTrainer(cfg, device=dev).run(
+            follow=False,
+            on_commit=lambda s, c: counts.append((fused_ctr.launches,
+                                                  fused_ctr.backward_launches, c)))
+        return state, counts
+
+    start = fused_ctr.launches, fused_ctr.backward_launches
+    card, counts = run("cuda")
+    assert [c[:2] for c in counts] == [(start[0] + i, start[1] + i) for i in range(1, 5)]
+    assert counts[-1][2] == StreamCursor(segment_name(3), 64)
+    cpu, _ = run("cpu")
+    assert card.step == cpu.step == 4 and card.optimizer.count == cpu.optimizer.count
+    for name, a, w in [*zip(card.model.state_dict(), card.model.state_dict().values(),
+                            cpu.model.state_dict().values()),
+                       *((f"{n}.{s}", card.optimizer.slots[n][s], t)
+                         for n, slots in cpu.optimizer.slots.items()
+                         for s, t in slots.items())]:
+        torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-5, msg=name)

@@ -294,11 +294,16 @@ def test_cli_trains_on_the_cpu_end_to_end(tmp_path):
 def test_cli_refuses_what_is_not_ported():
     from deepfm_tpu_torch.launch.cli import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        run(["--task_type", "online-train", "--device", "cpu"])
+    # the online tasks are ported; the elastic publisher is not
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        run(["--task_type", "publish", "--device", "cpu"])
     # the serve task is ported; its process and shard-group pools are not
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         run(["--task_type", "serve", "--device", "cpu", "--set", "run.serve_workers=2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(["--task_type", "train", "--training_data_dir", "/nonexistent"])
+        for task in ("online-train", "feedback-train"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                run(["--task_type", task, "--training_data_dir", "/nonexistent",
+                     "--set", "flywheel.join_output_url=/nonexistent"])
