@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 12, 8):
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8):
 
 1. card     - the card's name and power limit, from nvidia-smi;
 2. build    - every kernel under deepfm_tpu_torch/csrc, built from source
@@ -132,6 +132,32 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 11, 12, 8):
               commit and publish ms, the freshness (a manifest's marker to
               the first response of its version), the swap, stage and
               canary ms, the join's records/s and the phase's seconds.
+
+13. sharded - ROADMAP A9's [data x model] grid: 4 ranks spawned on the one
+              card in a gloo group of their own (NCCL refuses two ranks of
+              one communicator on one card), at full width (bf16 MLP,
+              fused_kernel "auto", 1,024 records a data index, Adam 5e-4,
+              L2 1e-4, dropout off, every id of a step distinct), 4 steps
+              through parallel/spmd.py's step in each of: [2, 2] dense over
+              the psum exchange, [2, 2] dense over the all-to-all exchange
+              with ZeRO, [2, 2] lazy over the all-to-all exchange, [1, 4]
+              dense over the all-to-all exchange with two batches skewed
+              past its capacity (the psum fallback), [4, 1] lazy with whole
+              tables, a float32 MLP and every id twice in a data index, so
+              that each step takes the unique pack (update_dedup) over the
+              data group.
+              Every rank's exchange (at [4, 1] the lazy step's local
+              assembly) must give rows bit-equal to the dense gather of the
+              whole tables, the lazy updates must take the pack or every
+              slot as their configuration says, B1 and B1' must launch every step on every rank and
+              agree with their plain versions on the exchange's compact
+              table, the fallback must run on the skewed steps only, and the whole
+              tables and MLP must agree with the single-card step on the
+              same global batches (the data-parallel mean of each data
+              index's gradient, the tables' times the model shards, as the
+              exchange's transpose gives it in JAX) within TOL_GRAD_REL; a
+              `sharded` line a configuration with the step and exchange
+              times and bytes, over gloo on one card.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -262,6 +288,34 @@ def time_ms(fn, reps: int = 50, groups: int = 7) -> tuple[float, float]:
             fn()
 
     return device_ms, _median_event_ms(eager, reps, groups)
+
+
+PROFILE_TRIES = 3
+
+
+def device_profile(fn, n: int, cpu: bool = False):
+    """``fn`` run ``n`` times under torch.profiler, or None when CUPTI gave
+    no device activity in PROFILE_TRIES sessions.  A card's machine may
+    give the profiler no device events at all; there the profiler's splits
+    are printed as not measured and every time stands on CUDA events
+    alone.  The kernels' launches and agreement are checked apart
+    from this, through their counters and plain versions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=activities) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        if any(row.device_type == DeviceType.CUDA and row.device_time_total > 0
+               for row in prof.key_averages()):
+            return prof
+        print(f"torch.profiler saw no device time (session {attempt + 1} of "
+              f"{PROFILE_TRIES})", file=sys.stderr)
+    print("torch.profiler: no device activity from CUPTI; this split is not measured")
+    return None
 
 
 def make_ids(rng: np.random.Generator, b: int, f: int, feature_size: int) -> np.ndarray:
@@ -693,9 +747,9 @@ def decode_ms(train_dir: str, reps: int = 5) -> dict:
 def step_breakdown(state, batch: dict, reps: int = 20) -> dict:
     """One train step with its batch already on the card: device time from
     CUDA events (median of single steps), and its split by kernel from
-    torch.profiler.  Returns the printed numbers."""
+    torch.profiler (None where it saw no device time).  Returns the
+    printed numbers."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deepfm_tpu_torch.train.step import train_step
 
@@ -703,37 +757,34 @@ def step_breakdown(state, batch: dict, reps: int = 20) -> dict:
         train_step(state, batch)
     torch.cuda.synchronize()
     step_ms = _median_event_ms(lambda: train_step(state, batch), 1, reps)
-    n = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            train_step(state, batch)
-        torch.cuda.synchronize()
-    kernels = {"forward_kernel": 0.0, "backward_kernel": 0.0, "zero_fill": 0.0}
-    total = 0.0
-    for row in prof.key_averages():
-        if row.device_type != DeviceType.CUDA or row.key == "train.optimizer":
-            continue
-        us = row.device_time_total
-        total += us
-        if "fused_ctr_forward_kernel" in row.key:
-            kernels["forward_kernel"] += us
-        elif "fused_ctr_backward_kernel" in row.key:
-            kernels["backward_kernel"] += us
-        elif "FillFunctor" in row.key or "Memset" in row.key:
-            kernels["zero_fill"] += us
-    optimizer = sum(e.device_time_total for e in prof.events()
-                    if e.name == "train.optimizer" and e.device_type == DeviceType.CPU)
-    split = {k: v / n / 1e3 for k, v in kernels.items()}
-    split["optimizer_update"] = optimizer / n / 1e3
-    split["mlp_fwd_bwd_and_rest"] = (total - sum(kernels.values()) - optimizer) / n / 1e3
-    busy_ms = total / n / 1e3
-    if total == 0.0:
-        fail("torch.profiler saw no device time in the train steps")
     rows = batch["feat_ids"].clamp(0, state.model.cfg.feature_size - 1)
     multiplicity = int(torch.unique(rows, return_counts=True)[1].max())
-    result = {"step_device_ms": step_ms, "kernel_busy_ms": busy_ms,
-              "max_row_multiplicity": multiplicity,
-              "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split}
+    result = {"step_device_ms": step_ms, "kernel_busy_ms": None,
+              "max_row_multiplicity": multiplicity, "idle_share": None, "split_ms": None}
+    n = 5
+    prof = device_profile(lambda: train_step(state, batch), n, cpu=True)
+    if prof is not None:
+        kernels = {"forward_kernel": 0.0, "backward_kernel": 0.0, "zero_fill": 0.0}
+        total = 0.0
+        for row in prof.key_averages():
+            if row.device_type != DeviceType.CUDA or row.key == "train.optimizer":
+                continue
+            us = row.device_time_total
+            total += us
+            if "fused_ctr_forward_kernel" in row.key:
+                kernels["forward_kernel"] += us
+            elif "fused_ctr_backward_kernel" in row.key:
+                kernels["backward_kernel"] += us
+            elif "FillFunctor" in row.key or "Memset" in row.key:
+                kernels["zero_fill"] += us
+        optimizer = sum(e.device_time_total for e in prof.events()
+                        if e.name == "train.optimizer" and e.device_type == DeviceType.CPU)
+        split = {k: v / n / 1e3 for k, v in kernels.items()}
+        split["optimizer_update"] = optimizer / n / 1e3
+        split["mlp_fwd_bwd_and_rest"] = (total - sum(kernels.values()) - optimizer) / n / 1e3
+        busy_ms = total / n / 1e3
+        result.update(kernel_busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
+                      split_ms=split)
     print("train step breakdown B=%d %s" % (batch["label"].shape[0], json.dumps(result)))
     return result
 
@@ -933,12 +984,11 @@ def lazy_parity(seed: int, train_dir: str) -> None:
 
 def lazy_breakdown(state, batch: dict, dense: dict, reps: int = 20) -> None:
     """The lazy step with its batch on the card: device time (CUDA events,
-    median of single steps) and its split from torch.profiler: B1 and B1'
-    on the compact tables, the sort/segments/compact gathers, the row
-    update, the rest optimizer, and the MLP with the rest; beside the dense
-    step's at the same batch."""
+    median of single steps) and its split from torch.profiler (None where
+    it saw no device time): B1 and B1' on the compact tables, the
+    sort/segments/compact gathers, the row update, the rest optimizer, and
+    the MLP with the rest; beside the dense step's at the same batch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deepfm_tpu_torch.train.step import train_step
 
@@ -946,38 +996,36 @@ def lazy_breakdown(state, batch: dict, dense: dict, reps: int = 20) -> None:
         train_step(state, batch)
     torch.cuda.synchronize()
     step_ms = _median_event_ms(lambda: train_step(state, batch), 1, reps)
+    busy_ms = split = None
     n = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            train_step(state, batch)
-        torch.cuda.synchronize()
-    labels = {"train.lazy_segments": "sort_segments_gathers",
-              "train.lazy_rows": "row_update", "train.optimizer": "rest_optimizer"}
-    split = {"forward_kernel": 0.0, "backward_kernel": 0.0}
-    total = 0.0
-    for row in prof.key_averages():
-        if row.device_type != DeviceType.CUDA or row.key in labels:
-            continue
-        total += row.device_time_total
-        if "fused_ctr_forward_kernel" in row.key:
-            split["forward_kernel"] += row.device_time_total
-        elif "fused_ctr_backward_kernel" in row.key:
-            split["backward_kernel"] += row.device_time_total
-    for label, name in labels.items():
-        split[name] = sum(e.device_time_total for e in prof.events()
-                          if e.name == label and e.device_type == DeviceType.CPU)
-    split = {k: v / n / 1e3 for k, v in split.items()}
-    busy_ms = total / n / 1e3
-    if total == 0.0:
-        fail("torch.profiler saw no device time in the lazy steps")
-    split["mlp_fills_and_rest"] = busy_ms - sum(split.values())
+    prof = device_profile(lambda: train_step(state, batch), n, cpu=True)
+    if prof is not None:
+        labels = {"train.lazy_segments": "sort_segments_gathers",
+                  "train.lazy_rows": "row_update", "train.optimizer": "rest_optimizer"}
+        split = {"forward_kernel": 0.0, "backward_kernel": 0.0}
+        total = 0.0
+        for row in prof.key_averages():
+            if row.device_type != DeviceType.CUDA or row.key in labels:
+                continue
+            total += row.device_time_total
+            if "fused_ctr_forward_kernel" in row.key:
+                split["forward_kernel"] += row.device_time_total
+            elif "fused_ctr_backward_kernel" in row.key:
+                split["backward_kernel"] += row.device_time_total
+        for label, name in labels.items():
+            split[name] = sum(e.device_time_total for e in prof.events()
+                              if e.name == label and e.device_type == DeviceType.CPU)
+        split = {k: v / n / 1e3 for k, v in split.items()}
+        busy_ms = total / n / 1e3
+        split["mlp_fills_and_rest"] = busy_ms - sum(split.values())
+    dense_split = dense["split_ms"] or {}
     print("lazy step breakdown B=%d %s" % (batch["label"].shape[0], json.dumps({
         "step_device_ms": step_ms, "kernel_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / step_ms, "split_ms": split,
-        "dense_step_device_ms": dense["step_device_ms"],
-        "dense_optimizer_ms": dense["split_ms"]["optimizer_update"],
-        "dense_backward_kernel_ms": dense["split_ms"]["backward_kernel"],
-        "dense_zero_fill_ms": dense["split_ms"]["zero_fill"]})))
+        "idle_share": None if busy_ms is None else 1.0 - busy_ms / step_ms,
+        "split_ms": split, "dense_step_device_ms": dense["step_device_ms"],
+        "dense_optimizer_ms": dense_split.get("optimizer_update"),
+        "dense_backward_kernel_ms": dense_split.get("backward_kernel"),
+        "dense_zero_fill_ms": dense_split.get("zero_fill")})))
 
 
 DDP_STEPS = 4
@@ -1037,7 +1085,7 @@ def phase_ddp(seed: int, workdir: str) -> dict:
         if not all(np.isfinite(losses)):
             fail(f"ddp: losses {losses}")
         grads = sum(p.numel() for p in dp.model.parameters())
-        flat = torch.zeros(grads + 8, device="cuda")  # + 4 metrics and 4 flags
+        flat = torch.zeros(grads + 9, device="cuda")  # + 4 metrics and 5 flags
         for _ in range(3):
             dist.all_reduce(flat)
         torch.cuda.synchronize()
@@ -1054,6 +1102,412 @@ def phase_ddp(seed: int, workdir: str) -> dict:
     finally:
         dist.destroy_process_group()
     return {"launches": launches, "backward_launches": backward_launches}
+
+
+# the sharded phase: ROADMAP A9's [data x model] grid as 4 ranks on the one
+# card in a gloo group this phase starts (NCCL refuses two ranks of one
+# communicator on one card).  Each configuration: (label, data_parallel,
+# model_parallel, config sections, skewed steps, times each id comes in a
+# data index).  A batch takes exactly its share of ids from each owner's
+# rows, so the auto capacity ceil(N/M) holds it; a skewed step moves a 20th
+# of a data index's ids from the last owner to the first, past the
+# capacity, so it takes the psum fallback.  With every id twice, a data
+# index holds N/2 distinct rows: the lazy step's default pack of N/2 holds
+# them (update_dedup), and each row's gradient is a sum of two, the same
+# in either order.  At four data indices the MLP's gradient is a sum of
+# four, in gloo's order, which the single-card reference cannot follow: in
+# a bf16 MLP that ulp moves a weight by a bf16 step, every later gradient
+# moves, and Adam turns a near-zero row gradient's changed sign into 2·lr
+# (on an H100 over gloo, far past TOL_GRAD_REL after 4 steps), so that
+# configuration's MLP runs in float32.
+# SHARD_VOCAB, SHARD_BATCH and DEVICE let a rehearsal on the CPU run it at
+# a small width
+SHARD_STEPS, SHARD_RANKS = 4, 4
+SHARD_VOCAB, SHARD_BATCH = 117_581, 1024
+SHARD_CONFIGS = (
+    ("2x2 dense psum", 2, 2, {"model": {"shard_exchange": "psum"},
+                              "optimizer": {"zero_sharding": "off"}}, (), 1),
+    ("2x2 dense alltoall zero", 2, 2, {"model": {"shard_exchange": "alltoall"},
+                                       "optimizer": {"zero_sharding": "on"}}, (), 1),
+    ("2x2 lazy alltoall", 2, 2, {"model": {"shard_exchange": "alltoall"},
+                                 "optimizer": {"lazy_embedding_updates": True}}, (), 1),
+    ("1x4 dense alltoall fallback", 1, 4,
+     {"model": {"shard_exchange": "alltoall", "shard_exchange_capacity": 0.25},
+      "optimizer": {"zero_sharding": "off"}}, (2, 3), 1),
+    ("4x1 lazy alltoall pack f32", 4, 1,
+     {"model": {"shard_exchange": "alltoall", "compute_dtype": "float32"},
+      "optimizer": {"lazy_embedding_updates": True}}, (), 2),
+)
+
+
+def sharded_config(seed: int, dp: int, mp: int, sections: dict) -> dict:
+    """The phase's config: the full-width model (bf16 MLP, fused_kernel
+    "auto", dropout off), Adam 5e-4, L2 1e-4, SHARD_BATCH records a data
+    index, on a [dp, mp] grid."""
+    return {"model": {"feature_size": SHARD_VOCAB, "fused_kernel": "auto",
+                      "dropout_keep": [1.0, 1.0, 1.0], "l2_reg": 1e-4,
+                      **sections.get("model", {})},
+            "optimizer": {"learning_rate": 5e-4, **sections.get("optimizer", {})},
+            "mesh": {"data_parallel": dp, "model_parallel": mp},
+            "data": {"batch_size": SHARD_BATCH}, "run": {"seed": seed}}
+
+
+def sharded_batches(rng: np.random.Generator, dp: int, mp: int, skewed,
+                    repeat: int = 1) -> list[dict]:
+    """SHARD_STEPS global batches of dp x SHARD_BATCH records, every id of a
+    step distinct but for ``repeat`` copies of each within a data index; a
+    data index takes SHARD_BATCH·39/mp ids of each owner's rows (n/20 more
+    of the first owner's on the steps in ``skewed``)."""
+    from deepfm_tpu_torch.parallel.spmd import padded_vocab
+
+    n = SHARD_BATCH * 39
+    rows = padded_vocab(SHARD_VOCAB, mp, 128 // 32) // mp
+    out = []
+    for step in range(SHARD_STEPS):
+        share = [n // mp] * mp
+        if step in skewed:
+            share[0] += n // 20
+            share[-1] -= n // 20
+        ids = np.empty((dp, n), np.int64)
+        for j in range(mp):
+            hi = min((j + 1) * rows, SHARD_VOCAB)
+            assert share[j] % repeat == 0
+            pick = rng.choice(np.arange(j * rows, hi), size=dp * share[j] // repeat,
+                              replace=False)
+            lo = sum(share[:j])
+            ids[:, lo:lo + share[j]] = np.tile(pick.reshape(dp, share[j] // repeat),
+                                               repeat)
+        for d in range(dp):
+            rng.shuffle(ids[d])
+        out.append({"feat_ids": ids.reshape(dp * SHARD_BATCH, 39),
+                    "feat_vals": rng.random((dp * SHARD_BATCH, 39), dtype=np.float32),
+                    "label": (rng.random(dp * SHARD_BATCH) < 0.25).astype(np.float32)})
+    return out
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median wall-clock ms of ``fn`` (which waits for its own result)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def compact_kernel_errors(w_c, v_c, slot, vals, seed: int) -> dict:
+    """B1 and B1' on a compact table and its slots against their plain
+    versions: the forward's max abs errors (emb, y_w, y_v) and the
+    backward's (d_fm_w, d_fm_v), each with the scale its tolerance reads."""
+    from deepfm_tpu_torch.ops import fused_ctr
+
+    b, f = slot.shape
+    k = v_c.shape[1]
+    got = fused_ctr.fused_ctr_interaction(w_c, v_c, slot, vals)
+    want = fused_ctr.fused_ctr_plain(w_c, v_c, slot, vals)
+    g = torch.Generator(device=v_c.device).manual_seed(seed + 9)
+    cot = (torch.randn((b, f, k), generator=g, device=v_c.device),
+           torch.randn((b,), generator=g, device=v_c.device),
+           torch.randn((b,), generator=g, device=v_c.device))
+    backward = (fused_ctr.fused_ctr_backward if v_c.device.type == "cuda"
+                else fused_ctr.fused_ctr_backward_plain)
+    got_b = backward(*cot, w_c, v_c, slot, vals, False)
+    want_b = fused_ctr.fused_ctr_backward_plain(*cot, w_c, v_c, slot, vals, False)
+    return {"forward": [[float((a - w).abs().max()), float(w.abs().max())]
+                        for a, w in zip(got, want)],
+            "backward": [[float((a - w).abs().max()), float(w.abs().max())]
+                         for a, w in zip(got_b[:2], want_b[:2])]}
+
+
+def compact_rows(state, ids: torch.Tensor):
+    """``(fm_w [n], fm_v [n, K], slots)``: the compact table the step's
+    kernels run on, from the exchange at more than one model index, else
+    from the lazy step's local assembly of the whole tables."""
+    from deepfm_tpu_torch.parallel import spmd
+
+    model, sh = state.model, state.sharding
+    if model.sharded is not None:
+        return model.sharded.lookup(model.fm_w, model.fm_v, ids)
+    flat = ids.reshape(-1).long()
+    mapped = torch.where((flat >= 0) & (flat < sh.true_vocab), flat, sh.total_rows)
+    compact, slot, _ = spmd.assemble_rows(state, mapped)
+    k = model.fm_v.shape[1]
+    return compact[:, k].contiguous(), compact[:, :k].contiguous(), slot.view(ids.shape)
+
+
+def sharded_rank(rank: int, world: int, store: str, out: str, jobs: list,
+                 backend: str = "gloo") -> None:
+    """One rank of the sharded phase (a spawned process): each
+    configuration's grid state, a check of the exchange's forward rows
+    against the dense gather of the whole tables, SHARD_STEPS steps (the
+    main path, kernel and exchange counts from 0), then the step's and the
+    exchange collectives' times.  Rank 0 keeps the whole tables before and
+    after.  Under gloo every rank shares card 0; under NCCL rank r takes
+    card r."""
+    import torch.distributed as dist
+
+    card = torch.device("cuda", rank if backend == "nccl" else 0)
+    if DEVICE == "cuda":
+        torch.cuda.set_device(card)
+    torch.set_num_threads(2)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            **({"device_id": card} if backend == "nccl" else {}))
+    try:
+        from deepfm_tpu_torch.core.config import Config
+        from deepfm_tpu_torch.ops import fused_ctr
+        from deepfm_tpu_torch.parallel import embedding as E
+        from deepfm_tpu_torch.parallel import spmd
+        from deepfm_tpu_torch.parallel.mesh import initialize_distributed
+
+        results = []
+        for cfg_dict, batches in jobs:
+            cfg = Config.from_dict(cfg_dict)
+            ctx = initialize_distributed(cfg.mesh, DEVICE)
+            state = spmd.create_dp_train_state(cfg, ctx)
+            init = {k: v.detach().cpu().clone()
+                    for k, v in spmd.full_state(state)["model"].items()}
+            n = SHARD_BATCH
+            local = [{k: torch.from_numpy(v[ctx.data_index * n:(ctx.data_index + 1) * n])
+                      .to(ctx.device) for k, v in b.items()} for b in batches]
+            model, sh = state.model, state.sharding
+            # the exchange's forward rows against the dense gather, per step
+            row_err = 0
+            with torch.no_grad():
+                for b in local:
+                    ids, _ = model.prepare(b["feat_ids"], b["feat_vals"])
+                    w_c, v_c, slot = compact_rows(state, ids)
+                    flat = ids.long().cpu()
+                    slot = slot.long()
+                    row_err += int((v_c[slot].cpu() != init["fm_v"][flat]).any())
+                    row_err += int((w_c[slot].cpu() != init["fm_w"][flat]).any())
+            # the main path: counts from 0, the steps, then read
+            E.reset_counters()
+            spmd.lazy_updates.update(dedup=0, full=0)
+            fused_ctr.launches = fused_ctr.backward_launches = 0
+            losses = [float(spmd.train_step(state, b, ctx)["loss"]) for b in local]
+            launches, backward = fused_ctr.launches, fused_ctr.backward_launches
+            counters = dict(E.counters)
+            lazy_updates = dict(spmd.lazy_updates)
+            final = {k: v.detach().cpu().clone()
+                     for k, v in spmd.full_state(state)["model"].items()}
+            # B1 and B1' on the exchange's compact table, against their
+            # plain versions (after the counts: these launches are not the
+            # main path's)
+            with torch.no_grad():
+                ids, vals = model.prepare(local[0]["feat_ids"], local[0]["feat_vals"])
+                w_c, v_c, slot = compact_rows(state, ids)
+            kernel_err = compact_kernel_errors(w_c, v_c, slot, vals, seed=rank)
+            step_ms = _host_ms(lambda: spmd.train_step(state, local[0], ctx))
+            # the exchange's collectives alone, at this configuration's sizes
+            # (whole tables: the lazy update's gather of the pack instead)
+            ids, _ = model.prepare(local[0]["feat_ids"], local[0]["feat_vals"])
+            width = model.fm_v.shape[1] + 1
+            group = ctx.model_group
+            if sh.mp == 1:
+                cap = E.exchange_capacity(ids.numel(), 1,
+                                          cfg.model.shard_exchange_capacity or 0.5)
+                pack_ids = torch.zeros(cap, dtype=torch.long, device=ctx.device)
+                pack_g = torch.zeros(cap, width, device=ctx.device)
+
+                def legs():
+                    for t in (pack_ids, pack_g):
+                        dist.all_gather_into_tensor(
+                            t.new_empty((sh.dp * cap,) + tuple(t.shape[1:])), t,
+                            group=ctx.data_group)
+            elif sh.exchange == "alltoall":
+                cap = E.exchange_capacity(ids.numel(), sh.mp, cfg.model.shard_exchange_capacity)
+                req = torch.zeros(sh.mp * cap, dtype=torch.int32, device=ctx.device)
+                got = torch.zeros(sh.mp * cap, width, device=ctx.device)
+
+                def legs():
+                    dist.all_to_all_single(torch.empty_like(req), req, group=group)
+                    dist.all_to_all_single(torch.empty_like(got), got, group=group)
+            else:
+                rows = torch.zeros(ids.numel(), width, device=ctx.device)
+
+                def legs():
+                    dist.all_reduce(rows, group=group)
+            legs()
+            results.append({
+                "grid": [ctx.data_index, ctx.model_index], "exchange": sh.exchange,
+                "zero": sh.zero, "losses": losses, "launches": launches,
+                "backward_launches": backward, "counters": counters,
+                "lazy_updates": lazy_updates,
+                "row_mismatches": row_err, "step_ms": step_ms, "kernel_err": kernel_err,
+                "compact_rows": int(v_c.shape[0]),
+                "exchange_collectives_ms": _host_ms(legs),
+                "init": init if rank == 0 else None, "final": final if rank == 0 else None})
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_reference(cfg, init: dict, batches: list, dp: int, mp: int, lazy: bool):
+    """The single-card step on the same global batches from the same
+    weights, in the data-parallel step's arithmetic: the dense step's
+    gradient is the mean over the data indices of the single-card gradient
+    of each index's records, with the tables' multiplied by mp (the factor
+    the exchange's transpose gives them on the grid, as in JAX); the lazy
+    step runs the whole batch but its MLP head on each index's records
+    apart (the GEMM shapes the ranks run).  Returns the losses and the
+    final state_dict."""
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.train.step import (apply_dense, create_train_state, dense_grads,
+                                             lazy_train_step)
+
+    pcfg = spmd.sharded_model_config(cfg.with_overrides(mesh={"model_parallel": 1}), mp)
+    one = create_train_state(pcfg, DEVICE)
+    one.model.load_state_dict(init)
+    n = SHARD_BATCH
+    losses = []
+    if lazy:
+        head = one.model.head
+
+        def split_head(emb, y_w, y_v):
+            return torch.cat([head(emb[i * n:(i + 1) * n], y_w[i * n:(i + 1) * n],
+                                   y_v[i * n:(i + 1) * n]) for i in range(dp)])
+
+        one.model.head = split_head
+    for b in batches:
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+        if lazy:
+            losses.append(float(lazy_train_step(one, batch)["loss"]))
+            continue
+        total, loss = None, 0.0
+        for d in range(dp):
+            grads, metrics = dense_grads(one, {k: v[d * n:(d + 1) * n]
+                                               for k, v in batch.items()})
+            for k in ("fm_w", "fm_v"):
+                grads[k] = grads[k] * mp
+            total = grads if total is None else {k: total[k] + g for k, g in grads.items()}
+            loss += float(metrics["loss"]) / dp
+        apply_dense(one, {k: g / dp for k, g in total.items()})
+        losses.append(loss)
+    return losses, {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+
+
+def phase_sharded(seed: int, workdir: str, backend: str = "gloo") -> dict:
+    """The [data x model] grid (parallel/spmd.py, parallel/embedding.py) on
+    the card: SHARD_RANKS ranks spawned on cuda:0 in a gloo group run each
+    of SHARD_CONFIGS for SHARD_STEPS steps through spmd.train_step; every
+    rank's exchange must return rows bit-equal to the dense gather of the
+    whole tables, B1 and B1' must launch every step and, on the exchange's
+    compact table, agree with their plain versions, the fallback config
+    must fall back on its skewed steps (and only there), and the final
+    whole tables and MLP must agree with the single-card reference
+    (sharded_reference) within TOL_GRAD_REL of each tensor's largest
+    magnitude.  One line a configuration: agreement, launches, step ms,
+    the bytes an exchange sent a step (counted, forward and backward,
+    beside JAX's forward estimate exchange_wire_bytes_est) and the
+    exchange collectives' ms, all over gloo on one card (``backend="nccl"``:
+    over NCCL, one rank a card, on a machine with SHARD_RANKS cards)."""
+    import torch.multiprocessing as tmp
+
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel.embedding import exchange_wire_bytes_est
+
+    os.makedirs(workdir, exist_ok=True)
+    rng = np.random.default_rng(seed + 23)
+    jobs, plans = [], []
+    for label, dp, mp, sections, skewed, repeat in SHARD_CONFIGS:
+        batches = sharded_batches(rng, dp, mp, skewed, repeat)
+        jobs.append((sharded_config(seed, dp, mp, sections), batches))
+        plans.append((label, dp, mp, sections, skewed, batches))
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(sharded_rank, args=(SHARD_RANKS, os.path.join(workdir, "store"),
+                                                  workdir, jobs, backend),
+                              nprocs=SHARD_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail("sharded: the ranks did not end within 600 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+             for r in range(SHARD_RANKS)]
+    spawn_s = time.perf_counter() - t0
+    total = {"launches": 0, "backward_launches": 0}
+    for i, (label, dp, mp, sections, skewed, batches) in enumerate(plans):
+        runs = [r[i] for r in ranks]
+        lazy = sections["optimizer"].get("lazy_embedding_updates", False)
+        packs = SHARD_STEPS if lazy and SHARD_CONFIGS[i][5] > 1 else 0
+        for r in runs:
+            if lazy and r["lazy_updates"] != {"dedup": packs, "full": SHARD_STEPS - packs}:
+                fail(f"sharded {label}: rank {r['grid']}: lazy updates "
+                     f"{r['lazy_updates']}, expected {packs} by the unique pack")
+            if r["row_mismatches"]:
+                fail(f"sharded {label}: rank {r['grid']}: the exchange's rows differ "
+                     f"from the dense gather on {r['row_mismatches']} lookups")
+            if DEVICE == "cuda" and (r["launches"] < SHARD_STEPS
+                                     or r["backward_launches"] < SHARD_STEPS):
+                fail(f"sharded {label}: rank {r['grid']} launched B1 {r['launches']} and "
+                     f"B1' {r['backward_launches']} times in {SHARD_STEPS} steps")
+            if r["counters"]["fallbacks"] != len(skewed):
+                fail(f"sharded {label}: {r['counters']['fallbacks']} psum fallbacks, "
+                     f"expected {len(skewed)}")
+            (emb, _), (y_w, sw), (y_v, sv) = r["kernel_err"]["forward"]
+            if not (emb <= TOL_EMB and y_w <= TOL_YW_REL * (1.0 + sw)
+                    and y_v <= TOL_YV_REL * (1.0 + sv)):
+                fail(f"sharded {label}: fused_ctr_forward on the exchange's compact "
+                     f"table disagrees with its plain version: {r['kernel_err']}")
+            for err, scale in r["kernel_err"]["backward"]:
+                if not err <= TOL_GRAD_REL * scale:
+                    fail(f"sharded {label}: fused_ctr_backward on the exchange's compact "
+                         f"table disagrees with its plain version: {r['kernel_err']}")
+            total["launches"] += r["launches"]
+            total["backward_launches"] += r["backward_launches"]
+            total["max_abs_err"] = max(total.get("max_abs_err", 0.0), emb, y_w, y_v)
+            total["backward_max_abs_err"] = max(total.get("backward_max_abs_err", 0.0),
+                                                *(e for e, _ in r["kernel_err"]["backward"]))
+        cfg = Config.from_dict(sharded_config(seed, dp, mp, sections))
+        ref_losses, ref = sharded_reference(cfg, runs[0]["init"], batches, dp, mp, lazy)
+        errs = {}
+        for name, w in ref.items():
+            a = runs[0]["final"][name]
+            err, scale = float((a - w).abs().max()), float(w.abs().max())
+            if not err <= TOL_GRAD_REL * scale:
+                fail(f"sharded {label}: {name} after {SHARD_STEPS} steps: max abs err "
+                     f"{err}, scale {scale}")
+            errs[name] = err / scale if scale else err
+        losses = runs[0]["losses"]
+        if not all(np.isfinite(losses)):
+            fail(f"sharded {label}: losses {losses}")
+        n_ids = SHARD_BATCH * 39
+        est = {ex: exchange_wire_bytes_est(n_ids, mp, cfg.model.shard_exchange_capacity,
+                                           (32, 1), exchange=ex)
+               for ex in ("alltoall", "psum")}
+        c = runs[0]["counters"]
+        print("sharded %s" % json.dumps({
+            "config": label, "grid": [dp, mp], "exchange": runs[0]["exchange"],
+            "zero": runs[0]["zero"], "lazy": lazy, "steps": SHARD_STEPS,
+            "losses": losses, "single_card_losses": ref_losses,
+            "max_rel_err": max(errs.values()), "tolerance": TOL_GRAD_REL,
+            "fallbacks": c["fallbacks"], "lazy_updates": runs[0]["lazy_updates"],
+            "launches": {"fused_ctr_forward": sum(r["launches"] for r in runs),
+                         "fused_ctr_backward": sum(r["backward_launches"] for r in runs)},
+            "compact_rows": [r["compact_rows"] for r in runs],
+            "kernel_vs_plain_max_abs_err": {
+                "forward": max(e for r in runs for e, _ in r["kernel_err"]["forward"]),
+                "backward": max(e for r in runs for e, _ in r["kernel_err"]["backward"])},
+            "step_ms_per_rank": [r["step_ms"] for r in runs],
+            "bytes_per_step_rank0": {"alltoall": c["alltoall_bytes"] / SHARD_STEPS,
+                                     "allreduce": c["allreduce_bytes"] / SHARD_STEPS},
+            "jax_fwd_estimate_bytes": est,
+            "exchange_collectives_ms": [r["exchange_collectives_ms"] for r in runs],
+            "collectives_timed": ("the lazy pack's all_gather over the data group"
+                                  if mp == 1 else f"the {runs[0]['exchange']} exchange's"),
+            "ranks": SHARD_RANKS,
+            "backend": ("gloo on one card (host-staged)" if backend == "gloo"
+                        else f"{backend}, one rank a card")}))
+    print(f"sharded: {len(plans)} configurations on {SHARD_RANKS} ranks ({backend}) in "
+          f"{spawn_s:.1f} s of spawned ranks")
+    return total
 
 
 def b2_corpus(rows: int, seed: int, ties_and_pads: bool = False, dim: int = B2_DIM,
@@ -1114,16 +1568,14 @@ B2_KERNELS = {"scan_count": ("scan_kernel<", ", false>"),
               "select": ("select_kernel", ""), "rank": ("rank_kernel", "")}
 
 
-def b2_pass_split(fn, n: int = 10) -> dict:
+def b2_pass_split(fn, n: int = 10) -> dict | None:
     """Device ms per call of each of B2's kernels (and its workspace
-    memset), from torch.profiler."""
+    memset), from torch.profiler; None where it saw no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    prof = device_profile(fn, n)
+    if prof is None:
+        return None
     split = dict.fromkeys(B2_KERNELS, 0.0)
     split["memset"] = 0.0
     for row in prof.key_averages():
@@ -1135,7 +1587,7 @@ def b2_pass_split(fn, n: int = 10) -> dict:
         if "Memset" in row.key:
             split["memset"] += row.device_time_total / n / 1e3
     if not all(split[name] for name in B2_KERNELS):
-        fail(f"torch.profiler saw no time in one of B2's kernels: {split}")
+        fail(f"torch.profiler saw device time but none in one of B2's kernels: {split}")
     return split
 
 
@@ -2737,6 +3189,7 @@ def main(argv: list[str] | None = None) -> int:
                           os.path.join(workdir, "lazy_servable"),
                           train["breakdown"][TRAIN_BATCHES[0]])
         ddp = phase_ddp(args.seed, workdir)
+        sharded = phase_sharded(args.seed, os.path.join(workdir, "sharded"))
         life = phase_lifecycle(args.seed, os.path.join(workdir, "lifecycle"), val_dir,
                                train_dir, os.path.join(workdir, "readers"))
         online = phase_online(args.seed, os.path.join(workdir, "online"), card)
@@ -2752,9 +3205,10 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
-                     + ddp["launches"] + life["launches"] + online["launches"]
-                     + funnel["forward_launches"]),
-        "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"]),
+                     + ddp["launches"] + sharded["launches"] + life["launches"]
+                     + online["launches"] + funnel["forward_launches"]),
+        "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
+                           sharded["max_abs_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -2766,9 +3220,10 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/fused_ctr.cu",
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:317",
         "launches": (train["backward_launches"] + lazy["backward_launches"]
-                     + ddp["backward_launches"] + life["backward_launches"]
-                     + online["backward_launches"]),
-        "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"]),
+                     + ddp["backward_launches"] + sharded["backward_launches"]
+                     + life["backward_launches"] + online["backward_launches"]),
+        "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"],
+                           sharded["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

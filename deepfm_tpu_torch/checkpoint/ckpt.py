@@ -10,7 +10,17 @@ holds ``state.pt`` (``torch.save``, read back with ``weights_only=True``):
      "optimizer": Optimizer.state_dict() (count, every slot),
      "lazy": LazyAdamState.state_dict() or None,
      "generators": [the dropout generator state of each rank],
-     "world_size": int}
+     "world_size": int,
+     "grid": [data_parallel, model_parallel]}
+
+A run on a ``[data x model]`` grid saves the same layout
+(parallel/spmd.py ``full_state``): the row-sharded tables and their
+moments gathered whole over each model group (padded as trained), the
+ZeRO windows gathered over the data group at their parameters' shapes.
+It restores on a grid with the same ``model_parallel`` (each rank takes
+its rows and windows back); restoring onto another row split is the
+resharding restore, ROADMAP A15, and raises.  A checkpoint without
+``grid`` was written at ``model_parallel`` 1.
 
 An online commit (``online/trainer.py OnlinePayload``: the train state,
 the stream cursor and the writer's fencing token) adds one entry to the
@@ -31,9 +41,9 @@ because the optimizer updates the state in place on the next step; the
 file is written on a writer thread, and the next ``save``, ``restore`` or
 ``close`` waits for it.  ``save(..., block=True)`` writes, syncs and
 renames before it returns (the online commit).  In a data-parallel run
-every rank calls ``save`` (the ranks' generator states reach rank 0
-through the group) and rank 0 alone writes; every rank restores from the
-same directory.  Restored at another world size, the weights and moments
+every rank calls ``save`` (the ranks' generator states and the shards
+reach rank 0 through the group) and rank 0 alone writes; every rank
+restores from the same directory.  Restored at another world size, the weights and moments
 are the checkpoint's, but each rank keeps its fresh dropout generator:
 the dropout masks then cannot match the original run's.
 
@@ -52,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel import spmd
 from ..parallel.mesh import DistContext
 from ..train.step import TrainState
 
@@ -67,7 +78,7 @@ _FM_V_HINT = (
     "a different fused_kernel setting changes the expected shape.  Restore "
     "with the fused_kernel value the checkpoint was trained with.  A "
     "checkpoint of another table shape (another mesh) needs the resharding "
-    "restore, not ported yet (ROADMAP A9/A15).")
+    "restore, not ported yet (ROADMAP A15).")
 
 
 def _is_url(path) -> bool:
@@ -114,6 +125,8 @@ class Checkpointer:
         self._world = ctx.world_size if ctx is not None else 1
         self._group = ctx.group if ctx is not None else None
         self._device = ctx.device if ctx is not None else None
+        self._grid = ([ctx.data_parallel, ctx.model_parallel] if ctx is not None
+                      else [1, 1])
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
         # the last save's {"step", "blocking_s", "write_s", "bytes"}
@@ -160,16 +173,16 @@ class Checkpointer:
         state, online = _split(state)
         generators = self._generator_states(state)
         step = int(state.step)
+        full = spmd.full_state(state)  # a collective on a grid: every rank
         if self._rank != 0 or step in self._steps():
             return False
         pinned: list = []
         tree = {
             "step": step,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "lazy": None if state.lazy is None else state.lazy.state_dict(),
+            **full,
             "generators": generators,
             "world_size": self._world,
+            "grid": self._grid,
         }
         if online is not None:
             tree["online"] = {k: torch.from_numpy(np.array(v)) for k, v in online.items()}
@@ -241,21 +254,24 @@ class Checkpointer:
             if online is None:
                 raise ValueError(f"checkpoint {step} is a train checkpoint, not an online "
                                  f"commit: it holds no stream cursor")
-        try:
-            target.model.load_state_dict(payload["model"])
-        except RuntimeError as e:
-            if "fm_v" in str(e):
-                raise RuntimeError(f"checkpoint {step} does not fit the model: "
-                                   f"{e}\n{_FM_V_HINT}") from e
-            raise
+        grid = payload.get("grid", [payload.get("world_size", 1), 1])
+        if grid[1] != self._grid[1]:
+            raise NotImplementedError(
+                f"checkpoint {step} was written on a [{grid[0]}, {grid[1]}] grid; "
+                f"restoring it with mesh.model_parallel={self._grid[1]} needs the "
+                f"resharding restore, not ported yet (ROADMAP A15)")
         if (payload["lazy"] is None) != (target.lazy is None):
             raise ValueError(
                 f"checkpoint {step} was written with optimizer."
                 f"lazy_embedding_updates={payload['lazy'] is not None}; restore "
                 f"it with the same setting")
-        target.optimizer.load_state_dict(payload["optimizer"])
-        if target.lazy is not None:
-            target.lazy.load_state_dict(payload["lazy"])
+        try:
+            spmd.load_full_state(target, payload)
+        except RuntimeError as e:
+            if "fm_v" in str(e):
+                raise RuntimeError(f"checkpoint {step} does not fit the model: "
+                                   f"{e}\n{_FM_V_HINT}") from e
+            raise
         target.step = int(payload["step"])
         generators = payload["generators"]
         if len(generators) == self._world:

@@ -20,8 +20,10 @@ found inside the optax chain's tuples: Adam's ``ScaleByAdamState``
 count/mu/nu, Adagrad's ``ScaleByRssState``, Momentum's ``TraceState`` or
 the JAX package's ``FtrlState``, or, with lazy embedding updates, the
 ``(rest_opt, LazyAdamState)`` pair: the Adam state of the non-table
-parameters and the tables' m and v.  The dropout PRNG key does not carry: the port draws from
-its own ``torch.Generator``.
+parameters and the tables' m and v.  A state of a ``[dp, mp]`` mesh (its
+padded tables, and ZeRO's ``ZeroDpState`` with flattened moments) goes
+onto the port's grid with ``ctx``.  The dropout PRNG key does not carry:
+the port draws from its own ``torch.Generator``.
 
 ``params_to_jax`` is the inverse of ``params_from_jax``: the JAX-layout
 numpy ``(params, model_state)`` tree of a DeepFM ``state_dict``, which the
@@ -274,7 +276,7 @@ def _find_adam_state(tree):
     return _find_state(tree, ("count", "mu", "nu"))
 
 
-def train_state_from_jax(state, cfg: Config, device=None):
+def train_state_from_jax(state, cfg: Config, device=None, *, ctx=None):
     """The port's ``TrainState`` (train/step.py) on ``device`` (default:
     the card) from a JAX ``TrainState`` as numpy (a NamedTuple or a dict of
     step, params, model_state, opt_state): weights, BN statistics, step,
@@ -283,7 +285,16 @@ def train_state_from_jax(state, cfg: Config, device=None):
     updates the ``(rest_opt, LazyAdamState)`` pair's.  The count is
     Adam's own, else the lr schedule's (``ScaleByScheduleState``), else the
     step: without lazy updates every optimizer step is a train step.  Every
-    tensor is shape-checked as in :func:`params_from_jax`."""
+    tensor is shape-checked as in :func:`params_from_jax`.
+
+    ``ctx`` (parallel/mesh.py) places the state on this rank of a
+    ``[data x model]`` grid (``parallel/spmd.py create_dp_train_state``):
+    the JAX state of a ``[dp, mp]`` mesh as ``jax.device_get`` gives it,
+    with its padded tables, lazy moments, and the ``ZeroDpState``'s
+    flattened moments (cut to their parameters' shapes); each rank keeps
+    its rows and windows."""
+    from .parallel import spmd
+
     name = cfg.optimizer.name.lower()
     fields = OPT_STATE_FIELDS[name]
     opt_state = _field(state, "opt_state", 3)
@@ -293,33 +304,49 @@ def train_state_from_jax(state, cfg: Config, device=None):
     if node is None:
         raise ValueError(f"no {cfg.optimizer.name} state ({', '.join(fields)}) in "
                          f"the opt_state")
-    out = create_train_state(cfg, device)
-    out.model.load_state_dict(params_from_jax(
-        _field(state, "params", 1), _field(state, "model_state", 2), cfg.model))
-    out.step = int(np.asarray(_field(state, "step", 0)))
+    out = (create_train_state(cfg, device) if ctx is None
+           else spmd.create_dp_train_state(cfg, ctx))
+    mcfg = (cfg if out.sharding is None
+            else spmd.sharded_model_config(cfg, out.sharding.mp)).model
+    step = int(np.asarray(_field(state, "step", 0)))
     counter = node if name == "adam" else _find_state(opt_state, ("count",))
-    out.optimizer.count = (out.step if counter is None
-                           else int(np.asarray(_field(counter, "count", 0))))
+    count = step if counter is None else int(np.asarray(_field(counter, "count", 0)))
+    slots = {n: {} for n in out.optimizer.slots}
     for index, slot in enumerate(fields):
-        _copy_into({n: s[slot] for n, s in out.optimizer.slots.items()},
-                   _field(node, slot, index + (name == "adam")), cfg.model,
-                   f"opt_state {slot} ")
+        got = _moments(_field(node, slot, index + (name == "adam")), mcfg,
+                       f"opt_state {slot} ", slots.keys())
+        for n, t in got.items():
+            slots[n][slot] = t
+    full = {"model": params_from_jax(_field(state, "params", 1),
+                                     _field(state, "model_state", 2), mcfg),
+            "optimizer": {"count": count, "slots": slots}, "lazy": None}
     if out.lazy is not None:
-        for slot, index in (("m", 0), ("v", 1)):
-            _copy_into(getattr(out.lazy, slot), _field(lazy, slot, index), cfg.model,
-                       f"lazy opt_state {slot} ")
+        full["lazy"] = {slot: _moments(_field(lazy, slot, index), mcfg,
+                                       f"lazy opt_state {slot} ", out.lazy.m.keys())
+                        for slot, index in (("m", 0), ("v", 1))}
+    spmd.load_full_state(out, full)
+    out.step = step
     return out
 
 
-def _copy_into(dst: dict, tree: Mapping, cfg: ModelConfig, what: str) -> None:
-    """Copy a params-shaped pytree into the tensors ``dst`` (by
-    ``state_dict`` key), which must name exactly the tree's leaves."""
-    moments = _checked(_flat_params(tree, cfg), cfg, what)
-    if moments.keys() != dst.keys():
+def _moments(tree: Mapping, cfg: ModelConfig, what: str, names) -> dict:
+    """A params-shaped pytree of moments as float32 tensors by
+    ``state_dict`` key, which must be exactly ``names``; a ZeRO layout's
+    flattened leaf (``ZeroDpState``: the row-major flatten, padded at its
+    tail) is cut to its parameter's shape first."""
+    shapes = expected_shapes(cfg)
+    flat = {}
+    for key, arr in _flat_params(tree, cfg).items():
+        arr = np.asarray(arr)
+        n = int(np.prod(shapes[key]))
+        if arr.shape != shapes[key] and arr.ndim == 1 and arr.size >= n:
+            arr = arr[:n].reshape(shapes[key])
+        flat[key] = arr
+    moments = _checked(flat, cfg, what)
+    if moments.keys() != set(names):
         raise ValueError(f"{what}holds {sorted(moments)}, the port's state "
-                         f"{sorted(dst)}")
-    for name, t in moments.items():
-        dst[name].copy_(t)
+                         f"{sorted(names)}")
+    return moments
 
 
 def online_payload_from_jax(payload, cfg: Config, device=None):

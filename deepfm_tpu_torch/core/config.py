@@ -5,20 +5,23 @@ validation.
 * ``ModelConfig`` - the DeepFM hyperparameters, train-time fields included
   (dropout keep probabilities, batch-norm decay, table L2), and the
   two-tower fields (vocabularies, field counts, tower widths);
-* ``OptimizerConfig`` - every field of the JAX section but ``zero_sharding``
-  (ZeRO waits for sharded tables, ROADMAP A9), lazy Adam included;
+* ``OptimizerConfig`` - every field of the JAX section, lazy Adam and the
+  ZeRO weight update (``zero_sharding``) included;
 * ``DataConfig`` - what file mode reads, on one process or on each rank of
-  a data-parallel run;
-* ``MeshConfig`` - the JAX mesh section, as far as data parallelism over
-  ``torch.distributed`` honours it;
+  a ``[data x model]`` grid, ``permute_ids`` included;
+* ``MeshConfig`` - the JAX mesh section: the ``[data_parallel x
+  model_parallel]`` grid of ``torch.distributed`` ranks;
 * ``RunConfig`` - task type, paths, logging cadence, seed, the train
   task's lifecycle, the serve task's single-process fields and the
   online tasks' cadence;
 * ``FlywheelConfig`` - the delayed-label join and ``feedback-train``;
 * ``RegionsConfig`` - the publish root's ``publish_keep_window``;
 * ``Config`` - the seven sections, read from and written to the JAX
-  ``config.json`` schema (one dict per section), with JAX's check that
-  ``feedback-train`` names the join's output.
+  ``config.json`` schema (one dict per section), with JAX's cross-section
+  checks: ``feedback-train`` names the join's output, the exchange
+  capacity fits a record's ids, ``zero_sharding='on'`` at one data shard
+  warns; and the port's own: ``fused_kernel='on'`` with row-sharded
+  tables raises, as JAX's forward does.
 
 Reading a JAX config (``Config.from_dict``, ``ModelConfig.from_dict`` and
 so ``load_config``) goes field by field.  A field this copy carries loads.
@@ -29,10 +32,10 @@ the JAX dataclasses; a tier-1 test holds the copy against them):
 * at its JAX default it loads (and is dropped);
 * at another value it raises, naming the field and the ROADMAP item that
   ports it, where that value would change what a one-card or
-  data-parallel job computes (``permute_ids``, ``stream_mode``,
-  ``tiered_embeddings``, ...);
+  data-parallel job computes (``stream_mode``, ``tiered_embeddings``,
+  ...);
 * it loads at any value where it cannot change the result (serving,
-  fleet, ZeRO at one model shard, ...).
+  fleet, ...).
 
 A field neither side knows is dropped with a warning, as the JAX reader
 does, so configs and servables written by either package load here.
@@ -48,6 +51,7 @@ import json
 import logging
 import math
 import os
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -87,7 +91,6 @@ def _tuples(v: Any) -> Any:
 _A6 = "not ported yet (ROADMAP A6, the input pipeline's other modes)"
 _A7 = ("the launcher's LOCAL_WORLD_SIZE gives the workers a host "
        "(ROADMAP A7, python -m torch.distributed.run)")
-_A9 = "not ported yet (ROADMAP A9, sharded tables)"
 
 # Every field of the JAX schema that this copy does not carry, with its JAX
 # default (deepfm_tpu/core/config.py) and, where a value other than the
@@ -98,10 +101,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         # read by xdeepfm/dcnv2 only (not ported: get_model raises)
         "cin_layers": ((128, 128), None),
         "cross_layers": (3, None),
-        # the table gradient's form and the sharded exchange: same sums
-        "table_grad": ("scatter", None),
-        "shard_exchange": ("auto", None),
-        "shard_exchange_capacity": (0.0, None),
         "tiered_embeddings": (False, "not ported yet (ROADMAP A11, tiered store)"),
         # read only with tiered_embeddings on
         "tiered_hot_slots": (0, None),
@@ -109,10 +108,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "tiered_host_rows": (0, None),
         "tiered_page_rows": (1024, None),
         "tiered_cold_url": ("", None),
-    },
-    "optimizer": {
-        # bit-identical to the replicated update at one model shard
-        "zero_sharding": ("auto", None),
     },
     "data": {
         "shuffle_buffer": (0, _A6),
@@ -122,7 +117,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "training_channel_name": ("training", None),
         "evaluation_channel_name": ("evaluation", None),
         "eval_max_batches": (0, _A6),
-        "permute_ids": (False, _A6),
     },
     "run": {
         "hosts": (("localhost",), None),
@@ -255,10 +249,27 @@ class ModelConfig:
     # clip int64 ids to [0, feature_size-1] and narrow them to int32
     narrow_ids: bool = True
     # "off" | "auto" | "on".  The port always runs its fused kernel; this
-    # field is read only for the fm_v table shape: anything but "off" means
-    # fm_v carries zero pad rows up to a multiple of 128/K
-    # (models/deepfm.py fm_v_rows)
+    # field is read for the fm_v table shape (anything but "off" means fm_v
+    # carries zero pad rows up to a multiple of 128/K, models/deepfm.py
+    # fm_v_rows; row-sharded tables pad both tables to lcm(model_parallel,
+    # 128/K), parallel/spmd.py padded_vocab), and "on" is refused where the
+    # lookup is the lazy step's or the sharded exchange's, as in JAX
     fused_kernel: str = "off"
+    # the owner's gradient scatter of a row-sharded table: "scatter" (one
+    # index_add_ per lookup) | "segsum" (sorted into segments first, one
+    # add per distinct row); the same sums
+    table_grad: str = "scatter"
+    # how a row-sharded lookup assembles its rows (parallel/embedding.py):
+    # "psum" (owned rows, zeros elsewhere, one all_reduce over the model
+    # group) | "alltoall" (deduplicated requests to the owners and their
+    # rows back, all_to_all_single; psum when a batch overflows the
+    # capacity) | "auto" (alltoall on cards where rows are exchanged, psum
+    # on the CPU)
+    shard_exchange: str = "auto"
+    # alltoall request slots per owner as a fraction of the rank's B·F ids
+    # (0 = auto: ceil(N/M)); the lazy step's unique pack takes it too (0 =
+    # auto: N/2)
+    shard_exchange_capacity: float = 0.0
 
     def __post_init__(self):
         object.__setattr__(self, "deep_layers", _parse_int_list(self.deep_layers))
@@ -279,6 +290,36 @@ class ModelConfig:
                 f"fused_kernel must be 'off', 'auto' or 'on', "
                 f"got {self.fused_kernel!r}"
             )
+        if self.table_grad not in ("scatter", "segsum"):
+            raise ValueError(
+                f"table_grad must be 'scatter' or 'segsum', got {self.table_grad!r}"
+            )
+        if self.shard_exchange not in ("psum", "alltoall", "auto"):
+            raise ValueError(
+                f"shard_exchange must be 'psum', 'alltoall' or 'auto', "
+                f"got {self.shard_exchange!r}"
+            )
+        if not 0.0 <= self.shard_exchange_capacity <= 1.0:
+            raise ValueError(
+                f"shard_exchange_capacity must be in [0, 1] (a fraction of "
+                f"the local id stream), got {self.shard_exchange_capacity!r}"
+            )
+        if self.table_grad == "segsum" and self.fused_kernel == "on":
+            raise ValueError(
+                "table_grad='segsum' is refused with fused_kernel='on', as JAX "
+                "refuses it (there it has no effect with fused_kernel='on': the "
+                "fused kernel supplies its own backward).  Here segsum orders "
+                "the owner's scatter-add of row-sharded tables "
+                "(mesh.model_parallel > 1), which fused_kernel='on' refuses: "
+                "use fused_kernel='auto' or 'off' with segsum"
+            )
+        if self.table_grad == "segsum":
+            warnings.warn(
+                "table_grad='segsum' is ignored whenever the tables are whole "
+                "(mesh.model_parallel 1): the fused kernel's backward writes "
+                "their gradient under every fused_kernel setting.  On "
+                "row-sharded tables it orders the owner's scatter-add of the "
+                "exchange's gradient.", stacklevel=2)
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {COMPUTE_DTYPES}, "
@@ -318,9 +359,12 @@ class OptimizerConfig:
     # fm_w/fm_v updates are scaled by this (an exact lr split for Adam,
     # Adagrad and Momentum; Ftrl rejects it)
     embedding_lr_multiplier: float = 1.0
-    # touched-rows-only Adam for fm_w/fm_v (train/lazy.py); Adam only, one
-    # process only (the lazy data-parallel step is ROADMAP A9)
+    # touched-rows-only Adam for fm_w/fm_v (train/lazy.py); Adam only
     lazy_embedding_updates: bool = False
+    # the ZeRO weight update over the data group (train/optimizer.py
+    # ZeroOptimizer): "off" | "on" | "auto"; on exactly when the grid has
+    # more than one data index ("on" at data_parallel 1 warns)
+    zero_sharding: str = "auto"
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
@@ -336,6 +380,11 @@ class OptimizerConfig:
             raise ValueError(
                 f"unknown lr_schedule {self.lr_schedule!r} (constant|cosine|linear)"
             )
+        if self.zero_sharding not in ("off", "on", "auto"):
+            raise ValueError(
+                f"optimizer.zero_sharding must be 'off', 'on' or 'auto', "
+                f"got {self.zero_sharding!r}"
+            )
 
 
 @dataclass(frozen=True)
@@ -345,7 +394,9 @@ class DataConfig:
     a GPU): a data-parallel run of N ranks takes N x ``batch_size`` records
     a step.  Each rank reads the records that ``data/sharding.py
     shard_plan`` gives it, round-robin (record i to shard i % n); with
-    ``s3_shard`` the files are taken as already split per host."""
+    ``s3_shard`` the files are taken as already split per host.  On a
+    ``[data x model]`` grid the shards are the data indices: the
+    ``model_parallel`` ranks of one data index read the same batches."""
 
     training_data_dir: str = ""
     val_data_dir: str = ""
@@ -362,6 +413,10 @@ class DataConfig:
     # C++ readers decoding training files at once (data/parallel_ingest.py):
     # the same batches in the same order
     parallel_readers: int = 4
+    # spread Zipf-hot ids over the table shards with a fixed bijective
+    # permutation of [0, feature_size) on the host (parallel/embedding.py
+    # permute_ids), in every task's batches
+    permute_ids: bool = False
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -370,14 +425,14 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX mesh section, as data-parallel training over
-    ``torch.distributed`` honours it (parallel/mesh.py).  The launcher's
+    """The JAX mesh section as a ``[data_parallel x model_parallel]`` grid
+    of ``torch.distributed`` ranks (parallel/mesh.py).  The launcher's
     environment (``python -m torch.distributed.run``: ``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) gives the
-    topology, so ``data_parallel`` is -1 or 0 (every rank) or the world
-    size, checked when the process group starts, and the ``jax.distributed``
-    wiring must stay at its defaults.  Row-sharded tables
-    (``model_parallel > 1``) are ROADMAP A9."""
+    world; ``model_parallel`` (the row shards of fm_w and fm_v) must
+    divide it, and ``data_parallel`` is -1 or 0 (the rest) or the world
+    size over ``model_parallel``, both checked when the process group
+    starts.  The ``jax.distributed`` wiring must stay at its defaults."""
 
     data_parallel: int = -1
     model_parallel: int = 1
@@ -386,11 +441,9 @@ class MeshConfig:
     process_id: int = 0
 
     def __post_init__(self):
-        if self.model_parallel > 1:
-            raise ValueError(
-                f"mesh.model_parallel={self.model_parallel}: {_A9}; the port "
-                f"replicates the tables on every rank"
-            )
+        if self.model_parallel < 1:
+            raise ValueError(f"mesh.model_parallel must be >= 1, got "
+                             f"{self.model_parallel}")
         for name, default in (("coordinator_address", ""), ("num_processes", 1),
                               ("process_id", 0)):
             if getattr(self, name) != default:
@@ -525,6 +578,38 @@ class Config:
     regions: RegionsConfig = field(default_factory=RegionsConfig)
 
     def __post_init__(self):
+        m, mp = self.model, self.mesh.model_parallel
+        if m.fused_kernel == "on" and mp > 1:
+            raise ValueError(
+                "fused_kernel='on' requires the dense single-table lookup path; "
+                "sharded tables (mesh.model_parallel > 1) substitute their own "
+                "row lookup: use fused_kernel='auto' (or 'off') with them")
+        # an exchange capacity under one record's ids sends every batch to
+        # the psum fallback (JAX's check; batch_size is per data index here)
+        if m.shard_exchange_capacity > 0 and m.shard_exchange != "psum" and mp > 1:
+            n_local = self.data.batch_size * m.field_size
+            cap = max(1, min(math.ceil(m.shard_exchange_capacity * n_local), n_local))
+            if cap * mp < m.field_size:
+                raise ValueError(
+                    f"shard_exchange_capacity={m.shard_exchange_capacity} gives "
+                    f"{cap} request slots/owner x {mp} owners < field_size="
+                    f"{m.field_size}: one example's distinct ids cannot fit, so "
+                    f"the overflow psum fallback would engage on every batch - "
+                    f"raise the capacity (0 = auto: ceil(N/M))")
+            even = -(-n_local // mp)
+            if cap < -(-even // 2):
+                warnings.warn(
+                    f"shard_exchange_capacity={m.shard_exchange_capacity} ({cap} "
+                    f"slots/owner) is under half the even-spread requirement "
+                    f"ceil(N/M)={even} for N={n_local} local ids on {mp} owners - "
+                    f"expect frequent overflow fallback to the dense psum path "
+                    f"(parallel/embedding.py)", stacklevel=2)
+        if self.optimizer.zero_sharding == "on" and self.mesh.data_parallel == 1:
+            warnings.warn(
+                "optimizer.zero_sharding='on' with mesh.data_parallel=1 is a "
+                "no-op: the weight update shards across the data axis, and "
+                "there is only one data shard (train/optimizer.py "
+                "ZeroOptimizer)", stacklevel=2)
         # feedback-train is the online trainer on the join's output
         if (self.run.task_type in ("feedback-train", "feedback_train")
                 and not self.flywheel.join_output_url):

@@ -17,9 +17,14 @@ undecoded, on every route.  ``eval_batches`` reads ``va*``/``val*``/
 ``eval*`` files in order, sharded the same way, and keeps the tail batch.
 ``Prefetcher`` runs any batch iterator ahead on a reader thread.
 
+``permute_vocab`` (the callers pass ``model.feature_size`` when
+``data.permute_ids`` is set) maps every batch's ids through the bijection
+``parallel/embedding.py permute_ids`` on the host, as JAX's
+``ctr_batches_from_sources`` does, on every route.
+
 Not ported yet (ROADMAP A6): object-store URLs (they raise), FIFO stream
-mode, record-level shuffling (``shuffle_buffer``) and ``permute_ids``
-(the config refuses all three, ``core/config.py JAX_ONLY_FIELDS``).
+mode and record-level shuffling (``shuffle_buffer``); the config refuses
+both (``core/config.py JAX_ONLY_FIELDS``).
 """
 
 from __future__ import annotations
@@ -174,10 +179,18 @@ def ctr_batches_from_sources(
         skip_counter=skip_counter)
 
 
+def _permuted(batches: Iterator[dict], vocab: int) -> Iterator[dict]:
+    from ..parallel.embedding import permute_ids
+
+    for b in batches:
+        b["feat_ids"] = permute_ids(b["feat_ids"], vocab, True)
+        yield b
+
+
 def make_input_pipeline(
     cfg: DataConfig, topo: WorkerTopology | None = None, *, field_size: int,
     data_dir: str | None = None, num_epochs: int | None = None, seed: int = 0,
-    skip_batches: int = 0, native: bool | None = None,
+    skip_batches: int = 0, native: bool | None = None, permute_vocab: int = 0,
 ) -> Iterator[dict]:
     """Training batches of this worker's shard (``topo``; None is one
     worker): ``num_epochs`` (default ``cfg.num_epochs``) passes over the
@@ -196,17 +209,18 @@ def make_input_pipeline(
     epochs = cfg.num_epochs if num_epochs is None else num_epochs
     skip_counter = [max(0, skip_batches)]
     for _ in range(max(1, epochs)):
-        yield from ctr_batches_from_sources(
+        batches = ctr_batches_from_sources(
             files, batch_size=cfg.batch_size, field_size=field_size,
             decision=decision, drop_remainder=cfg.drop_remainder,
             skip_counter=skip_counter, parallel_readers=cfg.parallel_readers,
             native=native)
+        yield from _permuted(batches, permute_vocab) if permute_vocab else batches
 
 
 def eval_batches(cfg: DataConfig, topo: WorkerTopology | None = None, *,
                  field_size: int, data_dir: str | None = None,
                  patterns: Iterable[str] = EVAL_PATTERNS,
-                 native: bool | None = None) -> Iterator[dict]:
+                 native: bool | None = None, permute_vocab: int = 0) -> Iterator[dict]:
     """The ``va*``/``val*``/``eval*`` records (or ``patterns``') under
     ``data_dir`` (default ``cfg.val_data_dir``) of this worker's shard
     (``topo``; None is one worker, which reads every record), once, in file
@@ -219,9 +233,10 @@ def eval_batches(cfg: DataConfig, topo: WorkerTopology | None = None, *,
             f"no {'*/'.join(patterns)}* tfrecords under {base!r}")
     decision = None if topo is None else shard_plan(
         topo, stream_mode=False, pre_sharded=cfg.s3_shard)
-    return ctr_batches_from_sources(files, batch_size=cfg.batch_size,
-                                    field_size=field_size, decision=decision,
-                                    drop_remainder=False, native=native)
+    batches = ctr_batches_from_sources(files, batch_size=cfg.batch_size,
+                                       field_size=field_size, decision=decision,
+                                       drop_remainder=False, native=native)
+    return _permuted(batches, permute_vocab) if permute_vocab else batches
 
 
 class Prefetcher:

@@ -34,12 +34,15 @@ wipes ``--model_dir`` once, before the first attempt; a crash is retried
 ``run.max_restarts`` times (launch/preemption.py), each attempt resuming.
 
 ``--set optimizer.lazy_embedding_updates=true`` trains the tables with lazy
-Adam (train/lazy.py).  Under the launcher the same command trains data
-parallel, one rank a card (NCCL), or one rank a process with
-``--device cpu`` (gloo); ``data.batch_size`` is per rank:
+Adam (train/lazy.py).  Under the launcher the same command trains on a
+``[data x model]`` grid, one rank a card (NCCL), or one rank a process
+with ``--device cpu`` (gloo); ``data.batch_size`` is per data index, and
+``--set mesh.model_parallel=M`` row-shards fm_w and fm_v over M ranks
+(``model.shard_exchange``, ``optimizer.zero_sharding``; the eval, infer
+and export tasks take the same grid):
 
     python -m torch.distributed.run --standalone --nproc_per_node N \
-        -m deepfm_tpu_torch --task_type train ...
+        -m deepfm_tpu_torch --task_type train --set mesh.model_parallel=M ...
 """
 
 from __future__ import annotations

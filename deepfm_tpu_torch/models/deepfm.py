@@ -7,7 +7,11 @@ eval mode (``module.train()`` / ``module.eval()``).
 
 The gathers and both FM terms always go through
 ``ops.fused_ctr.fused_ctr_interaction``, forward and backward (the Hopper
-kernels on the card).  The MLP follows the JAX dtype flow: input, kernels
+kernels on the card).  A model whose fm_w and fm_v are row shards
+(``sharded``, a ``parallel/embedding.py ShardedTables``) first assembles
+the batch's rows over its model group and runs the kernels on that
+compact table, with each lookup's slot as its id; its L2 penalty sums the
+shards over the group.  The MLP follows the JAX dtype flow: input, kernels
 and biases cast to ``compute_dtype``, the bias added in that dtype after
 the product, relu there too, batch norm (when on) in float32, dropout (train
 mode, keep probability < 1) in ``compute_dtype``, and the head cast back to
@@ -39,14 +43,18 @@ from ..ops.initializers import glorot_normal, glorot_uniform
 from .base import register_model
 
 
+def window_multiple(cfg: ModelConfig) -> int:
+    """The row multiple of a window-padded fm_v: 128/K when ``fused_kernel
+    != "off"`` and K divides 128, else 1."""
+    k = cfg.embedding_size
+    return 128 // k if cfg.fused_kernel != "off" and 128 % k == 0 else 1
+
+
 def fm_v_rows(cfg: ModelConfig) -> int:
     """Rows of the fm_v table: ``feature_size``, plus zero pad rows up to a
-    multiple of 128/K when ``fused_kernel != "off"`` (the JAX init pads on
-    the config value, so a checkpoint's shape follows its config)."""
-    rows = cfg.feature_size
-    if cfg.fused_kernel != "off" and 128 % cfg.embedding_size == 0:
-        rows += (-cfg.feature_size) % (128 // cfg.embedding_size)
-    return rows
+    multiple of :func:`window_multiple` (the JAX init pads on the config
+    value, so a checkpoint's shape follows its config)."""
+    return cfg.feature_size + (-cfg.feature_size) % window_multiple(cfg)
 
 
 def dropout(h: torch.Tensor, keep: float, generator: torch.Generator) -> torch.Tensor:
@@ -131,6 +139,8 @@ class DeepFM(nn.Module):
         self.to(device)
         seed = int(torch.randint(0, 2**62, (1,), generator=g))
         self.dropout_generator = torch.Generator(device=device).manual_seed(seed)
+        # row-sharded tables (parallel/spmd.py shard_model); None: whole tables
+        self.sharded = None
         self.eval()
 
     def prepare(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor):
@@ -156,13 +166,19 @@ class DeepFM(nn.Module):
 
     def forward(self, feat_ids: torch.Tensor, feat_vals: torch.Tensor) -> torch.Tensor:
         ids, vals = self.prepare(feat_ids, feat_vals)
+        if self.sharded is not None:
+            fm_w, fm_v, ids = self.sharded.lookup(self.fm_w, self.fm_v, ids)
+            return self.head(*fused_ctr_interaction(fm_w, fm_v, ids, vals))
         return self.head(*fused_ctr_interaction(self.fm_w, self.fm_v, ids, vals))
 
 
 def deepfm_l2_penalty(model: DeepFM, l2_reg: float) -> torch.Tensor:
     """``l2_reg·(½Σfm_w² + ½Σfm_v²)``: the tables only, as in the
-    reference (its MLP L2 was never added to the loss)."""
+    reference (its MLP L2 was never added to the loss); over every shard
+    of row-sharded tables."""
     total = model.fm_w.square().sum() + model.fm_v.square().sum()
+    if model.sharded is not None:
+        total = model.sharded.table_sum(total)
     return l2_reg * 0.5 * total
 
 

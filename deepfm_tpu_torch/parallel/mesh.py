@@ -17,12 +17,18 @@ takes the topology from the launcher's environment, as
 * a group the caller already started (``init_process_group``) is used as
   it is.
 
-Only the data axis exists: ``mesh.model_parallel > 1`` (row-sharded tables)
-is ROADMAP A9, refused by ``MeshConfig``.
+The ranks form a ``[data_parallel x model_parallel]`` grid, laid out as
+JAX lays its ``[dp, mp]`` device mesh: rank ``r`` sits at data index
+``r // mp`` and model index ``r % mp``.  The ``mp`` ranks of one data index
+(a model group) hold the row shards of fm_w and fm_v and read the same
+batches; the ``dp`` ranks of one model index (a data group) hold the same
+shard and average its gradient.  Both kinds of group are made with
+``dist.new_group`` (every rank creates every group, in the same order).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -36,10 +42,13 @@ from ..data.sharding import WorkerTopology
 
 @dataclass(frozen=True)
 class DistContext:
-    """This process's place in the data-parallel world.  ``group`` is None
-    for a world of one process started without a launcher; ``owns_group``
-    says whether :func:`initialize_distributed` started the group (and
-    :func:`shutdown` ends it)."""
+    """This process's place in the ``[data x model]`` grid.  ``group`` is
+    the world's group, None for a world of one process started without a
+    launcher; ``data_group`` and ``model_group`` are this rank's data and
+    model groups (the data group is the world's at ``model_parallel`` 1;
+    None where the axis has one rank of a larger grid, or without a group);
+    ``owns_group`` says whether :func:`initialize_distributed` started the
+    group (and :func:`shutdown` ends it)."""
 
     world_size: int
     rank: int
@@ -48,15 +57,37 @@ class DistContext:
     device: torch.device
     group: object | None = None
     owns_group: bool = False
+    model_parallel: int = 1
+    data_group: object | None = None
+    model_group: object | None = None
+
+    @property
+    def data_parallel(self) -> int:
+        return self.world_size // self.model_parallel
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_parallel
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_parallel
 
     @property
     def topology(self) -> WorkerTopology:
-        """Hosts and workers per host as the record sharding reads them
-        (ranks host-major, as MPI and Horovod number them)."""
-        return WorkerTopology(num_hosts=self.world_size // self.local_world_size,
-                              host_rank=self.rank // self.local_world_size,
-                              workers_per_host=self.local_world_size,
-                              local_rank=self.local_rank)
+        """The record sharding's view of this rank: one shard a data index,
+        so the ranks of a model group read the same records.  With one
+        model shard it is the world's own layout (hosts and workers per
+        host, ranks host-major as MPI and Horovod number them); with more,
+        one host of ``data_parallel`` workers."""
+        if self.model_parallel == 1:
+            return WorkerTopology(num_hosts=self.world_size // self.local_world_size,
+                                  host_rank=self.rank // self.local_world_size,
+                                  workers_per_host=self.local_world_size,
+                                  local_rank=self.local_rank)
+        return WorkerTopology(num_hosts=1, host_rank=0,
+                              workers_per_host=self.data_parallel,
+                              local_rank=self.data_index)
 
 
 def _env_int(name: str, default: int | None = None) -> int:
@@ -70,9 +101,11 @@ def _env_int(name: str, default: int | None = None) -> int:
 
 def initialize_distributed(cfg: MeshConfig, device=None) -> DistContext:
     """Join (or start) the process group this process belongs to, on
-    ``device`` (default: the card).  Raises when ``mesh.data_parallel`` is
-    neither -1/0 nor the world size, or when ``LOCAL_RANK`` names a card
-    this machine does not have."""
+    ``device`` (default: the card), and make the grid's data and model
+    groups.  Raises when ``mesh.model_parallel`` does not divide the world
+    size, when ``mesh.data_parallel`` is neither -1/0 nor the world size
+    over it, or when ``LOCAL_RANK`` names a card this machine does not
+    have."""
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         local_rank = _env_int("LOCAL_RANK", rank)
@@ -102,13 +135,41 @@ def initialize_distributed(cfg: MeshConfig, device=None) -> DistContext:
                           dist.group.WORLD, owns_group=True)
     else:
         ctx = DistContext(1, 0, 0, 1, resolve_device(device))
-    if cfg.data_parallel > 0 and cfg.data_parallel != ctx.world_size:
+    mp = cfg.model_parallel
+    if ctx.world_size % mp:
         shutdown(ctx)
         raise ValueError(
-            f"mesh.data_parallel={cfg.data_parallel} but the launcher started "
-            f"{ctx.world_size} ranks; set it to -1 or to the world size"
+            f"mesh.model_parallel={mp} does not divide the {ctx.world_size} "
+            f"ranks the launcher started"
         )
-    return ctx
+    if cfg.data_parallel > 0 and cfg.data_parallel * mp != ctx.world_size:
+        shutdown(ctx)
+        raise ValueError(
+            f"mesh.data_parallel={cfg.data_parallel} x model_parallel={mp} but "
+            f"the launcher started {ctx.world_size} ranks; set data_parallel "
+            f"to -1 or to the world size over model_parallel"
+        )
+    if mp == 1:  # the world is the one data group
+        return dataclasses.replace(ctx, data_group=ctx.group)
+    return _with_grid(ctx, mp)
+
+
+def _with_grid(ctx: DistContext, mp: int) -> DistContext:
+    """``ctx`` with its model and data groups: every rank creates every
+    group, model groups first, in rank order, as ``dist.new_group``
+    requires."""
+    dp = ctx.world_size // mp
+    model_group = data_group = None
+    for d in range(dp):
+        g = dist.new_group([d * mp + m for m in range(mp)])
+        if d == ctx.rank // mp:
+            model_group = g
+    for m in range(mp):
+        g = dist.new_group([d * mp + m for d in range(dp)]) if dp > 1 else None
+        if m == ctx.rank % mp:
+            data_group = g
+    return dataclasses.replace(ctx, model_parallel=mp, model_group=model_group,
+                               data_group=data_group)
 
 
 def shutdown(ctx: DistContext) -> None:

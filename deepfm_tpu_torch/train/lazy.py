@@ -1,7 +1,7 @@
 """Lazy (touched-rows) Adam for the CTR tables: counterpart of
 ``deepfm_tpu/train/lazy.py`` (``LazyAdamState``, ``init_lazy_state``,
 ``segment_rows``, ``adam_row_math``, ``lazy_adam_update``,
-``shared_segments``).
+``lazy_adam_update_shard``, ``shared_segments``).
 
 Dense Adam reads and writes all of fm_v, fm_w and both their moments every
 step; a batch touches at most B·F rows.  The lazy update works on those
@@ -26,7 +26,9 @@ JAX module's:
 The train step (train/step.py) takes the per-segment gradients from the
 backward kernel run on compact tables, and calls :func:`lazy_adam_rows`
 directly; :func:`lazy_adam_update` is the whole update from per-lookup
-gradients, as the JAX function takes them.
+gradients, as the JAX function takes them.  The sharded lazy step
+(parallel/spmd.py) applies the data group's deduplicated rows to the rows
+this shard owns with :func:`lazy_adam_update_shard`.
 """
 
 from __future__ import annotations
@@ -98,28 +100,44 @@ def adam_row_math(p_r, m_r, v_r, gsum, step: int, cfg: OptimizerConfig, *,
 @torch.no_grad()
 def lazy_adam_rows(table, m, v, row_id, gsum, valid, step: int,
                    cfg: OptimizerConfig, *, learning_rate: float,
-                   l2_reg: float = 0.0, p_r=None) -> None:
+                   l2_reg: float = 0.0, p_r=None, row_offset: int = 0) -> None:
     """Apply per-segment gradients ``gsum [N, ...]`` (segments ``row_id``,
     live where ``valid``) to ``table``, ``m`` and ``v`` in place.  ``p_r``
-    is ``table[row_id]`` when the caller already gathered it.
+    is ``table[row_id]`` when the caller already gathered it.  A shard of a
+    row-sharded table (``row_offset``: its first global row) takes the
+    rows in ``[row_offset, row_offset + rows)`` and drops the rest.
 
-    A padding segment adds a zero delta, which leaves its target row as it
-    was.  Its target is its own position (mod the table's rows), not its
-    ``row_id`` 0: thousands of adds into one row would serialize on the
-    card.  The JAX update gives padding segments distinct out-of-bounds ids
-    for the same reason; ``index_add_`` takes in-bounds ids only."""
+    A dropped or padding segment adds a zero delta, which leaves its target
+    row as it was.  Its target is its own position (mod the table's rows),
+    not one shared row: thousands of adds into one row would serialize on
+    the card.  The JAX update gives such segments distinct out-of-bounds
+    ids for the same reason; ``index_add_`` takes in-bounds ids only."""
+    rows = table.shape[0]
     width = gsum[0].numel()
-    t2, m2, v2 = (x.view(x.shape[0], width) for x in (table, m, v))
+    t2, m2, v2 = (x.view(rows, width) for x in (table, m, v))
     g2 = gsum.reshape(-1, width)
-    p_r = t2[row_id] if p_r is None else p_r.reshape(-1, width)
-    m_r, v_r = m2[row_id], v2[row_id]
+    local = row_id - row_offset
+    live = valid & (local >= 0) & (local < rows)
+    idx = local.clamp(0, rows - 1)
+    p_r = t2[idx] if p_r is None else p_r.reshape(-1, width)
+    m_r, v_r = m2[idx], v2[idx]
     p_n, m_n, v_n = adam_row_math(p_r, m_r, v_r, g2, step, cfg,
                                   learning_rate=learning_rate, l2_reg=l2_reg)
-    spread = torch.arange(row_id.shape[0], device=row_id.device) % t2.shape[0]
-    target = torch.where(valid, row_id, spread)
-    live = valid[:, None]
+    spread = torch.arange(row_id.shape[0], device=row_id.device) % rows
+    target = torch.where(live, idx, spread)
     for dst, new, old in ((t2, p_n, p_r), (m2, m_n, m_r), (v2, v_n, v_r)):
-        dst.index_add_(0, target, torch.where(live, new - old, 0.0))
+        dst.index_add_(0, target, torch.where(live[:, None], new - old, 0.0))
+
+
+def lazy_adam_update_shard(local_table, m, v, row_id, gsum, valid, row_offset: int,
+                           step: int, cfg: OptimizerConfig, *, learning_rate: float,
+                           l2_reg: float = 0.0) -> None:
+    """Lazy Adam, in place, on the rows this shard owns of the
+    deduplicated global rows ``row_id [N]`` (live where ``valid``) with
+    their summed gradients ``gsum [N, ...]`` (JAX's signature);
+    ``step`` is the 1-based global step."""
+    lazy_adam_rows(local_table, m, v, row_id, gsum, valid, step, cfg,
+                   learning_rate=learning_rate, l2_reg=l2_reg, row_offset=row_offset)
 
 
 def lazy_adam_update(table, m, v, ids, row_grads, step: int, cfg: OptimizerConfig,

@@ -4,8 +4,9 @@ tasks: counterpart of ``run_train``, ``run_eval``, ``run_infer``,
 ``deepfm_tpu/train/loop.py``, on one card or on each rank of a
 data-parallel run (the online tasks on one card: online/trainer.py).
 JAX's ``restore_latest`` is ``Checkpointer.restore`` here: a checkpoint of
-another table shape raises with the fused_kernel hint (the cross-topology
-reshard is ROADMAP A9/A15).
+another table shape raises with the fused_kernel hint, and one of another
+row split (``mesh.model_parallel``) raises (the cross-topology reshard is
+ROADMAP A15).
 
 ``run_train`` is the train task's whole lifecycle:
 
@@ -97,6 +98,21 @@ class _Silent:
         pass
 
 
+def _permute_vocab(cfg: Config) -> int:
+    """The vocabulary the input's ids are permuted in (``data.permute_ids``),
+    0 for none."""
+    return cfg.model.feature_size if cfg.data.permute_ids else 0
+
+
+def _export(state: TrainState, cfg: Config, ctx: DistContext, path: str) -> str:
+    """The servable of ``state`` at ``path``, written by rank 0 (every rank
+    calls it: a grid's tables are gathered first)."""
+    sd = spmd.servable_state_dict(state, cfg.model)
+    if ctx.rank == 0:
+        path = export_servable(cfg.model, sd, path)
+    return path
+
+
 def run_eval(model: nn.Module, cfg: Config, *, log: MetricLogger | None = None,
              data_dir: str | None = None, ctx: DistContext | None = None) -> dict:
     """``{"auc", "loss", "examples"}`` over every record of the validation
@@ -109,14 +125,17 @@ def run_eval(model: nn.Module, cfg: Config, *, log: MetricLogger | None = None,
     count = 0
     topo = ctx.topology if ctx is not None else None
     for batch in _tensors(eval_batches(cfg.data, topo, field_size=cfg.model.field_size,
-                                       data_dir=data_dir)):
+                                       data_dir=data_dir,
+                                       permute_vocab=_permute_vocab(cfg))):
         auc_state, m = eval_step(model, auc_state, to_device(batch, dev))
         loss_sum = loss_sum + m["loss"] * m["count"]
         count += m["count"]
     loss_total = float(loss_sum)
-    if ctx is not None and ctx.group is not None:
+    # the ranks of a model group read the same records: merge over the
+    # data group, so each record counts once
+    if ctx is not None and ctx.data_group is not None:
         auc_state, (loss_total, count) = auc_all_reduce(auc_state, loss_sum, count,
-                                                        group=ctx.group)
+                                                        group=ctx.data_group)
         count = int(count)
     result = {
         "auc": float(auc_value(auc_state)),
@@ -162,7 +181,8 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
         log.seed_step(state.step)
     dev = state.model.fm_v.device
     host = make_input_pipeline(cfg.data, ctx.topology, field_size=cfg.model.field_size,
-                               seed=cfg.run.seed, skip_batches=state.step)
+                               seed=cfg.run.seed, skip_batches=state.step,
+                               permute_vocab=_permute_vocab(cfg))
     host = _tensors(host, pin=dev.type == "cuda")
     every = cfg.run.checkpoint_every_steps
     eval_on = bool(cfg.data.val_data_dir) and cfg.run.eval_throttle_secs > 0
@@ -222,9 +242,8 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
         raise PreemptedError(f"preempted at step {state.step}")
     if cfg.data.val_data_dir:
         run_eval(state.model, cfg, log=log, ctx=ctx)
-    if cfg.run.servable_model_dir and ctx.rank == 0:
-        path = export_servable(cfg.model, state.model.state_dict(),
-                               cfg.run.servable_model_dir)
+    if cfg.run.servable_model_dir:
+        path = _export(state, cfg, ctx, cfg.run.servable_model_dir)
         log.event("export", path=path)
     ckpt.close()
     return state
@@ -255,27 +274,31 @@ def run_infer(cfg: Config, *, device=None, output_path: str | None = None,
     ``te*``/``test*`` record under ``data.test_data_dir`` (else
     ``data.val_data_dir``), or, where there is none, every ``va*``/``val*``
     record, one a line in file order, to ``output_path`` (default
-    ``pred.txt`` in that directory); returns the path.  A single-process
-    job, as in JAX: it raises in a group of more than one rank."""
+    ``pred.txt`` in that directory); returns the path.  In a group only
+    data index 0's model group scores, every rank of it every record (they
+    assemble the rows of each batch together), and rank 0 alone writes, so
+    each record is scored once into the file; the other ranks return after
+    the restore, the last collective of the whole group."""
     ctx = initialize_distributed(cfg.mesh, device)
     try:
-        if ctx.world_size > 1:
-            raise RuntimeError(
-                "task_type=infer is a single-process batch job; run it "
-                "without torch.distributed.run (the checkpoint restores on "
-                "one process)")
         state = _restored(cfg, ctx)
         base = cfg.data.test_data_dir or cfg.data.val_data_dir
         patterns = ("te", "test")
         if not discover_files(base, patterns, shuffle=False):
             patterns = ("va", "val")
         out = output_path or os.path.join(base, "pred.txt")
+        if ctx.data_index != 0:
+            return out
         dev = state.model.fm_v.device
         batches = eval_batches(cfg.data, field_size=cfg.model.field_size, data_dir=base,
-                               patterns=patterns)
-        n = write_predictions(
-            (predict_step(state.model, to_device(b, dev)).cpu().numpy()
-             for b in _tensors(batches)), out)
+                               patterns=patterns, permute_vocab=_permute_vocab(cfg))
+        probs = (predict_step(state.model, to_device(b, dev)).cpu().numpy()
+                 for b in _tensors(batches))
+        if ctx.rank != 0:
+            for _ in probs:
+                pass
+            return out
+        n = write_predictions(probs, out)
         (log or MetricLogger()).event("infer", path=out, examples=n)
         return out
     finally:
@@ -288,9 +311,8 @@ def run_export(cfg: Config, *, device=None, log: MetricLogger | None = None) -> 
     ctx = initialize_distributed(cfg.mesh, device)
     try:
         state = _restored(cfg, ctx)
-        path = cfg.run.servable_model_dir
+        path = _export(state, cfg, ctx, cfg.run.servable_model_dir)
         if ctx.rank == 0:
-            path = export_servable(cfg.model, state.model.state_dict(), path)
             (log or MetricLogger()).event("export", path=path)
         return path
     finally:

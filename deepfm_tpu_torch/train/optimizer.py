@@ -16,8 +16,22 @@ of named parameters.
 Every update is scaled by ``-lr`` with ``lr`` the schedule's value at the
 pre-increment count, then multiplied by ``embedding_lr_multiplier`` for
 ``fm_w``/``fm_v``, then added to the parameter (``p + u``, as
-``optax.apply_updates``).  ZeRO sharding waits for data-parallel training
-(ROADMAP A9).
+``optax.apply_updates``).
+
+:class:`ZeroOptimizer` is JAX's ``zero_sharded`` (ZeRO, arxiv 2004.13336)
+over ``torch.distributed``: each rank of a data group owns a 1/dp window
+of every flattened parameter and of its moments; a step reduce-scatters
+each raw gradient over the data group (``reduce_scatter_tensor``, then
+/dp; a replicated leaf's window then comes from model index 0 by
+broadcast over the model group, the exact form of JAX's ``pmean`` of
+identical values), updates
+the window with the inner optimizer, and all-gathers the fresh windows
+(``all_gather_into_tensor``).  The layout is JAX's canonical one
+(``zero_layout_size``): a dense leaf's flatten padded at its tail to
+``dp·ceil(n/dp)``; a row-sharded table leaf's local flatten split in dp
+exact windows, and a table leaf whose local size dp does not divide
+keeps the replicated update (all_reduce over the data group, full
+moments).
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import OptimizerConfig
 
@@ -221,6 +236,173 @@ class Ftrl(Optimizer):
         z.copy_(z_new)
         n.copy_(n_new)
         return w_new - p
+
+
+def resolve_zero_sharding(cfg: OptimizerConfig, data_parallel_size: int) -> bool:
+    """Whether the ZeRO update runs: never with "off", else exactly when
+    the grid has more than one data index."""
+    if cfg.zero_sharding == "off":
+        return False
+    return data_parallel_size > 1
+
+
+def zero_chunk(n_local: int, dp: int) -> int:
+    """A dense leaf's window: ``ceil(n_local / dp)``."""
+    return -(-max(1, n_local) // max(1, dp))
+
+
+def zero_layout_size(n_total: int, shards: int, dp: int) -> int | None:
+    """The flattened global length of a leaf's ZeRO moment, or None for an
+    ineligible leaf (a row-sharded table whose per-shard size dp does not
+    divide): a table's is its exact flatten, a dense leaf's is padded to
+    ``dp·zero_chunk``."""
+    n_local, rem = divmod(max(1, n_total), shards)
+    if rem:
+        return None
+    if shards > 1:
+        return n_total if n_local % dp == 0 else None
+    return zero_chunk(n_local, dp) * dp
+
+
+class ZeroOptimizer:
+    """The ZeRO weight update around an :class:`Optimizer` (module
+    docstring).  ``params`` are this rank's parameters (a table leaf its
+    row shard); ``sharded`` names the row-sharded leaves (empty at
+    ``model_parallel`` 1); ``data_group``/``model_group`` are this rank's
+    groups (``model_group`` None at ``model_parallel`` 1).  The inner
+    optimizer holds the window slots: ``slots[name]`` is a window for an
+    eligible leaf and full for an ineligible one."""
+
+    def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.Tensor], *,
+                 dp: int, data_index: int, data_group, sharded=(), mp: int = 1,
+                 model_group=None, model_src: int = 0, data_parallel_size: int = 1):
+        self.dp, self.d = dp, data_index
+        self.data_group, self.model_group, self.mp = data_group, model_group, mp
+        self.model_src = model_src
+        self.sharded = frozenset(sharded)
+        self.plans: dict[str, tuple[int, int] | None] = {}
+        windows = {}
+        for name, p in params.items():
+            n = p.numel()
+            shards = mp if name in self.sharded else 1
+            size = zero_layout_size(n * shards, shards, dp)
+            if size is None:
+                self.plans[name] = None
+                windows[name] = p.detach()
+                continue
+            chunk = size // (shards * dp)
+            self.plans[name] = (n, chunk)
+            windows[name] = self._window(p.detach(), n, chunk)
+        self.inner = build_optimizer(cfg, windows, data_parallel_size=data_parallel_size)
+        # the padding tail stays zero whatever the slots' initial value
+        for name, plan in self.plans.items():
+            if plan is not None:
+                live = self._live(*plan)
+                for t in self.inner.slots[name].values():
+                    t[live:] = 0.0
+
+    @property
+    def lr(self):
+        return self.inner.lr
+
+    @property
+    def multiplier(self):
+        return self.inner.multiplier
+
+    @property
+    def cfg(self):
+        return self.inner.cfg
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.inner.count = value
+
+    @property
+    def slots(self) -> dict:
+        return self.inner.slots
+
+    def _live(self, n: int, chunk: int) -> int:
+        """How many entries of this rank's window are real (not padding)."""
+        return max(0, min(chunk, n - self.d * chunk))
+
+    def _window(self, t: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
+        flat = t.reshape(-1)
+        start = self.d * chunk
+        win = flat[start:start + chunk]
+        if win.numel() < chunk:
+            win = torch.cat([win, win.new_zeros(chunk - win.numel())])
+        return win.clone()
+
+    def _padded(self, t: torch.Tensor, chunk: int) -> torch.Tensor:
+        flat = t.reshape(-1)
+        pad = chunk * self.dp - flat.numel()
+        return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat.contiguous()
+
+    def full_slots(self, params: Mapping[str, torch.Tensor]) -> dict:
+        """Every slot at its parameter's shape (the windows gathered over
+        the data group): a collective."""
+        out = {}
+        for name, p in params.items():
+            plan = self.plans[name]
+            out[name] = {}
+            for slot, t in self.inner.slots[name].items():
+                if plan is None:
+                    out[name][slot] = t
+                    continue
+                n, chunk = plan
+                full = t.new_empty(chunk * self.dp)
+                dist.all_gather_into_tensor(full, t.contiguous(), group=self.data_group)
+                out[name][slot] = full[:n].view_as(p)
+        return out
+
+    @torch.no_grad()
+    def load_full_slots(self, slots: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+        """Take this rank's windows of slots at their parameters' shapes."""
+        for name, plan in self.plans.items():
+            for slot, t in self.inner.slots[name].items():
+                src = torch.as_tensor(slots[name][slot]).to(t.device)
+                if plan is None:
+                    t.copy_(src.view_as(t))
+                    continue
+                n, chunk = plan
+                if src.numel() != n:
+                    raise ValueError(f"optimizer.{name}.{slot}: {src.numel()} "
+                                     f"entries, expected {n}")
+                t.copy_(self._window(src, n, chunk))
+
+    @torch.no_grad()
+    def step(self, params: Mapping[str, torch.Tensor],
+             grads: Mapping[str, torch.Tensor]) -> None:
+        """One update from this rank's RAW gradients (not yet averaged)."""
+        g_win, p_win = {}, {}
+        for name, p in params.items():
+            g = grads[name]
+            plan = self.plans[name]
+            if plan is None:  # ineligible: the replicated update
+                g = g.clone()
+                dist.all_reduce(g, group=self.data_group)
+                g_win[name], p_win[name] = g / self.dp, p
+                continue
+            n, chunk = plan
+            win = g.new_empty(chunk)
+            dist.reduce_scatter_tensor(win, self._padded(g, chunk), group=self.data_group)
+            win = win / self.dp
+            if name not in self.sharded and self.model_group is not None:
+                dist.broadcast(win, src=self.model_src, group=self.model_group)
+            g_win[name], p_win[name] = win, self._window(p, n, chunk)
+        self.inner.step(p_win, g_win)
+        for name, p in params.items():
+            plan = self.plans[name]
+            if plan is None:
+                continue
+            n, chunk = plan
+            full = p.new_empty(chunk * self.dp)
+            dist.all_gather_into_tensor(full, p_win[name], group=self.data_group)
+            p.copy_(full[:n].view_as(p))
 
 
 def load_slots(dst: dict, src: dict, what: str) -> None:

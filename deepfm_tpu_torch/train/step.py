@@ -58,13 +58,17 @@ class TrainState:
     per-step folded PRNG key).  With lazy embedding updates ``optimizer``
     holds the non-table parameters only and ``lazy`` the tables' moments
     (the JAX ``(rest_opt, LazyAdamState)`` pair); otherwise ``lazy`` is
-    None."""
+    None.  ``sharding`` (parallel/spmd.py ``Sharding``) says how a state
+    of a ``[data x model]`` grid lies over it: row-sharded tables, the ZeRO
+    update or the lazy step at more than one data index; None for a
+    replicated state."""
 
     step: int
     model: nn.Module
     optimizer: Optimizer
     generator: torch.Generator
     lazy: LazyAdamState | None = None
+    sharding: object | None = None
 
 
 def _lazy_keys(params) -> list[str]:

@@ -141,3 +141,160 @@ def dp_lifecycle(rank: int, world: int, store: str, out: str, argv: list,
         torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+# -- the [data x model] grid (tests/test_torch_sharded.py, test_torch_zero.py) --
+
+def _grid(cfg):
+    """This rank's grid context for ``cfg.mesh`` (new groups each call)."""
+    from deepfm_tpu_torch.parallel.mesh import initialize_distributed
+
+    return initialize_distributed(cfg.mesh, "cpu")
+
+
+def load_weights(state, weights: dict) -> None:
+    """Whole (padded) weights into a grid state: each rank its rows."""
+    sh = state.sharding
+    keys = sh.sharded_keys(weights) if sh is not None else ()
+    state.model.load_state_dict({
+        n: torch.as_tensor(t)[sh.offset:sh.offset + sh.rows] if n in keys
+        else torch.as_tensor(t) for n, t in weights.items()})
+
+
+def _local_batch(batch: dict, ctx) -> dict:
+    """The data index's contiguous slice of a global numpy batch."""
+    n = batch["label"].shape[0] // ctx.data_parallel
+    lo = ctx.data_index * n
+    return {k: torch.from_numpy(v[lo:lo + n]) for k, v in batch.items()}
+
+
+def grid_exchange(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """Per job (``mp``, whole ``table``, global ``ids`` and the ``modes``
+    as (exchange, table_grad, capacity)): this rank's assembled rows of its
+    data index's ids and its shard's gradient of ½Σrows², for the 2-D table
+    and its first column as a 1-D table, plus the psum fallbacks taken."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import embedding as E
+
+    _join(rank, world, store)
+    try:
+        results = []
+        for job in jobs:
+            ctx = _grid(Config.from_dict({"mesh": {"model_parallel": job["mp"]}}))
+            axis = E.ModelAxis(ctx.model_group, ctx.model_parallel, ctx.model_index)
+            table = torch.from_numpy(job["table"])
+            rows = table.shape[0] // ctx.model_parallel
+            n = job["ids"].shape[0] // ctx.data_parallel
+            ids = torch.from_numpy(job["ids"][ctx.data_index * n:(ctx.data_index + 1) * n])
+            got = {}
+            for mode in job["modes"]:
+                exchange, table_grad, capacity = mode
+                E.reset_counters()
+                for name, t in (("v", table), ("w", table[:, 0].contiguous())):
+                    local = t[ctx.model_index * rows:(ctx.model_index + 1) * rows]
+                    local = local.clone().requires_grad_()
+                    out_rows = E.sharded_lookup(local, ids, axis, table_grad=table_grad,
+                                                exchange=exchange, capacity=capacity)
+                    (g,) = torch.autograd.grad((out_rows * out_rows * 0.5).sum(), [local])
+                    got[(mode, name)] = (out_rows.detach(), g)
+                got[(mode, "fallbacks")] = E.counters["fallbacks"]
+            results.append({"data_index": ctx.data_index, "model_index": ctx.model_index,
+                            "rows": rows, "got": got})
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cloned(tree):
+    """A copy of every tensor of a nested dict (``full_state`` hands back
+    live tensors, which the next step updates in place)."""
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def grid_steps(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """Per job (a ``cfg`` dict whose mesh names the grid; whole ``weights``,
+    or a JAX train state as numpy to carry over with ``convert``, or
+    neither for the state's own; global ``batches``): the grid state,
+    ``len(batches)`` steps on this data index's slice, then the metrics,
+    the one-card layout (``full_state``) before and after, this rank's
+    leaves, optimizer plans and slots, and its exchange counters."""
+    from deepfm_tpu_torch.convert import train_state_from_jax
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import embedding as E
+    from deepfm_tpu_torch.parallel import spmd
+
+    _join(rank, world, store)
+    try:
+        results = []
+        for job in jobs:
+            cfg = Config.from_dict(job["cfg"])
+            ctx = _grid(cfg)
+            if job.get("jax_state") is not None:
+                state = train_state_from_jax(job["jax_state"], cfg, "cpu", ctx=ctx)
+            else:
+                state = spmd.create_dp_train_state(cfg, ctx)
+            if job.get("weights") is not None:
+                load_weights(state, job["weights"])
+            carried = _cloned(spmd.full_state(state))
+            E.reset_counters()
+            spmd.lazy_updates.update(dedup=0, full=0)
+            metrics, error = [], None
+            try:
+                for batch in job["batches"]:
+                    m = spmd.train_step(state, _local_batch(batch, ctx), ctx)
+                    metrics.append({k: float(v) for k, v in m.items()})
+            except ValueError as e:  # every rank refuses at the same step
+                error = str(e)
+            plans = getattr(state.optimizer, "plans", None)
+            results.append({
+                "metrics": metrics, "error": error,
+                "full": spmd.full_state(state), "carried": carried,
+                "local": {k: v.clone() for k, v in state.model.state_dict().items()},
+                "counters": dict(E.counters), "lazy_updates": dict(spmd.lazy_updates),
+                "step": state.step,
+                "exchange": state.sharding.exchange if state.sharding else None,
+                "plans": plans, "slots": {n: {s: t.clone() for s, t in d.items()}
+                                          for n, d in state.optimizer.slots.items()},
+                "grid": [ctx.data_index, ctx.model_index],
+                "generator": state.generator.get_state()})
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_eval_infer(rank: int, world: int, store: str, out: str, cfg_dict: dict,
+                    weights: dict) -> None:
+    """The grid's eval over the validation files and, from a checkpoint of
+    the same weights, the infer task: what each rank saw, and how many
+    batches it scored."""
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.train import loop
+    from deepfm_tpu_torch.train.loop import run_eval, run_infer
+
+    scored = []
+    predict_step = loop.predict_step
+
+    def counted_predict(*a, **kw):
+        scored.append(1)
+        return predict_step(*a, **kw)
+
+    loop.predict_step = counted_predict
+    _join(rank, world, store)
+    try:
+        cfg = Config.from_dict(cfg_dict)
+        ctx = _grid(cfg)
+        state = spmd.create_dp_train_state(cfg, ctx)
+        load_weights(state, weights)
+        ev = run_eval(state.model, cfg, ctx=ctx)
+        ckpt = Checkpointer(cfg.run.model_dir, ctx=ctx)
+        ckpt.save(state, block=True)
+        dist.barrier()
+        path = run_infer(cfg, device="cpu", output_path=os.path.join(out, "pred.txt"))
+        torch.save({"eval": ev, "pred": path, "data_index": ctx.data_index,
+                    "scored": len(scored)}, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

@@ -38,7 +38,6 @@ def test_the_jax_defaults_copy_matches_the_jax_package():
 # each field that changes the result, a value other than its default, and
 # the ROADMAP item the error names
 RAISING = [
-    ("data", "permute_ids", True, "A6"),
     ("data", "shuffle_buffer", 4096, "A6"),
     ("data", "stream_mode", True, "A6"),
     ("data", "multi_path", True, "A6"),
@@ -46,7 +45,6 @@ RAISING = [
     ("model", "tiered_embeddings", True, "A11"),
     ("elastic", "enabled", True, "A15"),
     ("run", "workers_per_host", 2, "A7"),
-    ("mesh", "model_parallel", 2, "A9"),
     ("mesh", "coordinator_address", "10.0.0.1:1234", "torch.distributed.run"),
     ("mesh", "num_processes", 2, "torch.distributed.run"),
     ("mesh", "process_id", 1, "torch.distributed.run"),
@@ -65,6 +63,43 @@ def test_a_field_that_changes_the_result_raises(section, name, value, item):
     assert name in str(e.value)
 
 
+# the row-sharded grid's fields, carried with JAX's validation, and the
+# port's refusal of the fused_kernel='on' lookup on sharded tables; each
+# case: the sections it sets and the error it must raise
+GRID_FIELDS = [
+    ({"model": {"shard_exchange_capacity": 1.5}}, "shard_exchange_capacity must be in"),
+    ({"model": {"table_grad": "dense"}}, "table_grad must be"),
+    ({"model": {"shard_exchange": "ring"}}, "shard_exchange must be"),
+    ({"optimizer": {"zero_sharding": "maybe"}}, "zero_sharding must be"),
+    ({"model": {"table_grad": "segsum", "fused_kernel": "on"}}, "no effect with fused"),
+    ({"model": {"fused_kernel": "on"}, "mesh": {"model_parallel": 2}},
+     "fused_kernel='on' requires the dense"),
+    ({"model": {"shard_exchange_capacity": 0.001, "field_size": 39},
+      "data": {"batch_size": 8}, "mesh": {"model_parallel": 2}}, "one example's distinct"),
+]
+
+
+@pytest.mark.parametrize("sections,error", GRID_FIELDS,
+                         ids=[e.split()[0] for _, e in GRID_FIELDS])
+def test_the_grid_fields_keep_jax_validation(sections, error):
+    d = JaxConfig().to_dict()
+    for section, fields in sections.items():
+        d[section].update(fields)
+    with pytest.raises(ValueError, match=error):
+        Config.from_dict(d)
+
+
+def test_the_grid_fields_warn_where_jax_warns():
+    with pytest.warns(UserWarning, match="no-op"):
+        Config.from_dict({"optimizer": {"zero_sharding": "on"},
+                          "mesh": {"data_parallel": 1}})
+    with pytest.warns(UserWarning, match="ignored whenever"):
+        Config.from_dict({"model": {"table_grad": "segsum", "fused_kernel": "auto"}})
+    with pytest.warns(UserWarning, match="frequent overflow"):
+        Config.from_dict({"model": {"shard_exchange_capacity": 0.1, "field_size": 4},
+                          "data": {"batch_size": 8}, "mesh": {"model_parallel": 2}})
+
+
 def test_the_model_section_alone_checks_too(tmp_path):
     (tmp_path / "config.json").write_text(json.dumps(
         {"model": {**JaxModelConfig().__dict__, "tiered_embeddings": True}},
@@ -74,10 +109,7 @@ def test_the_model_section_alone_checks_too(tmp_path):
 
 
 INERT = {
-    "model": {"table_grad": "segsum", "shard_exchange": "alltoall",
-              "shard_exchange_capacity": 1.5, "cin_layers": [64], "cross_layers": 2,
-              "tiered_hot_slots": 4096},
-    "optimizer": {"zero_sharding": "on"},
+    "model": {"cin_layers": [64], "cross_layers": 2, "tiered_hot_slots": 4096},
     "data": {"parallel_readers": 1, "training_channel_name": "train",
              "evaluation_channel_name": "eval"},
     "run": {"steps_per_loop": 8, "hosts": ["algo-1", "algo-2"], "current_host": "algo-2",
@@ -102,9 +134,18 @@ def test_a_full_jax_config_and_the_inert_fields_load():
     d["model"]["feature_size"] = 500
     d["mesh"]["data_parallel"] = 4
     d["data"]["s3_shard"] = True
+    # the row-sharded grid's fields are carried, at JAX's values
+    d["model"].update(table_grad="segsum", shard_exchange="alltoall",
+                      shard_exchange_capacity=0.5)
+    d["optimizer"]["zero_sharding"] = "on"
+    d["data"]["permute_ids"] = True
+    d["mesh"]["model_parallel"] = 2
     cfg = Config.from_dict(json.loads(json.dumps(d)))
     assert cfg.model.feature_size == 500 and cfg.data.s3_shard
-    assert cfg.mesh == MeshConfig(data_parallel=4)
+    assert cfg.mesh == MeshConfig(data_parallel=4, model_parallel=2)
+    assert (cfg.model.table_grad, cfg.model.shard_exchange,
+            cfg.model.shard_exchange_capacity) == ("segsum", "alltoall", 0.5)
+    assert cfg.optimizer.zero_sharding == "on" and cfg.data.permute_ids
     assert Config.from_dict(cfg.to_dict()) == cfg
 
 
@@ -118,7 +159,8 @@ def test_unknown_fields_are_dropped_with_a_warning(caplog):
 
 def test_set_overrides_still_reject_what_is_not_carried():
     with pytest.raises(TypeError):
-        Config().with_overrides(data={"permute_ids": True})
+        Config().with_overrides(data={"shuffle_buffer": 4096})
+    assert Config().with_overrides(data={"permute_ids": True}).data.permute_ids
     assert Config().with_overrides(mesh={"data_parallel": 2}).mesh.data_parallel == 2
 
 

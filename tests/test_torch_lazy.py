@@ -196,6 +196,9 @@ def test_check_lazy_errors():
         init_opt_state(base, {"mlp.out.kernel": torch.zeros(2, 1)})
     with pytest.raises(ValueError, match="fused_kernel='on'"):
         init_opt_state(base.with_overrides(model={"fused_kernel": "on"}), params)
+    # nor with the sharded exchange's lookup, lazy or not
+    with pytest.raises(ValueError, match="fused_kernel='on'"):
+        base.with_overrides(model={"fused_kernel": "on"}, mesh={"model_parallel": 2})
     opt, lazy = init_opt_state(base, {**params, "fm_b": torch.zeros(1)})
     assert list(opt.slots) == ["fm_b"] and set(lazy.m) == {"fm_w", "fm_v"}
     dense, none = init_opt_state(Config(), params)

@@ -205,8 +205,9 @@ def test_config_reads_the_jax_schema():
     assert Config.from_dict(cfg.to_dict()) == cfg
     with pytest.raises(ValueError, match="dropout_keep has 1 entries"):
         ModelConfig(dropout_keep=(0.5,))
-    with pytest.raises(ValueError, match="ROADMAP A9"):
-        cfg.with_overrides(mesh={"model_parallel": 2})
+    assert cfg.with_overrides(mesh={"model_parallel": 2}).mesh.model_parallel == 2
+    with pytest.raises(ValueError, match="fused_kernel='on' requires"):
+        cfg.with_overrides(model={"fused_kernel": "on"}, mesh={"model_parallel": 2})
     with pytest.raises(ValueError, match="unknown config section"):
         cfg.with_overrides(fleet={"shadow_queue_depth": 2})
     with pytest.raises(TypeError):
