@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8):
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8, 14):
 
 1. card     - the card's name and power limit, from nvidia-smi;
 2. build    - every kernel under deepfm_tpu_torch/csrc, built from source
-              with nvcc, and the native record reader with g++;
+              with nvcc, and the native record reader and Criteo hash
+              encoder with g++;
 3. kernel   - each kernel's wrapper against its plain PyTorch version on the
               card, at the shapes its main paths give it: the forward at
               the flagship table (117,584 x 32) for every serving bucket,
@@ -74,6 +75,10 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8):
               through the plain B2 and plain B1 (near-ties counted), both
               kernels' launch counts must have risen; then the stage
               times, latency and the device recall@32 against exact f32;
+              then the serve task (train/loop.py run_serve, with the
+              flags --funnel_top_k 16 --funnel_return_n 4) over the same
+              servable: every answer 4 items, held to the plain pipeline
+              at top 16 -> 4 the same way, B2 and B1 launched;
 9. lazy     - the train task of phase 6 with lazy Adam on the tables
               (optimizer.lazy_embedding_updates): losses finite and
               falling, both kernels launched at least once per step; one
@@ -157,7 +162,27 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8):
               index's gradient, the tables' times the model shards, as the
               exchange's transpose gives it in JAX) within TOL_GRAD_REL; a
               `sharded` line a configuration with the step and exchange
-              times and bytes, over gloo on one card.
+              times and bytes, over gloo on one card.  In the [1, 4] and
+              the [2, 2] lazy configurations every rank then saves through
+              Checkpointer (each model index its own row file) and
+              restores into a fresh state: bit-equal, each row file exactly
+              its rank's rows, and each rank's rise of
+              torch.cuda.max_memory_allocated in the save and in the
+              restore within its shard state plus 1 MiB (a `sharded
+              checkpoint` line: the rises, the files' bytes);
+14. prep    - the reference's data preparation: raw Criteo TSV from --seed
+              (98,304 train and 8,192 val lines, missing fields, Zipf
+              tokens, a few negative counts, some CRLF lines) converted by
+              `python -m deepfm_tpu_torch.data.criteo --encoder hash
+              --feature_size 117581 --records_per_shard 32768` on the C++
+              route and with DEEPFM_NO_NATIVE=1, whose shards must be
+              byte-equal; 4,096 records through both directions of `python
+              -m deepfm_tpu_torch.data.libsvm`; the train task at full
+              width on the converted shards, one epoch: losses finite and
+              falling, B1 and B1' every step, eval AUC in [0, 1]; a `prep`
+              line with the encoders' records/s on each route (host clock,
+              beside the card's name and power limit) and the phase's
+              seconds.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
@@ -799,6 +824,225 @@ def train_argv(train_dir: str, val_dir: str, servable: str, seed: int) -> list[s
             "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}"]
 
 
+# the prep phase: raw Criteo TSV from --seed, converted by the port's
+# converter with the hash encoder at the flagship vocabulary, then trained
+PREP_TRAIN_LINES, PREP_VAL_LINES, PREP_SHARD = 98_304, 8_192, 32_768
+PREP_FEATURES = 117_581
+PREP_LIBSVM_RECORDS = 4_096
+
+
+def write_criteo_tsv(path: str, n: int, seed: int) -> None:
+    """``n`` raw Criteo lines (label, 13 counts, 26 hex tokens): counts
+    heavy-tailed with 30% missing and a few negative, tokens Zipf-skewed
+    over per-field vocabularies of 10 to 100,000 with 20% missing, the
+    label more likely for the first field's hottest tokens, and about one
+    line in a hundred ending in CRLF."""
+    rng = np.random.default_rng(seed)
+    counts = np.minimum(rng.zipf(1.6, (n, 13)) - 1, 10**6)
+    counts = np.where(rng.random((n, 13)) < 0.002, -rng.integers(1, 4, (n, 13)), counts)
+    vocab = np.array([10 ** (1 + j % 5) for j in range(26)])
+    cat = (rng.zipf(1.2, (n, 26)) - 1) % vocab
+    tokens = (cat.astype(np.uint64) * np.uint64(2654435761)
+              + np.arange(26, dtype=np.uint64) * np.uint64(97)) % np.uint64(2**32)
+    labels = rng.random(n) < np.where(cat[:, 0] < 3, 0.45, 0.15)
+    int_missing = rng.random((n, 13)) < 0.3
+    cat_missing = rng.random((n, 26)) < 0.2
+    crlf = rng.random(n) < 0.01
+    with open(path, "w", newline="") as f:
+        for i in range(n):
+            ints = ["" if m else str(c) for c, m in zip(counts[i].tolist(), int_missing[i])]
+            cats = ["" if m else f"{t:08x}" for t, m in zip(tokens[i].tolist(), cat_missing[i])]
+            f.write("\t".join([str(int(labels[i]))] + ints + cats)
+                    + ("\r\n" if crlf[i] else "\n"))
+
+
+def convert_criteo(tsv: str, out: str, prefix: str, native: bool):
+    """``python -m deepfm_tpu_torch.data.criteo`` with the hash encoder,
+    started as its own process; returns it (the caller waits)."""
+    env = {k: v for k, v in os.environ.items() if k != "DEEPFM_NO_NATIVE"}
+    if not native:
+        env["DEEPFM_NO_NATIVE"] = "1"
+    argv = [sys.executable, "-m", "deepfm_tpu_torch.data.criteo", tsv, out, "--encoder",
+            "hash", "--feature_size", str(PREP_FEATURES), "--records_per_shard",
+            str(PREP_SHARD), "--prefix", prefix]
+    return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def start_conversions(jobs) -> list:
+    """Start every ``(tsv, out, prefix, native)`` conversion at once, each
+    reaped by a thread of its own that notes its exit time."""
+    t0 = time.perf_counter()
+    started = []
+    for job in jobs:
+        proc, done = convert_criteo(*job), {}
+
+        def reap(proc=proc, done=done):
+            done["out"], done["err"] = proc.communicate(timeout=600)
+            done["s"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=reap, daemon=True)
+        thread.start()
+        started.append((job[1], proc, thread, done))
+    return started
+
+
+def wait_conversions(started) -> dict:
+    """Wait for :func:`start_conversions`' processes; returns each one's
+    seconds (host clock, start to exit) by output directory."""
+    secs = {}
+    for out, proc, thread, done in started:
+        thread.join(timeout=660)
+        if proc.returncode != 0 or "s" not in done:
+            fail(f"prep: the conversion into {out} failed ({proc.returncode}): "
+                 f"{done.get('err', '')[-3000:]}")
+        info = json.loads(done["out"].strip().splitlines()[-1])
+        if info["encoder"] != "hash" or info["feature_size"] != PREP_FEATURES:
+            fail(f"prep: the conversion into {out} printed {info}")
+        secs[out] = done["s"]
+    return secs
+
+
+def phase_prep(seed: int, workdir: str, card: str) -> dict:
+    """The reference's data preparation through the port: raw Criteo TSV
+    from --seed, converted with the hash encoder by the C++ route and by
+    the Python route (DEEPFM_NO_NATIVE=1), which must write byte-equal
+    shards; a libsvm round trip through both directions of the libsvm
+    converter; then the train task at full width on the converted shards,
+    one epoch: losses finite and falling, B1 and B1' every step, eval AUC
+    in [0, 1]."""
+    from deepfm_tpu_torch.data.criteo import CriteoHashEncoder, convert_criteo_to_tfrecords
+    from deepfm_tpu_torch.data.example_proto import parse_example
+    from deepfm_tpu_torch.data.tfrecord import read_records, write_records
+    from deepfm_tpu_torch.launch import cli
+    from deepfm_tpu_torch.ops import fused_ctr
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    tsv = {"tr": os.path.join(workdir, "train.tsv"), "va": os.path.join(workdir, "val.tsv")}
+    t0 = time.perf_counter()
+    write_criteo_tsv(tsv["tr"], PREP_TRAIN_LINES, seed * 7 + 1)
+    write_criteo_tsv(tsv["va"], PREP_VAL_LINES, seed * 7 + 2)
+    print(f"prep: wrote {PREP_TRAIN_LINES} + {PREP_VAL_LINES} raw Criteo lines in "
+          f"{time.perf_counter() - t0:.2f} s")
+    dirs = {(prefix, route): os.path.join(workdir, f"{route}-{prefix}")
+            for prefix in tsv for route in ("native", "python")}
+    # each route's two conversions at once: the Python route's in the
+    # background while the native route's shards go through the libsvm
+    # round trip and the train task
+    python_route = start_conversions([(tsv[p], dirs[(p, "python")], p, False) for p in tsv])
+    secs = wait_conversions(start_conversions([(tsv[p], dirs[(p, "native")], p, True)
+                                               for p in tsv]))
+    n_train = -(-PREP_TRAIN_LINES // PREP_SHARD)
+    shards = {p: sorted(os.listdir(dirs[(p, "native")])) for p in tsv}
+    if shards != {"tr": [f"tr-{i:05d}.tfrecords" for i in range(n_train)],
+                  "va": ["va-00000.tfrecords"]}:
+        fail(f"prep: the native route wrote {shards}")
+
+    # libsvm: the first records of a converted shard out and back
+    first = os.path.join(workdir, "first.tfrecords")
+    recs = []
+    for r in read_records(os.path.join(dirs[("tr", "native")], "tr-00000.tfrecords")):
+        recs.append(r)
+        if len(recs) == PREP_LIBSVM_RECORDS:
+            break
+    write_records(first, recs)
+    text, back, again = (os.path.join(workdir, n) for n in ("first.libsvm", "back.tfrecords",
+                                                            "again.libsvm"))
+    for argv in (["--reverse", first, text], [text, back], ["--reverse", back, again]):
+        out = subprocess.run([sys.executable, "-m", "deepfm_tpu_torch.data.libsvm", *argv],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0 or json.loads(out.stdout)["records"] != PREP_LIBSVM_RECORDS:
+            fail(f"prep: libsvm {argv}: {out.returncode} {out.stdout} {out.stderr[-2000:]}")
+    with open(text) as a, open(again) as b:
+        if a.read() != b.read():
+            fail("prep: the libsvm text is not a fixed point of the round trip")
+    worst = 0.0
+    for r0, r1 in zip(recs, read_records(back)):
+        e0, e1 = parse_example(r0), parse_example(r1)
+        if not (np.array_equal(e0["ids"], e1["ids"])
+                and np.array_equal(e0["label"], e1["label"])):
+            fail("prep: the libsvm round trip changed a record's ids or label")
+        worst = max(worst, float(np.max(np.abs(e0["values"] - e1["values"])
+                                        / np.maximum(np.abs(e0["values"]), 1e-30))))
+    if worst > 1e-5:  # %g keeps six significant digits
+        fail(f"prep: the libsvm round trip moved a value by {worst} (relative)")
+
+    # the train task on the converted shards, at full width
+    servable = os.path.join(workdir, "servable")
+    argv = (train_argv(dirs[("tr", "native")], dirs[("va", "native")], servable, seed)
+            + ["--feature_size", str(PREP_FEATURES), "--batch_size", "1024",
+               "--device", DEVICE])
+    print("prep: python -m deepfm_tpu_torch " + " ".join(argv))
+    tee = _Tee(sys.stdout)
+    # the main path: counts from 0, then the train task, then read
+    fused_ctr.launches = fused_ctr.backward_launches = 0
+    with contextlib.redirect_stdout(tee):
+        cli.run(argv)
+    launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+    records = [json.loads(x) for x in tee.lines.getvalue().splitlines() if x.startswith("{")]
+    train = [r for r in records if r["kind"] == "train"]
+    done = next(r for r in records if r["kind"] == "train_done")
+    ev = next(r for r in records if r["kind"] == "eval")
+    steps = done["steps"]
+    if steps != PREP_TRAIN_LINES // 1024:
+        fail(f"prep: the train task took {steps} steps over {PREP_TRAIN_LINES} records")
+    if not train or not all(np.isfinite(r["loss"]) and np.isfinite(r["ce"]) for r in train):
+        fail(f"prep: a logged loss is not finite: {train}")
+    if not train[-1]["ce"] < train[0]["ce"]:
+        fail(f"prep: the last window's ce {train[-1]['ce']} is not below the first's "
+             f"{train[0]['ce']}")
+    if DEVICE == "cuda" and (launches < steps or backward_launches < steps):
+        fail(f"prep: {steps} steps launched fused_ctr_forward {launches} and "
+             f"fused_ctr_backward {backward_launches} times")
+    if not (0.0 <= ev["auc"] <= 1.0 and np.isfinite(ev["loss"])):
+        fail(f"prep: eval gave {ev}")
+    secs.update(wait_conversions(python_route))
+    for prefix in tsv:
+        if sorted(os.listdir(dirs[(prefix, "python")])) != shards[prefix]:
+            fail(f"prep: the Python route wrote other shards than {shards[prefix]}")
+        for name in shards[prefix]:
+            with open(os.path.join(dirs[(prefix, "native")], name), "rb") as a, \
+                    open(os.path.join(dirs[(prefix, "python")], name), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"prep: {name} differs between the native and the Python route")
+    cli_s = {route: {p: secs[dirs[(p, route)]] for p in tsv} for route in ("native", "python")}
+    # the encoders' own rates, in this process (no interpreter start): the
+    # native route over the train lines, the Python route over the val lines
+    rates = {}
+    for route, p, n in (("native", "tr", PREP_TRAIN_LINES), ("python", "va", PREP_VAL_LINES)):
+        if route == "python":
+            os.environ["DEEPFM_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            convert_criteo_to_tfrecords(tsv[p], os.path.join(workdir, f"timed-{route}"),
+                                        CriteoHashEncoder(PREP_FEATURES),
+                                        records_per_shard=PREP_SHARD, prefix=p)
+            rates[route] = {"lines": n, "records_per_s": n / (time.perf_counter() - t0)}
+        finally:
+            os.environ.pop("DEEPFM_NO_NATIVE", None)
+    seconds = time.perf_counter() - t_phase
+    print("prep %s" % json.dumps({
+        "card": card, "records": {"train": PREP_TRAIN_LINES, "val": PREP_VAL_LINES},
+        "shards": shards,
+        "routes_byte_equal": True,
+        "convert_records_per_s": rates,
+        "convert_note": "host clock, convert_criteo_to_tfrecords in this process",
+        "cli_seconds": cli_s,
+        "cli_note": "host clock, process start to exit; a route's train and val "
+                    "conversions run at once, the Python route's beside the native "
+                    "route's, the libsvm round trip and the train task",
+        "libsvm_round_trip": {"records": PREP_LIBSVM_RECORDS, "max_rel_value_err": worst},
+        "train": {"steps": steps, "ce_first": train[0]["ce"], "ce_last": train[-1]["ce"],
+                  "eval_auc": ev["auc"], "eval_loss": ev["loss"],
+                  "examples_per_sec": done["examples_per_sec"],
+                  "input_wait_share": done["input_wait_share"],
+                  "note": "host clock, two converter processes beside it"},
+        "launches": {"fused_ctr_forward": launches, "fused_ctr_backward": backward_launches},
+        "seconds": seconds}))
+    return {"launches": launches, "backward_launches": backward_launches}
+
+
 def phase_lazy(seed: int, train_dir: str, val_dir: str, servable: str,
                dense: dict) -> dict:
     """The train task at full width with lazy Adam on the tables: the
@@ -1140,6 +1384,89 @@ SHARD_CONFIGS = (
 )
 
 
+# the configurations that also save through Checkpointer after their steps
+# and restore into a fresh state (each rank its own row range)
+SHARD_CKPT_CONFIGS = ("1x4 dense alltoall fallback", "2x2 lazy alltoall")
+# a rank's device memory rise in a save or a restore, over its shard state
+SHARD_CKPT_SLACK_BYTES = 2**20
+
+
+def checkpoint_round_trip(cfg, state, ctx, directory: str) -> dict:
+    """Save ``state`` through Checkpointer (every rank), restore it into a
+    fresh state (another seed), and hold the restored state bit for bit to
+    the saved one; the rank's row file must hold exactly its rows.  Returns
+    the rise of torch.cuda.max_memory_allocated over the allocation before
+    the save and before the restore (peak statistics reset before each),
+    the rank's shard state (its rows of the tables with their slots or lazy
+    moments) in bytes, the host seconds, and the step's files in bytes."""
+    import torch.distributed as dist
+
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.parallel import spmd
+
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{path}.{k}").items()}
+        return {path: tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree}
+
+    def is_table(path: str) -> bool:
+        return bool({"fm_w", "fm_v"} & set(path.split(".")))
+
+    sh = state.sharding
+    saved = flat(spmd.local_state(state))
+    shard_bytes = sum(t.numel() * t.element_size() for k, t in saved.items()
+                      if is_table(k) and isinstance(t, torch.Tensor))
+    dev = ctx.device
+    cuda = dev.type == "cuda"
+    out = {"shard_state_bytes": shard_bytes, "step": state.step}
+    for what in ("save", "restore"):
+        if what == "restore":
+            dist.barrier()  # every row file renamed into place
+            fresh = spmd.create_dp_train_state(
+                cfg.with_overrides(run={"seed": cfg.run.seed + 1}), ctx)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        t0 = time.perf_counter()
+        if what == "save":
+            ckpt = Checkpointer(directory, ctx=ctx)
+            ckpt.save(state)
+            ckpt.close()
+        else:
+            Checkpointer(directory, ctx=ctx).restore(fresh)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        out[f"{what}_s"] = time.perf_counter() - t0
+        out[f"{what}_rise_bytes"] = (torch.cuda.max_memory_allocated(dev) - base
+                                     if cuda else None)
+    restored = flat(spmd.local_state(fresh))
+    bad = [k for k, v in saved.items() if not (
+        torch.equal(v, restored[k]) if isinstance(v, torch.Tensor) else v == restored[k])]
+    if restored.keys() != saved.keys() or bad or fresh.step != state.step:
+        fail(f"sharded checkpoint: rank {ctx.rank} restored {bad or 'other keys'} "
+             f"(step {fresh.step} vs {state.step}) unlike the saved state")
+    step_dir = os.path.join(directory, str(state.step))
+    out["files_bytes"] = {f: os.path.getsize(os.path.join(step_dir, f))
+                          for f in sorted(os.listdir(step_dir))}
+    if ctx.data_index == 0:
+        rows = flat(torch.load(os.path.join(step_dir, f"rows-{ctx.model_index}.pt"),
+                               weights_only=True))
+        mine = {k: v for k, v in saved.items() if is_table(k)}
+        if ((rows[".offset"], rows[".rows"]) != (sh.offset, sh.rows)
+                or {k for k in rows if is_table(k)} != set(mine)
+                or any(not torch.equal(rows[k], v) or v.shape[0] != sh.rows
+                       for k, v in mine.items())):
+            fail(f"sharded checkpoint: rows-{ctx.model_index}.pt does not hold exactly "
+                 f"rank {ctx.rank}'s rows [{sh.offset}, {sh.offset + sh.rows})")
+    for what in ("save", "restore") if cuda else ():
+        if out[f"{what}_rise_bytes"] > shard_bytes + SHARD_CKPT_SLACK_BYTES:
+            fail(f"sharded checkpoint: rank {ctx.rank}'s device memory rose "
+                 f"{out[f'{what}_rise_bytes']} bytes in the {what}, over its shard "
+                 f"state of {shard_bytes} bytes + {SHARD_CKPT_SLACK_BYTES}")
+    return out
+
+
 def sharded_config(seed: int, dp: int, mp: int, sections: dict) -> dict:
     """The phase's config: the full-width model (bf16 MLP, fused_kernel
     "auto", dropout off), Adam 5e-4, L2 1e-4, SHARD_BATCH records a data
@@ -1263,7 +1590,7 @@ def sharded_rank(rank: int, world: int, store: str, out: str, jobs: list,
         from deepfm_tpu_torch.parallel.mesh import initialize_distributed
 
         results = []
-        for cfg_dict, batches in jobs:
+        for cfg_dict, batches, ckpt_dir in jobs:
             cfg = Config.from_dict(cfg_dict)
             ctx = initialize_distributed(cfg.mesh, DEVICE)
             state = spmd.create_dp_train_state(cfg, ctx)
@@ -1331,7 +1658,9 @@ def sharded_rank(rank: int, world: int, store: str, out: str, jobs: list,
                 def legs():
                     dist.all_reduce(rows, group=group)
             legs()
+            ckpt = checkpoint_round_trip(cfg, state, ctx, ckpt_dir) if ckpt_dir else None
             results.append({
+                "checkpoint": ckpt,
                 "grid": [ctx.data_index, ctx.model_index], "exchange": sh.exchange,
                 "zero": sh.zero, "losses": losses, "launches": launches,
                 "backward_launches": backward, "counters": counters,
@@ -1414,7 +1743,9 @@ def phase_sharded(seed: int, workdir: str, backend: str = "gloo") -> dict:
     jobs, plans = [], []
     for label, dp, mp, sections, skewed, repeat in SHARD_CONFIGS:
         batches = sharded_batches(rng, dp, mp, skewed, repeat)
-        jobs.append((sharded_config(seed, dp, mp, sections), batches))
+        ckpt_dir = (os.path.join(workdir, "ckpt-" + label.replace(" ", "-"))
+                    if label in SHARD_CKPT_CONFIGS else None)
+        jobs.append((sharded_config(seed, dp, mp, sections), batches, ckpt_dir))
         plans.append((label, dp, mp, sections, skewed, batches))
     t0 = time.perf_counter()
     ctx = tmp.start_processes(sharded_rank, args=(SHARD_RANKS, os.path.join(workdir, "store"),
@@ -1475,6 +1806,20 @@ def phase_sharded(seed: int, workdir: str, backend: str = "gloo") -> dict:
                 fail(f"sharded {label}: {name} after {SHARD_STEPS} steps: max abs err "
                      f"{err}, scale {scale}")
             errs[name] = err / scale if scale else err
+        if runs[0]["checkpoint"] is not None:
+            ck = [r["checkpoint"] for r in runs]
+            print("sharded checkpoint %s" % json.dumps({
+                "config": label, "grid": [dp, mp], "step": ck[0]["step"],
+                "restored_bit_equal": True, "row_files_exact": True,
+                "shard_state_bytes_per_rank": [c["shard_state_bytes"] for c in ck],
+                "save_rise_bytes_per_rank": [c["save_rise_bytes"] for c in ck],
+                "restore_rise_bytes_per_rank": [c["restore_rise_bytes"] for c in ck],
+                "bound": f"shard state + {SHARD_CKPT_SLACK_BYTES} bytes",
+                "save_s_per_rank": [c["save_s"] for c in ck],
+                "restore_s_per_rank": [c["restore_s"] for c in ck],
+                "files_bytes": ck[0]["files_bytes"],
+                "memory": "torch.cuda.max_memory_allocated rise per rank process, "
+                          "peak statistics reset before each"}))
         losses = runs[0]["losses"]
         if not all(np.isfinite(losses)):
             fail(f"sharded {label}: losses {losses}")
@@ -2270,9 +2615,7 @@ def phase_funnel(seed: int, workdir: str) -> dict:
     the plain versions of B2 and B1; stage times, latency, device recall."""
     from deepfm_tpu_torch.funnel.index import build_rank_topn_with, build_retrieve_with
     from deepfm_tpu_torch.funnel.recall import recall_at_k
-    from deepfm_tpu_torch.models.two_tower import encode_queries
     from deepfm_tpu_torch.ops import fused_ctr, retrieval
-    from deepfm_tpu_torch.serve.batcher import pick_bucket
     from deepfm_tpu_torch.serve.server import serve_forever
 
     servable = build_funnel(seed, workdir)
@@ -2355,6 +2698,117 @@ def phase_funnel(seed: int, workdir: str) -> dict:
     ctx, payload = scorer.ctx, scorer.payload
     fu = ctx.user_fields
     kernel_retrieve = build_retrieve_with(ctx)
+    stats = check_funnel_answers(scorer, requests, served, FUNNEL_BUCKETS, "funnel")
+    print(f"funnel: served vs plain B2 + plain B1 on the same payload: {json.dumps(stats)}")
+
+    funnel_breakdown(ctx, payload, kernel_retrieve, build_rank_topn_with(ctx), rng)
+
+    # device recall@32 of the int8 path against the exact f32 top-32
+    exact_retrieve = build_retrieve_with(ctx._replace(retrieval_mode="exact"))
+    g = np.random.default_rng(seed + 14)
+    uids = torch.from_numpy(g.integers(0, FUNNEL_USER_VOCAB, (RECALL_USERS, fu))).cuda()
+    uvals = torch.ones((RECALL_USERS, fu), device="cuda")
+    with torch.inference_mode():
+        _, exact_ids = exact_retrieve(payload, uids, uvals)
+        _, int8_ids = kernel_retrieve(payload, uids, uvals)
+    per_user = recall_at_k(int8_ids.cpu().numpy(), exact_ids.cpu().numpy())
+    print(f"funnel: device recall@{ctx.top_k} of int8 vs exact f32 over {RECALL_USERS} "
+          f"users: mean {per_user.mean()}, worst {per_user.min()}")
+    task = funnel_serve_task(servable, rng)
+    return {"retrieval_launches": retr_launches, "forward_launches": fwd_launches,
+            "task_retrieval_launches": task["retrieval_launches"],
+            "task_forward_launches": task["forward_launches"],
+            "recall": float(per_user.mean())}
+
+
+# the serve task over the funnel servable (stamped 32 -> 8), overriding it
+FUNNEL_TASK_TOP_K, FUNNEL_TASK_RETURN_N = 16, 4
+FUNNEL_TASK_BUCKETS = "16,64"
+FUNNEL_TASK_REQUESTS = (1, 8)
+
+
+def funnel_serve_task(servable: str, rng: np.random.Generator) -> dict:
+    """The serve task (train/loop.py run_serve, as `python -m
+    deepfm_tpu_torch --task_type serve --funnel_top_k 16 --funnel_return_n
+    4` runs it) over the funnel servable: every /v1/recommend answer must
+    hold 4 items, agree with the plain B2 + plain B1 pipeline at top 16 ->
+    4, and B2's and B1's launch counts must rise."""
+    from deepfm_tpu_torch.launch.cli import resolve_config
+    from deepfm_tpu_torch.ops import fused_ctr, retrieval
+    from deepfm_tpu_torch.train.loop import run_serve
+
+    cfg, _ = resolve_config(["--task_type", "serve", "--servable_model_dir", servable,
+                             "--funnel_top_k", str(FUNNEL_TASK_TOP_K),
+                             "--funnel_return_n", str(FUNNEL_TASK_RETURN_N),
+                             "--set", "run.serve_port=0",
+                             "--set", f"run.serve_buckets=\"{FUNNEL_TASK_BUCKETS}\""])
+    if cfg.run.funnel_top_k != FUNNEL_TASK_TOP_K:
+        fail(f"funnel task: the flags resolved to {cfg.run}")
+    requests = [funnel_requests(rng, n) for n in FUNNEL_TASK_REQUESTS]
+    # the main path: counts from 0, then the serve task and its requests
+    fused_ctr.launches = retrieval.launches = 0
+    ready, errors = threading.Event(), []
+
+    def run():
+        try:
+            run_serve(cfg, device="cuda", ready=ready)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+            ready.set()
+
+    thread = threading.Thread(target=run, name="chip-smoke-funnel-task", daemon=True)
+    thread.start()
+    if not ready.wait(timeout=600) or errors:
+        fail(f"funnel task: the serve task did not come up: {errors}")
+    served = []
+    try:
+        for uids, uvals, fids, fvals in requests:
+            body = json.dumps({"instances": [
+                {"user_ids": a.tolist(), "user_vals": b.tolist(),
+                 "feat_ids": c.tolist(), "feat_vals": d.tolist()}
+                for a, b, c, d in zip(uids, uvals, fids, fvals)]}).encode()
+            code, doc = post(f"http://127.0.0.1:{ready.port}/v1/recommend", body)
+            if code != 200 or any(len(x) != FUNNEL_TASK_RETURN_N for x in doc["items"]):
+                fail(f"funnel task: /v1/recommend with {len(uids)} users answered "
+                     f"{code}: {doc}")
+            served.append(doc)
+    finally:
+        ready.server.shutdown()
+        thread.join(timeout=60)
+    fwd, retr = fused_ctr.launches, retrieval.launches
+    if thread.is_alive():
+        fail("funnel task: the server thread did not stop")
+    scorer = ready.scorer
+    if (scorer.ctx.top_k, scorer.ctx.return_n) != (FUNNEL_TASK_TOP_K, FUNNEL_TASK_RETURN_N):
+        fail(f"funnel task: served top {scorer.ctx.top_k} -> {scorer.ctx.return_n}")
+    if fwd <= 0 or retr <= 0:
+        fail(f"funnel task: the serve task launched retrieval_topk {retr} and "
+             f"fused_ctr_forward {fwd} times")
+    buckets = tuple(int(b) for b in FUNNEL_TASK_BUCKETS.split(","))
+    stats = check_funnel_answers(scorer, requests, served, buckets, "funnel task")
+    print("funnel task %s" % json.dumps({
+        "argv": "--task_type serve --funnel_top_k 16 --funnel_return_n 4",
+        "top_k": scorer.ctx.top_k, "return_n": scorer.ctx.return_n,
+        "users": list(FUNNEL_TASK_REQUESTS),
+        "launches": {"retrieval_topk": retr, "fused_ctr_forward": fwd},
+        "vs_plain": stats}))
+    return {"retrieval_launches": retr, "forward_launches": fwd}
+
+
+def check_funnel_answers(scorer, requests, served, buckets, what: str) -> dict:
+    """Hold a funnel server's /v1/recommend answers (``served``, one per
+    request of ``requests``) to the same payload run through the plain
+    versions of B2 and B1 at the scorer's top_k -> return_n: every user's
+    items, probabilities and retrieval scores, near-ties counted.  Returns
+    the agreement counts."""
+    from deepfm_tpu_torch.funnel.index import build_rank_topn_with, build_retrieve_with
+    from deepfm_tpu_torch.models.two_tower import encode_queries
+    from deepfm_tpu_torch.ops import retrieval
+    from deepfm_tpu_torch.serve.batcher import pick_bucket
+
+    ctx, payload = scorer.ctx, scorer.payload
+    fu = ctx.user_fields
+    kernel_retrieve = build_retrieve_with(ctx)
     rank = build_rank_topn_with(ctx)
     # every candidate ranked, so a served item is found whatever its place
     rank_all = build_rank_topn_with(ctx._replace(return_n=ctx.top_k))
@@ -2364,7 +2818,7 @@ def phase_funnel(seed: int, workdir: str) -> dict:
              "shortlist_boundary": 0, "max_rank_err": 0.0, "max_retr_err": 0.0}
     for (uids, uvals, fids, fvals), doc in zip(requests, served):
         n = len(uids)
-        b = pick_bucket(FUNNEL_BUCKETS, n)
+        b = pick_bucket(buckets, n)
         ids = np.zeros((b, fu + 39), np.int64)
         vals = np.zeros((b, fu + 39), np.float32)
         ids[:n] = np.concatenate([uids, fids], axis=1)
@@ -2384,21 +2838,21 @@ def phase_funnel(seed: int, workdir: str) -> dict:
                 ref_k = rank_all(payload, tids[:, fu:], tvals[:, fu:], kcand, ks).cpu().numpy()
         torch.cuda.synchronize()
         if not agree["ok"]:
-            fail(f"funnel: the served shortlist disagrees with plain B2 for {n} users: {agree}")
+            fail(f"{what}: the served shortlist disagrees with plain B2 for {n} users: {agree}")
         stats["shortlist_swapped"] += agree["swapped"]
         stats["shortlist_boundary"] += agree["boundary"]
         cand_differs = (kcand != cand).any(dim=1).cpu().numpy()
         items = np.asarray(doc["items"])
         if items.shape != (n, ctx.return_n) or not np.isfinite(doc["scores"]).all():
-            fail(f"funnel: {n} users answered items of shape {items.shape}")
+            fail(f"{what}: {n} users answered items of shape {items.shape}")
         for q in range(n):
             stats["rows"] += 1
             if cand_differs[q] and agree["traded"][q] == 0:
-                fail(f"funnel: user {q} of {n}: the kernel's candidates differ from plain "
+                fail(f"{what}: user {q} of {n}: the kernel's candidates differ from plain "
                      f"B2's with no near-tie in the user's own shortlist")
             r_err, t_err = check_served_user(
                 items[q], np.asarray(doc["scores"][q]), np.asarray(doc["retrieval_scores"][q]),
-                ref_k[q], ctx.return_n, f"funnel: user {q} of {n}")
+                ref_k[q], ctx.return_n, f"{what}: user {q} of {n}")
             stats["max_rank_err"] = max(stats["max_rank_err"], r_err)
             stats["max_retr_err"] = max(stats["max_retr_err"], t_err)
             if np.array_equal(items[q], ref[q, 0].astype(np.int64)):
@@ -2407,23 +2861,7 @@ def phase_funnel(seed: int, workdir: str) -> dict:
                 # a near-tie in the user's own shortlist or among its ranked
                 # probabilities (both held to their tolerances above)
                 stats["near_tie_rows"] += 1
-    print(f"funnel: served vs plain B2 + plain B1 on the same payload: {json.dumps(stats)}")
-
-    funnel_breakdown(ctx, payload, kernel_retrieve, build_rank_topn_with(ctx), rng)
-
-    # device recall@32 of the int8 path against the exact f32 top-32
-    exact_retrieve = build_retrieve_with(ctx._replace(retrieval_mode="exact"))
-    g = np.random.default_rng(seed + 14)
-    uids = torch.from_numpy(g.integers(0, FUNNEL_USER_VOCAB, (RECALL_USERS, fu))).cuda()
-    uvals = torch.ones((RECALL_USERS, fu), device="cuda")
-    with torch.inference_mode():
-        _, exact_ids = exact_retrieve(payload, uids, uvals)
-        _, int8_ids = kernel_retrieve(payload, uids, uvals)
-    per_user = recall_at_k(int8_ids.cpu().numpy(), exact_ids.cpu().numpy())
-    print(f"funnel: device recall@{ctx.top_k} of int8 vs exact f32 over {RECALL_USERS} "
-          f"users: mean {per_user.mean()}, worst {per_user.min()}")
-    return {"retrieval_launches": retr_launches, "forward_launches": fwd_launches,
-            "recall": float(per_user.mean())}
+    return stats
 
 
 @contextlib.contextmanager
@@ -3169,7 +3607,8 @@ def main(argv: list[str] | None = None) -> int:
     built = _build.build()
     print(f"build: {sorted(_build.sources())} in {time.perf_counter() - t0:.2f} s")
     native_s = native.build()
-    print(f"build: the native record reader ({native.SOURCE}, g++) in {native_s:.2f} s")
+    print(f"build: the native record reader and Criteo encoder ({native.SOURCE}, "
+          f"{native.ENCODER_SOURCE}, g++) in {native_s:.2f} s")
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.2f} s\n{info['log'].strip()}", file=sys.stderr)
 
@@ -3194,6 +3633,7 @@ def main(argv: list[str] | None = None) -> int:
                                train_dir, os.path.join(workdir, "readers"))
         online = phase_online(args.seed, os.path.join(workdir, "online"), card)
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
+        prep = phase_prep(args.seed, os.path.join(workdir, "prep"), card)
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
     bwd = backward["per_batch"][TRAIN_BATCHES[0]]
@@ -3206,7 +3646,8 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
                      + ddp["launches"] + sharded["launches"] + life["launches"]
-                     + online["launches"] + funnel["forward_launches"]),
+                     + online["launches"] + funnel["forward_launches"]
+                     + funnel["task_forward_launches"] + prep["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
                            sharded["max_abs_err"]),
         "ms": fwd["ms"],
@@ -3221,7 +3662,8 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:317",
         "launches": (train["backward_launches"] + lazy["backward_launches"]
                      + ddp["backward_launches"] + sharded["backward_launches"]
-                     + life["backward_launches"] + online["backward_launches"]),
+                     + life["backward_launches"] + online["backward_launches"]
+                     + prep["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"],
                            sharded["backward_max_abs_err"]),
         "ms": bwd["ms"],
@@ -3234,7 +3676,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/retrieval_topk.cu",
         "replaces": "deepfm_tpu/ops/pallas_retrieval.py:173",
-        "launches": funnel["retrieval_launches"],
+        "launches": funnel["retrieval_launches"] + funnel["task_retrieval_launches"],
         "max_abs_err": b2["max_abs_err"],
         "ms": b2_row["ms"],
         "plain_ms": b2_row["plain_ms"],

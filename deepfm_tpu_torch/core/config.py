@@ -20,7 +20,8 @@ validation.
   ``config.json`` schema (one dict per section), with JAX's cross-section
   checks: ``feedback-train`` names the join's output, the exchange
   capacity fits a record's ids, ``zero_sharding='on'`` at one data shard
-  warns; and the port's own: ``fused_kernel='on'`` with row-sharded
+  warns, the funnel's top-k fits an index shard and a serve bucket; and
+  the port's own: ``fused_kernel='on'`` with row-sharded
   tables raises, as JAX's forward does.
 
 Reading a JAX config (``Config.from_dict``, ``ModelConfig.from_dict`` and
@@ -128,17 +129,10 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         # the shard-group pool's members and router (ROADMAP A14; the
         # serve task refuses run.serve_groups > 0)
         "serve_group_data_parallel": (1, None),
-        "serve_group_model_parallel": (0, None),
         "serve_router_port": (8500, None),
         "serve_retry_limit": (2, None),
         "serve_health_interval_secs": (1.0, None),
         "serve_eject_after": (2, None),
-        "funnel_top_k": (0, None),
-        "funnel_return_n": (0, None),
-        "funnel_retrieval": ("exact", None),
-        "funnel_oversample": (4, None),
-        "funnel_min_recall": (0.95, None),
-        "funnel_pallas": ("auto", None),
     },
     "elastic": {
         "enabled": (False, "not ported yet (ROADMAP A15, elastic training)"),
@@ -466,8 +460,9 @@ class RunConfig:
     rerun after a crash up to ``max_restarts`` times, the waits starting at
     ``restart_backoff_secs``.  ``steps_per_loop``, ``hosts``,
     ``current_host``, ``profile_dir`` and the pool's serving fields load
-    and are not read (``JAX_ONLY_FIELDS``).  The ``serve_*`` fields here
-    configure the serve task (train/loop.py ``run_serve``)."""
+    and are not read (``JAX_ONLY_FIELDS``).  The ``serve_*`` and
+    ``funnel_*`` fields here configure the serve task (train/loop.py
+    ``run_serve``), validated as JAX validates them (``Config``)."""
 
     task_type: str = "train"
     model_dir: str = "./model_dir"
@@ -494,6 +489,22 @@ class RunConfig:
     serve_reload_url: str = ""
     serve_reload_interval_secs: float = 2.0
     serve_groups: int = 0
+    # the shard-group pool's table row split (0: auto); read here only by
+    # the funnel's per-shard vocabulary check below
+    serve_group_model_parallel: int = 0
+    # the serve task over a funnel servable (funnel/serve.py): candidates
+    # retrieved and ranked items returned per user, the retrieval tier
+    # ("exact" | "int8" | "auto") and its shortlist multiplier.  At their
+    # defaults (0, 0, "exact", 4) they defer to the servable's funnel.json.
+    # funnel_min_recall gates an int8 publish (funnel/publish.py);
+    # funnel_pallas ("on" | "off" | "auto") picks JAX's retrieval kernel and
+    # is validated only: the port always runs its own (B2 is exact)
+    funnel_top_k: int = 0
+    funnel_return_n: int = 0
+    funnel_retrieval: str = "exact"
+    funnel_oversample: int = 4
+    funnel_min_recall: float = 0.95
+    funnel_pallas: str = "auto"
     # the online-train and feedback-train tasks (online/trainer.py): a
     # commit and a publish every online_publish_every_steps steps (0: a
     # publish only at the end), a stop after online_max_batches batches (0:
@@ -567,6 +578,64 @@ class RegionsConfig:
                              f"{self.publish_keep_window}")
 
 
+def _check_funnel(r: RunConfig, m: ModelConfig, mp: int) -> None:
+    """JAX's funnel geometry checks (``deepfm_tpu/core/config.py``
+    ``Config.__post_init__``, section 4): the retrieval and kernel literals,
+    the shortlist multiplier and recall gate, and with ``funnel_top_k`` set:
+    return_n <= top_k, top_k (x oversample under int8) within one index
+    shard's items, top_k within the largest serve bucket, and a warning
+    where top_k pads to a bucket of twice its size or more."""
+    modes = ("exact", "int8", "auto")
+    if r.funnel_retrieval not in modes:
+        raise ValueError(f"run.funnel_retrieval={r.funnel_retrieval!r} is not one "
+                         f"of {modes}")
+    if r.funnel_pallas not in ("on", "off", "auto"):
+        raise ValueError(f"run.funnel_pallas={r.funnel_pallas!r} must be 'on', "
+                         f"'off' or 'auto'")
+    if r.funnel_oversample < 1:
+        raise ValueError(f"run.funnel_oversample={r.funnel_oversample} must be >= 1 "
+                         f"(1 = no oversampling, shortlist width == top_k)")
+    if not 0.0 < r.funnel_min_recall <= 1.0:
+        raise ValueError(f"run.funnel_min_recall={r.funnel_min_recall} must lie in "
+                         f"(0, 1] - it gates int8 publishes")
+    k = r.funnel_top_k
+    if k <= 0:
+        return
+    if r.funnel_return_n > k:
+        raise ValueError(f"funnel_return_n={r.funnel_return_n} exceeds funnel_top_k={k} "
+                         f"- cannot return more ranked items than candidates retrieved")
+    item_vocab = m.item_vocab_size or m.feature_size
+    mp_serve = r.serve_group_model_parallel if r.serve_groups > 0 else mp
+    if mp_serve > 0:
+        per_shard = -(-item_vocab // mp_serve)
+        if k > per_shard:
+            raise ValueError(
+                f"funnel_top_k={k} exceeds the (padded) per-shard item vocab "
+                f"{per_shard} (item vocab {item_vocab} row-sharded over "
+                f"model_parallel={mp_serve}) - one shard's top-k cannot select more "
+                f"rows than it holds")
+        if r.funnel_retrieval == "int8" and k * r.funnel_oversample > per_shard:
+            raise ValueError(
+                f"funnel_top_k*funnel_oversample = {k}*{r.funnel_oversample} = "
+                f"{k * r.funnel_oversample} exceeds the (padded) per-shard item vocab "
+                f"{per_shard} - the int8 shortlist cannot select more rows than a "
+                f"shard holds; lower funnel_oversample or funnel_top_k")
+    buckets = _parse_int_list(r.serve_buckets)
+    if not buckets:
+        return
+    if k > max(buckets):
+        raise ValueError(
+            f"funnel_top_k={k} exceeds the largest serve bucket {max(buckets)}: one "
+            f"user's K ranking rows cannot fit any dispatch (run.serve_buckets="
+            f"{r.serve_buckets!r}) - raise the bucket set or lower funnel_top_k")
+    fit = min(b for b in buckets if b >= k)
+    if fit >= 2 * k:
+        warnings.warn(
+            f"funnel_top_k={k} pads to serve bucket {fit} (>= 2x): every user's "
+            f"candidate set fills under half a rank dispatch - add a ~{k}-row bucket "
+            f"to run.serve_buckets or raise funnel_top_k", stacklevel=3)
+
+
 @dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -610,6 +679,7 @@ class Config:
                 "no-op: the weight update shards across the data axis, and "
                 "there is only one data shard (train/optimizer.py "
                 "ZeroOptimizer)", stacklevel=2)
+        _check_funnel(self.run, m, mp)
         # feedback-train is the online trainer on the join's output
         if (self.run.task_type in ("feedback-train", "feedback_train")
                 and not self.flywheel.join_output_url):

@@ -167,3 +167,10 @@ class TFRecordWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def write_records(path: str | os.PathLike, records: Iterable[bytes]) -> None:
+    """Write ``records`` as one TFRecord file at ``path``."""
+    with TFRecordWriter(path) as w:
+        for r in records:
+            w.write(r)

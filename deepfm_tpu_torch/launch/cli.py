@@ -22,8 +22,10 @@ on ``flywheel.join_output_url``, the output of ``python -m
 deepfm_tpu_torch.flywheel.join``.  ``serve`` runs
 ``serve/server.py serve_forever`` over ``--servable_model_dir`` with the
 ``run.serve_*`` fields (``--set run.serve_port=8501``,
-``run.serve_reload_url=PUB``, ...); ``run.serve_workers > 1`` and
-``run.serve_groups > 0`` raise (ROADMAP A14).
+``run.serve_reload_url=PUB``, ...) and, over a funnel servable, the
+``--funnel_*`` flags (``--funnel_top_k 16 --funnel_return_n 4``: a
+default defers to the servable's funnel.json); ``run.serve_workers > 1``
+and ``run.serve_groups > 0`` raise (ROADMAP A14).
 
 ``train`` checkpoints into ``--model_dir`` and resumes from it: run the
 same command again after a stop and it goes on from the latest
@@ -81,6 +83,12 @@ _FLAG_MAP = {
     "log_steps": ("run", "log_steps"),
     "clear_existing_model": ("run", "clear_existing_model"),
     "checkpoint_every_steps": ("run", "checkpoint_every_steps"),
+    "funnel_top_k": ("run", "funnel_top_k"),
+    "funnel_return_n": ("run", "funnel_return_n"),
+    "funnel_retrieval": ("run", "funnel_retrieval"),
+    "funnel_oversample": ("run", "funnel_oversample"),
+    "funnel_min_recall": ("run", "funnel_min_recall"),
+    "funnel_pallas": ("run", "funnel_pallas"),
 }
 
 
@@ -134,6 +142,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="delete --model_dir before training")
     p.add_argument("--checkpoint_every_steps", type=int,
                    help="a checkpoint every N steps (0: only at the end)")
+    p.add_argument("--funnel_top_k", type=int,
+                   help="task_type=serve over a funnel servable: candidates retrieved "
+                        "per user before ranking (0 = the servable's funnel.json default)")
+    p.add_argument("--funnel_return_n", type=int,
+                   help="funnel serving: ranked items returned per user "
+                        "(0 = the servable's funnel.json default)")
+    p.add_argument("--funnel_retrieval", choices=("exact", "int8", "auto"),
+                   help="funnel retrieval tier: exact f32 scoring, int8 scoring with an "
+                        "exact f32 rescore of the oversampled shortlist, or auto (int8 at "
+                        "a large index)")
+    p.add_argument("--funnel_oversample", type=int,
+                   help="int8 shortlist width multiplier: K*oversample candidates "
+                        "survive the quantized pass into the exact rescore")
+    p.add_argument("--funnel_min_recall", type=float,
+                   help="recall gate of an int8 funnel publish, in (0, 1]")
+    p.add_argument("--funnel_pallas", choices=("on", "off", "auto"),
+                   help="JAX's retrieval-kernel switch: validated; the port always "
+                        "runs its own retrieval kernel")
     p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
                    help="override any config field, e.g. --set model.batch_norm=true")
     p.add_argument("--device", default="cuda",

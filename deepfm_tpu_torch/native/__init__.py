@@ -1,4 +1,5 @@
-"""Native (C++) record reader: counterpart of ``deepfm_tpu/native``.
+"""Native (C++) record reader and Criteo hash encoder: counterpart of
+``deepfm_tpu/native``.
 
 ``src/tfrecord_reader.cc`` is the JAX package's reader, copied as it is:
 TFRecord framing, masked CRC32C (SSE4.2 when the CPU has it), round-robin
@@ -8,8 +9,14 @@ behind a plain C interface.  It is host code: the train loop's reader
 thread runs it, and ``ctypes`` releases the interpreter lock for each
 call, so decoding does not hold the step up.
 
+``src/criteo_encoder.cc``, also the JAX package's file as it is, encodes
+a raw Criteo TSV into TFRecord shards with the hash encoder
+(``data/criteo.py``), shard for shard byte-equal to the Python encoder:
+:func:`criteo_hash_encode_file`, and its hash, :func:`blake2b64`.  It
+frames records with the reader's CRC, so both sources make one library.
+
 The library is built on first use with the system ``g++`` into
-``_build/`` (git-ignored), again whenever the source is newer.  Each
+``_build/`` (git-ignored), again whenever a source is newer.  Each
 process compiles to a file of its own and publishes it with
 ``os.replace``, so processes that build at once do not clash.  There is
 no quiet fallback: a failed build raises :class:`NativeBuildError` with
@@ -36,6 +43,7 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "src", "tfrecord_reader.cc")
+ENCODER_SOURCE = os.path.join(_HERE, "src", "criteo_encoder.cc")
 LIB = os.path.join(_HERE, "_build", "libdeepfm_tfrecord.so")
 NO_NATIVE_ENV = "DEEPFM_NO_NATIVE"
 
@@ -58,26 +66,40 @@ def enabled() -> bool:
     return not os.environ.get(NO_NATIVE_ENV)
 
 
-def build(source: str = SOURCE, lib: str = LIB) -> float:
-    """Compile ``source`` into the shared library ``lib`` when it is missing
-    or older than the source; returns the seconds spent (0.0 when it was
-    up to date).  Raises :class:`NativeBuildError` on a failed build."""
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(source):
+def _needs_build(sources: Sequence[str], lib: str) -> bool:
+    """Whether ``lib`` is missing or older than any of ``sources``."""
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return any(built < os.path.getmtime(src) for src in sources)
+
+
+def build(sources: str | Sequence[str] | None = None, lib: str | None = None) -> float:
+    """Compile ``sources`` (default: the reader and the encoder) into the
+    shared library ``lib`` (default :data:`LIB`) when it is missing or
+    older than one of them; returns the seconds spent (0.0 when it was up
+    to date).  Raises :class:`NativeBuildError` on a failed build."""
+    if sources is None:
+        sources = [SOURCE, ENCODER_SOURCE]
+    elif isinstance(sources, str):
+        sources = [sources]
+    lib = LIB if lib is None else lib
+    if not _needs_build(sources, lib):
         return 0.0
     t0 = time.perf_counter()
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions",
-           "-Wall", source, "-o", tmp]
+           "-Wall", *sources, "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
-        raise NativeBuildError(f"native reader build could not start {cmd[0]}: {e}") from e
+        raise NativeBuildError(f"native build could not start {cmd[0]}: {e}") from e
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise NativeBuildError(
-            f"native reader build failed ({' '.join(cmd)}):\n{proc.stderr}")
+            f"native build failed ({' '.join(cmd)}):\n{proc.stderr}")
     os.replace(tmp, lib)
     return time.perf_counter() - t0
 
@@ -88,7 +110,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        build(SOURCE, LIB)
+        build()
         lib = ctypes.CDLL(LIB)
         lib.dfm_reader_open.restype = ctypes.c_void_p
         lib.dfm_reader_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int64,
@@ -109,6 +131,12 @@ def _load() -> ctypes.CDLL:
         lib.dfm_masked_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
         lib.dfm_have_hw_crc.restype = ctypes.c_int
         lib.dfm_have_hw_crc.argtypes = []
+        lib.dfm_blake2b64.restype = ctypes.c_uint64
+        lib.dfm_blake2b64.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+        lib.dfm_criteo_hash_encode.restype = ctypes.c_int64
+        lib.dfm_criteo_hash_encode.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
         # fills the CRC tables here, under the lock, before any reader
         # thread opens a handle
         lib.dfm_have_hw_crc()
@@ -122,6 +150,35 @@ def have_hw_crc() -> bool:
 
 def masked_crc32c(data: bytes) -> int:
     return _load().dfm_masked_crc32c(data, len(data))
+
+
+def blake2b64(data: bytes) -> int:
+    """The 8-byte unkeyed BLAKE2b of ``data`` as a little-endian int, the
+    Criteo hash: ``int.from_bytes(hashlib.blake2b(data,
+    digest_size=8).digest(), "little")``."""
+    return _load().dfm_blake2b64(data, len(data))
+
+
+def criteo_hash_encode_file(input_path: str | os.PathLike, output_dir: str | os.PathLike,
+                            *, feature_size: int, records_per_shard: int = 1_000_000,
+                            prefix: str = "tr") -> int:
+    """``data.criteo.convert_criteo_to_tfrecords`` with a
+    ``CriteoHashEncoder``, in C++: the same shards byte for byte
+    (``{prefix}-NNNNN.tfrecords`` in ``output_dir``), no interpreter per
+    line.  Returns the records written.  Raises :class:`NativeReaderError`
+    when a file cannot be opened or written, and ValueError when a line
+    was malformed (after the well-formed lines were written: the Python
+    encoder raises at the first)."""
+    os.makedirs(output_dir, exist_ok=True)
+    err = ctypes.create_string_buffer(256)
+    n = _load().dfm_criteo_hash_encode(
+        os.fsencode(os.fspath(input_path)), os.fsencode(os.fspath(output_dir)),
+        prefix.encode(), feature_size, records_per_shard, err, len(err))
+    if n < 0:
+        raise NativeReaderError(err.value.decode(errors="replace"))
+    if err.value:
+        raise ValueError(err.value.decode(errors="replace"))
+    return int(n)
 
 
 def _pack_paths(paths: Sequence[str | os.PathLike]) -> bytes:

@@ -67,10 +67,14 @@ all-reduce; the reader thread keeps decoding meanwhile.  At world size 1
 they are not read.  :func:`agree` takes the first two once before the
 first step.
 
-:func:`full_state` and :func:`load_full_state` give the train state in
-its one-card layout (tables whole, padded as trained; moments at their
-parameters' shapes) and take it back on the same grid: the checkpoint's
-format (checkpoint/ckpt.py).
+:func:`local_state` gives the train state as this rank holds it (its
+rows of the tables; ZeRO's moments at their parameters' shapes), and
+:func:`split_tables` cuts it into the tables' rows and the replicated
+rest: the checkpoint's layout on a grid (checkpoint/ckpt.py), which
+:func:`join_tables` and :func:`load_local_state` take back.
+:func:`full_state` and :func:`load_full_state` give and take the one-card
+layout (tables whole, padded as trained): export, conversion, and the
+checkpoints of the grid's first release.
 """
 
 from __future__ import annotations
@@ -445,7 +449,7 @@ def lazy_train_step(state: TrainState, batch: dict, ctx: DistContext, *,
     return metrics
 
 
-# -- the one-card layout (checkpoints, export, conversion) --------------------
+# -- the one-card layout and the rank's rows (checkpoints, export) ------------
 
 def _gather_rows(t: torch.Tensor, sh: Sharding) -> torch.Tensor:
     out = t.new_empty((sh.mp * t.shape[0],) + tuple(t.shape[1:]))
@@ -453,68 +457,112 @@ def _gather_rows(t: torch.Tensor, sh: Sharding) -> torch.Tensor:
     return out
 
 
-def full_state(state: TrainState) -> dict:
-    """``{"model", "optimizer", "lazy"}`` in the one-card layout: the
-    model's ``state_dict`` with whole (padded) tables, the optimizer's
-    ``{"count", "slots"}`` with every slot at its parameter's shape, the
-    lazy moments whole (or None).  A collective on a grid: every rank
-    calls it and every rank gets it."""
+def table_keys(state: TrainState) -> tuple[str, ...]:
+    """The row-sharded leaves of ``state`` (none at ``model_parallel`` 1)."""
     sh = state.sharding
-    model = state.model.state_dict()
+    return sh.sharded_keys(dict(state.model.named_parameters())) if sh is not None else ()
+
+
+def map_tables(tree: dict, keys, fn) -> dict:
+    """``tree`` (the ``{"model", "optimizer", "lazy"}`` layout) with ``fn``
+    applied to every leaf of a table in ``keys``: the weights, their
+    optimizer slots and their lazy moments."""
+    def leaves(d: dict) -> dict:
+        return {n: fn(t) if n in keys else t for n, t in d.items()}
+
+    slots = tree["optimizer"]["slots"]
+    return {"model": leaves(tree["model"]),
+            "optimizer": {"count": tree["optimizer"]["count"], "slots": {
+                n: {s: fn(t) for s, t in d.items()} if n in keys else d
+                for n, d in slots.items()}},
+            "lazy": None if tree["lazy"] is None else {
+                m: leaves(d) for m, d in tree["lazy"].items()}}
+
+
+def split_tables(tree: dict, keys) -> tuple[dict, dict]:
+    """``(rest, tables)``: ``tree``'s layout without the leaves of the
+    tables in ``keys``, and those leaves alone in the same layout."""
+    def part(d: dict, mine: bool) -> dict:
+        return {n: t for n, t in d.items() if (n in keys) == mine}
+
+    def layout(mine: bool) -> dict:
+        return {"model": part(tree["model"], mine),
+                "optimizer": {"count": tree["optimizer"]["count"],
+                              "slots": part(tree["optimizer"]["slots"], mine)},
+                "lazy": None if tree["lazy"] is None else {
+                    m: part(d, mine) for m, d in tree["lazy"].items()}}
+
+    return layout(False), layout(True)
+
+
+def join_tables(rest: dict, tables: dict) -> dict:
+    """The inverse of :func:`split_tables`."""
+    return {"model": {**rest["model"], **tables["model"]},
+            "optimizer": {"count": rest["optimizer"]["count"],
+                          "slots": {**rest["optimizer"]["slots"],
+                                    **tables["optimizer"]["slots"]}},
+            "lazy": None if rest["lazy"] is None else {
+                m: {**d, **tables["lazy"][m]} for m, d in rest["lazy"].items()}}
+
+
+def local_state(state: TrainState) -> dict:
+    """``{"model", "optimizer", "lazy"}`` of this rank: the model's
+    ``state_dict`` (a row-sharded table as this rank's rows), the
+    optimizer's ``{"count", "slots"}`` with every slot at its parameter's
+    shape on this rank (the ZeRO windows gathered over the data group: a
+    collective there), the lazy moments (or None).  Live tensors, not
+    copies, except the gathered windows."""
+    sh = state.sharding
     lazy = None if state.lazy is None else state.lazy.state_dict()
-    if sh is None or not sh.zero:
-        opt = state.optimizer.state_dict()
-    if sh is None:
-        return {"model": model, "optimizer": opt, "lazy": lazy}
-    params = dict(state.model.named_parameters())
-    if sh.zero:
+    if sh is not None and sh.zero:
+        params = dict(state.model.named_parameters())
         opt_params = {n: p for n, p in params.items() if n in state.optimizer.plans}
         opt = {"count": state.optimizer.count,
                "slots": state.optimizer.full_slots(opt_params)}
-    keys = sh.sharded_keys(params)
-    if keys:
-        model = {n: _gather_rows(t, sh) if n in keys else t for n, t in model.items()}
-        opt = {"count": opt["count"], "slots": {
-            n: {s: _gather_rows(t, sh) for s, t in slots.items()} if n in keys else slots
-            for n, slots in opt["slots"].items()}}
-        if lazy is not None:
-            lazy = {m: {n: _gather_rows(t, sh) for n, t in d.items()}
-                    for m, d in lazy.items()}
-    return {"model": model, "optimizer": opt, "lazy": lazy}
+    else:
+        opt = state.optimizer.state_dict()
+    return {"model": state.model.state_dict(), "optimizer": opt, "lazy": lazy}
 
 
-def _rows_of(t, sh: Sharding, sharded: bool) -> torch.Tensor:
-    t = torch.as_tensor(t)
-    return t[sh.offset:sh.offset + sh.rows] if sharded else t
+def full_state(state: TrainState) -> dict:
+    """:func:`local_state` in the one-card layout: the row-sharded tables,
+    their slots and lazy moments gathered whole (padded as trained) over
+    the model group.  A collective on a grid: every rank calls it and
+    every rank gets it (export and conversion; a checkpoint writes each
+    rank's rows instead, checkpoint/ckpt.py)."""
+    local = local_state(state)
+    keys = table_keys(state)
+    if not keys:
+        return local
+    return map_tables(local, keys, lambda t: _gather_rows(t, state.sharding))
 
 
-def load_full_state(state: TrainState, full: dict) -> None:
-    """Load :func:`full_state`'s layout into ``state`` in place (each rank
-    takes its rows and windows).  Raises naming the first mismatch."""
+def load_local_state(state: TrainState, local: dict) -> None:
+    """Load :func:`local_state`'s layout into ``state`` in place (the ZeRO
+    optimizer takes its windows).  Raises naming the first mismatch."""
     sh = state.sharding
-    if sh is None:
-        state.model.load_state_dict(full["model"])
-        state.optimizer.load_state_dict(full["optimizer"])
-        if state.lazy is not None:
-            state.lazy.load_state_dict(full["lazy"])
-        return
-    keys = sh.sharded_keys(dict(state.model.named_parameters()))
-    state.model.load_state_dict({n: _rows_of(t, sh, n in keys)
-                                 for n, t in full["model"].items()})
-    slots = {n: {s: _rows_of(t, sh, n in keys) for s, t in d.items()}
-             for n, d in full["optimizer"]["slots"].items()}
-    if sh.zero:
+    state.model.load_state_dict(local["model"])
+    if sh is not None and sh.zero:
+        slots = local["optimizer"]["slots"]
         if slots.keys() != state.optimizer.slots.keys():
             raise ValueError(f"optimizer state holds {sorted(slots)}, expected "
                              f"{sorted(state.optimizer.slots)}")
         state.optimizer.load_full_slots(slots)
-        state.optimizer.count = int(full["optimizer"]["count"])
+        state.optimizer.count = int(local["optimizer"]["count"])
     else:
-        state.optimizer.load_state_dict({"count": full["optimizer"]["count"],
-                                         "slots": slots})
+        state.optimizer.load_state_dict(local["optimizer"])
     if state.lazy is not None:
-        state.lazy.load_state_dict({m: {n: _rows_of(t, sh, n in keys) for n, t in d.items()}
-                                    for m, d in full["lazy"].items()})
+        state.lazy.load_state_dict(local["lazy"])
+
+
+def load_full_state(state: TrainState, full: dict) -> None:
+    """Load :func:`full_state`'s layout into ``state`` in place: each rank
+    takes its rows of the whole tables, then :func:`load_local_state`."""
+    sh, keys = state.sharding, table_keys(state)
+    if keys:
+        full = map_tables(full, keys,
+                          lambda t: torch.as_tensor(t)[sh.offset:sh.offset + sh.rows])
+    load_local_state(state, full)
 
 
 def servable_state_dict(state: TrainState, model_cfg) -> dict:

@@ -319,22 +319,33 @@ def run_export(cfg: Config, *, device=None, log: MetricLogger | None = None) -> 
         shutdown(ctx)
 
 
-def run_serve(cfg: Config, *, device=None) -> None:
+def run_serve(cfg: Config, *, device=None, ready=None) -> None:
     """The serve task: ``serve/server.py serve_forever`` over
     ``run.servable_model_dir`` with the ``run.serve_*`` fields, until the
-    process stops.  The process pool (``run.serve_workers > 1``) and the
-    shard-group pool (``run.serve_groups > 0``) raise (ROADMAP A14)."""
+    process stops.  Over a funnel servable the ``run.funnel_*`` fields that
+    are not at their defaults override its funnel.json (JAX's convention:
+    top_k/return_n 0, retrieval "exact" and oversample 4 defer to it); on
+    another servable such a field raises.  The process pool
+    (``run.serve_workers > 1``) and the shard-group pool
+    (``run.serve_groups > 0``) raise (ROADMAP A14).  ``ready`` as in
+    ``serve_forever``."""
     from ..serve.server import POOL_NOT_PORTED, serve_forever
 
     r = cfg.run
     if r.serve_workers > 1 or r.serve_groups > 0:
         raise NotImplementedError(f"run.serve_workers={r.serve_workers}, "
                                   f"run.serve_groups={r.serve_groups}: {POOL_NOT_PORTED}")
+    funnel = {k: v for k, v, default in (("top_k", r.funnel_top_k, 0),
+                                         ("return_n", r.funnel_return_n, 0),
+                                         ("retrieval", r.funnel_retrieval, "exact"),
+                                         ("oversample", r.funnel_oversample, 4))
+              if v != default}
     serve_forever(r.servable_model_dir, port=r.serve_port, host=r.serve_host,
                   buckets=r.serve_buckets, max_wait_ms=r.serve_max_wait_ms,
                   item_corpus=r.serve_item_corpus or None,
                   reload_url=r.serve_reload_url or None,
-                  reload_interval_secs=r.serve_reload_interval_secs, device=device)
+                  reload_interval_secs=r.serve_reload_interval_secs, device=device,
+                  ready=ready, funnel=funnel or None)
 
 
 def run_online(cfg: Config, *, device=None) -> TrainState:

@@ -298,3 +298,153 @@ def grid_eval_infer(rank: int, world: int, store: str, out: str, cfg_dict: dict,
                     "scored": len(scored)}, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _table_rows(tree, found: list, path: str = "") -> None:
+    """Append ``(path, rows)`` for every fm_w/fm_v leaf of a nested tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _table_rows(v, found, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _table_rows(v, found, f"{path}[{i}]")
+    elif isinstance(tree, torch.Tensor) and {"fm_w", "fm_v"} & set(path.split(".")):
+        found.append((path, int(tree.shape[0])))
+
+
+class _Recorder:
+    """While active: every table leaf that ``torch.save`` writes or
+    ``torch.load`` returns, and the output rows of every all-gather over
+    the model group."""
+
+    def __init__(self, model_group):
+        self.tables, self.model_gathers = [], []
+        self._group = model_group
+        self._saved = {}
+
+    def __enter__(self):
+        import torch.distributed as d
+
+        originals = {"save": torch.save, "load": torch.load,
+                     "agt": d.all_gather_into_tensor, "ag": d.all_gather}
+        self._saved = originals
+
+        def save(obj, f, *a, **kw):
+            _table_rows(obj, self.tables, "save")
+            return originals["save"](obj, f, *a, **kw)
+
+        def load(f, *a, **kw):
+            out = originals["load"](f, *a, **kw)
+            _table_rows(out, self.tables, "load")
+            return out
+
+        def agt(output, input, group=None, **kw):
+            if group is self._group:
+                self.model_gathers.append(tuple(output.shape))
+            return originals["agt"](output, input, group=group, **kw)
+
+        def ag(outputs, input, group=None, **kw):
+            if group is self._group:
+                self.model_gathers.append(tuple(input.shape))
+            return originals["ag"](outputs, input, group=group, **kw)
+
+        torch.save, torch.load = save, load
+        d.all_gather_into_tensor, d.all_gather = agt, ag
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as d
+
+        o = self._saved
+        torch.save, torch.load = o["save"], o["load"]
+        d.all_gather_into_tensor, d.all_gather = o["agt"], o["ag"]
+
+
+def _flat(tree, path: str = "") -> dict:
+    """Every tensor and number of a nested tree by its path, cloned."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{path}.{k}"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {path: tree.detach().clone()}
+    return {path: tree}
+
+
+def grid_ckpt(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """Per job (a ``cfg`` dict whose mesh names the grid, global
+    ``batches``, a checkpoint ``dir``, ``legacy`` to write the grid's first
+    layout instead, ``drop`` a row file to delete before the restore,
+    ``restore_mp`` another model_parallel to restore onto): the steps, a
+    save through ``Checkpointer`` under the recorder, a restore into a
+    fresh state (another seed) under the recorder, and this rank's state
+    before and after, its row file, and the restore's error, if any."""
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import spmd
+
+    _join(rank, world, store)
+    try:
+        results = []
+        for job in jobs:
+            cfg = Config.from_dict(job["cfg"])
+            ctx = _grid(cfg)
+            state = spmd.create_dp_train_state(cfg, ctx)
+            for batch in job["batches"]:
+                spmd.train_step(state, _local_batch(batch, ctx), ctx)
+            saved = _flat({"state": spmd.local_state(state), "step": state.step,
+                           "generator": state.generator.get_state()})
+            ckpt = Checkpointer(job["dir"], ctx=ctx)
+            with _Recorder(ctx.model_group) as on_save:
+                if job.get("legacy"):  # the layout of the grid's first release
+                    full = spmd.full_state(state)
+                    gens = ckpt._generator_states(state)
+                    if rank == 0:
+                        os.makedirs(os.path.join(job["dir"], str(state.step)))
+                        torch.save({"step": state.step, **full, "generators": gens,
+                                    "world_size": world,
+                                    "grid": [ctx.data_parallel, ctx.model_parallel]},
+                                   os.path.join(job["dir"], str(state.step), "state.pt"))
+                else:
+                    wrote = ckpt.save(state)
+                    ckpt.close()
+            dist.barrier()
+            step_dir = os.path.join(job["dir"], str(state.step))
+            row_file = None
+            sh = state.sharding
+            if not job.get("legacy") and sh.mp > 1 and ctx.data_index == 0:
+                row_file = _flat(torch.load(os.path.join(step_dir, f"rows-{ctx.model_index}.pt"),
+                                            weights_only=True))
+            files = sorted(os.listdir(step_dir))
+            dist.barrier()
+            if job.get("drop") and rank == 0:
+                os.remove(os.path.join(step_dir, job["drop"]))
+            dist.barrier()
+            rcfg = cfg.with_overrides(run={"seed": cfg.run.seed + 5})
+            if job.get("restore_mp"):
+                rcfg = rcfg.with_overrides(mesh={"model_parallel": job["restore_mp"],
+                                                 "data_parallel": -1})
+                ctx = _grid(rcfg)
+            fresh = spmd.create_dp_train_state(rcfg, ctx)
+            error = None
+            with _Recorder(ctx.model_group) as on_restore:
+                try:
+                    Checkpointer(job["dir"], ctx=ctx).restore(fresh)
+                except (FileNotFoundError, NotImplementedError, ValueError) as e:
+                    error = f"{type(e).__name__}: {e}"
+            restored = _flat({"state": spmd.local_state(fresh), "step": fresh.step,
+                              "generator": fresh.generator.get_state()})
+            results.append({
+                "grid": [ctx.data_index, ctx.model_index],
+                "rows": sh.rows, "offset": sh.offset, "total_rows": sh.total_rows,
+                "saved": saved, "restored": restored, "error": error,
+                "wrote": None if job.get("legacy") else wrote, "files": files,
+                "row_file": row_file,
+                "save_tables": on_save.tables, "save_gathers": on_save.model_gathers,
+                "restore_tables": on_restore.tables,
+                "restore_gathers": on_restore.model_gathers})
+            dist.barrier()
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

@@ -229,3 +229,168 @@ def test_the_online_fields_are_carried_not_dropped():
     for section, fields in ONLINE_FIELDS.items():
         assert {k: getattr(getattr(cfg, section), k) for k in fields} == fields
     assert Config.from_dict(cfg.to_dict()) == cfg
+
+
+# the cases of tests/test_funnel.py::TestFunnelConfigValidation, and the
+# literal checks of the same JAX section: (config, what it must do: an
+# error or warning type and its match, or None to load silently)
+FUNNEL_CASES = {
+    "pigeonhole-over-largest-bucket": ({"run": {"funnel_top_k": 1024}},
+                                       (ValueError, "largest serve bucket")),
+    "top-k-over-per-shard-vocab": ({"model": {"item_vocab_size": 40},
+                                    "mesh": {"model_parallel": 4},
+                                    "run": {"funnel_top_k": 16}},
+                                   (ValueError, "per-shard item vocab")),
+    "pool-topology-uses-group-mp": ({"model": {"item_vocab_size": 64},
+                                     "run": {"funnel_top_k": 32, "serve_groups": 2,
+                                             "serve_group_model_parallel": 4}},
+                                    (ValueError, "per-shard item vocab")),
+    "return-n-over-top-k": ({"run": {"funnel_top_k": 8, "funnel_return_n": 9}},
+                            (ValueError, "funnel_return_n")),
+    "int8-shortlist-over-shard": ({"model": {"item_vocab_size": 64},
+                                   "mesh": {"model_parallel": 2},
+                                   "run": {"funnel_top_k": 16, "funnel_retrieval": "int8"}},
+                                  (ValueError, "funnel_oversample")),
+    "bad-retrieval": ({"run": {"funnel_retrieval": "int4"}},
+                      (ValueError, "funnel_retrieval")),
+    "bad-pallas": ({"run": {"funnel_pallas": "maybe"}}, (ValueError, "funnel_pallas")),
+    "oversample-zero": ({"run": {"funnel_oversample": 0}},
+                        (ValueError, "funnel_oversample")),
+    "min-recall-zero": ({"run": {"funnel_min_recall": 0.0}},
+                        (ValueError, "funnel_min_recall")),
+    "min-recall-over-one": ({"run": {"funnel_min_recall": 1.5}},
+                            (ValueError, "funnel_min_recall")),
+    "wasteful-padding-warns": ({"run": {"funnel_top_k": 9}},
+                               (UserWarning, "pads to serve bucket")),
+    "exact-bucket-fit-is-silent": ({"run": {"funnel_top_k": 128}}, None),
+    "a-full-override-loads": ({"run": {"funnel_top_k": 16, "funnel_return_n": 4,
+                                       "funnel_retrieval": "int8", "funnel_oversample": 2,
+                                       "funnel_min_recall": 0.5, "funnel_pallas": "off",
+                                       "serve_buckets": "8,16"}}, None),
+}
+
+FUNNEL_FIELDS = ("funnel_top_k", "funnel_return_n", "funnel_retrieval", "funnel_oversample",
+                 "funnel_min_recall", "funnel_pallas", "serve_group_model_parallel")
+
+
+@pytest.mark.parametrize("case", FUNNEL_CASES, ids=list(FUNNEL_CASES))
+def test_the_funnel_fields_validate_as_in_jax(case):
+    import warnings
+
+    d, want = FUNNEL_CASES[case]
+    if want is None:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            jcfg, cfg = JaxConfig.from_dict(d), Config.from_dict(d)
+        assert {f: getattr(cfg.run, f) for f in FUNNEL_FIELDS} == \
+            {f: getattr(jcfg.run, f) for f in FUNNEL_FIELDS}
+        return
+    kind, match = want
+    for load in (JaxConfig.from_dict, Config.from_dict):
+        if kind is UserWarning:
+            with pytest.warns(UserWarning, match=match):
+                load(d)
+        else:
+            with pytest.raises(kind, match=match):
+                load(d)
+
+
+def test_the_funnel_flags_land_in_the_run_section():
+    from deepfm_tpu_torch.launch.cli import resolve_config
+
+    cfg, _ = resolve_config(["--task_type", "serve", "--funnel_top_k", "16",
+                             "--funnel_return_n", "4", "--funnel_retrieval", "int8",
+                             "--funnel_oversample", "2", "--funnel_min_recall", "0.5",
+                             "--funnel_pallas", "off"])
+    assert (cfg.run.funnel_top_k, cfg.run.funnel_return_n, cfg.run.funnel_retrieval,
+            cfg.run.funnel_oversample, cfg.run.funnel_min_recall,
+            cfg.run.funnel_pallas) == (16, 4, "int8", 2, 0.5, "off")
+    assert not set(FUNNEL_FIELDS) & set(JAX_ONLY_FIELDS["run"])
+    with pytest.raises(ValueError, match="funnel_return_n"):
+        resolve_config(["--funnel_top_k", "8", "--funnel_return_n", "9"])
+    with pytest.raises(SystemExit):  # argparse refuses an unknown tier
+        resolve_config(["--funnel_retrieval", "int4"])
+
+
+def _small_funnel(root, top_k=6, return_n=2):
+    """A CPU funnel servable of the port's own models: 40 items of 64,
+    a ranker of 5 fields."""
+    import numpy as np
+    import torch
+
+    from deepfm_tpu_torch.funnel import build_index, export_funnel_servable
+    from deepfm_tpu_torch.models import DeepFM, TwoTower
+
+    torch.manual_seed(0)
+    rcfg = ModelConfig(feature_size=64, field_size=5, embedding_size=4, deep_layers=(8,),
+                       dropout_keep=(1.0,), compute_dtype="float32")
+    qcfg = ModelConfig(model_name="two_tower", user_vocab_size=50, item_vocab_size=64,
+                       user_field_size=2, item_field_size=2, tower_layers=(16,), tower_dim=8,
+                       embedding_size=4, compute_dtype="float32")
+    rank, tower = DeepFM(rcfg, device="cpu"), TwoTower(qcfg, device="cpu")
+    rng = np.random.default_rng(0)
+    items = rng.permutation(64)[:40]
+    index = build_index(tower, items, rng.integers(0, 64, (40, 2)),
+                        np.ones((40, 2), np.float32))
+    return export_funnel_servable(str(root), rcfg, rank.state_dict(), qcfg,
+                                  tower.state_dict(), index, top_k=top_k, return_n=return_n)
+
+
+def test_the_serve_task_passes_the_funnel_fields(tmp_path):
+    """``run_serve`` with funnel_top_k=16, funnel_return_n=4 over a servable
+    stamped 6 -> 2 answers 4 items, those of FunnelScorer(top_k=16,
+    return_n=4); at the defaults it answers the servable's 2."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from deepfm_tpu_torch.funnel.serve import FunnelScorer
+    from deepfm_tpu_torch.train.loop import run_serve
+
+    servable = _small_funnel(tmp_path / "funnel")
+    rng = np.random.default_rng(3)
+    inst = [{"user_ids": rng.integers(0, 50, 2).tolist(), "user_vals": [1.0, 0.5],
+             "feat_ids": rng.integers(0, 64, 5).tolist(),
+             "feat_vals": rng.random(5).round(3).tolist()} for _ in range(3)]
+    base = Config().with_overrides(run={"task_type": "serve", "servable_model_dir": servable,
+                                        "serve_port": 0, "serve_buckets": "8,16",
+                                        "serve_max_wait_ms": 0.0})
+    for run, n in (({"funnel_top_k": 16, "funnel_return_n": 4}, 4), ({}, 2)):
+        ready = threading.Event()
+        thread = threading.Thread(target=run_serve, args=(base.with_overrides(run=run),),
+                                  kwargs={"device": "cpu", "ready": ready}, daemon=True)
+        thread.start()
+        assert ready.wait(120)
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{ready.port}/v1/recommend",
+                data=json.dumps({"instances": inst}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = json.load(r)
+            assert ready.scorer.ctx.top_k == (16 if run else 6)
+        finally:
+            ready.server.shutdown()
+            thread.join(30)
+        assert [len(x) for x in got["items"]] == [n] * 3
+        want_scorer = FunnelScorer(servable, device="cpu", top_k=run.get("funnel_top_k", 0),
+                                   return_n=run.get("funnel_return_n", 0), buckets=(8, 16),
+                                   max_wait_ms=0.0)
+        try:
+            want = want_scorer.recommend_instances(inst)
+        finally:
+            want_scorer.close()
+        assert got["items"] == want["items"]
+        np.testing.assert_allclose(got["scores"], want["scores"], rtol=0, atol=1e-6)
+    # a funnel field on a CTR servable raises, nothing is dropped
+    ctr = tmp_path / "ctr"
+    from deepfm_tpu_torch.models import DeepFM
+    from deepfm_tpu_torch.serve.export import export_servable
+
+    mcfg = ModelConfig(feature_size=64, field_size=5, embedding_size=4, deep_layers=(8,),
+                       dropout_keep=(1.0,))
+    export_servable(mcfg, DeepFM(mcfg, device="cpu").state_dict(), str(ctr))
+    with pytest.raises(ValueError, match="funnel options"):
+        run_serve(base.with_overrides(run={"servable_model_dir": str(ctr),
+                                           "funnel_top_k": 16}), device="cpu")

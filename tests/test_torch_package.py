@@ -63,3 +63,25 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+NATIVE_SOURCES = sorted([*(ROOT / "deepfm_tpu_torch" / "native" / "src").glob("*.cc"),
+                         *(ROOT / "deepfm_tpu_torch" / "csrc").glob("*.cu")])
+
+
+@pytest.mark.parametrize("path", NATIVE_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_sources_include_nothing_of_the_jax_package(path):
+    """The port's C++ and CUDA sources are its own copies: no include
+    reaches into ``deepfm_tpu/``, and the native library builds only from
+    files under ``deepfm_tpu_torch/``."""
+    includes = [line for line in path.read_text().splitlines()
+                if line.lstrip().startswith("#include")]
+    assert not [i for i in includes if "deepfm_tpu/" in i or ".." in i], includes
+
+
+def test_the_native_library_builds_from_the_port_s_own_sources():
+    from deepfm_tpu_torch import native
+
+    for src in (native.SOURCE, native.ENCODER_SOURCE):
+        assert Path(src).resolve().is_relative_to(ROOT / "deepfm_tpu_torch"), src
+        assert Path(src).is_file()
