@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8, 14):
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 8, 14).
+The train task's single-card step is a CUDA graph (train/step.py
+``StepGraph``): its B1 and B1' runs are the eager warm-up launches plus
+the replays times the launches each capture recorded (``kernel_runs``):
 
 1. card     - the card's name and power limit, from nvidia-smi;
 2. build    - every kernel under deepfm_tpu_torch/csrc, built from source
@@ -184,6 +187,41 @@ run in the order 1, 2, 3, 7, 4, 5, 6, 9, 10, 13, 11, 12, 8, 14):
               beside the card's name and power limit) and the phase's
               seconds.
 
+15. graphed - the train phase's model (flagship widths, bf16 MLP, dropout
+              0.5, Adam, batch 1,024), dense and lazy, on 8 batches of
+              distinct ids from one initial state and one dropout
+              generator state: the graphed step (3 eager warm-up steps on a
+              side stream, the capture, 5 replays) against the eager step,
+              every step's metrics and every carried tensor bit for bit; a
+              step's device time (CUDA events) and idle share, graphed and
+              eager, beside the train task's examples/s; then
+              analysis/trace_audit.py run_trace_audit("cuda") (in place,
+              dtype, graphed = eager, the captures under
+              set_sync_debug_mode("error"), the bucket graphs and a hot
+              swap that captures nothing, the paged step) must find nothing;
+16. tiered  - ROADMAP A11's tiered store at the flagship width
+              (fused_kernel "off", lazy Adam, batch 1,024, a hot cache of
+              65,536 slots, a host tier of 65,536 rows, pages of 1,024
+              rows, a local cold directory): the paged step against the
+              resident lazy step on the train phase's 48 batches (step by
+              step from one state, within TOL_LOSS_REL and TOL_GRAD_REL:
+              repeated ids meet B1''s atomics; a cache of 49,152 slots,
+              fewer than the 55,480 rows those batches touch) and on the
+              lifecycle's 24 batches of distinct ids (one trajectory, bit
+              for bit), both evicting and writing back, with the hit rate,
+              the staged and written-back bytes and the step's time; B1 on
+              the hot cache [65,537, 32]
+              with slot ids (the tiered scorer's lookup) and B1 and B1' on
+              the compact rows gathered from it (the paged step's), each
+              against its plain version, with times and bounds; the
+              distinct run published by publish_tiered and served by a
+              TieredScorer behind the port's server (1, 8 and 100
+              instances within 1e-6 of the resident model's predict, each
+              request one B1 launch, the paging gauges in /metrics); then the tiered train task through
+              cli.run stopped by a SIGTERM after step 12, resumed, and held
+              bit for bit (tables, moments, the rest of the model) against
+              an uninterrupted run.
+
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}}.  With no
 CUDA device, or without the rest of the repository beside it, the script
@@ -266,6 +304,29 @@ RECALL_USERS = 256
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def reset_kernel_counts() -> None:
+    """B1's and B1''s counts to 0: their eager launches, their launches
+    captured into graphs, and their runs through train-step graph replays
+    (train/step.py ``graph_kernel_runs``)."""
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.train import step
+
+    fused_ctr.launches = fused_ctr.backward_launches = 0
+    fused_ctr.captured = fused_ctr.backward_captured = 0
+    step.graph_kernel_runs.update(forward=0, backward=0)
+
+
+def kernel_runs() -> tuple[int, int]:
+    """(B1 runs, B1' runs) since :func:`reset_kernel_counts`: eager launches
+    plus the runs inside train-step graph replays (a capture itself runs
+    nothing)."""
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.train import step
+
+    return (fused_ctr.launches + step.graph_kernel_runs["forward"],
+            fused_ctr.backward_launches + step.graph_kernel_runs["backward"])
 
 
 def card_line() -> str:
@@ -675,7 +736,6 @@ class _Tee(io.TextIOBase):
 def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
     """The main path of this slice: the CLI's train task at full width."""
     from deepfm_tpu_torch.launch import cli
-    from deepfm_tpu_torch.ops import fused_ctr
     from deepfm_tpu_torch.serve.export import load_servable
     from deepfm_tpu_torch.train.step import predict_step
 
@@ -684,10 +744,10 @@ def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     # the main path: counts from 0, then the train task, then read
-    fused_ctr.launches = fused_ctr.backward_launches = 0
+    reset_kernel_counts()
     with contextlib.redirect_stdout(tee):
         state = cli.run(argv)
-    launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+    launches, backward_launches = kernel_runs()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     records = [json.loads(x) for x in tee.lines.getvalue().splitlines()
                if x.startswith("{")]
@@ -729,7 +789,8 @@ def phase_train(seed: int, train_dir: str, val_dir: str, servable: str) -> dict:
     split = {b: step_breakdown(state, first_batch(train_dir, "train", b, "cuda"))
              for b in TRAIN_BATCHES}
     return {"launches": launches, "backward_launches": backward_launches,
-            "steps": steps, "auc": ev["auc"], "breakdown": split}
+            "steps": steps, "auc": ev["auc"], "breakdown": split,
+            "examples_per_sec": done["examples_per_sec"]}
 
 
 def decode_ms(train_dir: str, reps: int = 5) -> dict:
@@ -915,7 +976,6 @@ def phase_prep(seed: int, workdir: str, card: str) -> dict:
     from deepfm_tpu_torch.data.example_proto import parse_example
     from deepfm_tpu_torch.data.tfrecord import read_records, write_records
     from deepfm_tpu_torch.launch import cli
-    from deepfm_tpu_torch.ops import fused_ctr
 
     t_phase = time.perf_counter()
     os.makedirs(workdir, exist_ok=True)
@@ -976,10 +1036,10 @@ def phase_prep(seed: int, workdir: str, card: str) -> dict:
     print("prep: python -m deepfm_tpu_torch " + " ".join(argv))
     tee = _Tee(sys.stdout)
     # the main path: counts from 0, then the train task, then read
-    fused_ctr.launches = fused_ctr.backward_launches = 0
+    reset_kernel_counts()
     with contextlib.redirect_stdout(tee):
         cli.run(argv)
-    launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+    launches, backward_launches = kernel_runs()
     records = [json.loads(x) for x in tee.lines.getvalue().splitlines() if x.startswith("{")]
     train = [r for r in records if r["kind"] == "train"]
     done = next(r for r in records if r["kind"] == "train_done")
@@ -1051,17 +1111,16 @@ def phase_lazy(seed: int, train_dir: str, val_dir: str, servable: str,
     and split beside the dense step's (``dense``: the train phase's
     breakdown at B=1,024)."""
     from deepfm_tpu_torch.launch import cli
-    from deepfm_tpu_torch.ops import fused_ctr
 
     argv = train_argv(train_dir, val_dir, servable, seed) + [
         "--set", "optimizer.lazy_embedding_updates=true"]
     print("lazy: python -m deepfm_tpu_torch " + " ".join(argv))
     tee = _Tee(sys.stdout)
     # the main path: counts from 0, then the train task, then read
-    fused_ctr.launches = fused_ctr.backward_launches = 0
+    reset_kernel_counts()
     with contextlib.redirect_stdout(tee):
         state = cli.run(argv)
-    launches, backward_launches = fused_ctr.launches, fused_ctr.backward_launches
+    launches, backward_launches = kernel_runs()
     records = [json.loads(x) for x in tee.lines.getvalue().splitlines()
                if x.startswith("{")]
     train = [r for r in records if r["kind"] == "train"]
@@ -1088,25 +1147,37 @@ def phase_lazy(seed: int, train_dir: str, val_dir: str, servable: str,
     compact = compact_kernels(state, batch, seed)
     lazy_breakdown(state, batch, dense)
     return {"launches": launches, "backward_launches": backward_launches,
-            "steps": steps, **compact}
+            "steps": steps, "examples_per_sec": done["examples_per_sec"], **compact}
 
 
 def compact_kernels(state, batch: dict, seed: int) -> dict:
     """B1 and B1' at the shapes the lazy step gives them: the compact tables
     fm_v[row_id] [B·F, K] and fm_w[row_id] [B·F], each lookup's segment as
-    its id.  Each against its plain version (the forward's tolerances, the
-    backward's TOL_GRAD_REL), then B1''s time (kernel alone, CUDA graph),
-    its plain version's, its bound and the compact zero fill's."""
+    its id (:func:`compact_kernel_check`)."""
+    model = state.model
+    ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
+    row = compact_kernel_check(model.fm_w.detach(), model.fm_v.detach(), ids, vals, seed,
+                               "lazy")
+    return {"forward_max_abs_err": max(row["forward_max_abs_err"]),
+            "backward_max_abs_err": max(row["backward_max_abs_err"])}
+
+
+def compact_kernel_check(fm_w, fm_v, ids, vals, seed: int, tag: str) -> dict:
+    """The lazy step's segments of ``ids [B, F]`` over the tables ``fm_w``,
+    ``fm_v`` (a model's, or the tiered store's hot cache with slot ids),
+    the compact rows gathered, and B1 and B1' on them, each against its
+    plain version (the forward's tolerances, the backward's TOL_GRAD_REL);
+    then both kernels' times (kernel alone, CUDA graph), B1''s plain
+    version's, their bounds and the compact zero fill's.  Prints and
+    returns the ``<tag> compact kernels`` row."""
     from deepfm_tpu_torch.ops import fused_ctr
     from deepfm_tpu_torch.ops.embedding import sort_segments
 
-    model = state.model
-    ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
     b, f = ids.shape
-    k = model.fm_v.shape[1]
-    order, seg, row_id, valid = sort_segments(ids.reshape(-1).clamp(0, model.fm_w.shape[0] - 1))
+    k = fm_v.shape[1]
+    order, seg, row_id, valid = sort_segments(ids.reshape(-1).clamp(0, fm_w.shape[0] - 1))
     slot = torch.empty_like(seg).scatter_(0, order, seg).to(torch.int32).view(b, f)
-    fm_w_c, fm_v_c = model.fm_w.detach()[row_id], model.fm_v.detach()[row_id]
+    fm_w_c, fm_v_c = fm_w[row_id], fm_v[row_id]
     got = fused_ctr.fused_ctr_interaction(fm_w_c, fm_v_c, slot, vals)
     want = fused_ctr.fused_ctr_plain(fm_w_c, fm_v_c, slot, vals)
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
@@ -1120,17 +1191,17 @@ def compact_kernels(state, batch: dict, seed: int) -> dict:
     e = [float((a - w).abs().max()) for a, w in zip(got, want)]
     if not (e[0] <= TOL_EMB and e[1] <= TOL_YW_REL * (1.0 + float(want[1].abs().max()))
             and e[2] <= TOL_YV_REL * (1.0 + float(want[2].abs().max()))):
-        fail(f"lazy: fused_ctr_forward on the compact tables disagrees with its plain "
+        fail(f"{tag}: fused_ctr_forward on the compact tables disagrees with its plain "
              f"version: max abs err emb {e[0]}, y_w {e[1]}, y_v {e[2]}")
     eb = []
     for name, a, w in zip(("d_fm_w", "d_fm_v"), got_b, want_b):
         err, scale = float((a - w).abs().max()), float(w.abs().max())
         if not err <= TOL_GRAD_REL * scale:
-            fail(f"lazy: fused_ctr_backward on the compact tables: {name} max abs err "
+            fail(f"{tag}: fused_ctr_backward on the compact tables: {name} max abs err "
                  f"{err}, scale {scale}")
         eb.append(err)
     if got_b[1][~valid].any():
-        fail("lazy: fused_ctr_backward wrote into a padding segment")
+        fail(f"{tag}: fused_ctr_backward wrote into a padding segment")
     lib = fused_ctr._library()
     d_w, d_v = torch.zeros_like(fm_w_c), torch.zeros_like(fm_v_c)
     ms, call_ms = time_ms(lambda: backward_kernel_only(
@@ -1139,16 +1210,21 @@ def compact_kernels(state, batch: dict, seed: int) -> dict:
         g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot, vals, False), reps=20)
     fill_ms, _ = time_ms(lambda: (torch.zeros_like(fm_w_c), torch.zeros_like(fm_v_c)))
     fwd_ms, _ = time_ms(lambda: fused_ctr.fused_ctr_interaction(fm_w_c, fm_v_c, slot, vals))
+    fwd_plain_ms, _ = time_ms(lambda: fused_ctr.fused_ctr_plain(fm_w_c, fm_v_c, slot, vals),
+                              reps=20)
+    fwd_bound, fwd_by, _ = fused_ctr_bound_ms(fm_w_c, fm_v_c, slot, b, f)
     bound_ms, bound_by, detail = fused_ctr_backward_bound_ms(fm_w_c, fm_v_c, slot, b, f,
                                                              False)
     row = {"forward_max_abs_err": e, "backward_max_abs_err": eb,
            "compact_rows": int(row_id.numel()), "distinct_rows": int(valid.sum()),
-           "forward_ms": fwd_ms, "backward_ms": ms, "backward_call_ms": call_ms,
+           "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
+           "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by,
+           "backward_ms": ms, "backward_call_ms": call_ms,
            "backward_plain_ms": plain_ms, "backward_bound_ms": bound_ms,
            "backward_bound_by": bound_by, "zero_fill_ms": fill_ms,
            "zero_fill_mb": (fm_w_c.numel() + fm_v_c.numel()) * 4 / 1e6, **detail}
-    print("lazy compact kernels B=%d %s" % (b, json.dumps(row)))
-    return {"forward_max_abs_err": max(e), "backward_max_abs_err": max(eb)}
+    print("%s compact kernels B=%d %s" % (tag, b, json.dumps(row)))
+    return row
 
 
 def _tables(state) -> dict:
@@ -1685,7 +1761,7 @@ def sharded_reference(cfg, init: dict, batches: list, dp: int, mp: int, lazy: bo
     final state_dict."""
     from deepfm_tpu_torch.parallel import spmd
     from deepfm_tpu_torch.train.step import (apply_dense, create_train_state, dense_grads,
-                                             lazy_train_step)
+                                             train_step)
 
     pcfg = spmd.sharded_model_config(cfg.with_overrides(mesh={"model_parallel": 1}), mp)
     one = create_train_state(pcfg, DEVICE)
@@ -1703,7 +1779,7 @@ def sharded_reference(cfg, init: dict, batches: list, dp: int, mp: int, lazy: bo
     for b in batches:
         batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
         if lazy:
-            losses.append(float(lazy_train_step(one, batch)["loss"]))
+            losses.append(float(train_step(one, batch)["loss"]))
             continue
         total, loss = None, 0.0
         for d in range(dp):
@@ -2958,12 +3034,11 @@ def run_logged(argv: list[str], env: dict | None = None):
     PreemptedError, lines, forward launches, backward launches)."""
     from deepfm_tpu_torch.launch import cli
     from deepfm_tpu_torch.launch.preemption import PreemptedError
-    from deepfm_tpu_torch.ops import fused_ctr
 
     saved = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
     tee = _Tee(sys.stdout)
-    fused_ctr.launches = fused_ctr.backward_launches = 0
+    reset_kernel_counts()
     try:
         with contextlib.redirect_stdout(tee):
             try:
@@ -2977,7 +3052,7 @@ def run_logged(argv: list[str], env: dict | None = None):
             else:
                 os.environ[k] = v
     lines = [json.loads(x) for x in tee.lines.getvalue().splitlines() if x.startswith("{")]
-    return result, lines, fused_ctr.launches, fused_ctr.backward_launches
+    return (result, lines, *kernel_runs())
 
 
 def _kind(lines: list[dict], kind: str) -> list[dict]:
@@ -3582,6 +3657,410 @@ def phase_feedback(seed: int, workdir: str, device_args: list[str]) -> dict:
             "backward_launches": done["backward_launches"]}
 
 
+# phase 15: the graphed single-card step at the train phase's configuration,
+# on batches of distinct ids (B1''s atomics then add one term a row, so a
+# step is bit-reproducible and graphed = eager can hold bit for bit)
+GRAPH_STEPS = 8
+
+
+def distinct_host_batches(seed: int, n: int, b: int = 1024, f: int = 39,
+                          vocab: int = 117_581) -> list[dict]:
+    """``n`` pinned host batches of ``b`` records whose ``b·f`` ids are
+    distinct within each batch."""
+    rng = np.random.default_rng(seed)
+    return [{"feat_ids": torch.from_numpy(rng.permutation(vocab)[:b * f].reshape(b, f))
+             .pin_memory(),
+             "feat_vals": torch.from_numpy(rng.random((b, f), dtype=np.float32)).pin_memory(),
+             "label": torch.from_numpy((rng.random(b) < 0.25).astype(np.float32)).pin_memory()}
+            for _ in range(n)]
+
+
+def busy_ms(fn, n: int = 5) -> float | None:
+    """Device time of ``fn``'s kernels a call from torch.profiler, or None
+    where it saw none."""
+    from torch.autograd import DeviceType
+
+    prof = device_profile(fn, n)
+    if prof is None:
+        return None
+    return sum(r.device_time_total for r in prof.key_averages()
+               if r.device_type == DeviceType.CUDA) / n / 1e3
+
+
+def phase_graphed(seed: int, train: dict, lazy: dict) -> dict:
+    """The dense and the lazy single-card step of the train phase's model
+    (flagship widths, bf16 MLP, dropout 0.5, Adam, batch 1,024), each from
+    one initial state and one dropout generator state: GRAPH_STEPS steps
+    through ``graphed_train_step`` (WARMUP_STEPS eager on a side stream,
+    then the capture and replays) against as many eager ``train_step``s,
+    metrics and every carried tensor bit for bit; a step's device time
+    (CUDA events) and idle share, graphed and eager, beside the train
+    task's examples/s; then ``run_trace_audit("cuda")`` must find nothing."""
+    from deepfm_tpu_torch.analysis import run_trace_audit
+    from deepfm_tpu_torch.analysis.trace_audit import state_tensors as carried
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.train.step import (WARMUP_STEPS, create_train_state,
+                                             graphed_train_step, train_step)
+
+    t0 = time.perf_counter()
+    batches = distinct_host_batches(seed + 23, GRAPH_STEPS)
+    on_card = [{k: v.cuda() for k, v in b.items()} for b in batches]
+    out = {}
+    for mode, examples in (("dense", train["examples_per_sec"]),
+                           ("lazy", lazy["examples_per_sec"])):
+        cfg = Config.from_dict({"model": {"fused_kernel": "auto"},
+                                "optimizer": {"lazy_embedding_updates": mode == "lazy"},
+                                "run": {"seed": seed}})
+        eager, graphed = create_train_state(cfg, "cuda"), create_train_state(cfg, "cuda")
+        graphed.generator.set_state(eager.generator.get_state())
+        for i, (host, dev) in enumerate(zip(batches, on_card)):
+            mg, me = graphed_train_step(graphed, host), train_step(eager, dev)
+            for k in mg:
+                if not torch.equal(mg[k], me[k]):
+                    fail(f"graphed {mode}: step {i + 1}'s {k} {float(mg[k])} differs from "
+                         f"the eager step's {float(me[k])}")
+        got, want = carried(graphed), carried(eager)
+        differs = [k for k in want if not torch.equal(got[k], want[k])]
+        if differs or got.keys() != want.keys():
+            fail(f"graphed {mode}: after {GRAPH_STEPS} steps these tensors differ from "
+                 f"the eager steps': {differs[:8]}")
+        if graphed.graph.replays != GRAPH_STEPS - WARMUP_STEPS:
+            fail(f"graphed {mode}: {graphed.graph.replays} replays in {GRAPH_STEPS} steps")
+        host, dev = batches[0], on_card[0]
+        eager_ms = _median_event_ms(lambda: train_step(eager, dev), 1, 20)
+        graphed_ms = _median_event_ms(lambda: graphed_train_step(graphed, host), 1, 20)
+        busy_e = busy_ms(lambda: train_step(eager, dev))
+        busy_g = busy_ms(lambda: graphed_train_step(graphed, host))
+        row = {"steps_bit_equal": GRAPH_STEPS, "tensors_bit_equal": len(want),
+               "replays": graphed.graph.replays,
+               "kernels_a_replay": list(graphed.graph.per_replay),
+               "eager_step_device_ms": eager_ms, "graphed_step_device_ms": graphed_ms,
+               "eager_kernel_busy_ms": busy_e, "graphed_kernel_busy_ms": busy_g,
+               "eager_idle_share": None if busy_e is None else 1.0 - busy_e / eager_ms,
+               "graphed_idle_share": None if busy_g is None else 1.0 - busy_g / graphed_ms,
+               "train_task_examples_per_sec": examples}
+        print("graphed %s %s" % (mode, json.dumps(row)))
+        out[mode] = row
+    findings = run_trace_audit("cuda")
+    if findings:
+        fail("graphed: run_trace_audit('cuda') found:\n" + "\n".join(f.render()
+                                                                    for f in findings))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"graphed: run_trace_audit('cuda') found nothing; phase {out['seconds']:.1f} s")
+    return out
+
+
+# phase 16: the tiered store at the flagship width, its hot cache about half
+# the vocabulary (so the distinct-id batches evict) and its host tier as large
+# (so the host tier flushes pages to the cold directory).  The train data's 48
+# batches touch 55,480 rows in all, fewer than 65,536 slots, so their run
+# takes a cache that still holds one batch (39,936 rows) but not all of them:
+# repeated ids then evict, write back and stage again on the card too
+TIERED_SLOTS, TIERED_HOST_ROWS, TIERED_PAGE_ROWS = 65_536, 65_536, 1024
+TIERED_TRAIN_SLOTS = 49_152
+TIERED_SERVE_ROWS = (1, 8, 100)
+
+
+def tiered_cfg(seed: int, slots: int = TIERED_SLOTS):
+    from deepfm_tpu_torch.core.config import Config
+
+    return Config.from_dict({
+        "model": {"fused_kernel": "off", "tiered_embeddings": True,
+                  "tiered_hot_slots": slots, "tiered_host_rows": TIERED_HOST_ROWS,
+                  "tiered_page_rows": TIERED_PAGE_ROWS},
+        "optimizer": {"lazy_embedding_updates": True}, "run": {"seed": seed}})
+
+
+def host_batches(data_dir: str, pattern: str) -> list[dict]:
+    """Every whole 1,024-record batch of the files as numpy arrays."""
+    from deepfm_tpu_torch.data.pipeline import batched_ctr_batches, discover_files, record_stream
+
+    files = discover_files(data_dir, (pattern,), shuffle=False)
+    return list(batched_ctr_batches(record_stream(files), batch_size=1024, field_size=39))
+
+
+def sync_resident(resident, tr) -> None:
+    """Make the resident lazy state the paged trainer's: every row the hot
+    cache holds (with its moments) into the resident tables, the rest of
+    the model, its optimizer and the dropout generator.  Rows outside the
+    cache are already equal (they left it with these values)."""
+    from deepfm_tpu_torch.tiered.trainer import rest_state_dict
+
+    slots, rows = tr.pager.resident()
+    s_idx, r_idx = torch.from_numpy(slots).cuda(), torch.from_numpy(rows).cuda()
+    hot = tr.state.hot
+    with torch.no_grad():
+        for k in ("fm_w", "fm_v"):
+            getattr(resident.model, k)[r_idx] = hot.rows[k][s_idx]
+            resident.lazy.m[k][r_idx] = hot.m[k][s_idx]
+            resident.lazy.v[k][r_idx] = hot.v[k][s_idx]
+        resident.model.load_state_dict(rest_state_dict(tr.state.model), strict=False)
+        for name, slots_ in resident.optimizer.slots.items():
+            for slot, t in slots_.items():
+                t.copy_(tr.state.optimizer.slots[name][slot])
+    resident.generator.set_state(tr.state.generator.get_state())
+
+
+def hot_errors(resident, tr) -> dict:
+    """Max abs difference of every row the hot cache holds (and its
+    moments) from the resident state's, with each tensor's scale."""
+    slots, rows = tr.pager.resident()
+    s_idx, r_idx = torch.from_numpy(slots).cuda(), torch.from_numpy(rows).cuda()
+    hot = tr.state.hot
+    out = {}
+    for k in ("fm_w", "fm_v"):
+        for part, got, want in (("rows", hot.rows[k], getattr(resident.model, k).detach()),
+                                ("m", hot.m[k], resident.lazy.m[k]),
+                                ("v", hot.v[k], resident.lazy.v[k])):
+            w = want[r_idx]
+            out[f"{part}.{k}"] = (float((got[s_idx] - w).abs().max()), float(w.abs().max()))
+    return out
+
+
+def paged_against_resident(cfg, batches: list[dict], cold: str, tag: str, exact: bool):
+    """A TieredTrainer seeded from a fresh resident lazy state and the
+    resident lazy step from the same state, on ``batches``.  ``exact``
+    (batches of distinct ids): one trajectory each, every loss and the
+    final tables and moments bit for bit.  Otherwise B1''s atomics add a
+    batch's repeated ids in any order, so the two are held step by step
+    from one state, as the lazy phase holds the kernels to the plain
+    versions: each step's loss within TOL_LOSS_REL and the cache's rows
+    and moments within TOL_GRAD_REL of each tensor's largest magnitude,
+    then the resident state takes the paged one's (``sync_resident``).
+    With each paged step's time.  Returns (trainer, resident state, row)."""
+    from deepfm_tpu_torch.tiered import TieredTrainer
+    from deepfm_tpu_torch.train.step import create_train_state, train_step
+
+    resident = create_train_state(cfg, "cuda")
+    tr = TieredTrainer.from_resident_state(cfg, create_train_state(cfg, "cuda"), cold)
+    step_ms, host_ms, worst, worst_rel = [], [], 0.0, 0.0
+    for i, b in enumerate(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        mp = tr.train_batch(b)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        mr = train_step(resident, {k: torch.from_numpy(v).cuda() for k, v in b.items()})
+        lp, lr = float(mp["loss"]), float(mr["loss"])
+        worst = max(worst, abs(lp - lr) / abs(lr))
+        if (lp != lr) if exact else not worst <= TOL_LOSS_REL:
+            fail(f"tiered {tag}: step {i + 1}'s loss {lp} vs the resident lazy step's {lr}")
+        if not exact:
+            for name, (err, scale) in hot_errors(resident, tr).items():
+                worst_rel = max(worst_rel, err / scale if scale else err)
+                if not err <= TOL_GRAD_REL * scale:
+                    fail(f"tiered {tag}: step {i + 1}'s {name} vs the resident lazy step: "
+                         f"max abs err {err}, scale {scale}")
+            sync_resident(resident, tr)
+    errs = {}
+    if exact:
+        rows, m, v = tr.export_tables()
+        for part, got in (("rows", rows), ("m", m), ("v", v)):
+            for k in ("fm_w", "fm_v"):
+                want = (getattr(resident.model, k) if part == "rows"
+                        else getattr(resident.lazy, part)[k]).detach().cpu().numpy()
+                errs[f"{part}.{k}"] = err = float(np.abs(got[k] - want).max())
+                if err != 0.0:
+                    fail(f"tiered {tag}: {part} {k} vs the resident lazy state: max abs "
+                         f"err {err}")
+    stats = tr.pager.stats()
+    # both runs touch more rows than their caches keep: slots evict and
+    # write back
+    if stats["evictions"] == 0 or stats["writeback_rows"] == 0:
+        fail(f"tiered {tag}: the cache never evicted: {stats}")
+    row = {"steps": len(batches), "exact": exact, "loss_max_rel_err": worst,
+           "table_max_rel_err": worst_rel if not exact else errs,
+           "step_device_ms_median": float(np.median(step_ms)),
+           "step_host_ms_median": float(np.median(host_ms)), "pager": stats,
+           "host": tr.host.stats(), "cold": tr.cold.stats()}
+    print("tiered %s %s" % (tag, json.dumps(row)))
+    return tr, resident, row
+
+
+def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict:
+    """ROADMAP A11 on the card: (a) the paged step against the resident
+    lazy step on the train phase's 48 batches (within the lazy phase's
+    tolerances: B1''s atomics add repeated ids in any order; a cache
+    smaller than the rows they touch, so repeated ids evict) and on the
+    lifecycle's 24 batches of distinct ids (bit for bit), with the hit
+    rate, the staged and written-back bytes and the step's time; (b) B1
+    and B1' on the hot cache against their plain versions; (c) the tiered
+    train task through ``cli.run``: stopped by a SIGTERM after step 12,
+    resumed, and held bit for bit against an uninterrupted run; (d)
+    ``publish_tiered`` of (a)'s trainer and a TieredScorer behind the
+    port's server answering requests within 1e-6 of the resident model."""
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.serve.server import ScoringHTTPServer, make_handler
+    from deepfm_tpu_torch.tiered import TieredScorer, TieredTrainer
+    from deepfm_tpu_torch.train import loop
+    from deepfm_tpu_torch.train.step import predict_step
+    from deepfm_tpu_torch.utils.logging import MetricLogger
+
+    t_phase = time.perf_counter()
+    cfg = tiered_cfg(seed)
+    out = {}
+    tr, _, out["train_data"] = paged_against_resident(
+        tiered_cfg(seed, TIERED_TRAIN_SLOTS), host_batches(train_dir, "train"),
+        os.path.join(workdir, "cold_a"),
+        "train data", exact=False)
+    tr.close()
+    distinct = host_batches(life_dir, "train")
+    tr, resident, out["distinct"] = paged_against_resident(
+        cfg, distinct, os.path.join(workdir, "cold_b"), "distinct ids", exact=True)
+
+    # (b) the kernels on the hot cache, at the last batch's slots
+    slot_ids, _ = tr.pager.translate(distinct[-1]["feat_ids"], tr.state.hot)
+    hot = tr.state.hot.rows
+    ids = torch.from_numpy(slot_ids).cuda()
+    vals = torch.from_numpy(distinct[-1]["feat_vals"]).cuda()
+    b, f = ids.shape
+    got = fused_ctr.fused_ctr_interaction(hot["fm_w"], hot["fm_v"], ids, vals)
+    want = fused_ctr.fused_ctr_plain(hot["fm_w"], hot["fm_v"], ids, vals)
+    torch.cuda.synchronize()
+    e = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    if not e[0] <= TOL_EMB or not e[1] <= TOL_YW_REL * (1 + float(want[1].abs().max())) \
+            or not e[2] <= TOL_YV_REL * (1 + float(want[2].abs().max())):
+        fail(f"tiered: fused_ctr_forward on the hot cache disagrees with its plain "
+             f"version: {e}")
+    fwd_ms, _ = time_ms(lambda: fused_ctr.fused_ctr_interaction(hot["fm_w"], hot["fm_v"],
+                                                                ids, vals))
+    fwd_plain_ms, _ = time_ms(lambda: fused_ctr.fused_ctr_plain(hot["fm_w"], hot["fm_v"],
+                                                                ids, vals), reps=20)
+    fwd_bound, fwd_by, _ = fused_ctr_bound_ms(hot["fm_w"], hot["fm_v"], ids, b, f)
+    out["hot_forward"] = {"table": list(hot["fm_v"].shape), "max_abs_err": e,
+                          "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+                          "bound_by": fwd_by}
+    print("tiered hot-cache forward B=%d %s" % (b, json.dumps(out["hot_forward"])))
+    out["compact"] = compact_kernel_check(hot["fm_w"], hot["fm_v"], ids, vals, seed,
+                                          "tiered")
+
+    # (d) publish the distinct run's trainer and serve it
+    pub = os.path.join(workdir, "pub")
+    manifest = ModelPublisher(pub).publish_tiered(cfg, tr)
+    tr.close()
+    scorer = TieredScorer.from_publish(pub, os.path.join(workdir, "staging"))
+    server = ScoringHTTPServer(("127.0.0.1", 0), make_handler(scorer, "deepfm"))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    # the resident model's predictions first: its forward launches B1 too,
+    # and the count read below is the scorer's alone
+    requests = []
+    for j, n in enumerate(TIERED_SERVE_ROWS):
+        ids_n, vals_n = distinct[j]["feat_ids"][:n], distinct[j]["feat_vals"][:n]
+        want = predict_step(resident.model, {
+            "feat_ids": torch.from_numpy(ids_n).cuda(),
+            "feat_vals": torch.from_numpy(vals_n).cuda()}).cpu().numpy()
+        requests.append((n, ids_n, vals_n, want))
+    fused_ctr.launches = 0
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        worst = 0.0
+        for n, ids_n, vals_n, want in requests:
+            code, doc = post(f"{url}/v1/models/deepfm:predict",
+                             _instances_body(ids_n, vals_n))
+            if code != 200:
+                fail(f"tiered: the scorer answered {code}: {doc}")
+            err = float(np.abs(np.asarray(doc["predictions"]) - want).max())
+            worst = max(worst, err)
+            if not err <= 1e-6:
+                fail(f"tiered: {n} instances served within {err} of the resident "
+                     f"model's predict (tolerance 1e-6)")
+        paging = get(f"{url}/v1/metrics")["paging"]
+        with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+            gauges = r.read().decode()
+        if 'deepfm_serving_paging{kind="hit_rate"}' not in gauges:
+            fail("tiered: /metrics carries no paging gauges")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    serve_launches = fused_ctr.launches
+    if serve_launches != len(TIERED_SERVE_ROWS):
+        fail(f"tiered: {len(TIERED_SERVE_ROWS)} requests launched B1 {serve_launches} "
+             f"times, not once each")
+    out["serve"] = {"version": manifest.version, "step": manifest.step,
+                    "max_abs_diff": worst, "paging": {k: paging[k] for k in (
+                        "requests", "hits", "misses", "hit_rate", "refill_bytes")},
+                    "forward_launches": serve_launches}
+    print("tiered serve %s" % json.dumps(out["serve"]))
+
+    # (c) the tiered train task: a SIGTERM after step 12, the resume, and
+    # an uninterrupted run
+    class SignalAt(MetricLogger):
+        def step(self, step, *a, **kw):
+            super().step(step, *a, **kw)
+            if step == LIFE_STOP:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def argv(name: str) -> list[str]:
+        return ["--task_type", "train", "--training_data_dir", life_dir,
+                "--model_dir", os.path.join(workdir, name),
+                "--servable_model_dir", os.path.join(workdir, name + ".pub"),
+                "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+                "--checkpoint_every_steps", str(LIFE_EVERY),
+                "--set", "model.fused_kernel=off", "--set", "model.tiered_embeddings=true",
+                "--set", f"model.tiered_hot_slots={TIERED_SLOTS}",
+                "--set", f"model.tiered_host_rows={TIERED_HOST_ROWS}",
+                "--set", f"model.tiered_page_rows={TIERED_PAGE_ROWS}",
+                "--set", "optimizer.lazy_embedding_updates=true", "--set", f"run.seed={seed}"]
+
+    from deepfm_tpu_torch.launch.preemption import PreemptedError
+
+    launches = backward = 0
+    real = loop.MetricLogger
+    loop.MetricLogger = SignalAt
+    try:
+        stopped, lines, fwd, bwd = run_logged(argv("split"))
+    finally:
+        loop.MetricLogger = real
+    launches, backward = launches + fwd, backward + bwd
+    if not isinstance(stopped, PreemptedError) or \
+            _kind(lines, "preempted") != [{"kind": "preempted", "step": LIFE_STOP}]:
+        fail(f"tiered task: the SIGTERM after step {LIFE_STOP} did not stop the run: "
+             f"{stopped!r}")
+    resumed, lines, fwd, bwd = run_logged(argv("split"))
+    launches, backward = launches + fwd, backward + bwd
+    if _kind(lines, "resume") != [{"kind": "resume", "step": LIFE_STOP}] or \
+            resumed.step != LIFE_STEPS:
+        fail(f"tiered task: resume {_kind(lines, 'resume')}, finished at {resumed.step}")
+    whole, lines, fwd, bwd = run_logged(argv("whole"))
+    launches, backward = launches + fwd, backward + bwd
+    done = _kind(lines, "tiered_done")[0]
+    if fwd < LIFE_STEPS or bwd < LIFE_STEPS or not _kind(lines, "publish_tiered"):
+        fail(f"tiered task: {LIFE_STEPS} steps ran B1 {fwd} and B1' {bwd} times, "
+             f"events {[r['kind'] for r in lines]}")
+    finals = []
+    for name in ("split", "whole"):
+        t = TieredTrainer.restore(cfg, os.path.join(workdir, name, "tiered_ckpt"),
+                                  virtual=True)
+        rest = {k: v.cpu() for k, v in t.state.model.state_dict().items()}
+        rest.update({f"{n}.{s}": v.cpu() for n, slots in t.state.optimizer.slots.items()
+                     for s, v in slots.items()})
+        finals.append((t.export_tables(), rest, t.state.step))
+        t.close()
+    (ta, ra, sa), (tb, rb, sb) = finals
+    err = max(float(np.abs(x[k] - y[k]).max()) for x, y in zip(ta, tb) for k in x)
+    err = max(err, max(float((ra[k] - rb[k]).abs().max()) for k in ra))
+    if sa != sb or err != 0.0:
+        fail(f"tiered task: resumed vs uninterrupted: steps {sa}/{sb}, max abs err {err}")
+    out["task"] = {"resume_max_abs_err": err, "step": sa,
+                   "examples_per_sec": done["examples_per_sec"],
+                   "hit_rate": done["hit_rate"], "stage_bytes": done["stage_bytes"],
+                   "writeback_bytes": done["writeback_bytes"],
+                   "launches": {"fused_ctr_forward": launches,
+                                "fused_ctr_backward": backward}}
+    print("tiered task %s" % json.dumps(out["task"]))
+    out["launches"] = launches + serve_launches
+    out["backward_launches"] = backward
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tiered: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -3627,10 +4106,13 @@ def main(argv: list[str] | None = None) -> int:
         lazy = phase_lazy(args.seed, train_dir, val_dir,
                           os.path.join(workdir, "lazy_servable"),
                           train["breakdown"][TRAIN_BATCHES[0]])
+        phase_graphed(args.seed, train, lazy)
         ddp = phase_ddp(args.seed, workdir)
         sharded = phase_sharded(args.seed, os.path.join(workdir, "sharded"))
         life = phase_lifecycle(args.seed, os.path.join(workdir, "lifecycle"), val_dir,
                                train_dir, os.path.join(workdir, "readers"))
+        tiered = phase_tiered(args.seed, os.path.join(workdir, "tiered"), train_dir,
+                              os.path.join(workdir, "lifecycle", "life"))
         online = phase_online(args.seed, os.path.join(workdir, "online"), card)
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
         prep = phase_prep(args.seed, os.path.join(workdir, "prep"), card)
@@ -3647,9 +4129,11 @@ def main(argv: list[str] | None = None) -> int:
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
                      + ddp["launches"] + sharded["launches"] + life["launches"]
                      + online["launches"] + funnel["forward_launches"]
-                     + funnel["task_forward_launches"] + prep["launches"]),
+                     + funnel["task_forward_launches"] + prep["launches"]
+                     + tiered["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
-                           sharded["max_abs_err"]),
+                           sharded["max_abs_err"], *tiered["hot_forward"]["max_abs_err"],
+                           *tiered["compact"]["forward_max_abs_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -3663,9 +4147,10 @@ def main(argv: list[str] | None = None) -> int:
         "launches": (train["backward_launches"] + lazy["backward_launches"]
                      + ddp["backward_launches"] + sharded["backward_launches"]
                      + life["backward_launches"] + online["backward_launches"]
-                     + prep["backward_launches"]),
+                     + prep["backward_launches"] + tiered["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"],
-                           sharded["backward_max_abs_err"]),
+                           sharded["backward_max_abs_err"],
+                           *tiered["compact"]["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

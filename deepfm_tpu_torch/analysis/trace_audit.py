@@ -1,0 +1,349 @@
+"""Trace-time contracts of the port's captured paths: engine 2 of
+``deepfm_tpu/analysis/trace_audit.py`` restated for what the port runs.
+
+JAX audits lowered executables without running them.  The port's
+counterparts of those executables are CUDA graphs (serve/graphs.py, the
+train step's ``StepGraph`` in train/step.py, the paged step of
+tiered/step.py), so the audit builds the real entry points at a small
+width, runs a few steps, and holds them to the same contracts:
+
+* **transfer** (``trace-transfer``): the train steps are captured under
+  ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside a
+  step raises during the capture; the audit reports a capture that
+  failed.  The paged step's only host inputs are its declared static
+  buffers: the slot ids, values, labels and the stage pack.
+* **donation** (``trace-donation``): every parameter, optimizer slot,
+  lazy moment, batch-norm buffer and hot-cache tensor keeps its
+  ``data_ptr`` over the steps (JAX donates the state; here the step
+  updates it in place, which is what lets a graph replay write it and a
+  checkpoint read it).
+* **dtype** (``trace-dtype``): no float64 in the state or the metrics,
+  and no state tensor changes dtype or shape in a step.
+* **graphed = eager** (``trace-parity``): the graphed step equals the
+  eager step bit for bit over several steps from one initial state and
+  one generator state (on batches of distinct ids, where the backward
+  kernel's float32 atomics add one term a row); the paged step equals the
+  resident lazy step bit for bit across forced evictions.
+* **buckets** (``trace-recompile``, JAX ``audit_predict`` and
+  ``audit_buckets``): the server's ``GraphedPredictor`` holds exactly
+  ``SLOTS x len(buckets)`` graphs, every request size the batcher admits
+  maps onto a captured bucket, and a ``HotSwapper`` swap captures nothing
+  (``fused_ctr.captured`` is unchanged).
+
+On the CPU the structural contracts run (in place, dtype, one body: the
+eager step and the CPU path of the graphed step are one function); the
+capture contracts run on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).  :func:`run_trace_audit` returns every finding.
+
+**Waived** (:data:`WAIVERS`): JAX's ``audit_spmd_exchange`` and
+``audit_zero_update``.  The steps of a ``[data x model]`` grid and the
+data-parallel step stay eager: each reads host flags every step (the
+exchange's overflow flag, ``parallel/embedding.py``; the step's
+next-batch, stop and eval flags and the lazy pack's flag,
+``parallel/spmd.py``), which a graph cannot read.  The online trainer
+(``online/trainer.py``) stays eager too.  No audit here claims them.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from .findings import Finding
+
+# what the audit does not claim, and why
+WAIVERS = {
+    "audit_spmd_exchange": (
+        "the grid step (parallel/spmd.py, parallel/embedding.py) stays eager: "
+        "it reads the exchange's overflow flag, the step's flags and the lazy "
+        "pack's flag on the host every step; its collectives are held to the "
+        "single-card step by tests/test_torch_sharded*.py and chip_smoke.py's "
+        "sharded phase, not by a capture"),
+    "audit_zero_update": (
+        "the ZeRO update runs inside the eager grid step (train/optimizer.py "
+        "ZeroOptimizer); not captured"),
+    "online_trainer": (
+        "online/trainer.py steps eagerly: its loop reads the stream's cursor "
+        "and commit flags between steps"),
+}
+
+# small but structurally faithful: the flagship's MLP, dtype and dropout,
+# a table small enough for a CPU test
+_AUDIT_MODEL = {"feature_size": 997, "field_size": 8, "embedding_size": 16}
+_AUDIT_BATCH = 64
+_AUDIT_STEPS = 5  # > train.step.WARMUP_STEPS: the capture and replays run
+
+
+def _finding(rule: str, message: str, where: str, slug: str, hint: str = "") -> Finding:
+    return Finding(rule=rule, path=where, line=0, col=0, message=message, hint=hint,
+                   source=slug)
+
+
+def audit_cfg(lazy: bool = False, **model):
+    from ..core.config import Config
+
+    return Config().with_overrides(
+        model={**_AUDIT_MODEL, **model},
+        optimizer={"lazy_embedding_updates": lazy},
+        data={"batch_size": _AUDIT_BATCH})
+
+
+def distinct_batches(cfg, n: int, seed: int = 0) -> list[dict]:
+    """``n`` host batches whose B·F ids are distinct within each batch
+    (pinned where the card runs)."""
+    b, f, v = cfg.data.batch_size, cfg.model.field_size, cfg.model.feature_size
+    if b * f > v:
+        raise ValueError(f"{b}x{f} distinct ids need a vocabulary of {b * f}, got {v}")
+    rng = np.random.default_rng(seed)
+    return [{"feat_ids": torch.from_numpy(rng.permutation(v)[:b * f].reshape(b, f)),
+             "feat_vals": torch.from_numpy(rng.random((b, f), dtype=np.float32)),
+             "label": torch.from_numpy((rng.random(b) < 0.3).astype(np.float32))}
+            for _ in range(n)]
+
+
+def state_tensors(state) -> dict[str, torch.Tensor]:
+    """Every tensor a train state carries from step to step, by name:
+    parameters and buffers, optimizer slots, lazy moments, scalars."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict(keep_vars=True).items()}
+    for name, slots in state.optimizer.slots.items():
+        out.update({f"optimizer.{name}.{s}": t for s, t in slots.items()})
+    lazy = getattr(state, "lazy", None)
+    if lazy is not None:
+        for part in ("m", "v"):
+            out.update({f"lazy.{part}.{k}": t for k, t in getattr(lazy, part).items()})
+    hot = getattr(state, "hot", None)
+    if hot is not None:
+        out.update({f"hot.rows.{k}": t for k, t in hot.rows.items()})
+    if state.scalars is not None:
+        out["scalars"] = state.scalars
+    return out
+
+
+def _layout(tensors: dict) -> dict:
+    return {k: (t.data_ptr(), t.dtype, tuple(t.shape)) for k, t in tensors.items()}
+
+
+def check_in_place(before: dict, state, where: str, what: str) -> list[Finding]:
+    """``trace-donation`` and ``trace-dtype`` findings of ``state`` against
+    its ``_layout`` before the steps."""
+    out = []
+    after = _layout(state_tensors(state))
+    for name, (ptr, dtype, shape) in before.items():
+        now = after.get(name)
+        if now is None or now[0] != ptr:
+            out.append(_finding(
+                "trace-donation", f"{what}: {name} was rebound by a step, not "
+                f"updated in place", where, f"{what}:donation:{name}",
+                hint="update the tensor with an in-place op (copy_, add_, "
+                     "index_copy_); a replay writes the captured memory"))
+        elif now[1:] != (dtype, shape):
+            out.append(_finding(
+                "trace-dtype", f"{what}: {name} went from {dtype} {shape} to "
+                f"{now[1]} {now[2]} in a step", where, f"{what}:drift:{name}"))
+    return out
+
+
+def check_dtypes(state, metrics: dict, where: str, what: str) -> list[Finding]:
+    out = []
+    named = {**state_tensors(state), **{f"metrics.{k}": v for k, v in metrics.items()}}
+    for name, t in named.items():
+        if t.dtype == torch.float64:
+            out.append(_finding("trace-dtype", f"{what}: {name} is float64", where,
+                                f"{what}:f64:{name}",
+                                hint="keep the state and metrics float32"))
+    return out
+
+
+def _capture_findings(step_fn, state, batch, where: str, what: str):
+    """Run one step, turning a failed capture on the card into a
+    ``trace-transfer`` finding; returns (metrics or None, findings)."""
+    if state.model.fm_b.device.type != "cuda":
+        return step_fn(state, batch), []
+    try:
+        return step_fn(state, batch), []
+    except RuntimeError as e:
+        return None, [_finding("trace-transfer", f"{what}: the capture failed: "
+                               f"{str(e).splitlines()[0][:300]}", where, f"{what}:capture")]
+
+
+def audit_train_step(device="cpu", *, lazy: bool = False, state=None, step=None,
+                     steps: int = _AUDIT_STEPS) -> list[Finding]:
+    """The single-card step's contracts (JAX ``audit_train_step``): in
+    place, dtype, and graphed = eager.  ``state`` (default: a fresh state
+    of :func:`audit_cfg`) and ``step`` (default ``graphed_train_step``)
+    let a test seed a regression."""
+    from ..train.step import create_train_state, graphed_train_step, train_step
+
+    where = "deepfm_tpu_torch/train/step.py"
+    what = "lazy step" if lazy else "dense step"
+    cfg = audit_cfg(lazy)
+    step = step or graphed_train_step
+    state = state or create_train_state(cfg, device)
+    twin = create_train_state(cfg, device)
+    twin.generator.set_state(state.generator.get_state())
+    batches = distinct_batches(cfg, steps)
+    out = check_dtypes(state, {}, where, what)
+    if out:  # a float64 state does not step: report it as it is
+        return out
+    before = None
+    for i, batch in enumerate(batches):
+        metrics, failed = _capture_findings(step, state, batch, where, what)
+        if failed:
+            return failed
+        if before is None:  # the scalar buffer exists from the first step
+            before = _layout(state_tensors(state))
+        eager = train_step(twin, batch)
+        for k in metrics:
+            if not torch.equal(metrics[k], eager[k]):
+                out.append(_finding("trace-parity", f"{what}: step {i + 1}'s {k} differs "
+                                    f"from the eager step's", where, f"{what}:parity:{k}"))
+                break
+    out += check_in_place(before, state, where, what)
+    out += check_dtypes(state, metrics, where, what)
+    mine, eager_t = state_tensors(state), state_tensors(twin)
+    for name, t in mine.items():
+        if name in eager_t and not torch.equal(t, eager_t[name]):
+            out.append(_finding("trace-parity", f"{what}: {name} after {steps} graphed "
+                                f"steps differs from the eager steps'", where,
+                                f"{what}:parity:{name}"))
+    if torch.device(device).type == "cuda":
+        graph = state.graph
+        if graph is None or graph.graph is None or graph.replays < 1:
+            out.append(_finding("trace-transfer", f"{what}: {steps} steps on the card "
+                                f"replayed no graph", where, f"{what}:replayed"))
+    return out
+
+
+def audit_buckets(device="cpu", buckets=None) -> list[Finding]:
+    """The serving graphs (JAX ``audit_predict``/``audit_buckets``): the
+    graph count, every admissible size on a captured bucket, and on the
+    card a hot swap that captures nothing."""
+    from ..models.deepfm import DeepFM
+    from ..serve.batcher import DEFAULT_BUCKETS, pick_bucket
+    from ..serve.export import build_graphed_batcher, export_servable
+    from ..serve.graphs import SLOTS
+
+    where = "deepfm_tpu_torch/serve/graphs.py"
+    buckets = tuple(buckets or DEFAULT_BUCKETS)
+    cfg = audit_cfg()
+    out: list[Finding] = []
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="trace_audit_") as tmp:
+        sd = DeepFM(cfg.model, device="cpu").state_dict()
+        servable = export_servable(cfg.model, sd, os.path.join(tmp, "v0"))
+        batcher, predictor, holder, mcfg, _ = build_graphed_batcher(
+            servable, device=device, buckets=buckets)
+        try:
+            want = SLOTS * len(buckets) if cuda else 0
+            if predictor.graph_count != want:
+                out.append(_finding("trace-recompile", f"{predictor.graph_count} bucket "
+                                    f"graphs, expected {want}", where, "graph-count"))
+            captured = {b for g in predictor._graphs for b in g} if cuda else set(buckets)
+            for n in range(1, buckets[-1] + 1):
+                b = pick_bucket(buckets, n)
+                if b < n or b not in captured:
+                    out.append(_finding("trace-recompile", f"a request of {n} rows maps "
+                                        f"onto bucket {b}, not a captured one", where,
+                                        f"bucket:{n}"))
+                    break
+            if cuda:
+                out += _audit_swap(batcher, predictor, holder, mcfg, cfg, tmp, where)
+        finally:
+            batcher.close()
+    return out
+
+
+def _audit_swap(batcher, predictor, holder, mcfg, cfg, tmp, where) -> list[Finding]:
+    from ..models.deepfm import DeepFM
+    from ..online.publisher import ModelPublisher
+    from ..ops import fused_ctr
+    from ..serve.reload import HotSwapper
+
+    pub = os.path.join(tmp, "pub")
+    g = torch.Generator().manual_seed(1)
+    ModelPublisher(pub).publish(cfg, DeepFM(cfg.model, device="cpu",
+                                            generator=g).state_dict(), step=1)
+    graphs, captured = predictor.graph_count, fused_ctr.captured
+    swapper = HotSwapper(holder, predictor, pub, mcfg, run=batcher.run_on_worker,
+                         staging_dir=os.path.join(tmp, "staging"))
+    swapped = swapper.poll_once()
+    out = []
+    if not swapped or holder.version != 1:
+        out.append(_finding("trace-recompile", "the audit's published version did "
+                            "not swap in", "deepfm_tpu_torch/serve/reload.py", "swap"))
+    if fused_ctr.captured != captured or predictor.graph_count != graphs:
+        out.append(_finding("trace-recompile", f"a hot swap captured "
+                            f"{fused_ctr.captured - captured} forwards "
+                            f"({predictor.graph_count} graphs, {graphs} before)", where,
+                            "swap-captured"))
+    return out
+
+
+def audit_paged_step(device="cpu", *, steps: int = _AUDIT_STEPS) -> list[Finding]:
+    """The paged step's contracts (JAX ``audit_paged_step``): its inputs
+    are its declared static buffers, the hot cache is updated in place,
+    no float64, and it equals the resident lazy step bit for bit with a
+    cache of one batch (evictions every step)."""
+    from ..train.step import create_train_state, train_step
+    from ..tiered import TieredTrainer
+
+    where = "deepfm_tpu_torch/tiered/step.py"
+    what = "paged step"
+    cfg = audit_cfg(lazy=True, fused_kernel="off", tiered_embeddings=True,
+                    tiered_page_rows=64)
+    bf = cfg.data.batch_size * cfg.model.field_size
+    resident = create_train_state(cfg, device)
+    batches = distinct_batches(cfg, steps, seed=1)
+    out: list[Finding] = []
+    with tempfile.TemporaryDirectory(prefix="trace_audit_") as tmp, \
+            TieredTrainer.from_resident_state(cfg, create_train_state(cfg, device),
+                                              os.path.join(tmp, "cold"), capacity=bf,
+                                              stage_rows=bf, host_rows=4 * bf) as tr:
+        before = None
+        for i, batch in enumerate(batches):
+            metrics, failed = _capture_findings(lambda _, b: tr.train_batch(b), tr.state,
+                                                batch, where, what)
+            if failed:
+                return failed
+            if before is None:
+                before = _layout(state_tensors(tr.state))
+            want = train_step(resident, batch)
+            if not torch.equal(metrics["loss"], want["loss"]):
+                out.append(_finding("trace-parity", f"{what}: step {i + 1}'s loss differs "
+                                    f"from the resident lazy step's", where,
+                                    f"{what}:parity:loss"))
+                break
+        out += check_in_place(before, tr.state, where, what)
+        out += check_dtypes(tr.state, metrics, where, what)
+        graph = tr.state.graph
+        if graph is not None:
+            declared = {"slot_ids", "feat_vals", "label", "stage_slots", "stage_records"}
+            if set(graph.static) != declared:
+                out.append(_finding("trace-transfer", f"{what}: static inputs "
+                                    f"{sorted(graph.static)}, declared {sorted(declared)}",
+                                    where, f"{what}:inputs"))
+        if torch.device(device).type == "cuda" and (graph is None or graph.replays < 1):
+            out.append(_finding("trace-transfer", f"{what}: {steps} steps on the card "
+                                f"replayed no graph", where, f"{what}:replayed"))
+        if tr.pager.stats()["evictions"] == 0:
+            out.append(_finding("trace-parity", f"{what}: the audit's cache never "
+                                f"evicted, so the parity ran without writebacks", where,
+                                f"{what}:evictions"))
+        rows, _, _ = tr.export_tables()
+        for k in ("fm_w", "fm_v"):
+            got = torch.from_numpy(rows[k])
+            if not torch.equal(got, getattr(resident.model, k).detach().cpu()):
+                out.append(_finding("trace-parity", f"{what}: {k} after {steps} paged steps "
+                                    f"differs from the resident lazy step's", where,
+                                    f"{what}:parity:{k}"))
+    return out
+
+
+def run_trace_audit(device="cpu") -> list[Finding]:
+    """Every contract above on ``device`` (the capture contracts only
+    where it is the card); the waived ones are in :data:`WAIVERS`."""
+    return (audit_train_step(device) + audit_train_step(device, lazy=True)
+            + audit_buckets(device) + audit_paged_step(device))

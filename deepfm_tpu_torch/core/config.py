@@ -102,13 +102,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         # read by xdeepfm/dcnv2 only (not ported: get_model raises)
         "cin_layers": ((128, 128), None),
         "cross_layers": (3, None),
-        "tiered_embeddings": (False, "not ported yet (ROADMAP A11, tiered store)"),
-        # read only with tiered_embeddings on
-        "tiered_hot_slots": (0, None),
-        "tiered_stage_rows": (0, None),
-        "tiered_host_rows": (0, None),
-        "tiered_page_rows": (1024, None),
-        "tiered_cold_url": ("", None),
     },
     "data": {
         "shuffle_buffer": (0, _A6),
@@ -189,6 +182,52 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
 }
 
 
+TIERED_URL_NOT_PORTED = ("an object-store cold tier is not ported yet "
+                         "(ROADMAP A15, data/object_store.py); give a local directory")
+
+
+def _check_tiered_fields(m) -> None:
+    """JAX's checks of the tiered fields on their own, and the port's
+    refusal of an object-store cold root."""
+    if m.tiered_page_rows < 1:
+        raise ValueError(f"tiered_page_rows must be >= 1, got {m.tiered_page_rows}")
+    for name in ("tiered_hot_slots", "tiered_stage_rows", "tiered_host_rows"):
+        if getattr(m, name) < 0:
+            raise ValueError(f"{name} must be >= 0 (0 = auto), got {getattr(m, name)}")
+    # the port's paged step runs its hand-written kernels on the cache's
+    # compact rows whatever fused_kernel says: the field is kept for JAX
+    # compatibility, and a config JAX refuses is refused here too
+    if m.tiered_embeddings and m.fused_kernel != "off":
+        raise ValueError(
+            f"tiered_embeddings with fused_kernel={m.fused_kernel!r}: the JAX "
+            f"package refuses this pair, so the port does too (its paged step "
+            f"runs the fused CUDA kernels on the hot cache either way); use "
+            f"fused_kernel='off'")
+    if "://" in m.tiered_cold_url:
+        raise ValueError(f"model.tiered_cold_url={m.tiered_cold_url!r}: "
+                         f"{TIERED_URL_NOT_PORTED}")
+
+
+def _check_tiered_geometry(m, batch_size: int) -> None:
+    """JAX's checks of the tiered cache against one batch's B·F ids."""
+    if not m.tiered_embeddings:
+        return
+    bf = batch_size * m.field_size
+    if 0 < m.tiered_hot_slots < bf:
+        raise ValueError(f"tiered_hot_slots={m.tiered_hot_slots} cannot hold one "
+                         f"batch's id stream (batch_size*field_size={bf})")
+    if 0 < m.tiered_stage_rows < bf:
+        warnings.warn(
+            f"tiered_stage_rows={m.tiered_stage_rows} < batch_size*field_size={bf}: "
+            f"a cache-cold batch can miss on every id and overflow the staging "
+            f"pack (the pager raises at run time)", stacklevel=3)
+    h = m.tiered_host_rows
+    if h and h - max(1, h // 16) < bf:
+        raise ValueError(f"tiered_host_rows={h} cannot service one batch's miss "
+                         f"fetch (window {h - max(1, h // 16)} < "
+                         f"batch_size*field_size={bf})")
+
+
 def _known_fields(cls, d: dict, section: str) -> dict:
     """The entries of ``d`` that name a field of ``cls``, lists as tuples.
     Every other entry is checked against ``JAX_ONLY_FIELDS[section]``: a
@@ -264,11 +303,28 @@ class ModelConfig:
     # (0 = auto: ceil(N/M)); the lazy step's unique pack takes it too (0 =
     # auto: N/2)
     shard_exchange_capacity: float = 0.0
+    # the tiered store (tiered/): fm_w, fm_v and their lazy-Adam moments
+    # page through a hot cache on the card, a host tier and a cold tier
+    # of row pages instead of living on the card whole
+    tiered_embeddings: bool = False
+    # hot-cache slots (0 = auto: the next power of two >= 2·B·F); at least
+    # one batch's B·F ids
+    tiered_hot_slots: int = 0
+    # rows of the step's staged miss pack, its fixed shape (0 = auto: B·F)
+    tiered_stage_rows: int = 0
+    # host-tier rows (0 = auto: 8 x the hot slots)
+    tiered_host_rows: int = 0
+    # rows a cold-tier page (one read, one overlay write)
+    tiered_page_rows: int = 1024
+    # the cold tier's root: a local directory ("" = <model_dir>/cold); an
+    # object-store prefix is ROADMAP A15
+    tiered_cold_url: str = ""
 
     def __post_init__(self):
         object.__setattr__(self, "deep_layers", _parse_int_list(self.deep_layers))
         object.__setattr__(self, "dropout_keep", _parse_float_list(self.dropout_keep))
         object.__setattr__(self, "tower_layers", _parse_int_list(self.tower_layers))
+        _check_tiered_fields(self)
         if len(self.dropout_keep) < len(self.deep_layers):
             raise ValueError(
                 f"dropout_keep has {len(self.dropout_keep)} entries for "
@@ -679,6 +735,7 @@ class Config:
                 "no-op: the weight update shards across the data axis, and "
                 "there is only one data shard (train/optimizer.py "
                 "ZeroOptimizer)", stacklevel=2)
+        _check_tiered_geometry(m, self.data.batch_size)
         _check_funnel(self.run, m, mp)
         # feedback-train is the online trainer on the join's output
         if (self.run.task_type in ("feedback-train", "feedback_train")

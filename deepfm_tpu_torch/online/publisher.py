@@ -23,8 +23,9 @@ Retention keeps the newest ``max(keep, keep_window)`` versions, deleting
 manifest first, so a half-deleted version is invisible; ``keep_window``
 (``regions.publish_keep_window``) widens it so that a reader catching up
 still finds the versions it is behind by.  Object-store roots (a URL) raise:
-ROADMAP A6 and A15.  Tiered publishes and the publisher's fence are
-ROADMAP A11 and A15.
+ROADMAP A6 and A15.  :meth:`ModelPublisher.publish_tiered` publishes a
+tiered model (a consistent cold-tier snapshot in the manifest's
+``extra["tiered"]``); the publisher's fence is ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -205,10 +206,55 @@ class ModelPublisher:
             watermark=float(watermark),
             extra=dict(extra or {}),
         )
-        dest = version_location(self.root, version)
+        return self._publish_artifact(
+            manifest, lambda dest: export_servable(model_cfg, state_dict, dest))
+
+    def publish_tiered(self, cfg, trainer, *, cursor: dict | None = None,
+                       watermark: float = 0.0, extra: dict | None = None) -> Manifest:
+        """Publish a tiered model (tiered/trainer.py ``TieredTrainer``):
+        the trainer's flush barrier first (dirty rows and moments hot to
+        host to cold), then a manifest whose ``extra["tiered"]`` holds the
+        cold tier's ``page_versions`` snapshot, so a reader pinned to it
+        (tiered/serving.py ``TieredScorer``) sees exactly this step's rows
+        whatever the trainer flushes afterwards (overlays are
+        copy-on-write).  The version's tree holds only ``config.json`` and
+        the model's non-table weights (``rest.pt``); the tables stay in
+        the cold tier, referenced, not copied.  ``param_hash`` covers those
+        weights."""
+        from ..tiered.serving import REST_FILE
+        from ..tiered.trainer import rest_state_dict
+
+        snapshot = trainer.flush()  # the consistency barrier, before the manifest
+        rest = {k: v.detach().cpu() for k, v in
+                rest_state_dict(trainer.state.model).items()}
+        manifest = Manifest(
+            version=self.next_version(),
+            step=int(trainer.state.step),
+            param_hash=param_tree_hash(rest),
+            field_size=cfg.model.field_size,
+            feature_size=cfg.model.feature_size,
+            model_name=cfg.model.model_name,
+            created_unix=time.time(),
+            cursor=cursor,
+            watermark=float(watermark),
+            extra={**(extra or {}), "tiered": snapshot},
+        )
+
+        def write_tree(dest: str) -> None:
+            os.makedirs(dest)
+            with open(os.path.join(dest, "config.json"), "w") as f:
+                json.dump(cfg.to_dict(), f, indent=2)
+            torch.save(rest, os.path.join(dest, REST_FILE))
+
+        return self._publish_artifact(manifest, write_tree)
+
+    def _publish_artifact(self, manifest: Manifest, write_tree) -> Manifest:
+        """``write_tree(dest)`` writes the version's tree, then the manifest
+        lands last."""
+        dest = version_location(self.root, manifest.version)
         shutil.rmtree(dest, ignore_errors=True)  # an orphan from a crash
-        export_servable(model_cfg, state_dict, dest)
-        path = _manifest_path(self.root, version)
+        write_tree(dest)
+        path = _manifest_path(self.root, manifest.version)
         with open(path + ".tmp", "w") as f:
             f.write(manifest.to_json())
         os.replace(path + ".tmp", path)  # the publish point

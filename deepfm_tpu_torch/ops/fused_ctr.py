@@ -16,10 +16,11 @@ VJP).
 
 There is no fallback from the card to the plain versions.  ``launches`` and
 ``backward_launches`` count each kernel's launches, so a caller can show
-that a path ran through the kernels.  A forward recorded into a CUDA graph
-does not run until the graph replays, so it counts in ``captured``, not
-in ``launches``: a caller that replays graphs counts their runs itself
-(serve/graphs.py).
+that a path ran through the kernels.  A forward or backward recorded into
+a CUDA graph does not run until the graph replays, so it counts in
+``captured`` or ``backward_captured``, not in the launches: a caller that
+replays graphs counts their runs itself (serve/graphs.py,
+train/step.py ``StepGraph``).
 
 Id clipping: ids clip to ``[0, fm_v rows - 1]`` for ``emb`` (a padded fm_v's
 zero rows are reachable by int32 ids past ``feature_size``), and that row
@@ -38,10 +39,11 @@ from .embedding import dense_lookup, scaled_embedding
 from .fm import fm_first_order, fm_second_order
 
 # kernel launches since import (or since a caller reset them), and the
-# forwards recorded into CUDA graphs instead
+# forwards and backwards recorded into CUDA graphs instead
 launches = 0
 backward_launches = 0
 captured = 0
+backward_captured = 0
 
 _MAX_K = 128  # csrc/fused_ctr.cu: 4 floats a lane
 _INT_MAX = 2**31 - 1
@@ -212,7 +214,7 @@ def fused_ctr_backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
     """The backward kernel on CUDA tensors: (d_fm_w [Vw], d_fm_v [Vv, K],
     d_vals [B, F] or None).  Raises on anything the kernel does not take.
     d_fm_v and d_fm_w are zero-filled here; the kernel adds into them."""
-    global backward_launches
+    global backward_launches, backward_captured
     fn = "fused_ctr_backward"
     _check_inputs(fm_w, fm_v, ids, vals, fn)
     dev = fm_v.device
@@ -239,8 +241,12 @@ def fused_ctr_backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals,
             d_vals.data_ptr() if want_vals else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
+        capturing = torch.cuda.is_current_stream_capturing()
     _raise_on(rc, lib, fn)
-    backward_launches += 1
+    if capturing:
+        backward_captured += 1
+    else:
+        backward_launches += 1
     return d_fm_w, d_fm_v, d_vals
 
 

@@ -193,6 +193,16 @@ def exchange_plan(flat_ids: torch.Tensor, rows: int, num_shards: int,
                         overflow=(counts > capacity).any())
 
 
+def probe_ids(plan: ExchangePlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(row_id, unique_valid)``: the plan's deduplicated id stream, the
+    cache-probe keys of the tiered store (tiered/): one sort gives both
+    the owners' routing and the distinct rows a batch needs resident.
+    ``row_id`` is valid on the ``unique_valid`` prefix; both are ``[N]``.
+    The sort is a stable int64 sort, so ids of 2**24 and more group as
+    any others do (JAX packs them into a uint32 key where they fit)."""
+    return plan.row_id, plan.unique_valid
+
+
 def _gather_rows(tables, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``[n, W]``: each table's rows at ``idx`` side by side (a 1-D table as
     one column), zero where ``mask`` is false."""

@@ -93,8 +93,8 @@ from ..train.lazy import init_lazy_state, lazy_adam_update_shard
 from ..train.optimizer import (ZeroOptimizer, build_optimizer, resolve_zero_sharding,
                                schedule_value)
 from ..train.step import (LAZY_TABLE_KEYS, TrainState, _check_lazy, _metrics,
-                          apply_dense, dense_grads,
-                          sigmoid_cross_entropy, train_step as single_train_step)
+                          apply_dense, dense_grads, graphed_train_step,
+                          sigmoid_cross_entropy)
 from .embedding import (ModelAxis, exchange_capacity, exchange_rows,
                         resolve_shard_exchange, tables_from_config)
 from .mesh import DistContext
@@ -333,11 +333,16 @@ def train_step(state: TrainState, batch: dict, ctx: DistContext, *,
     single-card step, and the flags are this process's own.  The dense
     step on row-sharded tables refuses ids outside ``[0, feature_size)``
     (JAX's ``shard_batch`` check): every rank raises ValueError at the same
-    step, before the update (the lazy step maps them to its sentinel)."""
+    step, before the update (the lazy step maps them to its sentinel).
+    The single-card step is graphed on the card (train/step.py
+    ``graphed_train_step``; ``batch`` may then be the pinned host batch);
+    the steps of a group stay eager: they read host flags every step (the
+    step's flags here, the exchange's overflow flag,
+    parallel/embedding.py, and the lazy pack's flag below)."""
     examples = int(batch["label"].shape[0])
     flags = dict(examples=examples, has_next=has_next, stop=stop, eval_now=eval_now)
     if ctx.group is None:
-        return {**single_train_step(state, batch), "examples": examples,
+        return {**graphed_train_step(state, batch), "examples": examples,
                 "all_have_next": has_next, "any_stop": stop, "eval_now": eval_now}
     if state.lazy is not None:
         return lazy_train_step(state, batch, ctx, **flags)

@@ -136,7 +136,9 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                  readiness: Callable | None = None,
                  registry: MetricsRegistry | None = None, tracer: Tracer | None = None):
     """REST handler over an engine exposing ``score``/``score_instances``
-    and ``metrics_snapshot``.  ``reload_status`` (the HotSwapper's
+    and ``metrics_snapshot`` (the micro-batcher over the bucket graphs, or
+    the tiered scorer, tiered/serving.py, whose ``paging_snapshot`` joins
+    ``/v1/metrics``).  ``reload_status`` (the HotSwapper's
     ``status``) adds the live ``model_version`` to the status document and
     to every ``:predict`` response, and a ``reload`` section to
     ``/v1/metrics``.  ``readiness`` returns the ``/readyz`` document (with
@@ -181,6 +183,10 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                 snap = {"model": model_name, **scorer.metrics_snapshot()}
                 if reload_status is not None:
                     snap["reload"] = reload_status()
+                # an engine that pages its weights through tiers (the tiered
+                # scorer, tiered/serving.py) adds its hit rate and bytes
+                if "paging" not in snap and hasattr(scorer, "paging_snapshot"):
+                    snap["paging"] = scorer.paging_snapshot()
                 self._send(200, snap)
             else:
                 self._send(404, {"error": f"unknown path {self.path!r}"})

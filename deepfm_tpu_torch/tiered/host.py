@@ -1,0 +1,224 @@
+"""Host tier: the backing store between the card's hot cache and the cold
+tier.  A copy of ``deepfm_tpu/tiered/host.py`` (that module imports no
+JAX; the port keeps its own copy).
+
+One preallocated ``[capacity, record_width]`` float32 buffer in host
+memory holds row records faulted in from the cold tier and rows written
+back from the hot cache (the pager stages a step's misses into pinned
+memory of its own).  Rows are
+the residency unit; cold fetches are PAGE-granular (one ranged read
+services every missing row of that page) and dirty evictions/flushes are
+page-granular read-modify-write against the cold tier's COW overlays.
+
+Concurrency: the pager's synchronous miss path and the input pipeline's
+ahead-of-time id-stream prefetcher share this tier.  The lock is dropped
+around cold-tier I/O so a prefetch stalled on a dead store never blocks a
+hit, and an in-flight page set + condition variable deduplicates
+concurrent fetches of the same page (the second caller waits, then reads
+the first caller's rows).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+
+from .store import ColdTier
+
+
+class HostTier:
+    def __init__(self, cold: ColdTier, capacity_rows: int):
+        if capacity_rows < cold.page_rows:
+            raise ValueError(
+                f"host tier capacity {capacity_rows} below one page "
+                f"({cold.page_rows} rows) cannot make progress"
+            )
+        self.cold = cold
+        self.capacity = int(capacity_rows)
+        width = cold.layout.width
+        self._buf = np.zeros((self.capacity, width), np.float32)
+        self._idx_of: dict[int, int] = {}          # global row -> buf index
+        self._row_at = np.full(self.capacity, -1, np.int64)
+        self._dirty = np.zeros(self.capacity, bool)
+        self._use = np.zeros(self.capacity, np.int64)
+        self._clock = 0
+        self._free = list(range(self.capacity - 1, -1, -1))
+        self._cond = threading.Condition()
+        self._inflight: set[int] = set()           # pages being cold-fetched
+        self._stats = {
+            "host_hits": 0, "host_misses": 0, "host_evictions": 0,
+            "host_flushed_rows": 0, "prefetched_rows": 0,
+        }
+
+    # -- read path ---------------------------------------------------------
+    def max_request_rows(self) -> int:
+        """Largest single-call row set the tier can serve: one eviction
+        chunk (``capacity // 16``) must remain displaceable or a fill
+        could evict its own rows and loop forever."""
+        return self.capacity - max(1, self.capacity // 16)
+
+    def get_records(self, rows: np.ndarray) -> np.ndarray:
+        """Records for ``rows`` (unique, in-range), faulting misses in from
+        the cold tier page-by-page.  Blocks while the cold tier is down —
+        the training-side stall-then-resume behavior."""
+        rows = np.asarray(rows, np.int64)
+        if rows.size > self.max_request_rows():
+            raise ValueError(
+                f"one request of {rows.size} rows exceeds the host tier's "
+                f"serviceable window ({self.max_request_rows()} of "
+                f"{self.capacity} rows): eviction would displace the "
+                f"request's own rows; raise tiered_host_rows"
+            )
+        first = True
+        while True:
+            self._ensure(rows, prefetch=not first)
+            first = False
+            with self._cond:
+                # a concurrent writer's eviction may race the fault-in;
+                # re-ensure until every row is present at gather time
+                if any(int(r) not in self._idx_of for r in rows):
+                    continue
+                self._clock += 1
+                idx = np.fromiter(
+                    (self._idx_of[int(r)] for r in rows), np.int64, len(rows)
+                )
+                self._use[idx] = self._clock
+                return self._buf[idx].copy()
+
+    def prefetch(self, rows: np.ndarray) -> int:
+        """Make ``rows`` resident without returning them (the id-stream
+        prefetch hook).  Returns how many rows were actually fetched."""
+        rows = np.unique(np.asarray(rows, np.int64))
+        rows = rows[(rows >= 0) & (rows < self.cold.rows)]
+        n = self._ensure(rows, prefetch=True)
+        with self._cond:
+            self._stats["prefetched_rows"] += n
+        return n
+
+    def _ensure(self, rows: np.ndarray, *, prefetch: bool) -> int:
+        """Fault the missing subset of ``rows`` in.  Lock dropped around
+        cold reads; concurrent fetches of one page deduplicate via the
+        in-flight set."""
+        fetched = 0
+        while True:
+            with self._cond:
+                missing = [int(r) for r in rows if int(r) not in self._idx_of]
+                if not prefetch:
+                    # newer-than-everything-older use stamp: rows inserted
+                    # by THIS fill can only be evicted once strictly older
+                    # residents are exhausted: which the request-size
+                    # window (max_request_rows) guarantees never happens
+                    # mid-fill, so a fill cannot displace its own rows
+                    self._clock += 1
+                    self._stats["host_hits"] += len(rows) - len(missing)
+                    self._stats["host_misses"] += len(missing)
+                    prefetch = True  # count only the first pass
+                if not missing:
+                    return fetched
+                pages = {r // self.cold.page_rows for r in missing}
+                mine = sorted(pages - self._inflight)
+                if not mine:
+                    # someone else is fetching every page we need
+                    self._cond.wait(timeout=0.5)
+                    continue
+                self._inflight.update(mine)
+            try:
+                got = {}
+                for page in mine:
+                    got[page] = self.cold.read_page(page)  # no lock held
+            finally:
+                with self._cond:
+                    self._inflight.difference_update(mine)
+                    self._cond.notify_all()
+            with self._cond:
+                for page, recs in got.items():
+                    lo = page * self.cold.page_rows
+                    want = [r for r in missing
+                            if r // self.cold.page_rows == page
+                            and r not in self._idx_of]
+                    for r in want:
+                        # the eviction flush runs under the lock (see
+                        # _alloc_locked): a victim slot is not reused before
+                        # its dirty rows reach the cold tier
+                        i = self._alloc_locked()
+                        self._buf[i] = recs[r - lo]
+                        self._idx_of[r] = i
+                        self._row_at[i] = r
+                        self._dirty[i] = False
+                        self._use[i] = self._clock
+                        fetched += 1
+
+    # -- write path --------------------------------------------------------
+    def put_records(self, rows: np.ndarray, recs: np.ndarray) -> None:
+        """Absorb device-evicted (or checkpoint-flushed) dirty records.
+        Rows the tier already dropped are re-inserted: the device copy is
+        the freshest version wherever it exists."""
+        rows = np.asarray(rows, np.int64)
+        with self._cond:
+            self._clock += 1
+            for r, rec in zip(rows, recs):
+                r = int(r)
+                i = self._idx_of.get(r)
+                if i is None:
+                    i = self._alloc_locked()
+                    self._idx_of[r] = i
+                    self._row_at[i] = r
+                self._buf[i] = rec
+                self._dirty[i] = True
+                self._use[i] = self._clock
+
+    def _alloc_locked(self) -> int:
+        """One free buffer index; evicts (approximate-)LRU rows when full,
+        flushing dirty victims' pages to the cold tier first.  Caller
+        holds the lock; the flush I/O runs under it too: eviction under a
+        dead cold tier stalls the writer, never corrupts."""
+        if self._free:
+            return self._free.pop()
+        live = np.flatnonzero(self._row_at >= 0)
+        n_evict = max(1, self.capacity // 16)
+        order = live[np.argpartition(self._use[live], n_evict)[:n_evict]]
+        dirty = order[self._dirty[order]]
+        if dirty.size:
+            self._flush_indices_locked(dirty)
+        for i in order:
+            del self._idx_of[int(self._row_at[i])]
+            self._row_at[i] = -1
+            self._dirty[i] = False
+            self._free.append(int(i))
+        self._stats["host_evictions"] += int(order.size)
+        return self._free.pop()
+
+    def _flush_indices_locked(self, idx: np.ndarray) -> None:
+        """Read-modify-write the dirty rows at ``idx`` into their cold
+        pages (grouped, one overlay write per touched page)."""
+        rows = self._row_at[idx]
+        order = np.argsort(rows)
+        idx, rows = idx[order], rows[order]
+        pages = rows // self.cold.page_rows
+        for page in np.unique(pages):
+            sel = pages == page
+            recs = self.cold.read_page(int(page))
+            recs[rows[sel] - int(page) * self.cold.page_rows] = \
+                self._buf[idx[sel]]
+            self.cold.write_page(int(page), recs)
+            self._stats["host_flushed_rows"] += int(sel.sum())
+        self._dirty[idx] = False
+
+    def flush(self) -> int:
+        """Write EVERY dirty row back to the cold tier (checkpoint /
+        publish barrier).  Returns rows flushed."""
+        with self._cond:
+            dirty = np.flatnonzero(self._dirty & (self._row_at >= 0))
+            before = self._stats["host_flushed_rows"]
+            if dirty.size:
+                # the checkpoint and publish barrier: every dirty row is on
+                # the cold tier when it returns
+                self._flush_indices_locked(dirty)
+            return self._stats["host_flushed_rows"] - before
+
+    def stats(self) -> dict:
+        with self._cond:
+            out = dict(self._stats)
+            out["host_resident_rows"] = len(self._idx_of)
+        return out

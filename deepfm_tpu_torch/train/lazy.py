@@ -39,7 +39,7 @@ import torch
 
 from ..core.config import OptimizerConfig
 from ..ops.embedding import sort_segments
-from .optimizer import _f32_bias_correction, load_slots
+from .optimizer import adam_bias_corrections, load_slots
 
 
 class LazyAdamState(NamedTuple):
@@ -80,29 +80,34 @@ def segment_rows(flat_ids: torch.Tensor, flat_grads: torch.Tensor):
     return row_id, _segment_sum(flat_grads, order, seg), valid
 
 
-def adam_row_math(p_r, m_r, v_r, gsum, step: int, cfg: OptimizerConfig, *,
-                  learning_rate: float, l2_reg: float = 0.0):
+def adam_row_math(p_r, m_r, v_r, gsum, bias, cfg: OptimizerConfig, *,
+                  learning_rate, l2_reg: float = 0.0):
     """Adam on gathered rows ``[N, W]``: the lazy-L2 fold, the moment
-    update, bias correction at the 1-based global ``step`` and the
-    parameter step, written as the JAX function writes them.  Returns
-    ``(new_p, new_m, new_v)`` for the rows."""
+    update, bias correction by ``bias`` (the pair of
+    :func:`~.optimizer.adam_bias_corrections` as device scalars) and the parameter step,
+    written as the JAX function writes them.  Returns ``(new_p, new_m,
+    new_v)`` for the rows."""
     if l2_reg:
         gsum = gsum + l2_reg * p_r
     b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
     m_n = b1 * m_r + (1.0 - b1) * gsum
     v_n = b2 * v_r + (1.0 - b2) * gsum.square()
-    m_hat = m_n / _f32_bias_correction(b1, step)
-    v_hat = v_n / _f32_bias_correction(b2, step)
+    m_hat = m_n / bias[0]
+    v_hat = v_n / bias[1]
     p_n = p_r - learning_rate * m_hat / (v_hat.sqrt() + eps)
     return p_n, m_n, v_n
 
 
 @torch.no_grad()
-def lazy_adam_rows(table, m, v, row_id, gsum, valid, step: int,
-                   cfg: OptimizerConfig, *, learning_rate: float,
+def lazy_adam_rows(table, m, v, row_id, gsum, valid, step,
+                   cfg: OptimizerConfig, *, learning_rate,
                    l2_reg: float = 0.0, p_r=None, row_offset: int = 0) -> None:
     """Apply per-segment gradients ``gsum [N, ...]`` (segments ``row_id``,
-    live where ``valid``) to ``table``, ``m`` and ``v`` in place.  ``p_r``
+    live where ``valid``) to ``table``, ``m`` and ``v`` in place.  ``step``
+    is the 1-based global step, or its ``adam_bias_corrections`` already
+    on the device (the graphed step's scalars, as is ``learning_rate``
+    there); from a step they go to the device here, so every path divides
+    by a device scalar.  ``p_r``
     is ``table[row_id]`` when the caller already gathered it.  A shard of a
     row-sharded table (``row_offset``: its first global row) takes the
     rows in ``[row_offset, row_offset + rows)`` and drops the rest.
@@ -121,6 +126,9 @@ def lazy_adam_rows(table, m, v, row_id, gsum, valid, step: int,
     idx = local.clamp(0, rows - 1)
     p_r = t2[idx] if p_r is None else p_r.reshape(-1, width)
     m_r, v_r = m2[idx], v2[idx]
+    if not isinstance(step, torch.Tensor):
+        step = torch.tensor(adam_bias_corrections(cfg, step), dtype=torch.float32,
+                            device=table.device)
     p_n, m_n, v_n = adam_row_math(p_r, m_r, v_r, g2, step, cfg,
                                   learning_rate=learning_rate, l2_reg=l2_reg)
     spread = torch.arange(row_id.shape[0], device=row_id.device) % rows

@@ -152,7 +152,10 @@ def run_train(cfg: Config, *, device=None, state: TrainState | None = None,
     """The train task (module docstring); returns the state.  ``state``
     replaces the fresh one (e.g. ``convert.train_state_from_jax``'s) where
     ``run.model_dir`` holds no checkpoint.  Raises PreemptedError when a
-    signal stopped it, after its checkpoint."""
+    signal stopped it, after its checkpoint.  With
+    ``model.tiered_embeddings`` it is :func:`run_train_tiered`."""
+    if cfg.model.tiered_embeddings:
+        return run_train_tiered(cfg, device=device, log=log)
     with PreemptionGuard() as guard:
         ctx = initialize_distributed(cfg.mesh, device)
         try:
@@ -212,7 +215,10 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
             # the next batch is taken before this step, so the step can
             # tell the other ranks whether this one goes on
             nxt = take()
-            metrics = spmd.train_step(state, to_device(batch, dev), ctx,
+            # the single-card step copies the pinned batch into its graph's
+            # static buffers itself
+            metrics = spmd.train_step(state, batch if ctx.group is None
+                                      else to_device(batch, dev), ctx,
                                       has_next=nxt is not None,
                                       stop=guard.should_stop, eval_now=eval_due())
             go_on = metrics.pop("all_have_next")
@@ -247,6 +253,89 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
         log.event("export", path=path)
     ckpt.close()
     return state
+
+
+def _observed(batches: Iterator[dict], observer) -> Iterator[dict]:
+    for batch in batches:
+        observer(batch)
+        yield batch
+
+
+def run_train_tiered(cfg: Config, *, device=None, log: MetricLogger | None = None):
+    """The train task with ``model.tiered_embeddings`` (JAX
+    ``run_train_tiered``, ``train/loop.py:279-370``): the tables page
+    through the hot cache on the card, the host tier and the cold tier
+    (tiered/) instead of living on the card.  One process and one card:
+    a launcher's group or ``mesh.model_parallel > 1`` raises.
+
+    The resident loop's rhythm: resume from ``<model_dir>/tiered_ckpt``
+    or start a virtual table in the cold root (``model.tiered_cold_url``,
+    default ``<model_dir>/cold``); the feed passes over the batches the
+    checkpoint trained on, its reader thread hands each batch's ids to
+    the trainer's cold-to-host prefetch (``observer``) ahead of the step;
+    a streaming paged checkpoint every ``run.checkpoint_every_steps`` and
+    at the end (a signal stops the loop, saves, logs ``preempted`` and
+    raises PreemptedError); then ``publish_tiered`` into
+    ``run.servable_model_dir`` when it is set (a ``publish_tiered``
+    event), and a ``tiered_done`` event (step, steps, examples/s, the hit
+    rate and the paging bytes).  Returns the final paged state."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or cfg.mesh.model_parallel > 1:
+        raise RuntimeError(
+            "tiered embeddings are single-process, model_parallel=1 (the hot "
+            "cache lives on one card); drop the mesh flags or use the resident "
+            "row-sharded path")
+    from ..tiered import TieredTrainer
+
+    log = log or MetricLogger(log_steps=cfg.run.log_steps)
+    maybe_clear(cfg.run.model_dir, cfg.run.clear_existing_model)
+    ckpt_dir = os.path.join(cfg.run.model_dir, "tiered_ckpt")
+    cold_root = cfg.model.tiered_cold_url or os.path.join(cfg.run.model_dir, "cold")
+    with PreemptionGuard() as guard:
+        if os.path.exists(os.path.join(ckpt_dir, "tiered_meta.json")):
+            trainer = TieredTrainer.restore(cfg, ckpt_dir, virtual=True, device=device)
+            log.event("resume", step=trainer.state.step)
+        else:
+            trainer = TieredTrainer.create_virtual(cfg, cold_root, device=device)
+        with trainer:
+            step0 = step = trainer.state.step
+            log.seed_step(step)
+            batches = make_input_pipeline(cfg.data, field_size=cfg.model.field_size,
+                                          seed=cfg.run.seed, skip_batches=step,
+                                          permute_vocab=_permute_vocab(cfg))
+            every = cfg.run.checkpoint_every_steps
+            examples = 0
+            t0 = time.perf_counter()
+            with Prefetcher(_observed(batches, trainer.observer()),
+                            depth=cfg.data.prefetch_batches) as feed:
+                for batch in feed:
+                    if guard.should_stop:
+                        break
+                    metrics = trainer.train_batch(batch)
+                    step = trainer.state.step
+                    b = int(batch["label"].shape[0])
+                    examples += b
+                    log.step(step, b, metrics)
+                    if every and step % every == 0:
+                        trainer.save(ckpt_dir)
+            seconds = time.perf_counter() - t0
+            trainer.save(ckpt_dir)
+            if guard.should_stop:
+                log.event("preempted", step=step)
+                raise PreemptedError(f"preempted at step {step}")
+            if cfg.run.servable_model_dir:
+                from ..online.publisher import ModelPublisher
+
+                manifest = ModelPublisher(
+                    cfg.run.servable_model_dir, keep=cfg.run.keep_checkpoints,
+                    keep_window=cfg.regions.publish_keep_window,
+                ).publish_tiered(cfg, trainer)
+                log.event("publish_tiered", version=manifest.version, step=manifest.step)
+            pager = trainer.paging_snapshot()["pager"]
+            log.event("tiered_done", step=step, steps=step - step0,
+                      examples_per_sec=examples / max(seconds, 1e-9),
+                      hit_rate=pager["hit_rate"], stage_bytes=pager["stage_bytes"],
+                      writeback_bytes=pager["writeback_bytes"])
+            return trainer.state
 
 
 def _restored(cfg: Config, ctx: DistContext) -> TrainState:

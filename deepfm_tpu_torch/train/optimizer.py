@@ -18,6 +18,13 @@ pre-increment count, then multiplied by ``embedding_lr_multiplier`` for
 ``fm_w``/``fm_v``, then added to the parameter (``p + u``, as
 ``optax.apply_updates``).
 
+The numbers that change from step to step (lr and Adam's two bias
+corrections, computed on the host from the count, the corrections in
+float32 as optax computes them) reach the update as float32 device
+scalars (:meth:`Optimizer.host_scalars`, :meth:`Optimizer.update`), never
+as Python numbers baked into its kernels: a CUDA graph of the train step
+(train/step.py) replays the update with each step's values.
+
 :class:`ZeroOptimizer` is JAX's ``zero_sharded`` (ZeRO, arxiv 2004.13336)
 over ``torch.distributed``: each rank of a data group owns a 1/dp window
 of every flattened parameter and of its moments; a step reduce-scatters
@@ -110,6 +117,13 @@ def _f32_bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+def adam_bias_corrections(cfg: OptimizerConfig, count: int) -> tuple[float, float]:
+    """Adam's two bias corrections at the 1-based update ``count``, in
+    float32 as optax computes them (the dense and the lazy step's)."""
+    return (_f32_bias_correction(cfg.adam_b1, count),
+            _f32_bias_correction(cfg.adam_b2, count))
+
+
 class Optimizer:
     """Dense update of a dict of named float32 parameters, in place.
 
@@ -131,9 +145,21 @@ class Optimizer:
         return {name: torch.zeros_like(p) for name in self.slot_names}
 
     def _direction(self, slots: dict, g: torch.Tensor, p: torch.Tensor,
-                   lr: float, count: int) -> torch.Tensor:
-        """The update for one parameter, lr applied; updates ``slots``."""
+                   scalars: torch.Tensor) -> torch.Tensor:
+        """The update for one parameter, lr (``scalars[0]``) applied;
+        updates ``slots``."""
         raise NotImplementedError
+
+    def bias_corrections(self, count: int) -> tuple[float, float]:
+        """The two bias corrections of update ``count`` (1-based): 1 but
+        for Adam."""
+        return 1.0, 1.0
+
+    def host_scalars(self) -> tuple[float, float, float]:
+        """(lr, first and second bias correction) of the next update, from
+        the host count."""
+        return (schedule_value(self.lr, self.count),
+                *self.bias_corrections(self.count + 1))
 
     def state_dict(self) -> dict:
         """``{"count": int, "slots": {param: {slot: tensor}}}``: the live
@@ -149,28 +175,42 @@ class Optimizer:
         self.count = int(state["count"])
 
     @torch.no_grad()
-    def step(self, params: Mapping[str, torch.Tensor],
-             grads: Mapping[str, torch.Tensor]) -> None:
-        """One update of every parameter from its gradient."""
-        lr = schedule_value(self.lr, self.count)
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor], scalars: torch.Tensor) -> None:
+        """One update of every parameter from its gradient, reading lr and
+        the bias corrections from ``scalars`` (float32 ``[3]`` on the
+        parameters' device, :meth:`host_scalars`); the count is the
+        caller's to advance."""
         for name, p in params.items():
-            u = self._direction(self.slots[name], grads[name], p, lr, self.count)
+            u = self._direction(self.slots[name], grads[name], p, scalars)
             if self.multiplier != 1.0 and name.rsplit(".", 1)[-1] in EMBEDDING_PARAM_KEYS:
                 u = u * self.multiplier
             p.add_(u)
+
+    def step(self, params: Mapping[str, torch.Tensor],
+             grads: Mapping[str, torch.Tensor]) -> None:
+        """One update of every parameter from its gradient, with this
+        count's scalars; advances the count."""
+        if params:
+            dev = next(iter(params.values())).device
+            self.update(params, grads, torch.tensor(self.host_scalars(),
+                                                    dtype=torch.float32, device=dev))
         self.count += 1
 
 
 class Adam(Optimizer):
     slot_names = ("mu", "nu")
 
-    def _direction(self, slots, g, p, lr, count):
+    def bias_corrections(self, count):
+        return adam_bias_corrections(self.cfg, count)
+
+    def _direction(self, slots, g, p, scalars):
         c = self.cfg
         mu = slots["mu"].mul_(c.adam_b1).add_((1 - c.adam_b1) * g)
         nu = slots["nu"].mul_(c.adam_b2).add_((1 - c.adam_b2) * g.square())
-        mu_hat = mu / _f32_bias_correction(c.adam_b1, count + 1)
-        nu_hat = nu / _f32_bias_correction(c.adam_b2, count + 1)
-        return (mu_hat / (nu_hat.sqrt() + c.adam_eps)) * -lr
+        mu_hat = mu / scalars[1]
+        nu_hat = nu / scalars[2]
+        return (mu_hat / (nu_hat.sqrt() + c.adam_eps)) * -scalars[0]
 
 
 class Adagrad(Optimizer):
@@ -179,20 +219,20 @@ class Adagrad(Optimizer):
     def _init_slots(self, p):
         return {"sum_of_squares": torch.full_like(p, self.cfg.adagrad_init_accum)}
 
-    def _direction(self, slots, g, p, lr, count):
+    def _direction(self, slots, g, p, scalars):
         sos = slots["sum_of_squares"]
         sos.copy_(g.square() + sos)
         inv = torch.where(sos > 0, torch.rsqrt(sos), torch.zeros_like(sos))  # eps = 0
-        return (inv * g) * -lr
+        return (inv * g) * -scalars[0]
 
 
 class Momentum(Optimizer):
     slot_names = ("trace",)
 
-    def _direction(self, slots, g, p, lr, count):
+    def _direction(self, slots, g, p, scalars):
         trace = slots["trace"]
         trace.copy_(g + self.cfg.momentum * trace)
-        return trace * -lr
+        return trace * -scalars[0]
 
 
 class Ftrl(Optimizer):
@@ -224,7 +264,8 @@ class Ftrl(Optimizer):
         return {"z": torch.zeros_like(p),
                 "n": torch.full_like(p, self.initial_accumulator_value)}
 
-    def _direction(self, slots, g, p, lr, count):
+    def _direction(self, slots, g, p, scalars):
+        lr = scalars[0]
         power = -self.lr_power
         z, n = slots["z"], slots["n"]
         n_new = n + g.square()

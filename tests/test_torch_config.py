@@ -42,7 +42,7 @@ RAISING = [
     ("data", "stream_mode", True, "A6"),
     ("data", "multi_path", True, "A6"),
     ("data", "eval_max_batches", 8, "A6"),
-    ("model", "tiered_embeddings", True, "A11"),
+    ("model", "tiered_cold_url", "http://store:9000/bucket/cold", "A15"),
     ("elastic", "enabled", True, "A15"),
     ("run", "workers_per_host", 2, "A7"),
     ("mesh", "coordinator_address", "10.0.0.1:1234", "torch.distributed.run"),
@@ -102,9 +102,10 @@ def test_the_grid_fields_warn_where_jax_warns():
 
 def test_the_model_section_alone_checks_too(tmp_path):
     (tmp_path / "config.json").write_text(json.dumps(
-        {"model": {**JaxModelConfig().__dict__, "tiered_embeddings": True}},
+        {"model": {**JaxModelConfig().__dict__, "tiered_embeddings": True,
+                   "tiered_cold_url": "s3://bucket/cold"}},
         default=list))
-    with pytest.raises(ValueError, match="tiered_embeddings.*A11"):
+    with pytest.raises(ValueError, match="tiered_cold_url.*A15"):
         load_config(tmp_path)
 
 

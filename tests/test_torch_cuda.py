@@ -773,3 +773,127 @@ def test_online_trainer_on_the_card_launches_the_kernels_and_matches_the_cpu(dev
                          for n, slots in cpu.optimizer.slots.items()
                          for s, t in slots.items())]:
         torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-5, msg=name)
+
+
+# -- the graphed train step and the paged step (train/step.py StepGraph,
+# tiered/step.py), on batches of distinct ids: B1''s atomics then add one
+# term a row, so a step is bit-reproducible and graphed = eager holds bit
+# for bit
+
+def _graph_setup(lazy, steps, seed=0):
+    from deepfm_tpu_torch.analysis.trace_audit import audit_cfg, distinct_batches
+
+    cfg = audit_cfg(lazy)
+    return cfg, [{k: v.pin_memory() for k, v in b.items()}
+                 for b in distinct_batches(cfg, steps, seed)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lazy", [False, True], ids=["dense", "lazy"])
+def test_the_graphed_step_equals_the_eager_step_bit_for_bit(device, lazy):
+    from deepfm_tpu_torch.analysis.trace_audit import state_tensors
+    from deepfm_tpu_torch.train.step import (WARMUP_STEPS, create_train_state,
+                                             graph_kernel_runs, graphed_train_step,
+                                             train_step)
+
+    cfg, batches = _graph_setup(lazy, WARMUP_STEPS + 4)
+    graphed, eager = create_train_state(cfg, device), create_train_state(cfg, device)
+    eager.generator.set_state(graphed.generator.get_state())
+    runs = dict(graph_kernel_runs)
+    for batch in batches:
+        mg = graphed_train_step(graphed, batch)
+        me = train_step(eager, {k: v.to(device) for k, v in batch.items()})
+        assert all(torch.equal(mg[k], me[k]) for k in mg)
+    got, want = state_tensors(graphed), state_tensors(eager)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    g = graphed.graph
+    assert g.replays == 4 and g.per_replay == (1, 1)
+    assert graph_kernel_runs["forward"] - runs["forward"] == 4
+    assert graph_kernel_runs["backward"] - runs["backward"] == 4
+    assert graphed.generator.get_state().equal(eager.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_a_resumed_graphed_run_equals_an_uninterrupted_one(device, tmp_path):
+    """The dropout generator registered with the graph round-trips through
+    Checkpointer: 4 graphed steps, a save, a fresh state restored in place,
+    4 more graphed steps equal 8 uninterrupted graphed steps bit for bit."""
+    from deepfm_tpu_torch.analysis.trace_audit import state_tensors
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.train.step import create_train_state, graphed_train_step
+
+    cfg, batches = _graph_setup(False, 8, seed=3)
+    whole = create_train_state(cfg, device)
+    for batch in batches:
+        graphed_train_step(whole, batch)
+    first = create_train_state(cfg, device)
+    for batch in batches[:4]:
+        graphed_train_step(first, batch)
+    ckpt = Checkpointer(tmp_path / "ckpt")
+    ckpt.save(first)
+    ckpt.wait_until_finished()
+    resumed = ckpt.restore(create_train_state(cfg, device))
+    for batch in batches[4:]:
+        graphed_train_step(resumed, batch)
+    got, want = state_tensors(resumed), state_tensors(whole)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    assert resumed.step == whole.step == 8
+
+
+@pytest.mark.cuda
+def test_a_capture_that_syncs_raises(device):
+    """A body that reads the card from the host is refused at its capture
+    (set_sync_debug_mode("error")); nothing falls back to the eager step."""
+    from deepfm_tpu_torch.train.step import (WARMUP_STEPS, StepGraph, create_train_state,
+                                             resident_body)
+
+    cfg, batches = _graph_setup(False, WARMUP_STEPS + 1)
+    state = create_train_state(cfg, device)
+
+    def syncing(st, inputs, scalars):
+        metrics = resident_body(st, inputs, scalars)
+        float(metrics["loss"])  # a host read inside the step
+        return metrics
+
+    graph = StepGraph(syncing, state, batches[0])
+    for batch in batches[:WARMUP_STEPS]:
+        graph(state, batch)  # eager on a side stream: a sync is allowed there
+    with pytest.raises(RuntimeError):
+        graph(state, batches[-1])
+    assert graph.graph is None
+
+
+@pytest.mark.cuda
+def test_the_trace_audit_finds_nothing_on_the_card(device):
+    from deepfm_tpu_torch.analysis import run_trace_audit
+
+    findings = run_trace_audit(device)
+    assert findings == [], [f.render() for f in findings]
+
+
+@pytest.mark.cuda
+def test_the_paged_step_replays_and_equals_the_resident_lazy_step(device, tmp_path):
+    from deepfm_tpu_torch.analysis.trace_audit import audit_cfg, distinct_batches
+    from deepfm_tpu_torch.tiered import TieredTrainer
+    from deepfm_tpu_torch.train.step import WARMUP_STEPS, create_train_state, train_step
+
+    cfg = audit_cfg(lazy=True, fused_kernel="off", tiered_embeddings=True,
+                    tiered_page_rows=64)
+    bf = cfg.data.batch_size * cfg.model.field_size
+    resident = create_train_state(cfg, device)
+    batches = distinct_batches(cfg, WARMUP_STEPS + 3, seed=5)
+    with TieredTrainer.from_resident_state(cfg, create_train_state(cfg, device),
+                                           str(tmp_path / "cold"), capacity=bf,
+                                           stage_rows=bf, host_rows=4 * bf) as tr:
+        for batch in batches:
+            got = tr.train_batch(batch)
+            want = train_step(resident, {k: v.to(device) for k, v in batch.items()})
+            assert torch.equal(got["loss"], want["loss"])
+        assert tr.state.graph.replays == 3 and tr.pager.stats()["evictions"] > 0
+        rows, m, v = tr.export_tables()
+    for k in ("fm_w", "fm_v"):
+        assert torch.equal(torch.from_numpy(rows[k]), getattr(resident.model, k).detach().cpu())
+        assert torch.equal(torch.from_numpy(v[k]), resident.lazy.v[k].cpu())
