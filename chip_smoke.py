@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 8, 14).
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 8, 17, 14).
+Each phase's start goes to stderr with the script's clock; a run still
+going after WATCHDOG_S prints every thread's stack there, kills the
+processes it started and exits 3.
 The train task's single-card step is a CUDA graph (train/step.py
 ``StepGraph``): its B1 and B1' runs are the eager warm-up launches plus
 the replays times the launches each capture recorded (``kernel_runs``):
@@ -73,10 +76,13 @@ the replays times the launches each capture recorded (``kernel_runs``):
 8. funnel   - the full-width recommendation funnel (the flagship ranker,
               a two-tower query encoder, an int8 index of 117,581 items,
               top 32 -> 8) built on the card, exported through the recall
-              gate, served over HTTP and sent /v1/recommend with 1, 8 and
-              64 users; the answers must agree with the same payload run
-              through the plain B2 and plain B1 (near-ties counted), both
-              kernels' launch counts must have risen; then the stage
+              gate, served over HTTP (each bucket's retrieve and rank stages
+              two CUDA graphs a weight slot, funnel/graphs.py) and sent
+              /v1/recommend with 1, 8 and 64 users; the answers must agree
+              with the same payload run through the plain B2 and plain B1
+              (near-ties counted), and both kernels must have run through
+              the graphs' replays (their runs are the eager warm-ups before
+              capture plus the replays times the launches captured); then the stage
               times, latency and the device recall@32 against exact f32;
               then the serve task (train/loop.py run_serve, with the
               flags --funnel_top_k 16 --funnel_return_n 4) over the same
@@ -89,7 +95,8 @@ the replays times the launches each capture recorded (``kernel_runs``):
               through the plain versions from the same state (loss, the
               touched rows' step, m and v agree; every untouched row of
               the tables, m and v bit for bit as before); B1 and B1' on
-              the compact tables against their plain versions, with B1''s
+              the compact tables against their plain versions (B1' against
+              the plain version in float64), with B1''s
               time, bound and zero fill; the lazy step's device time and
               split beside the dense step's;
 10. ddp     - data-parallel training at world size 1 over NCCL in this
@@ -222,8 +229,35 @@ the replays times the launches each capture recorded (``kernel_runs``):
               bit for bit (tables, moments, the rest of the model) against
               an uninterrupted run.
 
-The last three lines of standard output are the kernels' JSON line, the
-card's name and power limit, and {"ok": true, "device": {...}}.  With no
+17. funnel_swap - the funnel's versioned hot swap (ROADMAP A13) at phase
+              8's width (117,581 items, top 32 -> 8, oversample 4, buckets 8
+              and 64): (1) the graphs of both slots, exact and int8, against
+              the same stages run eagerly (ids equal, probabilities and
+              retrieval scores within 1e-6) and against the plain B2 and B1
+              on the same payload, with each bucket's graphed and eager
+              dispatch ms and each stage's stream us (CUDA events around
+              its replay: its device time plus the gap before the launch);
+              (2) versions 1 and 2 (the ranker moved by 0.01, the query
+              tower scaled by 1 + 0.05·N(0, 1), the index rebuilt)
+              published by FunnelPublisher and swapped in under 8 HTTP
+              clients of one user each: 0 failed responses, 0 outside
+              {1, 2}, 0 mixed (model, index) pairs, 0 answers that are
+              neither version's, and each version's answers held to its
+              weights and index staged afresh, through the plain B2 and
+              B1; then a NaN ranker and a corrupted index.npz, both rolled
+              back while version 2 serves the same answers; the stage,
+              canary and swap ms and the graph count (8, unchanged); (3)
+              the index row-sharded over 2 and 4 shards on the card, exact
+              and int8, against one shard and brute force (exact ids equal
+              but for near-ties, scores within 1e-5, no pad row), and the
+              same inside FunnelGraphs' graphs against the eager call; the
+              funnel_swap lines.  The kernels line's B2 and B1
+              runs include this phase's main path (the server's boot,
+              traffic and swaps).
+
+The script prints its total seconds; the last three lines of standard
+output are the kernels' JSON line, the card's name and power limit, and
+{"ok": true, "device": {...}}.  With no
 CUDA device, or without the rest of the repository beside it, the script
 exits non-zero and prints no result.
 """
@@ -232,9 +266,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import io
 import json
 import os
+import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -306,6 +343,59 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# the run must end within 1,200 s: still running at WATCHDOG_S, the script
+# prints the phase and every thread's stack on stderr, kills the processes
+# it started and exits 3 (faulthandler's own timer, which needs no
+# interpreter lock, exits 1 a little later if that cannot run)
+WATCHDOG_S = 1080
+_phase = {"name": "start", "t0": time.perf_counter()}
+
+
+def begin(name: str) -> None:
+    """Name the phase that runs now, on stderr with the script's clock."""
+    _phase["name"] = name
+    print(f"chip_smoke: phase {name} at {time.perf_counter() - _phase['t0']:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every process under ``pid``, read from /proc."""
+    children: dict[int, list[int]] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def start_watchdog(seconds: float) -> None:
+    def fire():
+        print(f"chip_smoke: still in phase {_phase['name']} after {seconds:.0f} s; "
+              f"every thread's stack:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for pid in _descendants(os.getpid()):
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    faulthandler.dump_traceback_later(seconds + 30, exit=True)
+
+
 def reset_kernel_counts() -> None:
     """B1's and B1''s counts to 0: their eager launches, their launches
     captured into graphs, and their runs through train-step graph replays
@@ -327,6 +417,29 @@ def kernel_runs() -> tuple[int, int]:
 
     return (fused_ctr.launches + step.graph_kernel_runs["forward"],
             fused_ctr.backward_launches + step.graph_kernel_runs["backward"])
+
+
+def reset_funnel_counts() -> None:
+    """B2's and B1's counts to 0: their eager launches, their launches
+    captured into graphs, and their runs through the funnel's graph
+    replays (funnel/graphs.py ``graph_kernel_runs``)."""
+    from deepfm_tpu_torch.funnel import graphs
+    from deepfm_tpu_torch.ops import fused_ctr, retrieval
+
+    retrieval.launches = retrieval.captured = 0
+    fused_ctr.launches = fused_ctr.captured = 0
+    graphs.graph_kernel_runs.update(retrieval=0, forward=0)
+
+
+def funnel_kernel_runs() -> tuple[int, int]:
+    """(B2 runs, B1 runs) since :func:`reset_funnel_counts`: eager launches
+    (the warm-ups before capture) plus the runs inside funnel graph
+    replays (a capture itself runs nothing)."""
+    from deepfm_tpu_torch.funnel import graphs
+    from deepfm_tpu_torch.ops import fused_ctr, retrieval
+
+    return (retrieval.launches + graphs.graph_kernel_runs["retrieval"],
+            fused_ctr.launches + graphs.graph_kernel_runs["forward"])
 
 
 def card_line() -> str:
@@ -1166,7 +1279,8 @@ def compact_kernel_check(fm_w, fm_v, ids, vals, seed: int, tag: str) -> dict:
     """The lazy step's segments of ``ids [B, F]`` over the tables ``fm_w``,
     ``fm_v`` (a model's, or the tiered store's hot cache with slot ids),
     the compact rows gathered, and B1 and B1' on them, each against its
-    plain version (the forward's tolerances, the backward's TOL_GRAD_REL);
+    plain version (the forward's tolerances; the backward's TOL_GRAD_REL,
+    against the plain version in float64);
     then both kernels' times (kernel alone, CUDA graph), B1''s plain
     version's, their bounds and the compact zero fill's.  Prints and
     returns the ``<tag> compact kernels`` row."""
@@ -1185,8 +1299,14 @@ def compact_kernel_check(fm_w, fm_v, ids, vals, seed: int, tag: str) -> dict:
     g_yw = torch.randn((b,), generator=g, device="cuda")
     g_yv = torch.randn((b,), generator=g, device="cuda")
     got_b = fused_ctr.fused_ctr_backward(g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot, vals, False)
-    want_b = fused_ctr.fused_ctr_backward_plain(g_emb, g_yw, g_yv, fm_w_c, fm_v_c, slot,
-                                                vals, False)
+    # held to the plain version run in float64, as backward_same_row is: a
+    # hot compact row sums B float32 terms, and the plain version's atomics
+    # round them near the tolerance (on an H100 at seed 0 its float32 sum
+    # was off the float64 one by up to 1.5e-5 of the largest row, the
+    # kernel's by at most 8.4e-7)
+    want_b = fused_ctr.fused_ctr_backward_plain(
+        *(t.double() for t in (g_emb, g_yw, g_yv, fm_w_c, fm_v_c)), slot, vals.double(),
+        False)
     torch.cuda.synchronize()
     e = [float((a - w).abs().max()) for a, w in zip(got, want)]
     if not (e[0] <= TOL_EMB and e[1] <= TOL_YW_REL * (1.0 + float(want[1].abs().max()))
@@ -1195,7 +1315,7 @@ def compact_kernel_check(fm_w, fm_v, ids, vals, seed: int, tag: str) -> dict:
              f"version: max abs err emb {e[0]}, y_w {e[1]}, y_v {e[2]}")
     eb = []
     for name, a, w in zip(("d_fm_w", "d_fm_v"), got_b, want_b):
-        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        err, scale = float((a.double() - w).abs().max()), float(w.abs().max())
         if not err <= TOL_GRAD_REL * scale:
             fail(f"{tag}: fused_ctr_backward on the compact tables: {name} max abs err "
                  f"{err}, scale {scale}")
@@ -2123,9 +2243,9 @@ def get(url: str) -> dict:
         return json.load(r)
 
 
-def _serve_thread(servable: str, name: str, **kw):
-    """serve_forever on the card in a thread; returns its ready event (with
-    .port, .server, .scorer, .predictor, .swapper) and the thread."""
+def _serve_thread(servable: str, name: str, buckets=BUCKETS, device="cuda", **kw):
+    """serve_forever on ``device`` in a thread; returns its ready event
+    (with .port, .server, .scorer, .predictor, .swapper) and the thread."""
     from deepfm_tpu_torch.serve.server import serve_forever
 
     ready = threading.Event()
@@ -2133,8 +2253,8 @@ def _serve_thread(servable: str, name: str, **kw):
 
     def run():
         try:
-            serve_forever(servable, port=0, buckets=BUCKETS, max_wait_ms=2.0,
-                          device="cuda", ready=ready, **kw)
+            serve_forever(servable, port=0, buckets=buckets, max_wait_ms=2.0,
+                          device=device, ready=ready, **kw)
         except BaseException as e:  # reported by the main thread
             errors.append(e)
             ready.set()
@@ -2412,7 +2532,7 @@ def breakdown(cfg, servable: str, ready, rng: np.random.Generator) -> None:
     for b in BUCKETS:
         ids = make_ids(rng, b, cfg.field_size, cfg.feature_size)
         vals = rng.random((b, cfg.field_size)).astype(np.float32)
-        tids, tvals = torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
+        tids, tvals = torch.from_numpy(ids).to(DEVICE), torch.from_numpy(vals).to(DEVICE)
         with torch.inference_mode():
             fwd_ms, fwd_call_ms = time_ms(lambda: model(tids, tvals), reps=20)
 
@@ -2689,6 +2809,7 @@ def phase_funnel(seed: int, workdir: str) -> dict:
     """The funnel served over HTTP on the card, at full width: /v1/recommend
     with 1, 8 and 64 users, checked against the same payload run through
     the plain versions of B2 and B1; stage times, latency, device recall."""
+    from deepfm_tpu_torch.funnel import graphs as funnel_graphs
     from deepfm_tpu_torch.funnel.index import build_rank_topn_with, build_retrieve_with
     from deepfm_tpu_torch.funnel.recall import recall_at_k
     from deepfm_tpu_torch.ops import fused_ctr, retrieval
@@ -2698,8 +2819,8 @@ def phase_funnel(seed: int, workdir: str) -> dict:
     rng = np.random.default_rng(seed + 13)
     requests = [funnel_requests(rng, n) for n in FUNNEL_REQUESTS]
 
-    # the main path: counts from 0, then load + warm-up + requests
-    fused_ctr.launches = retrieval.launches = 0
+    # the main path: counts from 0, then load + capture + warm-up + requests
+    reset_funnel_counts()
     ready = threading.Event()
     errors = []
 
@@ -2753,17 +2874,20 @@ def phase_funnel(seed: int, workdir: str) -> dict:
     finally:
         ready.server.shutdown()
         thread.join(timeout=60)
-    fwd_launches, retr_launches = fused_ctr.launches, retrieval.launches
+    retr_launches, fwd_launches = funnel_kernel_runs()
     if thread.is_alive():
         fail("funnel server thread did not stop")
-    if fwd_launches <= 0 or retr_launches <= 0:
-        fail(f"the funnel path launched retrieval_topk {retr_launches} and "
-             f"fused_ctr_forward {fwd_launches} times")
+    if min(funnel_graphs.graph_kernel_runs.values()) <= 0:
+        fail(f"the funnel's graphs ran retrieval_topk and fused_ctr_forward "
+             f"{funnel_graphs.graph_kernel_runs} times")
     fm = metrics["funnel"]
-    print(f"funnel: launches on the main path: retrieval_topk {retr_launches}, "
-          f"fused_ctr_forward {fwd_launches}; dispatches by bucket "
+    print(f"funnel: runs on the main path: retrieval_topk {retr_launches}, "
+          f"fused_ctr_forward {fwd_launches} (eager warm-ups before capture: "
+          f"{retrieval.launches}, {fused_ctr.launches}; through graph replays: "
+          f"{funnel_graphs.graph_kernel_runs}); dispatches by bucket "
           f"{metrics['batch_size_hist']}")
-    print("funnel: stages (host clock per dispatch, /v1/metrics) %s" % json.dumps({
+    print("funnel: stages (stream time a dispatch between the graphs' CUDA events, "
+          "host gaps before a launch included, /v1/metrics) %s" % json.dumps({
         "retrieval_ms": fm["retrieval_ms"], "rank_ms": fm["rank_ms"],
         "engine_latency_ms": metrics["latency_ms"],
         "candidates_per_sec": fm["candidates_per_sec"],
@@ -2771,10 +2895,10 @@ def phase_funnel(seed: int, workdir: str) -> dict:
 
     # check: the same payload through the plain versions of B2 and B1
     scorer = ready.scorer
-    ctx, payload = scorer.ctx, scorer.payload
+    ctx, payload = scorer.ctx, scorer.graphs.payload(scorer.holder.get())
     fu = ctx.user_fields
     kernel_retrieve = build_retrieve_with(ctx)
-    stats = check_funnel_answers(scorer, requests, served, FUNNEL_BUCKETS, "funnel")
+    stats = check_funnel_answers(ctx, payload, requests, served, FUNNEL_BUCKETS, "funnel")
     print(f"funnel: served vs plain B2 + plain B1 on the same payload: {json.dumps(stats)}")
 
     funnel_breakdown(ctx, payload, kernel_retrieve, build_rank_topn_with(ctx), rng)
@@ -2808,9 +2932,8 @@ def funnel_serve_task(servable: str, rng: np.random.Generator) -> dict:
     deepfm_tpu_torch --task_type serve --funnel_top_k 16 --funnel_return_n
     4` runs it) over the funnel servable: every /v1/recommend answer must
     hold 4 items, agree with the plain B2 + plain B1 pipeline at top 16 ->
-    4, and B2's and B1's launch counts must rise."""
+    4, and B2 and B1 must run (eager warm-ups plus graph replays)."""
     from deepfm_tpu_torch.launch.cli import resolve_config
-    from deepfm_tpu_torch.ops import fused_ctr, retrieval
     from deepfm_tpu_torch.train.loop import run_serve
 
     cfg, _ = resolve_config(["--task_type", "serve", "--servable_model_dir", servable,
@@ -2822,7 +2945,7 @@ def funnel_serve_task(servable: str, rng: np.random.Generator) -> dict:
         fail(f"funnel task: the flags resolved to {cfg.run}")
     requests = [funnel_requests(rng, n) for n in FUNNEL_TASK_REQUESTS]
     # the main path: counts from 0, then the serve task and its requests
-    fused_ctr.launches = retrieval.launches = 0
+    reset_funnel_counts()
     ready, errors = threading.Event(), []
 
     def run():
@@ -2851,7 +2974,7 @@ def funnel_serve_task(servable: str, rng: np.random.Generator) -> dict:
     finally:
         ready.server.shutdown()
         thread.join(timeout=60)
-    fwd, retr = fused_ctr.launches, retrieval.launches
+    retr, fwd = funnel_kernel_runs()
     if thread.is_alive():
         fail("funnel task: the server thread did not stop")
     scorer = ready.scorer
@@ -2861,7 +2984,8 @@ def funnel_serve_task(servable: str, rng: np.random.Generator) -> dict:
         fail(f"funnel task: the serve task launched retrieval_topk {retr} and "
              f"fused_ctr_forward {fwd} times")
     buckets = tuple(int(b) for b in FUNNEL_TASK_BUCKETS.split(","))
-    stats = check_funnel_answers(scorer, requests, served, buckets, "funnel task")
+    stats = check_funnel_answers(scorer.ctx, scorer.graphs.payload(scorer.holder.get()),
+                                 requests, served, buckets, "funnel task")
     print("funnel task %s" % json.dumps({
         "argv": "--task_type serve --funnel_top_k 16 --funnel_return_n 4",
         "top_k": scorer.ctx.top_k, "return_n": scorer.ctx.return_n,
@@ -2871,25 +2995,25 @@ def funnel_serve_task(servable: str, rng: np.random.Generator) -> dict:
     return {"retrieval_launches": retr, "forward_launches": fwd}
 
 
-def check_funnel_answers(scorer, requests, served, buckets, what: str) -> dict:
+def check_funnel_answers(ctx, payload, requests, served, buckets, what: str) -> dict:
     """Hold a funnel server's /v1/recommend answers (``served``, one per
-    request of ``requests``) to the same payload run through the plain
-    versions of B2 and B1 at the scorer's top_k -> return_n: every user's
-    items, probabilities and retrieval scores, near-ties counted.  Returns
-    the agreement counts."""
+    request of ``requests``) to the same payload (one index shard) run
+    through the plain versions of B2 and B1 at the context's top_k ->
+    return_n: every user's items, probabilities and retrieval scores,
+    near-ties counted.  Returns the agreement counts."""
     from deepfm_tpu_torch.funnel.index import build_rank_topn_with, build_retrieve_with
     from deepfm_tpu_torch.models.two_tower import encode_queries
     from deepfm_tpu_torch.ops import retrieval
     from deepfm_tpu_torch.serve.batcher import pick_bucket
 
-    ctx, payload = scorer.ctx, scorer.payload
     fu = ctx.user_fields
     kernel_retrieve = build_retrieve_with(ctx)
     rank = build_rank_topn_with(ctx)
     # every candidate ranked, so a served item is found whatever its place
     rank_all = build_rank_topn_with(ctx._replace(return_n=ctx.top_k))
     kos = ctx.top_k * ctx.oversample
-    index = payload["index"]
+    index = payload["shards"][0]
+    int8 = ctx.retrieval_mode == "int8"
     stats = {"rows": 0, "rows_equal": 0, "near_tie_rows": 0, "shortlist_swapped": 0,
              "shortlist_boundary": 0, "max_rank_err": 0.0, "max_retr_err": 0.0}
     for (uids, uvals, fids, fvals), doc in zip(requests, served):
@@ -2899,20 +3023,21 @@ def check_funnel_answers(scorer, requests, served, buckets, what: str) -> dict:
         vals = np.zeros((b, fu + 39), np.float32)
         ids[:n] = np.concatenate([uids, fids], axis=1)
         vals[:n] = np.concatenate([uvals, fvals], axis=1)
-        tids, tvals = torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
+        tids, tvals = torch.from_numpy(ids).to(DEVICE), torch.from_numpy(vals).to(DEVICE)
         with torch.inference_mode():
-            u = encode_queries(payload["query"], tids[:, :fu], tvals[:, :fu])
-            args = (u, index["item_codes"], index["item_scales"], index["item_ids"], kos)
-            agree = retrieval.topk_agreement(
-                *args[:4], retrieval.retrieval_topk(*args), retrieval.retrieval_topk_plain(*args),
-                TOL_B2_RTOL, TOL_B2_ATOL)
+            agree = {"ok": True, "swapped": 0, "boundary": 0, "traded": [0] * b}
+            if int8:
+                u = encode_queries(payload["query"], tids[:, :fu], tvals[:, :fu])
+                args = (u, index["item_codes"], index["item_scales"], index["item_ids"], kos)
+                agree = retrieval.topk_agreement(
+                    *args[:4], retrieval.retrieval_topk(*args),
+                    retrieval.retrieval_topk_plain(*args), TOL_B2_RTOL, TOL_B2_ATOL)
             ks, kcand = kernel_retrieve(payload, tids[:, :fu], tvals[:, :fu])
             with plain_kernels():
                 s, cand = kernel_retrieve(payload, tids[:, :fu], tvals[:, :fu])
                 ref = rank(payload, tids[:, fu:], tvals[:, fu:], cand, s).cpu().numpy()
                 # plain B1 on the candidates the kernel pipeline retrieved
                 ref_k = rank_all(payload, tids[:, fu:], tvals[:, fu:], kcand, ks).cpu().numpy()
-        torch.cuda.synchronize()
         if not agree["ok"]:
             fail(f"{what}: the served shortlist disagrees with plain B2 for {n} users: {agree}")
         stats["shortlist_swapped"] += agree["swapped"]
@@ -2996,6 +3121,390 @@ def funnel_breakdown(ctx, payload, retrieve, rank, rng: np.random.Generator) -> 
             "retrieval_ms": retr_ms, "retrieval_call_ms": retr_call_ms,
             "rank_ms": rank_ms, "rank_call_ms": rank_call_ms,
             "rank_rows": b * ctx.top_k})))
+
+
+# phase funnel_swap: 8 closed-loop HTTP clients (one user each, so every
+# dispatch is the 8-row bucket and an answer depends on its version alone),
+# the swapper's poll interval, dispatches timed per bucket and mode
+SWAP_CLIENTS, SWAP_POLL_S, SWAP_TIMED = 8, 0.3, 30
+SHARD_COUNTS, SHARD_USERS = (2, 4), 64
+# a sharded score against brute force's f32 dot of the same pair (cuBLAS
+# and numpy sum D = 32 products in other orders)
+TOL_SHARD = 1e-5
+
+
+def pack_doc(pack: np.ndarray) -> dict:
+    """A graphed [B, 3, N] pack as /v1/recommend's answer fields."""
+    return {"items": pack[:, 0].astype(np.int64).tolist(),
+            "scores": np.round(np.where(np.isfinite(pack[:, 1]), pack[:, 1], 0.0), 6).tolist(),
+            "retrieval_scores": np.round(np.where(np.isfinite(pack[:, 2]), pack[:, 2], 0.0),
+                                         6).tolist()}
+
+
+def swap_graphed_vs_eager(art, rng: np.random.Generator) -> dict:
+    """Part 1: the funnel's graphs at full width, exact and int8, against
+    the same stages run eagerly (ids equal, probabilities and retrieval
+    scores within TOL_GRAPH) and against the plain B2 and B1 on the same
+    payload (check_funnel_answers); dispatch times, graphed and eager, and
+    each stage's stream time between the graphs' CUDA events (its device
+    time plus the gap before its launch, small with no other thread)."""
+    from deepfm_tpu_torch.funnel import graphs as funnel_graphs
+    from deepfm_tpu_torch.funnel import make_funnel_context
+
+    meta = art.meta
+    out = {}
+    for mode in ("exact", "int8"):
+        ctx = make_funnel_context(art.rank_cfg, art.query_cfg, capacity=meta["capacity"],
+                                  top_k=FUNNEL_TOP_K, return_n=FUNNEL_RETURN_N,
+                                  retrieval=mode, oversample=FUNNEL_OVERSAMPLE)
+        graphs = funnel_graphs.FunnelGraphs(ctx, art.rank_state, art.query_state, art.index,
+                                            device=DEVICE, buckets=FUNNEL_BUCKETS)
+        t0 = time.perf_counter()
+        graphs.precompile()
+        capture_s = time.perf_counter() - t0
+        per_bucket = {}
+        for b in FUNNEL_BUCKETS:
+            requests = [funnel_requests(rng, b)]
+            uids, uvals, fids, fvals = requests[0]
+            ids = np.concatenate([uids, fids], axis=1)
+            vals = np.concatenate([uvals, fvals], axis=1)
+            packs = []
+            for slot in (0, 1):
+                pack, overflow, _ = graphs.dispatch(slot, ids, vals)
+                want, want_overflow = graphs.eager(slot, ids, vals)
+                if not np.array_equal(pack[:, 0], want[:, 0]) or overflow != want_overflow:
+                    fail(f"funnel_swap {mode} B={b} slot {slot}: graphed ids differ from eager")
+                err = float(np.abs(pack[:, 1:] - want[:, 1:]).max())
+                if err > TOL_GRAPH:
+                    fail(f"funnel_swap {mode} B={b} slot {slot}: graphed vs eager {err}")
+                packs.append(pack)
+            stats = check_funnel_answers(ctx, graphs.payload(0), requests, [pack_doc(packs[0])],
+                                         FUNNEL_BUCKETS, f"funnel_swap {mode} B={b}")
+            host, dev_r, dev_k = [], [], []
+            for _ in range(SWAP_TIMED):
+                t1 = time.perf_counter()
+                _, _, (r_s, k_s) = graphs.dispatch(0, ids, vals)
+                host.append(time.perf_counter() - t1)
+                dev_r.append(r_s)
+                dev_k.append(k_s)
+            eager = []
+            for _ in range(SWAP_TIMED):
+                t1 = time.perf_counter()
+                graphs.eager(0, ids, vals)
+                eager.append(time.perf_counter() - t1)
+            per_bucket[b] = {
+                "graphed_dispatch_ms": 1e3 * float(np.median(host)),
+                "eager_dispatch_ms": 1e3 * float(np.median(eager)),
+                "retrieve_stream_us": 1e6 * float(np.median(dev_r)),
+                "rank_stream_us": 1e6 * float(np.median(dev_k)),
+                "vs_eager_max_abs": err, "vs_plain": stats}
+        out[mode] = {"capture_s": capture_s, "graphs": graphs.graph_count,
+                     "launches_per_replay": graphs.launches_per_replay,
+                     "retrieve_pool_bytes": graphs.retrieve_pool_bytes,
+                     "per_bucket": per_bucket}
+        print("funnel_swap graphed %s %s" % (mode, json.dumps(out[mode])))
+        del graphs
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def perturbed_version(art, seed: int):
+    """Version 2 of the served funnel: every ranker weight moved by 0.01,
+    every query-tower weight scaled by 1 + 0.05·N(0, 1) (a shift of the
+    whole tower would crowd the items' embeddings together: at +0.01 the
+    int8 corpus measured recall 0.9421, under the 0.95 publish gate), and the
+    index rebuilt on the card through the new item tower from
+    build_funnel's item features."""
+    from deepfm_tpu_torch.funnel import build_index
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    g = np.random.default_rng(seed + 17)
+    rank = {k: v + np.float32(0.01) for k, v in art.rank_state.items()}
+    query = {k: (v * (1 + 0.05 * g.standard_normal(v.shape))).astype(np.float32)
+             for k, v in art.query_state.items()}
+    n = art.rank_cfg.feature_size
+    feats = np.random.default_rng(seed + 12).integers(0, n, (n, FUNNEL_FIELDS))
+    tower = model_from_state(art.query_cfg, query, DEVICE)
+    index = build_index(tower, np.arange(n), feats, np.ones((n, FUNNEL_FIELDS), np.float32))
+    return rank, query, index
+
+
+def swap_under_traffic(art, servable: str, workdir: str, seed: int,
+                       card: str) -> tuple[dict, dict]:
+    """Part 2: versions 1 (the servable's own) and 2 (perturbed_version)
+    published by FunnelPublisher into a local root and swapped in under 8
+    HTTP clients: every response of version 1 or 2 with equal model and
+    index versions and the answer of its version; then a NaN ranker and a
+    corrupted index.npz, both rolled back while version 2 keeps serving."""
+    from deepfm_tpu_torch.funnel import FunnelPublisher
+    from deepfm_tpu_torch.online.publisher import version_location
+
+    root = os.path.join(workdir, "publish")
+    pub = FunnelPublisher(root, keep=8)
+    kw = dict(top_k=FUNNEL_TOP_K, return_n=FUNNEL_RETURN_N, capacity=art.meta["capacity"],
+              retrieval="int8", oversample=FUNNEL_OVERSAMPLE)
+    t0 = time.perf_counter()
+    pub.publish_funnel(art.rank_cfg, art.rank_state, art.query_cfg, art.query_state,
+                       art.index, step=1, **kw)
+    publish_s = time.perf_counter() - t0
+    v2 = perturbed_version(art, seed)
+    ready, thread = _serve_thread(servable, "chip-smoke-funnel-swap", buckets=FUNNEL_BUCKETS,
+                                  device=DEVICE, reload_url=root,
+                                  reload_interval_secs=SWAP_POLL_S)
+    base = f"http://127.0.0.1:{ready.port}"
+    scorer, swapper = ready.scorer, ready.swapper
+    rng = np.random.default_rng(seed + 15)
+    requests, bodies = [funnel_requests(rng, 1) for _ in range(SWAP_CLIENTS)], []
+    for uids, uvals, fids, fvals in requests:
+        bodies.append(json.dumps({"instances": [{
+            "user_ids": uids[0].tolist(), "user_vals": uvals[0].tolist(),
+            "feat_ids": fids[0].tolist(), "feat_vals": fvals[0].tolist()}]}).encode())
+    stop = threading.Event()
+    results, errors = [], []
+
+    def client(i):
+        while not stop.is_set():
+            code, doc = post(f"{base}/v1/recommend", bodies[i])
+            (results if code == 200 else errors).append((i, code, doc))
+
+    try:
+        if scorer.versions() != (1, 1):
+            fail(f"funnel_swap: the server adopted {scorer.versions()}, not version 1")
+        ref = {1: [post(f"{base}/v1/recommend", b)[1] for b in bodies]}
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(SWAP_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        pub.publish_funnel(art.rank_cfg, v2[0], art.query_cfg, v2[1], v2[2], step=2, **kw)
+        while scorer.versions()[0] < 2 and time.perf_counter() - t0 < 120:
+            time.sleep(0.05)
+        swapped_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        status = swapper.status()
+        ref[2] = [post(f"{base}/v1/recommend", b)[1] for b in bodies]
+        # the bad versions: a NaN ranker, then a corrupted index.npz
+        nan = dict(v2[0], fm_b=np.full_like(v2[0]["fm_b"], np.nan))
+        rollbacks = {}
+        for version, what, reason in ((3, "nan", "non-finite"), (4, "corrupt", "hash|CRC|zip")):
+            if what == "nan":
+                pub.publish_funnel(art.rank_cfg, nan, art.query_cfg, v2[1], v2[2], step=3, **kw)
+            else:
+                # the tree of version 2 under a new manifest, its index.npz torn
+                loc = version_location(root, 4)
+                shutil.copytree(version_location(root, 2), loc)
+                npz = os.path.join(loc, "index.npz")
+                blob = bytearray(open(npz, "rb").read())
+                blob[len(blob) // 2] ^= 0xFF
+                open(npz, "wb").write(bytes(blob))
+                m = json.load(open(os.path.join(root, "MANIFEST-00000002.json")))
+                m["version"], m["step"] = 4, 4
+                with open(os.path.join(root, "MANIFEST-00000004.json"), "w") as f:
+                    json.dump(m, f)
+            t1 = time.perf_counter()
+            while time.perf_counter() - t1 < 60:
+                if re.search(reason, swapper.status()["last_error"] or ""):
+                    break
+                time.sleep(0.05)
+            else:
+                fail(f"funnel_swap: version {version} ({what}) was not rolled back: "
+                     f"{swapper.status()}")
+            if scorer.versions() != (2, 2):
+                fail(f"funnel_swap: after the {what} version the server is on "
+                     f"{scorer.versions()}")
+            now = [post(f"{base}/v1/recommend", b)[1] for b in bodies]
+            if now != ref[2]:
+                fail(f"funnel_swap: the answers changed after the {what} version")
+            rollbacks[what] = swapper.status()["last_error"]
+        metrics = get(f"{base}/v1/metrics")
+    finally:
+        stop.set()
+        ready.server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        fail("funnel_swap: the server thread did not stop")
+    if errors:
+        fail(f"funnel_swap: {len(errors)} failed responses, first {errors[:2]}")
+    pairs = {(d["model_version"], d["index_version"]) for _, _, d in results}
+    mixed = [d for _, _, d in results if d["model_version"] != d["index_version"]]
+    outside = [d for _, _, d in results if d["model_version"] not in (1, 2)]
+    strip = lambda d: {k: d[k] for k in ("items", "scores", "retrieval_scores")}  # noqa: E731
+    neither = [(i, d) for i, _, d in results
+               if strip(d) not in (strip(ref[1][i]), strip(ref[2][i]))]
+    if mixed or outside or neither or pairs != {(1, 1), (2, 2)}:
+        fail(f"funnel_swap: {len(results)} responses, version pairs {pairs}: {len(mixed)} "
+             f"mixed, {len(outside)} outside (1, 2), {len(neither)} matching neither "
+             f"version's answer")
+    if any(strip(ref[1][i]) == strip(ref[2][i]) for i in range(SWAP_CLIENTS)):
+        fail("funnel_swap: versions 1 and 2 answer alike; the drill could not tell them apart")
+    graphs = scorer.graphs.graph_count
+    want = 2 * 2 * len(FUNNEL_BUCKETS) if DEVICE == "cuda" else 0
+    if graphs != want or status["graphs"] != graphs:
+        fail(f"funnel_swap: {graphs} graphs after the swaps ({status['graphs']} at the swap)")
+    line = {"card": card, "responses": len(results), "failed": len(errors),
+            "mixed": len(mixed), "outside": len(outside), "neither": len(neither),
+            "publish_s": publish_s, "swapped_after_publish_s": swapped_s,
+            "stage_ms": status["last_stage_ms"], "canary_ms": status["last_canary_ms"],
+            "swap_ms": status["last_swap_ms"], "swaps": status["swaps_total"],
+            "rollbacks": metrics["reload"]["rollbacks_total"], "graphs": graphs,
+            "rolled_back": rollbacks, "funnel": {k: metrics["funnel"][k] for k in (
+                "retrieval_ms", "rank_ms", "merge_overflow_total", "index_items")}}
+    print("funnel_swap traffic %s" % json.dumps(line))
+    return line, {"ctx": scorer.ctx, "requests": requests, "ref": ref, "v2": v2}
+
+
+def check_version_answers(art, answers: dict) -> dict:
+    """The traffic drill's answers of versions 1 and 2 (the server's own
+    reference answers, one per client) held to each version's weights and
+    index staged afresh from the publisher's inputs, not from a server
+    slot, and run through the plain B2 and B1 (check_funnel_answers): a
+    version copied into a slot wrongly fails here."""
+    from deepfm_tpu_torch.funnel import stage_funnel_payload
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    ctx, v2 = answers["ctx"], answers["v2"]
+    out = {}
+    for version, (rank, query, index) in ((1, (art.rank_state, art.query_state, art.index)),
+                                          (2, v2)):
+        payload = stage_funnel_payload(ctx, model_from_state(art.rank_cfg, rank, DEVICE),
+                                       model_from_state(art.query_cfg, query, DEVICE), index)
+        out[version] = check_funnel_answers(ctx, payload, answers["requests"],
+                                            answers["ref"][version], FUNNEL_BUCKETS,
+                                            f"funnel_swap version {version}")
+        del payload
+    print("funnel_swap versions vs plain %s" % json.dumps(out))
+    return out
+
+
+def swap_sharded(art, seed: int) -> dict:
+    """Part 3: the index row-sharded over 2 and 4 shards on the one card,
+    exact and int8, against one shard and brute force: exact ids equal one
+    shard's; every returned id a real item whose brute-force f32 score is
+    the reported one within TOL_SHARD, the set brute force's top K but for
+    near-ties at its K-th score; no pad row.  The same sharded retrieve
+    inside FunnelGraphs' graphs: its ids equal the eager call's at the
+    same shard count (scores within TOL_GRAPH) and, in exact mode, one
+    shard's past near-ties; its pack equals the eager stages'."""
+    from deepfm_tpu_torch.funnel import (brute_force_topk, build_retrieve_with,
+                                         make_funnel_context, stage_funnel_payload)
+    from deepfm_tpu_torch.funnel.graphs import FunnelGraphs
+    from deepfm_tpu_torch.models.two_tower import encode_queries
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    rank = model_from_state(art.rank_cfg, art.rank_state, DEVICE)
+    query = model_from_state(art.query_cfg, art.query_state, DEVICE)
+    rng = np.random.default_rng(seed + 16)
+    _, _, fids, fvals = funnel_requests(rng, SHARD_USERS)
+    h_uids = rng.integers(0, FUNNEL_USER_VOCAB, (SHARD_USERS, FUNNEL_FIELDS))
+    uids = torch.from_numpy(h_uids).to(DEVICE)
+    uvals = torch.ones((SHARD_USERS, FUNNEL_FIELDS), device=DEVICE)
+    ids = np.concatenate([h_uids, fids], axis=1)
+    vals = np.concatenate([np.ones((SHARD_USERS, FUNNEL_FIELDS), np.float32), fvals], axis=1)
+    with torch.no_grad():
+        u = encode_queries(query, uids, uvals).cpu().numpy()
+    n = art.index.item_ids.shape[0]
+    out = {}
+    for mode in ("exact", "int8"):
+        got, graphed = {}, {}
+        for mp in (1, *SHARD_COUNTS):
+            ctx = make_funnel_context(art.rank_cfg, art.query_cfg, capacity=n,
+                                      top_k=FUNNEL_TOP_K, return_n=FUNNEL_RETURN_N,
+                                      retrieval=mode, oversample=FUNNEL_OVERSAMPLE,
+                                      model_parallel=mp)
+            payload = stage_funnel_payload(ctx, rank, query, art.index)
+            with torch.no_grad():
+                s, c = build_retrieve_with(ctx)(payload, uids, uvals)
+            got[mp] = (s.cpu().numpy(), c.cpu().numpy(), ctx.capacity)
+            del payload
+            if mp == 1:
+                continue
+            graphs = FunnelGraphs(ctx, art.rank_state, art.query_state, art.index,
+                                  device=DEVICE, buckets=FUNNEL_BUCKETS)
+            graphs.precompile()
+            pack, _, _, gs, gc = graphs.dispatch(0, ids, vals, full=True)
+            want, _ = graphs.eager(0, ids, vals)
+            del graphs
+            if not np.array_equal(gc, got[mp][1]) or not np.array_equal(pack[:, 0], want[:, 0]):
+                fail(f"funnel_swap sharded {mode} M={mp}: the graphed ids differ from eager")
+            err = max(float(np.abs(gs - got[mp][0]).max()),
+                      float(np.abs(pack[:, 1:] - want[:, 1:]).max()))
+            if err > TOL_GRAPH:
+                fail(f"funnel_swap sharded {mode} M={mp}: graphed vs eager {err}")
+            graphed[mp] = {"vs_eager_max_abs": err, "ids_moved_vs_one_shard": int(
+                (gc != got[1][1]).sum())}
+            if mode == "exact" and (np.abs(gs - got[1][0])[gc != got[1][1]] > TOL_SHARD).any():
+                fail(f"funnel_swap sharded exact M={mp}: graphed ids differ from one "
+                     f"shard's past near-ties")
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        _, ref_ids = brute_force_topk(art.index.item_emb, art.index.item_ids, u, FUNNEL_TOP_K)
+        row = {item: i for i, item in enumerate(art.index.item_ids.tolist())}
+        full = u @ art.index.item_emb.T                              # [B, N]
+        kth = np.sort(full, axis=1)[:, -FUNNEL_TOP_K]
+        stats = {}
+        for mp in SHARD_COUNTS:
+            s, c, cap = got[mp]
+            if (c < 0).any():
+                fail(f"funnel_swap sharded {mode} M={mp}: a pad row was returned")
+            s1, c1, _ = got[1]
+            moved = c != c1
+            if mode == "exact" and (np.abs(s - s1)[moved] > TOL_SHARD).any():
+                fail(f"funnel_swap sharded exact M={mp}: ids differ from one shard's "
+                     f"past near-ties")
+            own = full[np.arange(SHARD_USERS)[:, None], np.vectorize(row.get)(c)]
+            err = float(np.abs(own - s).max())
+            missed = [(q, set(ref_ids[q]) - set(c[q])) for q in range(SHARD_USERS)]
+            # an id of brute force's top K missing here must sit at the K-th score
+            far = [(q, m) for q, ms in missed for m in ms
+                   if full[q, row[m]] > kth[q] + TOL_SHARD]
+            if err > TOL_SHARD or (mode == "exact" and far):
+                fail(f"funnel_swap sharded {mode} M={mp}: score err {err}, missed {far[:3]}")
+            recall = float(np.mean([1 - len(ms) / FUNNEL_TOP_K for _, ms in missed]))
+            stats[mp] = {"capacity": cap, "max_abs_err": err, "recall": recall,
+                         "ids_moved_vs_one_shard": int(moved.sum()),
+                         "near_tie_misses": sum(len(ms) for _, ms in missed) - len(far),
+                         "graphed": graphed[mp]}
+        out[mode] = stats
+    print("funnel_swap sharded %s" % json.dumps(out))
+    return out
+
+
+def phase_funnel_swap(seed: int, workdir: str, card: str, servable: str) -> dict:
+    """Phase 17: the funnel's versioned hot swap at the funnel phase's
+    width (117,581 items, top 32 -> 8, oversample 4, buckets 8 and 64):
+    graphed vs eager vs plain, publish and swap under traffic with two
+    rollbacks, the sharded index, and their times."""
+    from deepfm_tpu_torch.funnel import graphs as funnel_graphs
+    from deepfm_tpu_torch.funnel import load_funnel_artifact
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    art = load_funnel_artifact(servable)
+    rng = np.random.default_rng(seed + 14)
+    graphed = swap_graphed_vs_eager(art, rng)
+    # the main path: counts from 0, then boot, capture, traffic, swaps
+    reset_funnel_counts()
+    traffic, answers = swap_under_traffic(art, servable, workdir, seed, card)
+    retr, fwd = funnel_kernel_runs()
+    graph_runs = dict(funnel_graphs.graph_kernel_runs)
+    if DEVICE == "cuda" and min(graph_runs.values()) <= 0:
+        fail(f"funnel_swap: the graphs ran {graph_runs}")
+    traffic["vs_plain"] = check_version_answers(art, answers)
+    sharded = swap_sharded(art, seed)
+    seconds = time.perf_counter() - t_phase
+    print("funnel_swap %s" % json.dumps({
+        "card": card, "seconds": seconds, "runs": {"retrieval_topk": retr,
+                                                   "fused_ctr_forward": fwd},
+        "graph_runs": graph_runs,
+        "responses": traffic["responses"], "swap_ms": traffic["swap_ms"],
+        "stage_ms": traffic["stage_ms"], "canary_ms": traffic["canary_ms"]}))
+    return {"retrieval_launches": retr, "forward_launches": fwd, "graphed": graphed,
+            "traffic": traffic, "sharded": sharded, "seconds": seconds}
 
 
 # the lifecycle phase: 24 steps of 1,024 records in 2 files, each batch's
@@ -4078,11 +4587,14 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
 
+    t_main = _phase["t0"] = time.perf_counter()
+    start_watchdog(WATCHDOG_S)
     dev = resolve_device("cuda")
     card = card_line()
     print(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     t0 = time.perf_counter()
+    begin("build")
     built = _build.build()
     print(f"build: {sorted(_build.sources())} in {time.perf_counter() - t0:.2f} s")
     native_s = native.build()
@@ -4091,30 +4603,48 @@ def main(argv: list[str] | None = None) -> int:
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.2f} s\n{info['log'].strip()}", file=sys.stderr)
 
+    begin("kernel")
     kernel = phase_kernel(args.seed)
+    begin("backward")
     backward = phase_backward(args.seed)
+    begin("b2")
     b2 = phase_b2(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        begin("serve")
         serve = phase_serve(args.seed, os.path.join(workdir, "serve"))
         train_dir, val_dir = (os.path.join(workdir, d) for d in ("train", "val"))
         os.makedirs(train_dir)
         os.makedirs(val_dir)
         write_synthetic(args.seed, train_dir, val_dir)
+        begin("parity")
         phase_parity(args.seed, train_dir)
+        begin("train")
         train = phase_train(args.seed, train_dir, val_dir,
                             os.path.join(workdir, "trained_servable"))
+        begin("lazy")
         lazy = phase_lazy(args.seed, train_dir, val_dir,
                           os.path.join(workdir, "lazy_servable"),
                           train["breakdown"][TRAIN_BATCHES[0]])
+        begin("graphed")
         phase_graphed(args.seed, train, lazy)
+        begin("ddp")
         ddp = phase_ddp(args.seed, workdir)
+        begin("sharded")
         sharded = phase_sharded(args.seed, os.path.join(workdir, "sharded"))
+        begin("lifecycle")
         life = phase_lifecycle(args.seed, os.path.join(workdir, "lifecycle"), val_dir,
                                train_dir, os.path.join(workdir, "readers"))
+        begin("tiered")
         tiered = phase_tiered(args.seed, os.path.join(workdir, "tiered"), train_dir,
                               os.path.join(workdir, "lifecycle", "life"))
+        begin("online")
         online = phase_online(args.seed, os.path.join(workdir, "online"), card)
+        begin("funnel")
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
+        begin("funnel_swap")
+        swap = phase_funnel_swap(args.seed, os.path.join(workdir, "funnel_swap"), card,
+                                 os.path.join(workdir, "funnel"))
+        begin("prep")
         prep = phase_prep(args.seed, os.path.join(workdir, "prep"), card)
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
@@ -4129,8 +4659,8 @@ def main(argv: list[str] | None = None) -> int:
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
                      + ddp["launches"] + sharded["launches"] + life["launches"]
                      + online["launches"] + funnel["forward_launches"]
-                     + funnel["task_forward_launches"] + prep["launches"]
-                     + tiered["launches"]),
+                     + funnel["task_forward_launches"] + swap["forward_launches"]
+                     + prep["launches"] + tiered["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
                            sharded["max_abs_err"], *tiered["hot_forward"]["max_abs_err"],
                            *tiered["compact"]["forward_max_abs_err"]),
@@ -4161,7 +4691,8 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/retrieval_topk.cu",
         "replaces": "deepfm_tpu/ops/pallas_retrieval.py:173",
-        "launches": funnel["retrieval_launches"] + funnel["task_retrieval_launches"],
+        "launches": (funnel["retrieval_launches"] + funnel["task_retrieval_launches"]
+                     + swap["retrieval_launches"]),
         "max_abs_err": b2["max_abs_err"],
         "ms": b2_row["ms"],
         "plain_ms": b2_row["plain_ms"],
@@ -4169,11 +4700,13 @@ def main(argv: list[str] | None = None) -> int:
         "bound_by": b2_row["bound_by"],
         "library_ms": b2_row["library_ms"],
     }]}
+    print(f"chip_smoke: total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
         "count": torch.cuda.device_count()}}))
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 

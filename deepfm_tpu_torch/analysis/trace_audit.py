@@ -29,6 +29,16 @@ width, runs a few steps, and holds them to the same contracts:
   ``SLOTS x len(buckets)`` graphs, every request size the batcher admits
   maps onto a captured bucket, and a ``HotSwapper`` swap captures nothing
   (``fused_ctr.captured`` is unchanged).
+* **the funnel** (JAX ``audit_funnel``, restated for graphs): both
+  stages of every (slot, bucket) are captured under
+  ``set_sync_debug_mode("error")`` (``trace-transfer``); the index is a
+  parameter: a ``copy_`` of a distinct same-spec payload into a slot
+  changes its answers and captures nothing (``trace-recompile``); at
+  ``model_parallel`` 2 no tensor with a corpus-sized dimension crosses
+  shards, only ``[B, K]`` packs and the ``[B, D]`` queries
+  (``trace-collective``); under int8 the retrieve graph's pool stays
+  under ``B·rows_local·4`` bytes, so no corpus-sized f32 result exists
+  (``trace-quantized``, on the card).
 
 On the CPU the structural contracts run (in place, dtype, one body: the
 eager step and the CPU path of the graphed step are one function); the
@@ -241,7 +251,8 @@ def audit_buckets(device="cpu", buckets=None) -> list[Finding]:
             if predictor.graph_count != want:
                 out.append(_finding("trace-recompile", f"{predictor.graph_count} bucket "
                                     f"graphs, expected {want}", where, "graph-count"))
-            captured = {b for g in predictor._graphs for b in g} if cuda else set(buckets)
+            captured = ({b for g in predictor._slots.graphs for b in g} if cuda
+                        else set(buckets))
             for n in range(1, buckets[-1] + 1):
                 b = pick_bucket(buckets, n)
                 if b < n or b not in captured:
@@ -342,8 +353,112 @@ def audit_paged_step(device="cpu", *, steps: int = _AUDIT_STEPS) -> list[Finding
     return out
 
 
+# the funnel audit's geometry: two shards of 32,768 rows (corpus-sized
+# dimensions stand out from every [B, K] and [B, D] shape), D 16 (B2's
+# smallest), top 8 -> 4, oversample 2, two buckets
+_FUNNEL_ITEMS, _FUNNEL_CAPACITY, _FUNNEL_SHARDS = 60_000, 65_536, 2
+_FUNNEL_BUCKETS = (8, 16)
+
+
+def _funnel_audit_graphs(device, mode: str):
+    from ..core.config import ModelConfig
+    from ..funnel.graphs import FunnelGraphs
+    from ..funnel.index import FunnelIndex, make_funnel_context
+    from ..models import DeepFM, TwoTower
+
+    rank_cfg = ModelConfig(feature_size=_FUNNEL_CAPACITY, field_size=4, embedding_size=8,
+                           deep_layers=(16,), dropout_keep=(1.0,), compute_dtype="float32")
+    query_cfg = ModelConfig(model_name="two_tower", user_vocab_size=500,
+                            item_vocab_size=_FUNNEL_CAPACITY, user_field_size=2,
+                            item_field_size=2, tower_layers=(16,), tower_dim=16,
+                            embedding_size=8, compute_dtype="float32")
+    ctx = make_funnel_context(rank_cfg, query_cfg, capacity=_FUNNEL_CAPACITY, top_k=8,
+                              return_n=4, retrieval=mode, oversample=2,
+                              model_parallel=_FUNNEL_SHARDS)
+
+    def version(seed: int):
+        g = torch.Generator().manual_seed(seed)
+        rank = DeepFM(rank_cfg, device="cpu", generator=g).state_dict()
+        query = TwoTower(query_cfg, device="cpu", generator=g).state_dict()
+        emb = torch.nn.functional.normalize(
+            torch.randn((_FUNNEL_ITEMS, 16), generator=g), dim=1).numpy()
+        ids = torch.randperm(_FUNNEL_CAPACITY, generator=g)[:_FUNNEL_ITEMS]
+        return rank, query, FunnelIndex(item_ids=ids.numpy().astype(np.int32), item_emb=emb)
+
+    graphs = FunnelGraphs(ctx, *version(0), device=device, buckets=_FUNNEL_BUCKETS)
+    return ctx, graphs, version(1)
+
+
+def audit_funnel(device="cpu") -> list[Finding]:
+    """The funnel's contracts (JAX ``audit_funnel``) on two index shards,
+    exact and int8: the captures under the sync guard, the index as a
+    parameter of the graphs, no corpus-sized exchange, and under int8 no
+    corpus-sized f32 result in the retrieve graph's pool (on the card)."""
+    from ..funnel import index as funnel_index
+
+    where = "deepfm_tpu_torch/funnel/graphs.py"
+    out: list[Finding] = []
+    rng = np.random.default_rng(0)
+    for mode in ("exact", "int8"):
+        crossed: list[tuple] = []
+        funnel_index.exchange_observer = crossed.append
+        try:
+            out += _audit_funnel_mode(device, mode, crossed, rng, where)
+        finally:
+            funnel_index.exchange_observer = None
+    return out
+
+
+def _audit_funnel_mode(device, mode: str, crossed: list, rng, where: str) -> list[Finding]:
+    from ..funnel.index import index_shards
+    from ..ops import fused_ctr, retrieval
+
+    what = f"funnel {mode}"
+    try:
+        ctx, graphs, (rank, query, index) = _funnel_audit_graphs(device, mode)
+        graphs.precompile()
+    except Exception as e:
+        return [_finding("trace-transfer", f"{what}: building or capturing the stages "
+                         f"under set_sync_debug_mode('error') raised "
+                         f"{type(e).__name__}: {e}", where, f"{what}:capture")]
+    out: list[Finding] = []
+    b = _FUNNEL_BUCKETS[0]
+    fu, f = ctx.user_fields, ctx.rank_fields
+    ids = np.concatenate([rng.integers(0, 500, (b, fu)),
+                          rng.integers(0, ctx.rank_cfg.feature_size, (b, f))], axis=1)
+    vals = np.ones((b, fu + f), np.float32)
+    before = (graphs.graph_count, retrieval.captured, fused_ctr.captured)
+    graphs.load_slot(1, {"rank": rank, "query": query, "shards": index_shards(ctx, index)})
+    old, new = graphs.dispatch(0, ids, vals)[0], graphs.dispatch(1, ids, vals)[0]
+    if np.array_equal(old, new):
+        out.append(_finding("trace-recompile", f"{what}: a distinct payload copied into "
+                            f"slot 1 left its answers unchanged (a baked index or "
+                            f"weights)", where, f"{what}:parameter"))
+    if (graphs.graph_count, retrieval.captured, fused_ctr.captured) != before:
+        out.append(_finding("trace-recompile", f"{what}: loading a slot captured again "
+                            f"({before} -> {graphs.graph_count} graphs)", where,
+                            f"{what}:swap-captured"))
+    # crossings happen where the stages are traced: at capture on the card,
+    # at every dispatch on the CPU
+    corpus = {ctx.capacity, ctx.rows_local}
+    big = sorted({s for s in crossed if corpus & set(s)})
+    if not crossed or big:
+        out.append(_finding("trace-collective", f"{what}: tensors of shapes {big} crossed "
+                            f"shards ({len(crossed)} crossings; corpus dims "
+                            f"{sorted(corpus)})", where, f"{what}:exchange"))
+    if torch.device(device).type == "cuda" and mode == "int8":
+        for bucket, nbytes in sorted(graphs.retrieve_pool_bytes.items()):
+            limit = bucket * ctx.rows_local * 4
+            if nbytes >= limit:
+                out.append(_finding("trace-quantized", f"{what}: the retrieve graph at "
+                                    f"bucket {bucket} allocated {nbytes} bytes, a "
+                                    f"corpus-sized f32 result needs {limit}", where,
+                                    f"{what}:pool:{bucket}"))
+    return out
+
+
 def run_trace_audit(device="cpu") -> list[Finding]:
     """Every contract above on ``device`` (the capture contracts only
     where it is the card); the waived ones are in :data:`WAIVERS`."""
     return (audit_train_step(device) + audit_train_step(device, lazy=True)
-            + audit_buckets(device) + audit_paged_step(device))
+            + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device))

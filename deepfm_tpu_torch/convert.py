@@ -205,6 +205,30 @@ def two_tower_params_from_jax(params: Mapping, cfg: ModelConfig) -> dict[str, to
     return _checked(flat, cfg, "")
 
 
+def two_tower_params_to_jax(state_dict: Mapping, cfg: ModelConfig) -> dict:
+    """The JAX-layout two-tower params of a ``TwoTower`` ``state_dict``
+    (tensors or arrays), as float32 numpy: the tree ``init_two_tower``
+    builds (``{side}_embedding``, ``{side}_tower.layer_i``/``proj`` with
+    ``kernel`` and ``bias``).  Shapes are checked against ``cfg``."""
+    want = _two_tower_shapes(cfg)
+    if set(state_dict) != set(want):
+        raise ValueError(
+            f"state_dict keys differ from the config's: missing "
+            f"{sorted(set(want) - set(state_dict))}, unexpected "
+            f"{sorted(set(state_dict) - set(want))}")
+    flat = {k: _checked({k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                         else v}, cfg, "")[k].numpy() for k, v in state_dict.items()}
+    params: dict = {f"{side}_embedding": flat[f"{side}_embedding"]
+                    for side in ("user", "item")}
+    for side in ("user", "item"):
+        tower = {f"layer_{i}": {leaf: flat[f"{side}_tower.layer_{i}.{leaf}"]
+                                for leaf in ("kernel", "bias")}
+                 for i in range(len(cfg.tower_layers))}
+        tower["proj"] = {leaf: flat[f"{side}_tower.proj.{leaf}"] for leaf in ("kernel", "bias")}
+        params[f"{side}_tower"] = tower
+    return params
+
+
 def _model_config(cfg) -> ModelConfig:
     """The port's ModelConfig from a JAX ``Config`` (or its ``model``
     section), read field by field: the JAX dataclass is never imported."""

@@ -1,5 +1,5 @@
 """Top-K retrieval index over item-tower embeddings, and the funnel's two
-stages: counterpart of ``deepfm_tpu/funnel/index.py`` on one card.
+stages: counterpart of ``deepfm_tpu/funnel/index.py``.
 
 The item corpus is encoded once through the two-tower item tower into a
 ``[N, D]`` embedding matrix (:func:`build_index`).  A query batch is
@@ -7,17 +7,31 @@ encoded by the user tower and scored against the index
 (:func:`build_retrieve_with`), and each query's K candidates are ranked
 through the live DeepFM (:func:`build_rank_topn_with`).
 
-One card holds the whole index: there is no mesh, the model-parallel
-width is 1, and a global corpus row is the local row, so the JAX
-candidate-pack all-gather and global merge reduce to the per-shard
-selection.  Ties break toward the smaller corpus row in both modes, which
-is what :func:`brute_force_topk` implements.
+The index is row-sharded over ``model_parallel`` shards, as JAX shards it
+over the serve mesh's ``model`` axis: the capacity rounds up to a
+multiple of M and shard ``s`` holds the ``capacity/M`` contiguous rows
+from ``s·capacity/M``, on the models' device (the CPU in the tests, the
+one serving card on the card: spreading the shards over cards is the
+serving pool's, ROADMAP A14).  Per shard:
 
-``retrieval_mode="int8"`` scores the quantized corpus with kernel B2
-(``ops/retrieval.py``: the Hopper kernel on the card, its plain version on
-the CPU) for a shortlist of ``K·oversample`` rows, rescores the shortlist
-exactly in f32 and keeps the K best.  Pad rows ``[items, capacity)`` carry
-``item_id = -1`` and score ``-inf``.
+    u      = encode_queries(...)            [B, D]  (moved to the shard)
+    scores = u @ item_embᵀ                  [B, rows/M]
+    s, i   = top K under (-score, row)      [B, K]  (global row s·rows/M + i)
+
+then only the ``[B, K]`` candidate packs (score, global row, item id)
+travel to the first shard's device, where one merge by (-score, global
+row) keeps K, as JAX's ``lax.sort(num_keys=2)`` over the all-gathered
+packs does.  No tensor with a corpus-sized dimension crosses shards.  Ties
+break toward the smaller global corpus row, which is what
+:func:`brute_force_topk` implements.  With M = 1 the merge is the shard's
+own selection.
+
+``retrieval_mode="int8"`` scores each shard's quantized rows with kernel
+B2 (``ops/retrieval.py``: the Hopper kernel on the card, its plain version
+on the CPU) for a shortlist of ``K·oversample`` rows, rescores the
+shortlist exactly in f32 and keeps the shard's K best before the same
+merge.  Pad rows ``[items, capacity)`` carry ``item_id = -1`` and score
+``-inf``.
 """
 
 from __future__ import annotations
@@ -93,11 +107,11 @@ def build_index(query_model, item_ids: np.ndarray, item_feat_ids: np.ndarray,
 
 
 class FunnelContext(NamedTuple):
-    """The funnel's static geometry on one card."""
+    """The funnel's static geometry."""
 
     query_cfg: ModelConfig     # two-tower config (user tower = query encoder)
     rank_cfg: ModelConfig      # CTR ranker config (the live DeepFM)
-    capacity: int              # index rows (items plus pad rows)
+    capacity: int              # index rows (items plus pad rows), a multiple of M
     top_k: int                 # candidates retrieved per query
     return_n: int              # ranked items returned per query (<= top_k)
     item_field: int            # rank-row field carrying the candidate id
@@ -105,26 +119,41 @@ class FunnelContext(NamedTuple):
     rank_fields: int           # ranker feature width (F)
     retrieval_mode: str = "exact"   # resolved: "exact" | "int8"
     oversample: int = 1        # int8 shortlist width = top_k * oversample
+    model_parallel: int = 1    # index shards (M)
+
+    @property
+    def rows_local(self) -> int:
+        """Index rows a shard holds."""
+        return self.capacity // self.model_parallel
 
 
 def make_funnel_context(rank_cfg: ModelConfig, query_cfg: ModelConfig, *,
                         capacity: int, top_k: int, return_n: int = 0,
                         item_field: int | None = None, retrieval: str = "exact",
-                        oversample: int = 4) -> FunnelContext:
-    """Check and fix the funnel geometry.  ``item_field`` defaults to the
-    ranker's last field; ``retrieval`` ("exact" | "int8" | "auto")
-    resolves against ``capacity``."""
-    capacity = int(capacity)
+                        oversample: int = 4, model_parallel: int = 1) -> FunnelContext:
+    """Check and fix the funnel geometry, with JAX's rules: ``capacity``
+    rounds up to a multiple of ``model_parallel`` (``padded_vocab``), and
+    ``top_k`` (under int8 ``top_k·oversample``) must fit one shard.
+    ``item_field`` defaults to the ranker's last field; ``retrieval``
+    ("exact" | "int8" | "auto") resolves against the padded capacity."""
+    from ..parallel.spmd import padded_vocab
+
+    mp = int(model_parallel)
+    if mp < 1:
+        raise ValueError(f"funnel model_parallel must be >= 1, got {mp}")
     if capacity < 1:
         raise ValueError(f"index capacity must be >= 1, got {capacity}")
+    capacity = padded_vocab(int(capacity), mp)
+    per_shard = capacity // mp
     top_k = int(top_k)
     return_n = int(return_n) if return_n else top_k
     if top_k < 1:
         raise ValueError(f"funnel top_k must be >= 1, got {top_k}")
-    if top_k > capacity:
+    if top_k > per_shard:
         raise ValueError(
-            f"funnel top_k={top_k} exceeds the index rows {capacity}: the "
-            f"selection cannot take more rows than the index holds"
+            f"funnel top_k={top_k} exceeds the per-shard index rows "
+            f"{per_shard} (capacity {capacity} over model_parallel={mp}): a "
+            f"shard's selection cannot take more rows than it holds"
         )
     if not 1 <= return_n <= top_k:
         raise ValueError(f"funnel return_n={return_n} must lie in [1, top_k={top_k}]")
@@ -132,12 +161,13 @@ def make_funnel_context(rank_cfg: ModelConfig, query_cfg: ModelConfig, *,
     oversample = int(oversample) if mode == "int8" else 1
     if oversample < 1:
         raise ValueError(f"funnel oversample must be >= 1, got {oversample}")
-    if mode == "int8" and top_k * oversample > capacity:
+    if mode == "int8" and top_k * oversample > per_shard:
         raise ValueError(
             f"funnel oversample={oversample} * top_k={top_k} = "
-            f"{top_k * oversample} exceeds the index rows {capacity}: the "
-            f"int8 shortlist cannot select more rows than the index holds; "
-            f"lower the oversample"
+            f"{top_k * oversample} exceeds the per-shard index rows "
+            f"{per_shard} (capacity {capacity} over model_parallel={mp}): "
+            f"the int8 shortlist cannot select more rows than a shard "
+            f"holds; lower the oversample or the model-parallel width"
         )
     f = rank_cfg.field_size
     item_field = f - 1 if item_field is None else int(item_field)
@@ -149,7 +179,7 @@ def make_funnel_context(rank_cfg: ModelConfig, query_cfg: ModelConfig, *,
         query_cfg=query_cfg, rank_cfg=rank_cfg, capacity=capacity,
         top_k=top_k, return_n=return_n, item_field=item_field,
         user_fields=query_cfg.user_field_size, rank_fields=f,
-        retrieval_mode=mode, oversample=oversample,
+        retrieval_mode=mode, oversample=oversample, model_parallel=mp,
     )
 
 
@@ -163,34 +193,43 @@ def _lex_topk(scores: torch.Tensor, rows: torch.Tensor, k: int):
     return torch.gather(by_row, 1, order[:, :k])
 
 
+# called with the shape of every tensor that crosses between shards (the
+# query to each shard, the packs to the merge; None: nobody watches);
+# analysis/trace_audit.py audit_funnel holds none of them corpus-sized
+exchange_observer: Callable | None = None
+
+
+def _cross_shard(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    if exchange_observer is not None:
+        exchange_observer(tuple(t.shape))
+    return t.to(dev, non_blocking=True)
+
+
 def build_retrieve_with(ctx: FunnelContext) -> Callable:
     """``retrieve_with(payload, user_ids, user_vals) -> (scores, ids)``:
-    [B, K] f32 and [B, K] int32 tensors on the payload's device, sorted by
-    (-score, corpus row).
+    [B, K] f32 and [B, K] int32 tensors on the first shard's device,
+    sorted by (-score, global corpus row).
 
-    ``"exact"`` scores ``u @ embᵀ`` and selects with a stable sort, which
-    keeps ``lax.top_k``'s order.  ``"int8"`` selects a shortlist of
-    ``K·oversample`` rows with kernel B2 (``retrieval_topk``), rescores the
-    shortlist exactly in f32 and keeps the K best under (-score, row)."""
-    k = ctx.top_k
+    Per shard, ``"exact"`` scores ``u @ embᵀ`` and keeps the K best with a
+    stable sort (``lax.top_k``'s order); ``"int8"`` selects a shortlist of
+    ``K·oversample`` rows with kernel B2 (``retrieval_topk``), rescores it
+    exactly in f32 and keeps the K best under (-score, row).  The shards'
+    ``[B, K]`` packs then merge by (-score, global row)."""
+    k, rows_local = ctx.top_k, ctx.rows_local
 
-    def retrieve_exact(payload, user_ids, user_vals):
-        u = encode_queries(payload["query"], user_ids, user_vals)   # [B, D]
-        emb = payload["index"]["item_emb"]                          # [R, D]
-        iid = payload["index"]["item_ids"]                          # [R]
+    def shard_exact(u, shard):
+        emb, iid = shard["item_emb"], shard["item_ids"]            # [R/M, D], [R/M]
         scores = u @ emb.T
         scores = torch.where(iid[None, :] >= 0, scores,
                              torch.full_like(scores, float("-inf")))
         s, li = torch.sort(scores, dim=1, descending=True, stable=True)
         s, li = s[:, :k], li[:, :k]
-        return s, iid[li]
+        return s, li, iid[li]
 
-    def retrieve_int8(payload, user_ids, user_vals):
-        u = encode_queries(payload["query"], user_ids, user_vals)
-        index = payload["index"]
-        emb, iid = index["item_emb"], index["item_ids"]
-        s_a, li = retrieval_topk(u, index["item_codes"], index["item_scales"], iid,
-                       k * ctx.oversample)                          # [B, K*os]
+    def shard_int8(u, shard):
+        emb, iid = shard["item_emb"], shard["item_ids"]
+        s_a, li = retrieval_topk(u, shard["item_codes"], shard["item_scales"], iid,
+                                 k * ctx.oversample)                # [B, K*os]
         # slots whose approximate score is -inf never saw a real row
         valid = s_a > float("-inf")
         li = torch.where(valid, li, torch.zeros_like(li)).long()
@@ -199,9 +238,28 @@ def build_retrieve_with(ctx: FunnelContext) -> Callable:
         s = torch.einsum("bd,bkd->bk", u, emb[li])
         s = torch.where(valid & (cid >= 0), s, torch.full_like(s, float("-inf")))
         pick = _lex_topk(s, li, k)
-        return torch.gather(s, 1, pick), torch.gather(cid, 1, pick)
+        return (torch.gather(s, 1, pick), torch.gather(li, 1, pick),
+                torch.gather(cid, 1, pick))
 
-    return retrieve_int8 if ctx.retrieval_mode == "int8" else retrieve_exact
+    local = shard_int8 if ctx.retrieval_mode == "int8" else shard_exact
+
+    def retrieve_with(payload, user_ids, user_vals):
+        u = encode_queries(payload["query"], user_ids, user_vals)   # [B, D]
+        shards = payload["shards"]
+        if len(shards) == 1:
+            s, _, cid = local(u, shards[0])
+            return s, cid
+        dev = shards[0]["item_ids"].device
+        packs = [local(_cross_shard(u, shard["item_ids"].device), shard) for shard in shards]
+        # the [B, K] packs only: score, global row, item id
+        s_all = torch.cat([_cross_shard(s, dev) for s, _, _ in packs], dim=1)
+        g_all = torch.cat([_cross_shard(li + i * rows_local, dev)
+                           for i, (_, li, _) in enumerate(packs)], dim=1)
+        c_all = torch.cat([_cross_shard(c, dev) for _, _, c in packs], dim=1)
+        pick = _lex_topk(s_all, g_all, k)
+        return torch.gather(s_all, 1, pick), torch.gather(c_all, 1, pick)
+
+    return retrieve_with
 
 
 def build_rank_topn_with(ctx: FunnelContext) -> Callable:
@@ -236,13 +294,10 @@ def build_rank_topn_with(ctx: FunnelContext) -> Callable:
     return rank_with
 
 
-def stage_funnel_payload(ctx: FunnelContext, rank_model, query_model,
-                         index: FunnelIndex) -> dict:
-    """The funnel payload on the models' device: the ranker
-    (``DeepFM``), the query encoder (``TwoTower``) and the index padded to
-    the context's capacity (pad rows id -1, emb 0).  In int8 mode the
-    codes and scales are quantized here from the f32 rows, so they always
-    match the rescore source (pad rows quantize to scale 0, zero codes)."""
+def check_index(ctx: FunnelContext, index: FunnelIndex) -> None:
+    """The guards every staged index passes (JAX ``stage_funnel_payload``):
+    the corpus within the capacity, ids in [0, feature_size) and below
+    2**24, the tower's dimension."""
     n = index.item_ids.shape[0]
     if n > ctx.capacity:
         raise ValueError(
@@ -268,6 +323,15 @@ def stage_funnel_payload(ctx: FunnelContext, rank_model, query_model,
         raise ValueError(
             f"index embedding dim {d} != query tower_dim {ctx.query_cfg.tower_dim}"
         )
+
+
+def index_shards(ctx: FunnelContext, index: FunnelIndex) -> list[dict[str, np.ndarray]]:
+    """The index padded to the capacity (pad rows id -1, emb 0) and cut
+    into ``model_parallel`` row blocks, as host arrays; in int8 mode with
+    the codes and scales quantized from the f32 rows, so they always match
+    the rescore source (pad rows quantize to scale 0, zero codes)."""
+    check_index(ctx, index)
+    n, d = index.item_emb.shape
     ids = np.full((ctx.capacity,), -1, np.int32)
     ids[:n] = index.item_ids
     emb = np.zeros((ctx.capacity, d), np.float32)
@@ -275,24 +339,48 @@ def stage_funnel_payload(ctx: FunnelContext, rank_model, query_model,
     leaves = {"item_ids": ids, "item_emb": emb}
     if ctx.retrieval_mode == "int8":
         leaves["item_codes"], leaves["item_scales"] = quantize_rows(emb)
+    r = ctx.rows_local
+    return [{name: np.ascontiguousarray(a[i * r:(i + 1) * r]) for name, a in leaves.items()}
+            for i in range(ctx.model_parallel)]
+
+
+def stage_funnel_payload(ctx: FunnelContext, rank_model, query_model,
+                         index: FunnelIndex) -> dict:
+    """The funnel payload: the ranker (``DeepFM``), the query encoder
+    (``TwoTower``) and the index shards (:func:`index_shards`), all on the
+    models' device."""
     dev = rank_model.fm_v.device
     return {
         "query": query_model,
         "rank": rank_model,
-        "index": {name: torch.from_numpy(a).to(dev) for name, a in leaves.items()},
+        "shards": [{name: torch.from_numpy(a).to(dev) for name, a in shard.items()}
+                   for shard in index_shards(ctx, index)],
     }
 
 
+# the candidate-pack lanes that cross shards: (scores f32, global rows,
+# item ids i32)
+_PACK_LANE_BYTES = (4, 4, 4)
+
+
+def funnel_wire_bytes_est(ctx: FunnelContext, bucket: int) -> int:
+    """Bytes of candidate packs a ``bucket``-row retrieve moves to the
+    merge: ``[B, K]`` of each lane from each shard (JAX
+    ``funnel_wire_bytes_est`` with one data index)."""
+    return sum(_PACK_LANE_BYTES) * max(1, bucket) * ctx.top_k * ctx.model_parallel
+
+
 def funnel_score_bytes_est(ctx: FunnelContext, bucket: int) -> dict:
-    """Bytes the scoring stage reads per dispatch: ``exact`` the whole f32
-    corpus; ``int8`` the codes and scales plus the shortlist's f32 rescore
-    gather.  ``saved_bytes`` is the difference against exact."""
+    """Bytes the scoring stage reads per dispatch, summed over shards:
+    ``exact`` the whole f32 corpus; ``int8`` the codes and scales plus each
+    shard's shortlist f32 rescore gather.  ``saved_bytes`` is the
+    difference against exact."""
     d = ctx.query_cfg.tower_dim
     exact_read = ctx.capacity * d * 4
     if ctx.retrieval_mode != "int8":
         return {"score_read_bytes": exact_read, "saved_bytes": 0}
     kos = ctx.top_k * ctx.oversample
-    read = ctx.capacity * (d + 4) + max(1, bucket) * kos * d * 4
+    read = ctx.capacity * (d + 4) + max(1, bucket) * ctx.model_parallel * kos * d * 4
     return {"score_read_bytes": read, "saved_bytes": max(0, exact_read - read)}
 
 

@@ -14,8 +14,14 @@
 
 The layout is the JAX one; only ``rank/`` and ``query/`` hold the port's
 servable format (``convert.funnel_from_jax`` writes a JAX funnel this
-way).  Versioned publishing (``FunnelPublisher``, manifests) is not ported
-yet.
+way).  :class:`FunnelPublisher` publishes such a tree as one version of a
+publish root (online/publisher.py: the tree under ``versions/<v>/``, then
+``MANIFEST-<v>.json`` last), whose manifest carries the ranker's
+``param_hash`` and an ``index`` section (``items``, ``dim``, ``sha256``,
+``query_param_hash``, ``retrieval``): ranking weights and the index they
+were built for are one version, and every hash equals the one JAX's
+publisher computes on the same weights.  The funnel's hot swap
+(funnel/serve.py ``FunnelSwapper``) stages such versions.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import NamedTuple
 import numpy as np
 
 from ..core.config import ModelConfig
-from .index import FunnelIndex
+from ..online.publisher import Manifest, ModelPublisher, param_tree_hash
+from .index import FunnelIndex, index_hash
 
 FUNNEL_META = "funnel.json"
 INDEX_NPZ = "index.npz"
@@ -156,20 +163,23 @@ def load_funnel_artifact(directory: str) -> FunnelArtifact:
 
 def export_funnel_servable(directory: str, rank_cfg: ModelConfig, rank_state: dict,
                            query_cfg: ModelConfig, query_state: dict,
-                           index: FunnelIndex, *, top_k: int = 32, return_n: int = 0,
+                           index: FunnelIndex, *, item_field: int | None = None,
+                           top_k: int = 32, return_n: int = 0, capacity: int = 0,
                            retrieval: str = "exact", oversample: int = 4,
                            min_recall: float = 0.95) -> str:
-    """Write the funnel servable the server loads: the candidate id goes in
-    the ranker's last field, and the index capacity is the corpus (the
-    JAX knobs for both serve its hot swap, which is not ported).
-    ``retrieval`` / ``oversample`` / ``min_recall`` stamp the retrieval
-    section into funnel.json, and an int8 export runs the recall gate
-    first."""
+    """Write the funnel servable the server boots from.  ``item_field``
+    (default: the ranker's last field) carries the candidate id;
+    ``capacity`` fixes the index row budget the funnel's graphs are
+    captured for (0: the corpus), so a later version may grow the corpus
+    up to it without a new capture.  ``retrieval`` / ``oversample`` /
+    ``min_recall`` stamp the retrieval section into funnel.json, and an
+    int8 export runs the recall gate first (the rule of
+    :meth:`FunnelPublisher.publish_funnel`)."""
     f = rank_cfg.field_size
-    cap = index.item_ids.shape[0]
+    cap = capacity or index.item_ids.shape[0]
     meta = funnel_meta(
-        item_field=f - 1, top_k=top_k, return_n=return_n or top_k,
-        capacity=cap, index=index,
+        item_field=f - 1 if item_field is None else item_field,
+        top_k=top_k, return_n=return_n or top_k, capacity=cap, index=index,
         user_fields=query_cfg.user_field_size, rank_fields=f,
         retrieval=resolve_retrieval_section(
             index, capacity=cap, top_k=top_k, retrieval=retrieval,
@@ -177,3 +187,72 @@ def export_funnel_servable(directory: str, rank_cfg: ModelConfig, rank_state: di
     )
     return write_funnel_tree(directory, rank_cfg, rank_state, query_cfg,
                              query_state, index, meta)
+
+
+def rank_param_hash(rank_cfg: ModelConfig, rank_state: dict) -> str:
+    """The manifest's ``param_hash`` of a ranker ``state_dict``: JAX's
+    hash over its JAX-layout tree (``convert.params_to_jax``)."""
+    from ..convert import params_to_jax
+
+    return param_tree_hash(*params_to_jax(rank_state, rank_cfg))
+
+
+def query_param_hash(query_cfg: ModelConfig, query_state: dict) -> str:
+    """The manifest's ``index.query_param_hash`` of a two-tower
+    ``state_dict``: JAX's ``param_tree_hash(params, None)`` over its
+    JAX-layout params (``convert.two_tower_params_to_jax``)."""
+    from ..convert import two_tower_params_to_jax
+
+    return param_tree_hash(two_tower_params_to_jax(query_state, query_cfg), None)
+
+
+class FunnelPublisher(ModelPublisher):
+    """Versioned funnel publisher: the online publisher's marker-last
+    commit, carrying ranking weights and the retrieval index in one
+    version.  ``param_hash`` covers the ranker (the hot swap's check); the
+    manifest's ``index`` section covers the rest: the index bytes
+    (``sha256``) and the query tower (``query_param_hash``)."""
+
+    def publish_funnel(self, rank_cfg: ModelConfig, rank_state: dict,
+                       query_cfg: ModelConfig, query_state: dict, index: FunnelIndex, *,
+                       item_field: int | None = None, top_k: int = 32, return_n: int = 0,
+                       capacity: int = 0, retrieval: str = "exact", oversample: int = 4,
+                       min_recall: float = 0.95, step: int = 0, cursor: dict | None = None,
+                       watermark: float = 0.0, extra: dict | None = None) -> Manifest:
+        """Publish one funnel version (``rank_state`` and ``query_state``
+        are ``state_dict``s).  The recall gate runs before anything is
+        written: an int8 corpus that misses ``min_recall`` raises and no
+        version, not even a torn one, exists for it."""
+        import time
+
+        f = rank_cfg.field_size
+        cap = capacity or index.item_ids.shape[0]
+        section = resolve_retrieval_section(
+            index, capacity=cap, top_k=top_k, retrieval=retrieval,
+            oversample=oversample, min_recall=min_recall)
+        meta = funnel_meta(
+            item_field=f - 1 if item_field is None else item_field,
+            top_k=top_k, return_n=return_n or top_k, capacity=cap, index=index,
+            user_fields=query_cfg.user_field_size, rank_fields=f, retrieval=section)
+        manifest = Manifest(
+            version=self.next_version(),
+            step=int(step),
+            param_hash=rank_param_hash(rank_cfg, rank_state),
+            field_size=f,
+            feature_size=rank_cfg.feature_size,
+            model_name=rank_cfg.model_name,
+            created_unix=time.time(),
+            cursor=cursor,
+            watermark=float(watermark),
+            extra=dict(extra or {}),
+            index={
+                "items": int(index.item_ids.shape[0]),
+                "dim": int(index.item_emb.shape[1]),
+                "sha256": index_hash(index),
+                "query_param_hash": query_param_hash(query_cfg, query_state),
+                "retrieval": section,
+            },
+        )
+        return self._publish_artifact(
+            manifest, lambda dest: write_funnel_tree(dest, rank_cfg, rank_state, query_cfg,
+                                                     query_state, index, meta))

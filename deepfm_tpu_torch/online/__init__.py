@@ -4,7 +4,7 @@ publishes versions (trainer.py), and versioned servables with manifests
 written last (publisher.py)."""
 
 from .publisher import (Manifest, ModelPublisher, latest_manifest,  # noqa: F401
-                        list_versions, param_tree_hash, read_manifest,
+                        list_versions, param_tree_hash, read_manifest, resolve_version,
                         version_location)
 from .stream import (DirectoryTail, EventLogReader, SegmentWriter,  # noqa: F401
                      StreamCursor, append_segment, open_tail, publish_segment,

@@ -163,6 +163,16 @@ def fetch_version(root: str, version: int, staging_dir: str) -> str:
     return version_location(root, version)
 
 
+def resolve_version(root: str, version: int, staging_dir: str) -> tuple[Manifest, str]:
+    """``(manifest, local artifact directory)`` of one named committed
+    version: the manifest first (a missing manifest means the version is
+    not committed, and the read fails before any byte moves), then the
+    artifact through :func:`fetch_version`.  A funnel's ``stage_version``
+    names its version this way instead of racing ``latest_manifest``."""
+    manifest = read_manifest(root, version)
+    return manifest, fetch_version(root, version, staging_dir)
+
+
 # -- write side --------------------------------------------------------------
 
 class ModelPublisher:

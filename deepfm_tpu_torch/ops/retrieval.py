@@ -17,7 +17,10 @@ masks on the score before trusting a row.
 
 There is no fallback from the card to the plain version, and the JAX
 package's ``funnel_pallas`` knob and compile probe are not carried over.
-``launches`` counts the kernel's launches.  Retrieval takes no gradient.
+``launches`` counts the kernel's launches.  A call recorded into a CUDA
+graph runs only when the graph replays, so it counts in ``captured``, not
+in the launches: a caller that replays graphs counts their runs itself
+(funnel/graphs.py).  Retrieval takes no gradient.
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ import functools
 
 import torch
 
-# kernel launches since import (or since a caller reset them)
+# kernel launches since import (or since a caller reset them), and the
+# calls recorded into CUDA graphs instead
 launches = 0
+captured = 0
 
 MAX_KOS = 1024   # csrc/retrieval_topk.cu: the candidate buffer holds kos + a row block
 MAX_DIM = 128    # queries staged in shared memory
@@ -168,7 +173,7 @@ def scan_plan(rows: int, batch: int, kos: int, sms: int) -> tuple[int, int]:
 
 
 def _retrieval_topk_cuda(u, codes, scales, ids, kos: int):
-    global launches
+    global launches, captured
     _check_inputs(u, codes, scales, ids, kos)
     dev = u.device
     b, d = u.shape
@@ -187,11 +192,15 @@ def _retrieval_topk_cuda(u, codes, scales, ids, kos: int):
             u.data_ptr(), codes.data_ptr(), scales.data_ptr(), ids.data_ptr(),
             b, d, r, kos, per_block, cap, workspace.data_ptr(), scores.data_ptr(),
             rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(
             f"retrieval_topk launch failed: CUDA error {rc} "
             f"({lib.retrieval_topk_error_string(rc).decode()})")
-    launches += 1
+    if capturing:
+        captured += 1
+    else:
+        launches += 1
     return scores, rows
 
 

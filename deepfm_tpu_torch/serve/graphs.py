@@ -9,18 +9,21 @@ under them without recompiling.  Here:
   the parameters and BN buffers (about 17 MB at the flagship width).  A
   slot is what a JAX "payload" is: :meth:`GraphedPredictor.predict_with`
   takes the slot to score with.
-* **One** ``torch.cuda.CUDAGraph`` **per (slot, bucket)**, captured once by
-  :meth:`GraphedPredictor.precompile`, largest bucket first, into one
-  memory pool per slot, each bucket warmed up on a side stream first (the
-  cuBLAS workspace, the kernel library).  The forward launches kernel B1
-  (ops/fused_ctr.py) on the current stream, which is what makes it
-  capturable; nothing in the forward waits on the host.
-* **Static inputs and outputs.**  Each bucket has device buffers for ids
-  and vals that every graph of that bucket reads, and pinned host buffers
-  for staging.  A dispatch fills the pinned buffers, issues one async
-  host-to-device copy each, replays the graph, issues one async
-  device-to-host copy of the probabilities and waits for the stream.
-* **A swap is a** ``copy_`` **into the idle slot** (:meth:`load_slot`).
+* **One** ``torch.cuda.CUDAGraph`` **per (slot, bucket, stage)**, captured
+  once by :class:`SlotGraphs`, largest bucket first, into one memory pool
+  per slot, each bucket warmed up on a side stream first (the cuBLAS
+  workspace, the kernel library), under ``set_sync_debug_mode("error")``.
+  The predictor has one stage, the forward; the funnel (funnel/graphs.py)
+  has two.  The forward launches kernel B1 (ops/fused_ctr.py) on the
+  current stream, which is what makes it capturable; nothing in it waits
+  on the host.
+* **Static inputs and outputs.**  Each bucket has device buffers for ids,
+  vals and the output that every graph of that bucket reads or writes,
+  and pinned host buffers for staging.  A dispatch fills the pinned
+  buffers, issues one async host-to-device copy each, replays the graphs,
+  issues one async device-to-host copy of the output and waits for the
+  stream.
+* **A swap is a** ``copy_`` **into the idle slot** (:func:`load_leaves`).
   Nothing is ever captured again.
 
 Graphs that share a pool, and graphs that share the static buffers, must
@@ -36,33 +39,180 @@ there is no eager fallback.
 from __future__ import annotations
 
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from ..core.config import ModelConfig
 from ..core.platform import resolve_device
-from ..ops import fused_ctr
+from ..ops import fused_ctr, retrieval
 from .batcher import DEFAULT_BUCKETS, pick_bucket
 
 SLOTS = 2
-# eager forwards of each bucket on a side stream before its capture
+# eager runs of each bucket's stages on a side stream before its capture
 WARMUP_CALLS = 3
 
 
-class _Staging:
-    """One bucket's static device buffers, read by every graph of the
-    bucket, and its pinned host buffers with their numpy views."""
+def leaf_specs(leaves: dict) -> dict[str, tuple[tuple[int, ...], str]]:
+    """name -> (shape, dtype) of tensors or host arrays."""
+    return {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in leaves.items()}
 
-    def __init__(self, bucket: int, fields: int, device: torch.device):
+
+def load_leaves(live: dict[str, torch.Tensor], staged: dict) -> None:
+    """``copy_`` ``staged`` (host arrays or tensors of ``live``'s names,
+    shapes and dtypes) into ``live``'s tensors and wait for the copies.
+    Another tree is refused: the graphs read these tensors, so it would
+    need new graphs."""
+    want, got = leaf_specs(live), leaf_specs(staged)
+    if want != got:
+        diff = sorted(set(want.items()) ^ set(got.items()))[:4]
+        raise ValueError(f"the staged tree differs from the slot's (first diffs: {diff}): "
+                         f"swapping would need a re-capture; redeploy instead")
+    with torch.no_grad():
+        for name, dst in live.items():
+            dst.copy_(torch.as_tensor(staged[name]))
+    for dev in {t.device for t in live.values()}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _capture(body: Callable[[], None], pool) -> torch.cuda.CUDAGraph:
+    """``body`` captured into ``pool`` under the sync guard: a host sync
+    in it raises here."""
+    graph = torch.cuda.CUDAGraph()
+    prev = torch.cuda.get_sync_debug_mode()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            body()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return graph
+
+
+class Staging:
+    """One bucket's static buffers: device ``ids`` and ``vals`` [B, F]
+    that every graph of the bucket reads, device ``out`` (f32
+    [out_size]) that its graphs write, their pinned host buffers with
+    numpy views, and a CUDA event before and after each stage."""
+
+    def __init__(self, bucket: int, fields: int, out_size: int, stages: int,
+                 device: torch.device):
+        self.bucket = bucket
         self.ids = torch.zeros((bucket, fields), dtype=torch.int64, device=device)
         self.vals = torch.zeros((bucket, fields), dtype=torch.float32, device=device)
+        self.out = torch.zeros((out_size,), dtype=torch.float32, device=device)
         self.h_ids = torch.zeros((bucket, fields), dtype=torch.int64).pin_memory()
         self.h_vals = torch.zeros((bucket, fields), dtype=torch.float32).pin_memory()
-        self.h_out = torch.zeros((bucket,), dtype=torch.float32).pin_memory()
+        self.h_out = torch.zeros((out_size,), dtype=torch.float32).pin_memory()
         self.np_ids, self.np_vals = self.h_ids.numpy(), self.h_vals.numpy()
         self.np_out = self.h_out.numpy()
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(stages + 1)]
+
+
+class SlotGraphs:
+    """``SLOTS`` x bucket x stage CUDA graphs on the card ``device``, one
+    memory pool a slot, one :class:`Staging` a bucket.  ``bodies(slot,
+    st)`` gives a slot's stages at bucket ``st.bucket``: ``stages``
+    zero-argument callables, run in order, that read ``st.ids`` and
+    ``st.vals`` and between them write ``st.out``.  The predictor here
+    and the funnel's (funnel/graphs.py) capture and replay through it."""
+
+    def __init__(self, device: torch.device, buckets: Sequence[int], fields: int,
+                 out_size: Callable[[int], int], stages: int,
+                 bodies: Callable[[int, Staging], Sequence[Callable[[], None]]]):
+        self.device = device
+        self.buckets = tuple(buckets)
+        self.bodies = bodies
+        self.staging = {b: Staging(b, fields, out_size(b), stages, device)
+                        for b in self.buckets}
+        self.graphs: list[dict[int, tuple[torch.cuda.CUDAGraph, ...]]] = [
+            {} for _ in range(SLOTS)]
+        # replays since construction, the B2 and B1 launches each one runs
+        # (recorded by the kernels' wrappers during the capture: their
+        # ``launches`` count no replay, so a caller counts their runs
+        # through the graphs as replays x launches_per_replay), and the
+        # bytes each stage's capture allocated at its peak, by bucket
+        self.replays = 0
+        self.launches_per_replay = {"retrieval": 0, "forward": 0}
+        self.pool_bytes: dict[int, list[int]] = {}
+
+    @property
+    def count(self) -> int:
+        return sum(len(stages) for slot in self.graphs for stages in slot.values())
+
+    def capture(self) -> dict[str, float]:
+        """Capture every (slot, bucket): ``{"slot<s>/<bucket>": seconds}``
+        with each bucket's warm-up."""
+        if self.count:
+            raise RuntimeError("the bucket graphs are already captured")
+        timings = {}
+        side = torch.cuda.Stream(self.device)
+        with torch.cuda.device(self.device), torch.no_grad():
+            stream = torch.cuda.current_stream(self.device)
+            for slot in range(SLOTS):
+                pool = torch.cuda.graph_pool_handle()
+                for b in reversed(self.buckets):  # the largest first
+                    st = self.staging[b]
+                    bodies = self.bodies(slot, st)
+                    t0 = time.perf_counter()
+                    side.wait_stream(stream)
+                    with torch.cuda.stream(side):
+                        for _ in range(WARMUP_CALLS):
+                            for body in bodies:
+                                body()
+                    stream.wait_stream(side)
+                    torch.cuda.synchronize(self.device)
+                    b2, b1 = retrieval.captured, fused_ctr.captured
+                    graphs, nbytes = [], []
+                    for body in bodies:
+                        base = torch.cuda.memory_allocated(self.device)
+                        torch.cuda.reset_peak_memory_stats(self.device)
+                        graphs.append(_capture(body, pool))
+                        nbytes.append(torch.cuda.max_memory_allocated(self.device) - base)
+                    self.launches_per_replay = {"retrieval": retrieval.captured - b2,
+                                                "forward": fused_ctr.captured - b1}
+                    self.pool_bytes[b] = [max(x, y) for x, y in
+                                          zip(self.pool_bytes.get(b, nbytes), nbytes)]
+                    self.graphs[slot][b] = tuple(graphs)
+                    timings[f"slot{slot}/{b}"] = round(time.perf_counter() - t0, 4)
+            torch.cuda.synchronize(self.device)
+        return timings
+
+    def replay(self, slot: int, ids: np.ndarray, vals: np.ndarray
+               ) -> tuple[Staging, tuple[float, ...]]:
+        """[k, F] rows (k at most the largest bucket) through ``slot``'s
+        graphs at the smallest bucket that holds them, zero rows padding
+        it.  Returns the bucket's staging (``np_out`` holds the result)
+        and each stage's stream time between its events: the device's
+        time plus any host gap before a launch."""
+        graphs = self.graphs[slot]
+        if not graphs:
+            raise RuntimeError("the bucket graphs are not captured: call precompile() first")
+        k = ids.shape[0]
+        if k > self.buckets[-1]:
+            raise ValueError(f"{k} rows exceed the largest bucket {self.buckets[-1]}")
+        st = self.staging[pick_bucket(self.buckets, k)]
+        st.np_ids[:k] = ids
+        st.np_vals[:k] = vals
+        st.np_ids[k:] = 0
+        st.np_vals[k:] = 0
+        stages = graphs[st.bucket]
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device)
+            st.ids.copy_(st.h_ids, non_blocking=True)
+            st.vals.copy_(st.h_vals, non_blocking=True)
+            st.events[0].record(stream)
+            for i, graph in enumerate(stages):
+                graph.replay()
+                st.events[i + 1].record(stream)
+            st.h_out.copy_(st.out, non_blocking=True)
+            stream.synchronize()
+        self.replays += 1
+        return st, tuple(st.events[i].elapsed_time(st.events[i + 1]) / 1e3
+                         for i in range(len(stages)))
 
 
 class GraphedPredictor:
@@ -86,56 +236,33 @@ class GraphedPredictor:
             model = model_from_state(cfg, state_dict, self.device)
             model.requires_grad_(False)
             self._models.append(model)
-        self._graphs: list[dict[int, torch.cuda.CUDAGraph]] = [{} for _ in range(SLOTS)]
-        self._outs: list[dict[int, torch.Tensor]] = [{} for _ in range(SLOTS)]
-        self._staging = ({b: _Staging(b, cfg.field_size, self.device) for b in self.buckets}
-                         if self.device.type == "cuda" else {})
-        # graph replays since construction, and the B1 launches each one
-        # runs (recorded by the kernel's wrapper during the capture: B1's
-        # ``launches`` counts no replay, so a caller counts B1's runs
-        # through the graphs as replays x kernel_launches_per_replay)
-        self.replays = 0
-        self.kernel_launches_per_replay = 0
+        self._slots = (SlotGraphs(self.device, self.buckets, cfg.field_size, lambda b: b, 1,
+                                  self._bodies) if self.device.type == "cuda" else None)
 
     @property
     def graph_count(self) -> int:
-        return sum(len(g) for g in self._graphs)
+        return self._slots.count if self._slots is not None else 0
+
+    @property
+    def replays(self) -> int:
+        return self._slots.replays if self._slots is not None else 0
+
+    @property
+    def kernel_launches_per_replay(self) -> int:
+        """B1 launches each graph replay runs."""
+        return self._slots.launches_per_replay["forward"] if self._slots is not None else 0
 
     def _forward(self, slot: int, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self._models[slot](ids, vals))
+
+    def _bodies(self, slot: int, st: Staging):
+        return (lambda: st.out.copy_(self._forward(slot, st.ids, st.vals)),)
 
     def precompile(self) -> dict[str, float]:
         """Capture every (slot, bucket) graph: ``{"slot<s>/<bucket>":
         seconds}`` with each bucket's warm-up.  On the CPU there is nothing
         to capture ({})."""
-        if self.device.type != "cuda":
-            return {}
-        if self.graph_count:
-            raise RuntimeError("the bucket graphs are already captured")
-        timings = {}
-        side = torch.cuda.Stream(self.device)
-        with torch.cuda.device(self.device), torch.no_grad():
-            for slot in range(SLOTS):
-                pool = torch.cuda.graph_pool_handle()
-                for b in reversed(self.buckets):  # the largest first
-                    st = self._staging[b]
-                    t0 = time.perf_counter()
-                    side.wait_stream(torch.cuda.current_stream(self.device))
-                    with torch.cuda.stream(side):
-                        for _ in range(WARMUP_CALLS):
-                            self._forward(slot, st.ids, st.vals)
-                    torch.cuda.current_stream(self.device).wait_stream(side)
-                    graph = torch.cuda.CUDAGraph()
-                    before = fused_ctr.captured
-                    with torch.cuda.graph(graph, pool=pool,
-                                          capture_error_mode="thread_local"):
-                        out = self._forward(slot, st.ids, st.vals)
-                    self.kernel_launches_per_replay = fused_ctr.captured - before
-                    self._graphs[slot][b] = graph
-                    self._outs[slot][b] = out
-                    timings[f"slot{slot}/{b}"] = round(time.perf_counter() - t0, 4)
-            torch.cuda.synchronize(self.device)
-        return timings
+        return self._slots.capture() if self._slots is not None else {}
 
     def predict_with(self, slot: int, feat_ids, feat_vals) -> np.ndarray:
         """[N, F] int64 ids and f32 vals -> [N] f32 probabilities from
@@ -144,40 +271,22 @@ class GraphedPredictor:
         bucket), waiting for the result."""
         ids = np.asarray(feat_ids, np.int64)
         vals = np.asarray(feat_vals, np.float32)
-        if self.device.type != "cuda":
+        if self._slots is None:
             with torch.inference_mode():
                 return self._forward(slot, torch.from_numpy(ids),
                                      torch.from_numpy(vals)).numpy()
-        graphs = self._graphs[slot]
-        if not graphs:
-            raise RuntimeError("the bucket graphs are not captured: call precompile() first")
         n = ids.shape[0]
         out = np.empty((n,), np.float32)
         cap = self.buckets[-1]
-        with torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream(self.device)
-            for s in range(0, n, cap):
-                k = min(cap, n - s)
-                b = pick_bucket(self.buckets, k)
-                st = self._staging[b]
-                st.np_ids[:k] = ids[s:s + k]
-                st.np_vals[:k] = vals[s:s + k]
-                if k < b:
-                    st.np_ids[k:] = 0
-                    st.np_vals[k:] = 0
-                st.ids.copy_(st.h_ids, non_blocking=True)
-                st.vals.copy_(st.h_vals, non_blocking=True)
-                graphs[b].replay()
-                st.h_out.copy_(self._outs[slot][b], non_blocking=True)
-                stream.synchronize()
-                out[s:s + k] = st.np_out[:k]
-                self.replays += 1
+        for s in range(0, n, cap):
+            k = min(cap, n - s)
+            st, _ = self._slots.replay(slot, ids[s:s + k], vals[s:s + k])
+            out[s:s + k] = st.np_out[:k]
         return out
 
     def slot_specs(self) -> dict[str, tuple[tuple[int, ...], str]]:
         """``state_dict`` name -> (shape, dtype) of every slot's tensors."""
-        return {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
-                for k, v in self._models[0].state_dict().items()}
+        return leaf_specs(self._models[0].state_dict())
 
     def slot_state(self, slot: int) -> dict[str, torch.Tensor]:
         """A slot's parameters and BN buffers, as CPU copies."""
@@ -186,21 +295,7 @@ class GraphedPredictor:
 
     def load_slot(self, slot: int, state_dict: dict) -> None:
         """``copy_`` ``state_dict`` (numpy arrays or tensors with the
-        slot's names and shapes) into ``slot``'s parameters and buffers and
-        wait for the copies.  The graphs read those tensors, so the next
-        replay of the slot scores with the new weights."""
-        live = self._models[slot].state_dict()
-        if set(state_dict) != set(live):
-            raise ValueError(
-                f"state_dict names differ from the slot's: missing "
-                f"{sorted(set(live) - set(state_dict))}, unexpected "
-                f"{sorted(set(state_dict) - set(live))}")
-        with torch.no_grad():
-            for name, dst in live.items():
-                src = torch.as_tensor(state_dict[name])
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"{name}: shape {tuple(src.shape)}, the slot "
-                                     f"holds {tuple(dst.shape)}")
-                dst.copy_(src)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        slot's names, shapes and dtypes) into ``slot``'s parameters and
+        buffers and wait for the copies.  The graphs read those tensors,
+        so the next replay of the slot scores with the new weights."""
+        load_leaves(self._models[slot].state_dict(), state_dict)

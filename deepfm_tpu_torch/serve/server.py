@@ -463,8 +463,10 @@ def serve_forever(
     keywords, which other servables refuse).
 
     ``reload_url`` (a local publish root) turns on hot reload: a
-    :class:`~.reload.HotSwapper` adopts any version already published
-    before the socket opens, then polls every ``reload_interval_secs``.
+    :class:`~.reload.HotSwapper` (over a funnel servable, a
+    ``funnel.serve.FunnelSwapper`` on a ``FunnelPublisher`` root) adopts
+    any version already published before the socket opens, then polls
+    every ``reload_interval_secs``.
 
     ``ready`` is set once the socket is bound; it then carries ``.port``,
     ``.server`` (call ``.shutdown()`` on it to stop; the engines and the
@@ -478,13 +480,15 @@ def serve_forever(
     if is_funnel_servable(servable_dir):
         from ..funnel.serve import serve_funnel
 
-        if item_corpus or reload_url:
-            raise ValueError("--item-corpus and --reload-url do not apply to funnel "
-                             "servables (the funnel's hot swap is ROADMAP A13)")
+        if item_corpus:
+            raise ValueError("--item-corpus applies to two-tower servables; a funnel "
+                             "servable carries its own published index")
         serve_funnel(servable_dir, port=port, host=host, model_name=model_name,
                      buckets=buckets, max_wait_ms=max_wait_ms,
-                     max_queue_rows=max_queue_rows, device=device, ready=ready,
-                     **(funnel or {}))
+                     max_queue_rows=max_queue_rows, reload_url=reload_url,
+                     reload_interval_secs=reload_interval_secs,
+                     trace_sample_rate=trace_sample_rate, trace_export=trace_export,
+                     device=device, ready=ready, **(funnel or {}))
         return
     if funnel:
         raise ValueError(f"funnel options {sorted(funnel)} apply to funnel "
@@ -673,6 +677,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--funnel-oversample", type=int, default=0,
                     help="int8 shortlist width multiplier (top_k * oversample "
                          "candidates reach the rescore; 0 = the servable's value)")
+    ap.add_argument("--funnel-mp", type=int, default=0,
+                    help="funnel servables: index row shards, all on the serving "
+                         "card (0 = 1 shard)")
     ap.add_argument("--trace-sample", type=float, default=DEFAULT_SAMPLE_RATE,
                     help="head-sampling rate for fresh requests (a client's "
                          "X-Trace-Id is always recorded); 0 mints none, 1 traces all")
@@ -695,7 +702,8 @@ def main(argv: list[str] | None = None) -> int:
     funnel = {k: v for k, v in (("top_k", args.funnel_top_k),
                                 ("return_n", args.funnel_return_n),
                                 ("retrieval", args.funnel_retrieval),
-                                ("oversample", args.funnel_oversample)) if v}
+                                ("oversample", args.funnel_oversample),
+                                ("model_parallel", args.funnel_mp)) if v}
     serve_forever(args.servable, port=args.port, host=args.host,
                   model_name=args.model_name, buckets=args.buckets,
                   max_wait_ms=args.max_wait_ms, max_queue_rows=args.max_queue_rows,

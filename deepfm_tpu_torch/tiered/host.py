@@ -1,6 +1,8 @@
 """Host tier: the backing store between the card's hot cache and the cold
 tier.  A copy of ``deepfm_tpu/tiered/host.py`` (that module imports no
-JAX; the port keeps its own copy).
+JAX; the port keeps its own copy), with one repair: a row that a
+synchronous read needs is pinned until the read returns, and a prefetch
+makes one pass.
 
 One preallocated ``[capacity, record_width]`` float32 buffer in host
 memory holds row records faulted in from the cold tier and rows written
@@ -16,6 +18,14 @@ around cold-tier I/O so a prefetch stalled on a dead store never blocks a
 hit, and an in-flight page set + condition variable deduplicates
 concurrent fetches of the same page (the second caller waits, then reads
 the first caller's rows).
+
+Without pins the two livelock once a step's rows and the next step's
+prefetch outgrow the tier: each fill evicts the least recently used rows,
+which are the other's fresh ones (their use stamps tie), and
+``get_records`` refetches until every row is present at once.  So the
+rows of a ``get_records`` call stay resident until it returns, and a
+prefetch, being advisory, inserts what it fetched and returns rather
+than refetching rows that were evicted meanwhile.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ class HostTier:
         self._free = list(range(self.capacity - 1, -1, -1))
         self._cond = threading.Condition()
         self._inflight: set[int] = set()           # pages being cold-fetched
+        self._pins: dict[int, int] = {}            # global row -> reads that need it
         self._stats = {
             "host_hits": 0, "host_misses": 0, "host_evictions": 0,
             "host_flushed_rows": 0, "prefetched_rows": 0,
@@ -70,36 +81,49 @@ class HostTier:
                 f"{self.capacity} rows): eviction would displace the "
                 f"request's own rows; raise tiered_host_rows"
             )
-        first = True
-        while True:
-            self._ensure(rows, prefetch=not first)
-            first = False
+        with self._cond:
+            for r in rows.tolist():
+                self._pins[r] = self._pins.get(r, 0) + 1
+        try:
+            first = True
+            while True:
+                self._ensure(rows, prefetch=not first)
+                first = False
+                with self._cond:
+                    # pinned rows are never evicted, so a second pass
+                    # only finds a fetch that failed or was deduplicated
+                    if any(int(r) not in self._idx_of for r in rows):
+                        continue
+                    self._clock += 1
+                    idx = np.fromiter(
+                        (self._idx_of[int(r)] for r in rows), np.int64, len(rows)
+                    )
+                    self._use[idx] = self._clock
+                    return self._buf[idx].copy()
+        finally:
             with self._cond:
-                # a concurrent writer's eviction may race the fault-in;
-                # re-ensure until every row is present at gather time
-                if any(int(r) not in self._idx_of for r in rows):
-                    continue
-                self._clock += 1
-                idx = np.fromiter(
-                    (self._idx_of[int(r)] for r in rows), np.int64, len(rows)
-                )
-                self._use[idx] = self._clock
-                return self._buf[idx].copy()
+                for r in rows.tolist():
+                    left = self._pins[r] - 1
+                    if left:
+                        self._pins[r] = left
+                    else:
+                        del self._pins[r]
 
     def prefetch(self, rows: np.ndarray) -> int:
         """Make ``rows`` resident without returning them (the id-stream
         prefetch hook).  Returns how many rows were actually fetched."""
         rows = np.unique(np.asarray(rows, np.int64))
         rows = rows[(rows >= 0) & (rows < self.cold.rows)]
-        n = self._ensure(rows, prefetch=True)
+        n = self._ensure(rows, prefetch=True, once=True)
         with self._cond:
             self._stats["prefetched_rows"] += n
         return n
 
-    def _ensure(self, rows: np.ndarray, *, prefetch: bool) -> int:
+    def _ensure(self, rows: np.ndarray, *, prefetch: bool, once: bool = False) -> int:
         """Fault the missing subset of ``rows`` in.  Lock dropped around
         cold reads; concurrent fetches of one page deduplicate via the
-        in-flight set."""
+        in-flight set.  ``once``: return after the first pass that
+        inserted rows, whatever was evicted meanwhile (a prefetch)."""
         fetched = 0
         while True:
             with self._cond:
@@ -148,6 +172,8 @@ class HostTier:
                         self._dirty[i] = False
                         self._use[i] = self._clock
                         fetched += 1
+            if once:
+                return fetched
 
     # -- write path --------------------------------------------------------
     def put_records(self, rows: np.ndarray, recs: np.ndarray) -> None:
@@ -176,8 +202,16 @@ class HostTier:
         if self._free:
             return self._free.pop()
         live = np.flatnonzero(self._row_at >= 0)
-        n_evict = max(1, self.capacity // 16)
-        order = live[np.argpartition(self._use[live], n_evict)[:n_evict]]
+        if self._pins:
+            pinned = np.fromiter(self._pins, np.int64, len(self._pins))
+            live = live[~np.isin(self._row_at[live], pinned)]
+        if not live.size:
+            raise RuntimeError(
+                f"every row of the host tier ({self.capacity}) is pinned by "
+                f"reads in flight; raise tiered_host_rows")
+        n_evict = min(max(1, self.capacity // 16), live.size)
+        order = (live if n_evict == live.size else
+                 live[np.argpartition(self._use[live], n_evict)[:n_evict]])
         dirty = order[self._dirty[order]]
         if dirty.size:
             self._flush_indices_locked(dirty)

@@ -413,11 +413,14 @@ def run_serve(cfg: Config, *, device=None, ready=None) -> None:
     ``run.servable_model_dir`` with the ``run.serve_*`` fields, until the
     process stops.  Over a funnel servable the ``run.funnel_*`` fields that
     are not at their defaults override its funnel.json (JAX's convention:
-    top_k/return_n 0, retrieval "exact" and oversample 4 defer to it); on
-    another servable such a field raises.  The process pool
+    top_k/return_n 0, retrieval "exact" and oversample 4 defer to it), its
+    index shards over ``mesh.model_parallel``, and ``run.serve_reload_url``
+    hot-swaps ``FunnelPublisher`` versions; on another servable a funnel
+    field raises.  The process pool
     (``run.serve_workers > 1``) and the shard-group pool
     (``run.serve_groups > 0``) raise (ROADMAP A14).  ``ready`` as in
     ``serve_forever``."""
+    from ..funnel.publish import is_funnel_servable
     from ..serve.server import POOL_NOT_PORTED, serve_forever
 
     r = cfg.run
@@ -429,6 +432,11 @@ def run_serve(cfg: Config, *, device=None, ready=None) -> None:
                                          ("retrieval", r.funnel_retrieval, "exact"),
                                          ("oversample", r.funnel_oversample, 4))
               if v != default}
+    if is_funnel_servable(r.servable_model_dir) and cfg.mesh.model_parallel > 1:
+        # the index shards over the mesh's model axis, as core/config.py
+        # _check_funnel validates it (the shard-group pool's
+        # serve_group_model_parallel is A14)
+        funnel["model_parallel"] = cfg.mesh.model_parallel
     serve_forever(r.servable_model_dir, port=r.serve_port, host=r.serve_host,
                   buckets=r.serve_buckets, max_wait_ms=r.serve_max_wait_ms,
                   item_corpus=r.serve_item_corpus or None,

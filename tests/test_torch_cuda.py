@@ -897,3 +897,211 @@ def test_the_paged_step_replays_and_equals_the_resident_lazy_step(device, tmp_pa
     for k in ("fm_w", "fm_v"):
         assert torch.equal(torch.from_numpy(rows[k]), getattr(resident.model, k).detach().cpu())
         assert torch.equal(torch.from_numpy(v[k]), resident.lazy.v[k].cpu())
+
+
+# ---------------------------------------------------------------------------
+# the funnel's graphs, hot swap and sharded index
+
+
+FUNNEL_BUCKETS = (8, 32)
+
+
+def _funnel_parts(seed, items=3000, capacity=4096):
+    """A small funnel on the CPU: ranker and query tower ``state_dict``s,
+    an index of ``items`` spread ids (B2 needs D a multiple of 16)."""
+    import numpy as np
+
+    from deepfm_tpu_torch.core.config import ModelConfig
+    from deepfm_tpu_torch.funnel import FunnelIndex
+    from deepfm_tpu_torch.models import DeepFM, TwoTower
+
+    rank_cfg = ModelConfig(feature_size=5000, field_size=6, embedding_size=8,
+                           deep_layers=(16,), dropout_keep=(1.0,), compute_dtype="float32",
+                           fused_kernel="auto")
+    query_cfg = ModelConfig(model_name="two_tower", user_vocab_size=300,
+                            item_vocab_size=5000, user_field_size=3, item_field_size=3,
+                            tower_layers=(32,), tower_dim=32, embedding_size=8,
+                            compute_dtype="float32")
+    g = torch.Generator().manual_seed(seed)
+    rank = DeepFM(rank_cfg, device="cpu", generator=g).state_dict()
+    query = TwoTower(query_cfg, device="cpu", generator=g).state_dict()
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(items, 32)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    index = FunnelIndex(item_ids=rng.permutation(5000)[:items].astype(np.int32), item_emb=emb)
+    return rank_cfg, query_cfg, rank, query, index, capacity
+
+
+def _funnel_rows(b, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([rng.integers(0, 300, (b, 3)), rng.integers(0, 5000, (b, 6))], 1)
+    return ids.astype(np.int64), rng.random((b, 9)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_graphed_funnel_equals_the_eager_funnel(device, mode):
+    """Each slot's retrieve and rank graphs of each bucket against the same
+    stages run eagerly: ids equal, probabilities and retrieval scores
+    within 1e-6; the overflow flag as eager; B2 and B1 counted as
+    captured, each replay running what its capture recorded."""
+    import numpy as np
+
+    from deepfm_tpu_torch.funnel import graphs as fgraphs
+    from deepfm_tpu_torch.funnel import make_funnel_context
+
+    rank_cfg, query_cfg, rank, query, index, cap = _funnel_parts(0)
+    ctx = make_funnel_context(rank_cfg, query_cfg, capacity=cap, top_k=16, return_n=8,
+                              retrieval=mode, oversample=4)
+    graphs = fgraphs.FunnelGraphs(ctx, rank, query, index, device=device,
+                                  buckets=FUNNEL_BUCKETS)
+    with pytest.raises(RuntimeError, match="precompile"):
+        graphs.dispatch(0, *_funnel_rows(8, 0))
+    b2, b1 = retrieval.captured, fused_ctr.captured
+    graphs.precompile()
+    assert graphs.graph_count == 2 * 2 * len(FUNNEL_BUCKETS)
+    want_b2 = 1 if mode == "int8" else 0
+    assert graphs.launches_per_replay == {"retrieval": want_b2, "forward": 1}
+    assert retrieval.captured - b2 == want_b2 * 2 * len(FUNNEL_BUCKETS)
+    assert fused_ctr.captured - b1 == 2 * len(FUNNEL_BUCKETS)
+    for b in FUNNEL_BUCKETS:
+        for n in (b, b - 3):
+            ids, vals = _funnel_rows(n, seed=b + n)
+            for slot in (0, 1):
+                runs = dict(fgraphs.graph_kernel_runs)
+                pack, overflow, (t_r, t_k) = graphs.dispatch(slot, ids, vals)
+                assert fgraphs.graph_kernel_runs["forward"] == runs["forward"] + 1
+                assert fgraphs.graph_kernel_runs["retrieval"] == runs["retrieval"] + want_b2
+                want, want_overflow = graphs.eager(slot, ids, vals)
+                assert pack.shape == (n, 3, 8) and t_r > 0 and t_k > 0
+                np.testing.assert_array_equal(pack[:, 0], want[:, 0])
+                np.testing.assert_allclose(pack[:, 1:], want[:, 1:], rtol=0, atol=1e-6)
+                assert overflow == want_overflow is False
+
+
+@pytest.mark.cuda
+def test_a_funnel_swap_captures_nothing_and_serves_the_new_version(device, tmp_path):
+    """FunnelScorer on the card and a FunnelSwapper: a published version
+    swaps in without a capture (graph count and B1/B2 captures unchanged),
+    answers change to the new version's eager answers, a NaN version rolls
+    back, and the overflow flag counts a corpus smaller than top_k."""
+    import numpy as np
+
+    from deepfm_tpu_torch.funnel import FunnelIndex, FunnelPublisher, export_funnel_servable
+    from deepfm_tpu_torch.funnel.serve import FunnelScorer, FunnelSwapper
+
+    rank_cfg, query_cfg, rank, query, index, cap = _funnel_parts(0)
+    servable = export_funnel_servable(str(tmp_path / "s"), rank_cfg, rank, query_cfg, query,
+                                      index, top_k=16, return_n=8, capacity=cap,
+                                      retrieval="int8", oversample=4, min_recall=0.5)
+    scorer = FunnelScorer(servable, device=device, buckets=FUNNEL_BUCKETS, max_wait_ms=0.0)
+    try:
+        swapper = FunnelSwapper(scorer, str(tmp_path / "pub"), staging_dir=str(tmp_path / "st"))
+        pub = FunnelPublisher(str(tmp_path / "pub"))
+        _, _, rank2, query2, index2, _ = _funnel_parts(1)
+        pub.publish_funnel(rank_cfg, rank2, query_cfg, query2, index2, top_k=16, return_n=8,
+                           capacity=cap, retrieval="int8", oversample=4, min_recall=0.5)
+        ids, vals = _funnel_rows(5, 3)
+        before = scorer.engine.score(ids, vals)
+        counts = (scorer.graphs.graph_count, retrieval.captured, fused_ctr.captured)
+        assert swapper.poll_once(), swapper.status()
+        assert (scorer.graphs.graph_count, retrieval.captured, fused_ctr.captured) == counts
+        assert scorer.versions() == (1, 1) and scorer.holder.get() == 1
+        after = scorer.engine.score(ids, vals)
+        want, _ = scorer.graphs.eager(1, ids, vals)
+        assert not np.array_equal(after[:, 0], before[:, 0])
+        np.testing.assert_array_equal(after[:, 0], want[:, 0])
+        np.testing.assert_allclose(after[:, 1:], want[:, 1:], rtol=0, atol=1e-6)
+        nan = dict(rank2, fm_b=torch.full_like(rank2["fm_b"], float("nan")))
+        pub.publish_funnel(rank_cfg, nan, query_cfg, query2, index2, top_k=16, return_n=8,
+                           capacity=cap, retrieval="int8", oversample=4, min_recall=0.5)
+        assert not swapper.poll_once() and swapper.status()["rollbacks_total"] == 1
+        np.testing.assert_array_equal(scorer.engine.score(ids, vals), after)
+        small = FunnelIndex(item_ids=index2.item_ids[:40], item_emb=index2.item_emb[:40])
+        pub.publish_funnel(rank_cfg, rank2, query_cfg, query2, small, top_k=16, return_n=8,
+                           capacity=cap, retrieval="int8", oversample=1, min_recall=0.5)
+        assert swapper.poll_once(), swapper.status()
+        assert scorer.engine.score(ids, vals).shape == (5, 3, 8)
+        assert scorer.merge_overflow_total == 0        # 40 items fill the top 16
+        assert scorer.graphs.graph_count == counts[0]
+    finally:
+        scorer.close()
+
+
+@pytest.mark.cuda
+def test_the_funnel_audit_finds_nothing_on_the_card(device):
+    from deepfm_tpu_torch.analysis.trace_audit import audit_funnel
+
+    findings = audit_funnel(device)
+    assert findings == [], [f.render() for f in findings]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_the_sharded_retrieve_on_one_card_equals_one_shard(device, mode):
+    """Two index shards on the one card give one shard's ids (scores
+    within 1e-6 of the row's largest magnitude)."""
+    from deepfm_tpu_torch.funnel import (build_retrieve_with, make_funnel_context,
+                                         stage_funnel_payload)
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    rank_cfg, query_cfg, rank, query, index, cap = _funnel_parts(2)
+    rank_m = model_from_state(rank_cfg, rank, device)
+    query_m = model_from_state(query_cfg, query, device)
+    ids, _ = _funnel_rows(32, 5)
+    uids = torch.from_numpy(ids[:, :3]).to(device)
+    uvals = torch.ones((32, 3), device=device)
+    out = {}
+    for mp in (1, 2):
+        ctx = make_funnel_context(rank_cfg, query_cfg, capacity=cap, top_k=16,
+                                  retrieval=mode, oversample=4, model_parallel=mp)
+        payload = stage_funnel_payload(ctx, rank_m, query_m, index)
+        assert {s["item_ids"].device for s in payload["shards"]} == {device}
+        with torch.no_grad():
+            out[mp] = build_retrieve_with(ctx)(payload, uids, uvals)
+    (s1, c1), (s2, c2) = out[1], out[2]
+    assert torch.equal(c1, c2)
+    tol = 1e-6 * s1.abs().amax(dim=1, keepdim=True)
+    assert bool(((s1 - s2).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_the_sharded_retrieve_graph_equals_the_eager_retrieve(device, mode):
+    """FunnelGraphs over four index shards on the one card: the retrieve
+    graph's ids equal the eager sharded retrieve's and, in exact mode, one
+    shard's (scores within 1e-6 of the row's largest magnitude); the pack
+    equals the eager stages'."""
+    import numpy as np
+
+    from deepfm_tpu_torch.funnel import (build_retrieve_with, make_funnel_context,
+                                         stage_funnel_payload)
+    from deepfm_tpu_torch.funnel.graphs import FunnelGraphs
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    rank_cfg, query_cfg, rank, query, index, cap = _funnel_parts(2)
+    ids, vals = _funnel_rows(32, 6)
+    uids = torch.from_numpy(ids[:, :3]).to(device)
+    uvals = torch.from_numpy(vals[:, :3]).to(device)
+    eager = {}
+    for mp in (1, 4):
+        ctx = make_funnel_context(rank_cfg, query_cfg, capacity=cap, top_k=16, return_n=8,
+                                  retrieval=mode, oversample=4, model_parallel=mp)
+        payload = stage_funnel_payload(ctx, model_from_state(rank_cfg, rank, device),
+                                       model_from_state(query_cfg, query, device), index)
+        with torch.no_grad():
+            eager[mp] = [t.cpu().numpy() for t in build_retrieve_with(ctx)(payload, uids, uvals)]
+    graphs = FunnelGraphs(ctx, rank, query, index, device=device, buckets=FUNNEL_BUCKETS)
+    graphs.precompile()
+    pack, _, _, scores, cand = graphs.dispatch(0, ids, vals, full=True)
+    np.testing.assert_array_equal(cand, eager[4][1])
+    np.testing.assert_allclose(scores, eager[4][0], rtol=0, atol=1e-6)
+    if mode == "exact":
+        np.testing.assert_array_equal(cand, eager[1][1])
+        tol = 1e-6 * np.abs(eager[1][0]).max(axis=1, keepdims=True)
+        assert (np.abs(scores - eager[1][0]) <= tol).all()
+    want, _ = graphs.eager(0, ids, vals)
+    np.testing.assert_array_equal(pack[:, 0], want[:, 0])
+    np.testing.assert_allclose(pack[:, 1:], want[:, 1:], rtol=0, atol=1e-6)

@@ -174,14 +174,15 @@ def test_retrieve_orders_the_engineered_ties(env):
     for mode in ("exact", "int8"):
         _, _, ctx, payload = _contexts(env, mode)
         u = torch.from_numpy(env["index"].item_emb[[1]])
-        emb, iid = payload["index"]["item_emb"], payload["index"]["item_ids"]
+        shard = payload["shards"][0]
+        emb, iid = shard["item_emb"], shard["item_ids"]
         if mode == "exact":
             scores = torch.where(iid[None] >= 0, u @ emb.T, float("-inf"))
             _, li = torch.sort(scores, dim=1, descending=True, stable=True)
             assert li[0, :2].tolist() == [1, 30]
         else:
-            _, rows = retrieval.retrieval_topk(u, payload["index"]["item_codes"],
-                                               payload["index"]["item_scales"], iid, 4)
+            _, rows = retrieval.retrieval_topk(u, shard["item_codes"],
+                                               shard["item_scales"], iid, 4)
             assert rows[0, :2].tolist() == [1, 30]
 
 

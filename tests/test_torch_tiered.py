@@ -255,6 +255,40 @@ class TestTiers:
         assert host.stats()["host_flushed_rows"] >= 1
         np.testing.assert_array_equal(cold.read_page(0)[5], dirty)
 
+    def test_a_read_keeps_its_rows_against_a_prefetch(self, tmp_path):
+        """The next step's prefetch, run between a read's page fetches (as
+        the trainer's prefetch thread runs), neither evicts the read's
+        rows nor refetches its own.  Both fills stamp their rows with the
+        same use clock, so once the two outgrow the tier each used to
+        evict the other's fresh rows and refetch them forever."""
+        rows, mm, vv = self._dense(1024)
+        cold = ColdTier(str(tmp_path), rows=1024, layout=self._layout(), page_rows=16)
+        cold.import_dense(rows, mm, vv)
+        host = HostTier(cold, capacity_rows=64)
+        read, prefetches, nested = cold.read_page, [], []
+
+        def read_page(page):
+            if not nested and len(prefetches) < 100:
+                nested.append(True)
+                try:
+                    ahead = np.arange(512, 560) + 64 * (len(prefetches) % 2)
+                    prefetches.append(host.prefetch(ahead))
+                finally:
+                    nested.clear()
+            return read(page)
+
+        cold.read_page = read_page
+        out = []
+        reader = threading.Thread(target=lambda: out.append(host.get_records(np.arange(48))),
+                                  daemon=True)
+        reader.start()
+        reader.join(timeout=60)
+        assert not reader.is_alive(), f"the read did not end ({len(prefetches)} prefetches)"
+        np.testing.assert_array_equal(out[0], np.concatenate([read(p) for p in range(3)]))
+        # one prefetch a page the read fetched: no page was fetched twice
+        assert len(prefetches) == 3 and prefetches[0] == 48
+        assert not host._pins
+
     def test_an_object_store_root_raises(self, tmp_path):
         with pytest.raises(NotImplementedError, match="A15"):
             ColdTier("http://127.0.0.1:9/bucket/cold", rows=10, layout=self._layout())
