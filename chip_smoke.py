@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 8, 17, 14).
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 8, 17, 18,
+14).
 Each phase's start goes to stderr with the script's clock; a run still
 going after WATCHDOG_S prints every thread's stack there, kills the
 processes it started and exits 3.
@@ -254,6 +255,31 @@ the replays times the launches each capture recorded (``kernel_runs``):
               funnel_swap lines.  The kernels line's B2 and B1
               runs include this phase's main path (the server's boot,
               traffic and swaps).
+18. pool    - the serving pools (ROADMAP A14) at the flagship width, each
+              process under its own HOME and TMPDIR: (a) the serve task
+              with run.serve_workers=2 (two graphed servers on one port,
+              each its own interpreter): every bucket 8-512 by JSON and
+              binary bit-equal to the single-process graphed answer, 16
+              closed-loop clients by JSON and by binary beside phase 4's
+              single-process figures, a worker killed and respawned;
+              (b) the serve task with run.serve_groups=2 (a router and two
+              [1, 1] member processes, the swapper adopting version 1,
+              flywheel.enabled): every bucket bit-equal, version 2 swapped
+              in under 8 clients (0 failed, 0 skew-mixed, 0 outside
+              {1, 2}, each answer within 1e-4 of its version's weights
+              through the plain B1), a member killed (ejected, respawned,
+              repaired to version 2, readmitted), a NaN version refused by
+              every member, the impression log joined; (c) in-process
+              members at [1, 2] and [2, 2], psum and all-to-all, their
+              graphs bit-equal to the single-process graphed predict at
+              every bucket and on a batch that overflows the all-to-all;
+              (d) a funnel group (`python -m deepfm_tpu_torch.serve.pool`)
+              with an SLO that degrades at any queued row: degraded
+              dispatches held to the plain B2 and B1 at the degraded
+              oversample.  Its B1 and B2 runs, in the kernels line too,
+              are the workers' and members' own, from their exit lines
+              (`pool kernel runs by process`; the references and
+              comparisons in this process are printed apart).
 
 The script prints its total seconds; the last three lines of standard
 output are the kernels' JSON line, the card's name and power limit, and
@@ -279,6 +305,7 @@ import tempfile
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -2351,25 +2378,40 @@ for t in ts:
 wall = time.perf_counter() - t0
 lat.sort()
 q = lambda p: 1e3 * lat[min(len(lat) - 1, int(p * (len(lat) - 1)))] if lat else None
-print(json.dumps({"requests": len(lat), "seconds": wall, "rps": len(lat) / wall,
-                  "p50_ms": q(0.5), "p99_ms": q(0.99), "errors": len(bad)}))
+doc = {"requests": len(lat), "seconds": wall, "rps": len(lat) / wall,
+       "p50_ms": q(0.5), "p99_ms": q(0.99), "errors": len(bad)}
+if len(sys.argv) > 7:  # the raw latencies too, for a caller that merges processes
+    doc["lat"] = lat
+print(json.dumps(doc))
 """
 LOAD_THREADS, LOAD_SECONDS, LOAD_ROWS = 16, 3.0, 8
 
 
-def closed_loop(port: int, body: bytes, binary: bool, workdir: str) -> dict:
-    """16 client threads in another process, each posting one request after
-    the other for LOAD_SECONDS: requests/s, p50 and p99 (host clock)."""
+def closed_loop(port: int, body: bytes, binary: bool, workdir: str, procs: int = 1) -> dict:
+    """16 client threads in ``procs`` other processes (16/procs each, all
+    started together), each posting one request after the other for
+    LOAD_SECONDS: requests/s (summed over the processes), p50 and p99 (host
+    clock, over every request)."""
     path = os.path.join(workdir, "load_body.bin")
     with open(path, "wb") as f:
         f.write(body)
-    out = subprocess.run(
-        [sys.executable, "-c", LOAD_CLIENT, str(port),
-         "/v1/models/deepfm:" + ("predict_binary" if binary else "predict"), path,
-         "application/octet-stream" if binary else "application/json",
-         str(LOAD_THREADS), str(LOAD_SECONDS)],
-        capture_output=True, text=True, timeout=300, check=True)
-    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    argv = [sys.executable, "-c", LOAD_CLIENT, str(port),
+            "/v1/models/deepfm:" + ("predict_binary" if binary else "predict"), path,
+            "application/octet-stream" if binary else "application/json",
+            str(LOAD_THREADS // procs), str(LOAD_SECONDS)]
+    if procs == 1:
+        out = subprocess.run(argv, capture_output=True, text=True, timeout=300, check=True)
+        doc = json.loads(out.stdout.strip().splitlines()[-1])
+    else:
+        running = [subprocess.Popen(argv + ["raw"], stdout=subprocess.PIPE, text=True)
+                   for _ in range(procs)]
+        docs = [json.loads(p.communicate(timeout=300)[0].strip().splitlines()[-1])
+                for p in running]
+        lat = sorted(x for d in docs for x in d.pop("lat"))
+        q = lambda p: 1e3 * lat[min(len(lat) - 1, int(p * (len(lat) - 1)))] if lat else None  # noqa: E731
+        doc = {"requests": len(lat), "seconds": max(d["seconds"] for d in docs),
+               "rps": sum(d["rps"] for d in docs), "p50_ms": q(0.5), "p99_ms": q(0.99),
+               "errors": sum(d["errors"] for d in docs), "client_processes": procs}
     if doc["errors"] or not doc["requests"]:
         fail(f"closed-loop load failed: {doc}")
     return doc
@@ -3507,6 +3549,660 @@ def phase_funnel_swap(seed: int, workdir: str, card: str, servable: str) -> dict
             "traffic": traffic, "sharded": sharded, "seconds": seconds}
 
 
+# phase 18, the serving pools (ROADMAP A14): the process pool's workers,
+# the shard-group pool's members and the in-process members, at the
+# flagship width; POOL_* may be patched for a rehearsal on the CPU
+POOL_BUCKETS = (8, 32, 128, 512)
+POOL_WORKERS, POOL_GROUPS, POOL_CLIENTS = 2, 2, 8
+POOL_MEMBER_PORT_BASE = 8601  # the supervisor's --member-port-base default
+POOL_SHARDED = ((1, 2, "psum"), (1, 2, "alltoall"), (2, 2, "psum"), (2, 2, "alltoall"))
+POOL_SHARDED_REPEATS = 50
+# the funnel member's forced degrade: any queued row engages level 2
+POOL_FUNNEL_SLO = {"shed_shadow_util": 0.001, "degrade_util": 0.002,
+                   "shed_predict_util": 1.0, "degrade_floor_pct": 50.0}
+POOL_FUNNEL_BURST, POOL_FUNNEL_BURST_ROWS, POOL_FUNNEL_CHECKS = 32, 320, 12
+POOL_FUNNEL_MAX_BURSTS = 8
+
+
+def _pool_env(workdir: str, name: str) -> dict:
+    """A subprocess's own HOME and TMPDIR under ``workdir``."""
+    env = {}
+    for var in ("HOME", "TMPDIR"):
+        env[var] = os.path.join(workdir, f"{name}_{var.lower()}")
+        os.makedirs(env[var], exist_ok=True)
+    return env
+
+
+def _wait_ready(url: str, cli=None, timeout: float = 600.0, want=None) -> dict:
+    """Poll ``url``/readyz until it answers ready (and ``want(doc)``)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            doc = get(f"{url}/readyz")
+            if doc.get("ready") and (want is None or want(doc)):
+                return doc
+        except (OSError, ValueError):
+            pass
+        if (cli is not None and cli.proc.poll() is not None) or time.monotonic() > deadline:
+            (cli.fail if cli is not None else fail)(f"{url} did not become ready")
+        time.sleep(0.2)
+
+
+def _stop_tree(cli) -> None:
+    """Stop a pool process and everything under it: SIGTERM (a pool stops
+    its workers or members itself), then SIGKILL to what is left."""
+    if cli.proc.poll() is None:
+        tree = _descendants(cli.proc.pid)
+        cli.proc.send_signal(signal.SIGTERM)
+        try:
+            cli.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            cli.proc.kill()
+            cli.proc.wait(timeout=60)
+        for pid in tree:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def _check_ports_free(ports, what: str) -> None:
+    """Fail, naming ``what``, unless every port can be bound on this host
+    now (with the servers' own SO_REUSEADDR, so only a listener refuses)."""
+    import socket
+
+    for port in ports:
+        with socket.socket() as sock:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError as e:
+                fail(f"{what} {port} is taken ({e}): a server left over from an "
+                     f"earlier run owns it; stop it first")
+
+
+def _router_member_urls(base: str, cli, timeout: float = 120.0) -> list[str]:
+    """The member URLs the router at ``base`` routes to, group by group,
+    from its ``/v1/metrics`` groups section (the router serves it before
+    its members are ready)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            groups = get(f"{base}/v1/metrics")["groups"]
+            urls = [u for g in sorted(groups) for u in groups[g]["member_urls"]]
+            if len(urls) == POOL_GROUPS:
+                return urls
+        except (OSError, ValueError, KeyError):
+            pass
+        if cli.proc.poll() is not None or time.monotonic() > deadline:
+            cli.fail(f"{base}/v1/metrics did not list {POOL_GROUPS} members")
+        time.sleep(0.2)
+
+
+def _pid_of(port: int, path: str, body: bytes) -> tuple[int, dict]:
+    client = _Client(port)
+    try:
+        code, headers, raw = client.post(path, body, {"Content-Type": "application/json"})
+    finally:
+        client.close()
+    if code != 200:
+        fail(f"pool: {path} on port {port} answered {code}: {raw[:200]}")
+    return int(headers["X-Serving-Pid"]), json.loads(raw)
+
+
+def _kernel_lines(clis) -> list[dict]:
+    return [r for cli in clis for r in cli.kind("kernel_runs")]
+
+
+def pool_servable(seed: int, workdir: str):
+    """The flagship CTR servable (random weights from --seed), the publish
+    root with version 1 (its weights) and 2 (moved by 0.01·N(0, 1)), and
+    the host copies of both versions."""
+    from deepfm_tpu_torch.core.config import ModelConfig
+    from deepfm_tpu_torch.models import DeepFM
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.serve.export import export_servable
+
+    cfg = ModelConfig(fused_kernel="auto")
+    sd1 = {k: v.numpy() for k, v in DeepFM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(seed + 40)).state_dict().items()}
+    rng = np.random.default_rng(seed + 41)
+    sd2 = {k: (v + 0.01 * rng.standard_normal(v.shape)).astype(v.dtype) for k, v in sd1.items()}
+    servable = export_servable(cfg, sd1, os.path.join(workdir, "v0"))
+    publish = os.path.join(workdir, "publish")
+    ModelPublisher(publish, keep=8).publish(cfg, sd1, step=1)
+    return cfg, servable, publish, {0: sd1, 1: sd1, 2: sd2}
+
+
+def pool_reference(cfg, servable: str, rng: np.random.Generator):
+    """One request a bucket and the single-process graphed predictor's
+    answers to them (the bit-for-bit reference of every pool)."""
+    from deepfm_tpu_torch.serve.export import read_params
+    from deepfm_tpu_torch.serve.graphs import GraphedPredictor
+
+    requests = [(make_ids(rng, b, cfg.field_size, cfg.feature_size),
+                 rng.random((b, cfg.field_size)).astype(np.float32)) for b in POOL_BUCKETS]
+    single = GraphedPredictor(cfg, read_params(servable), device=DEVICE, buckets=POOL_BUCKETS)
+    single.precompile()
+    return requests, [single.predict_with(0, ids, vals) for ids, vals in requests], single
+
+
+def pool_load(port: int, cfg, workdir: str) -> dict:
+    """16 closed-loop clients of LOAD_ROWS rows by JSON and by binary, from
+    one client process (phase 4's setting) and from four (so the client's
+    own interpreter lock does not cap a pool)."""
+    from deepfm_tpu_torch.serve.server import encode_binary_request
+
+    rng = np.random.default_rng(99)
+    ids = make_ids(rng, LOAD_ROWS, cfg.field_size, cfg.feature_size)
+    vals = rng.random((LOAD_ROWS, cfg.field_size)).astype(np.float32)
+    out = {}
+    for procs in (1, 4):
+        for binary in (False, True):
+            body = encode_binary_request(ids, vals) if binary else _instances_body(ids, vals)
+            out[f"load_{'binary' if binary else 'json'}_{procs}proc"] = closed_loop(
+                port, body, binary, workdir, procs)
+    return out
+
+
+def pool_single(cfg, servable: str, workdir: str) -> dict:
+    """The serve task with one worker (the single-process server) under
+    pool_load: the same call's baseline for the process pool."""
+    port = _free_port()
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    cli = _Cli("pool single", ["--task_type", "serve", "--servable_model_dir", servable,
+                               "--set", f"run.serve_port={port}",
+                               "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
+                               *device_args],
+               workdir, env=_pool_env(workdir, "single_server"))
+    try:
+        _wait_ready(f"http://127.0.0.1:{port}", cli)
+        out = pool_load(port, cfg, workdir)
+        cli.proc.send_signal(signal.SIGTERM)
+        cli.finish(timeout=120)
+    finally:
+        _stop_tree(cli)
+    print("pool single %s" % json.dumps(out))
+    return out
+
+
+def pool_process(cfg, servable: str, requests, want, workdir: str, single_ab: dict) -> dict:
+    """(a) The process pool through the serve task: POOL_WORKERS workers on
+    one port, every bucket's answer (JSON and binary, sampling both
+    workers) bit-equal to the single-process graphed answer, the load of
+    pool_load beside a one-worker server's (pool_single) and phase 4's,
+    one worker killed and respawned."""
+    from deepfm_tpu_torch.serve.server import encode_binary_request
+
+    single = pool_single(cfg, servable, workdir)
+    port = _free_port()
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    t0 = time.perf_counter()
+    cli = _Cli("pool workers", ["--task_type", "serve", "--servable_model_dir", servable,
+                                "--set", f"run.serve_workers={POOL_WORKERS}",
+                                "--set", f"run.serve_port={port}",
+                                "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
+                                *device_args],
+               workdir, env=_pool_env(workdir, "process_pool"))
+    out = {}
+    try:
+        base = f"http://127.0.0.1:{port}"
+        _wait_ready(base, cli)
+        pids = set()
+        for _ in range(60):  # until both workers are up and answering
+            pid, _ = _pid_of(port, "/v1/models/deepfm:predict", _instances_body(*requests[0]))
+            pids.add(pid)
+            if len(pids) == POOL_WORKERS:
+                break
+            time.sleep(0.5)
+        out["boot_s"] = time.perf_counter() - t0
+        seen = set()
+        for (ids, vals), ref in zip(requests, want):
+            for _ in range(4):
+                pid, doc = _pid_of(port, "/v1/models/deepfm:predict", _instances_body(ids, vals))
+                seen.add(pid)
+                if not np.array_equal(np.asarray(doc["predictions"], np.float32), ref):
+                    fail(f"pool workers: :predict of {len(ids)} rows from pid {pid} differs "
+                         f"from the single-process graphed answer")
+                client = _Client(port)
+                code, headers, raw = client.post("/v1/models/deepfm:predict_binary",
+                                                 encode_binary_request(ids, vals))
+                client.close()
+                if code != 200 or not np.array_equal(np.frombuffer(raw, "<f4"), ref):
+                    fail(f"pool workers: :predict_binary of {len(ids)} rows differs ({code})")
+        out["load"] = pool_load(port, cfg, workdir)
+        # kill one worker: the pool restarts it
+        victim = sorted(pids)[0]
+        os.kill(victim, signal.SIGKILL)
+        t1 = time.perf_counter()
+        fresh = set()
+        while not fresh and time.perf_counter() - t1 < 300:
+            try:
+                pid, _ = _pid_of(port, "/v1/models/deepfm:predict", _instances_body(*requests[0]))
+                if pid not in pids:
+                    fresh.add(pid)
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.2)
+        if not fresh:
+            cli.fail(f"worker {victim} was killed and no new worker answered")
+        out["respawn_s"] = time.perf_counter() - t1
+        cli.proc.send_signal(signal.SIGTERM)
+        if cli.finish(timeout=120) != 0:
+            cli.fail("SIGTERM did not stop the pool with exit 0")
+    finally:
+        _stop_tree(cli)
+    lines = cli.kind("kernel_runs")
+    if len(lines) != POOL_WORKERS:
+        fail(f"pool workers: {len(lines)} kernel_runs lines, not {POOL_WORKERS}: {lines}")
+    out.update(workers=lines, pids_seen=len(seen), single_worker=single, phase4=single_ab)
+    print("pool workers %s" % json.dumps(out))
+    return out
+
+
+def pool_groups(cfg, servable: str, publish: str, weights: dict, requests, want,
+                workdir: str, seed: int) -> dict:
+    """(b) The shard-group pool through the serve task: a router and
+    POOL_GROUPS [1, 1] members, the swapper adopting version 1; every
+    bucket bit-equal to the single-process answer; version 2 swapped in
+    under POOL_CLIENTS clients (0 failed, 0 skew-mixed, 0 outside {1, 2},
+    version 2's answers held to its own weights through the plain
+    pipeline); a member killed (ejected until ready, repaired to the
+    group's version); a NaN version aborted group-wide; the impression log
+    (flywheel.enabled) joined afterwards."""
+    from deepfm_tpu_torch.flywheel import JoinService, parse_impression, serialize_click
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.online.stream import SegmentWriter, open_tail
+    from deepfm_tpu_torch.data.tfrecord import read_records
+    from deepfm_tpu_torch.serve.batcher import pick_bucket
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    rport = _free_port()
+    # the serve task's members bind the supervisor's default ports (JAX's
+    # argv sets no member port base): a leftover member there would answer
+    # in place of this run's
+    _check_ports_free([POOL_MEMBER_PORT_BASE + i for i in range(POOL_GROUPS)],
+                      "pool groups: the shard-group members' port")
+    imps = os.path.join(workdir, "impressions")
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    t0 = time.perf_counter()
+    cli = _Cli("pool groups", [
+        "--task_type", "serve", "--servable_model_dir", servable,
+        "--set", f"run.serve_groups={POOL_GROUPS}", "--set", f"run.serve_router_port={rport}",
+        "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
+        "--set", f"run.serve_reload_url={publish}", "--set", "run.serve_reload_interval_secs=0.3",
+        "--set", "run.serve_health_interval_secs=0.3",
+        "--set", "flywheel.enabled=true", "--set", f"flywheel.impression_log_url={imps}",
+        "--set", "flywheel.segment_roll_age_secs=0.5", *device_args],
+        workdir, env=_pool_env(workdir, "group_pool"))
+    base = f"http://127.0.0.1:{rport}"
+    out, results, errors = {}, [], []
+    stop = threading.Event()
+    try:
+        member_urls = _router_member_urls(base, cli)
+        for url in member_urls:
+            _wait_ready(url, cli, want=lambda d: d.get("model_version") == 1)
+        _wait_ready(base, cli)
+        out["boot_to_version_1_s"] = time.perf_counter() - t0
+        for (ids, vals), ref in zip(requests, want):
+            for key in range(4):
+                code, doc = post(f"{base}/v1/models/deepfm:predict", json.dumps({
+                    "key": f"b{key}", "instances": [{"feat_ids": i.tolist(),
+                                                     "feat_vals": v.tolist()}
+                                                    for i, v in zip(ids, vals)]}).encode())
+                if code != 200 or not np.array_equal(np.asarray(doc["predictions"],
+                                                                np.float32), ref):
+                    fail(f"pool groups: {len(ids)} rows via {doc.get('shard_group')} differ "
+                         f"from the single-process graphed answer ({code})")
+        rng = np.random.default_rng(seed + 42)
+        bodies = []
+        for i in range(POOL_CLIENTS):
+            ids = make_ids(rng, 1 + i, cfg.field_size, cfg.feature_size)
+            vals = rng.random((1 + i, cfg.field_size)).astype(np.float32)
+            bodies.append((ids, vals, json.dumps({"key": f"c{i}", "instances": [
+                {"feat_ids": a.tolist(), "feat_vals": b.tolist()}
+                for a, b in zip(ids, vals)]}).encode()))
+
+        def client(i):
+            conn = _Client(rport)
+            try:
+                while not stop.is_set():
+                    # a trace id a request: the impression log's ids
+                    code, _, raw = conn.post("/v1/models/deepfm:predict", bodies[i][2],
+                                             {"Content-Type": "application/json",
+                                              "X-Trace-Id": os.urandom(8).hex()})
+                    (results if code == 200 else errors).append((i, code, json.loads(raw)))
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(POOL_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        t1 = time.perf_counter()
+        ModelPublisher(publish, keep=8).publish(cfg, weights[2], step=2)
+        for url in member_urls:
+            _wait_ready(url, cli, timeout=120, want=lambda d: d.get("model_version") == 2)
+        out["swapped_after_publish_s"] = time.perf_counter() - t1
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        metrics = [get(f"{url}/v1/metrics") for url in member_urls]
+        out["swap_ms"] = [m["reload"]["last_swap_ms"] for m in metrics]
+        out["stage_ms"] = [m["reload"]["last_stage_ms"] for m in metrics]
+        out["canary_ms"] = [m["reload"]["last_canary_ms"] for m in metrics]
+        out["member_device_bytes"] = [m["router"].get("device_max_reserved_bytes") for m in metrics]
+        # a member killed: ejected by the router until ready, repaired by
+        # its group's swapper to version 2
+        victim_url = member_urls[0]
+        pid, _ = _pid_of(urllib.parse.urlsplit(victim_url).port,
+                         "/v1/models/deepfm:predict", bodies[0][2])
+        before = get(f"{base}/v1/metrics")["router"]
+        os.kill(pid, signal.SIGKILL)
+        t2 = time.perf_counter()
+        while get(f"{base}/v1/metrics")["router"]["ejections_total"] <= before["ejections_total"]:
+            if time.perf_counter() - t2 > 60:
+                fail("pool groups: the killed member was not ejected")
+            time.sleep(0.1)
+        for _ in range(8):  # the router answers from the other group meanwhile
+            code, doc = post(f"{base}/v1/models/deepfm:predict", bodies[0][2])
+            if code != 200:
+                fail(f"pool groups: {code} while a member was down: {doc}")
+        _wait_ready(victim_url, cli, timeout=300,
+                    want=lambda d: (d.get("model_version"), d.get("group_generation")) == (2, 2))
+        out["repaired_after_kill_s"] = time.perf_counter() - t2
+        while get(f"{base}/v1/metrics")["router"]["readmissions_total"] <= before[
+                "readmissions_total"]:
+            if time.perf_counter() - t2 > 360:
+                fail("pool groups: the repaired member was not readmitted")
+            time.sleep(0.1)
+        # a NaN version: every group's stage fails its canary and aborts
+        nan = dict(weights[2], fm_b=np.full_like(weights[2]["fm_b"], np.nan))
+        ModelPublisher(publish, keep=8).publish(cfg, nan, step=3)
+        t3 = time.perf_counter()
+        while any(get(f"{u}/v1/metrics")["reload"]["stage_failures_total"] < 1
+                  for u in member_urls):
+            if time.perf_counter() - t3 > 60:
+                fail("pool groups: the NaN version was not refused by every member")
+            time.sleep(0.1)
+        for url in member_urls:
+            doc = get(f"{url}/readyz")
+            if (doc["model_version"], doc["group_generation"]) != (2, 2):
+                fail(f"pool groups: after the NaN version {url} is on {doc}")
+        router_metrics = get(f"{base}/v1/metrics")
+        cli.proc.send_signal(signal.SIGTERM)
+        if cli.finish(timeout=120) != 0:
+            cli.fail("SIGTERM did not stop the pool with exit 0")
+    finally:
+        stop.set()
+        _stop_tree(cli)
+    pairs = {(d["group_generation"], d["model_version"]) for _, _, d in results}
+    mixed = [d for _, _, d in results if (d["group_generation"], d["model_version"])
+             not in ((1, 1), (2, 2))]
+    outside = [d for _, _, d in results if d["model_version"] not in (1, 2)]
+    if errors or mixed or outside or (2, 2) not in pairs or len(results) < 50:
+        fail(f"pool groups: {len(results)} answered, {len(errors)} failed (first "
+             f"{errors[:2]}), pairs {pairs}, {len(mixed)} mixed, {len(outside)} outside")
+    # each version's answers against its own weights through the plain B1
+    models = {v: model_from_state(cfg, weights[v], DEVICE) for v in (1, 2)}
+    worst = {1: 0.0, 2: 0.0}
+    for i, _, doc in results[::max(1, len(results) // 200)]:
+        ids, vals, _ = bodies[i]
+        v = doc["model_version"]
+        err = float(np.abs(plain_probs(models[v], ids, vals, pick_bucket(POOL_BUCKETS, len(ids)))
+                           - np.asarray(doc["predictions"], np.float32)).max())
+        worst[v] = max(worst[v], err)
+    if max(worst.values()) > TOL_PROB:
+        fail(f"pool groups: answers differ from their version's plain pipeline by {worst}")
+    del models
+    # the impression log through the join: every logged impression joins,
+    # the clicked half positive
+    logged = []
+    tail = open_tail(imps)
+    for name in tail.list_segments():
+        with tail.open_segment(name) as f:
+            logged += [parse_impression(r).impression_id for r in read_records(f)]
+    # requests without a trace id log under their routing key, so the
+    # bucket checks' repeated keys log duplicates, which the join drops
+    unique = list(dict.fromkeys(logged))
+    clicked = unique[::2]
+    clicks = os.path.join(workdir, "clicks")
+    writer = SegmentWriter(clicks, roll_bytes=0, roll_age_secs=0)
+    for imp in clicked:
+        writer.append(serialize_click(impression_id=imp, ts_ms=int(time.time() * 1000)))
+    writer.flush()
+    join = JoinService(imps, clicks, os.path.join(workdir, "joined"),
+                       attribution_window_secs=600)
+    join.run(drain_at_eof=True)
+    stats = join.stats()
+    rows = sum(len(bodies[i][0]) for i, _, _ in results)
+    dropped = router_metrics["flywheel"]["dropped_total"]  # a full queue drops, counted
+    if (len(unique) + dropped < rows or stats["positive_total"] != len(clicked)
+            or stats["positive_total"] + stats["negative_total"] != len(unique)
+            or stats["duplicate_total"] != len(logged) - len(unique)):
+        fail(f"pool groups: {len(logged)} impressions logged ({len(unique)} distinct, "
+             f"{dropped} dropped) for {rows} rows answered under traffic; join {stats}")
+    lines = cli.kind("kernel_runs")
+    if len(lines) != POOL_GROUPS:
+        fail(f"pool groups: {len(lines)} kernel_runs lines, not {POOL_GROUPS}: {lines}")
+    out.update(answered=len(results), failed=len(errors), mixed=len(mixed),
+               outside=len(outside), pairs=sorted(pairs), vs_plain_max_err=worst,
+               impressions=len(logged), joined={k: stats[k] for k in (
+                   "positive_total", "negative_total", "duplicate_total")},
+               router={k: router_metrics["router"][k] for k in (
+                   "requests_total", "retries_total", "skew_aborts_total", "ejections_total",
+                   "readmissions_total")}, members=lines)
+    print("pool groups %s" % json.dumps(out))
+    return out
+
+
+def _dispatch_p50(pred, requests) -> dict:
+    """Each request's dispatch p50 through slot 0's graphs (ms, host clock,
+    the answer copied back), over POOL_SHARDED_REPEATS replays."""
+    out = {}
+    for ids, vals in requests:
+        lat = []
+        for _ in range(POOL_SHARDED_REPEATS):
+            t0 = time.perf_counter()
+            pred.predict_with(0, ids, vals)
+            lat.append(1e3 * (time.perf_counter() - t0))
+        out[len(ids)] = float(np.median(lat))
+    return out
+
+
+def pool_sharded(cfg, servable: str, single, requests, want) -> dict:
+    """(c) In-process members at POOL_SHARDED on the card: every bucket's
+    answer through the member's graphs bit-equal to the single-process
+    graphed predict, and a batch whose ids crowd the first shard past the
+    all-to-all's capacity (the device-side psum fallback) too; each
+    exchange's dispatch times beside the single-process graphs'."""
+    from deepfm_tpu_torch.serve.pool.sharded import load_sharded_servable
+
+    out = {}
+    for dp, mp, exchange in POOL_SHARDED:
+        tag = f"[{dp}, {mp}] {exchange}"
+        t0 = time.perf_counter()
+        _, pred, _, ctx = load_sharded_servable(servable, dp, mp, device=DEVICE,
+                                                exchange=exchange, buckets=POOL_BUCKETS)
+        capture = pred.precompile()
+        boot = time.perf_counter() - t0
+        for (ids, vals), ref in zip(requests, want):
+            if not np.array_equal(pred.predict_with(0, ids, vals), ref):
+                fail(f"pool sharded {tag}: {len(ids)} rows differ from the single-process "
+                     f"graphed predict")
+        b = POOL_BUCKETS[-1]
+        skewed = (np.arange(b * cfg.field_size) % ctx.rows_local).reshape(b, -1)
+        vals = np.ones(skewed.shape, np.float32)
+        if not np.array_equal(pred.predict_with(0, skewed, vals),
+                              single.predict_with(0, skewed, vals)):
+            fail(f"pool sharded {tag}: the overflowing batch differs")
+        out[tag] = {"boot_s": boot, "graphs": pred.graph_count,
+                    "b1_per_replay": pred.kernel_launches_per_replay,
+                    "capture_s": sum(capture.values()),
+                    "dispatch_ms_p50": _dispatch_p50(pred, requests)}
+        del pred
+    out["single-process dispatch_ms_p50"] = _dispatch_p50(single, requests)
+    print("pool sharded %s" % json.dumps(out))
+    return out
+
+
+def pool_funnel(seed: int, servable: str, workdir: str) -> dict:
+    """(d) A funnel group with an SLO whose ladder degrades at a few
+    queued rows: a burst of POOL_FUNNEL_BURST concurrent requests of
+    POOL_FUNNEL_BURST_ROWS users engages it, then users one at a time
+    (another burst whenever one was not degraded); POOL_FUNNEL_CHECKS
+    dispatches the member counts as degraded are held to the plain
+    pipeline at the degraded oversample (check_funnel_answers at os_d)."""
+    from deepfm_tpu_torch.funnel import load_funnel_artifact, make_funnel_context
+    from deepfm_tpu_torch.funnel import stage_funnel_payload
+    from deepfm_tpu_torch.serve.export import model_from_state
+
+    rport, mport = _free_port(), _free_port()
+    buckets = ",".join(map(str, FUNNEL_BUCKETS))
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    t0 = time.perf_counter()
+    cli = _Cli("pool funnel", ["--servable", servable, "--router", "--groups", "1",
+                               "--port", str(rport), "--member-port-base", str(mport),
+                               "--buckets", buckets, "--slo", json.dumps(POOL_FUNNEL_SLO),
+                               "--health-interval", "0.3", *device_args],
+               workdir, module="deepfm_tpu_torch.serve.pool",
+               env=_pool_env(workdir, "funnel_pool"))
+    murl, base = f"http://127.0.0.1:{mport}", f"http://127.0.0.1:{rport}"
+    rng = np.random.default_rng(seed + 43)
+    checked, served, degraded_requests = [], [], 0
+    try:
+        _wait_ready(murl, cli)
+        _wait_ready(base, cli)
+        boot = time.perf_counter() - t0
+
+        def body(req):
+            uids, uvals, fids, fvals = req
+            return json.dumps({"instances": [{
+                "user_ids": u.tolist(), "user_vals": uv.tolist(), "feat_ids": f.tolist(),
+                "feat_vals": fv.tolist()} for u, uv, f, fv in zip(uids, uvals, fids, fvals)]
+            }).encode()
+
+        # a burst of requests of POOL_FUNNEL_BURST_ROWS users each: every
+        # one queues several buckets at once, so the admissions that follow
+        # it see a deep queue and the ladder engages (requests past the
+        # queue bound answer 503 and count for nothing)
+        burst = [body(funnel_requests(rng, POOL_FUNNEL_BURST_ROWS))
+                 for _ in range(POOL_FUNNEL_BURST)]
+
+        def fire_burst():
+            threads = [threading.Thread(target=post, args=(f"{base}/v1/recommend", b),
+                                        daemon=True) for b in burst]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+
+        # then users one at a time (each admission decays the ladder's
+        # average); a dispatch the member did not degrade fires a new burst
+        bursts, need_burst = 0, True
+        while len(checked) < POOL_FUNNEL_CHECKS and bursts <= POOL_FUNNEL_MAX_BURSTS:
+            if need_burst:
+                fire_burst()
+                bursts, need_burst = bursts + 1, False
+            req = funnel_requests(rng, 1)
+            before = get(f"{murl}/v1/metrics")["funnel"]["degraded_dispatch_total"]
+            code, doc = post(f"{base}/v1/recommend", body(req))
+            if code != 200:
+                fail(f"pool funnel: /v1/recommend answered {code}: {doc}")
+            if get(f"{murl}/v1/metrics")["funnel"]["degraded_dispatch_total"] == before + 1:
+                checked.append(req)
+                served.append(doc)
+            else:
+                need_burst = True
+        funnel = get(f"{murl}/v1/metrics")["funnel"]
+        cli.proc.send_signal(signal.SIGTERM)
+        if cli.finish(timeout=120) != 0:
+            cli.fail("SIGTERM did not stop the pool with exit 0")
+    finally:
+        _stop_tree(cli)
+    if len(checked) < POOL_FUNNEL_CHECKS:
+        fail(f"pool funnel: {len(checked)} degraded dispatches seen one at a time after "
+             f"{bursts} bursts; {funnel['degraded_dispatch_total']} in all")
+    art = load_funnel_artifact(servable)
+    meta = art.meta
+    os_d = funnel["oversample_degraded"]
+    ctx = make_funnel_context(art.rank_cfg, art.query_cfg, capacity=int(meta["capacity"]),
+                              top_k=int(meta["top_k"]), return_n=int(meta["return_n"]),
+                              item_field=int(meta["item_field"]), retrieval="int8",
+                              oversample=os_d)
+    payload = stage_funnel_payload(ctx, model_from_state(art.rank_cfg, art.rank_state, DEVICE),
+                                   model_from_state(art.query_cfg, art.query_state, DEVICE),
+                                   art.index)
+    stats = check_funnel_answers(ctx, payload, checked, served, FUNNEL_BUCKETS,
+                                 f"pool funnel at oversample {os_d}")
+    del payload
+    lines = cli.kind("kernel_runs")
+    out = {"boot_s": boot, "oversample": funnel["oversample"], "oversample_degraded": os_d,
+           "degraded_dispatch_total": funnel["degraded_dispatch_total"], "bursts": bursts,
+           "checked": len(checked), "vs_plain": stats, "members": lines}
+    print("pool funnel %s" % json.dumps(out))
+    return out
+
+
+def phase_pool(seed: int, workdir: str, card: str, funnel_servable: str,
+               single_ab: dict) -> dict:
+    """Phase 18: the serving pools (ROADMAP A14) at the flagship width:
+    (a) the process pool, (b) the shard-group pool with its swap, repair,
+    abort and impression log, (c) in-process members on [dp, mp] shards,
+    (d) a funnel group degrading under forced load.  Kernel runs: the
+    worker and member processes' own, from their exit lines (a killed
+    process's are lost); this process's references and comparisons are
+    printed apart and not counted."""
+    from deepfm_tpu_torch.serve.server import kernel_counts
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    reset_kernel_counts()
+    reset_funnel_counts()
+    from deepfm_tpu_torch.serve import graphs as serve_graphs
+
+    serve_graphs.graph_kernel_runs.update(forward=0)
+    cfg, servable, publish, weights = pool_servable(seed, workdir)
+    requests, want, single = pool_reference(cfg, servable, np.random.default_rng(seed + 44))
+    process = pool_process(cfg, servable, requests, want, workdir, single_ab)
+    groups = pool_groups(cfg, servable, publish, weights, requests, want, workdir, seed)
+    sharded = pool_sharded(cfg, servable, single, requests, want)
+    del single
+    funnel = pool_funnel(seed, funnel_servable, workdir)
+    # the main path is the pool's processes; this process's runs (the
+    # reference predictor, the in-process members held to it, the plain
+    # checks' kernel pipeline) are comparisons, printed apart
+    split = {}
+    for line in process["workers"] + groups["members"] + funnel["members"]:
+        split[f"{line['role']} pid {line['pid']}"] = {k: line[k] for k in ("forward",
+                                                                           "retrieval")}
+    forward = sum(v["forward"] for v in split.values())
+    retrieval = sum(v["retrieval"] for v in split.values())
+    if DEVICE == "cuda" and (min(line["forward"] for line in process["workers"]
+                                 + groups["members"] + funnel["members"]) <= 0
+                             or min(line["retrieval"] for line in funnel["members"]) <= 0):
+        fail(f"pool: a worker or member launched no kernel: {split}")
+    seconds = time.perf_counter() - t_phase
+    print("pool kernel runs by process %s; not counted, this process's comparisons %s"
+          % (json.dumps(split), json.dumps(kernel_counts())))
+    print("pool %s" % json.dumps({
+        "card": card, "seconds": seconds, "runs": {"fused_ctr_forward": forward,
+                                                   "retrieval_topk": retrieval},
+        "process_pool": {k: process[k] for k in ("boot_s", "respawn_s", "load")},
+        "single_worker": process["single_worker"],
+        "phase4_single_process": {k: single_ab.get(k) for k in ("load_json", "load_binary")},
+        "group_pool": {k: groups[k] for k in ("boot_to_version_1_s", "swapped_after_publish_s",
+                                              "swap_ms", "stage_ms", "canary_ms",
+                                              "repaired_after_kill_s", "answered", "failed",
+                                              "mixed", "outside")},
+        "worker_device_bytes": [w.get("device_max_reserved_bytes") for w in process["workers"]],
+        "member_device_bytes": [m.get("device_max_reserved_bytes") for m in groups["members"]],
+        "funnel_member_boot_s": funnel["boot_s"]}))
+    return {"forward_launches": forward, "retrieval_launches": retrieval, "seconds": seconds}
+
+
 # the lifecycle phase: 24 steps of 1,024 records in 2 files, each batch's
 # 39,936 ids distinct, a checkpoint every 8 steps, a SIGTERM after step 12.
 # LIFE_ARGS, LIFE_VOCAB, LIFE_BATCH and DEVICE let a rehearsal on the CPU
@@ -3762,14 +4458,15 @@ class _Cli:
     keeps its JSON lines (printing all but the per-step ``train`` lines),
     its standard error goes to a file."""
 
-    def __init__(self, name: str, argv: list[str], workdir: str):
+    def __init__(self, name: str, argv: list[str], workdir: str, *,
+                 module: str = "deepfm_tpu_torch", env: dict | None = None):
         self.name, self.lines = name, []
         self.err_path = os.path.join(workdir, f"{name}.stderr")
         self._cond = threading.Condition()
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
             [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
         with open(self.err_path, "w") as err:
-            self.proc = subprocess.Popen([sys.executable, "-m", "deepfm_tpu_torch", *argv],
+            self.proc = subprocess.Popen([sys.executable, "-m", module, *argv],
                                          cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                          stderr=err, text=True)
         self._reader = threading.Thread(target=self._read, name=f"{name}-stdout", daemon=True)
@@ -3784,7 +4481,7 @@ class _Cli:
                 self.lines.append(rec)
                 self._cond.notify_all()
             if rec["kind"] != "train":
-                print(f"online {self.name}: {line.strip()}")
+                print(f"{self.name}: {line.strip()}")
         with self._cond:
             self._cond.notify_all()
 
@@ -3816,7 +4513,7 @@ class _Cli:
             self.proc.wait(timeout=60)
         with open(self.err_path) as f:
             tail = f.read()[-3000:]
-        fail(f"online {self.name}: {msg} (exit {self.proc.returncode}); stderr:\n{tail}")
+        fail(f"{self.name}: {msg} (exit {self.proc.returncode}); stderr:\n{tail}")
 
 
 def _free_port() -> int:
@@ -4644,6 +5341,9 @@ def main(argv: list[str] | None = None) -> int:
         begin("funnel_swap")
         swap = phase_funnel_swap(args.seed, os.path.join(workdir, "funnel_swap"), card,
                                  os.path.join(workdir, "funnel"))
+        begin("pool")
+        pool = phase_pool(args.seed, os.path.join(workdir, "pool"), card,
+                          os.path.join(workdir, "funnel"), serve["ab"]["graphed"])
         begin("prep")
         prep = phase_prep(args.seed, os.path.join(workdir, "prep"), card)
 
@@ -4660,7 +5360,7 @@ def main(argv: list[str] | None = None) -> int:
                      + ddp["launches"] + sharded["launches"] + life["launches"]
                      + online["launches"] + funnel["forward_launches"]
                      + funnel["task_forward_launches"] + swap["forward_launches"]
-                     + prep["launches"] + tiered["launches"]),
+                     + pool["forward_launches"] + prep["launches"] + tiered["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
                            sharded["max_abs_err"], *tiered["hot_forward"]["max_abs_err"],
                            *tiered["compact"]["forward_max_abs_err"]),
@@ -4692,7 +5392,7 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/retrieval_topk.cu",
         "replaces": "deepfm_tpu/ops/pallas_retrieval.py:173",
         "launches": (funnel["retrieval_launches"] + funnel["task_retrieval_launches"]
-                     + swap["retrieval_launches"]),
+                     + swap["retrieval_launches"] + pool["retrieval_launches"]),
         "max_abs_err": b2["max_abs_err"],
         "ms": b2_row["ms"],
         "plain_ms": b2_row["plain_ms"],

@@ -29,6 +29,18 @@ width, runs a few steps, and holds them to the same contracts:
   ``SLOTS x len(buckets)`` graphs, every request size the batcher admits
   maps onto a captured bucket, and a ``HotSwapper`` swap captures nothing
   (``fused_ctr.captured`` is unchanged).
+* **the pool members** (JAX ``audit_group_buckets``,
+  ``audit_sharded_predict``, ``audit_control_plane``): a member holds
+  three slots x every bucket of graphs and refuses a bucket that does not
+  divide by ``dp``; its row-sharded predict reads nothing back to the
+  host (the all-to-all's psum fallback is a device select, captured under
+  the sync guard on the card, run under a host-read guard on the CPU),
+  equals the single-process predict bit for bit on spread and
+  overflowing batches, reads its weights from the slot, and a swap
+  captures nothing; admission, hedging, the shed gate and the autoscaler
+  import no torch, and a degraded funnel dispatch replays the degraded
+  retrieve captured at boot.  JAX's ``audit_multitenant`` is waived
+  (ROADMAP A18).
 * **the funnel** (JAX ``audit_funnel``, restated for graphs): both
   stages of every (slot, bucket) are captured under
   ``set_sync_debug_mode("error")`` (``trace-transfer``); the index is a
@@ -78,6 +90,9 @@ WAIVERS = {
     "online_trainer": (
         "online/trainer.py steps eagerly: its loop reads the stream's cursor "
         "and commit flags between steps"),
+    "audit_multitenant": (
+        "a pool member serves one tenant (serve/pool/worker.py); multi-tenant "
+        "members sharing one graph set are ROADMAP A18"),
 }
 
 # small but structurally faithful: the flagship's MLP, dtype and dropout,
@@ -360,7 +375,7 @@ _FUNNEL_ITEMS, _FUNNEL_CAPACITY, _FUNNEL_SHARDS = 60_000, 65_536, 2
 _FUNNEL_BUCKETS = (8, 16)
 
 
-def _funnel_audit_graphs(device, mode: str):
+def _funnel_audit_graphs(device, mode: str, degraded_oversample: int | None = None):
     from ..core.config import ModelConfig
     from ..funnel.graphs import FunnelGraphs
     from ..funnel.index import FunnelIndex, make_funnel_context
@@ -385,7 +400,8 @@ def _funnel_audit_graphs(device, mode: str):
         ids = torch.randperm(_FUNNEL_CAPACITY, generator=g)[:_FUNNEL_ITEMS]
         return rank, query, FunnelIndex(item_ids=ids.numpy().astype(np.int32), item_emb=emb)
 
-    graphs = FunnelGraphs(ctx, *version(0), device=device, buckets=_FUNNEL_BUCKETS)
+    graphs = FunnelGraphs(ctx, *version(0), device=device, buckets=_FUNNEL_BUCKETS,
+                          degraded_oversample=degraded_oversample)
     return ctx, graphs, version(1)
 
 
@@ -457,8 +473,184 @@ def _audit_funnel_mode(device, mode: str, crossed: list, rng, where: str) -> lis
     return out
 
 
+class _HostReadGuard(torch.overrides.TorchFunctionMode):
+    """Raises on a tensor read back to the host (``item``, ``tolist``,
+    ``numpy``, ``cpu``, ``bool``/``int``/``float``) inside its scope: the
+    CPU's stand-in for a capture under ``set_sync_debug_mode("error")``."""
+
+    READS = {torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy, torch.Tensor.cpu,
+             torch.Tensor.__bool__, torch.Tensor.__int__, torch.Tensor.__float__}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.READS:
+            raise RuntimeError(f"host read {getattr(func, '__name__', func)} inside the "
+                               f"guarded predict")
+        return func(*args, **(kwargs or {}))
+
+
+def _member_servable(tmp: str, seed: int = 0) -> tuple[str, dict]:
+    from ..models.deepfm import DeepFM
+    from ..serve.export import export_servable
+
+    cfg = audit_cfg()
+    sd = DeepFM(cfg.model, device="cpu",
+                generator=torch.Generator().manual_seed(seed)).state_dict()
+    return export_servable(cfg.model, sd, os.path.join(tmp, f"v{seed}")), sd
+
+
+def audit_group_buckets(device="cpu", buckets=(8, 64)) -> list[Finding]:
+    """A member's bucket graphs (JAX ``audit_group_buckets``): three
+    slots x every bucket captured on the card, every admissible size on a
+    captured bucket, and a bucket that does not divide by ``dp`` refused."""
+    from ..serve.batcher import pick_bucket
+    from ..serve.pool.sharded import MEMBER_SLOTS, load_sharded_servable
+
+    where = "deepfm_tpu_torch/serve/pool/sharded.py"
+    out: list[Finding] = []
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="trace_audit_") as tmp:
+        servable, _ = _member_servable(tmp)
+        _, predictor, _, _ = load_sharded_servable(servable, 2, 2, device=device,
+                                                   buckets=buckets)
+        predictor.precompile()
+        want = MEMBER_SLOTS * len(buckets) if cuda else 0
+        if predictor.graph_count != want:
+            out.append(_finding("trace-recompile", f"{predictor.graph_count} member graphs, "
+                                f"expected {want}", where, "group-graph-count"))
+        for n in range(1, buckets[-1] + 1):
+            if pick_bucket(predictor.buckets, n) < n:
+                out.append(_finding("trace-recompile", f"a request of {n} rows has no "
+                                    f"member bucket", where, f"group-bucket:{n}"))
+                break
+        try:
+            load_sharded_servable(servable, 4, 1, device=device, buckets=(2, 8))
+            out.append(_finding("trace-recompile", "a bucket of 2 rows was accepted over "
+                                "data_parallel=4", where, "group-indivisible"))
+        except ValueError:
+            pass
+    return out
+
+
+def audit_sharded_predict(device="cpu") -> list[Finding]:
+    """The member's sharded predict (JAX ``audit_sharded_predict``), psum
+    and all-to-all: no host read inside it (the psum fallback is a device
+    select, so on the card it captures under the sync guard and on the CPU
+    it runs under :class:`_HostReadGuard`), the single-process predict's
+    answers bit for bit, on a spread batch and on one that overflows the
+    all-to-all, the weights read from the slot, and a swap that captures
+    nothing."""
+    from ..core.config import load_config
+    from ..ops import fused_ctr
+    from ..serve.export import read_params
+    from ..serve.graphs import GraphedPredictor
+    from ..serve.pool.sharded import load_sharded_servable, stage_sharded_payload
+
+    where = "deepfm_tpu_torch/serve/pool/sharded.py"
+    out: list[Finding] = []
+    buckets = (16, 64)
+    rng = np.random.default_rng(0)
+    f = _AUDIT_MODEL["field_size"]
+    with tempfile.TemporaryDirectory(prefix="trace_audit_") as tmp:
+        servable, _ = _member_servable(tmp)
+        _, other = _member_servable(tmp, seed=1)
+        single = GraphedPredictor(load_config(servable), read_params(servable),
+                                  device=device, buckets=buckets)
+        single.precompile()
+        spread = rng.integers(0, _AUDIT_MODEL["feature_size"], (16, f))
+        # every id on the first of two shards, more distinct rows than a
+        # bucket of the all-to-all holds: the fallback must take over
+        skewed = np.arange(16 * f).reshape(16, f) % (_AUDIT_MODEL["feature_size"] // 2)
+        vals = rng.random((16, f)).astype(np.float32)
+        for dp, mp, exchange in ((1, 2, "psum"), (2, 2, "alltoall"), (1, 2, "alltoall")):
+            what = f"[{dp}, {mp}] {exchange}"
+            try:
+                _, pred, _, ctx = load_sharded_servable(servable, dp, mp, device=device,
+                                                        exchange=exchange, buckets=buckets)
+                pred.precompile()
+                if torch.device(device).type == "cpu":
+                    with _HostReadGuard(), torch.no_grad():
+                        pred._models[0](torch.from_numpy(skewed), torch.from_numpy(vals))
+            except Exception as e:
+                out.append(_finding("trace-transfer", f"{what}: the sharded predict read "
+                                    f"the host or failed to capture: {type(e).__name__}: "
+                                    f"{e}", where, f"{what}:capture"))
+                continue
+            for name, ids in (("spread", spread), ("skewed", skewed)):
+                got = pred.predict_with(0, ids, vals)
+                if not np.array_equal(got, single.predict_with(0, ids, vals)):
+                    out.append(_finding("trace-parity", f"{what}: the {name} batch's answers "
+                                        f"differ from the single-process predict", where,
+                                        f"{what}:{name}"))
+            before = (pred.graph_count, fused_ctr.captured)
+            pred.load_slot(1, stage_sharded_payload(ctx, other))
+            if np.array_equal(pred.predict_with(1, spread, vals),
+                              pred.predict_with(0, spread, vals)):
+                out.append(_finding("trace-recompile", f"{what}: another version copied "
+                                    f"into slot 1 left its answers unchanged (weights "
+                                    f"baked into the graphs)", where, f"{what}:parameter"))
+            if (pred.graph_count, fused_ctr.captured) != before:
+                out.append(_finding("trace-recompile", f"{what}: loading a slot captured "
+                                    f"again", where, f"{what}:swap-captured"))
+    return out
+
+
+# host-policy modules of the serving control plane: none may touch torch
+_CONTROL_MODULES = ("serve/control/admission.py", "serve/control/autoscale.py",
+                    "serve/control/cost.py", "serve/control/hedge.py",
+                    "serve/pool/router.py", "serve/pool/swap.py")
+
+
+def audit_control_plane(device="cpu") -> list[Finding]:
+    """The SLO control plane stays out of the graphs (JAX
+    ``audit_control_plane``): admission, hedging, the shed gate and the
+    autoscaler import no torch, and a funnel whose admission degrades
+    replays the degraded retrieve graph captured at boot: dispatching
+    under a forced degrade captures nothing and answers as the degraded
+    stages do eagerly."""
+    from ..ops import fused_ctr, retrieval
+    from ..serve.control.admission import AdmissionController
+    from ..serve.control.cost import BucketCostModel
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out: list[Finding] = []
+    for rel in _CONTROL_MODULES:
+        with open(os.path.join(root, rel)) as fh:
+            text = fh.read()
+        if "import torch" in text or "from torch" in text:
+            out.append(_finding("trace-transfer", f"{rel} imports torch: the control plane "
+                                f"must stay host policy", f"deepfm_tpu_torch/{rel}",
+                                f"control-import:{rel}"))
+    where = "deepfm_tpu_torch/funnel/graphs.py"
+    adm = AdmissionController(BucketCostModel(_FUNNEL_BUCKETS), degrade_util=0.5,
+                              shed_shadow_util=0.4, shed_predict_util=0.99)
+    ctx, graphs, _ = _funnel_audit_graphs(device, "int8", degraded_oversample=1)
+    graphs.precompile()
+    before = (graphs.graph_count, retrieval.captured, fused_ctr.captured)
+    for _ in range(50):
+        adm.observe_utilization(_FUNNEL_BUCKETS[-1] * 16, _FUNNEL_BUCKETS[-1] * 16)
+    rng = np.random.default_rng(1)
+    b = _FUNNEL_BUCKETS[0]
+    ids = np.concatenate([rng.integers(0, 500, (b, ctx.user_fields)),
+                          rng.integers(0, ctx.rank_cfg.feature_size, (b, ctx.rank_fields))],
+                         axis=1)
+    vals = np.ones(ids.shape, np.float32)
+    if adm.degrade_factor() >= 1.0:
+        out.append(_finding("trace-recompile", "the audit could not force admission's "
+                            "degrade", where, "control-degrade"))
+    pack = graphs.dispatch(0, ids, vals, degraded=True)[0]
+    if not np.array_equal(pack, graphs.eager(0, ids, vals, degraded=True)[0]):
+        out.append(_finding("trace-parity", "the degraded retrieve graph does not answer as "
+                            "the degraded stages do eagerly", where, "control-degraded"))
+    if (graphs.graph_count, retrieval.captured, fused_ctr.captured) != before:
+        out.append(_finding("trace-recompile", "a degraded dispatch captured a graph under "
+                            "load", where, "control-captured"))
+    return out
+
+
 def run_trace_audit(device="cpu") -> list[Finding]:
     """Every contract above on ``device`` (the capture contracts only
     where it is the card); the waived ones are in :data:`WAIVERS`."""
     return (audit_train_step(device) + audit_train_step(device, lazy=True)
-            + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device))
+            + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
+            + audit_group_buckets(device) + audit_sharded_predict(device)
+            + audit_control_plane(device))

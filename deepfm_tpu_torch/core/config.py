@@ -90,6 +90,8 @@ def _tuples(v: Any) -> Any:
 
 # Why a JAX field that changes a job's result raises, by ROADMAP item
 _A6 = "not ported yet (ROADMAP A6, the input pipeline's other modes)"
+_A18 = ("not ported yet (ROADMAP A18, multi-tenant fleets: the serving pool "
+        "serves one tenant)")
 _A7 = ("the launcher's LOCAL_WORLD_SIZE gives the workers a host "
        "(ROADMAP A7, python -m torch.distributed.run)")
 
@@ -119,13 +121,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "workers_per_host": (1, _A7),
         "steps_per_loop": (1, None),
         "profile_dir": ("", None),
-        # the shard-group pool's members and router (ROADMAP A14; the
-        # serve task refuses run.serve_groups > 0)
-        "serve_group_data_parallel": (1, None),
-        "serve_router_port": (8500, None),
-        "serve_retry_limit": (2, None),
-        "serve_health_interval_secs": (1.0, None),
-        "serve_eject_after": (2, None),
     },
     "elastic": {
         "enabled": (False, "not ported yet (ROADMAP A15, elastic training)"),
@@ -145,26 +140,10 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
     # serving fleets, SLOs and regions: none of them changes what training
     # computes
     "fleet": {
-        "tenants": ((), None),
+        # the pool serves one tenant, JAX's DEFAULT_TENANT
+        "tenants": ((), _A18),
         "shadow_sample_percent": (100.0, None),
         "shadow_queue_depth": (128, None),
-    },
-    "slo": {
-        "deadline_ms": (0.0, None),
-        "hedge_after_pct": (95.0, None),
-        "hedge_budget_pct": (5.0, None),
-        "retry_budget_pct": (10.0, None),
-        "shed_shadow_util": (0.6, None),
-        "degrade_util": (0.75, None),
-        "shed_predict_util": (0.9, None),
-        "degrade_floor_pct": (50.0, None),
-        "min_groups": (1, None),
-        "max_groups": (4, None),
-        "scale_up_util": (0.75, None),
-        "scale_down_util": (0.25, None),
-        "scale_up_window_secs": (5.0, None),
-        "scale_down_window_secs": (30.0, None),
-        "cooldown_secs": (10.0, None),
     },
     "regions": {
         "enabled": (False, None),
@@ -534,8 +513,9 @@ class RunConfig:
     restart_backoff_secs: float = 5.0
     # the serve task (serve/server.py serve_forever): bind address, buckets,
     # batching wait, a two-tower corpus and hot reload from a local publish
-    # root.  serve_workers > 1 (process pool) and serve_groups > 0 (shard-
-    # group pool) are ROADMAP A14: the serve task raises on them
+    # root.  serve_workers > 1 runs the process pool (serve/server.py
+    # serve_pool), serve_groups > 0 the router-fronted shard-group pool
+    # (python -m deepfm_tpu_torch.serve.pool) with its own fields below
     serve_port: int = 8501
     serve_host: str = "127.0.0.1"
     serve_item_corpus: str = ""
@@ -545,9 +525,15 @@ class RunConfig:
     serve_reload_url: str = ""
     serve_reload_interval_secs: float = 2.0
     serve_groups: int = 0
-    # the shard-group pool's table row split (0: auto); read here only by
-    # the funnel's per-shard vocabulary check below
+    # the shard-group pool: each member's [dp, mp] split (mp 0: 1, all of a
+    # member's shards sit on its one card), the router's port, its
+    # cross-group retries, probe interval and ejection threshold
+    serve_group_data_parallel: int = 1
     serve_group_model_parallel: int = 0
+    serve_router_port: int = 8500
+    serve_retry_limit: int = 2
+    serve_health_interval_secs: float = 1.0
+    serve_eject_after: int = 2
     # the serve task over a funnel servable (funnel/serve.py): candidates
     # retrieved and ranked items returned per user, the retrieval tier
     # ("exact" | "int8" | "auto") and its shortlist multiplier.  At their
@@ -571,14 +557,131 @@ class RunConfig:
 
 
 @dataclass(frozen=True)
+class SloConfig:
+    """The SLO control plane (``serve/control``), with JAX's validation:
+    deadline-aware admission at each pool member's micro-batcher, the
+    router's hedged tail requests and retry budget, and the shard-group
+    autoscaler.  All of it is host policy: ``analysis/trace_audit.py
+    audit_control_plane`` holds that none of it enters a graph.
+
+    Graceful degradation is the invariant the knobs parameterize: shed
+    the cheapest work first (shadow offers, then funnel width, then
+    plain predicts), never fail work already admitted, always converge
+    back (hysteresis on every edge)."""
+
+    # request completion SLO in milliseconds — the default deadline for
+    # requests that carry no ``X-Deadline-Ms`` header, AND the hedge
+    # trigger budget (a group whose live p95 exceeds this is hedge-
+    # eligible).  0 disables deadline admission and hedging.
+    deadline_ms: float = 0.0
+    # hedge delay as a percent of the first-choice group's live p95: the
+    # hedge fires only after the primary has already outlived this share
+    # of the typical tail (a p95-based adaptive delay — near-zero extra
+    # load when the group is healthy)
+    hedge_after_pct: float = 95.0
+    # hedges may add at most this percent extra load (token bucket over
+    # the recent request rate; an exhausted bucket suppresses hedging,
+    # never the primary request)
+    hedge_budget_pct: float = 5.0
+    # cross-group retries share a token bucket accruing at this percent
+    # of the recent request rate; beyond it the router fails fast with
+    # 503 + Retry-After instead of amplifying a pool-wide brownout
+    retry_budget_pct: float = 10.0
+    # -- priority shed ladder (cheapest first; utilizations in [0,1] of
+    # the admission queue bound, EWMA-smoothed so a single burst does
+    # not flip levels) ------------------------------------------------
+    # level 1: shed shadow-scoring offers (zero user impact)
+    shed_shadow_util: float = 0.60
+    # level 2: degrade recommend expand/rank width toward the floor
+    degrade_util: float = 0.75
+    # level 3: shed plain predicts at admission (503 + Retry-After)
+    shed_predict_util: float = 0.90
+    # recommend width floor under level-2 degradation, percent of the
+    # requested top_k/return_n (100 = never degrade)
+    degrade_floor_pct: float = 50.0
+    # -- elastic shard-group autoscaling --------------------------------
+    min_groups: int = 1
+    max_groups: int = 4
+    # scale up when utilization stays above this (or p95 stays over
+    # deadline_ms) for scale_up_window_secs
+    scale_up_util: float = 0.75
+    # scale down when utilization stays below this for
+    # scale_down_window_secs (strictly below scale_up_util: the gap is
+    # the hysteresis band that prevents flapping)
+    scale_down_util: float = 0.25
+    scale_up_window_secs: float = 5.0
+    scale_down_window_secs: float = 30.0
+    # minimum seconds between autoscale actions (lets a fresh group's
+    # load signal settle before the next decision)
+    cooldown_secs: float = 10.0
+
+    def __post_init__(self):
+        for name in ("deadline_ms",):
+            v = getattr(self, name)
+            if not (v >= 0 and math.isfinite(v)):
+                raise ValueError(
+                    f"slo.{name} must be finite and >= 0, got {v}"
+                )
+        for name in ("hedge_after_pct", "hedge_budget_pct",
+                     "retry_budget_pct", "degrade_floor_pct"):
+            v = getattr(self, name)
+            if not (0.0 <= v <= 100.0 and math.isfinite(v)):
+                raise ValueError(
+                    f"slo.{name} must be a percent in [0, 100], got {v}"
+                )
+        for name in ("shed_shadow_util", "degrade_util",
+                     "shed_predict_util", "scale_up_util",
+                     "scale_down_util"):
+            v = getattr(self, name)
+            if not (0.0 < v <= 1.0 and math.isfinite(v)):
+                raise ValueError(
+                    f"slo.{name} must be a utilization in (0, 1], got {v}"
+                )
+        if not (self.shed_shadow_util <= self.degrade_util
+                <= self.shed_predict_util):
+            raise ValueError(
+                f"slo shed ladder must be ordered cheapest-first: "
+                f"shed_shadow_util={self.shed_shadow_util} <= "
+                f"degrade_util={self.degrade_util} <= "
+                f"shed_predict_util={self.shed_predict_util} — shedding "
+                f"plain predicts before shadow offers inverts graceful "
+                f"degradation"
+            )
+        if self.min_groups < 1:
+            raise ValueError(
+                f"slo.min_groups must be >= 1, got {self.min_groups}"
+            )
+        if self.max_groups < self.min_groups:
+            raise ValueError(
+                f"slo.max_groups={self.max_groups} < min_groups="
+                f"{self.min_groups}"
+            )
+        if self.scale_down_util >= self.scale_up_util:
+            raise ValueError(
+                f"slo.scale_down_util={self.scale_down_util} must stay "
+                f"strictly below scale_up_util={self.scale_up_util}: the "
+                f"gap is the hysteresis band — without it the autoscaler "
+                f"flaps a group up and down on every load ripple"
+            )
+        for name in ("scale_up_window_secs", "scale_down_window_secs",
+                     "cooldown_secs"):
+            v = getattr(self, name)
+            if not (v > 0 and math.isfinite(v)):
+                raise ValueError(
+                    f"slo.{name} must be finite and > 0, got {v}"
+                )
+
+
+@dataclass(frozen=True)
 class FlywheelConfig:
     """The data flywheel (``flywheel/``), with JAX's validation: the join
     (``python -m deepfm_tpu_torch.flywheel.join``) matches the click log to
     the impression log inside an attribution window into
     ``join_output_url``, which ``task_type=feedback-train`` trains on.
-    ``enabled``, ``queue_depth`` and the segment roll arm the serving
-    pool's impression logger, which waits for the pool (ROADMAP A14): the
-    port's single-process server logs no impressions, as JAX's does not."""
+    ``enabled``, ``queue_depth`` and the segment roll arm the shard-group
+    pool's impression logger (flywheel/impressions.py, run by the pool's
+    router); the single-process server logs no impressions, as JAX's does
+    not."""
 
     enabled: bool = False
     impression_log_url: str = ""
@@ -701,6 +804,7 @@ class Config:
     run: RunConfig = field(default_factory=RunConfig)
     flywheel: FlywheelConfig = field(default_factory=FlywheelConfig)
     regions: RegionsConfig = field(default_factory=RegionsConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
 
     def __post_init__(self):
         m, mp = self.model, self.mesh.model_parallel
@@ -752,6 +856,9 @@ class Config:
         updates = {}
         for section, fields in sections.items():
             if section not in {f.name for f in dataclasses.fields(self)}:
+                # a JAX-only field at a value that changes the result
+                # raises naming its ROADMAP item, as in a config.json
+                _known_fields(None, fields, section)
                 raise ValueError(
                     f"unknown config section {section!r}; the port carries "
                     f"{[f.name for f in dataclasses.fields(self)]}"

@@ -3,8 +3,8 @@
 
 A key maps to a point of ``[0, SPACE)`` through md5 of its bytes, so every
 process, in either package, takes the same decision for the same key with
-no state to share.  ``TrafficSplit`` and the rendezvous ranking wait for
-the serving pool (ROADMAP A14)."""
+no state to share.  ``TrafficSplit`` and the rendezvous ranking are the
+multi-tenant fleet's (ROADMAP A18); the serving pool serves one tenant."""
 
 from __future__ import annotations
 

@@ -8,12 +8,14 @@ port's copy of ``deepfm_tpu/flywheel``).
   clicks to impressions inside an attribution window, emits negatives when
   the window expires under a watermark of segment publish times, and
   writes the labeled stream that ``--task_type feedback-train`` trains on,
-  exactly once across a kill and a resume.
-
-The router-side ``ImpressionLogger`` (``flywheel/impressions.py``) waits
-for the serving pool, its only production caller (ROADMAP A14).
+  exactly once across a kill and a resume;
+* :mod:`.impressions` — the router-side ``ImpressionLogger``: the
+  shard-group pool's router (serve/pool/router.py) offers it every
+  answered request, and it writes the sampled impressions as segments
+  that the join reads.
 """
 
+from .impressions import ImpressionLogger  # noqa: F401
 from .join import JoinService  # noqa: F401
 from .records import (impression_sampled, parse_click, parse_impression,  # noqa: F401
                       serialize_click, serialize_impression)

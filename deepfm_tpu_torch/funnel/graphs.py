@@ -16,7 +16,10 @@ executables with the payload passed as an argument
   writes the merge-overflow flag (a pad among all K candidates) as a
   device scalar; **rank** fans the candidates out, runs the ranker
   through B1, the sigmoid and the top N, into the static ``[B, 3, N]``
-  pack.
+  pack.  Under admission control with int8 retrieval a third graph, the
+  retrieve at the degraded oversample, is captured at boot and replayed
+  in place of the first while admission degrades (never a capture under
+  load).
 * **A dispatch** fills pinned staging buffers, replays the two graphs
   with CUDA events between them (the stage times need no host sync in
   the middle), and copies the pack and the flag back in one
@@ -61,8 +64,14 @@ def _flat_leaves(tree: dict) -> dict:
 
 
 class FunnelGraphs:
-    """The funnel's two stages behind CUDA graphs in ``SLOTS`` weight
-    slots on ``device`` (default: the card; ``"cpu"`` runs them eagerly).
+    """The funnel's two stages behind CUDA graphs in ``slots`` (default
+    ``SLOTS``; a pool member takes three) weight slots on ``device``
+    (default: the card; ``"cpu"`` runs them eagerly).  With
+    ``degraded_oversample`` a third graph a (slot, bucket), the retrieve at
+    that oversample, is captured beside the others and replayed in place
+    of the full retrieve on a degraded dispatch.  ``data_parallel`` splits
+    every bucket into that many row slices, each retrieved and ranked on
+    its own (every bucket must divide by it).
 
     Every slot starts from the ranker's and the query tower's
     ``state_dict``s and ``index``.  Call :meth:`precompile` (on the
@@ -70,16 +79,30 @@ class FunnelGraphs:
 
     def __init__(self, ctx: FunnelContext, rank_state: dict, query_state: dict,
                  index: FunnelIndex, *, device=None,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS):
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, slots: int = SLOTS,
+                 degraded_oversample: int | None = None, data_parallel: int = 1):
         from ..serve.export import model_from_state
 
         self.ctx = ctx
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.data_parallel = int(data_parallel)
+        bad = [b for b in self.buckets if b % self.data_parallel]
+        if bad:
+            raise ValueError(
+                f"bucket sizes {bad} are not divisible by the funnel's data_parallel="
+                f"{self.data_parallel}: every dispatch must split evenly into data slices")
         self._retrieve = build_retrieve_with(ctx)
         self._rank = build_rank_topn_with(ctx)
+        # the shed ladder's degraded retrieve: the int8 shortlist at a
+        # smaller oversample, a third stage captured at boot beside the
+        # full one and replayed in its place (None: no degraded stage)
+        self.degraded_oversample = degraded_oversample
+        self._retrieve_degraded = (
+            None if degraded_oversample is None
+            else build_retrieve_with(ctx._replace(oversample=int(degraded_oversample))))
         self._payloads = []
-        for _ in range(SLOTS):
+        for _ in range(int(slots)):
             models = []
             for cfg, state in ((ctx.rank_cfg, rank_state), (ctx.query_cfg, query_state)):
                 model = model_from_state(cfg, state, self.device)
@@ -96,7 +119,13 @@ class FunnelGraphs:
             # out: the [B, 3, N] pack, then the overflow flag
             self._slots = SlotGraphs(self.device, self.buckets,
                                      ctx.user_fields + ctx.rank_fields,
-                                     lambda b: b * 3 * ctx.return_n + 1, 2, self._bodies)
+                                     lambda b: b * 3 * ctx.return_n + 1,
+                                     2 if self._retrieve_degraded is None else 3,
+                                     self._bodies, slots=int(slots), default_stages=(0, 1))
+
+    @property
+    def slots(self) -> int:
+        return len(self._payloads)
 
     @property
     def graph_count(self) -> int:
@@ -119,25 +148,44 @@ class FunnelGraphs:
         """The slot's payload (models and index shards), for references."""
         return self._payloads[slot]
 
+    def _sliced(self, fn, *tensors):
+        """``fn`` on each of the ``data_parallel`` row slices of
+        ``tensors``, the results concatenated (one slice: ``fn`` alone)."""
+        dp = self.data_parallel
+        if dp == 1:
+            return fn(*tensors)
+        per = tensors[0].shape[0] // dp
+        outs = [fn(*(t[i * per:(i + 1) * per] for t in tensors)) for i in range(dp)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(x) for x in zip(*outs))
+        return torch.cat(outs)
+
     def _bodies(self, slot: int, st: Staging):
-        """The retrieve and rank stages of ``slot`` at ``st``'s bucket."""
+        """The retrieve and rank stages of ``slot`` at ``st``'s bucket,
+        then the degraded retrieve when there is one."""
         fu = self.ctx.user_fields
         payload = self._payloads[slot]
         scores, cand = self._cands[st.bucket]
 
-        def retrieve():
-            s, c = self._retrieve(payload, st.ids[:, :fu], st.vals[:, :fu])
-            scores.copy_(s)
-            cand.copy_(c)
-            # the merge returned pads among all K candidates (the pack's N
-            # alone cannot tell: pads rank last and fall out of it)
-            st.out[-1:].copy_((c < 0).any().to(torch.float32).reshape(1))
+        def retriever(fn):
+            def retrieve():
+                s, c = self._sliced(lambda i, v: fn(payload, i, v),
+                                    st.ids[:, :fu], st.vals[:, :fu])
+                scores.copy_(s)
+                cand.copy_(c)
+                # the merge returned pads among all K candidates (the pack's
+                # N alone cannot tell: pads rank last and fall out of it)
+                st.out[-1:].copy_((c < 0).any().to(torch.float32).reshape(1))
+            return retrieve
 
         def rank():
-            pack = self._rank(payload, st.ids[:, fu:], st.vals[:, fu:], cand, scores)
+            pack = self._sliced(lambda i, v, c, s: self._rank(payload, i, v, c, s),
+                                st.ids[:, fu:], st.vals[:, fu:], cand, scores)
             st.out[:-1].copy_(pack.reshape(-1))
 
-        return retrieve, rank
+        if self._retrieve_degraded is None:
+            return retriever(self._retrieve), rank
+        return retriever(self._retrieve), rank, retriever(self._retrieve_degraded)
 
     def precompile(self) -> dict[str, float]:
         """Capture both graphs of every (slot, bucket): ``{"slot<s>/<b>":
@@ -145,44 +193,52 @@ class FunnelGraphs:
         nothing to capture ({})."""
         return self._slots.capture() if self._slots is not None else {}
 
-    def _eager(self, slot: int, ids: np.ndarray, vals: np.ndarray):
+    def _eager(self, slot: int, ids: np.ndarray, vals: np.ndarray, degraded: bool = False):
         fu = self.ctx.user_fields
         payload = self._payloads[slot]
+        retrieve = self._retrieve_degraded if degraded else self._retrieve
         tids = torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
         tvals = torch.from_numpy(np.ascontiguousarray(vals)).to(self.device)
         with torch.no_grad():
             t0 = time.perf_counter()
-            scores, cand = self._retrieve(payload, tids[:, :fu], tvals[:, :fu])
+            scores, cand = self._sliced(lambda i, v: retrieve(payload, i, v),
+                                        tids[:, :fu], tvals[:, :fu])
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t1 = time.perf_counter()
-            pack = self._rank(payload, tids[:, fu:], tvals[:, fu:], cand, scores)
+            pack = self._sliced(lambda i, v, c, s: self._rank(payload, i, v, c, s),
+                                tids[:, fu:], tvals[:, fu:], cand, scores)
             pack = pack.cpu().numpy()
             t2 = time.perf_counter()
         return pack, scores.cpu().numpy(), cand.cpu().numpy(), (t1 - t0, t2 - t1)
 
-    def eager(self, slot: int, ids, vals) -> tuple[np.ndarray, bool]:
+    def eager(self, slot: int, ids, vals, *, degraded: bool = False) -> tuple[np.ndarray, bool]:
         """The two stages run eagerly on ``slot``'s payload (on the card:
         the kernels launched one by one): ``(pack [B, 3, N], overflow)``."""
-        pack, _, cand, _ = self._eager(slot, ids, vals)
+        pack, _, cand, _ = self._eager(slot, ids, vals, degraded)
         return pack, bool((cand < 0).any())
 
-    def dispatch(self, slot: int, ids, vals, *, full: bool = False):
+    def dispatch(self, slot: int, ids, vals, *, full: bool = False, degraded: bool = False):
         """[B, Fu+F] int64 ids and f32 vals (B at most the largest bucket)
         -> ``(pack [B, 3, N], overflow, (retrieve s, rank s))`` from
         ``slot``'s payload: on the card through that slot's graphs at the
         smallest bucket that holds B (zero rows pad it), each stage's time
         the stream's between CUDA events; on the CPU eagerly, on the host
-        clock.  ``full`` adds the ``[B, K]`` retrieval scores and ids
+        clock.  ``degraded`` runs the degraded retrieve in place of the
+        full one.  ``full`` adds the ``[B, K]`` retrieval scores and ids
         (the canary reads them)."""
         ids = np.asarray(ids, np.int64)
         vals = np.asarray(vals, np.float32)
+        if degraded and self._retrieve_degraded is None:
+            raise ValueError("this funnel has no degraded retrieve (no admission, "
+                             "exact retrieval, or oversample 1)")
         if self._slots is None:
-            pack, scores, cand, secs = self._eager(slot, ids, vals)
+            pack, scores, cand, secs = self._eager(slot, ids, vals, degraded)
             overflow = bool((cand < 0).any())
             return (pack, overflow, secs, scores, cand) if full else (pack, overflow, secs)
-        st, secs = self._slots.replay(slot, ids, vals)
-        for name, n in self._slots.launches_per_replay.items():
+        stages = (2, 1) if degraded else (0, 1)
+        st, secs = self._slots.replay(slot, ids, vals, stages)
+        for name, n in self._slots.launches(stages).items():
             graph_kernel_runs[name] += n
         k = ids.shape[0]
         pack = st.np_out[:-1].reshape(st.bucket, 3, self.ctx.return_n)[:k].copy()

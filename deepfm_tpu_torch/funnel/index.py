@@ -11,8 +11,8 @@ The index is row-sharded over ``model_parallel`` shards, as JAX shards it
 over the serve mesh's ``model`` axis: the capacity rounds up to a
 multiple of M and shard ``s`` holds the ``capacity/M`` contiguous rows
 from ``s·capacity/M``, on the models' device (the CPU in the tests, the
-one serving card on the card: spreading the shards over cards is the
-serving pool's, ROADMAP A14).  Per shard:
+one serving card on the card, in a pool member too: spreading the shards
+over several cards waits for a machine with more than one).  Per shard:
 
     u      = encode_queries(...)            [B, D]  (moved to the shard)
     scores = u @ item_embᵀ                  [B, rows/M]

@@ -38,8 +38,16 @@ overflow) and, with ``reload_url``, a ``reload`` section; the stage
 latencies are the registry's ``deepfm_funnel_stage_seconds`` (on the card
 each graph's stream time between CUDA events, host gaps before a launch
 included), so ``/metrics`` shows them too; ``/v1/recommend`` is traced (``recommend.queue`` and
-``recommend.dispatch`` spans in ``/v1/trace/recent``).  Admission control,
-its degraded oversample and the pool members are ROADMAP A14.
+``recommend.dispatch`` spans in ``/v1/trace/recent``).
+
+With an admission controller (a shard-group pool member's, from
+``--slo``) the engine prices deadlines and sheds, and under int8 retrieval
+the shed ladder's degrade narrows the shortlist: a second retrieve graph
+at ``max(1, int(oversample · degrade_floor))`` is captured at boot and a
+dispatch takes it while ``admission.degrade_factor() < 1``
+(``oversample_effective`` and ``degraded_dispatch_total`` in the
+``funnel`` section).  The pool members (serve/pool/worker.py) serve
+``/v1/recommend`` through :class:`FunnelScorer` with three weight slots.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..online.publisher import (Manifest, check_local_root, fetch_version, lates
 from ..serve.batcher import DEFAULT_BUCKETS, MicroBatcher, OverloadedError
 from ..serve.reload import DRAIN_TIMEOUT_SECS, SwappableParams
 from ..utils.retry import CircuitBreaker
+from ..serve.graphs import SLOTS
 from .graphs import FunnelGraphs
 from .index import (FunnelContext, funnel_score_bytes_est, funnel_wire_bytes_est,
                     index_hash, index_shards, make_funnel_context)
@@ -107,12 +116,20 @@ class FunnelScorer:
     ``top_k``/``return_n`` of 0 take the servable's funnel.json defaults;
     ``retrieval``/``oversample`` of ""/0 take its ``retrieval`` section
     (exact when none was stamped).  ``model_parallel`` row-shards the
-    index on the serving device."""
+    index on the serving device; ``data_parallel`` splits each bucket into
+    row slices.  ``name`` and ``registry`` name the engine and share a
+    process's metrics registry; ``admission`` (an
+    ``AdmissionController``) prices deadlines, sheds, and under int8
+    retrieval arms the degraded retrieve; ``slots`` is the weight slot
+    count (a pool member keeps three: live, staged, previous)."""
 
     def __init__(self, servable_dir: str, *, device=None, top_k: int = 0,
                  return_n: int = 0, retrieval: str = "", oversample: int = 0,
-                 model_parallel: int = 1, buckets=DEFAULT_BUCKETS, max_wait_ms: float = 2.0,
-                 max_queue_rows: int | None = None):
+                 model_parallel: int = 1, data_parallel: int = 1,
+                 buckets=DEFAULT_BUCKETS, max_wait_ms: float = 2.0,
+                 max_queue_rows: int | None = None, name: str = "recommend",
+                 registry: MetricsRegistry | None = None, admission=None,
+                 slots: int = SLOTS):
         art = load_funnel_artifact(servable_dir)
         meta = art.meta
         rsec = meta.get("retrieval") or {}
@@ -126,8 +143,21 @@ class FunnelScorer:
             oversample=int(oversample) or int(rsec.get("oversample", 4)),
             model_parallel=model_parallel,
         )
+        # the shed ladder's degraded oversample (JAX funnel/serve.py): only
+        # where admission can degrade and the int8 shortlist can narrow
+        self._admission = admission
+        self.degraded_oversample = None
+        if (admission is not None and self.ctx.retrieval_mode == "int8"
+                and self.ctx.oversample > 1):
+            os_d = max(1, int(self.ctx.oversample * admission.degrade_floor))
+            if os_d < self.ctx.oversample:
+                self.degraded_oversample = os_d
+        self._degraded_active = False
+        self.degraded_dispatch_total = 0
         self.graphs = FunnelGraphs(self.ctx, art.rank_state, art.query_state, art.index,
-                                   device=device, buckets=buckets)
+                                   device=device, buckets=buckets, slots=slots,
+                                   degraded_oversample=self.degraded_oversample,
+                                   data_parallel=data_parallel)
         self.device = self.graphs.device
         self.holder = FunnelHolder(0, version=0)
         self._boot_items = int(art.index.item_ids.shape[0])
@@ -140,7 +170,7 @@ class FunnelScorer:
         self.last_stage_ms: float | None = None
         self.last_canary_ms: float | None = None
         # stage latency lives in the shared obs registry, as JAX's does
-        self.registry = MetricsRegistry()
+        self.registry = registry if registry is not None else MetricsRegistry()
         stage = self.registry.histogram(
             "deepfm_funnel_stage_seconds",
             "per-dispatch funnel stage latency (on the card each graph's stream time "
@@ -151,7 +181,8 @@ class FunnelScorer:
         self.engine = MicroBatcher(
             self._funnel_fn, self.ctx.user_fields + self.ctx.rank_fields,
             buckets=buckets, max_wait_ms=max_wait_ms,
-            max_queue_rows=max_queue_rows, name="recommend", registry=self.registry,
+            max_queue_rows=max_queue_rows, name=name, registry=self.registry,
+            admission=admission,
         )
         self.compile_secs: dict = {}
         try:
@@ -163,10 +194,22 @@ class FunnelScorer:
     # -- the engine fn ------------------------------------------------------
     def _funnel_fn(self, ids: np.ndarray, vals: np.ndarray) -> np.ndarray:
         """One coalesced dispatch: [B, Fu+F] -> [B, 3, N] pack.  The live
-        slot is taken once and both stages run on it."""
+        slot is taken once and both stages run on it.  While admission
+        degrades, the retrieve runs at the degraded oversample (its own
+        graph, captured at boot)."""
+        degraded = (self.degraded_oversample is not None
+                    and self._admission.degrade_factor() < 1.0)
+        if degraded != self._degraded_active and not self._precompiling:
+            # one flight record a transition; the flag is read by scrapes
+            with self._flock:
+                self._degraded_active = degraded
+            obs_flight.record("funnel_degrade", subsystem="funnel", engaged=degraded,
+                              oversample=(self.degraded_oversample if degraded
+                                          else self.ctx.oversample))
         slot, gen = self.holder.acquire()
         try:
-            pack, overflow, (t_retr, t_rank) = self.graphs.dispatch(slot, ids, vals)
+            pack, overflow, (t_retr, t_rank) = self.graphs.dispatch(slot, ids, vals,
+                                                                    degraded=degraded)
         finally:
             self.holder.release(gen)
         if self._precompiling:
@@ -177,6 +220,8 @@ class FunnelScorer:
         with self._flock:
             self.candidates_total += ids.shape[0] * self.ctx.top_k
             self.retrieval_secs_total += t_retr
+            if degraded:
+                self.degraded_dispatch_total += 1
             if overflow:
                 # the corpus holds fewer valid items than top_k asks for
                 self.merge_overflow_total += 1
@@ -235,9 +280,12 @@ class FunnelScorer:
         return self.recommend(u_ids, u_vals, r_ids, r_vals, n=n)
 
     # -- staging (the swapper's path) ---------------------------------------
-    def stage_version(self, root: str, version: int, staging_dir: str) -> tuple[int, Manifest]:
+    def stage_version(self, root: str, version: int, staging_dir: str,
+                      slot: int | None = None) -> tuple[int, Manifest]:
         """Resolve, verify and canary one committed funnel version into
-        the idle slot; returns ``(slot, manifest)`` ready for one swap.
+        ``slot`` (default: the idle one of two; a scorer with more slots
+        needs ``slot``); returns ``(slot,
+        manifest)`` ready for one swap.
         Raises on any verification failure, leaving the live slot as it
         was.  The checks on the host, each with JAX's meaning: a funnel
         version (an ``index`` section), the ranker's ``param_hash`` and
@@ -284,7 +332,19 @@ class FunnelScorer:
                 f"retrieval-mode skew; republish for this mode or redeploy the scorer")
         staged = {"rank": art.rank_state, "query": art.query_state,
                   "shards": index_shards(self.ctx, art.index)}
-        idle = 1 - self.holder.get()
+        live, n_slots = self.holder.get(), self.graphs.slots
+        if slot is None:
+            if n_slots != 2:
+                raise ValueError(
+                    f"with {n_slots} weight slots the caller names the slot to stage "
+                    f"into (only two slots have one idle slot)")
+            idle = 1 - live
+        else:
+            idle = int(slot)
+        if not 0 <= idle < n_slots:
+            raise ValueError(f"slot {idle} is out of range: this scorer has {n_slots} slots")
+        if idle == live:
+            raise ValueError(f"slot {idle} is live: a version stages into an idle slot")
         self.engine.run_on_worker(lambda: self.graphs.load_slot(idle, staged))
         t1 = time.perf_counter()
         self.engine.run_on_worker(
@@ -343,11 +403,12 @@ class FunnelScorer:
                 "return_n": self.ctx.return_n,
                 "retrieval_mode": self.ctx.retrieval_mode,
                 "oversample": self.ctx.oversample,
-                # equal to oversample until admission's degrade (A14)
-                "oversample_effective": self.ctx.oversample,
+                "oversample_degraded": self.degraded_oversample,
+                "oversample_effective": (self.degraded_oversample if self._degraded_active
+                                         else self.ctx.oversample),
                 "kernel_engaged": (self.ctx.retrieval_mode == "int8"
                                    and self.device.type == "cuda"),
-                "degraded_dispatch_total": 0,
+                "degraded_dispatch_total": self.degraded_dispatch_total,
                 "candidates_total": self.candidates_total,
                 "candidates_per_sec": (self.candidates_total / secs if secs else None),
                 "merge_overflow_total": self.merge_overflow_total,
@@ -590,23 +651,19 @@ def serve_funnel(servable_dir: str, *, port: int = 8501, host: str = "127.0.0.1"
                  ready: threading.Event | None = None) -> None:
     """Blocking funnel server (``serve/server.py serve_forever`` delegates
     here when the servable has a funnel.json).  ``model_parallel``
-    row-shards the index on the serving card; ``data_parallel > 1``
-    raises (ROADMAP A14).  ``reload_url`` (a
+    row-shards the index on the serving card; ``data_parallel`` splits
+    each bucket into that many row slices.  ``reload_url`` (a
     local publish root) adopts a version already published there before
     the socket opens, then polls every ``reload_interval_secs``.
     ``ready`` as in ``serve_forever``: set once the socket is bound, with
     ``.port``, ``.server``, ``.scorer`` and ``.swapper``."""
     from ..serve.server import ScoringHTTPServer
 
-    if int(data_parallel) != 1:
-        raise NotImplementedError(
-            f"funnel data_parallel={data_parallel} splits the request batch over cards, "
-            f"which the pool's shard groups do (ROADMAP A14)")
     scorer = FunnelScorer(
         os.path.abspath(servable_dir), device=device, top_k=top_k,
         return_n=return_n, retrieval=retrieval, oversample=oversample,
-        model_parallel=model_parallel, buckets=buckets, max_wait_ms=max_wait_ms,
-        max_queue_rows=max_queue_rows)
+        model_parallel=model_parallel, data_parallel=data_parallel, buckets=buckets,
+        max_wait_ms=max_wait_ms, max_queue_rows=max_queue_rows)
     swapper = None
     tracer = Tracer("funnel", sample_rate=trace_sample_rate, export_path=trace_export)
     try:

@@ -24,8 +24,13 @@ deepfm_tpu_torch.flywheel.join``.  ``serve`` runs
 ``run.serve_*`` fields (``--set run.serve_port=8501``,
 ``run.serve_reload_url=PUB``, ...) and, over a funnel servable, the
 ``--funnel_*`` flags (``--funnel_top_k 16 --funnel_return_n 4``: a
-default defers to the servable's funnel.json); ``run.serve_workers > 1``
-and ``run.serve_groups > 0`` raise (ROADMAP A14).
+default defers to the servable's funnel.json).  ``run.serve_workers > 1``
+runs the process pool (``serve/server.py serve_pool``) and
+``--serve_groups N`` (``run.serve_groups``) the router-fronted
+shard-group pool (``python -m deepfm_tpu_torch.serve.pool``, with the
+``run.serve_group_*``, ``serve_router_port``, ``serve_retry_limit``,
+``serve_eject_after`` and ``serve_health_interval_secs`` fields, and the
+router's impression log with ``flywheel.enabled``).
 
 ``train`` checkpoints into ``--model_dir`` and resumes from it: run the
 same command again after a stop and it goes on from the latest
@@ -89,6 +94,8 @@ _FLAG_MAP = {
     "funnel_oversample": ("run", "funnel_oversample"),
     "funnel_min_recall": ("run", "funnel_min_recall"),
     "funnel_pallas": ("run", "funnel_pallas"),
+    "serve_groups": ("run", "serve_groups"),
+    "serve_group_mp": ("run", "serve_group_model_parallel"),
 }
 
 
@@ -106,7 +113,7 @@ def parse_set_pairs(pairs: list[str], sections: dict[str, dict]) -> dict:
         if "=" not in pair or "." not in pair.split("=", 1)[0]:
             raise SystemExit(
                 f"--set expects section.key=value, got {pair!r} "
-                f"(sections: model, optimizer, data, mesh, run, flywheel, regions)"
+                f"(sections: model, optimizer, data, mesh, run, flywheel, regions, slo)"
             )
         key, value = pair.split("=", 1)
         section, name = key.split(".", 1)
@@ -160,6 +167,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--funnel_pallas", choices=("on", "off", "auto"),
                    help="JAX's retrieval-kernel switch: validated; the port always "
                         "runs its own retrieval kernel")
+    p.add_argument("--serve_groups", type=int,
+                   help="task_type=serve: run the router-fronted shard-group pool with "
+                        "this many groups (serve/pool/: fm_w/fm_v row-sharded in each "
+                        "member, group-atomic hot swap)")
+    p.add_argument("--serve_group_mp", type=int,
+                   help="row shards inside each serve group's member, all on its card "
+                        "(0 = 1)")
     p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
                    help="override any config field, e.g. --set model.batch_norm=true")
     p.add_argument("--device", default="cuda",

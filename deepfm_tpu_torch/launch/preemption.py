@@ -219,24 +219,20 @@ def run_with_restarts(
     The wait doubles from ``backoff_secs`` per consecutive crash up to
     ``max_backoff_secs``, and each is drawn uniformly from [cap/2, cap]
     ("equal jitter": hosts that crashed on one cause do not retry in
-    lockstep, and shared storage still gets a rest).  ``sleep`` and ``rng``
-    are injectable for tests."""
+    lockstep, and shared storage still gets a rest): the schedule of
+    ``utils/retry.py run_with_restarts``, which this calls with an
+    equal-jitter ``RetryPolicy``.  ``sleep`` and ``rng`` are injectable for
+    tests."""
     import random
 
-    rng = rng if rng is not None else random.Random()
-    attempt = 0
-    while True:
-        try:
-            return fn()
-        except PreemptedError:
-            raise
-        except Exception as e:
-            attempt += 1
-            if attempt > max_restarts:
-                raise
-            cap = min(max_backoff_secs, backoff_secs * 2.0 ** (attempt - 1))
-            delay = rng.uniform(cap / 2.0, cap)
-            if on_restart is not None:
-                on_restart(attempt, e)
-            if delay > 0:
-                sleep(delay)
+    from ..utils import retry
+
+    policy = retry.RetryPolicy(
+        max_attempts=max_restarts + 1, base_delay_secs=backoff_secs,
+        max_delay_secs=max_backoff_secs, jitter="equal", sleep=sleep,
+        rng=rng if rng is not None else random.Random())
+    return retry.run_with_restarts(
+        fn, max_restarts=max_restarts, policy=policy,
+        should_restart=lambda e: not isinstance(e, PreemptedError),
+        on_restart=(None if on_restart is None
+                    else lambda attempt, e, delay: on_restart(attempt, e)))

@@ -97,6 +97,11 @@ class TraceContext:
         traced code)."""
         self.spans.append((name, t0, t1, attrs or None))
 
+    def headers(self) -> dict[str, str]:
+        """The propagation pair a forwarding hop (the pool router) sends
+        downstream."""
+        return {TRACE_HEADER: self.trace_id, SPAN_HEADER: self.span_id}
+
     def to_dict(self) -> dict:
         """Render the trace document (scrape/export time only)."""
         spans = []

@@ -1,6 +1,6 @@
 """Deadline-aware cost-based admission and the priority shed ladder: the
-port's copy of ``deepfm_tpu/serve/control/admission.py`` without the pool
-router's ``LoadShedGate`` (ROADMAP A14).
+port's copy of ``deepfm_tpu/serve/control/admission.py``, with the pool
+router's ``LoadShedGate``.
 
 **Admission** prices each arriving request against its deadline before it
 takes queue slots: the remaining time of the dispatch in flight, plus the
@@ -271,3 +271,53 @@ class AdmissionController:
             },
             "cost": self.cost.snapshot(),
         }
+
+
+class LoadShedGate:
+    """Router-side saturation signal for the shadow shed-first hook.
+
+    The router has no queue to watch — its saturation evidence is the
+    member responses themselves (503s are the engines' backpressure).
+    The gate smooths that into an overload score; while it is high,
+    ``allow_shadow()`` answers False and the ShadowScorer sheds offers
+    at the source (fleet/shadow.py ``gate=``) — the first rung of the
+    ladder, applied before the offer even reaches the bounded queue."""
+
+    def __init__(self, *, threshold: float = 0.3, alpha: float = 0.05):
+        self._threshold = float(threshold)
+        self._alpha = float(alpha)
+        self._lock = threading.Lock()
+        self._overload_ewma = 0.0
+        self._shedding = False
+
+    def note(self, overloaded: bool) -> None:
+        """Fold one routed-request outcome in (True = backpressure)."""
+        with self._lock:
+            self._overload_ewma += self._alpha * (
+                (1.0 if overloaded else 0.0) - self._overload_ewma
+            )
+            was = self._shedding
+            # engage/release hysteresis mirrors the ladder's
+            if not was and self._overload_ewma > self._threshold:
+                self._shedding = True
+            elif was and self._overload_ewma < 0.5 * self._threshold:
+                self._shedding = False
+            flipped = was != self._shedding
+            now_shedding = self._shedding
+        if flipped:
+            obs_flight.record(
+                "shadow_gate", subsystem="slo",
+                shedding=now_shedding,
+                overload_ewma=round(self._overload_ewma, 4),
+            )
+
+    def allow_shadow(self) -> bool:
+        with self._lock:
+            return not self._shedding
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "shedding": self._shedding,
+                "overload_ewma": round(self._overload_ewma, 4),
+            }

@@ -38,6 +38,7 @@ there is no eager fallback.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Sequence
 
@@ -52,6 +53,12 @@ from .batcher import DEFAULT_BUCKETS, pick_bucket
 SLOTS = 2
 # eager runs of each bucket's stages on a side stream before its capture
 WARMUP_CALLS = 3
+
+# B1's runs inside :class:`GraphedPredictor` and shard-group member
+# (serve/pool/sharded.py) replays since import (or since a caller reset
+# them): each replay adds the launches its capture recorded (the wrapper
+# counts those as captured, not launched)
+graph_kernel_runs = {"forward": 0}
 
 
 def leaf_specs(leaves: dict) -> dict[str, tuple[tuple[int, ...], str]]:
@@ -80,15 +87,25 @@ def load_leaves(live: dict[str, torch.Tensor], staged: dict) -> None:
 
 def _capture(body: Callable[[], None], pool) -> torch.cuda.CUDAGraph:
     """``body`` captured into ``pool`` under the sync guard: a host sync
-    in it raises here."""
+    in it raises here.  Python's cyclic collector is off meanwhile: a
+    predictor and its ``SlotGraphs`` refer to each other, so a dropped one
+    is freed by the collector, and its graphs' teardown inside another
+    capture is not permitted (the collection ``torch.cuda.graph`` runs
+    on entry happens first)."""
     graph = torch.cuda.CUDAGraph()
     prev = torch.cuda.get_sync_debug_mode()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        try:
-            torch.cuda.set_sync_debug_mode("error")
-            body()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            try:
+                torch.cuda.set_sync_debug_mode("error")
+                body()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+    finally:
+        if collecting:
+            gc.enable()
     return graph
 
 
@@ -113,31 +130,50 @@ class Staging:
 
 
 class SlotGraphs:
-    """``SLOTS`` x bucket x stage CUDA graphs on the card ``device``, one
-    memory pool a slot, one :class:`Staging` a bucket.  ``bodies(slot,
-    st)`` gives a slot's stages at bucket ``st.bucket``: ``stages``
-    zero-argument callables, run in order, that read ``st.ids`` and
-    ``st.vals`` and between them write ``st.out``.  The predictor here
-    and the funnel's (funnel/graphs.py) capture and replay through it."""
+    """``slots`` (default ``SLOTS``) x bucket x stage CUDA graphs on the
+    card ``device``, one memory pool a slot, one :class:`Staging` a
+    bucket.  ``bodies(slot, st)`` gives a slot's stages at bucket
+    ``st.bucket``: ``stages`` zero-argument callables, run in order, that
+    read ``st.ids`` and ``st.vals`` and between them write ``st.out``.
+    The predictor here, the funnel's (funnel/graphs.py) and the pool
+    members' (serve/pool/sharded.py, three slots: live, staged and the
+    retained previous version) capture and replay through it."""
 
     def __init__(self, device: torch.device, buckets: Sequence[int], fields: int,
                  out_size: Callable[[int], int], stages: int,
-                 bodies: Callable[[int, Staging], Sequence[Callable[[], None]]]):
+                 bodies: Callable[[int, Staging], Sequence[Callable[[], None]]],
+                 slots: int = SLOTS, default_stages: Sequence[int] | None = None):
         self.device = device
         self.buckets = tuple(buckets)
         self.bodies = bodies
+        self.slots = int(slots)
         self.staging = {b: Staging(b, fields, out_size(b), stages, device)
                         for b in self.buckets}
         self.graphs: list[dict[int, tuple[torch.cuda.CUDAGraph, ...]]] = [
-            {} for _ in range(SLOTS)]
-        # replays since construction, the B2 and B1 launches each one runs
-        # (recorded by the kernels' wrappers during the capture: their
+            {} for _ in range(self.slots)]
+        # the stages a replay runs unless it names others (the funnel's
+        # degraded retrieve is a third stage replayed in place of the first)
+        self.default_stages = tuple(range(stages) if default_stages is None
+                                    else default_stages)
+        # replays since construction, the B2 and B1 launches each stage
+        # runs (recorded by the kernels' wrappers during the capture: their
         # ``launches`` count no replay, so a caller counts their runs
-        # through the graphs as replays x launches_per_replay), and the
-        # bytes each stage's capture allocated at its peak, by bucket
+        # through the graphs as replays x launches), and the bytes each
+        # stage's capture allocated at its peak, by bucket
         self.replays = 0
-        self.launches_per_replay = {"retrieval": 0, "forward": 0}
+        self.launches_per_stage = [{"retrieval": 0, "forward": 0} for _ in range(stages)]
         self.pool_bytes: dict[int, list[int]] = {}
+
+    def launches(self, stages: Sequence[int] | None = None) -> dict[str, int]:
+        """B2 and B1 launches a replay of ``stages`` (default: the default
+        stages) runs."""
+        picked = self.default_stages if stages is None else stages
+        return {name: sum(self.launches_per_stage[i][name] for i in picked)
+                for name in ("retrieval", "forward")}
+
+    @property
+    def launches_per_replay(self) -> dict[str, int]:
+        return self.launches()
 
     @property
     def count(self) -> int:
@@ -152,7 +188,7 @@ class SlotGraphs:
         side = torch.cuda.Stream(self.device)
         with torch.cuda.device(self.device), torch.no_grad():
             stream = torch.cuda.current_stream(self.device)
-            for slot in range(SLOTS):
+            for slot in range(self.slots):
                 pool = torch.cuda.graph_pool_handle()
                 for b in reversed(self.buckets):  # the largest first
                     st = self.staging[b]
@@ -165,15 +201,15 @@ class SlotGraphs:
                                 body()
                     stream.wait_stream(side)
                     torch.cuda.synchronize(self.device)
-                    b2, b1 = retrieval.captured, fused_ctr.captured
                     graphs, nbytes = [], []
-                    for body in bodies:
+                    for i, body in enumerate(bodies):
+                        b2, b1 = retrieval.captured, fused_ctr.captured
                         base = torch.cuda.memory_allocated(self.device)
                         torch.cuda.reset_peak_memory_stats(self.device)
                         graphs.append(_capture(body, pool))
                         nbytes.append(torch.cuda.max_memory_allocated(self.device) - base)
-                    self.launches_per_replay = {"retrieval": retrieval.captured - b2,
-                                                "forward": fused_ctr.captured - b1}
+                        self.launches_per_stage[i] = {"retrieval": retrieval.captured - b2,
+                                                      "forward": fused_ctr.captured - b1}
                     self.pool_bytes[b] = [max(x, y) for x, y in
                                           zip(self.pool_bytes.get(b, nbytes), nbytes)]
                     self.graphs[slot][b] = tuple(graphs)
@@ -181,13 +217,14 @@ class SlotGraphs:
             torch.cuda.synchronize(self.device)
         return timings
 
-    def replay(self, slot: int, ids: np.ndarray, vals: np.ndarray
-               ) -> tuple[Staging, tuple[float, ...]]:
+    def replay(self, slot: int, ids: np.ndarray, vals: np.ndarray,
+               stages: Sequence[int] | None = None) -> tuple[Staging, tuple[float, ...]]:
         """[k, F] rows (k at most the largest bucket) through ``slot``'s
-        graphs at the smallest bucket that holds them, zero rows padding
-        it.  Returns the bucket's staging (``np_out`` holds the result)
-        and each stage's stream time between its events: the device's
-        time plus any host gap before a launch."""
+        graphs of ``stages`` (default: the default stages), in order, at
+        the smallest bucket that holds them, zero rows padding it.
+        Returns the bucket's staging (``np_out`` holds the result) and
+        each stage's stream time between its events: the device's time
+        plus any host gap before a launch."""
         graphs = self.graphs[slot]
         if not graphs:
             raise RuntimeError("the bucket graphs are not captured: call precompile() first")
@@ -199,7 +236,8 @@ class SlotGraphs:
         st.np_vals[:k] = vals
         st.np_ids[k:] = 0
         st.np_vals[k:] = 0
-        stages = graphs[st.bucket]
+        captured = graphs[st.bucket]
+        stages = [captured[i] for i in (self.default_stages if stages is None else stages)]
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
             st.ids.copy_(st.h_ids, non_blocking=True)
@@ -216,28 +254,41 @@ class SlotGraphs:
 
 
 class GraphedPredictor:
-    """A DeepFM servable's predict behind CUDA graphs, in ``SLOTS`` weight
-    slots on ``device`` (default: the card; ``"cpu"`` runs eagerly).
+    """A DeepFM servable's predict behind CUDA graphs, in ``slots``
+    (default ``SLOTS``) weight slots on ``device`` (default: the card;
+    ``"cpu"`` runs eagerly).
 
     Every slot starts from ``state_dict``.  Call :meth:`precompile` (on
-    the thread that will replay) before :meth:`predict_with`."""
+    the thread that will replay) before :meth:`predict_with`.  A slot's
+    model comes from :meth:`_slot_model` and its tensors from
+    :meth:`_leaves`: a pool member's predictor (serve/pool/sharded.py)
+    overrides both with row-sharded tables."""
 
     def __init__(self, cfg: ModelConfig, state_dict: dict, *, device=None,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS):
-        from .export import model_from_state
-
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, slots: int = SLOTS):
         if cfg.model_name != "deepfm":
             raise ValueError(f"GraphedPredictor serves DeepFM, got {cfg.model_name!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(int(b) for b in buckets))
-        self._models = []
-        for _ in range(SLOTS):
-            model = model_from_state(cfg, state_dict, self.device)
-            model.requires_grad_(False)
-            self._models.append(model)
+        self._models = [self._slot_model(state_dict) for _ in range(int(slots))]
         self._slots = (SlotGraphs(self.device, self.buckets, cfg.field_size, lambda b: b, 1,
-                                  self._bodies) if self.device.type == "cuda" else None)
+                                  self._bodies, slots=int(slots))
+                       if self.device.type == "cuda" else None)
+
+    def _slot_model(self, state_dict: dict) -> torch.nn.Module:
+        from .export import model_from_state
+
+        model = model_from_state(self.cfg, state_dict, self.device)
+        model.requires_grad_(False)
+        return model
+
+    def _leaves(self, slot: int) -> dict[str, torch.Tensor]:
+        return self._models[slot].state_dict()
+
+    @property
+    def slots(self) -> int:
+        return len(self._models)
 
     @property
     def graph_count(self) -> int:
@@ -281,21 +332,21 @@ class GraphedPredictor:
         for s in range(0, n, cap):
             k = min(cap, n - s)
             st, _ = self._slots.replay(slot, ids[s:s + k], vals[s:s + k])
+            graph_kernel_runs["forward"] += self._slots.launches_per_replay["forward"]
             out[s:s + k] = st.np_out[:k]
         return out
 
     def slot_specs(self) -> dict[str, tuple[tuple[int, ...], str]]:
-        """``state_dict`` name -> (shape, dtype) of every slot's tensors."""
-        return leaf_specs(self._models[0].state_dict())
+        """Name -> (shape, dtype) of every slot's tensors."""
+        return leaf_specs(self._leaves(0))
 
     def slot_state(self, slot: int) -> dict[str, torch.Tensor]:
-        """A slot's parameters and BN buffers, as CPU copies."""
-        return {k: v.detach().to("cpu", copy=True)
-                for k, v in self._models[slot].state_dict().items()}
+        """A slot's tensors, as CPU copies."""
+        return {k: v.detach().to("cpu", copy=True) for k, v in self._leaves(slot).items()}
 
     def load_slot(self, slot: int, state_dict: dict) -> None:
         """``copy_`` ``state_dict`` (numpy arrays or tensors with the
-        slot's names, shapes and dtypes) into ``slot``'s parameters and
-        buffers and wait for the copies.  The graphs read those tensors,
-        so the next replay of the slot scores with the new weights."""
-        load_leaves(self._models[slot].state_dict(), state_dict)
+        slot's names, shapes and dtypes) into ``slot``'s tensors and wait
+        for the copies.  The graphs read those tensors, so the next replay
+        of the slot scores with the new weights."""
+        load_leaves(self._leaves(slot), state_dict)

@@ -37,8 +37,12 @@ libsvm or JSON lines to one probability a line.
     python -m deepfm_tpu_torch.serve.server --servable DIR --reload-url PUB
     cat rows.libsvm | python -m deepfm_tpu_torch.serve.server --servable DIR --stdin
 
-runs on the card (``--device cpu`` for the plain CPU path).  The process
-pool (``--workers > 1``) and the shard-group pool are ROADMAP A14.
+runs on the card (``--device cpu`` for the plain CPU path).
+``--workers N`` runs the process pool (:func:`serve_pool`): N of these
+servers, each a fresh interpreter with its own graphs and reload poller,
+share one port through ``SO_REUSEPORT``, and a dead one is restarted.  The
+router-fronted shard-group pool is ``python -m
+deepfm_tpu_torch.serve.pool`` (serve/pool/).
 """
 
 from __future__ import annotations
@@ -60,15 +64,63 @@ from ..obs.trace import DEFAULT_SAMPLE_RATE, TRACE_HEADER, Tracer, current_trace
 from .batcher import DEFAULT_BUCKETS, MicroBatcher, OverloadedError
 from .control.admission import DeadlineExpiredError, DeadlineRejectedError
 
-POOL_NOT_PORTED = ("the serving pool (--workers > 1, run.serve_workers > 1) and "
-                   "the shard-group pool (run.serve_groups > 0) are not ported "
-                   "yet (ROADMAP A14)")
-
 
 class ScoringHTTPServer(ThreadingHTTPServer):
-    """ThreadingHTTPServer with a listen backlog for connection bursts."""
+    """ThreadingHTTPServer with a listen backlog for connection bursts.
+    ``reuse_port`` lets the process pool's workers share one port (the
+    kernel spreads accepted connections over the listeners)."""
 
     request_queue_size = 128
+    reuse_port = False
+
+    def server_bind(self):
+        if self.reuse_port:
+            import socket
+
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
+
+
+def kernel_counts() -> dict[str, int]:
+    """Kernel B1's (``forward``) and B2's (``retrieval``) runs in this
+    process: the wrappers' eager launches plus the runs inside bucket-graph
+    replays (serve/graphs.py, funnel/graphs.py, the pool members').  A pool
+    worker or member prints them at exit (:func:`report_kernel_counts_at_exit`)."""
+    from ..funnel import graphs as funnel_graphs
+    from ..ops import fused_ctr, retrieval
+    from . import graphs
+
+    return {"forward": (fused_ctr.launches + graphs.graph_kernel_runs["forward"]
+                        + funnel_graphs.graph_kernel_runs["forward"]),
+            "retrieval": retrieval.launches + funnel_graphs.graph_kernel_runs["retrieval"]}
+
+
+def device_memory() -> dict[str, int]:
+    """The caching allocator's bytes on this process's card (``{}`` when
+    the process never initialised CUDA): reserved now and at its peak."""
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return {}
+    return {"device_reserved_bytes": int(torch.cuda.memory_reserved()),
+            "device_max_reserved_bytes": int(torch.cuda.max_memory_reserved())}
+
+
+def report_kernel_counts_at_exit(role: str) -> None:
+    """At exit (SIGTERM included: it becomes ``SystemExit``), print one
+    JSON line ``{"kind": "kernel_runs", "role", "pid", "forward",
+    "retrieval", ...device memory}`` to stdout: how a pool's processes
+    report their kernel runs to whoever started the pool."""
+    import atexit
+    import signal
+
+    def _term(*_):
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _term)
+    atexit.register(lambda: print(json.dumps({"kind": "kernel_runs", "role": role,
+                                              "pid": os.getpid(), **kernel_counts(),
+                                              **device_memory()}), flush=True))
 
 
 def _parse_buckets(s) -> tuple[int, ...]:
@@ -134,7 +186,8 @@ def _retry_after_headers(e: DeadlineRejectedError) -> dict:
 
 def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                  readiness: Callable | None = None,
-                 registry: MetricsRegistry | None = None, tracer: Tracer | None = None):
+                 registry: MetricsRegistry | None = None, tracer: Tracer | None = None,
+                 group_status: Callable | None = None):
     """REST handler over an engine exposing ``score``/``score_instances``
     and ``metrics_snapshot`` (the micro-batcher over the bucket graphs, or
     the tiered scorer, tiered/serving.py, whose ``paging_snapshot`` joins
@@ -144,7 +197,16 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
     ``/v1/metrics``.  ``readiness`` returns the ``/readyz`` document (with
     a boolean ``ready``; default: ready).  ``registry`` (default: the
     scorer's) backs ``GET /metrics``; ``tracer`` traces ``:predict`` and
-    ``:predict_binary`` (a client's ``X-Trace-Id`` is always recorded)."""
+    ``:predict_binary`` (a client's ``X-Trace-Id`` is always recorded).
+
+    ``group_status`` (a shard-group member's, serve/pool/worker.py) turns
+    on the pool surface: its document (``shard_group``, ``tenant``,
+    ``group_generation``, ``exchange``, ``mesh``,
+    ``exchange_wire_bytes_est``, ...) is ``/v1/metrics``' ``router``
+    section and is merged into ``/readyz``; every JSON ``:predict``
+    carries its ``shard_group``, ``tenant`` and ``group_generation``, and a
+    ``:predict_binary`` answer the ``X-Shard-Group``, ``X-Tenant`` and
+    ``X-Group-Generation`` headers."""
     predict_path = f"/v1/models/{model_name}:predict"
     binary_path = f"/v1/models/{model_name}:predict_binary"
     status_path = f"/v1/models/{model_name}"
@@ -172,6 +234,8 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
             elif self.path == "/readyz":
                 doc = (readiness() if readiness is not None
                        else {"ready": True, "engine_compiled": True, "weights_loaded": True})
+                if group_status is not None:
+                    doc = {**doc, **group_status()}
                 self._send(200 if doc.get("ready") else 503, doc)
             elif self.path == status_path:
                 version = "1"
@@ -187,6 +251,8 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                 # scorer, tiered/serving.py) adds its hit rate and bytes
                 if "paging" not in snap and hasattr(scorer, "paging_snapshot"):
                     snap["paging"] = scorer.paging_snapshot()
+                if group_status is not None:
+                    snap["router"] = group_status()
                 self._send(200, snap)
             else:
                 self._send(404, {"error": f"unknown path {self.path!r}"})
@@ -242,6 +308,10 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                 # the live version when the response is assembled: a request
                 # in flight across a swap may have scored one version behind
                 doc["model_version"] = reload_status().get("model_version", 0)
+            if group_status is not None:
+                gs = group_status()
+                doc.update({k: gs[k] for k in ("shard_group", "tenant", "group_generation")
+                            if k in gs})
             self._send(200, doc)
 
         def _predict_binary(self):
@@ -277,6 +347,12 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
             if ctx is not None:
                 self.send_header(TRACE_HEADER, ctx.trace_id)
             self._obs_status = 200
+            if group_status is not None:
+                gs = group_status()
+                self.send_header("X-Shard-Group", str(gs.get("shard_group")))
+                if "tenant" in gs:
+                    self.send_header("X-Tenant", str(gs.get("tenant")))
+                self.send_header("X-Group-Generation", str(gs.get("group_generation")))
             self.end_headers()
             self.wfile.write(body)
 
@@ -577,6 +653,132 @@ def serve_forever(
         tracer.close()
 
 
+def _worker_argv(servable_dir: str, *, port: int, host: str, model_name: str, buckets,
+                 max_wait_ms: float, max_queue_rows: int | None, item_corpus: str | None,
+                 reload_url: str | None, reload_interval_secs: float, device,
+                 funnel: dict | None) -> list[str]:
+    """One process-pool worker's command line: this module's ``main`` with
+    ``--pool-worker`` (SO_REUSEPORT, the kernel-runs exit line)."""
+    argv = [sys.executable, "-m", "deepfm_tpu_torch.serve.server", "--pool-worker",
+            "--servable", os.path.abspath(servable_dir), "--port", str(port),
+            "--host", host, "--model-name", model_name,
+            "--buckets", ",".join(str(b) for b in _parse_buckets(buckets)),
+            "--max-wait-ms", str(max_wait_ms), "--device", str(device or "cuda")]
+    if max_queue_rows is not None:
+        argv += ["--max-queue-rows", str(max_queue_rows)]
+    if item_corpus:
+        argv += ["--item-corpus", item_corpus]
+    if reload_url:
+        argv += ["--reload-url", reload_url, "--reload-interval", str(reload_interval_secs)]
+    flags = {"top_k": "--funnel-top-k", "return_n": "--funnel-return-n",
+             "retrieval": "--funnel-retrieval", "oversample": "--funnel-oversample",
+             "model_parallel": "--funnel-mp"}
+    for key, value in (funnel or {}).items():
+        if key not in flags:
+            raise ValueError(f"unknown funnel option {key!r} for a pool worker")
+        argv += [flags[key], str(value)]
+    return argv
+
+
+def serve_pool(
+    servable_dir: str, *, workers: int, port: int = 8501, host: str = "127.0.0.1",
+    model_name: str = "deepfm", buckets=DEFAULT_BUCKETS, max_wait_ms: float = 2.0,
+    max_queue_rows: int | None = None, item_corpus: str | None = None,
+    reload_url: str | None = None, reload_interval_secs: float = 2.0,
+    device=None, funnel: dict | None = None, max_restarts: int = 10,
+    ready: threading.Event | None = None,
+) -> None:
+    """The process pool (JAX ``serve_pool``): ``workers`` full servers
+    (:func:`serve_forever`, each with its own bucket graphs or funnel
+    scorer and its own reload poller) share one port through
+    ``SO_REUSEPORT``, and the kernel spreads connections over them.  A
+    worker that dies is restarted, at most ``max_restarts`` times in all;
+    SIGTERM or SIGINT (or ``ready.stop.set()``) stops the pool and its
+    workers.  Versions are committed marker-last, so workers that reload
+    on their own converge without coordination.
+
+    Each worker is a fresh interpreter (``python -m
+    deepfm_tpu_torch.serve.server --pool-worker``), never a fork: this
+    parent initialises no CUDA (it does not even resolve the device), so
+    no child inherits a CUDA context.  The parent binds an
+    ``SO_REUSEPORT`` placeholder socket, never listening, so ``port=0``
+    resolves once and every worker binds the resolved port.  Each worker
+    prints its kernel runs as one JSON line at exit
+    (:func:`report_kernel_counts_at_exit`).
+
+    ``ready`` is set once the workers are started, with ``.port``,
+    ``.pids`` (the live workers' pids, kept current), ``.restarts`` (a
+    one-element list) and ``.stop`` (an Event that stops the pool)."""
+    import signal
+    import socket
+    import subprocess
+
+    placeholder = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    placeholder.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    placeholder.bind((host, port))
+    port = placeholder.getsockname()[1]
+    argv = _worker_argv(servable_dir, port=port, host=host, model_name=model_name,
+                        buckets=buckets, max_wait_ms=max_wait_ms,
+                        max_queue_rows=max_queue_rows, item_corpus=item_corpus,
+                        reload_url=reload_url, reload_interval_secs=reload_interval_secs,
+                        device=device, funnel=funnel)
+    stop = threading.Event()
+    children: dict[int, tuple[subprocess.Popen, int]] = {}
+    pids: dict[int, int] = {}
+    restarts = [0]
+
+    def spawn(idx: int) -> None:
+        proc = subprocess.Popen(argv)
+        children[proc.pid] = (proc, idx)
+        pids[proc.pid] = idx
+
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_: stop.set())
+    try:
+        for i in range(int(workers)):
+            spawn(i)
+        print(f"serving pool: {workers} workers on {host}:{port}", file=sys.stderr)
+        if ready is not None:
+            ready.port = port  # type: ignore[attr-defined]
+            ready.pids = pids  # type: ignore[attr-defined]
+            ready.restarts = restarts  # type: ignore[attr-defined]
+            ready.stop = stop  # type: ignore[attr-defined]
+            ready.set()
+        while not stop.wait(0.2):
+            for pid, (proc, idx) in list(children.items()):
+                code = proc.poll()
+                if code is None:
+                    continue
+                children.pop(pid)
+                pids.pop(pid, None)
+                if stop.is_set():
+                    break
+                restarts[0] += 1
+                if restarts[0] > max_restarts:
+                    print(f"serving pool: worker {idx} died (status {code}); restart "
+                          f"budget exhausted", file=sys.stderr)
+                    stop.set()
+                    break
+                print(f"serving pool: worker {idx} died (status {code}); restarting "
+                      f"({restarts[0]}/{max_restarts})", file=sys.stderr)
+                spawn(idx)
+    finally:
+        for proc, _ in children.values():
+            if proc.poll() is None:
+                proc.terminate()
+        deadline = time.monotonic() + 15.0
+        for proc, _ in children.values():
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                # a worker that ignores TERM (a wedged request) is killed
+                proc.kill()
+                proc.wait()
+        pids.clear()
+        placeholder.close()
+
+
 def score_stdin(servable_dir: str, *, batch_size: int = 256,
                 buckets=DEFAULT_BUCKETS, device=None) -> int:
     """libsvm (``label id:val ...``, label ignored) or JSON lines on stdin
@@ -652,7 +854,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--batch-size", type=int, default=256,
                     help="stdin mode only: lines scored a flush")
     ap.add_argument("--workers", type=int, default=1,
-                    help="process pool size; only 1 is ported (ROADMAP A14)")
+                    help="process pool size: N servers on one port (SO_REUSEPORT), "
+                         "each its own interpreter, a dead one restarted")
+    ap.add_argument("--max-restarts", type=int, default=10,
+                    help="--workers > 1: worker restarts before the pool gives up")
+    ap.add_argument("--pool-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--stdin", action="store_true",
                     help="score stdin lines (libsvm or JSON) instead of serving HTTP")
     ap.add_argument("--reload-url", default=None,
@@ -689,8 +895,22 @@ def main(argv: list[str] | None = None) -> int:
                     help="write the flight recorder's ring here as JSONL on SIGTERM "
                          "or a crash (the live ring is GET /v1/flight)")
     args = ap.parse_args(argv)
-    if args.workers > 1:
-        raise NotImplementedError(f"--workers {args.workers}: {POOL_NOT_PORTED}")
+    funnel = {k: v for k, v in (("top_k", args.funnel_top_k),
+                                ("return_n", args.funnel_return_n),
+                                ("retrieval", args.funnel_retrieval),
+                                ("oversample", args.funnel_oversample),
+                                ("model_parallel", args.funnel_mp)) if v}
+    if args.workers > 1 and not args.stdin:
+        serve_pool(args.servable, workers=args.workers, port=args.port, host=args.host,
+                   model_name=args.model_name, buckets=args.buckets,
+                   max_wait_ms=args.max_wait_ms, max_queue_rows=args.max_queue_rows,
+                   item_corpus=args.item_corpus, reload_url=args.reload_url,
+                   reload_interval_secs=args.reload_interval, device=args.device,
+                   funnel=funnel, max_restarts=args.max_restarts)
+        return 0
+    if args.pool_worker:
+        ScoringHTTPServer.reuse_port = True
+        report_kernel_counts_at_exit("pool-worker")
     if args.flight_dump:
         obs_flight.install(args.flight_dump)
         # no PreemptionGuard in a serve process: dump, then die by the signal
@@ -699,11 +919,6 @@ def main(argv: list[str] | None = None) -> int:
         score_stdin(args.servable, batch_size=args.batch_size, buckets=args.buckets,
                     device=args.device)
         return 0
-    funnel = {k: v for k, v in (("top_k", args.funnel_top_k),
-                                ("return_n", args.funnel_return_n),
-                                ("retrieval", args.funnel_retrieval),
-                                ("oversample", args.funnel_oversample),
-                                ("model_parallel", args.funnel_mp)) if v}
     serve_forever(args.servable, port=args.port, host=args.host,
                   model_name=args.model_name, buckets=args.buckets,
                   max_wait_ms=args.max_wait_ms, max_queue_rows=args.max_queue_rows,

@@ -56,6 +56,9 @@ class HostTier:
         self._free = list(range(self.capacity - 1, -1, -1))
         self._cond = threading.Condition()
         self._inflight: set[int] = set()           # pages being cold-fetched
+        # write-backs a page has taken: a fetch that read the page before a
+        # write-back landed holds stale rows and must not insert them
+        self._page_writes: dict[int, int] = {}
         self._pins: dict[int, int] = {}            # global row -> reads that need it
         self._stats = {
             "host_hits": 0, "host_misses": 0, "host_evictions": 0,
@@ -147,6 +150,7 @@ class HostTier:
                     self._cond.wait(timeout=0.5)
                     continue
                 self._inflight.update(mine)
+                writes = {page: self._page_writes.get(page, 0) for page in mine}
             try:
                 got = {}
                 for page in mine:
@@ -157,6 +161,11 @@ class HostTier:
                     self._cond.notify_all()
             with self._cond:
                 for page, recs in got.items():
+                    if self._page_writes.get(page, 0) != writes[page]:
+                        # a dirty row of the page was written back (and
+                        # evicted) while it was read: this copy is stale,
+                        # the next pass reads the page again
+                        continue
                     lo = page * self.cold.page_rows
                     want = [r for r in missing
                             if r // self.cold.page_rows == page
@@ -236,6 +245,7 @@ class HostTier:
             recs[rows[sel] - int(page) * self.cold.page_rows] = \
                 self._buf[idx[sel]]
             self.cold.write_page(int(page), recs)
+            self._page_writes[int(page)] = self._page_writes.get(int(page), 0) + 1
             self._stats["host_flushed_rows"] += int(sel.sum())
         self._dirty[idx] = False
 

@@ -408,25 +408,67 @@ def run_export(cfg: Config, *, device=None, log: MetricLogger | None = None) -> 
         shutdown(ctx)
 
 
+def pool_argv(cfg: Config, *, device=None) -> list[str]:
+    """The shard-group pool's command line for the serve task (JAX
+    ``train/loop.py``'s argv for ``serve/pool/__main__.py main``)."""
+    r = cfg.run
+    argv = ["--servable", r.servable_model_dir, "--router",
+            "--groups", str(r.serve_groups),
+            "--group-dp", str(r.serve_group_data_parallel),
+            "--group-mp", str(r.serve_group_model_parallel),
+            "--port", str(r.serve_router_port), "--host", r.serve_host,
+            "--buckets", r.serve_buckets, "--max-wait-ms", str(r.serve_max_wait_ms),
+            "--retry-limit", str(r.serve_retry_limit),
+            "--eject-after", str(r.serve_eject_after),
+            "--health-interval", str(r.serve_health_interval_secs),
+            "--device", str(device or "cuda")]
+    if r.serve_reload_url:
+        argv += ["--reload-url", r.serve_reload_url,
+                 "--reload-interval", str(r.serve_reload_interval_secs)]
+    if r.funnel_top_k:
+        argv += ["--funnel-top-k", str(r.funnel_top_k)]
+    if r.funnel_return_n:
+        argv += ["--funnel-return-n", str(r.funnel_return_n)]
+    if r.funnel_retrieval != "exact":
+        argv += ["--funnel-retrieval", r.funnel_retrieval]
+    if r.funnel_oversample != 4:
+        argv += ["--funnel-oversample", str(r.funnel_oversample)]
+    if r.funnel_pallas != "auto":
+        argv += ["--funnel-pallas", r.funnel_pallas]
+    if cfg.flywheel.enabled:
+        fw = cfg.flywheel
+        argv += ["--flywheel-log", fw.impression_log_url,
+                 "--flywheel-sample", str(fw.sample_rate),
+                 "--flywheel-roll-bytes", str(fw.segment_roll_bytes),
+                 "--flywheel-roll-age", str(fw.segment_roll_age_secs),
+                 "--flywheel-queue", str(fw.queue_depth)]
+        if fw.join_output_url:
+            argv += ["--flywheel-join-out", fw.join_output_url]
+    return argv
+
+
 def run_serve(cfg: Config, *, device=None, ready=None) -> None:
-    """The serve task: ``serve/server.py serve_forever`` over
+    """The serve task, by JAX's dispatch: ``run.serve_groups > 0`` runs the
+    router-fronted shard-group pool (``serve/pool/__main__.py main`` with
+    :func:`pool_argv`), ``run.serve_workers > 1`` the process pool
+    (``serve/server.py serve_pool``), anything else ``serve_forever`` over
     ``run.servable_model_dir`` with the ``run.serve_*`` fields, until the
-    process stops.  Over a funnel servable the ``run.funnel_*`` fields that
-    are not at their defaults override its funnel.json (JAX's convention:
-    top_k/return_n 0, retrieval "exact" and oversample 4 defer to it), its
-    index shards over ``mesh.model_parallel``, and ``run.serve_reload_url``
-    hot-swaps ``FunnelPublisher`` versions; on another servable a funnel
-    field raises.  The process pool
-    (``run.serve_workers > 1``) and the shard-group pool
-    (``run.serve_groups > 0``) raise (ROADMAP A14).  ``ready`` as in
-    ``serve_forever``."""
+    process stops.  Over a funnel servable the ``run.funnel_*`` fields
+    that are not at their defaults override its funnel.json (JAX's
+    convention: top_k/return_n 0, retrieval "exact" and oversample 4
+    defer to it), its index shards over ``mesh.model_parallel``, and
+    ``run.serve_reload_url`` hot-swaps ``FunnelPublisher`` versions; on
+    another servable a funnel field raises.  ``ready`` as in
+    ``serve_forever`` (and ``serve_pool``)."""
     from ..funnel.publish import is_funnel_servable
-    from ..serve.server import POOL_NOT_PORTED, serve_forever
+    from ..serve import server
 
     r = cfg.run
-    if r.serve_workers > 1 or r.serve_groups > 0:
-        raise NotImplementedError(f"run.serve_workers={r.serve_workers}, "
-                                  f"run.serve_groups={r.serve_groups}: {POOL_NOT_PORTED}")
+    if r.serve_groups > 0:
+        from ..serve.pool.__main__ import main as pool_main
+
+        pool_main(pool_argv(cfg, device=device))
+        return
     funnel = {k: v for k, v, default in (("top_k", r.funnel_top_k, 0),
                                          ("return_n", r.funnel_return_n, 0),
                                          ("retrieval", r.funnel_retrieval, "exact"),
@@ -434,15 +476,17 @@ def run_serve(cfg: Config, *, device=None, ready=None) -> None:
               if v != default}
     if is_funnel_servable(r.servable_model_dir) and cfg.mesh.model_parallel > 1:
         # the index shards over the mesh's model axis, as core/config.py
-        # _check_funnel validates it (the shard-group pool's
-        # serve_group_model_parallel is A14)
+        # _check_funnel validates it
         funnel["model_parallel"] = cfg.mesh.model_parallel
-    serve_forever(r.servable_model_dir, port=r.serve_port, host=r.serve_host,
-                  buckets=r.serve_buckets, max_wait_ms=r.serve_max_wait_ms,
-                  item_corpus=r.serve_item_corpus or None,
-                  reload_url=r.serve_reload_url or None,
-                  reload_interval_secs=r.serve_reload_interval_secs, device=device,
-                  ready=ready, funnel=funnel or None)
+    kw = dict(port=r.serve_port, host=r.serve_host, buckets=r.serve_buckets,
+              max_wait_ms=r.serve_max_wait_ms, item_corpus=r.serve_item_corpus or None,
+              reload_url=r.serve_reload_url or None,
+              reload_interval_secs=r.serve_reload_interval_secs, device=device,
+              ready=ready, funnel=funnel or None)
+    if r.serve_workers > 1:
+        server.serve_pool(r.servable_model_dir, workers=r.serve_workers, **kw)
+        return
+    server.serve_forever(r.servable_model_dir, **kw)
 
 
 def run_online(cfg: Config, *, device=None) -> TrainState:

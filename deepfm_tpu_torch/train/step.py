@@ -49,6 +49,7 @@ from the rest of the step.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 
 import torch
@@ -405,6 +406,10 @@ class StepGraph:
         graph.register_generator_state(state.generator)
         forward, backward = fused_ctr.captured, fused_ctr.backward_captured
         prev = torch.cuda.get_sync_debug_mode()
+        # no cyclic collection inside the capture: it could free another
+        # object's graphs there, which a capture does not permit
+        collecting = gc.isenabled()
+        gc.disable()
         graph.capture_begin(capture_error_mode="thread_local")
         try:
             torch.cuda.set_sync_debug_mode("error")
@@ -412,6 +417,8 @@ class StepGraph:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
             graph.capture_end()
+            if collecting:
+                gc.enable()
         self.per_replay = (fused_ctr.captured - forward,
                            fused_ctr.backward_captured - backward)
         self.graph = graph

@@ -1,23 +1,124 @@
-"""Circuit breaking for the hot-reload poller: the port's copy of
-``CircuitBreaker`` from ``deepfm_tpu/utils/retry.py`` (the retry policy,
-used by object-store publishes, comes with ROADMAP A6/A15).
+"""Bounded retry, crash-loop restarts and circuit breaking: the port's
+copy of ``RetryPolicy``, ``run_with_restarts`` and ``CircuitBreaker`` from
+``deepfm_tpu/utils/retry.py``.
 
-closed -> open -> half-open: a failure rate over a sliding window of
-recorded outcomes opens the circuit; after ``cooldown_secs`` one probe is
-admitted; its success closes the circuit, its failure re-opens it.  A
-store outage then costs one probe a cooldown instead of a failed poll a
-tick, and the old weights keep serving.  The clock is injectable for
-tests.
+* :class:`RetryPolicy`: bounded attempts, exponential backoff with full
+  jitter (``uniform(0, cap)``) or equal jitter (``uniform(cap/2, cap)``),
+  an optional overall deadline and a classifier; clock, sleep and RNG are
+  injectable so tests run on a fake clock.
+* :func:`run_with_restarts`: the crash-loop supervisor over a policy with
+  equal jitter.  The serving pool's supervisor restarts member processes
+  with it (serve/pool/__main__.py), and the train task's restart loop
+  (launch/preemption.py) is a call of it: one backoff schedule.
+* :class:`CircuitBreaker`: closed -> open -> half-open.  A failure rate
+  over a sliding window of recorded outcomes opens the circuit; after
+  ``cooldown_secs`` one probe is admitted; its success closes the
+  circuit, its failure re-opens it.  A store outage then costs one probe a
+  cooldown instead of a failed poll a tick, and the old weights keep
+  serving.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from collections import deque
+from dataclasses import dataclass, field
 from typing import Callable, TypeVar
 
 T = TypeVar("T")
+
+
+def _default_classify(exc: BaseException) -> bool:
+    """Retryable unless the exception says otherwise: an error with a
+    ``retryable`` attribute is believed; any other defaults to retryable."""
+    return bool(getattr(exc, "retryable", True))
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Immutable retry schedule: ``call(fn)`` runs ``fn`` up to
+    ``max_attempts`` times, sleeping a jittered exponential backoff between
+    attempts, never past ``deadline_secs`` of projected total time (None:
+    no deadline).  The last error propagates; an error ``classify`` calls
+    not retryable propagates at once."""
+
+    max_attempts: int = 4
+    base_delay_secs: float = 0.1
+    max_delay_secs: float = 5.0
+    deadline_secs: float | None = None
+    # "full" = uniform(0, cap): decorrelates hot-path retries; "equal" =
+    # uniform(cap/2, cap): keeps a floor, for crash-loop supervisors whose
+    # resource under pressure needs an actual rest
+    jitter: str = "full"
+    clock: Callable[[], float] = time.monotonic
+    sleep: Callable[[float], None] = time.sleep
+    rng: random.Random = field(default_factory=random.Random)
+
+    def backoff_cap(self, attempt: int) -> float:
+        """Upper bound of the jittered delay after failed attempt N (1-based)."""
+        return min(self.max_delay_secs, self.base_delay_secs * (2.0 ** (attempt - 1)))
+
+    def _draw_delay(self, attempt: int) -> float:
+        cap = self.backoff_cap(attempt)
+        lo = cap / 2.0 if self.jitter == "equal" else 0.0
+        return self.rng.uniform(lo, cap)
+
+    def call(self, fn: Callable[[], T], *,
+             classify: Callable[[BaseException], bool] = _default_classify,
+             on_retry: Callable[[int, BaseException, float], None] | None = None) -> T:
+        start = self.clock()
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except Exception as e:
+                attempt += 1
+                if not classify(e) or attempt >= self.max_attempts:
+                    raise
+                delay = self._draw_delay(attempt)
+                if (self.deadline_secs is not None
+                        and (self.clock() - start) + delay > self.deadline_secs):
+                    raise
+                if on_retry is not None:
+                    on_retry(attempt, e, delay)
+                if delay > 0:
+                    self.sleep(delay)
+
+
+def run_with_restarts(
+    fn: Callable[[], T],
+    *,
+    max_restarts: int = 5,
+    policy: RetryPolicy | None = None,
+    should_restart: Callable[[BaseException], bool] | None = None,
+    on_restart: Callable[[int, BaseException, float], None] | None = None,
+) -> T:
+    """Crash-loop supervisor: run ``fn`` to completion, restarting it after
+    each failure (at most ``max_restarts`` times) with the ``policy``'s
+    backoff, equal jitter by default.  The last error propagates;
+    ``should_restart`` returning False propagates it at once;
+    ``on_restart(attempt, error, delay_secs)`` observes each restart.  A
+    ``BaseException`` that is not an ``Exception`` (KeyboardInterrupt,
+    SystemExit) always propagates."""
+    policy = policy or RetryPolicy(max_attempts=max_restarts + 1, base_delay_secs=0.5,
+                                   max_delay_secs=30.0, jitter="equal")
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except Exception as e:
+            attempt += 1
+            if should_restart is not None and not should_restart(e):
+                raise
+            if attempt > max_restarts:
+                raise
+            delay = policy._draw_delay(attempt)
+            if on_restart is not None:
+                on_restart(attempt, e, delay)
+            if delay > 0:
+                policy.sleep(delay)
 
 
 class CircuitOpenError(RuntimeError):

@@ -187,23 +187,53 @@ SERVE_FIELDS = {"serve_port": 9001, "serve_host": "0.0.0.0", "serve_item_corpus"
                 "serve_workers": 1, "serve_buckets": "4,16", "serve_max_wait_ms": 0.5,
                 "serve_reload_url": "/pub", "serve_reload_interval_secs": 0.3,
                 "serve_groups": 0}
+POOL_FIELDS = {"serve_group_data_parallel": 2, "serve_group_model_parallel": 2,
+               "serve_router_port": 8600, "serve_retry_limit": 3,
+               "serve_health_interval_secs": 0.5, "serve_eject_after": 4}
 
 
-def test_the_serve_task_fields_are_carried_and_the_pools_raise():
-    """The single-process run.serve_* fields are the port's own (the serve
-    task reads them); the pools' fields stay JAX-only, and the serve task
-    refuses serve_workers > 1 and serve_groups > 0, naming ROADMAP A14."""
+def test_the_serve_task_fields_are_carried_and_the_pools_raise(monkeypatch):
+    """The run.serve_* fields, the shard-group pool's included, are the
+    port's own and load at JAX's values.  The serve task takes both pools
+    (serve_workers > 1: serve/server.py serve_pool; serve_groups > 0: the
+    pool's main with JAX's argv, --device added), and a fleet.tenants
+    value raises naming ROADMAP A18."""
+    import deepfm_tpu.serve.pool.__main__ as jax_pool_main
+    import deepfm_tpu.serve.server as jax_server
+    from deepfm_tpu.train.loop import run_task as jax_run_task
+    from deepfm_tpu_torch.serve import server
+    from deepfm_tpu_torch.serve.pool import __main__ as pool_main
     from deepfm_tpu_torch.train.loop import run_serve
 
-    assert not set(SERVE_FIELDS) & set(JAX_ONLY_FIELDS["run"])
-    assert {"serve_group_data_parallel", "serve_router_port"} <= set(JAX_ONLY_FIELDS["run"])
+    assert not (set(SERVE_FIELDS) | set(POOL_FIELDS)) & set(JAX_ONLY_FIELDS["run"])
     d = JaxConfig().to_dict()
-    d["run"].update(SERVE_FIELDS)
+    d["run"].update(SERVE_FIELDS, **POOL_FIELDS)
     cfg = Config.from_dict(json.loads(json.dumps(d)))
     assert {k: getattr(cfg.run, k) for k in SERVE_FIELDS} == SERVE_FIELDS
-    for pool in ({"serve_workers": 2}, {"serve_groups": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            run_serve(cfg.with_overrides(run=pool), device="cpu")
+    assert {k: getattr(cfg.run, k) for k in POOL_FIELDS} == POOL_FIELDS
+    seen = {}
+    monkeypatch.setattr(server, "serve_pool", lambda d, **kw: seen.update(pool=(d, kw)))
+    monkeypatch.setattr(pool_main, "main", lambda argv: seen.update(groups=argv))
+    monkeypatch.setattr(jax_pool_main, "main", lambda argv: seen.update(jax_groups=argv))
+    monkeypatch.setattr(jax_server, "serve_pool", lambda d, **kw: seen.update(jax_pool=kw))
+    run_serve(cfg.with_overrides(run={"serve_workers": 2}), device="cpu")
+    assert seen["pool"][0] == cfg.run.servable_model_dir
+    assert seen["pool"][1]["workers"] == 2 and seen["pool"][1]["device"] == "cpu"
+    assert seen["pool"][1]["reload_url"] == "/pub" and seen["pool"][1]["buckets"] == "4,16"
+    groups = {"serve_groups": 2, "task_type": "serve"}
+    run_serve(cfg.with_overrides(run=groups), device="cpu")
+    jcfg = JaxConfig.from_dict(d).with_overrides(run=groups)
+    jax_run_task(jcfg)
+    assert _without_device(seen["groups"]) == seen["jax_groups"]
+    assert "--reload-url" in seen["jax_groups"] and "--device" not in seen["jax_groups"]
+    d["fleet"]["tenants"] = [{"name": "exp", "source": "/pub"}]
+    with pytest.raises(ValueError, match="fleet.tenants.*A18"):
+        Config.from_dict(json.loads(json.dumps(d)))
+
+
+def _without_device(argv: list[str]) -> list[str]:
+    i = argv.index("--device")
+    return argv[:i] + argv[i + 2:]
 
 
 ONLINE_FIELDS = {"run": {"online_publish_every_steps": 8, "online_max_batches": 3,

@@ -1105,3 +1105,71 @@ def test_the_sharded_retrieve_graph_equals_the_eager_retrieve(device, mode):
     want, _ = graphs.eager(0, ids, vals)
     np.testing.assert_array_equal(pack[:, 0], want[:, 0])
     np.testing.assert_allclose(pack[:, 1:], want[:, 1:], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,mp,exchange", [(1, 2, "psum"), (1, 2, "alltoall"),
+                                            (2, 2, "alltoall"), (2, 4, "psum")])
+def test_a_members_graphs_equal_the_single_process_graphs(device, tmp_path, dp, mp, exchange):
+    """A pool member's row-sharded predict (serve/pool/sharded.py), one
+    graph a slot and bucket with B1 a data slice, equals the
+    single-process graphed predict bit for bit at every bucket, on a batch
+    that overflows the all-to-all (the psum fallback, a device select)
+    too; a slot load captures nothing."""
+    import numpy as np
+
+    from deepfm_tpu_torch.serve.export import export_servable
+    from deepfm_tpu_torch.serve.graphs import GraphedPredictor
+    from deepfm_tpu_torch.serve.pool.sharded import (MEMBER_SLOTS, load_sharded_servable,
+                                                     stage_sharded_payload)
+
+    state = _serve_state(0)
+    servable = export_servable(_serve_cfg(), state, tmp_path / "s")
+    single = GraphedPredictor(_serve_cfg(), state, device=device, buckets=SERVE_BUCKETS)
+    single.precompile()
+    _, pred, _, ctx = load_sharded_servable(servable, dp, mp, device=device,
+                                            exchange=exchange, buckets=SERVE_BUCKETS)
+    pred.precompile()
+    assert pred.graph_count == MEMBER_SLOTS * len(SERVE_BUCKETS)
+    assert pred.kernel_launches_per_replay == dp
+    for b in SERVE_BUCKETS:
+        ids, vals = _serve_rows(b, seed=b)
+        np.testing.assert_array_equal(pred.predict_with(0, ids, vals),
+                                      single.predict_with(0, ids, vals))
+    b = SERVE_BUCKETS[-1]
+    skewed = (np.arange(b * 39) % ctx.rows_local).reshape(b, 39)
+    vals = np.ones((b, 39), np.float32)
+    np.testing.assert_array_equal(pred.predict_with(0, skewed, vals),
+                                  single.predict_with(0, skewed, vals))
+    captured = fused_ctr.captured
+    pred.load_slot(2, stage_sharded_payload(ctx, _serve_state(1)))
+    assert fused_ctr.captured == captured
+    assert not np.array_equal(pred.predict_with(2, ids, vals), pred.predict_with(0, ids, vals))
+
+
+@pytest.mark.cuda
+def test_the_degraded_retrieve_graph_equals_its_eager_stages(device):
+    """The funnel's third graph, the retrieve at the degraded oversample,
+    captured at boot beside the full one: a degraded dispatch replays it
+    (B2 at K·os_d), captures nothing and equals the degraded stages run
+    eagerly."""
+    import numpy as np
+
+    from deepfm_tpu_torch.funnel import make_funnel_context
+    from deepfm_tpu_torch.funnel.graphs import FunnelGraphs
+
+    rank_cfg, query_cfg, rank, query, index, cap = _funnel_parts(2)
+    ids, vals = _funnel_rows(32, 6)
+    ctx = make_funnel_context(rank_cfg, query_cfg, capacity=cap, top_k=16, return_n=8,
+                              retrieval="int8", oversample=4)
+    graphs = FunnelGraphs(ctx, rank, query, index, device=device, buckets=FUNNEL_BUCKETS,
+                          slots=3, degraded_oversample=2)
+    graphs.precompile()
+    assert graphs.graph_count == 3 * 3 * len(FUNNEL_BUCKETS)
+    before = (retrieval.captured, fused_ctr.captured)
+    for slot in range(3):
+        pack, _, _ = graphs.dispatch(slot, ids, vals, degraded=True)
+        want, _ = graphs.eager(slot, ids, vals, degraded=True)
+        np.testing.assert_array_equal(pack[:, 0], want[:, 0])
+        np.testing.assert_allclose(pack[:, 1:], want[:, 1:], rtol=0, atol=1e-6)
+    assert (retrieval.captured, fused_ctr.captured) == before

@@ -283,6 +283,29 @@ def test_stage_version_refuses_where_jax_refuses(env, scorers, tmp_path, case):
     assert scorer.holder.get() == live and scorer.versions() == (0, 0)
 
 
+def test_stage_version_slot_of_a_three_slot_scorer(env, servables, tmp_path):
+    """A three-slot scorer (a pool member's) has no single idle slot: the
+    caller names it.  A slot out of range or the live one is refused and
+    the live slot keeps serving; a named idle slot takes the version."""
+    _, pdir = servables["exact"]
+    proot = str(tmp_path / "p")
+    _publish_pair(env, str(tmp_path / "j"), proot, env["params"], env["qparams"],
+                  env["jindex"])
+    scorer = FunnelScorer(pdir, device="cpu", buckets=BUCKETS, max_wait_ms=0.0, slots=3)
+    try:
+        assert scorer.holder.get() == 0
+        stage = str(tmp_path / "stage")
+        for slot, pattern in ((None, "caller names the slot"), (-1, "out of range"),
+                              (3, "out of range"), (0, "is live")):
+            with pytest.raises(ValueError, match=pattern):
+                scorer.stage_version(proot, 1, stage, slot=slot)
+            assert scorer.holder.get() == 0
+        slot, manifest = scorer.stage_version(proot, 1, stage, slot=2)
+        assert (slot, manifest.version) == (2, 1)
+    finally:
+        scorer.close()
+
+
 def test_purge_removes_only_staged_copies(tmp_path):
     staging = tmp_path / "staging"
     for cls in (JaxFunnelScorer, FunnelScorer):
@@ -624,9 +647,42 @@ def test_serve_task_passes_reload_and_model_parallel(servables, monkeypatch):
 
 
 def test_funnel_refusals(servables):
+    """The funnel's data_parallel (the pool's row slices, ported) serves
+    each slice's rows as one slice would; the corpus and URL refusals
+    stand, and a multi-tenant funnel member is ROADMAP A18."""
+    from deepfm_tpu_torch.serve.pool.worker import GroupMember
+
     _, pdir = servables["exact"]
-    with pytest.raises(NotImplementedError, match="A14"):
-        serve_funnel(pdir, port=0, device="cpu", data_parallel=2)
+    ready = threading.Event()
+    t = threading.Thread(target=serve_funnel, args=(pdir,),
+                         kwargs=dict(port=0, device="cpu", data_parallel=2, buckets=BUCKETS,
+                                     ready=ready), daemon=True)
+    t.start()
+    assert ready.wait(60)
+    one = FunnelScorer(pdir, device="cpu", buckets=BUCKETS)
+    try:
+        rng = np.random.default_rng(5)
+        inst = [{"user_ids": rng.integers(0, USER_VOCAB, FU).tolist(), "user_vals": [1.0] * FU,
+                 "feat_ids": rng.integers(0, V_RANK, F_RANK).tolist(),
+                 "feat_vals": [1.0] * F_RANK} for _ in range(3)]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ready.port}/v1/recommend",
+            data=json.dumps({"instances": inst, "n": RETURN_N}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            doc = json.load(r)
+        want = handle_recommend(one, {"instances": inst, "n": RETURN_N})[1]
+        assert doc["items"] == want["items"]
+        np.testing.assert_allclose(doc["scores"], want["scores"], rtol=0, atol=TOL)
+        assert ready.scorer.graphs.data_parallel == 2
+    finally:
+        ready.server.shutdown()
+        t.join(timeout=30)
+        one.close()
+    with pytest.raises(ValueError, match="not divisible"):
+        FunnelScorer(pdir, device="cpu", buckets=(3, 8), data_parallel=2)
+    with pytest.raises(NotImplementedError, match="A18"):
+        GroupMember(pdir, device="cpu", buckets=BUCKETS, tenants=[{"name": "exp"}])
     with pytest.raises(ValueError, match="item-corpus"):
         serve_forever(pdir, port=0, device="cpu", item_corpus="/corpus")
     with pytest.raises(NotImplementedError, match="A6|A15"):

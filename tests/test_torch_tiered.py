@@ -289,6 +289,37 @@ class TestTiers:
         assert len(prefetches) == 3 and prefetches[0] == 48
         assert not host._pins
 
+    def test_a_fetch_never_inserts_a_row_written_back_during_it(self, tmp_path):
+        """A dirty row put, written back and evicted while another thread
+        reads its page from the cold tier: the fetch's copy of the page is
+        older than the write-back and must not come back as the row's
+        value (it used to: a lost update, and a resumed tiered run that
+        differed from an uninterrupted one)."""
+        rows, mm, vv = self._dense(256)
+        cold = ColdTier(str(tmp_path), rows=256, layout=self._layout(), page_rows=16)
+        cold.import_dense(rows, mm, vv)
+        host = HostTier(cold, capacity_rows=64)
+        read, raced = cold.read_page, []
+        fresh = np.full((1, cold.layout.width), 7.0, np.float32)
+
+        def read_page(page):
+            stale = read(page)
+            if page == 0 and not raced:
+                raced.append(True)
+                host.put_records(np.array([3]), fresh)
+                with host._cond:  # the eviction of row 3: written back, dropped
+                    i = host._idx_of.pop(3)
+                    host._flush_indices_locked(np.array([i]))
+                    host._row_at[i] = -1
+                    host._free.append(i)
+            return stale
+
+        cold.read_page = read_page
+        got = host.get_records(np.arange(8))
+        assert raced
+        np.testing.assert_array_equal(got[3], fresh[0])
+        np.testing.assert_array_equal(np.delete(got, 3, axis=0), np.delete(read(0)[:8], 3, axis=0))
+
     def test_an_object_store_root_raises(self, tmp_path):
         with pytest.raises(NotImplementedError, match="A15"):
             ColdTier("http://127.0.0.1:9/bucket/cold", rows=10, layout=self._layout())

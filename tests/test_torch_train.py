@@ -298,9 +298,26 @@ def test_cli_refuses_what_is_not_ported():
     # the online tasks are ported; the elastic publisher is not
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         run(["--task_type", "publish", "--device", "cpu"])
-    # the serve task is ported; its process and shard-group pools are not
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    # the serve task and both of its pools are ported: the CLI reaches
+    # serve_pool with run.serve_workers and the pool's main with
+    # --serve_groups; a multi-tenant fleet is not (ROADMAP A18)
+    import deepfm_tpu_torch.serve.pool.__main__ as pool_main
+    from deepfm_tpu_torch.serve import server
+
+    seen = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(server, "serve_pool", lambda d, **kw: seen.update(workers=kw["workers"]))
+        mp.setattr(pool_main, "main", lambda argv: seen.update(groups=argv))
         run(["--task_type", "serve", "--device", "cpu", "--set", "run.serve_workers=2"])
+        run(["--task_type", "serve", "--device", "cpu", "--serve_groups", "3",
+             "--serve_group_mp", "2"])
+    assert seen["workers"] == 2
+    argv = seen["groups"]
+    assert argv[argv.index("--groups") + 1] == "3" and argv[argv.index("--group-mp") + 1] == "2"
+    assert argv[argv.index("--device") + 1] == "cpu"
+    with pytest.raises(ValueError, match="fleet.tenants.*A18"):
+        run(["--task_type", "serve", "--device", "cpu", "--set",
+             'fleet.tenants=[{"name": "exp"}]'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(["--task_type", "train", "--training_data_dir", "/nonexistent"])
