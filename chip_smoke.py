@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
-run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 8, 17, 18,
-14).
+run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 19, 8, 17,
+18, 14).
 Each phase's start goes to stderr with the script's clock; a run still
 going after WATCHDOG_S prints every thread's stack there, kills the
 processes it started and exits 3.
@@ -280,6 +280,50 @@ the replays times the launches each capture recorded (``kernel_runs``):
               are the workers' and members' own, from their exit lines
               (`pool kernel runs by process`; the references and
               comparisons in this process are printed apart).
+
+19. elastic - ROADMAP A15's elastic online training at the flagship width
+              (bf16 MLP, fused_kernel "auto", dropout off, Adam 5e-4, L2
+              1e-4, a global batch of 1,024, weights from --seed) over an
+              event log of 24 segments of distinct ids, one rank process a
+              device on the one card (gloo, which the ranks pick as they
+              outnumber the cards), each the online-train task's command
+              line with elastic.enabled and the launcher's environment,
+              the coordinator and the rendezvous store in this process;
+              the log comes in three parts, the board changes while the
+              ranks tail an idle log: (a) [2, 2] -> [1, 2] after
+              step 8 (devices 2 and 3 taken off the board, their ranks
+              drain, commit and exit 0) -> [2, 2] after step 16 (two new
+              rank processes join), dense with inline publishes, then lazy:
+              the reshards' shapes, 0 table bytes moved on the shrink and
+              more on the grow, no step replayed, 24 strictly increasing
+              cursors, every manifest at the true vocabulary, B1 and B1' on
+              each epoch's first compact rows against their plain versions,
+              and the final tables and MLP within TOL_GRAD_REL of the
+              single-card step over the same batches in each epoch's grid
+              arithmetic; (b) the lazy run with elastic.publisher_split and
+              a `--task_type publish` process, which exits 0 having
+              published each version with its commit's param_hash, and a
+              commit and a publish with a stale token both refused; (c)
+              the lifecycle's dense train task with --model_dir on the
+              port's dev object store (a URL), SIGTERMed after step 12 and
+              resumed, bit for bit equal to an uninterrupted run, every
+              remote step with its marker, then a remote save and restore
+              timed; (d) the dense run's [1, 2] drain commit restored at
+              [1, 4] and [1, 1], every rank's tables and moments equal to
+              the commit's rows at its window and its device memory rise
+              within its shard state + 1 MiB; (e) the dense config at
+              [2, 2] under a 10 s lease, ranks 2 and 3 SIGKILLed 4 steps
+              past the step-8 commit with the board unchanged: their
+              leases expire, the survivors' agreement fails, the
+              coordinator opens [1, 2] without their devices and the
+              survivors replay the 4 steps once (lineage, reshard and the
+              single-card reference on that lineage).  Its `elastic` line
+              holds the card, the reshard seconds, drain-commit and group
+              re-form ms, the host ms a step at [2, 2] and [1, 2], the
+              publisher's lag, (e)'s seconds from the kill to the new
+              epoch, the remote save and restore ms and the phase's
+              seconds; the ranks' B1 and B1' runs (main path only) are in
+              the kernels line.
 
 The script prints its total seconds; the last three lines of standard
 output are the kernels' JSON line, the card's name and power limit, and
@@ -4480,7 +4524,7 @@ class _Cli:
             with self._cond:
                 self.lines.append(rec)
                 self._cond.notify_all()
-            if rec["kind"] != "train":
+            if rec["kind"] not in ("train", "rank_step"):
                 print(f"{self.name}: {line.strip()}")
         with self._cond:
             self._cond.notify_all()
@@ -5267,6 +5311,770 @@ def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict
     return out
 
 
+# the elastic phase: ELASTIC_SEGMENTS segments of LIFE_BATCH records
+# (online_records: each segment's ids distinct), four rank processes on
+# the card in a gloo group at [2, 2]; after ELASTIC_SHRINK steps devices 2
+# and 3 leave the board (-> [1, 2]), after ELASTIC_GROW two new rank
+# processes join (-> [2, 2]).  Commits every ELASTIC_EVERY steps.  The
+# script writes the log in three parts and changes the board only while
+# the ranks tail an idle log, so each change lands after its step
+ELASTIC_SEGMENTS, ELASTIC_SHRINK, ELASTIC_GROW, ELASTIC_EVERY = 24, 8, 16, 8
+ELASTIC_IDS = (0, 1, 2, 3, 4, 5)
+ELASTIC_JOINERS = (4, 5)
+ELASTIC_TIMEOUT_S = 300
+# (e): ranks 2 and 3 are killed ELASTIC_KILL_TAIL steps after the commit at
+# ELASTIC_SHRINK, under a lease TTL of ELASTIC_KILL_TTL_S
+ELASTIC_KILL_TAIL, ELASTIC_KILL_TTL_S = 4, 10.0
+
+
+def elastic_doc(seed: int, root: str, coord_url: str, lazy: bool, split: bool) -> dict:
+    """The phase's config: the flagship width (bf16 MLP 256/128/64,
+    fused_kernel "auto", dropout off, L2 1e-4), Adam 5e-4, a global batch
+    of LIFE_BATCH, prefer_model_parallel 2, under the coordinator, tailing
+    its log until SIGTERM."""
+    from deepfm_tpu_torch.launch.cli import resolve_config
+
+    model = resolve_config(list(LIFE_ARGS))[0].to_dict()["model"]
+    return {"model": {**model, "feature_size": LIFE_VOCAB, "fused_kernel": "auto",
+                      "dropout_keep": [1.0] * len(model["deep_layers"]), "l2_reg": 1e-4},
+            "optimizer": {"learning_rate": 5e-4, "lazy_embedding_updates": lazy},
+            "data": {"training_data_dir": os.path.join(root, "stream"),
+                     "batch_size": LIFE_BATCH},
+            "run": {"model_dir": os.path.join(root, "ckpt"),
+                    "servable_model_dir": os.path.join(root, "publish"),
+                    "checkpoint_every_steps": ELASTIC_EVERY,
+                    "online_publish_every_steps": ELASTIC_EVERY, "keep_checkpoints": 10,
+                    "online_idle_timeout_secs": 0.0, "seed": seed, "log_steps": 1000},
+            "elastic": {"enabled": True, "prefer_model_parallel": 2,
+                        "coordinator_url": coord_url, "lease_ttl_secs": 240.0,
+                        "heartbeat_interval_secs": 0.5, "registry_debounce_polls": 1,
+                        "poll_interval_secs": 0.05, "publisher_split": split,
+                        "publish_poll_secs": 0.1}}
+
+
+def elastic_cli_rank(out: str, release: str, argv: list[str]) -> int:
+    """One rank process of the elastic phase, started as ``python -m
+    chip_smoke --elastic-rank OUT RELEASE ARGV`` with its own HOME and
+    TMPDIR and the launcher's environment (MASTER_ADDR/MASTER_PORT,
+    ELASTIC_DEVICE_ID): once the file ``release`` exists ("-": at once) it
+    runs ``python -m deepfm_tpu_torch ARGV`` (the online-train task with
+    elastic.enabled, run_elastic_train) in this process, its interpreter,
+    package and card already up (a warm standby), with two instruments: at
+    this rank's first step of each epoch, B1 and B1' on that step's compact
+    rows against their plain versions (launches not counted), a
+    ``rank_step`` line once each step returned, and, at exit, the kernel
+    counts and the trainer's record written to ``out``.  Returns the
+    task's exit code."""
+    import runpy
+    import traceback
+
+    from deepfm_tpu_torch.elastic import controller
+    from deepfm_tpu_torch.launch import cli  # noqa: F401  (imported before the release)
+    from deepfm_tpu_torch.parallel import spmd
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        torch.zeros(1, device=DEVICE)
+    torch.set_num_threads(2)
+    while release != "-" and not os.path.exists(release):
+        time.sleep(0.02)
+    device_id = int(os.environ["ELASTIC_DEVICE_ID"])
+    trainers, steps, checked, kernel_err, check_runs = [], [], set(), [], [0, 0]
+    run, train_step = controller.ElasticTrainer.run, spmd.train_step
+
+    def recorded_run(self, *args, **kwargs):
+        trainers.append(self)
+        state = run(self, *args, **kwargs)
+        steps.append(int(state.step))
+        return state
+
+    def checked_step(state, batch, ctx):
+        epoch = int(trainers[-1]._m_epoch.value)
+        if epoch not in checked:  # every rank's first step of the epoch
+            checked.add(epoch)
+            before = kernel_runs()
+            with torch.no_grad():
+                ids, vals = state.model.prepare(batch["feat_ids"], batch["feat_vals"])
+                w_c, v_c, slot = compact_rows(state, ids)
+            kernel_err.append(compact_kernel_errors(w_c, v_c, slot, vals, seed=device_id))
+            after = kernel_runs()
+            check_runs[0] += after[0] - before[0]
+            check_runs[1] += after[1] - before[1]
+        metrics = train_step(state, batch, ctx)
+        print(json.dumps({"kind": "rank_step", "step": int(state.step)}), flush=True)
+        return metrics
+
+    controller.ElasticTrainer.run = recorded_run
+    spmd.train_step = checked_step
+    reset_kernel_counts()
+    sys.argv = ["deepfm_tpu_torch", *argv]
+    code, result = 1, {"device_id": device_id, "error": None}
+    try:
+        runpy.run_module("deepfm_tpu_torch", run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    except BaseException as e:  # reported by the parent
+        result["error"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
+    if code and result["error"] is None:
+        result["error"] = f"exit code {code}"
+    runs = kernel_runs()
+    result.update(launches=runs[0] - check_runs[0], backward_launches=runs[1] - check_runs[1],
+                  kernel_err=kernel_err)
+    if trainers:
+        t = trainers[-1]
+        result.update(
+            step=steps[-1] if steps else None, reshards=t.reshards, left=t.left,
+            lineage=[tuple(c) for c in t.cursor_lineage],
+            lifecycle=[e["kind"] for e in t.lifecycle],
+            step_ms={k: float(np.median(v)) for k, v in t.step_ms.items()},
+            drain_commit_ms=t.drain_commit_ms, reform_ms=t.reform_ms,
+            metrics=t.metrics_snapshot())
+    torch.save(result, out)
+    return code
+
+
+def elastic_reference(cfg, init: dict, batches: list, dps: list, mp: int, lazy: bool):
+    """:func:`sharded_reference` over a run whose data-parallel size
+    changes between steps (``dps[i]`` for step i): the single-card step on
+    the same global batches from the same weights, in each step's grid
+    arithmetic.  Returns the final state_dict."""
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.train.step import (apply_dense, create_train_state, dense_grads,
+                                             train_step)
+
+    one = create_train_state(spmd.sharded_model_config(cfg, mp), DEVICE)
+    one.model.load_state_dict(init)
+    head = one.model.head
+    for b, dp in zip(batches, dps):
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+        n = batch["label"].shape[0] // dp
+        if lazy:
+            one.model.head = lambda emb, y_w, y_v, dp=dp, n=n: torch.cat(
+                [head(emb[i * n:(i + 1) * n], y_w[i * n:(i + 1) * n], y_v[i * n:(i + 1) * n])
+                 for i in range(dp)])
+            train_step(one, batch)
+            continue
+        total = None
+        for d in range(dp):
+            grads, _ = dense_grads(one, {k: v[d * n:(d + 1) * n] for k, v in batch.items()})
+            for k in ("fm_w", "fm_v"):
+                grads[k] = grads[k] * mp
+            total = grads if total is None else {k: total[k] + g for k, g in grads.items()}
+        apply_dense(one, {k: g / dp for k, g in total.items()})
+    return {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+
+
+class _ElasticJob:
+    """An elastic job's services in this process (the rendezvous TCPStore,
+    the coordinator over HTTP with lease TTL ``ttl``, the device board
+    listing ``ids``) and its rank processes: ``python -m chip_smoke
+    --elastic-rank`` (:func:`elastic_cli_rank`) with the online-train
+    task's argv and the launcher's environment."""
+
+    def __init__(self, root: str, ids, doc_fn, ttl: float = 240.0):
+        import datetime
+
+        import torch.distributed as dist
+
+        from deepfm_tpu_torch.elastic.coord import Coordinator, serve_coordinator
+        from deepfm_tpu_torch.elastic.registry import DeviceBoard
+
+        os.makedirs(root, exist_ok=True)
+        self.root, self.stream = root, os.path.join(root, "stream")
+        self.store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                                   timeout=datetime.timedelta(seconds=120))
+        self.server, url, self.coord = serve_coordinator(Coordinator(
+            lease_ttl_secs=ttl, barrier_timeout_secs=0))
+        self.board = DeviceBoard(self.store)
+        self.board.write(ids)
+        self.doc = doc_fn(url)
+        self.config = os.path.join(root, "config.json")
+        with open(self.config, "w") as f:  # the trainers' config file, as an operator hands it
+            json.dump(self.doc, f)
+        self.outs = {i: os.path.join(root, f"rank{i}.pt") for i in ELASTIC_IDS}
+        self.ranks: dict[int, _Cli] = {}
+        self.others: list[_Cli] = []
+
+    def start(self, i: int, release: str = "-") -> None:
+        """Start the rank of device ``i``, which waits for the file
+        ``release`` ("-": none) before it runs the task."""
+        env = {**_pool_env(self.root, f"rank{i}"), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(self.store.port), "ELASTIC_DEVICE_ID": str(i)}
+        self.ranks[i] = _Cli(f"elastic rank {i}", [
+            "--elastic-rank", self.outs[i], release, "--config", self.config, "--task_type",
+            "online-train", "--device", DEVICE], self.root, module="chip_smoke", env=env)
+
+    def feed(self, seed: int, lo: int, hi: int) -> None:
+        write_online(self.stream, (online_records(seed, s) for s in range(lo, hi)))
+
+    def wait_until(self, what: str, ready) -> None:
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        while not ready():
+            for r in self.ranks.values():
+                if r.proc.poll() not in (None, 0, -signal.SIGKILL):
+                    r.fail(f"died while the phase waited for {what}")
+            if time.monotonic() > deadline:
+                fail(f"elastic: no {what} within {ELASTIC_TIMEOUT_S} s")
+            time.sleep(0.05)
+
+    def committed(self, step: int):
+        from deepfm_tpu_torch.checkpoint import Checkpointer
+
+        return lambda: (Checkpointer(self.doc["run"]["model_dir"]).latest_step() or 0) >= step
+
+    def epoch_of(self, ids):
+        def settled():
+            c = self.coord.status()["consensus"]
+            return c["phase"] == "steady" and c["devices"] == list(ids)
+        return settled
+
+    def stop(self, ids) -> None:
+        """SIGTERM the ranks of ``ids``, each of which must then exit 0."""
+        for i in ids:
+            self.ranks[i].proc.send_signal(signal.SIGTERM)
+        for i in ids:
+            self.finish(i)
+
+    def finish(self, i: int) -> None:
+        if self.ranks[i].finish(timeout=120) != 0:
+            self.ranks[i].fail("did not exit 0")
+
+    def close(self) -> None:
+        for r in [*self.ranks.values(), *self.others]:
+            if r.proc.poll() is None:
+                r.proc.kill()
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+            self.server = None
+
+    def results(self) -> list:
+        """Each rank's record (None for a rank never started or killed)."""
+        return [torch.load(self.outs[i], weights_only=False) if os.path.exists(self.outs[i])
+                else None for i in ELASTIC_IDS]
+
+
+def elastic_run(seed: int, root: str, lazy: bool, split: bool) -> dict:
+    """One shrink-and-grow run of ELASTIC_SEGMENTS batches through the
+    online-train task's command line (and, with ``split``, the publish task
+    beside it).  The log comes in three parts; after each part the script
+    waits for its last commit, then changes the board (devices 2 and 3 off;
+    4 and 5 on, and their rank processes, started with the others, released)
+    and waits for the coordinator's new epoch before it writes the next
+    part; after the last,
+    a SIGTERM ends every rank, which must exit 0, as must ranks 2 and 3
+    after they leave.  Returns the ranks' results, the publish task's lines
+    and the seconds."""
+    job = _ElasticJob(root, [0, 1, 2, 3],
+                      lambda url: elastic_doc(seed, root, url, lazy, split))
+    publisher = None
+    t0 = time.perf_counter()
+    try:
+        if split:
+            publisher = _Cli("elastic publish", [
+                "--config", job.config, "--task_type", "publish", "--device", "cpu"], root,
+                env=_pool_env(root, "publisher"))
+            job.others.append(publisher)
+        job.feed(seed, 0, ELASTIC_SHRINK)
+        release = os.path.join(root, "release")
+        for i in ELASTIC_IDS:
+            job.start(i, release if i in ELASTIC_JOINERS else "-")
+        job.wait_until(f"commit of step {ELASTIC_SHRINK}", job.committed(ELASTIC_SHRINK))
+        job.board.remove(2, 3)
+        job.wait_until("the epoch of devices 0 and 1", job.epoch_of([0, 1]))
+        for i in (2, 3):
+            job.finish(i)
+        job.feed(seed, ELASTIC_SHRINK, ELASTIC_GROW)
+        job.wait_until(f"commit of step {ELASTIC_GROW}", job.committed(ELASTIC_GROW))
+        job.board.add(*ELASTIC_JOINERS)
+        open(release, "w").close()
+        job.wait_until("the epoch of devices 0, 1, 4 and 5", job.epoch_of([0, 1, 4, 5]))
+        job.feed(seed, ELASTIC_GROW, ELASTIC_SEGMENTS)
+        job.wait_until(f"commit of step {ELASTIC_SEGMENTS}", job.committed(ELASTIC_SEGMENTS))
+        if publisher is not None:
+            # it tails until stopped: once it has published the last
+            # commit, SIGTERM, after which it must exit 0
+            job.wait_until(f"the publish task's publish of step {ELASTIC_SEGMENTS}",
+                           lambda: any(r["step"] == ELASTIC_SEGMENTS
+                                       for r in publisher.kind("publish")))
+            publisher.proc.send_signal(signal.SIGTERM)
+            if publisher.finish(timeout=120) != 0:
+                publisher.fail("the publish task did not exit 0 after its SIGTERM")
+        job.stop((0, 1, *ELASTIC_JOINERS))
+    finally:
+        job.close()
+    seconds = time.perf_counter() - t0
+    results = job.results()
+    for i, r in zip(ELASTIC_IDS, results):
+        if r is None or r["error"] is not None:
+            fail(f"elastic: device {i}: {r and r['error']}")
+    return {"doc": job.doc, "results": results, "seconds": seconds,
+            "publisher": publisher.lines if publisher is not None else None}
+
+
+def elastic_kill_standby(seed: int, root: str) -> _ElasticJob:
+    """(e)'s job: the dense run's config with a lease TTL of
+    ELASTIC_KILL_TTL_S, its four ranks started as warm standbys (released
+    by :func:`elastic_kill`, so their start overlaps (a) and (b))."""
+    def doc_fn(url):
+        doc = elastic_doc(seed, root, url, False, False)
+        doc["elastic"]["lease_ttl_secs"] = ELASTIC_KILL_TTL_S
+        return doc
+
+    job = _ElasticJob(root, [0, 1, 2, 3], doc_fn, ttl=ELASTIC_KILL_TTL_S)
+    for i in (0, 1, 2, 3):
+        job.start(i, os.path.join(root, "release"))
+    return job
+
+
+def elastic_kill(seed: int, job: _ElasticJob) -> dict:
+    """(e) A death without notice, on the standby job at [2, 2]: after
+    ELASTIC_SHRINK committed steps and ELASTIC_KILL_TAIL more, ranks 2 and
+    3 are SIGKILLed while the board still lists them.  Their leases
+    expire, the survivors' next agreement fails, the coordinator opens
+    [1, 2] without their devices, and the survivors resume from the
+    commit, replaying the tail once: one reshard with ELASTIC_KILL_TAIL
+    steps replayed, a strictly increasing lineage of every step once, and
+    the final tables and MLP equal to the single-card reference in each
+    step's grid arithmetic on that lineage."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.elastic.mpmd import read_payload_tree
+    from deepfm_tpu_torch.online.stream import EventLogReader, open_tail
+
+    steps = ELASTIC_SHRINK + ELASTIC_KILL_TAIL
+    t0 = time.perf_counter()
+    try:
+        job.feed(seed, 0, steps)
+        open(os.path.join(job.root, "release"), "w").close()
+        for i in (0, 1, 2, 3):  # every rank's step `steps` done, so none is inside it
+            job.ranks[i].wait_for("rank_step", steps, timeout=ELASTIC_TIMEOUT_S)
+        t_kill = time.perf_counter()
+        for i in (2, 3):
+            job.ranks[i].proc.kill()
+        job.wait_until("the epoch of devices 0 and 1", job.epoch_of([0, 1]))
+        detect_s = time.perf_counter() - t_kill
+        for i in (0, 1):
+            job.ranks[i].wait_for("rank_step", 2 * steps - ELASTIC_SHRINK,
+                                  timeout=ELASTIC_TIMEOUT_S)
+        job.stop((0, 1))
+    finally:
+        job.close()
+    seconds = time.perf_counter() - t0
+    results = job.results()
+    if results[2] is not None or results[3] is not None:
+        fail("elastic kill: a killed rank wrote its record")
+    for r in results[:2]:
+        if r is None or r["error"] is not None:
+            fail(f"elastic kill: device {r and r['device_id']}: {r and r['error']}")
+        shapes = [(x["from_mesh"], x["to_mesh"], x["steps_replayed"], x["resume_step"])
+                  for x in r["reshards"]]
+        if shapes != [([2, 2], [1, 2], ELASTIC_KILL_TAIL, ELASTIC_SHRINK)] or r["step"] != steps:
+            fail(f"elastic kill: device {r['device_id']}: reshards {shapes}, step {r['step']}")
+        if not {"group_failed", "drain_commit_failed"} <= set(r["lifecycle"]):
+            fail(f"elastic kill: device {r['device_id']}: lifecycle {r['lifecycle']}")
+        lineage = r["lineage"]
+        if len(lineage) != steps or not all(a < b for a, b in zip(lineage, lineage[1:])):
+            fail(f"elastic kill: cursor lineage of {len(lineage)}: {lineage}")
+    cfg = Config.from_dict(job.doc)
+    reader = EventLogReader(open_tail(job.stream), field_size=cfg.model.field_size,
+                            batch_size=LIFE_BATCH)
+    batches = [b for b, _ in reader.batches(follow=False)]
+    init = read_payload_tree(job.doc["run"]["model_dir"], step=0)[1]["model"]
+    final = read_payload_tree(job.doc["run"]["model_dir"], step=steps)[1]["model"]
+    ref = elastic_reference(cfg, {k: v.clone() for k, v in init.items()}, batches,
+                            [2] * ELASTIC_SHRINK + [1] * ELASTIC_KILL_TAIL, 2, False)
+    rel = 0.0
+    for name, w in ref.items():
+        e, scale = float((final[name].float() - w.float()).abs().max()), float(w.abs().max())
+        if not e <= TOL_GRAD_REL * scale:
+            fail(f"elastic kill: {name} after {steps} steps: max abs err {e}, scale {scale}")
+        rel = max(rel, e / scale if scale else e)
+    r0 = results[0]
+    return {"reshard_s": r0["reshards"][0]["wall_secs"], "kill_to_epoch_s": detect_s,
+            "ttl_s": ELASTIC_KILL_TTL_S, "steps_replayed": ELASTIC_KILL_TAIL,
+            "max_rel_err": rel, "seconds": seconds,
+            "launches": sum(r["launches"] for r in results[:2]),
+            "backward_launches": sum(r["backward_launches"] for r in results[:2])}
+
+
+def check_elastic_run(run: dict, lazy: bool) -> dict:
+    """(a)'s checks on one run: the reshards, the lineage, the manifests,
+    the kernels at each epoch, and the final tables and MLP against
+    elastic_reference within TOL_GRAD_REL of each tensor's largest
+    magnitude."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.elastic.mpmd import read_payload_tree
+    from deepfm_tpu_torch.online import list_versions, read_manifest
+    from deepfm_tpu_torch.online.stream import EventLogReader, open_tail
+
+    doc, results = run["doc"], run["results"]
+    tag = "lazy" if lazy else "dense"
+    r0 = results[0]
+    shapes = [(r["from_mesh"], r["to_mesh"]) for r in r0["reshards"]]
+    if shapes != [([2, 2], [1, 2]), ([1, 2], [2, 2])]:
+        fail(f"elastic {tag}: reshards {shapes}")
+    if not (r0["reshards"][0]["moved_bytes"] == 0 < r0["reshards"][1]["moved_bytes"]) \
+            or any(r["steps_replayed"] for r in r0["reshards"]):
+        fail(f"elastic {tag}: reshards %s" % json.dumps(r0["reshards"]))
+    lineage = r0["lineage"]
+    if len(lineage) != ELASTIC_SEGMENTS or not all(a < b for a, b in zip(lineage, lineage[1:])):
+        fail(f"elastic {tag}: cursor lineage of {len(lineage)}: {lineage}")
+    if [r["left"] for r in results] != [i in (2, 3) for i in ELASTIC_IDS]:
+        fail(f"elastic {tag}: left {[r['left'] for r in results]}")
+    pub = doc["run"]["servable_model_dir"]
+    versions = list_versions(pub)
+    manifests = [read_manifest(pub, v) for v in versions]
+    if len(versions) < 2 or any(m.feature_size != LIFE_VOCAB for m in manifests):
+        fail(f"elastic {tag}: manifests {[(m.version, m.feature_size) for m in manifests]}")
+    err = {"emb": 0.0, "y_w": 0.0, "y_v": 0.0, "backward": 0.0}
+    epochs = 0
+    for r in results:
+        for e in r["kernel_err"]:
+            epochs += 1
+            (emb, _), (y_w, sw), (y_v, sv) = e["forward"]
+            if not (emb <= TOL_EMB and y_w <= TOL_YW_REL * (1.0 + sw)
+                    and y_v <= TOL_YV_REL * (1.0 + sv)):
+                fail(f"elastic {tag}: fused_ctr_forward on a rank's compact rows: {e}")
+            for b_err, scale in e["backward"]:
+                if not b_err <= TOL_GRAD_REL * scale:
+                    fail(f"elastic {tag}: fused_ctr_backward on a rank's compact rows: {e}")
+            err.update(emb=max(err["emb"], emb), y_w=max(err["y_w"], y_w),
+                       y_v=max(err["y_v"], y_v),
+                       backward=max(err["backward"], *(x for x, _ in e["backward"])))
+    if DEVICE == "cuda" and any(r["launches"] < 1 or r["backward_launches"] < 1
+                                for r in results):
+        fail(f"elastic {tag}: B1/B1' launches by rank "
+             f"{[(r['launches'], r['backward_launches']) for r in results]}")
+    cfg = Config.from_dict(doc)
+    reader = EventLogReader(open_tail(doc["data"]["training_data_dir"]),
+                            field_size=cfg.model.field_size, batch_size=LIFE_BATCH)
+    batches = [b for b, _ in reader.batches(follow=False)]
+    dps = [2] * ELASTIC_SHRINK + [1] * (ELASTIC_GROW - ELASTIC_SHRINK) \
+        + [2] * (ELASTIC_SEGMENTS - ELASTIC_GROW)
+    init = read_payload_tree(doc["run"]["model_dir"], step=0)[1]["model"]
+    final = read_payload_tree(doc["run"]["model_dir"], step=ELASTIC_SEGMENTS)[1]["model"]
+    ref = elastic_reference(cfg, {k: v.clone() for k, v in init.items()}, batches, dps, 2,
+                            lazy)
+    rel = {}
+    for name, w in ref.items():
+        e, scale = float((final[name].float() - w.float()).abs().max()), float(w.abs().max())
+        if not e <= TOL_GRAD_REL * scale:
+            fail(f"elastic {tag}: {name} after {ELASTIC_SEGMENTS} steps: max abs err {e}, "
+                 f"scale {scale}")
+        rel[name] = e / scale if scale else e
+    return {"launches": sum(r["launches"] for r in results),
+            "backward_launches": sum(r["backward_launches"] for r in results),
+            "max_rel_err": max(rel.values()), "kernel_err": err, "epochs_checked": epochs,
+            "versions": len(versions), "manifests": manifests}
+
+
+def elastic_publish_checks(run: dict) -> dict:
+    """(b): the publish task exited 0, published at least 2 versions, and
+    each published step's param_hash equals the hash of that commit read
+    here; a commit and a publish with a token under the roots' marks are
+    refused."""
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.convert import params_to_jax
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.elastic import coord
+    from deepfm_tpu_torch.elastic.mpmd import read_payload_tree, servable_from_payload
+    from deepfm_tpu_torch.online import ModelPublisher, list_versions, read_manifest
+    from deepfm_tpu_torch.online.publisher import param_tree_hash
+    from deepfm_tpu_torch.online.stream import StreamCursor
+    from deepfm_tpu_torch.online.trainer import commit_payload
+    from deepfm_tpu_torch.train.step import create_train_state
+
+    doc = run["doc"]
+    cfg = Config.from_dict(doc)
+    model_dir, pub = doc["run"]["model_dir"], doc["run"]["servable_model_dir"]
+    published = [read_manifest(pub, v) for v in list_versions(pub)]
+    if len(published) < 2:
+        fail(f"elastic publish: {len(published)} versions published")
+    for m in published:
+        _, tree = read_payload_tree(model_dir, step=m.step)
+        sd, _ = servable_from_payload(cfg, tree)
+        want = param_tree_hash(*params_to_jax(sd, cfg.model))
+        if m.param_hash != want or "fence_token" not in m.extra:
+            fail(f"elastic publish: version {m.version} (step {m.step}) hash "
+                 f"{m.param_hash[:12]}, the commit's {want[:12]}")
+    refused = {}
+    state = create_train_state(cfg, "cpu")
+    marks = {"model_dir": coord.read_fence(model_dir), "publish": coord.read_fence(pub)}
+    for root, attempt in (
+            ("model_dir", lambda: commit_payload(
+                Checkpointer(model_dir), state, StreamCursor("x", 1),
+                fence=coord.Fence(model_dir, marks["model_dir"] - 1))),
+            ("publish", lambda: ModelPublisher(pub).publish(
+                cfg, state.model.state_dict(), step=99,
+                fence=coord.Fence(pub, marks["publish"] - 1)))):
+        try:
+            attempt()
+            fail(f"elastic publish: a token under {root}'s mark {marks[root]} was not "
+                 f"refused")
+        except coord.StaleFencingTokenError:
+            refused[root] = marks[root]
+    lags = [r["lag_s"] for r in run["publisher"] if r["kind"] == "publish"]
+    return {"versions": len(published), "steps": [m.step for m in published],
+            "stale_refused_at_marks": refused, "lag_s": lags}
+
+
+def elastic_remote(seed: int, root: str, life_dir: str) -> dict:
+    """(c): the lifecycle's dense train task with ``--model_dir`` on the
+    port's dev store (a URL): SIGTERMed after LIFE_STOP, resumed, held bit
+    for bit to an uninterrupted local run; every remote step with its
+    marker; then one save of the final state to the store and one restore
+    from it into a fresh process-like staging directory, timed."""
+    from deepfm_tpu_torch.checkpoint import RemoteCheckpointer
+    from deepfm_tpu_torch.data.object_store import get_store
+    from deepfm_tpu_torch.launch.cli import resolve_config
+    from deepfm_tpu_torch.launch.preemption import PreemptedError
+    from deepfm_tpu_torch.train import loop
+    from deepfm_tpu_torch.train.step import create_train_state
+    from deepfm_tpu_torch.utils.dev_object_store import serve
+    from deepfm_tpu_torch.utils.logging import MetricLogger
+
+    server, base = serve(os.path.join(root, "store"))
+    url = f"{base}/bucket/run"
+
+    class SignalAt(MetricLogger):
+        def step(self, step, *a, **kw):
+            super().step(step, *a, **kw)
+            if step == LIFE_STOP:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def argv(model_dir: str) -> list[str]:
+        return ["--task_type", "train", "--training_data_dir", life_dir,
+                "--model_dir", model_dir, "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+                "--checkpoint_every_steps", str(LIFE_EVERY), "--set", "model.fused_kernel=auto",
+                "--set", f"run.seed={seed}", *LIFE_ARGS]
+
+    try:
+        real = loop.MetricLogger
+        loop.MetricLogger = SignalAt
+        try:
+            stopped, _, fwd, bwd = run_logged(argv(url))
+        finally:
+            loop.MetricLogger = real
+        if not isinstance(stopped, PreemptedError):
+            fail(f"elastic remote: the SIGTERM after step {LIFE_STOP} did not stop the run")
+        resumed, lines, fwd2, bwd2 = run_logged(argv(url))
+        whole, _, fwd3, bwd3 = run_logged(argv(os.path.join(root, "local")))
+        got, want = state_tensors(resumed), state_tensors(whole)
+        err = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+        if got.keys() != want.keys() or err != 0.0 or resumed.step != LIFE_STEPS \
+                or _kind(lines, "resume") != [{"kind": "resume", "step": LIFE_STOP}]:
+            fail(f"elastic remote: resumed vs uninterrupted max abs err {err}, step "
+                 f"{resumed.step}, events {_kind(lines, 'resume')}")
+        listed = get_store().list_prefix(url + "/")
+        steps = sorted(int(u.rsplit("_", 1)[-1]) for u in listed if "/_COMMIT_" in u)
+        if steps != [LIFE_EVERY, LIFE_STOP, 2 * LIFE_EVERY, LIFE_STEPS][-3:] \
+                or any(f"{url}/{s}/state.pt" not in listed for s in steps):
+            fail(f"elastic remote: committed steps {steps}")
+        timed = RemoteCheckpointer(f"{url}-timed", staging_dir=os.path.join(root, "stage1"))
+        t0 = time.perf_counter()
+        timed.save(resumed, block=True)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        timed.close()
+        fresh = create_train_state(resolve_config(argv(url))[0], DEVICE)
+        t0 = time.perf_counter()
+        RemoteCheckpointer(f"{url}-timed", staging_dir=os.path.join(root, "stage2")).restore(fresh)
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        if any(not torch.equal(a, b) for a, b in zip(state_tensors(fresh).values(),
+                                                     state_tensors(resumed).values())):
+            fail("elastic remote: the timed restore differs from the saved state")
+    finally:
+        server.shutdown()
+        server.server_close()
+    return {"resume_max_abs_err": err, "remote_steps": steps, "save_ms": save_ms,
+            "restore_ms": restore_ms, "launches": fwd + fwd2 + fwd3,
+            "backward_launches": bwd + bwd2 + bwd3}
+
+
+def elastic_restore_rank(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """(d) on a rank of a [1, world] gloo group on the card: restore the
+    [1, 2] commit into a fresh state, its device memory rise measured."""
+    import torch.distributed as dist
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        results = [elastic_restore_once(job, out) for job in jobs]
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def elastic_restore_once(job: dict, out: str) -> dict:
+    """One restore of (d) in this process (a rank of the group, or the one
+    card without one): this rank's local state after the restore, its
+    window, and the memory rise against its shard state."""
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import spmd
+    from deepfm_tpu_torch.parallel.mesh import initialize_distributed
+    from deepfm_tpu_torch.train.step import create_train_state
+
+    cfg = Config.from_dict(job["cfg"])
+    if cfg.mesh.model_parallel > 1:
+        ctx = initialize_distributed(cfg.mesh, DEVICE)
+        fresh = spmd.create_dp_train_state(cfg, ctx)
+    else:
+        fresh = create_train_state(cfg, DEVICE)
+    local = spmd.local_state(fresh)
+    shard = sum(t.numel() * t.element_size() for k, t in _flat_tensors(local).items()
+                if {"fm_w", "fm_v"} & set(k.split(".")))
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    Checkpointer(job["dir"], ctx=ctx if cfg.mesh.model_parallel > 1 else None).restore(
+        fresh, step=job["step"])
+    if cuda:
+        torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base if cuda else None
+    sh = fresh.sharding
+    return {"local": _flat_tensors(spmd.local_state(fresh), cpu=True),
+            "offset": sh.offset if sh is not None and sh.mp > 1 else 0,
+            "shard_bytes": shard, "rise": rise, "seconds": time.perf_counter() - t0}
+
+
+def _flat_tensors(tree, path: str = "", cpu: bool = False) -> dict:
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat_tensors(v, f"{path}.{k}", cpu).items()}
+    if isinstance(tree, torch.Tensor):
+        return {path: tree.detach().cpu().clone() if cpu else tree}
+    return {}
+
+
+def elastic_reshard_restore(seed: int, root: str, run: dict) -> dict:
+    """(d): the dense run's [1, 2] commit (the drain at ELASTIC_GROW)
+    restored at [1, 4] (four gloo ranks) and at [1, 1] (here): every
+    rank's tables, slots and moments equal the commit's rows at its window
+    bit for bit, and its device memory rose no more than its shard state +
+    SHARD_CKPT_SLACK_BYTES in the restore."""
+    import torch.multiprocessing as tmp
+
+    from deepfm_tpu_torch.checkpoint import reshard
+    from deepfm_tpu_torch.checkpoint.ckpt import STATE_FILE
+
+    model_dir = run["doc"]["run"]["model_dir"]
+    step_dir = os.path.join(model_dir, str(ELASTIC_GROW))
+    payload = torch.load(os.path.join(step_dir, STATE_FILE), weights_only=True, mmap=True)
+    if payload["grid"] != [1, 2]:
+        fail(f"elastic reshard restore: step {ELASTIC_GROW} was written at {payload['grid']}")
+    whole = {p: torch.cat([t for _, t in sorted(srcs, key=lambda x: x[0])])
+             for p, srcs in reshard._leaf_sources(payload, step_dir).items()}
+
+    def local_key(path: tuple) -> str:
+        """A table leaf's path in ``_flat_tensors(spmd.local_state(...))``."""
+        if path[0] == "optimizer":
+            return f".optimizer.slots.{path[1]}.{path[2]}"
+        return "." + ".".join(path)
+
+    def doc(mp: int) -> dict:
+        d = {**run["doc"], "mesh": {"data_parallel": 1, "model_parallel": mp}}
+        return {**d, "run": {**d["run"], "seed": seed + 3}}
+
+    out_dir = os.path.join(root, "restore14")
+    os.makedirs(out_dir, exist_ok=True)
+    job = {"dir": model_dir, "step": ELASTIC_GROW}
+    ctx = tmp.start_processes(elastic_restore_rank, args=(
+        4, os.path.join(root, "store14"), out_dir, [{**job, "cfg": doc(4)}]), nprocs=4,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail("elastic reshard restore: the [1, 4] ranks did not end within 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)[0]
+             for r in range(4)]
+    one = elastic_restore_once({**job, "cfg": doc(1)}, root)
+    line = {}
+    for grid, results in (("1x4", ranks), ("1x1", [one])):
+        for i, r in enumerate(results):
+            for path, rows in whole.items():
+                k = local_key(path)
+                t = r["local"][k]
+                want = torch.zeros_like(t)
+                n = max(0, min(t.shape[0], rows.shape[0] - r["offset"]))
+                want[:n] = rows[r["offset"]:r["offset"] + n]
+                if not torch.equal(t, want):
+                    fail(f"elastic reshard restore at {grid}: rank {i} {k} differs from "
+                         f"the commit's rows")
+            if DEVICE == "cuda" and r["rise"] > r["shard_bytes"] + SHARD_CKPT_SLACK_BYTES:
+                fail(f"elastic reshard restore at {grid}: rank {i}'s device memory rose "
+                     f"{r['rise']} bytes, over its shard state of {r['shard_bytes']} + "
+                     f"{SHARD_CKPT_SLACK_BYTES}")
+        line[grid] = {"rise_bytes": [r["rise"] for r in results],
+                      "shard_state_bytes": [r["shard_bytes"] for r in results],
+                      "seconds": [r["seconds"] for r in results]}
+    return line
+
+
+def phase_elastic(seed: int, workdir: str, card: str, life_dir: str) -> dict:
+    """The elastic phase (module docstring): (a) shrink and grow, dense
+    with inline publishes; (a)+(b) the same with lazy Adam and
+    ``elastic.publisher_split``, a ``--task_type publish`` process
+    publishing; (c) the train task on a URL model_dir; (d) the dense run's
+    [1, 2] commit restored at [1, 4] and [1, 1]; (e) two ranks killed
+    without notice.  One ``elastic`` line."""
+    t0 = time.perf_counter()
+    runs, checks = {}, {}
+    standby = elastic_kill_standby(seed, os.path.join(workdir, "kill"))
+    try:
+        for tag, lazy, split in (("dense", False, False), ("lazy", True, True)):
+            runs[tag] = elastic_run(seed, os.path.join(workdir, tag), lazy, split)
+            checks[tag] = check_elastic_run(runs[tag], lazy)
+        publish = elastic_publish_checks(runs["lazy"])
+        kill = elastic_kill(seed, standby)
+    finally:
+        standby.close()
+    remote = elastic_remote(seed, os.path.join(workdir, "remote"), life_dir)
+    restore = elastic_reshard_restore(seed, os.path.join(workdir, "restore"), runs["dense"])
+    seconds = time.perf_counter() - t0
+    r0 = {tag: run["results"][0] for tag, run in runs.items()}
+    line = {
+        "card": card, "grid": "[2, 2] -> [1, 2] -> [2, 2], gloo ranks on one card",
+        "reshards": {tag: [{k: r[k] for k in ("from_mesh", "to_mesh", "moved_bytes",
+                                              "kept_bytes", "steps_replayed", "wall_secs")}
+                           for r in r0[tag]["reshards"]] for tag in runs},
+        "reshard_s": {tag: [r["wall_secs"] for r in r0[tag]["reshards"]] for tag in runs},
+        "drain_commit_ms": {tag: r0[tag]["drain_commit_ms"] for tag in runs},
+        "group_reform_ms": {tag: r0[tag]["reform_ms"] for tag in runs},
+        "step_host_ms": {tag: r0[tag]["step_ms"] for tag in runs},
+        "max_rel_err_vs_single_card": {tag: checks[tag]["max_rel_err"] for tag in runs},
+        "tolerance": TOL_GRAD_REL,
+        "kernel_vs_plain_max_abs_err": {tag: checks[tag]["kernel_err"] for tag in runs},
+        "epochs_kernel_checked": {tag: checks[tag]["epochs_checked"] for tag in runs},
+        "launches": {**{tag: [checks[tag]["launches"], checks[tag]["backward_launches"]]
+                        for tag in runs}, "kill": [kill["launches"], kill["backward_launches"]]},
+        "death_without_notice": {k: v for k, v in kill.items() if "launches" not in k},
+        "publisher": publish, "remote": {k: remote[k] for k in (
+            "resume_max_abs_err", "remote_steps", "save_ms", "restore_ms")},
+        "reshard_restore": restore,
+        "run_s": {tag: run["seconds"] for tag, run in runs.items()},
+        "seconds": seconds}
+    print("elastic %s" % json.dumps(line))
+    return {"launches": sum(c["launches"] for c in checks.values()) + kill["launches"]
+            + remote["launches"],
+            "backward_launches": sum(c["backward_launches"] for c in checks.values())
+            + kill["backward_launches"] + remote["backward_launches"],
+            "max_abs_err": max(max(c["kernel_err"]["emb"], c["kernel_err"]["y_w"],
+                                   c["kernel_err"]["y_v"]) for c in checks.values()),
+            "backward_max_abs_err": max(c["kernel_err"]["backward"] for c in checks.values()),
+            "seconds": seconds}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -5336,6 +6144,9 @@ def main(argv: list[str] | None = None) -> int:
                               os.path.join(workdir, "lifecycle", "life"))
         begin("online")
         online = phase_online(args.seed, os.path.join(workdir, "online"), card)
+        begin("elastic")
+        elastic = phase_elastic(args.seed, os.path.join(workdir, "elastic"), card,
+                                os.path.join(workdir, "lifecycle", "life"))
         begin("funnel")
         funnel = phase_funnel(args.seed, os.path.join(workdir, "funnel"))
         begin("funnel_swap")
@@ -5358,11 +6169,12 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "deepfm_tpu/ops/pallas_ctr.py:133",
         "launches": (serve["launches"] + train["launches"] + lazy["launches"]
                      + ddp["launches"] + sharded["launches"] + life["launches"]
-                     + online["launches"] + funnel["forward_launches"]
+                     + online["launches"] + elastic["launches"] + funnel["forward_launches"]
                      + funnel["task_forward_launches"] + swap["forward_launches"]
                      + pool["forward_launches"] + prep["launches"] + tiered["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
-                           sharded["max_abs_err"], *tiered["hot_forward"]["max_abs_err"],
+                           sharded["max_abs_err"], elastic["max_abs_err"],
+                           *tiered["hot_forward"]["max_abs_err"],
                            *tiered["compact"]["forward_max_abs_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -5377,9 +6189,10 @@ def main(argv: list[str] | None = None) -> int:
         "launches": (train["backward_launches"] + lazy["backward_launches"]
                      + ddp["backward_launches"] + sharded["backward_launches"]
                      + life["backward_launches"] + online["backward_launches"]
+                     + elastic["backward_launches"]
                      + prep["backward_launches"] + tiered["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"],
-                           sharded["backward_max_abs_err"],
+                           sharded["backward_max_abs_err"], elastic["backward_max_abs_err"],
                            *tiered["compact"]["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -5411,4 +6224,6 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-rank"]:  # a rank process of the elastic phase
+        sys.exit(elastic_cli_rank(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

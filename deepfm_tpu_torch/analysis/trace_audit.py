@@ -57,6 +57,15 @@ eager step and the CPU path of the graphed step are one function); the
 capture contracts run on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  :func:`run_trace_audit` returns every finding.
 
+* **the elastic reshard** (JAX ``audit_elastic``, as far as it applies):
+  on every audited move the plan stays under the gather-to-one-place
+  bytes and a same-width shrink plans zero table bytes
+  (``trace-collective``); a restore at another ``model_parallel`` copies
+  no table slice of more rows than the rank's new window out of the
+  checkpoint (``trace-transfer``).  JAX's no-host-round-trip clause is
+  waived: the port restores each window from the commit's memory-mapped
+  files on the host, by design.
+
 **Waived** (:data:`WAIVERS`): JAX's ``audit_spmd_exchange`` and
 ``audit_zero_update``.  The steps of a ``[data x model]`` grid and the
 data-parallel step stay eager: each reads host flags every step (the
@@ -89,7 +98,14 @@ WAIVERS = {
         "ZeroOptimizer); not captured"),
     "online_trainer": (
         "online/trainer.py steps eagerly: its loop reads the stream's cursor "
-        "and commit flags between steps"),
+        "and commit flags between steps; so does the elastic trainer "
+        "(elastic/controller.py), which also agrees four host flags with the "
+        "other ranks before every batch"),
+    "audit_elastic.host_round_trip": (
+        "the reshard restores each rank's row window from the commit's "
+        "memory-mapped row files on the host (checkpoint/reshard.py), by "
+        "design: the drain commit is the exactly-once resume point, so the "
+        "rows come from it, not device to device"),
     "audit_multitenant": (
         "a pool member serves one tenant (serve/pool/worker.py); multi-tenant "
         "members sharing one graph set are ROADMAP A18"),
@@ -647,10 +663,78 @@ def audit_control_plane(device="cpu") -> list[Finding]:
     return out
 
 
+_ELASTIC_AUDIT_MOVES = (
+    ((2, 4), (1, 4)),   # shrink, width stable: zero table bytes
+    ((1, 4), (2, 4)),   # grow back
+    ((2, 4), (4, 2)),   # width change: windows re-cut, overlap kept
+)
+
+
+def audit_elastic(device="cpu", *, planner=None) -> list[Finding]:
+    """JAX's ``audit_elastic`` as far as it applies to the port (module
+    docstring): plan minimality on every audited move, and a restore at
+    another ``model_parallel`` (one rank's context at a time, no group)
+    that copies no table slice larger than the rank's window.  ``planner``
+    replaces ``elastic.plan.plan_reshard`` (the seeded-violation tests)."""
+    from ..checkpoint import Checkpointer, reshard
+    from ..elastic.plan import Grid, plan_reshard, state_leaves
+    from ..models.deepfm import window_multiple
+    from ..parallel import spmd
+    from ..parallel.mesh import DistContext
+    from ..train.step import create_train_state
+
+    planner = planner or plan_reshard
+    cfg = audit_cfg()
+    where = "deepfm_tpu_torch/elastic/plan.py"
+    wm = window_multiple(cfg.model)
+    state = create_train_state(cfg, device)
+    out: list[Finding] = []
+    for (dp_a, mp_a), (dp_b, mp_b) in _ELASTIC_AUDIT_MOVES:
+        move = f"{dp_a}x{mp_a}->{dp_b}x{mp_b}"
+        pv = spmd.padded_vocab(cfg.model.feature_size, mp_a, wm)
+        old = Grid((dp_a, mp_a), pv, tuple(range(dp_a * mp_a)))
+        new = Grid((dp_b, mp_b), spmd.padded_vocab(cfg.model.feature_size, mp_b, wm),
+                   tuple(range(dp_b * mp_b)))
+        params = {n: ((pv,) + tuple(p.shape[1:]) if n in ("fm_w", "fm_v") else tuple(p.shape),
+                      p.element_size()) for n, p in state.model.named_parameters()}
+        plan = planner(old, new, state_leaves(params, dp=dp_a, lazy=False, zero=dp_a > 1))
+        if plan.host_round_trip or plan.moved_bytes >= plan.naive_bytes:
+            out.append(_finding(
+                "trace-collective",
+                f"elastic reshard plan {move} is not minimal-traffic: moved "
+                f"{plan.moved_bytes} bytes vs gather-to-one-place {plan.naive_bytes}",
+                hint="the planner must move only new_window - held_rows per device",
+                where=where, slug=f"elastic-{move}-plan-not-minimal"))
+        if mp_a == mp_b and dp_b < dp_a and plan.moved_bytes != 0:
+            out.append(_finding(
+                "trace-collective",
+                f"same-width shrink {move} plans {plan.moved_bytes} table bytes: the "
+                f"surviving shards already own their windows",
+                where=where, slug=f"elastic-{move}-shrink-moves-bytes"))
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save(state, block=True)
+        for mp in (2, 4):
+            for index in range(mp):
+                ctx = DistContext(mp, index, index, mp, state.model.fm_v.device,
+                                  model_parallel=mp)
+                target = spmd.create_dp_train_state(cfg, ctx)
+                Checkpointer(tmp, ctx=ctx).restore(target)
+                window = target.sharding.rows
+                big = [(leaf, n) for leaf, n in reshard.last_restore["slices"] if n > window]
+                if big:
+                    out.append(_finding(
+                        "trace-transfer",
+                        f"the restore at [1, {mp}] (model index {index}, window {window} "
+                        f"rows) copied {big} out of the checkpoint",
+                        where="deepfm_tpu_torch/checkpoint/reshard.py",
+                        slug=f"elastic-restore-1x{mp}-{index}-over-window"))
+    return out
+
+
 def run_trace_audit(device="cpu") -> list[Finding]:
     """Every contract above on ``device`` (the capture contracts only
     where it is the card); the waived ones are in :data:`WAIVERS`."""
     return (audit_train_step(device) + audit_train_step(device, lazy=True)
             + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
             + audit_group_buckets(device) + audit_sharded_predict(device)
-            + audit_control_plane(device))
+            + audit_control_plane(device) + audit_elastic(device))

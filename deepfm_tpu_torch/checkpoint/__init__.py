@@ -1,5 +1,9 @@
 """Checkpoints: counterpart of ``deepfm_tpu/checkpoint``.  A local model
-directory only; object-store directories (``checkpoint/remote.py``) and
-the cross-topology reshard (``checkpoint/reshard.py``) are ROADMAP A15."""
+directory (``ckpt.py``), an object-store URL through a staging mirror
+(``remote.py``), and the restore of a checkpoint written at another
+``model_parallel`` (``reshard.py``)."""
 
-from .ckpt import Checkpointer, make_checkpointer, maybe_clear  # noqa: F401
+from .ckpt import Checkpointer  # noqa: F401
+from .remote import RemoteCheckpointer, make_checkpointer, maybe_clear  # noqa: F401
+from .reshard import (ReshardDataLossError, restore_resharded,  # noqa: F401
+                      restore_resharded_payload)

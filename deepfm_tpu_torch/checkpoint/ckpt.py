@@ -39,15 +39,16 @@ drops a marker ``.done-<i>`` beside its row file in the step's temporary
 directory, and rank 0's writer renames the directory into place once it
 has seen every marker (it raises after ``MARKER_TIMEOUT_S`` without them).
 The step's directory is shared, so the grid runs on one host or on a
-``model_dir`` that every rank sees.  A grid checkpoint restores on a grid
-with the same ``model_parallel``; another row split is the resharding
-restore, ROADMAP A15, and raises.  A checkpoint without ``grid`` was
+``model_dir`` that every rank sees.  A checkpoint without ``grid`` was
 written at ``model_parallel`` 1; one with ``grid`` and whole tables in
 ``state.pt`` (the grid's first layout) restores too, each rank cutting out
-its rows.
+its rows.  A checkpoint of another ``model_parallel`` restores through
+the cross-topology reshard (checkpoint/reshard.py): each rank reads only
+the slices of the old row files that overlap its new window.
 
 An online commit (``online/trainer.py OnlinePayload``: the train state,
-the stream cursor and the writer's fencing token) adds one entry to the
+the stream cursor and the writer's fencing token, 0 when unfenced,
+elastic/coord.py ``Fence``) adds one entry to the
 same file, so weights and cursor land in one atomic step directory:
 
      "online": {"cursor_segment": uint8 [256], "cursor_len": int32,
@@ -98,20 +99,12 @@ MARKER = ".done-{}"
 MARKER_TIMEOUT_S = 600.0
 # the leaves an online payload adds to a train state (online/trainer.py)
 ONLINE_KEYS = ("cursor_segment", "cursor_len", "cursor_record", "fence_token")
-_A15 = ("object-store model directories are not ported yet "
-        "(ROADMAP A15, checkpoint/remote.py); give a local directory")
 _FM_V_HINT = (
     "Hint: checkpoints written with model.fused_kernel != 'off' store a "
     "window-padded fm_v (rows rounded up to a multiple of 128 // "
     "embedding_size when feature_size does not divide it); restoring under "
     "a different fused_kernel setting changes the expected shape.  Restore "
-    "with the fused_kernel value the checkpoint was trained with.  A "
-    "checkpoint of another table shape (another mesh) needs the resharding "
-    "restore, not ported yet (ROADMAP A15).")
-
-
-def _is_url(path) -> bool:
-    return "://" in os.fspath(path)
+    "with the fused_kernel value the checkpoint was trained with.")
 
 
 def _split(payload) -> tuple[TrainState, dict | None]:
@@ -181,6 +174,8 @@ class Checkpointer:
         self._error: BaseException | None = None
         # the last save's {"step", "blocking_s", "write_s", "bytes"}
         self.last_save: dict | None = None
+        # the last restore's {"step", "grid" written on, "resharded"}
+        self.last_restore: dict | None = None
 
     # -- steps on disk -------------------------------------------------------
 
@@ -199,6 +194,10 @@ class Checkpointer:
     def latest_step(self) -> int | None:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+    def step_dir(self, step: int) -> str:
+        """The directory of step ``step``."""
+        return os.path.join(self.directory, str(step))
 
     # -- save ----------------------------------------------------------------
 
@@ -227,8 +226,15 @@ class Checkpointer:
         its train step; returns whether this process wrote a file (rank 0;
         on a grid also the other ranks at data index 0; never for a step
         already on disk).  Returns once the state is on the host;
-        ``block=True`` also waits for the write.  In a data-parallel run
-        or on a grid every rank calls it."""
+        ``block=True`` also waits for the write, and in a group for rank
+        0's rename (a barrier): the step is then listed on every rank.  In
+        a data-parallel run or on a grid every rank calls it."""
+        wrote = self._save(state, block)
+        if block and self._group is not None:
+            dist.barrier(group=self._group)
+        return wrote
+
+    def _save(self, state, block: bool) -> bool:
         self.wait_until_finished()
         t0 = time.perf_counter()
         state, online = _split(state)
@@ -376,18 +382,19 @@ class Checkpointer:
                 raise ValueError(f"checkpoint {step} is a train checkpoint, not an online "
                                  f"commit: it holds no stream cursor")
         grid = payload.get("grid", [payload.get("world_size", 1), 1])
-        if grid[1] != self._grid[1]:
-            raise NotImplementedError(
-                f"checkpoint {step} was written on a [{grid[0]}, {grid[1]}] grid; "
-                f"restoring it with mesh.model_parallel={self._grid[1]} needs the "
-                f"resharding restore, not ported yet (ROADMAP A15)")
         if (payload["lazy"] is None) != (target.lazy is None):
             raise ValueError(
                 f"checkpoint {step} was written with optimizer."
                 f"lazy_embedding_updates={payload['lazy'] is not None}; restore "
                 f"it with the same setting")
+        resharded = grid[1] != self._grid[1]
+        self.last_restore = {"step": step, "grid": list(grid), "resharded": resharded}
         try:
-            if "rows" in payload:
+            if resharded:  # another row split: each rank reads its new window
+                from .reshard import load_resharded
+
+                load_resharded(target, payload, self.step_dir(step), step)
+            elif "rows" in payload:
                 rows = self._row_file(step, payload["rows"], target)
                 spmd.load_local_state(target, spmd.join_tables(payload, rows))
             else:
@@ -432,20 +439,3 @@ class Checkpointer:
     def close(self) -> None:
         self.wait_until_finished()
 
-
-def maybe_clear(directory: str | os.PathLike, enabled: bool) -> None:
-    """``clear_existing_model``: delete the model directory first."""
-    if not enabled:
-        return
-    if _is_url(directory):
-        raise NotImplementedError(f"{directory!r}: {_A15}")
-    if os.path.isdir(directory):
-        shutil.rmtree(directory)
-
-
-def make_checkpointer(directory: str | os.PathLike, **kwargs) -> Checkpointer:
-    """The checkpointer for ``directory``: a local directory gets a
-    :class:`Checkpointer`; an object-store URL raises (ROADMAP A15)."""
-    if _is_url(directory):
-        raise NotImplementedError(f"{directory!r}: {_A15}")
-    return Checkpointer(directory, **kwargs)

@@ -32,9 +32,9 @@ publisher hashes (online/publisher.py ``param_tree_hash``).
 ``online_payload_from_jax`` takes a JAX online commit
 (``deepfm_tpu/online/trainer.py OnlinePayload``: step, train, the cursor's
 padded segment bytes, length and record, fence_token) with its leaves as
-numpy and returns the port's ``(TrainState, StreamCursor)``; written with
-``online/trainer.py commit_payload``, the online trainer resumes it at the
-same cursor.
+numpy and returns the port's ``OnlinePayload`` with the same cursor and
+fencing token; written with ``online/trainer.py commit_payload``, the
+online trainer resumes it at the same cursor.
 
 ``two_tower_params_from_jax`` takes the two-tower pytree
 (``{"user_embedding", "item_embedding", "{user,item}_tower": {"layer_<i>":
@@ -374,13 +374,15 @@ def _moments(tree: Mapping, cfg: ModelConfig, what: str, names) -> dict:
 
 
 def online_payload_from_jax(payload, cfg: Config, device=None):
-    """``(TrainState, StreamCursor)`` on ``device`` (default: the card)
-    from a JAX ``OnlinePayload`` as numpy (a NamedTuple or a dict of its
-    fields): the train state through :func:`train_state_from_jax`, the
-    cursor from its fixed-width arrays."""
-    from .online.trainer import cursor_from_arrays
+    """The port's ``online/trainer.py OnlinePayload`` on ``device``
+    (default: the card) from a JAX ``OnlinePayload`` as numpy (a
+    NamedTuple or a dict of its fields): the train state through
+    :func:`train_state_from_jax`, the cursor's fixed-width arrays and the
+    writer's fencing token as they are (``.cursor()`` decodes the cursor)."""
+    from .online.trainer import OnlinePayload, cursor_from_arrays
 
     state = train_state_from_jax(_field(payload, "train", 1), cfg, device)
     cursor = cursor_from_arrays(*(_field(payload, name, i) for i, name in enumerate(
         ("cursor_segment", "cursor_len", "cursor_record"), start=2)))
-    return state, cursor
+    return OnlinePayload.wrap(state, cursor,
+                              fence_token=int(_field(payload, "fence_token", 5)))

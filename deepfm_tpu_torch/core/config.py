@@ -122,21 +122,6 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "steps_per_loop": (1, None),
         "profile_dir": ("", None),
     },
-    "elastic": {
-        "enabled": (False, "not ported yet (ROADMAP A15, elastic training)"),
-        # read only with elastic training on
-        "prefer_model_parallel": (0, None),
-        "min_devices": (1, None),
-        "poll_interval_secs": (0.25, None),
-        "wait_for_capacity_secs": (0.0, None),
-        "drain_commit": (True, None),
-        "coordinator_url": ("", None),
-        "lease_ttl_secs": (10.0, None),
-        "heartbeat_interval_secs": (1.0, None),
-        "registry_debounce_polls": (2, None),
-        "publisher_split": (False, None),
-        "publish_poll_secs": (0.5, None),
-    },
     # serving fleets, SLOs and regions: none of them changes what training
     # computes
     "fleet": {
@@ -162,7 +147,7 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
 
 
 TIERED_URL_NOT_PORTED = ("an object-store cold tier is not ported yet "
-                         "(ROADMAP A15, data/object_store.py); give a local directory")
+                         "(ROADMAP A11); give a local directory")
 
 
 def _check_tiered_fields(m) -> None:
@@ -296,7 +281,7 @@ class ModelConfig:
     # rows a cold-tier page (one read, one overlay write)
     tiered_page_rows: int = 1024
     # the cold tier's root: a local directory ("" = <model_dir>/cold); an
-    # object-store prefix is ROADMAP A15
+    # object-store prefix is ROADMAP A11
     tiered_cold_url: str = ""
 
     def __post_init__(self):
@@ -796,6 +781,114 @@ def _check_funnel(r: RunConfig, m: ModelConfig, mp: int) -> None:
 
 
 @dataclass(frozen=True)
+class ElasticConfig:
+    """Elastic online training (``deepfm_tpu_torch/elastic``), JAX's section
+    with JAX's validation: the grid's shape is a runtime variable.  A
+    device registry watches availability; on a shrink or grow every rank
+    drains its step, commits {weights, optimizer state, stream cursor},
+    re-forms its process group on the new grid, restores its row window
+    of the commit and resumes the stream exactly once
+    (elastic/controller.py)."""
+
+    # run the elastic controller instead of the fixed-mesh online trainer
+    # (task_type=online-train only; batch training keeps the stop-the-world
+    # restart path in launch/preemption.py + checkpoint/reshard.py)
+    enabled: bool = False
+    # preferred embedding row-shard width: the planner picks the LARGEST
+    # divisor of the live device count <= this (0 = mesh.model_parallel).
+    # Keeping mp stable across a shrink keeps the padded vocab — and so the
+    # published artifact shapes — identical, which keeps every post-reshard
+    # group swap at the serving pool a jit cache hit.
+    prefer_model_parallel: int = 0
+    # refuse to rebuild on fewer devices than this; wait for capacity
+    min_devices: int = 1
+    # registry poll cadence while waiting for capacity to return
+    poll_interval_secs: float = 0.25
+    # max seconds to wait for min_devices after a shrink below it
+    # (0 = wait forever — the platform owns the reschedule)
+    wait_for_capacity_secs: float = 0.0
+    # attempt a drain+commit on the OLD mesh before resharding (virtual
+    # registries and advance-notice preemptions); when the commit itself
+    # fails (devices already gone) the last periodic commit is the resume
+    # point — exactly-once either way, the failed window just replays
+    drain_commit: bool = True
+    # -- multi-host composition (elastic/coord.py) --------------------------
+    # coordination service URL ("" = single-process: no leases, no
+    # consensus, one process).  With a coordinator, every training
+    # process holds a TTL lease, heartbeats its local registry view, and
+    # reshards only through the coordinator's two-phase drain barrier;
+    # commits and publishes carry the lease's fencing token, which the
+    # checkpoint root and publish root ENFORCE (a stale-token write is
+    # refused, not just discouraged).
+    coordinator_url: str = ""
+    # lease TTL: a process that misses heartbeats for this long is expired
+    # from consensus (its devices drop out, its fencing token goes stale).
+    # Sent in the acquire request; the coordinator honors it clamped to
+    # its own --lease-ttl ceiling, and the granted value drives expiry.
+    lease_ttl_secs: float = 10.0
+    # heartbeat cadence (must leave headroom under the TTL; transitions
+    # and view changes heartbeat immediately regardless)
+    heartbeat_interval_secs: float = 1.0
+    # LiveDeviceRegistry debounce: consecutive anomalous polls required
+    # before a device-set change bumps the epoch (one transient device-
+    # query hiccup must not cost a full drain/commit/reshard cycle)
+    registry_debounce_polls: int = 2
+    # MPMD trainer/publisher split: the trainer only COMMITS payloads;
+    # a separate `--task_type publish` process tails the checkpoint root
+    # and publishes asynchronously, so a publish-store outage degrades
+    # freshness instead of stalling the train step
+    publisher_split: bool = False
+    # publisher process: cadence for polling the checkpoint root for
+    # newly committed payloads
+    publish_poll_secs: float = 0.5
+
+    def __post_init__(self):
+        if self.min_devices < 1:
+            raise ValueError(
+                f"elastic.min_devices must be >= 1, got {self.min_devices}"
+            )
+        if self.prefer_model_parallel < 0:
+            raise ValueError(
+                f"elastic.prefer_model_parallel must be >= 0 (0 = "
+                f"mesh.model_parallel), got {self.prefer_model_parallel}"
+            )
+        import math
+
+        # NaN slips through plain <= 0 checks and every downstream
+        # min/compare — a NaN TTL would mint a never-expiring lease
+        if not (self.lease_ttl_secs > 0
+                and math.isfinite(self.lease_ttl_secs)):
+            raise ValueError(
+                f"elastic.lease_ttl_secs must be finite and > 0, got "
+                f"{self.lease_ttl_secs}"
+            )
+        if not (self.heartbeat_interval_secs > 0
+                and math.isfinite(self.heartbeat_interval_secs)):
+            raise ValueError(
+                f"elastic.heartbeat_interval_secs must be finite and > 0, "
+                f"got {self.heartbeat_interval_secs}"
+            )
+        if self.heartbeat_interval_secs >= self.lease_ttl_secs / 2:
+            raise ValueError(
+                f"elastic.heartbeat_interval_secs="
+                f"{self.heartbeat_interval_secs} leaves no headroom under "
+                f"lease_ttl_secs={self.lease_ttl_secs}: one delayed "
+                f"heartbeat would expire the lease and self-fence the "
+                f"trainer — keep the interval under ttl/2"
+            )
+        if self.registry_debounce_polls < 1:
+            raise ValueError(
+                f"elastic.registry_debounce_polls must be >= 1, got "
+                f"{self.registry_debounce_polls}"
+            )
+        if self.publish_poll_secs <= 0:
+            raise ValueError(
+                f"elastic.publish_poll_secs must be > 0, got "
+                f"{self.publish_poll_secs}"
+            )
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
@@ -805,6 +898,7 @@ class Config:
     flywheel: FlywheelConfig = field(default_factory=FlywheelConfig)
     regions: RegionsConfig = field(default_factory=RegionsConfig)
     slo: SloConfig = field(default_factory=SloConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
     def __post_init__(self):
         m, mp = self.model, self.mesh.model_parallel

@@ -34,7 +34,7 @@ before the flush loses only work that replay regenerates.  So the output
 after a kill anywhere and a resume is byte-equal to an uninterrupted run's,
 and to the JAX package's join over the same input directories.
 
-Object-store roots raise (ROADMAP A6, A15).  Metrics go to a
+Object-store roots raise (ROADMAP A21).  Metrics go to a
 ``MetricsRegistry`` (obs/metrics.py), flips and stalls to the flight
 recorder (obs/flight.py).
 """
@@ -107,8 +107,9 @@ class JoinService:
         if checkpoint_every_segments <= 0:
             raise ValueError(
                 f"checkpoint_every_segments must be > 0, got {checkpoint_every_segments}")
-        self._imp_tail = open_tail(impressions_url)
-        self._click_tail = open_tail(clicks_url)
+        # the join reads and writes local directories only (ROADMAP A21)
+        self._imp_tail = open_tail(check_local_root(impressions_url))
+        self._click_tail = open_tail(check_local_root(clicks_url))
         self.output_url = check_local_root(output_url)
         self._window = float(attribution_window_secs)
         self._sample_rate = float(sample_rate)

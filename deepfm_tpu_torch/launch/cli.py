@@ -1,7 +1,7 @@
 """Launcher CLI: counterpart of ``deepfm_tpu/launch/cli.py``.
 
     python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve|\
-        online-train|feedback-train \
+        online-train|feedback-train|publish \
         --training_data_dir D --val_data_dir E --model_dir M \
         --servable_model_dir S [--test_data_dir T] \
         [--config cfg.json] [--set section.field=value ...] [--device cpu]
@@ -9,15 +9,23 @@
 A JSON config (the ``config.json`` schema), then the first-class flags and
 ``--set`` overrides, resolve one ``Config``; the task then runs on the card
 (``--device cpu`` runs the kernels' plain versions on the CPU).  The flags
-keep the JAX CLI's names for what the port supports.  Every task type but
-``publish`` (the elastic publisher, ROADMAP A15, which raises) is ported
-(train/loop.py).  ``online-train`` tails the event log in
+keep the JAX CLI's names for what the port supports.  Every task type of
+the JAX CLI is ported (train/loop.py).  ``online-train`` tails the event log in
 ``--training_data_dir``, commits {weights, cursor} into ``--model_dir`` and
 publishes versions into ``--servable_model_dir`` every
 ``run.online_publish_every_steps`` steps (online/trainer.py), until
 SIGTERM/SIGINT (a final commit and publish, exit 0),
 ``run.online_max_batches`` or ``run.online_idle_timeout_secs``; the same
-command again resumes at the committed cursor.  ``feedback-train`` runs it
+command again resumes at the committed cursor.  With
+``--set elastic.enabled=true`` it is the elastic trainer
+(elastic/controller.py): one rank process a device, each started with
+``ELASTIC_DEVICE_ID`` (its launch index), ``MASTER_ADDR``/``MASTER_PORT``
+(the rendezvous store the coordinator hosts, ``python -m
+deepfm_tpu_torch.elastic.coord --store-port``) and ``--coordinator_url``;
+it reshards live on a loss or gain of ranks.  ``publish`` (with
+``elastic.publisher_split`` on the trainers) tails ``--model_dir``'s
+commits and publishes each into ``--servable_model_dir`` under its own
+lease (elastic/mpmd.py).  ``feedback-train`` runs it
 on ``flywheel.join_output_url``, the output of ``python -m
 deepfm_tpu_torch.flywheel.join``.  ``serve`` runs
 ``serve/server.py serve_forever`` over ``--servable_model_dir`` with the
@@ -62,11 +70,7 @@ import sys
 from ..core.config import Config
 
 PORTED = ("train", "eval", "infer", "export", "serve", "online-train", "online_train",
-          "feedback-train", "feedback_train")
-# task types of the JAX CLI that the port does not run yet
-NOT_PORTED = {
-    "publish": "ROADMAP A15 (elastic trainer/publisher split)",
-}
+          "feedback-train", "feedback_train", "publish")
 
 _FLAG_MAP = {
     "task_type": ("run", "task_type"),
@@ -96,6 +100,8 @@ _FLAG_MAP = {
     "funnel_pallas": ("run", "funnel_pallas"),
     "serve_groups": ("run", "serve_groups"),
     "serve_group_mp": ("run", "serve_group_model_parallel"),
+    "coordinator_url": ("elastic", "coordinator_url"),
+    "lease_ttl_secs": ("elastic", "lease_ttl_secs"),
 }
 
 
@@ -113,7 +119,8 @@ def parse_set_pairs(pairs: list[str], sections: dict[str, dict]) -> dict:
         if "=" not in pair or "." not in pair.split("=", 1)[0]:
             raise SystemExit(
                 f"--set expects section.key=value, got {pair!r} "
-                f"(sections: model, optimizer, data, mesh, run, flywheel, regions, slo)"
+                f"(sections: model, optimizer, data, mesh, run, flywheel, regions, slo, "
+                f"elastic)"
             )
         key, value = pair.split("=", 1)
         section, name = key.split(".", 1)
@@ -127,8 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="DeepFM training and serving on NVIDIA Hopper cards (PyTorch/CUDA port)",
     )
     p.add_argument("--config", help="JSON config file (Config.to_dict schema)")
-    p.add_argument("--task_type", choices=[*PORTED, *NOT_PORTED],
-                   help="task dispatch; all but publish are ported")
+    p.add_argument("--task_type", choices=PORTED,
+                   help="task dispatch")
     p.add_argument("--training_data_dir")
     p.add_argument("--val_data_dir")
     p.add_argument("--test_data_dir", help="te*/test* records for infer")
@@ -174,6 +181,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_group_mp", type=int,
                    help="row shards inside each serve group's member, all on its card "
                         "(0 = 1)")
+    p.add_argument("--coordinator_url",
+                   help="the elastic coordinator (python -m deepfm_tpu_torch.elastic.coord): "
+                        "ranks hold TTL leases, agree on membership epochs and fence "
+                        "every commit and publish with the lease's token")
+    p.add_argument("--lease_ttl_secs", type=float,
+                   help="the coordination lease TTL requested at acquire (clamped to "
+                        "the coordinator's --lease-ttl)")
     p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
                    help="override any config field, e.g. --set model.batch_norm=true")
     p.add_argument("--device", default="cuda",
@@ -203,10 +217,6 @@ def resolve_config(argv: list[str] | None = None) -> tuple[Config, argparse.Name
 def run_task(cfg: Config, *, device=None):
     """Run ``cfg.run.task_type`` once; returns what the task returns (the
     train state for ``train``)."""
-    task = cfg.run.task_type
-    if task in NOT_PORTED:
-        raise NotImplementedError(f"task_type={task!r} is not ported yet: "
-                                  f"{NOT_PORTED[task]}")
     from ..train.loop import run_task as run_loop_task
 
     return run_loop_task(cfg, device=device)

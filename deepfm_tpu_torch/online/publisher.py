@@ -1,12 +1,13 @@
 """Versioned model manifests with marker-last publish: the port's copy of
-``deepfm_tpu/online/publisher.py`` for local publish roots.
+``deepfm_tpu/online/publisher.py``.
 
 Each version is a complete servable under ``versions/<v>/`` and a
-``MANIFEST-<v>.json`` written last (a temporary file renamed into place),
-so a reader that lists manifests and takes the largest version always
-finds a whole artifact.  A version tree here is a port servable
-(``config.json`` + ``params.npz``, serve/export.py); the manifests are
-the JAX package's, byte for byte:
+``MANIFEST-<v>.json`` written last (a temporary file renamed into place on
+a local root; on an object-store URL the tree is uploaded, then the
+manifest PUT), so a reader that lists manifests and takes the largest
+version always finds a whole artifact.  A version tree here is a port
+servable (``config.json`` + ``params.npz``, serve/export.py); the
+manifests are the JAX package's, byte for byte:
 
     {version, step, param_hash, field_size, feature_size, model_name,
      created_unix, cursor, watermark, extra, index}
@@ -22,10 +23,16 @@ port converts with ``convert.params_from_jax``).
 Retention keeps the newest ``max(keep, keep_window)`` versions, deleting
 manifest first, so a half-deleted version is invisible; ``keep_window``
 (``regions.publish_keep_window``) widens it so that a reader catching up
-still finds the versions it is behind by.  Object-store roots (a URL) raise:
-ROADMAP A6 and A15.  :meth:`ModelPublisher.publish_tiered` publishes a
-tiered model (a consistent cold-tier snapshot in the manifest's
-``extra["tiered"]``); the publisher's fence is ROADMAP A15.
+still finds the versions it is behind by.  ``publish(..., fence=)``
+refuses a writer whose fencing token is stale for the root
+(elastic/coord.py ``Fence``), records the token in the manifest's
+``extra["fence_token"]`` and advances the root's mark.  The publish
+task's publisher runs :meth:`ModelPublisher.clean_orphans` at start.
+:meth:`ModelPublisher.publish_tiered` publishes a tiered model (a
+consistent cold-tier snapshot in the manifest's ``extra["tiered"]``).
+The readers here take URL roots; the serving side's reloaders
+(serve/reload.py, funnel/serve.py, serve/pool/swap.py) and the flywheel's
+join still refuse them (:func:`check_local_root`, ROADMAP A21).
 """
 
 from __future__ import annotations
@@ -41,6 +48,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..data.object_store import ObjectStoreError, get_store, is_url, join_url
+from ..utils.retry import RetryPolicy
+
 _MANIFEST = "MANIFEST-"
 _VERSIONS = "versions"
 
@@ -50,11 +60,12 @@ def _version_name(version: int) -> str:
 
 
 def check_local_root(root: str) -> str:
-    """``root`` if it is a local directory path; a URL raises."""
+    """``root`` if it is a local directory path; a URL raises: the roots
+    of the tasks that still read local directories only (ROADMAP A21)."""
     if "://" in str(root):
         raise NotImplementedError(
-            f"{root!r}: object-store roots are not ported yet "
-            f"(ROADMAP A6, A15); give a local directory")
+            f"{root!r}: object-store roots of this task are not ported yet "
+            f"(ROADMAP A21); give a local directory")
     return str(root)
 
 
@@ -123,13 +134,18 @@ class Manifest:
 # -- read side (serve/reload.py) --------------------------------------------
 
 def list_versions(root: str) -> list[int]:
-    """Committed (manifest-bearing) versions under ``root``, ascending.
-    A ``versions/<v>/`` tree without its manifest is invisible."""
-    check_local_root(root)
-    if not os.path.isdir(root):
+    """Committed (manifest-bearing) versions under ``root`` (a directory or
+    an object-store URL), ascending.  A ``versions/<v>/`` tree without its
+    manifest is invisible."""
+    if is_url(root):
+        base = root.rstrip("/") + "/"
+        names = [u[len(base):] for u in get_store().list_prefix(base)]
+    elif os.path.isdir(root):
+        names = os.listdir(root)
+    else:
         return []
     versions = []
-    for name in os.listdir(root):
+    for name in names:
         if name.startswith(_MANIFEST) and name.endswith(".json"):
             try:
                 versions.append(int(name[len(_MANIFEST):-len(".json")]))
@@ -139,15 +155,21 @@ def list_versions(root: str) -> list[int]:
 
 
 def _manifest_path(root: str, version: int) -> str:
-    return os.path.join(root, f"{_MANIFEST}{_version_name(version)}.json")
+    name = f"{_MANIFEST}{_version_name(version)}.json"
+    return join_url(root, name) if is_url(root) else os.path.join(root, name)
 
 
 def version_location(root: str, version: int) -> str:
-    return os.path.join(check_local_root(root), _VERSIONS, _version_name(version))
+    if is_url(root):
+        return join_url(root, _VERSIONS, _version_name(version))
+    return os.path.join(root, _VERSIONS, _version_name(version))
 
 
 def read_manifest(root: str, version: int) -> Manifest:
-    with open(_manifest_path(check_local_root(root), version)) as f:
+    path = _manifest_path(root, version)
+    if is_url(root):
+        return Manifest.from_json(get_store().get(path).decode())
+    with open(path) as f:
         return Manifest.from_json(f.read())
 
 
@@ -158,9 +180,18 @@ def latest_manifest(root: str) -> Manifest | None:
 
 def fetch_version(root: str, version: int, staging_dir: str) -> str:
     """Version ``version``'s servable directory, readable locally: a local
-    root's version is read in place (``staging_dir`` is where a remote
-    version would be downloaded, ROADMAP A6/A15)."""
-    return version_location(root, version)
+    root's in place, a URL root's downloaded into
+    ``staging_dir/<version>`` (once)."""
+    loc = version_location(root, version)
+    if not is_url(root):
+        return loc
+    dest = os.path.join(staging_dir, _version_name(version))
+    if not os.path.isdir(dest):
+        tmp = dest + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        get_store().download_tree(loc, tmp)
+        os.replace(tmp, dest)
+    return dest
 
 
 def resolve_version(root: str, version: int, staging_dir: str) -> tuple[Manifest, str]:
@@ -176,17 +207,23 @@ def resolve_version(root: str, version: int, staging_dir: str) -> tuple[Manifest
 # -- write side --------------------------------------------------------------
 
 class ModelPublisher:
-    """Single-writer publisher of versioned port servables under a local
-    ``root``, keeping the newest ``max(keep, keep_window)`` versions."""
+    """Single-writer publisher of versioned port servables under ``root``
+    (a directory or an object-store URL), keeping the newest
+    ``max(keep, keep_window)`` versions.  A URL root's uploads run under
+    ``retry`` (JAX's default: 3 attempts)."""
 
-    def __init__(self, root: str, *, keep: int = 3, keep_window: int = 0):
+    def __init__(self, root: str, *, keep: int = 3, keep_window: int = 0,
+                 retry: RetryPolicy | None = None):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         if keep_window < 0:
             raise ValueError(f"keep_window must be >= 0, got {keep_window}")
-        self.root = check_local_root(root)
+        self.root = root.rstrip("/") if is_url(root) else str(root)
         self._keep = max(keep, keep_window)
-        os.makedirs(self.root, exist_ok=True)
+        self._retry = retry or RetryPolicy(max_attempts=3, base_delay_secs=0.2,
+                                           max_delay_secs=2.0)
+        if not is_url(self.root):
+            os.makedirs(self.root, exist_ok=True)
 
     def next_version(self) -> int:
         versions = list_versions(self.root)
@@ -194,15 +231,22 @@ class ModelPublisher:
 
     def publish(self, cfg, state_dict: dict, *, step: int = 0,
                 cursor: dict | None = None, watermark: float = 0.0,
-                extra: dict | None = None) -> Manifest:
+                extra: dict | None = None, fence=None) -> Manifest:
         """Write ``state_dict`` (a DeepFM's, for ``cfg``: a port ``Config``
         or its ``ModelConfig``) as the next version's servable, then its
         manifest last.  A crash before the manifest leaves an invisible
-        partial tree, which the next publish of that number overwrites."""
+        partial tree, which the next publish of that number overwrites.
+        ``fence`` (elastic/coord.py ``Fence``) refuses a stale writer up
+        front (``StaleFencingTokenError``), lands in
+        ``extra["fence_token"]`` and advances the root's mark after."""
         from ..convert import params_to_jax
         from ..serve.export import export_servable
 
         model_cfg = getattr(cfg, "model", cfg)
+        extra = dict(extra or {})
+        if fence is not None:
+            fence.check()
+            extra["fence_token"] = int(fence.token)
         version = self.next_version()
         manifest = Manifest(
             version=version,
@@ -214,10 +258,13 @@ class ModelPublisher:
             created_unix=time.time(),
             cursor=cursor,
             watermark=float(watermark),
-            extra=dict(extra or {}),
+            extra=extra,
         )
-        return self._publish_artifact(
+        out = self._publish_artifact(
             manifest, lambda dest: export_servable(model_cfg, state_dict, dest))
+        if fence is not None:
+            fence.advance()
+        return out
 
     def publish_tiered(self, cfg, trainer, *, cursor: dict | None = None,
                        watermark: float = 0.0, extra: dict | None = None) -> Manifest:
@@ -260,21 +307,71 @@ class ModelPublisher:
 
     def _publish_artifact(self, manifest: Manifest, write_tree) -> Manifest:
         """``write_tree(dest)`` writes the version's tree, then the manifest
-        lands last."""
-        dest = version_location(self.root, manifest.version)
-        shutil.rmtree(dest, ignore_errors=True)  # an orphan from a crash
-        write_tree(dest)
-        path = _manifest_path(self.root, manifest.version)
-        with open(path + ".tmp", "w") as f:
-            f.write(manifest.to_json())
-        os.replace(path + ".tmp", path)  # the publish point
+        lands last.  On a URL root the tree is written locally and
+        uploaded: each attempt deletes the version's manifest, then its
+        objects (a lost response may have committed an earlier attempt's),
+        uploads the tree and PUTs the manifest."""
+        version = manifest.version
+        if is_url(self.root):
+            import tempfile
+
+            loc = version_location(self.root, version)
+            with tempfile.TemporaryDirectory(prefix="deepfm_torch_publish_") as tmp:
+                tree = os.path.join(tmp, "tree")
+                write_tree(tree)
+
+                def attempt() -> None:
+                    get_store().delete(_manifest_path(self.root, version))
+                    get_store().delete_prefix(loc + "/")
+                    get_store().upload_tree(tree, loc)
+                    get_store().put(_manifest_path(self.root, version),
+                                    manifest.to_json().encode())
+
+                self._retry.call(attempt, classify=lambda e: (
+                    not isinstance(e, ObjectStoreError) or e.retryable))
+        else:
+            dest = version_location(self.root, version)
+            shutil.rmtree(dest, ignore_errors=True)  # an orphan from a crash
+            write_tree(dest)
+            path = _manifest_path(self.root, version)
+            with open(path + ".tmp", "w") as f:
+                f.write(manifest.to_json())
+            os.replace(path + ".tmp", path)  # the publish point
         self._retain()
         return manifest
+
+    def clean_orphans(self) -> list[int]:
+        """Delete the ``versions/<v>/`` trees that have no manifest (a
+        publisher killed between its tree and its manifest); returns their
+        versions.  Run at a publisher's start only: the root is
+        single-writer by lease, so a tree without a manifest then is
+        residue, never a publish in flight."""
+        committed = set(list_versions(self.root))
+        if is_url(self.root):
+            base = join_url(self.root, _VERSIONS) + "/"
+            names = {u[len(base):].split("/", 1)[0] for u in get_store().list_prefix(base)}
+        else:
+            vdir = os.path.join(self.root, _VERSIONS)
+            names = set(os.listdir(vdir)) if os.path.isdir(vdir) else set()
+        removed = []
+        for name in sorted(names):
+            if not name.isdigit() or int(name) in committed:
+                continue
+            if is_url(self.root):
+                get_store().delete_prefix(join_url(self.root, _VERSIONS, name) + "/")
+            else:
+                shutil.rmtree(os.path.join(self.root, _VERSIONS, name), ignore_errors=True)
+            removed.append(int(name))
+        return removed
 
     def _retain(self) -> None:
         versions = list_versions(self.root)
         for v in versions[:max(0, len(versions) - self._keep)]:
             # manifest first: a version without it is invisible to readers
+            if is_url(self.root):
+                get_store().delete(_manifest_path(self.root, v))
+                get_store().delete_prefix(version_location(self.root, v) + "/")
+                continue
             try:
                 os.remove(_manifest_path(self.root, v))
             except FileNotFoundError:

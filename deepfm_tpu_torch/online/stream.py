@@ -1,11 +1,16 @@
 """Append-only event logs for online training: the port's copy of
-``deepfm_tpu/online/stream.py`` for local log roots.
+``deepfm_tpu/online/stream.py``.
 
-An event log is a directory into which producers publish immutable
+An event log is a directory or an object-store prefix (a URL) into which
+producers publish immutable
 TFRecord *segments* with monotonically increasing names
 (``segment_name(seq)``, zero-padded so that name order is publish order).
-A segment appears whole: it is written under a ``_tmp.`` name, which a
-tail skips, and renamed into place.
+A segment appears whole: in a directory it is written under a ``_tmp.``
+name, which a tail skips, and renamed into place; under a URL it is one
+PUT.  :class:`PrefixTail` lists a URL prefix with ListObjectsV2 and reads
+segments through drop-resuming ranged GETs; its publish times are the
+first times the tail saw each segment (the store gives no reliable
+mtime), so the watermark errs late, never early.
 
 * A :class:`StreamCursor` ``(segment, record)`` says that every segment
   sorting before ``segment`` and ``record`` records of ``segment`` itself
@@ -18,8 +23,8 @@ tail skips, and renamed into place.
   (the join's output, ``flywheel/join.py``).
 
 The records decode with the port's ``data/example_proto.decode_ctr_batch``.
-An object-store root (a URL, JAX's ``PrefixTail``) raises: ROADMAP A6 and
-A15.  Segments strictly behind every consumer's cursor may be deleted;
+:class:`SegmentWriter` writes a local directory only (the flywheel join's
+output, ROADMAP A21).  Segments strictly behind every consumer's cursor may be deleted;
 never one at or ahead of a live cursor.
 """
 
@@ -34,6 +39,7 @@ from typing import BinaryIO, Iterator, NamedTuple, Sequence
 import numpy as np
 
 from ..data.example_proto import decode_ctr_batch, serialize_ctr_example
+from ..data.object_store import get_store, is_url, join_url
 from ..data.tfrecord import frame_record, read_records
 from ..obs import flight as obs_flight
 from .publisher import check_local_root
@@ -87,18 +93,50 @@ class DirectoryTail:
             return 0.0
 
 
-def open_tail(root: str) -> DirectoryTail:
-    """The tail of a local event log; a URL raises (ROADMAP A6, A15)."""
-    return DirectoryTail(root)
+class PrefixTail:
+    """Tail an object-store prefix of immutable TFRecord segments; a
+    segment's publish time is when this tail first listed it."""
+
+    def __init__(self, url: str):
+        self.url = url.rstrip("/")
+        self._store = get_store()
+        self._seen: dict[str, float] = {}
+
+    def list_segments(self) -> list[str]:
+        base = self.url + "/"
+        now = time.time()
+        out = []
+        for obj in self._store.list_prefix(base):
+            name = obj[len(base):]
+            if "/" in name or not name.endswith(_SEGMENT_SUFFIXES) \
+                    or name.startswith((".", "_")):
+                continue
+            self._seen.setdefault(name, now)
+            out.append(name)
+        return sorted(out)
+
+    def open_segment(self, name: str) -> BinaryIO:
+        return self._store.open_read_resuming(join_url(self.url, name))
+
+    def segment_time(self, name: str) -> float:
+        return self._seen.get(name, 0.0)
+
+
+def open_tail(root: str) -> DirectoryTail | PrefixTail:
+    """The tail of an event log: a directory, or a URL prefix."""
+    return PrefixTail(root) if is_url(root) else DirectoryTail(root)
 
 
 def publish_segment(root: str, name: str, payload: bytes) -> str:
     """Make one immutable segment visible atomically (producer side): written
     to a ``_tmp.`` name, which tails skip, and renamed into place.
     Re-publishing a name with identical bytes is a no-op in effect, which
-    the join's publish-then-checkpoint crash window relies on.  Returns the
-    segment name."""
-    root = check_local_root(root)
+    the join's publish-then-checkpoint crash window relies on.  Under a URL
+    the segment is one PUT (an object appears whole).  Returns the segment
+    name."""
+    if is_url(root):
+        get_store().put(join_url(root, name), payload)
+        return name
     os.makedirs(root, exist_ok=True)
     tmp = os.path.join(root, f"_tmp.{name}")
     with open(tmp, "wb") as f:

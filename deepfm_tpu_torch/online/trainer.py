@@ -25,10 +25,14 @@ a stopped and resumed run equals one pass over the same records cut at the
 committed cursor (:func:`replay_to_state` with ``cuts``).
 
 Single process by design (one logical writer): the trainer raises at a
-world size above 1, as JAX's does with more than one process.  Left out:
-JAX's ``_LegacyOnlinePayload`` (commits written before JAX's fencing
-token; the port never wrote one) and the fence object, whose token every
-port commit records as 0, the unfenced writer (ROADMAP A15).
+world size above 1, as JAX's does with more than one process; the elastic
+trainer (elastic/controller.py) is the grid's online trainer.
+:func:`commit_payload` takes JAX's ``fence`` (elastic/coord.py ``Fence``):
+a stale token is refused before the save, the payload records the
+token (0: the unfenced single writer), and the root's mark advances
+after.  Left out: JAX's ``_LegacyOnlinePayload`` (commits written before
+JAX's fencing token; the port never wrote one).  The event log, the
+``model_dir`` and the publish root may be object-store URLs.
 """
 
 from __future__ import annotations
@@ -93,19 +97,27 @@ class OnlinePayload(NamedTuple):
         return cursor_from_arrays(self.cursor_segment, self.cursor_len, self.cursor_record)
 
 
-def commit_payload(ckpt, state: TrainState, cursor: StreamCursor) -> None:
+def commit_payload(ckpt, state: TrainState, cursor: StreamCursor, *, fence=None) -> None:
     """Persist {weights, optimizer state, cursor} as one step: the
     exactly-once boundary.  The save waits for the card, the write, the
     fsync and the rename, then the step must be among the checkpointer's
     steps: a save that never landed raises here, before any later batch is
     consumed.  A kill during the write leaves a temporary directory that is
-    never listed."""
+    never listed.  ``fence`` (elastic/coord.py ``Fence``) refuses a stale
+    writer first (``StaleFencingTokenError``), the payload records its
+    token, and a durable commit advances the root's mark."""
     step = int(state.step)
-    ckpt.save(OnlinePayload.wrap(state, cursor), block=True)
+    token = 0
+    if fence is not None:
+        fence.check()
+        token = fence.token
+    ckpt.save(OnlinePayload.wrap(state, cursor, fence_token=token), block=True)
     if step not in ckpt.all_steps():
         raise RuntimeError(
             f"commit at step {step} did not become durable (committed steps: "
             f"{ckpt.all_steps()}) — refusing to consume past an unpersisted cursor")
+    if fence is not None:
+        fence.advance()
 
 
 def restore_latest_payload(ckpt, template: OnlinePayload) -> OnlinePayload:
@@ -159,7 +171,7 @@ class OnlineTrainer:
         self.cfg = cfg
         if not cfg.data.training_data_dir:
             raise ValueError("online training needs data.training_data_dir "
-                             "(the event-log directory)")
+                             "(the event-log directory or URL)")
         if not cfg.run.servable_model_dir:
             raise ValueError("online training needs run.servable_model_dir "
                              "(the versioned publish root)")

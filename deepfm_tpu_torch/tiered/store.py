@@ -1,7 +1,7 @@
 """Cold tier: row pages on a local directory with ranged reads and
 copy-on-write overlays.  A trimmed copy of ``deepfm_tpu/tiered/store.py``
 (that module imports no JAX; the port keeps its own copy): the JAX tier
-also takes an object-store prefix, which is ROADMAP A15 here and raises.
+also takes an object-store prefix, which is ROADMAP A11 here and raises.
 
 The cold tier is the system of record for every row the hot and host
 tiers do not hold.  Rows are grouped into fixed-size **pages**
@@ -36,7 +36,7 @@ _STALL_BUDGET_SECS = 0.5
 
 _ITEM = np.dtype(np.float32).itemsize
 
-COLD_URL_NOT_PORTED = ("an object-store cold tier is not ported yet (ROADMAP A15, "
+COLD_URL_NOT_PORTED = ("an object-store cold tier is not ported yet (ROADMAP A11, "
                        "data/object_store.py); give a local directory")
 
 

@@ -2,11 +2,14 @@
 tasks: counterpart of ``run_train``, ``run_eval``, ``run_infer``,
 ``run_export``, the serve and online branches and ``run_task`` in
 ``deepfm_tpu/train/loop.py``, on one card or on each rank of a
-data-parallel run (the online tasks on one card: online/trainer.py).
+data-parallel run (the online tasks on one card: online/trainer.py; the
+elastic online trainer on a grid of ranks: elastic/controller.py).
 JAX's ``restore_latest`` is ``Checkpointer.restore`` here: a checkpoint of
-another table shape raises with the fused_kernel hint, and one of another
-row split (``mesh.model_parallel``) raises (the cross-topology reshard is
-ROADMAP A15).
+another row split (``mesh.model_parallel``) takes the cross-topology
+reshard (checkpoint/reshard.py) and the train task logs
+``resume_reshard``; one of another table shape at the same split raises
+with the fused_kernel hint.  ``run.model_dir`` may be an object-store URL
+(checkpoint/remote.py) at a world size of 1.
 
 ``run_train`` is the train task's whole lifecycle:
 
@@ -180,6 +183,9 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
         state = spmd.create_dp_train_state(cfg, ctx)
     if ckpt.latest_step() is not None:
         ckpt.restore(state)
+        if ckpt.last_restore["resharded"]:
+            log.event("resume_reshard", step=state.step, grid=ckpt.last_restore["grid"],
+                      to=[ctx.data_parallel, ctx.model_parallel])
         log.event("resume", step=state.step)
         log.seed_step(state.step)
     dev = state.model.fm_v.device
@@ -493,7 +499,13 @@ def run_online(cfg: Config, *, device=None) -> TrainState:
     """The online-train task (``online/trainer.py run_online_train``): tail
     the event log at ``data.training_data_dir``, committing into
     ``run.model_dir`` and publishing versions into
-    ``run.servable_model_dir`` for a hot-reloading server."""
+    ``run.servable_model_dir`` for a hot-reloading server; with
+    ``elastic.enabled`` the elastic trainer on a grid of ranks
+    (``elastic/controller.py run_elastic_train``)."""
+    if cfg.elastic.enabled:
+        from ..elastic.controller import run_elastic_train
+
+        return run_elastic_train(cfg, device=device)
     from ..online.trainer import run_online_train
 
     return run_online_train(cfg, device=device)
@@ -507,15 +519,26 @@ def run_feedback(cfg: Config, *, device=None) -> TrainState:
                                          run={"task_type": "online-train"}), device=device)
 
 
+def run_publish(cfg: Config, *, device=None):
+    """The publish task (``elastic/mpmd.py run_publisher``): tail
+    ``run.model_dir``'s committed payloads and publish each into
+    ``run.servable_model_dir`` under its own lease and fence.  Host-side:
+    it needs no card."""
+    from ..elastic.mpmd import run_publisher
+
+    return run_publisher(cfg)
+
+
 TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
          "export": run_export, "serve": run_serve,
          "online-train": run_online, "online_train": run_online,
-         "feedback-train": run_feedback, "feedback_train": run_feedback}
+         "feedback-train": run_feedback, "feedback_train": run_feedback,
+         "publish": run_publish}
 
 
 def run_task(cfg: Config, *, device=None):
     """Run ``cfg.run.task_type`` (train, eval, infer, export, serve,
-    online-train or feedback-train); returns the task's result: the train
+    online-train, feedback-train or publish); returns the task's result: the train
     state, the eval metrics, the pred.txt path or the servable path (serve
     blocks and returns None)."""
     task = cfg.run.task_type

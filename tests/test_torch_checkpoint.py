@@ -161,10 +161,30 @@ def test_mismatches_raise_with_their_reason(tmp_path):
         ckpt.restore(create_train_state(_cfg(lazy=True), "cpu"))
     with pytest.raises(ValueError, match="optimizer"):
         ckpt.restore(create_train_state(_cfg("Adagrad"), "cpu"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_checkpointer("http://127.0.0.1:1/bucket/model")
-    with pytest.raises(NotImplementedError, match="A15"):
-        maybe_clear("s3://bucket/model", True)
+    # an object-store model_dir round-trips through the staging mirror
+    # (checkpoint/remote.py, against the port's dev store), and
+    # clear_existing_model empties it
+    from deepfm_tpu_torch.checkpoint import RemoteCheckpointer
+    from deepfm_tpu_torch.utils.dev_object_store import serve
+
+    server, base = serve(str(tmp_path / "store"))
+    try:
+        url = f"{base}/bucket/model"
+        remote = make_checkpointer(url, staging_dir=str(tmp_path / "stage"))
+        assert isinstance(remote, RemoteCheckpointer)
+        state = _trained(_cfg())
+        assert remote.save(state, block=True)
+        assert remote.all_steps() == [2]
+        fresh = create_train_state(_cfg(), "cpu")
+        again = make_checkpointer(url, staging_dir=str(tmp_path / "stage2"))
+        again.restore(fresh)
+        for k, v in state.model.state_dict().items():
+            assert torch.equal(fresh.model.state_dict()[k], v), k
+        maybe_clear(url, True)
+        assert make_checkpointer(url, staging_dir=str(tmp_path / "stage3")).latest_step() is None
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def _jax_config(name, lazy=False):

@@ -42,8 +42,8 @@ RAISING = [
     ("data", "stream_mode", True, "A6"),
     ("data", "multi_path", True, "A6"),
     ("data", "eval_max_batches", 8, "A6"),
-    ("model", "tiered_cold_url", "http://store:9000/bucket/cold", "A15"),
-    ("elastic", "enabled", True, "A15"),
+    ("model", "tiered_cold_url", "http://store:9000/bucket/cold", "A11"),
+    ("elastic", "lease_ttl_secs", 0.0, "finite and > 0"),
     ("run", "workers_per_host", 2, "A7"),
     ("mesh", "coordinator_address", "10.0.0.1:1234", "torch.distributed.run"),
     ("mesh", "num_processes", 2, "torch.distributed.run"),
@@ -105,7 +105,7 @@ def test_the_model_section_alone_checks_too(tmp_path):
         {"model": {**JaxModelConfig().__dict__, "tiered_embeddings": True,
                    "tiered_cold_url": "s3://bucket/cold"}},
         default=list))
-    with pytest.raises(ValueError, match="tiered_cold_url.*A15"):
+    with pytest.raises(ValueError, match="tiered_cold_url.*A11"):
         load_config(tmp_path)
 
 
@@ -425,3 +425,30 @@ def test_the_serve_task_passes_the_funnel_fields(tmp_path):
     with pytest.raises(ValueError, match="funnel options"):
         run_serve(base.with_overrides(run={"servable_model_dir": str(ctr),
                                            "funnel_top_k": 16}), device="cpu")
+
+
+ELASTIC_INVALID = [
+    ({"min_devices": 0}, "min_devices"),
+    ({"prefer_model_parallel": -1}, "prefer_model_parallel"),
+    ({"lease_ttl_secs": float("nan")}, "lease_ttl_secs"),
+    ({"heartbeat_interval_secs": 0.0}, "heartbeat_interval_secs"),
+    ({"heartbeat_interval_secs": 5.0, "lease_ttl_secs": 10.0}, "headroom"),
+    ({"registry_debounce_polls": 0}, "registry_debounce_polls"),
+    ({"publish_poll_secs": 0.0}, "publish_poll_secs"),
+]
+
+
+@pytest.mark.parametrize("fields,match", ELASTIC_INVALID,
+                         ids=[m for _, m in ELASTIC_INVALID])
+def test_the_elastic_section_keeps_jax_validation(fields, match):
+    """The elastic section is carried (elastic/controller.py) with JAX's
+    checks: the same values raise in both packages, and a valid section
+    loads the same."""
+    d = {"elastic": {"enabled": True, **fields}}
+    with pytest.raises(ValueError, match=match):
+        JaxConfig.from_dict(d)
+    with pytest.raises(ValueError, match=match):
+        Config.from_dict(d)
+    ok = {"elastic": {"enabled": True, "prefer_model_parallel": 4, "publisher_split": True,
+                      "coordinator_url": "http://127.0.0.1:8600"}}
+    assert Config.from_dict(ok).to_dict()["elastic"] == JaxConfig.from_dict(ok).to_dict()["elastic"]

@@ -1173,3 +1173,51 @@ def test_the_degraded_retrieve_graph_equals_its_eager_stages(device):
         np.testing.assert_array_equal(pack[:, 0], want[:, 0])
         np.testing.assert_allclose(pack[:, 1:], want[:, 1:], rtol=0, atol=1e-6)
     assert (retrieval.captured, fused_ctr.captured) == before
+
+
+@pytest.mark.cuda
+def test_the_elastic_grid_steps_kernels_match_their_plain_versions(device, tmp_path):
+    """The elastic trainer's grid step (four gloo rank processes on the
+    card, [2, 2] -> [1, 2] after step 2, elastic/controller.py): at the
+    first step of each epoch, B1 and B1' on that step's compact rows
+    agree with their plain versions."""
+    import os
+
+    import numpy as np
+
+    from _torch_elastic_worker import Harness, spawn_ranks
+    from deepfm_tpu_torch.online import append_segment
+
+    stream = str(tmp_path / "stream")
+    for seq in range(4):
+        rng = np.random.default_rng(seq)
+        append_segment(stream, (rng.random(64) < 0.3).astype(np.float32),
+                       rng.integers(0, 4001, (64, 39)).astype(np.int64),
+                       rng.random((64, 39)).astype(np.float32), seq=seq)
+    h = Harness([0, 1, 2, 3])
+    doc = {"model": {"feature_size": 4001, "embedding_size": 32, "deep_layers": [16, 8],
+                     "dropout_keep": [1.0, 1.0], "fused_kernel": "auto"},
+           "data": {"training_data_dir": stream, "batch_size": 64},
+           "run": {"model_dir": str(tmp_path / "ckpt"), "servable_model_dir": str(tmp_path / "pub"),
+                   "checkpoint_every_steps": 2, "online_publish_every_steps": 2,
+                   "log_steps": 10_000},
+           "elastic": {"enabled": True, "prefer_model_parallel": 2,
+                       "coordinator_url": h.coord_url, "heartbeat_interval_secs": 0.2,
+                       "registry_debounce_polls": 1, "poll_interval_secs": 0.05}}
+    try:
+        results = spawn_ranks([{"cfg": doc, "device_id": i, "store": h.store_addr,
+                                "device": "cuda", "out": os.path.join(tmp_path, f"r{i}.pt"),
+                                "script": {0: {2: [("drop", [2, 3])]}}.get(i, {})}
+                               for i in range(4)])
+    finally:
+        h.close()
+    for r in results:
+        assert r["error"] is None, r["error"]
+    assert [len(r["kernel_err"]) for r in results] == [2, 2, 1, 1]
+    for r in results:
+        for _, err in r["kernel_err"]:
+            (emb, _), (y_w, sw), (y_v, sv) = err["forward"]
+            assert emb <= TOL["emb"] and y_w <= TOL["y_w"] * (1 + sw) \
+                and y_v <= TOL["y_v"] * (1 + sv), err
+            for e, scale in err["backward"]:
+                assert e <= 1e-5 * scale, err

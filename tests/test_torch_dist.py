@@ -211,7 +211,8 @@ def test_mesh_options_the_port_cannot_honour(tmp_path):
         initialize_distributed(sharded.mesh, "cpu")
     with pytest.raises(ValueError, match="fused_kernel='on' requires"):
         Config.from_dict({"model": {"fused_kernel": "on"}, "mesh": {"model_parallel": 2}})
-    # a checkpoint of another row split needs the resharding restore (A15)
+    # a checkpoint of another row split takes the resharding restore: the
+    # whole tables of state.pt are re-cut to this rank's rows, equal to them
     small = Config.from_dict({"model": {"feature_size": V, "field_size": F,
                                         "embedding_size": K, "deep_layers": (8,)}})
     state = create_train_state(small, "cpu")
@@ -220,8 +221,12 @@ def test_mesh_options_the_port_cannot_honour(tmp_path):
     payload = torch.load(path, weights_only=True)
     payload["grid"] = [1, 2]
     torch.save(payload, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        Checkpointer(tmp_path).restore(create_train_state(small, "cpu"))
+    ckpt = Checkpointer(tmp_path)
+    fresh = create_train_state(small.with_overrides(run={"seed": 7}), "cpu")
+    ckpt.restore(fresh)
+    assert ckpt.last_restore == {"step": 0, "grid": [1, 2], "resharded": True}
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(fresh.model.state_dict()[k], v), k
     cfg = Config.from_dict({"mesh": {"data_parallel": 2}})
     with pytest.raises(ValueError, match="launcher started 1 ranks"):
         initialize_distributed(cfg.mesh, "cpu")

@@ -406,7 +406,7 @@ def test_join_and_writer_refuse_url_roots(tmp_path):
                                      attribution_window_secs=1.0),
                  lambda: SegmentWriter("s3://bucket/out"),
                  lambda: load_state("http://h/b/out")):
-        with pytest.raises(NotImplementedError, match="A6, A15"):
+        with pytest.raises(NotImplementedError, match="A21"):
             make()
 
 

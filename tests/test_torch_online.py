@@ -199,12 +199,44 @@ def test_reader_matches_jax_on_the_same_files(tmp_path):
 
 
 def test_url_roots_raise(tmp_path):
-    for make in (lambda: open_tail("http://127.0.0.1:1/bucket/events"),
-                 lambda: publish_segment("s3://bucket/events", segment_name(0), b""),
-                 lambda: OnlineTrainer(_cfg(tmp_path).with_overrides(
-                     data={"training_data_dir": "http://127.0.0.1:1/b/e"}), device="cpu")):
-        with pytest.raises(NotImplementedError, match="A6, A15"):
-            make()
+    """Object-store roots of the online path (the port's dev store): the
+    URL tail lists and reads what ``publish_segment`` PUT, and the online
+    trainer over a URL event log, model_dir and publish root equals the
+    one over local directories, manifest for manifest."""
+    from deepfm_tpu_torch.utils.dev_object_store import serve
+
+    server, base = serve(str(tmp_path / "store"), max_keys=2)
+    try:
+        events = f"{base}/bucket/events"
+        local = str(tmp_path / "local")
+        for seq in range(5):
+            labels, ids, vals = _events(8, seed=seq)
+            append_segment(events, labels, ids, vals, seq=seq)
+            append_segment(os.path.join(local, "stream"), labels, ids, vals, seq=seq)
+        tail = open_tail(events)
+        assert tail.list_segments() == [segment_name(s) for s in range(5)]
+        with tail.open_segment(segment_name(2)) as f:
+            assert f.read() == open(os.path.join(local, "stream", segment_name(2)), "rb").read()
+        assert tail.segment_time(segment_name(2)) > 0
+        cfg = _cfg(local)
+        url_cfg = cfg.with_overrides(
+            data={"training_data_dir": events},
+            run={"model_dir": f"{base}/bucket/ckpt",
+                 "servable_model_dir": f"{base}/bucket/publish"})
+        got = OnlineTrainer(url_cfg, device="cpu").run(follow=False)
+        want = OnlineTrainer(cfg, device="cpu").run(follow=False)
+        _assert_bit_equal(got, want)
+        pub = url_cfg.run.servable_model_dir
+        assert list_versions(pub) == list_versions(cfg.run.servable_model_dir) == [1, 2, 3]
+        for v in (1, 2, 3):
+            a, b = read_manifest(pub, v), read_manifest(cfg.run.servable_model_dir, v)
+            assert (a.step, a.param_hash, a.cursor) == (b.step, b.param_hash, b.cursor)
+        # a rerun resumes from the URL model_dir's commit and applies nothing
+        again = OnlineTrainer(url_cfg, device="cpu").run(follow=False)
+        _assert_bit_equal(again, want)
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def test_cursor_array_roundtrip():
@@ -477,8 +509,10 @@ def test_a_jax_online_commit_resumes_in_the_port_and_matches_jax(tmp_path):
     ck.close()
     cfg = Config.from_dict({**doc("split"), "run": {**doc("split")["run"],
                                                     "model_dir": str(tmp_path / "port")}})
-    state, cursor = online_payload_from_jax(_jax_state_as_numpy(payload), cfg, device="cpu")
-    assert cursor == StreamCursor(segment_name(3), 8) and state.step == 4
+    ported = online_payload_from_jax(_jax_state_as_numpy(payload), cfg, device="cpu")
+    state, cursor = ported.train, ported.cursor()
+    assert cursor == StreamCursor(segment_name(3), 8) and state.step == ported.step == 4
+    assert int(ported.fence_token) == int(payload.fence_token)
     commit_payload(make_checkpointer(cfg.run.model_dir), state, cursor)
     got = OnlineTrainer(cfg, device="cpu").run(follow=False)
     assert got.step == int(whole.step) == 8

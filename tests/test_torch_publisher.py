@@ -150,10 +150,34 @@ def test_publisher_commits_marker_last_and_retains(tmp_path):
 
 
 def test_object_store_roots_raise(tmp_path):
-    for call in (lambda: pub.ModelPublisher("s3://bucket/publish"),
-                 lambda: pub.list_versions("http://127.0.0.1:1/b/p"),
-                 lambda: pub.latest_manifest("gs://b/p")):
-        with pytest.raises(NotImplementedError, match="A6, A15"):
-            call()
+    """A URL publish root (the port's dev store): versions, manifests,
+    retention, orphan cleaning and fetch work as on a directory, and JAX's
+    readers read the port's URL manifests."""
+    from deepfm_tpu.online.publisher import latest_manifest as jax_latest
+    from deepfm_tpu.online.publisher import list_versions as jax_versions
+    from deepfm_tpu_torch.data.object_store import get_store
+    from deepfm_tpu_torch.utils.dev_object_store import serve
+
+    server, base = serve(str(tmp_path / "store"), max_keys=3)
+    try:
+        root = f"{base}/bucket/publish"
+        cfg, sd = _port(*_jax_state(False, seed=3))
+        p = pub.ModelPublisher(root, keep=2)
+        for step in (1, 2, 3):
+            p.publish(cfg, sd, step=step, cursor={"segment": "s", "record": step})
+        assert pub.list_versions(root) == jax_versions(root) == [2, 3]
+        m = pub.latest_manifest(root)
+        j = jax_latest(root)
+        assert (m.version, m.step, m.param_hash, m.cursor) == \
+            (j.version, j.step, j.param_hash, j.cursor)
+        assert (m.version, m.step, m.feature_size) == (3, 3, 300)
+        local = pub.fetch_version(root, 3, str(tmp_path / "staging"))
+        got = read_params(local)
+        assert all(np.array_equal(got[k], sd[k].numpy()) for k in sd)
+        get_store().put(f"{root}/versions/00000009/config.json", b"{}")
+        assert p.clean_orphans() == [9]
+    finally:
+        server.shutdown()
+        server.server_close()
     with pytest.raises(ValueError, match="keep"):
         pub.ModelPublisher(str(tmp_path), keep=0)

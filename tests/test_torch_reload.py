@@ -217,7 +217,7 @@ def test_breaker_skips_polls_while_the_root_fails(versions, servable, tmp_path):
     st = swapper.status()
     assert st["poll_errors_total"] == 3 and st["polls_skipped_total"] == 2
     assert st["breaker"]["state"] == "open" and st["rollbacks_total"] == 0
-    with pytest.raises(NotImplementedError, match="A6, A15"):
+    with pytest.raises(NotImplementedError, match="A21"):
         HotSwapper(holder, predictor, "s3://bucket/publish", cfg)
 
 

@@ -9,8 +9,9 @@ gathers over its model group a table tensor (fm_w, fm_v, their slots or
 lazy moments) of more rows than its own range; the restored state is
 bit-equal to the saved one on every rank; each row file holds its rank's
 rows.  A checkpoint in the grid's first layout (whole tables in
-``state.pt``) still restores; a missing row file and another
-``model_parallel`` raise, naming the cause (and ROADMAP A15)."""
+``state.pt``) still restores; a missing row file raises, naming it; a
+restore at another ``model_parallel`` (the reshard) equals the saved
+rows."""
 
 import os
 
@@ -88,10 +89,21 @@ def test_a_missing_row_file_or_another_model_parallel_raises(tmp_path):
     assert dropped[0] is None
     assert dropped[1].startswith("FileNotFoundError") and "rows-1.pt" in dropped[1] \
         and "missing" in dropped[1]
+    # another model_parallel takes the resharding restore (checkpoint/
+    # reshard.py): each rank, now holding whole tables, equals the saved
+    # rows of every model index, the pad row the new padding drops aside
+    by_offset = {r[1]["offset"]: r[1] for r in ranks}
     for r in ranks:
-        err = r[1]["error"]
-        assert err.startswith("NotImplementedError") and "[1, 2] grid" in err \
-            and "A15" in err
+        got = r[1]
+        assert got["error"] is None, got["error"]
+        for k, v in got["restored"].items():
+            if not isinstance(v, torch.Tensor) or not {"fm_w", "fm_v"} & set(k.split(".")):
+                assert k == ".generator" or torch.equal(v, got["saved"][k]) \
+                    if isinstance(v, torch.Tensor) else v == got["saved"][k], k
+                continue
+            for off, saved in by_offset.items():
+                n = max(0, min(saved["rows"], v.shape[0] - off))
+                assert torch.equal(v[off:off + n], saved["saved"][k][:n]), (k, off)
 
 
 def test_rank_0_waits_for_every_row_file_then_gives_up(tmp_path, monkeypatch):

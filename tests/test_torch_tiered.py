@@ -11,7 +11,7 @@
   dropout off: loss 1e-5 relative, tables and moments 1e-5 absolute);
 * the tiers: ranged page reads, the overlay and copy-on-write, the host
   tier's eviction flush, files of one package read by the other, and an
-  object-store root raising (ROADMAP A15);
+  object-store root raising (ROADMAP A11);
 * the train task with ``--set model.tiered_embeddings=true`` through
   ``python -m deepfm_tpu_torch --device cpu``: checkpoints, a resume, the
   publish and a scorer of it;
@@ -321,9 +321,9 @@ class TestTiers:
         np.testing.assert_array_equal(np.delete(got, 3, axis=0), np.delete(read(0)[:8], 3, axis=0))
 
     def test_an_object_store_root_raises(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="A15"):
+        with pytest.raises(NotImplementedError, match="A11"):
             ColdTier("http://127.0.0.1:9/bucket/cold", rows=10, layout=self._layout())
-        with pytest.raises(ValueError, match="tiered_cold_url.*A15"):
+        with pytest.raises(ValueError, match="tiered_cold_url.*A11"):
             _cfg(tiered_cold_url="s3://bucket/cold")
 
 

@@ -101,3 +101,26 @@ def test_the_state_tensors_cover_every_carried_tensor():
     assert {"model.fm_w", "model.bn.layer_0.moving_mean", "lazy.m.fm_v", "lazy.v.fm_w",
             "optimizer.mlp.out.kernel.mu", "scalars"} <= names
     assert all(t.dtype == torch.float32 for t in state_tensors(state).values())
+
+
+def test_audit_elastic_holds_the_plan_and_the_restore_window():
+    """JAX's ``audit_elastic`` as the port restates it: clean on the port,
+    and a planner that moves table bytes on a same-width shrink (or as
+    many as a gather) is convicted; the host-round-trip clause is waived
+    with its reason."""
+    import dataclasses
+
+    from deepfm_tpu_torch.analysis.trace_audit import audit_elastic
+    from deepfm_tpu_torch.elastic.plan import plan_reshard
+
+    assert audit_elastic("cpu") == []
+
+    def wasteful(old, new, leaves):
+        plan = plan_reshard(old, new, leaves)
+        return dataclasses.replace(plan, moved_bytes=plan.naive_bytes + plan.kept_bytes)
+
+    slugs = {f.source for f in audit_elastic("cpu", planner=wasteful)}
+    assert slugs == {"elastic-2x4->1x4-plan-not-minimal", "elastic-2x4->1x4-shrink-moves-bytes",
+                     "elastic-1x4->2x4-plan-not-minimal", "elastic-2x4->4x2-plan-not-minimal"}
+    assert "memory-mapped" in WAIVERS["audit_elastic.host_round_trip"]
+    assert "elastic trainer" in WAIVERS["online_trainer"]

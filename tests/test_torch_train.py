@@ -292,12 +292,28 @@ def test_cli_trains_on_the_cpu_end_to_end(tmp_path):
     assert probs.shape == (3,) and np.all((probs > 0) & (probs < 1))
 
 
-def test_cli_refuses_what_is_not_ported():
-    from deepfm_tpu_torch.launch.cli import run
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    from deepfm_tpu_torch.checkpoint import Checkpointer
+    from deepfm_tpu_torch.launch.cli import resolve_config, run
+    from deepfm_tpu_torch.online import latest_manifest
+    from deepfm_tpu_torch.online.stream import StreamCursor
+    from deepfm_tpu_torch.online.trainer import commit_payload
 
-    # the online tasks are ported; the elastic publisher is not
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        run(["--task_type", "publish", "--device", "cpu"])
+    # the online tasks and the elastic publisher are ported: the publish
+    # task publishes the committed payload of its checkpoint root
+    small = ["--feature_size", "64", "--field_size", "5", "--embedding_size", "4",
+             "--deep_layers", "8"]
+    cfg, _ = resolve_config(small)
+    commit_payload(Checkpointer(tmp_path / "ckpt"), create_train_state(cfg, "cpu"),
+                   StreamCursor("000000000001.tfrecords", 3))
+    assert run(["--task_type", "publish", "--device", "cpu", "--model_dir",
+                str(tmp_path / "ckpt"), "--servable_model_dir", str(tmp_path / "pub"),
+                "--set", "run.online_idle_timeout_secs=0.2", *small]) == 1
+    m = latest_manifest(str(tmp_path / "pub"))
+    assert (m.step, m.cursor, m.feature_size) == (0, {"segment": "000000000001.tfrecords",
+                                                      "record": 3}, 64)
+    with pytest.raises(ValueError, match="run.model_dir"):
+        run(["--task_type", "publish", "--device", "cpu", "--model_dir", ""])
     # the serve task and both of its pools are ported: the CLI reaches
     # serve_pool with run.serve_workers and the pool's main with
     # --serve_groups; a multi-tenant fleet is not (ROADMAP A18)
