@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
 run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 19, 8, 17,
-18, 14).
+18, 14, 20).
 Each phase's start goes to stderr with the script's clock; a run still
 going after WATCHDOG_S prints every thread's stack there, kills the
 processes it started and exits 3.
@@ -284,18 +284,18 @@ the replays times the launches each capture recorded (``kernel_runs``):
 19. elastic - ROADMAP A15's elastic online training at the flagship width
               (bf16 MLP, fused_kernel "auto", dropout off, Adam 5e-4, L2
               1e-4, a global batch of 1,024, weights from --seed) over an
-              event log of 24 segments of distinct ids, one rank process a
+              event log of 12 segments of distinct ids, one rank process a
               device on the one card (gloo, which the ranks pick as they
               outnumber the cards), each the online-train task's command
               line with elastic.enabled and the launcher's environment,
               the coordinator and the rendezvous store in this process;
               the log comes in three parts, the board changes while the
               ranks tail an idle log: (a) [2, 2] -> [1, 2] after
-              step 8 (devices 2 and 3 taken off the board, their ranks
-              drain, commit and exit 0) -> [2, 2] after step 16 (two new
+              step 4 (devices 2 and 3 taken off the board, their ranks
+              drain, commit and exit 0) -> [2, 2] after step 8 (two new
               rank processes join), dense with inline publishes, then lazy:
               the reshards' shapes, 0 table bytes moved on the shrink and
-              more on the grow, no step replayed, 24 strictly increasing
+              more on the grow, no step replayed, 12 strictly increasing
               cursors, every manifest at the true vocabulary, B1 and B1' on
               each epoch's first compact rows against their plain versions,
               and the final tables and MLP within TOL_GRAD_REL of the
@@ -312,17 +312,62 @@ the replays times the launches each capture recorded (``kernel_runs``):
               [1, 4] and [1, 1], every rank's tables and moments equal to
               the commit's rows at its window and its device memory rise
               within its shard state + 1 MiB; (e) the dense config at
-              [2, 2] under a 10 s lease, ranks 2 and 3 SIGKILLed 4 steps
-              past the step-8 commit with the board unchanged: their
+              [2, 2] under a 6 s lease, ranks 2 and 3 SIGKILLed 2 steps
+              past the step-4 commit with the board unchanged: their
               leases expire, the survivors' agreement fails, the
               coordinator opens [1, 2] without their devices and the
-              survivors replay the 4 steps once (lineage, reshard and the
+              survivors replay the 2 steps once (lineage, reshard and the
               single-card reference on that lineage).  Its `elastic` line
               holds the card, the reshard seconds, drain-commit and group
               re-form ms, the host ms a step at [2, 2] and [1, 2], the
               publisher's lag, (e)'s seconds from the kill to the new
               epoch, the remote save and restore ms and the phase's
               seconds; the ranks' B1 and B1' runs (main path only) are in
+              the kernels line.
+20. stream  - ROADMAP A6 and A21 at the flagship width (bf16 MLP 256/128/64,
+              dropout 0.5, Adam, batch 1,024, weights from --seed) on the
+              train phase's first 3 training files (36,864 records, 36
+              batches a route) and its validation file: (a) the port's dev
+              object store started as `python -m
+              deepfm_tpu_torch.utils.dev_object_store` on localhost, the
+              files uploaded as tr-*/va-* under a prefix; one epoch of the
+              URL route's batches (FifoBridge into the C++ readers, the
+              record shuffle over 8,192 records) byte-equal to the same
+              files read from disk with the same seed, though the store cuts
+              that read's first GET of tr-1 at half (the bridge resumes
+              it); the train task with that prefix as --training_data_dir
+              and --val_data_dir, a URL --model_dir and
+              data.shuffle_buffer=8192, and the same task twice from
+              disk: 36 steps each, B1 and B1' every step, the final train
+              and eval losses and eval AUC of disk against disk and of S3
+              against disk within TOL_ROUTE (B1''s atomics make two runs
+              differ in their last bits, so the limits come from readings
+              of both routes), the
+              eval task over the S3 run's checkpoint from the store and the
+              validation file from disk equal to that run's final eval
+              (which read it through a bridge), the bridges' bytes and
+              resumes; the infer task writing pred.txt
+              into the store, within 1e-4 of the plain forward of the
+              exported weights; (b) Pipe mode: the train task with
+              data.stream_mode from a `training` FIFO and its final eval
+              from an `evaluation` FIFO, each filled by a writer thread:
+              36 steps, every validation record evaluated, the AUC within
+              1e-6 of the eval task over the same checkpoint and records
+              as files; the eval task with eval_max_batches=2 over a
+              channel whose writer never closes it returns after 2 batches
+              and lets go of the FIFO; (c) the serve task with
+              run.serve_reload_url on a URL publish root: version 1 (the S3
+              run's weights) adopted before its socket opens, version 2
+              (the Pipe run's) swapped in, every answer within 1e-4 of the
+              plain forward of the version it reports, the swap, stage and
+              canary ms; B1 and B1' against their plain versions on the
+              first batch through a bridge and the first through a FIFO.
+              Every FIFO open, write and join and the store's start wait
+              at most STREAM_DEADLINE_S.  Its `stream` line holds the card,
+              examples/s and input-wait share by route (S3, Pipe, disk,
+              and the lifecycle's local files), the bridges' bytes and
+              resumes, the eval's examples and AUC, the reload's ms, the
+              B1 and B1' runs and the phase's seconds; those runs are in
               the kernels line.
 
 The script prints its total seconds; the last three lines of standard
@@ -5318,13 +5363,13 @@ def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict
 # processes join (-> [2, 2]).  Commits every ELASTIC_EVERY steps.  The
 # script writes the log in three parts and changes the board only while
 # the ranks tail an idle log, so each change lands after its step
-ELASTIC_SEGMENTS, ELASTIC_SHRINK, ELASTIC_GROW, ELASTIC_EVERY = 24, 8, 16, 8
+ELASTIC_SEGMENTS, ELASTIC_SHRINK, ELASTIC_GROW, ELASTIC_EVERY = 12, 4, 8, 4
 ELASTIC_IDS = (0, 1, 2, 3, 4, 5)
 ELASTIC_JOINERS = (4, 5)
 ELASTIC_TIMEOUT_S = 300
 # (e): ranks 2 and 3 are killed ELASTIC_KILL_TAIL steps after the commit at
 # ELASTIC_SHRINK, under a lease TTL of ELASTIC_KILL_TTL_S
-ELASTIC_KILL_TAIL, ELASTIC_KILL_TTL_S = 4, 10.0
+ELASTIC_KILL_TAIL, ELASTIC_KILL_TTL_S = 2, 6.0
 
 
 def elastic_doc(seed: int, root: str, coord_url: str, lazy: bool, split: bool) -> dict:
@@ -6075,6 +6120,457 @@ def phase_elastic(seed: int, workdir: str, card: str, life_dir: str) -> dict:
             "seconds": seconds}
 
 
+# the stream phase (20): the train phase's first STREAM_FILES training files
+# (STREAM_FILES x 12,288 records: STREAM_FILES * 12 batches a route) and its
+# validation file, read (a) as S3 channels from the port's dev object store
+# (a subprocess on localhost) through FifoBridge into the C++ reader, and (b)
+# in Pipe mode from FIFOs that writer threads fill; (c) the two runs' weights
+# served from a URL publish root.  Every FIFO open, write and join, and the
+# store's start, wait at most STREAM_DEADLINE_S.
+STREAM_FILES, STREAM_SHUFFLE, STREAM_DEADLINE_S = 3, 8192, 60.0
+STREAM_BUCKETS = (8, 64)
+# the S3 run against the same files read from disk: the batches are
+# byte-equal, but B1''s float atomics add a hot row's terms (the 13 numeric
+# ids of every record, the generator's Zipf ids) in an order that changes
+# from run to run (csrc/fused_ctr.cu), and Adam carries the last bits into
+# the weights, so no two runs' final losses are bit-equal, not even two of
+# one route.  The phase runs the disk route twice and the S3 route once and
+# holds the disk-vs-disk and the S3-vs-disk differences of the final train
+# loss, the final eval loss (relative) and the final eval AUC (absolute) to
+# these limits: twice the largest gap of 28 disk/disk and 28 S3/S3 pairs
+# that scripts/stream_route_spread.py --repeats 8 read on an "NVIDIA H100
+# 80GB HBM3, 700.00 W" (loss 1.65e-4, eval loss 3.63e-5, AUC 5.05e-4;
+# S3/disk at most 1.72e-4, 3.85e-5, 5.82e-4), rounded up (PERF.md, PR 16)
+TOL_ROUTE = {"loss": 4e-4, "eval_loss": 8e-5, "eval_auc": 2e-3}
+
+
+def _join_writer(writer, what: str):
+    """``writer.join()`` (utils/channel_writer.py), a failure of the phase."""
+    try:
+        return writer.join()
+    except BaseException as e:
+        fail(f"stream: {what}: the channel writer of {writer.path}: {e}")
+
+
+def start_dev_store(workdir: str):
+    """``python -m deepfm_tpu_torch.utils.dev_object_store`` on a free
+    localhost port, in its own process with its own HOME and TMPDIR;
+    returns (process, base URL) once it lists its bucket."""
+    root = os.path.join(workdir, "store_root")
+    os.makedirs(os.path.join(root, "bucket"))
+    port = _free_port()
+    env = dict(os.environ, **_pool_env(workdir, "store"), PYTHONPATH=os.pathsep.join(
+        [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    with open(os.path.join(workdir, "store.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "deepfm_tpu_torch.utils.dev_object_store",
+                                 "--root", root, "--port", str(port)], cwd=ROOT, env=env,
+                                stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + STREAM_DEADLINE_S
+    while True:
+        try:
+            with urllib.request.urlopen(f"{base}/bucket?list-type=2", timeout=2) as r:
+                r.read()
+            return proc, base
+        except OSError:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                proc.wait(timeout=30)
+                with open(os.path.join(workdir, "store.log")) as f:
+                    fail(f"stream: the dev object store did not start: {f.read()[-2000:]}")
+            time.sleep(0.1)
+
+
+def _same_batches(got: list, want: list, what: str) -> int:
+    if len(got) != len(want) or not got:
+        fail(f"stream: {what}: {len(got)} batches against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in ("feat_ids", "feat_vals", "label"):
+            if a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes():
+                fail(f"stream: {what}: batch {i}'s {k} is not byte-equal")
+    return len(got)
+
+
+def _route_run(argv: list[str], what: str, records: int, val_records: int) -> dict:
+    """The train task through ``run_logged``: its steps must be ``records``
+    over the batch, B1 and B1' launched every step, the final eval over
+    ``val_records`` examples."""
+    state, lines, fwd, bwd = run_logged(argv)
+    done, evals = _kind(lines, "train_done"), _kind(lines, "eval")
+    steps = records // LIFE_BATCH
+    if not done or done[0]["steps"] != steps or state.step != steps:
+        fail(f"stream: {what}: {done} against {steps} steps")
+    if not evals or evals[-1]["examples"] != val_records:
+        fail(f"stream: {what}: final eval {evals}, not {val_records} examples")
+    if fwd < steps or bwd < steps:
+        fail(f"stream: {what}: {steps} steps launched fused_ctr_forward {fwd} and "
+             f"fused_ctr_backward {bwd} times")
+    train = _kind(lines, "train")
+    if not train or not all(np.isfinite(r["loss"]) for r in train):
+        fail(f"stream: {what}: a logged loss is not finite: {train}")
+    return {"state": state, "done": done[0], "eval": evals[-1], "loss": train[-1]["loss"],
+            "launches": fwd, "backward_launches": bwd}
+
+
+def route_argv(seed: int, data: str, model_dir: str, servable: str) -> list[str]:
+    """The stream phase's train task over the files or objects under
+    ``data`` (its training and validation records), one epoch at the
+    flagship width with the record shuffle."""
+    return ["--task_type", "train", "--training_data_dir", data, "--val_data_dir", data,
+            "--model_dir", model_dir, "--servable_model_dir", servable,
+            "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+            "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}",
+            "--set", f"data.shuffle_buffer={STREAM_SHUFFLE}", *LIFE_ARGS]
+
+
+def upload_route_files(store, prefix: str, local: str, files: list, val: str) -> float:
+    """``files`` as ``prefix/tr-<i>.tfrecords`` and ``val`` as
+    ``prefix/va-0.tfrecords`` in the store, and linked under the same names
+    in the directory ``local``; returns the upload's seconds."""
+    os.makedirs(local)
+    t0 = time.perf_counter()
+    for name, path in [*((f"tr-{i}.tfrecords", f) for i, f in enumerate(files)),
+                       ("va-0.tfrecords", val)]:
+        with open(path, "rb") as f:
+            store.put(f"{prefix}/{name}", f.read())
+        os.symlink(path, os.path.join(local, name))
+    return time.perf_counter() - t0
+
+
+def route_diffs(a: dict, b: dict) -> dict:
+    """Two route runs' (``_route_run``) final train and eval losses apart,
+    relative to ``b``'s, and their final eval AUCs apart."""
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "eval_loss": abs(a["eval"]["loss"] - b["eval"]["loss"]) / abs(b["eval"]["loss"]),
+            "eval_auc": abs(a["eval"]["auc"] - b["eval"]["auc"])}
+
+
+def _kernel_check(model, batch: dict, seed: int, tag: str) -> dict:
+    """B1 and B1' against their plain versions on ``batch``'s lookups of
+    ``model``'s tables (compact_kernel_check)."""
+    ids, vals = model.prepare(torch.from_numpy(batch["feat_ids"]).to(DEVICE),
+                              torch.from_numpy(batch["feat_vals"]).to(DEVICE))
+    row = compact_kernel_check(model.fm_w.detach(), model.fm_v.detach(), ids, vals, seed, tag)
+    return {"forward_max_abs_err": max(row["forward_max_abs_err"]),
+            "backward_max_abs_err": max(row["backward_max_abs_err"])}
+
+
+def stream_s3(seed: int, workdir: str, base: str, files: list, val: str) -> dict:
+    """(a) S3 channels: the files uploaded under one prefix; one epoch of
+    the URL route's batches (FifoBridge, the C++ readers, the record
+    shuffle), its first GET of tr-1 cut at half by the store (a dropped
+    connection, resumed), byte-equal to the same files' from disk; the
+    train task from disk, then from the prefix into a URL model_dir; the
+    eval task over that checkpoint and the validation file from disk;
+    the infer task's pred.txt in the store against the plain forward of
+    the exported weights."""
+    from deepfm_tpu_torch.core.config import DataConfig
+    from deepfm_tpu_torch.data import object_store
+    from deepfm_tpu_torch.data.pipeline import make_input_pipeline
+    from deepfm_tpu_torch.serve.export import load_model
+
+    store = object_store.get_store()
+    prefix, local = f"{base}/bucket/s3", os.path.join(workdir, "s3_local")
+    upload_s = upload_route_files(store, prefix, local, files, val)
+    records = len(files) * TRAIN_RECORDS_PER_FILE
+    bridges: dict[str, list] = {"compare": [], "train": []}
+    counting = bridges["compare"]
+
+    class Counted(object_store.FifoBridge):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            counting.append(self)
+
+    def counted(key: str) -> dict:
+        return {"bridges": len(bridges[key]), "bytes": sum(b.bytes for b in bridges[key]),
+                "resumes": sum(b.resumes for b in bridges[key])}
+
+    cfg = DataConfig(batch_size=LIFE_BATCH, shuffle_buffer=STREAM_SHUFFLE, num_epochs=1)
+    servable = os.path.join(workdir, "servable_s3")
+    # the compared read's first GET of tr-1 is cut at half (a dropped
+    # connection): its bridge resumes it, and the batches stay byte-equal
+    post(f"{base}/__faults__", json.dumps({"rules": [{
+        "verb": "GET", "key": "bucket/s3/tr-1.tfrecords", "times": 1,
+        "truncate": 0.5}]}).encode())
+    saved, object_store.FifoBridge = object_store.FifoBridge, Counted
+    try:
+        url_batches = list(make_input_pipeline(cfg, field_size=39, data_dir=prefix, seed=seed))
+        fired = get(f"{base}/__faults__")["fired_total"]
+        # the disk runs first: neither route's run is the phase's first
+        disk = [_route_run(route_argv(seed, local, os.path.join(workdir, f"model_disk{i}"),
+                                      os.path.join(workdir, f"servable_disk{i}")),
+                           f"disk train {i}", records, VAL_RECORDS) for i in range(2)]
+        counting = bridges["train"]
+        s3 = _route_run(route_argv(seed, prefix, f"{base}/bucket/model_s3", servable),
+                        "S3 train", records, VAL_RECORDS)
+    finally:
+        object_store.FifoBridge = saved
+    n = _same_batches(url_batches, list(make_input_pipeline(
+        cfg, field_size=39, data_dir=local, seed=seed)), "the URL route against disk")
+    if fired != 1 or counted("compare")["resumes"] != 1:
+        fail(f"stream: the cut GET fired {fired} times, the bridges resumed "
+             f"{counted('compare')['resumes']}")
+    diffs = {"disk_vs_disk": route_diffs(disk[1], disk[0]),
+             "s3_vs_disk": route_diffs(s3, disk[0])}
+    over = [f"{pair} {k} {v}" for pair, d in diffs.items() for k, v in d.items()
+            if not v <= TOL_ROUTE[k]]
+    if over:
+        fail(f"stream: route runs apart past TOL_ROUTE {TOL_ROUTE}: {over}")
+    # the S3 run's checkpoint, restored from the store, over the validation
+    # file from disk: its final eval (which read va-0 through a bridge) exactly
+    model_args = ["--model_dir", f"{base}/bucket/model_s3", "--set", "model.fused_kernel=auto",
+                  *LIFE_ARGS]
+    again, _, fwd_e, _ = run_logged(["--task_type", "eval", "--val_data_dir", local,
+                                     *model_args])
+    if (again["auc"], again["loss"], again["examples"]) != (
+            s3["eval"]["auc"], s3["eval"]["loss"], s3["eval"]["examples"]):
+        fail(f"stream: the S3 checkpoint's eval over the disk file {again} is not the S3 "
+             f"run's final eval {s3['eval']}")
+    # the infer task: va* under the prefix, pred.txt into the store
+    out, _, fwd, _ = run_logged(["--task_type", "infer", "--test_data_dir", prefix,
+                                 *model_args])
+    if out != f"{prefix}/pred.txt":
+        fail(f"stream: infer wrote {out}")
+    probs = np.array(store.get(out).split(), np.float64)
+    model = load_model(servable, device=DEVICE)
+    from deepfm_tpu_torch.data.pipeline import eval_batches
+
+    ref = np.concatenate([plain_probs(model, b["feat_ids"], b["feat_vals"],
+                                      len(b["label"])) for b in eval_batches(
+        DataConfig(batch_size=LIFE_BATCH), field_size=39, data_dir=local)])
+    infer_err = float(np.abs(probs - ref).max()) if probs.shape == ref.shape else np.inf
+    if probs.shape != (VAL_RECORDS,) or not infer_err <= TOL_PROB:
+        fail(f"stream: pred.txt holds {probs.shape} lines, max abs diff {infer_err} "
+             f"from the plain forward of the exported weights")
+    return {"s3": s3, "disk": disk[0], "route_diffs": diffs, "batches_equal": n,
+            "upload_s": upload_s, "first_batch": url_batches[0], "servable": servable,
+            "bridges": {k: counted(k) for k in bridges}, "infer_max_abs_diff": infer_err,
+            "launches": s3["launches"] + sum(d["launches"] for d in disk) + fwd_e + fwd,
+            "backward_launches": s3["backward_launches"] + sum(d["backward_launches"]
+                                                               for d in disk)}
+
+
+def stream_pipe(seed: int, workdir: str, files: list, val: str) -> dict:
+    """(b) Pipe mode: the train task with data.stream_mode from the
+    ``training`` FIFO, its final eval from the ``evaluation`` FIFO, both
+    filled by writer threads; the eval task over the same checkpoint and
+    the validation records as files; the eval task with
+    eval_max_batches=2 over a channel whose writer never closes it; the
+    first batch through a FIFO against the same records from disk."""
+    from deepfm_tpu_torch.core.config import DataConfig
+    from deepfm_tpu_torch.data.pipeline import ctr_batches_from_sources, make_input_pipeline
+    from deepfm_tpu_torch.utils.channel_writer import ChannelWriter
+
+    def channel(path, payload, **kw):
+        return ChannelWriter(path, payload, deadline_s=STREAM_DEADLINE_S, **kw)
+
+    def read(paths):
+        out = []
+        for p in paths:
+            with open(p, "rb") as f:
+                out.append(f.read())
+        return b"".join(out)
+
+    pipe, live, first = (os.path.join(workdir, d) for d in ("pipe", "pipe_live", "pipe_first"))
+    for d in (pipe, live, first):
+        os.makedirs(d)
+    records = len(files) * TRAIN_RECORDS_PER_FILE
+    model_dir = os.path.join(workdir, "model_pipe")
+    servable = os.path.join(workdir, "servable_pipe")
+    writers = [channel(os.path.join(pipe, "training"), read(files)),
+               channel(os.path.join(pipe, "evaluation"), read([val]))]
+    try:
+        run = _route_run(["--task_type", "train", "--training_data_dir", pipe,
+                          "--model_dir", model_dir, "--servable_model_dir", servable,
+                          "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
+                          "--set", "model.fused_kernel=auto", "--set", f"run.seed={seed}",
+                          "--set", "data.stream_mode=true", *LIFE_ARGS],
+                         "Pipe train", records, VAL_RECORDS)
+        for w in writers:
+            _join_writer(w, "Pipe train")
+    finally:
+        for w in writers:
+            w.close()
+    base = ["--model_dir", model_dir, "--set", "model.fused_kernel=auto", *LIFE_ARGS]
+    files_eval, _, fwd_a, _ = run_logged(["--task_type", "eval", "--val_data_dir",
+                                          os.path.dirname(val), *base])
+    if files_eval["examples"] != run["eval"]["examples"] or \
+            abs(files_eval["auc"] - run["eval"]["auc"]) > 1e-6:
+        fail(f"stream: the channel's eval {run['eval']} against the files' {files_eval}")
+    writer = channel(os.path.join(live, "evaluation"), read([val]), forever=True)
+    try:
+        t0 = time.perf_counter()
+        bounded, _, fwd_b, _ = run_logged(["--task_type", "eval", "--training_data_dir", live,
+                                           "--set", "data.stream_mode=true",
+                                           "--set", "data.eval_max_batches=2", *base])
+        bounded_s = time.perf_counter() - t0
+        _join_writer(writer, "the bounded read")
+    finally:
+        writer.close()
+    if bounded["examples"] != 2 * LIFE_BATCH or not writer.reader_closed:
+        fail(f"stream: the bounded read gave {bounded}; the writer saw the reader close: "
+             f"{writer.reader_closed}")
+    writer = channel(os.path.join(first, "training"), read(files[:1]))
+    try:
+        batches = make_input_pipeline(DataConfig(batch_size=LIFE_BATCH, stream_mode=True),
+                                      field_size=39, data_dir=first, seed=seed)
+        fifo_batch = next(batches)
+        batches.close()
+        _join_writer(writer, "the first FIFO batch")
+    finally:
+        writer.close()
+    _same_batches([fifo_batch], [next(ctr_batches_from_sources(
+        files[:1], batch_size=LIFE_BATCH, field_size=39))], "the first FIFO batch")
+    return {"run": run, "files_eval": files_eval, "bounded": bounded, "bounded_s": bounded_s,
+            "first_batch": fifo_batch, "servable": servable,
+            "launches": run["launches"] + fwd_a + fwd_b,
+            "backward_launches": run["backward_launches"]}
+
+
+def stream_reload(seed: int, base: str, s3_servable: str, states: list) -> dict:
+    """(c) The serve task over the S3 run's servable with
+    run.serve_reload_url on a URL publish root: version 1 (the S3 run's
+    weights) published before it starts is adopted before its socket
+    opens, version 2 (the Pipe run's) published while it serves is swapped
+    in; every answer is within TOL_PROB of the plain forward of the version
+    it reports; B1's runs are the bucket graphs' replays."""
+    from deepfm_tpu_torch.launch import cli
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.serve.export import model_from_state
+    from deepfm_tpu_torch.train import loop
+
+    root = f"{base}/bucket/publish"
+    cfg, _ = cli.resolve_config([
+        "--task_type", "serve", "--servable_model_dir", s3_servable, "--set", "run.serve_port=0",
+        "--set", f"run.serve_reload_url={root}", "--set", "run.serve_reload_interval_secs=0.1",
+        "--set", "run.serve_buckets=" + ",".join(map(str, STREAM_BUCKETS)),
+        "--set", "model.fused_kernel=auto", *LIFE_ARGS])
+    sds = [{k: v.detach().cpu() for k, v in s.model.state_dict().items()} for s in states]
+    models = [model_from_state(cfg.model, sd, DEVICE) for sd in sds]
+    pub = ModelPublisher(root)
+    t0 = time.perf_counter()
+    pub.publish(cfg.model, sds[0], step=states[0].step)
+    publish_ms = [1e3 * (time.perf_counter() - t0)]
+    rng = np.random.default_rng(seed + 20)
+    requests = [(make_ids(rng, n, cfg.model.field_size, cfg.model.feature_size),
+                 rng.random((n, cfg.model.field_size)).astype(np.float32)) for n in (1, 8, 50)]
+    fused_ctr.launches = fused_ctr.captured = 0
+    ready, errors = threading.Event(), []
+
+    def serve():
+        try:
+            loop.run_serve(cfg, device=DEVICE, ready=ready)
+        except BaseException as e:  # reported below
+            errors.append(e)
+            ready.set()
+
+    thread = threading.Thread(target=serve, name="stream-serve", daemon=True)
+    thread.start()
+    if not ready.wait(STREAM_DEADLINE_S) or errors:
+        fail(f"stream: the serve task did not come up: {errors}")
+    url = f"http://127.0.0.1:{ready.port}/v1/models/deepfm:predict"
+    answers = []
+
+    def ask(version: int) -> None:
+        for ids, vals in requests:
+            code, doc = post(url, _instances_body(ids, vals))
+            got = np.asarray(doc.get("predictions"), np.float32)
+            v = doc.get("model_version")
+            if code != 200 or v != version:
+                fail(f"stream: :predict answered {code}, version {v} (expected {version})")
+            err = min(float(np.abs(got - plain_probs(models[v - 1], ids, vals, b)).max())
+                      for b in STREAM_BUCKETS if b >= len(ids))
+            if not err <= TOL_PROB:
+                fail(f"stream: a version {v} answer is {err} from its plain forward")
+            answers.append(err)
+
+    try:
+        ask(1)  # adopted before the socket opened
+        t0 = time.perf_counter()
+        pub.publish(cfg.model, sds[1], step=states[1].step)
+        publish_ms.append(1e3 * (time.perf_counter() - t0))
+        deadline = time.monotonic() + STREAM_DEADLINE_S
+        while ready.swapper.status()["model_version"] != 2:
+            if time.monotonic() > deadline:
+                fail(f"stream: version 2 did not swap in: {ready.swapper.status()}")
+            time.sleep(0.02)
+        swap_s = time.perf_counter() - t0
+        ask(2)
+        predictor = ready.predictor
+        launches = predictor.replays * predictor.kernel_launches_per_replay
+        st = ready.swapper.status()
+    finally:
+        ready.server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive() or errors:
+        fail(f"stream: the serve task did not stop: {errors}")
+    if launches <= 0 or st["rollbacks_total"] or st["poll_errors_total"]:
+        fail(f"stream: the served path: {launches} B1 runs, status {st}")
+    return {"swap_ms": st["last_swap_ms"], "stage_ms": st["last_stage_ms"],
+            "canary_ms": st["last_canary_ms"], "publish_ms": publish_ms,
+            "published_to_live_s": swap_s, "answers": len(answers),
+            "max_abs_diff": max(answers), "launches": launches,
+            "graphs": predictor.graph_count}
+
+
+def phase_stream(seed: int, workdir: str, card: str, train_dir: str, val_dir: str,
+                 readers: dict) -> dict:
+    """Phase 20 (module docstring): (a) S3 channels, (b) Pipe mode, (c) a
+    URL publish root, at the flagship width; B1 and B1' held against their
+    plain versions on the first batch through a bridge and the first
+    through a FIFO.  One ``stream`` line."""
+    from deepfm_tpu_torch.data.pipeline import discover_files
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir)
+    files = sorted(discover_files(train_dir, ("train",), shuffle=False))[:STREAM_FILES]
+    val = discover_files(val_dir, ("val",), shuffle=False)[0]
+    proc, base = start_dev_store(workdir)
+    try:
+        s3 = stream_s3(seed, workdir, base, files, val)
+        pipe = stream_pipe(seed, workdir, files, val)
+        reload = stream_reload(seed, base, s3["servable"],
+                               [s3["s3"]["state"], pipe["run"]["state"]])
+        checks = {"bridge": _kernel_check(s3["s3"]["state"].model, s3["first_batch"], seed,
+                                          "stream bridge"),
+                  "fifo": _kernel_check(pipe["run"]["state"].model, pipe["first_batch"],
+                                        seed, "stream fifo")}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    seconds = time.perf_counter() - t_phase
+    route = lambda r: {k: r["done"][k] for k in ("examples_per_sec", "input_wait_share",  # noqa: E731
+                                                 "steps", "seconds")}
+    launches = s3["launches"] + pipe["launches"] + reload["launches"]
+    backward = s3["backward_launches"] + pipe["backward_launches"]
+    print("stream %s" % json.dumps({
+        "card": card, "records_a_route": len(files) * TRAIN_RECORDS_PER_FILE,
+        "s3": route(s3["s3"]), "pipe": route(pipe["run"]),
+        "lifecycle_local_files": readers.get("native"),
+        "s3_batches_byte_equal_to_disk": s3["batches_equal"],
+        "route_diffs": s3["route_diffs"], "tolerance": TOL_ROUTE,
+        "disk": route(s3["disk"]), "upload_s": s3["upload_s"], "bridges": s3["bridges"],
+        "infer_max_abs_diff": s3["infer_max_abs_diff"],
+        "eval": {"examples": pipe["run"]["eval"]["examples"], "auc": pipe["run"]["eval"]["auc"],
+                 "files_auc": pipe["files_eval"]["auc"]},
+        "bounded_eval": {"examples": pipe["bounded"]["examples"], "seconds": pipe["bounded_s"]},
+        "reload": {k: reload[k] for k in ("swap_ms", "stage_ms", "canary_ms", "publish_ms",
+                                          "published_to_live_s", "answers", "max_abs_diff",
+                                          "graphs")},
+        "kernels_vs_plain": checks,
+        "runs": {"fused_ctr_forward": launches, "fused_ctr_backward": backward},
+        "seconds": seconds}))
+    return {"launches": launches, "backward_launches": backward,
+            "max_abs_err": max(c["forward_max_abs_err"] for c in checks.values()),
+            "backward_max_abs_err": max(c["backward_max_abs_err"] for c in checks.values()),
+            "seconds": seconds}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -6157,6 +6653,9 @@ def main(argv: list[str] | None = None) -> int:
                           os.path.join(workdir, "funnel"), serve["ab"]["graphed"])
         begin("prep")
         prep = phase_prep(args.seed, os.path.join(workdir, "prep"), card)
+        begin("stream")
+        stream = phase_stream(args.seed, os.path.join(workdir, "stream"), card, train_dir,
+                              val_dir, life["readers"])
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
     bwd = backward["per_batch"][TRAIN_BATCHES[0]]
@@ -6171,9 +6670,11 @@ def main(argv: list[str] | None = None) -> int:
                      + ddp["launches"] + sharded["launches"] + life["launches"]
                      + online["launches"] + elastic["launches"] + funnel["forward_launches"]
                      + funnel["task_forward_launches"] + swap["forward_launches"]
-                     + pool["forward_launches"] + prep["launches"] + tiered["launches"]),
+                     + pool["forward_launches"] + prep["launches"] + tiered["launches"]
+                     + stream["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
                            sharded["max_abs_err"], elastic["max_abs_err"],
+                           stream["max_abs_err"],
                            *tiered["hot_forward"]["max_abs_err"],
                            *tiered["compact"]["forward_max_abs_err"]),
         "ms": fwd["ms"],
@@ -6190,9 +6691,11 @@ def main(argv: list[str] | None = None) -> int:
                      + ddp["backward_launches"] + sharded["backward_launches"]
                      + life["backward_launches"] + online["backward_launches"]
                      + elastic["backward_launches"]
-                     + prep["backward_launches"] + tiered["backward_launches"]),
+                     + prep["backward_launches"] + tiered["backward_launches"]
+                     + stream["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"],
                            sharded["backward_max_abs_err"], elastic["backward_max_abs_err"],
+                           stream["backward_max_abs_err"],
                            *tiered["compact"]["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

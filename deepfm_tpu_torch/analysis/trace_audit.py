@@ -164,26 +164,30 @@ def state_tensors(state) -> dict[str, torch.Tensor]:
 
 
 def _layout(tensors: dict) -> dict:
-    return {k: (t.data_ptr(), t.dtype, tuple(t.shape)) for k, t in tensors.items()}
+    """Each tensor with its dtype and shape.  The snapshot holds the tensors
+    themselves, so none of their memory is freed while the audit runs: a
+    tensor that a step rebinds can then never sit at an address the
+    snapshot names."""
+    return {k: (t, t.dtype, tuple(t.shape)) for k, t in tensors.items()}
 
 
 def check_in_place(before: dict, state, where: str, what: str) -> list[Finding]:
     """``trace-donation`` and ``trace-dtype`` findings of ``state`` against
     its ``_layout`` before the steps."""
     out = []
-    after = _layout(state_tensors(state))
-    for name, (ptr, dtype, shape) in before.items():
+    after = state_tensors(state)
+    for name, (was, dtype, shape) in before.items():
         now = after.get(name)
-        if now is None or now[0] != ptr:
+        if now is None or now.data_ptr() != was.data_ptr():
             out.append(_finding(
                 "trace-donation", f"{what}: {name} was rebound by a step, not "
                 f"updated in place", where, f"{what}:donation:{name}",
                 hint="update the tensor with an in-place op (copy_, add_, "
                      "index_copy_); a replay writes the captured memory"))
-        elif now[1:] != (dtype, shape):
+        elif (now.dtype, tuple(now.shape)) != (dtype, shape):
             out.append(_finding(
                 "trace-dtype", f"{what}: {name} went from {dtype} {shape} to "
-                f"{now[1]} {now[2]} in a step", where, f"{what}:drift:{name}"))
+                f"{now.dtype} {tuple(now.shape)} in a step", where, f"{what}:drift:{name}"))
     return out
 
 

@@ -7,8 +7,9 @@ validation.
   two-tower fields (vocabularies, field counts, tower widths);
 * ``OptimizerConfig`` - every field of the JAX section, lazy Adam and the
   ZeRO weight update (``zero_sharding``) included;
-* ``DataConfig`` - what file mode reads, on one process or on each rank of
-  a ``[data x model]`` grid, ``permute_ids`` included;
+* ``DataConfig`` - what file mode and stream (Pipe) mode read, on one
+  process or on each rank of a ``[data x model]`` grid, the record
+  shuffle and ``permute_ids`` included;
 * ``MeshConfig`` - the JAX mesh section: the ``[data_parallel x
   model_parallel]`` grid of ``torch.distributed`` ranks;
 * ``RunConfig`` - task type, paths, logging cadence, seed, the train
@@ -33,7 +34,7 @@ the JAX dataclasses; a tier-1 test holds the copy against them):
 * at its JAX default it loads (and is dropped);
 * at another value it raises, naming the field and the ROADMAP item that
   ports it, where that value would change what a one-card or
-  data-parallel job computes (``stream_mode``, ``tiered_embeddings``,
+  data-parallel job computes (``fleet.tenants``, ``run.workers_per_host``,
   ...);
 * it loads at any value where it cannot change the result (serving,
   fleet, ...).
@@ -89,7 +90,6 @@ def _tuples(v: Any) -> Any:
 
 
 # Why a JAX field that changes a job's result raises, by ROADMAP item
-_A6 = "not ported yet (ROADMAP A6, the input pipeline's other modes)"
 _A18 = ("not ported yet (ROADMAP A18, multi-tenant fleets: the serving pool "
         "serves one tenant)")
 _A7 = ("the launcher's LOCAL_WORLD_SIZE gives the workers a host "
@@ -105,22 +105,12 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "cin_layers": ((128, 128), None),
         "cross_layers": (3, None),
     },
-    "data": {
-        "shuffle_buffer": (0, _A6),
-        "stream_mode": (False, _A6),
-        "multi_path": (False, _A6),
-        # stream-mode channels; file mode reads the directories
-        "training_channel_name": ("training", None),
-        "evaluation_channel_name": ("evaluation", None),
-        "eval_max_batches": (0, _A6),
-    },
     "run": {
         "hosts": (("localhost",), None),
         "current_host": ("localhost", None),
         # the JAX process's shard count per host; here LOCAL_WORLD_SIZE
         "workers_per_host": (1, _A7),
         "steps_per_loop": (1, None),
-        "profile_dir": ("", None),
     },
     # serving fleets, SLOs and regions: none of them changes what training
     # computes
@@ -403,14 +393,20 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """File-mode input (data/pipeline.py).  ``batch_size`` is per process,
-    as in the JAX package (one process a host) and in Horovod (one process
-    a GPU): a data-parallel run of N ranks takes N x ``batch_size`` records
-    a step.  Each rank reads the records that ``data/sharding.py
-    shard_plan`` gives it, round-robin (record i to shard i % n); with
-    ``s3_shard`` the files are taken as already split per host.  On a
-    ``[data x model]`` grid the shards are the data indices: the
-    ``model_parallel`` ranks of one data index read the same batches."""
+    """The input (data/pipeline.py): the training files of a local directory
+    or an object-store prefix (file mode), or the Pipe-mode channels
+    ``<dir>/<training_channel_name>`` and ``<dir>/<evaluation_channel_name>``
+    (``stream_mode``: FIFOs, or objects streamed from a store).
+    ``batch_size`` is per process, as in the JAX package (one process a
+    host) and in Horovod (one process a GPU): a data-parallel run of N
+    ranks takes N x ``batch_size`` records a step.  Each rank reads the
+    records that ``data/sharding.py shard_plan`` gives it, round-robin
+    (record i to shard i % n); with ``s3_shard`` the files are taken as
+    already split per host, with ``multi_path`` each local worker streams
+    its own channel (``<channel>-<k>``).  On a ``[data x model]`` grid the
+    shards are the data indices: the ``model_parallel`` ranks of one data
+    index read the same batches.  ``shuffle_buffer`` > 0 shuffles records
+    in windows of that many (``shuffle_batches``), in both modes."""
 
     training_data_dir: str = ""
     val_data_dir: str = ""
@@ -419,11 +415,19 @@ class DataConfig:
     batch_size: int = 1024
     num_epochs: int = 10
     shuffle_files: bool = True        # shuffle the file list, seeded by run.seed
+    shuffle_buffer: int = 0           # 0: no record shuffle (the reference has none)
     drop_remainder: bool = True       # training batches; eval keeps the tail
+    stream_mode: bool = False         # Pipe mode: read the channels, not files
+    s3_shard: bool = False            # the files are pre-sharded per host
+    multi_path: bool = False          # one stream channel a local worker
+    training_channel_name: str = "training"
+    evaluation_channel_name: str = "evaluation"
+    # stream-mode eval reads the evaluation channel to EOF, or this many
+    # batches when > 0 (a live channel may never close)
+    eval_max_batches: int = 0
     # host batches decoded ahead of the train loop by a reader thread
     prefetch_batches: int = 2
     file_patterns: tuple[str, ...] = ("tr", "train")
-    s3_shard: bool = False            # the files are pre-sharded per host
     # C++ readers decoding training files at once (data/parallel_ingest.py):
     # the same batches in the same order
     parallel_readers: int = 4
@@ -478,9 +482,10 @@ class RunConfig:
     eval during training no sooner than ``eval_start_delay_secs`` and at
     most once per ``eval_throttle_secs`` (0: at the end only); the task
     rerun after a crash up to ``max_restarts`` times, the waits starting at
-    ``restart_backoff_secs``.  ``steps_per_loop``, ``hosts``,
-    ``current_host``, ``profile_dir`` and the pool's serving fields load
-    and are not read (``JAX_ONLY_FIELDS``).  The ``serve_*`` and
+    ``restart_backoff_secs``; a ``torch.profiler`` trace of the train loop
+    written into ``profile_dir`` when it is set.  ``steps_per_loop``,
+    ``hosts``, ``current_host`` and the pool's serving fields load and are
+    not read (``JAX_ONLY_FIELDS``).  The ``serve_*`` and
     ``funnel_*`` fields here configure the serve task (train/loop.py
     ``run_serve``), validated as JAX validates them (``Config``)."""
 
@@ -496,6 +501,7 @@ class RunConfig:
     keep_checkpoints: int = 3
     max_restarts: int = 0
     restart_backoff_secs: float = 5.0
+    profile_dir: str = ""             # torch.profiler trace of the train loop ("" = off)
     # the serve task (serve/server.py serve_forever): bind address, buckets,
     # batching wait, a two-tower corpus and hot reload from a local publish
     # root.  serve_workers > 1 runs the process pool (serve/server.py

@@ -1,6 +1,5 @@
 """Object-store client over the S3 wire subset: the port's copy of
-``deepfm_tpu/data/object_store.py`` (everything but ``FifoBridge``, which
-belongs to the FIFO stream mode, ROADMAP A6).
+``deepfm_tpu/data/object_store.py``.
 
 * :class:`HttpObjectStore` speaks ``GET`` (with ``Range``), ``PUT``,
   ``HEAD``, ``DELETE`` and ``ListObjectsV2`` (``?list-type=2&prefix=``
@@ -13,6 +12,10 @@ belongs to the FIFO stream mode, ROADMAP A6).
 * :class:`ResumingStream` re-issues a ranged GET from the exact byte
   offset when a connection drops mid-body (a dropped body reads as a clean
   EOF under sized reads otherwise).
+* :class:`FifoBridge` streams one object into a named FIFO, so the C++
+  record reader (``native/``), which takes paths, decodes remote records
+  without spooling them to disk; :func:`open_source` opens a local path
+  or an object URL for streaming reads.
 
 URL convention: ``http(s)://host[:port]/bucket/key...``: the first path
 segment is the bucket, the rest the key (S3 path-style addressing).  Local
@@ -377,6 +380,7 @@ class ResumingStream:
         self._offset = offset
         self._max_resumes = max_resumes
         self._resumes = 0
+        self.resumes_total = 0
         self._resp = store.open_read(url, offset=offset)
         cl = self._resp.headers.get("Content-Length")
         self._total = offset + int(cl) if cl is not None else None
@@ -391,6 +395,7 @@ class ResumingStream:
                 + (f"/{self._total}" if self._total is not None else "")
                 + f" after {self._max_resumes} resume attempts"
             )
+        self.resumes_total += 1
         time.sleep(min(2.0 ** self._resumes * 0.1, 5.0))
         try:
             self._resp.close()
@@ -460,3 +465,79 @@ def open_source(src: str, *, offset: int = 0) -> BinaryIO:
     if offset:
         f.seek(offset)
     return f
+
+
+class FifoBridge:
+    """Stream the object at ``url`` into the named FIFO ``fifo_dir/name``
+    (``path``), for consumers that read paths (the C++ reader).
+
+    Memory is the kernel's pipe buffer.  The writer thread first waits for
+    a reader on the FIFO, by a non-blocking open and a poll, so it can be
+    called off (``close()``) before anyone reads; only then does it send
+    the GET.  A connection dropped mid-body resumes with a ranged re-GET
+    from the exact byte offset (``ResumingStream``, at most
+    ``_MAX_RESUMES`` stalls in a row), so a drop costs a reconnect, not a
+    silently short epoch.  ``finish()`` joins the writer and raises the
+    transfer error that the reader's EOF would hide; ``close()`` reaps the
+    bridge quietly after the consumer stopped early.  ``bytes`` counts what
+    went into the FIFO, ``resumes`` the ranged re-GETs."""
+
+    _MAX_RESUMES = 5
+    POLL_SECS = 0.05
+
+    def __init__(self, url: str, fifo_dir: str, name: str):
+        self.url = url
+        self.path = os.path.join(fifo_dir, name)
+        os.mkfifo(self.path)
+        self.bytes = 0
+        self.resumes = 0
+        self._err: BaseException | None = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._pump, name="fifo-bridge",
+                                        daemon=True)
+        self._thread.start()
+
+    def _pump(self) -> None:
+        import errno
+
+        try:
+            fd = None
+            while fd is None:
+                if self._stop.is_set():
+                    return
+                try:
+                    fd = os.open(self.path, os.O_WRONLY | os.O_NONBLOCK)
+                except OSError as e:
+                    if e.errno != errno.ENXIO:  # ENXIO: no reader yet
+                        raise
+                    self._stop.wait(self.POLL_SECS)
+            os.set_blocking(fd, True)
+            with os.fdopen(fd, "wb") as sink, get_store().open_read_resuming(
+                    self.url, max_resumes=self._MAX_RESUMES) as r:
+                try:
+                    while True:
+                        chunk = r.read(1 << 20)
+                        if not chunk:
+                            return
+                        sink.write(chunk)
+                        self.bytes += len(chunk)
+                finally:
+                    self.resumes = r.resumes_total
+        except BrokenPipeError:
+            pass  # the consumer stopped early (a drop_remainder cut, a bound)
+        except BaseException as e:  # raised by finish()
+            self._err = e
+
+    def finish(self) -> None:
+        """Join the writer and raise any transfer error as
+        :class:`ObjectStoreError` (a failed GET or a dropped connection
+        reads as a clean EOF to the record reader: here it is loud)."""
+        self._thread.join()
+        if self._err is not None:
+            raise ObjectStoreError(
+                f"remote stream {self.url} failed: {self._err}") from self._err
+
+    def close(self) -> None:
+        """Reap the bridge after the consumer stopped early; never raises."""
+        self._stop.set()
+        self._thread.join(timeout=10)

@@ -1,7 +1,10 @@
 """The 4-way data-shard decision matrix: a copy of
 ``deepfm_tpu/data/sharding.py`` (the port keeps its own, as it does of
-every JAX-free module it uses).  The port's file mode reads the file-mode
-rows of the matrix; stream mode waits for ROADMAP A6.
+every JAX-free module it uses).  File mode reads its file-mode rows and
+stream (Pipe) mode its stream rows (data/pipeline.py
+``make_input_pipeline``); a rank's ``local_rank`` and ``workers_per_host``
+come from ``python -m torch.distributed.run``'s ``LOCAL_RANK`` and
+``LOCAL_WORLD_SIZE`` (parallel/mesh.py ``DistContext.topology``).
 
 Reproduces the partitioning semantics of the reference
 (README.md:87-92; code: hvd:127-149 for the Horovod path, ps:153-156 for the

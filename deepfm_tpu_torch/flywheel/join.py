@@ -1,5 +1,5 @@
 """Delayed-label join: impressions ⋈ clicks → a labeled training stream.
-The port's copy of ``deepfm_tpu/flywheel/join.py`` for local log roots.
+The port's copy of ``deepfm_tpu/flywheel/join.py``.
 
     python -m deepfm_tpu_torch.flywheel.join --impressions I --clicks C \
         --out J --window SECS [--sample-rate R] [--roll-bytes N] \
@@ -34,9 +34,12 @@ before the flush loses only work that replay regenerates.  So the output
 after a kill anywhere and a resume is byte-equal to an uninterrupted run's,
 and to the JAX package's join over the same input directories.
 
-Object-store roots raise (ROADMAP A21).  Metrics go to a
-``MetricsRegistry`` (obs/metrics.py), flips and stalls to the flight
-recorder (obs/flight.py).
+Every root may be a directory or an object-store URL prefix: the logs are
+tailed by ``online/stream.py open_tail`` (a URL's publish time is when the
+tail first listed the segment), the output segments are PUTs, and the
+checkpoint is one PUT of ``_join_state.json`` (an object appears whole).
+Metrics go to a ``MetricsRegistry`` (obs/metrics.py), flips and stalls to
+the flight recorder (obs/flight.py).
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ import time
 from collections import deque
 
 from ..data.example_proto import serialize_ctr_example
+from ..data.object_store import get_store, is_url, join_url
 from ..data.tfrecord import read_records
 from ..obs import flight as obs_flight
 from ..obs.metrics import MetricsRegistry
-from ..online.publisher import check_local_root
 from ..online.stream import SegmentWriter, StreamCursor, open_tail
 from .records import impression_sampled, parse_click, parse_impression
 
@@ -65,7 +68,8 @@ STALL_FLIGHT_SECS = 30.0
 
 
 def _state_path(output_root: str) -> str:
-    return os.path.join(check_local_root(output_root), STATE_NAME)
+    return (join_url(output_root, STATE_NAME) if is_url(output_root)
+            else os.path.join(output_root, STATE_NAME))
 
 
 def load_status(output_root: str) -> dict | None:
@@ -87,8 +91,11 @@ def load_status(output_root: str) -> dict | None:
 
 def load_state(output_root: str) -> dict | None:
     """The raw committed checkpoint (None when absent or unreadable)."""
+    path = _state_path(output_root)
     try:
-        with open(_state_path(output_root), "rb") as f:
+        if is_url(path):
+            return json.loads(get_store().get(path))
+        with open(path, "rb") as f:
             return json.loads(f.read())
     except (OSError, ValueError):
         return None
@@ -107,10 +114,9 @@ class JoinService:
         if checkpoint_every_segments <= 0:
             raise ValueError(
                 f"checkpoint_every_segments must be > 0, got {checkpoint_every_segments}")
-        # the join reads and writes local directories only (ROADMAP A21)
-        self._imp_tail = open_tail(check_local_root(impressions_url))
-        self._click_tail = open_tail(check_local_root(clicks_url))
-        self.output_url = check_local_root(output_url)
+        self._imp_tail = open_tail(impressions_url)
+        self._click_tail = open_tail(clicks_url)
+        self.output_url = str(output_url)
         self._window = float(attribution_window_secs)
         self._sample_rate = float(sample_rate)
         self._checkpoint_every = int(checkpoint_every_segments)
@@ -266,7 +272,7 @@ class JoinService:
     # -- durability ---------------------------------------------------------
     def checkpoint(self) -> None:
         """Flush the output, then commit the state (a temporary file
-        renamed into place), in that order."""
+        renamed into place, or one PUT under a URL), in that order."""
         name = self._writer.flush()
         if name and self.on_segment is not None:
             self.on_segment(name)
@@ -284,11 +290,15 @@ class JoinService:
             "next_out_seq": self._writer.next_seq,
             "counters": counters,
         }
+        payload = json.dumps(state).encode()
         path = _state_path(self.output_url)
-        os.makedirs(self.output_url, exist_ok=True)
-        with open(path + ".tmp", "wb") as f:
-            f.write(json.dumps(state).encode())
-        os.replace(path + ".tmp", path)
+        if is_url(path):
+            get_store().put(path, payload)
+        else:
+            os.makedirs(self.output_url, exist_ok=True)
+            with open(path + ".tmp", "wb") as f:
+                f.write(payload)
+            os.replace(path + ".tmp", path)
         self._since_checkpoint = 0
         if self.on_checkpoint is not None:
             self.on_checkpoint(state)

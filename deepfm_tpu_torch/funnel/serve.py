@@ -65,7 +65,7 @@ import numpy as np
 from ..obs import flight as obs_flight
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import DEFAULT_SAMPLE_RATE, Tracer
-from ..online.publisher import (Manifest, check_local_root, fetch_version, latest_manifest,
+from ..online.publisher import (Manifest, fetch_version, latest_manifest,
                                 resolve_version)
 from ..serve.batcher import DEFAULT_BUCKETS, MicroBatcher, OverloadedError
 from ..serve.reload import DRAIN_TIMEOUT_SECS, SwappableParams
@@ -448,7 +448,7 @@ class FunnelSwapper:
     def __init__(self, scorer: FunnelScorer, source: str, *, interval_secs: float = 2.0,
                  staging_dir: str | None = None):
         self._scorer = scorer
-        self._source = check_local_root(source)
+        self._source = str(source)
         self._interval = float(interval_secs)
         self._staging = staging_dir or os.path.join(
             tempfile.gettempdir(), f"deepfm_funnel_{os.getpid()}")
@@ -610,7 +610,7 @@ def make_funnel_handler(scorer: FunnelScorer, model_name: str, reload_status=Non
     with the ``funnel`` and ``reload`` sections, ``/metrics`` from the
     scorer's registry, ``/v1/trace/recent``, ``/v1/flight``) with POST
     routed only to ``/v1/recommend``, traced like ``:predict``."""
-    from ..serve.server import make_handler
+    from ..serve.server import make_handler, traced_request
 
     base = make_handler(scorer, model_name, reload_status=reload_status,
                         readiness=readiness, registry=scorer.registry, tracer=tracer)
@@ -621,10 +621,7 @@ def make_funnel_handler(scorer: FunnelScorer, model_name: str, reload_status=Non
                 self._send(404, {"error": f"unknown path {self.path!r} (funnel "
                                           f"servables serve POST {RECOMMEND_PATH})"})
                 return
-            ctx = self.obs_tracer.begin("recommend", self.headers)
-            token = self.obs_tracer.activate(ctx)
-            self._obs_status = None
-            try:
+            with traced_request(self, self.obs_tracer, "recommend"):
                 try:
                     length = int(self.headers.get("Content-Length", "0"))
                     req = json.loads(self.rfile.read(length))
@@ -634,8 +631,6 @@ def make_funnel_handler(scorer: FunnelScorer, model_name: str, reload_status=Non
                     self._send(400, {"error": f"{type(e).__name__}: {e}"})
                     return
                 self._send(*handle_recommend(scorer, req))
-            finally:
-                self.obs_tracer.finish(ctx, token, status=self._obs_status)
 
     return FunnelHandler
 
@@ -653,7 +648,7 @@ def serve_funnel(servable_dir: str, *, port: int = 8501, host: str = "127.0.0.1"
     here when the servable has a funnel.json).  ``model_parallel``
     row-shards the index on the serving card; ``data_parallel`` splits
     each bucket into that many row slices.  ``reload_url`` (a
-    local publish root) adopts a version already published there before
+    publish root: a directory or an object-store URL) adopts a version already published there before
     the socket opens, then polls every ``reload_interval_secs``.
     ``ready`` as in ``serve_forever``: set once the socket is bound, with
     ``.port``, ``.server``, ``.scorer`` and ``.swapper``."""

@@ -30,9 +30,9 @@ refuses a writer whose fencing token is stale for the root
 task's publisher runs :meth:`ModelPublisher.clean_orphans` at start.
 :meth:`ModelPublisher.publish_tiered` publishes a tiered model (a
 consistent cold-tier snapshot in the manifest's ``extra["tiered"]``).
-The readers here take URL roots; the serving side's reloaders
-(serve/reload.py, funnel/serve.py, serve/pool/swap.py) and the flywheel's
-join still refuse them (:func:`check_local_root`, ROADMAP A21).
+Every root here may be a directory or an object-store URL, and so may the
+serving side's reloaders' (serve/reload.py, funnel/serve.py,
+serve/pool/swap.py).
 """
 
 from __future__ import annotations
@@ -57,16 +57,6 @@ _VERSIONS = "versions"
 
 def _version_name(version: int) -> str:
     return f"{int(version):08d}"
-
-
-def check_local_root(root: str) -> str:
-    """``root`` if it is a local directory path; a URL raises: the roots
-    of the tasks that still read local directories only (ROADMAP A21)."""
-    if "://" in str(root):
-        raise NotImplementedError(
-            f"{root!r}: object-store roots of this task are not ported yet "
-            f"(ROADMAP A21); give a local directory")
-    return str(root)
 
 
 def _leaves(node, path: str, out: list) -> None:

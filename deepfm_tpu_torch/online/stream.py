@@ -23,9 +23,9 @@ mtime), so the watermark errs late, never early.
   (the join's output, ``flywheel/join.py``).
 
 The records decode with the port's ``data/example_proto.decode_ctr_batch``.
-:class:`SegmentWriter` writes a local directory only (the flywheel join's
-output, ROADMAP A21).  Segments strictly behind every consumer's cursor may be deleted;
-never one at or ahead of a live cursor.
+:class:`SegmentWriter` and :func:`publish_segment` write a directory or a
+URL prefix (one PUT a segment).  Segments strictly behind every consumer's
+cursor may be deleted; never one at or ahead of a live cursor.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ from ..data.example_proto import decode_ctr_batch, serialize_ctr_example
 from ..data.object_store import get_store, is_url, join_url
 from ..data.tfrecord import frame_record, read_records
 from ..obs import flight as obs_flight
-from .publisher import check_local_root
 
 _SEGMENT_SUFFIXES = (".tfrecords", ".tfrecord")
 
@@ -68,10 +67,11 @@ def segment_name(seq: int, *, suffix: str = ".tfrecords") -> str:
 
 
 class DirectoryTail:
-    """Tail a local directory of immutable TFRecord segments."""
+    """Tail a local directory of immutable TFRecord segments (a URL prefix
+    is :class:`PrefixTail`'s: :func:`open_tail` picks)."""
 
     def __init__(self, path: str):
-        self.path = check_local_root(path)
+        self.path = str(path)
 
     def list_segments(self) -> list[str]:
         if not os.path.isdir(self.path):
@@ -164,13 +164,14 @@ class SegmentWriter:
     with both off only :meth:`flush` publishes.  The size trigger is a pure
     function of the appended records, so a producer that must re-emit a
     bit-exact stream after a crash (the join) keeps the age trigger off.
-    Sequence numbers continue after the segments already in ``root``.
-    Single-writer: the owning thread appends and polls."""
+    Sequence numbers continue after the segments already in ``root`` (a
+    directory or a URL prefix).  Single-writer: the owning thread appends
+    and polls."""
 
     def __init__(self, root: str, *, roll_bytes: int = 1 << 20,
                  roll_age_secs: float = 10.0, start_seq: int | None = None,
                  clock=time.time):
-        self.root = check_local_root(root)
+        self.root = str(root)
         self._roll_bytes = int(roll_bytes)
         self._roll_age = float(roll_age_secs)
         self._clock = clock

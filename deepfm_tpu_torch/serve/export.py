@@ -194,15 +194,30 @@ def load_retrieval_servable(directory: str | os.PathLike, device=None
 def write_predictions(probs: Iterable, path: str | os.PathLike) -> int:
     """The infer task's output: one probability a line as ``%.6f``, streamed
     batch by batch from ``probs`` (arrays or floats); returns the lines
-    written.  An object-store URL raises (ROADMAP A6)."""
-    if "://" in os.fspath(path):
-        raise NotImplementedError(
-            f"{path!r}: writing predictions to an object store is not ported "
-            f"yet (ROADMAP A6); give a local path")
-    count = 0
-    with open(path, "w") as f:
+    written.  An object-store URL uploads the finished file with
+    ``put_stream``, spooled through a temporary file, so memory stays that
+    of the spool buffer, as in the local write."""
+    from ..data.object_store import get_store, is_url
+
+    def lines():
         for p in probs:
             for v in np.atleast_1d(np.asarray(p)):
-                f.write(f"{float(v):.6f}\n")
+                yield f"{float(v):.6f}\n"
+
+    count = 0
+    if is_url(path):
+        import tempfile
+
+        with tempfile.SpooledTemporaryFile(max_size=1 << 24, mode="w+b") as f:
+            for line in lines():
+                f.write(line.encode())
                 count += 1
+            length = f.tell()
+            f.seek(0)
+            get_store().put_stream(str(path), f, length)
+        return count
+    with open(path, "w") as f:
+        for line in lines():
+            f.write(line)
+            count += 1
     return count

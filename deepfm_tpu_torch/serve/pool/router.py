@@ -53,7 +53,7 @@ from http.server import BaseHTTPRequestHandler
 from ...obs import flight as obs_flight
 from ...obs.metrics import MetricsRegistry
 from ...obs.trace import DEFAULT_SAMPLE_RATE, Tracer, current_trace
-from ..server import ScoringHTTPServer, _send_json, _send_text
+from ..server import ScoringHTTPServer, _send_json, _send_text, traced_request
 from . import TENANTS_NOT_PORTED
 
 
@@ -814,10 +814,7 @@ def make_router_handler(router: Router):
             # propagates it to the member on every attempt
             name = ("recommend" if self.path == recommend_path
                     else "predict")
-            ctx = router.tracer.begin(name, self.headers)
-            token = router.tracer.activate(ctx)
-            self._obs_status = None
-            try:
+            with traced_request(self, router.tracer, name):
                 try:
                     length = int(self.headers.get("Content-Length", "0"))
                     body = json.loads(self.rfile.read(length))
@@ -850,8 +847,6 @@ def make_router_handler(router: Router):
                     extra = {"Retry-After":
                              max(1, int(doc["retry_after_s"] + 0.999))}
                 self._send(code, doc, extra_headers=extra)
-            finally:
-                router.tracer.finish(ctx, token, status=self._obs_status)
 
         def log_message(self, fmt, *args):
             pass

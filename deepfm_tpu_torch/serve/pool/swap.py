@@ -46,7 +46,7 @@ import time
 import urllib.error
 import urllib.request
 
-from ...online.publisher import check_local_root, latest_manifest
+from ...online.publisher import latest_manifest
 from ...utils.retry import CircuitBreaker
 
 
@@ -73,7 +73,7 @@ class GroupSwapper:
             raise ValueError("a shard-group needs at least one member")
         self.group = group
         self._members = list(members)
-        self._source = check_local_root(source)
+        self._source = str(source)
         self._interval = float(interval_secs)
         self._timeout = float(admin_timeout_secs)
         self._breaker = breaker if breaker is not None else CircuitBreaker(

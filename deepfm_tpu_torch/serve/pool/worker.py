@@ -58,7 +58,7 @@ from ...obs import flight as obs_flight
 from ...obs.metrics import MetricsRegistry
 from ...obs.trace import DEFAULT_SAMPLE_RATE, Tracer
 from ..batcher import DEFAULT_BUCKETS, MicroBatcher
-from ..server import ScoringHTTPServer, device_memory, make_handler
+from ..server import ScoringHTTPServer, device_memory, make_handler, traced_request
 from . import DEFAULT_TENANT, TENANTS_NOT_PORTED
 from .sharded import MEMBER_SLOTS, group_wire_bytes_est, load_sharded_servable
 
@@ -467,13 +467,8 @@ def make_member_handler(member: GroupMember, model_name: str):
             # arm the attribution guard (_send): the generation the gate let in
             self._attrib_generation = member.generation
             if member.funnel:
-                ctx = member.tracer.begin("recommend", self.headers)
-                token = member.tracer.activate(ctx)
-                self._obs_status = None
-                try:
+                with traced_request(self, member.tracer, "recommend"):
                     return self._do_recommend()
-                finally:
-                    member.tracer.finish(ctx, token, status=self._obs_status)
             return super().do_POST()
 
         def _send(self, code, doc, extra_headers=None):

@@ -45,7 +45,7 @@ from ..convert import params_to_jax
 from ..core.config import ModelConfig, load_config
 from ..obs import flight as obs_flight
 from ..obs.metrics import MetricsRegistry
-from ..online.publisher import (check_local_root, fetch_version, latest_manifest,
+from ..online.publisher import (fetch_version, latest_manifest,
                                 param_tree_hash)
 from ..utils.retry import CircuitBreaker
 from .batcher import DEFAULT_BUCKETS
@@ -157,8 +157,8 @@ def load_swappable_servable(directory: str | os.PathLike, *, device=None,
 
 
 class HotSwapper:
-    """Poll a local publish root and swap new versions into the idle
-    weight slot.  ``run`` runs device work on the batcher's worker thread
+    """Poll a publish root (a directory or an object-store URL) and swap
+    new versions into the idle weight slot.  ``run`` runs device work on the batcher's worker thread
     (``MicroBatcher.run_on_worker``; None runs it on the polling thread,
     for a predictor nothing else replays).  The poll runs behind a
     circuit breaker: while the store fails, polls are skipped (one probe a
@@ -174,7 +174,7 @@ class HotSwapper:
         self._predictor = predictor
         self._run = run if run is not None else (lambda job: job())
         self._predict_with = build_predict_with(predictor, run)
-        self._source = check_local_root(reload_source)
+        self._source = str(reload_source)
         self._cfg = cfg
         self._interval = float(interval_secs)
         self._staging = staging_dir or os.path.join(

@@ -48,6 +48,7 @@ deepfm_tpu_torch.serve.pool`` (serve/pool/).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -110,23 +111,55 @@ def report_kernel_counts_at_exit(role: str) -> None:
     """At exit (SIGTERM included: it becomes ``SystemExit``), print one
     JSON line ``{"kind": "kernel_runs", "role", "pid", "forward",
     "retrieval", ...device memory}`` to stdout: how a pool's processes
-    report their kernel runs to whoever started the pool."""
+    report their kernel runs to whoever started the pool.  The line goes
+    out in one write: a pool's processes share one pipe and exit together,
+    and an unbuffered stdout (``PYTHONUNBUFFERED``) would otherwise let
+    another process's line land between a line and its newline."""
     import atexit
     import signal
 
     def _term(*_):
         raise SystemExit(0)
 
+    def _report() -> None:
+        line = json.dumps({"kind": "kernel_runs", "role": role, "pid": os.getpid(),
+                           **kernel_counts(), **device_memory()})
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
     signal.signal(signal.SIGTERM, _term)
-    atexit.register(lambda: print(json.dumps({"kind": "kernel_runs", "role": role,
-                                              "pid": os.getpid(), **kernel_counts(),
-                                              **device_memory()}), flush=True))
+    atexit.register(_report)
 
 
 def _parse_buckets(s) -> tuple[int, ...]:
     if isinstance(s, str):
         return tuple(int(x) for x in s.split(",") if x.strip())
     return tuple(int(x) for x in s)
+
+
+@contextlib.contextmanager
+def traced_request(handler, tracer, name: str | None):
+    """Open a trace for one request on ``handler`` (none when ``name`` is
+    None).  The response's writer finishes it (``end_trace``) before the
+    body goes out, so a client that reads ``/v1/trace/recent`` as soon as
+    it has its answer finds the trace; a request that wrote no response is
+    finished here."""
+    ctx = tracer.begin(name, handler.headers) if name is not None else None
+    handler._open_trace = (tracer, ctx, tracer.activate(ctx))
+    handler._obs_status = None
+    try:
+        yield
+    finally:
+        end_trace(handler)
+
+
+def end_trace(handler) -> None:
+    """Finish ``handler``'s open trace with its response's status; a no-op
+    once finished."""
+    opened, handler._open_trace = getattr(handler, "_open_trace", None), None
+    if opened is not None:
+        tracer, ctx, token = opened
+        tracer.finish(ctx, token, status=handler._obs_status)
 
 
 def _send_json(self, code: int, payload: dict, extra_headers: dict | None = None) -> None:
@@ -142,9 +175,10 @@ def _send_json(self, code: int, payload: dict, extra_headers: dict | None = None
         # every traced response carries its id: the client's handle into
         # /v1/trace/recent
         self.send_header(TRACE_HEADER, ctx.trace_id)
+    self._obs_status = code
+    end_trace(self)
     self.end_headers()
     self.wfile.write(body)
-    self._obs_status = code
 
 
 def _send_text(self, code: int, body: str,
@@ -259,13 +293,9 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
 
         def do_POST(self):  # noqa: N802
             traced = self.path in (predict_path, binary_path)
-            ctx = tracer.begin(self.path.rsplit(":", 1)[-1], self.headers) if traced else None
-            token = tracer.activate(ctx)
-            self._obs_status = None
-            try:
+            with traced_request(self, tracer,
+                                self.path.rsplit(":", 1)[-1] if traced else None):
                 self._handle_post()
-            finally:
-                tracer.finish(ctx, token, status=self._obs_status)
 
         def _score(self, score: Callable):
             """``score(**slo)`` -> its result, or None after answering the
@@ -353,6 +383,7 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                 if "tenant" in gs:
                     self.send_header("X-Tenant", str(gs.get("tenant")))
                 self.send_header("X-Group-Generation", str(gs.get("group_generation")))
+            end_trace(self)
             self.end_headers()
             self.wfile.write(body)
 
@@ -480,14 +511,9 @@ def make_retrieval_handler(scorer: RetrievalScorer, model_name: str, tracer=None
                 self._send(404, {"error": f"unknown path {self.path!r}"})
 
         def do_POST(self):  # noqa: N802
-            ctx = (tracer.begin(self.path.rsplit(":", 1)[-1], self.headers)
-                   if self.path in known else None)
-            token = tracer.activate(ctx)
-            self._obs_status = None
-            try:
+            with traced_request(self, tracer, self.path.rsplit(":", 1)[-1]
+                                if self.path in known else None):
                 self._handle_post()
-            finally:
-                tracer.finish(ctx, token, status=self._obs_status)
 
         def _handle_post(self):
             if self.path not in known:
@@ -538,7 +564,8 @@ def serve_forever(
     ``/v1/recommend`` (``funnel.serve.serve_funnel``, with the ``funnel``
     keywords, which other servables refuse).
 
-    ``reload_url`` (a local publish root) turns on hot reload: a
+    ``reload_url`` (a publish root: a directory or an object-store URL)
+    turns on hot reload: a
     :class:`~.reload.HotSwapper` (over a funnel servable, a
     ``funnel.serve.FunnelSwapper`` on a ``FunnelPublisher`` root) adopts
     any version already published before the socket opens, then polls
@@ -862,7 +889,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--stdin", action="store_true",
                     help="score stdin lines (libsvm or JSON) instead of serving HTTP")
     ap.add_argument("--reload-url", default=None,
-                    help="local publish root (online/publisher.py) to poll for new "
+                    help="publish root (online/publisher.py; a directory or an "
+                         "object-store URL) to poll for new "
                          "versions, hot-swapped into the idle weight slot after a "
                          "hash check and a canary")
     ap.add_argument("--reload-interval", type=float, default=2.0,

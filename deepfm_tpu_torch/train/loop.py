@@ -56,6 +56,7 @@ servable.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Iterator
@@ -66,7 +67,10 @@ from torch import nn
 
 from ..checkpoint import make_checkpointer, maybe_clear
 from ..core.config import Config
-from ..data.pipeline import Prefetcher, discover_files, eval_batches, make_input_pipeline
+from ..data.object_store import is_url
+from ..data.pipeline import (Prefetcher, channel_eval_batches, discover_files,
+                             eval_batches, make_input_pipeline)
+from ..data.sharding import ShardDecision
 from ..launch.preemption import PreemptedError, PreemptionGuard
 from ..ops.auc import auc_all_reduce, auc_init, auc_value
 from ..parallel import spmd
@@ -116,23 +120,91 @@ def _export(state: TrainState, cfg: Config, ctx: DistContext, path: str) -> str:
     return path
 
 
+def _eval_channel_path(cfg: Config) -> str:
+    """The stream-mode evaluation channel, ``<dir>/<evaluation_channel_name>``
+    (the reference reads eval data from the 'evaluation' channel in Pipe
+    mode, hvd:420-424), ``dir`` being ``data.val_data_dir`` or else
+    ``data.training_data_dir``."""
+    base = cfg.data.val_data_dir or cfg.data.training_data_dir
+    return os.path.join(base, cfg.data.evaluation_channel_name)
+
+
+def _has_eval_source(cfg: Config) -> bool:
+    """Whether the train task evaluates: the evaluation channel exists in
+    stream mode, ``data.val_data_dir`` is set in file mode."""
+    if cfg.data.stream_mode:
+        return os.path.exists(_eval_channel_path(cfg))
+    return bool(cfg.data.val_data_dir)
+
+
+def _check_channel_readers(cfg: Config, ctx: DistContext | None, *,
+                           evaluation: bool) -> None:
+    """Refuse a stream-mode layout in which two processes of one host read
+    one FIFO: the kernel hands each reader other chunks of its bytes, so
+    records tear and the ranks' counts differ (one fails or stops early
+    while the others wait in a collective).  The reference runs one process
+    a host.  Under ``torch.distributed.run`` with LOCAL_WORLD_SIZE > 1 a
+    local training channel needs ``multi_path`` (each local rank its own
+    ``<channel>-<k>``) and one model shard (a model group reads one
+    channel); the evaluation channel, which every rank reads, is refused.
+    A channel under a URL base is one GET a reader, so it may be shared."""
+    if not cfg.data.stream_mode or ctx is None or ctx.local_world_size == 1:
+        return
+    where = (f"{ctx.local_world_size} processes a host (LOCAL_WORLD_SIZE) would read "
+             f"one FIFO")
+    if evaluation:
+        raise ValueError(f"stream_mode eval: {where}, {_eval_channel_path(cfg)!r}; run "
+                         f"one process a host, or evaluate the checkpoint from files")
+    if is_url(cfg.data.training_data_dir):
+        return
+    if not cfg.data.multi_path or ctx.model_parallel > 1:
+        raise ValueError(f"stream_mode training: {where}; set data.multi_path (one "
+                         f"channel a local rank, model_parallel 1) or run one process "
+                         f"a host")
+
+
+def _eval_batches(cfg: Config, ctx: DistContext | None,
+                  data_dir: str | None) -> Iterator[dict]:
+    """The evaluation records' batches, read incrementally (host memory of a
+    batch, however long the source): the validation files, or in stream
+    mode the evaluation channel until its writer closes it, at most
+    ``data.eval_max_batches`` batches when that is > 0 (a live channel may
+    never close).  Each eval opens the channel anew: its writer fills it
+    once a pass, as Pipe mode does.  Across a data group every rank (one a
+    host, :func:`_check_channel_readers`) reads its host's channel and
+    keeps its data index's records, so each counts once."""
+    permute = _permute_vocab(cfg)
+    if not cfg.data.stream_mode:
+        return eval_batches(cfg.data, ctx.topology if ctx is not None else None,
+                            field_size=cfg.model.field_size, data_dir=data_dir,
+                            permute_vocab=permute)
+    fifo = _eval_channel_path(cfg)
+    if not os.path.exists(fifo):
+        raise FileNotFoundError(f"stream_mode eval needs the evaluation channel at "
+                                f"{fifo!r} (data.evaluation_channel_name)")
+    _check_channel_readers(cfg, ctx, evaluation=True)
+    decision = (ShardDecision(ctx.data_parallel, ctx.data_index)
+                if ctx is not None and ctx.data_group is not None else None)
+    return channel_eval_batches(cfg.data, fifo, field_size=cfg.model.field_size,
+                                decision=decision, permute_vocab=permute)
+
+
 def run_eval(model: nn.Module, cfg: Config, *, log: MetricLogger | None = None,
              data_dir: str | None = None, ctx: DistContext | None = None) -> dict:
     """``{"auc", "loss", "examples"}`` over every record of the validation
-    files (the tail batch included), in eval mode, each rank of ``ctx``
+    files (the tail batch included), or of the evaluation channel in stream
+    mode (:func:`_eval_batches`), in eval mode, each rank of ``ctx``
     reading its shard.  The loss is the example-weighted mean of the batch
     losses (CE + L2)."""
     dev = model.fm_v.device
     auc_state = auc_init(device=dev)
     loss_sum = torch.zeros((), device=dev)
     count = 0
-    topo = ctx.topology if ctx is not None else None
-    for batch in _tensors(eval_batches(cfg.data, topo, field_size=cfg.model.field_size,
-                                       data_dir=data_dir,
-                                       permute_vocab=_permute_vocab(cfg))):
-        auc_state, m = eval_step(model, auc_state, to_device(batch, dev))
-        loss_sum = loss_sum + m["loss"] * m["count"]
-        count += m["count"]
+    with contextlib.closing(_eval_batches(cfg, ctx, data_dir)) as source:
+        for batch in _tensors(source):
+            auc_state, m = eval_step(model, auc_state, to_device(batch, dev))
+            loss_sum = loss_sum + m["loss"] * m["count"]
+            count += m["count"]
     loss_total = float(loss_sum)
     # the ranks of a model group read the same records: merge over the
     # data group, so each record counts once
@@ -189,12 +261,15 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
         log.event("resume", step=state.step)
         log.seed_step(state.step)
     dev = state.model.fm_v.device
+    _check_channel_readers(cfg, ctx, evaluation=False)
+    if _has_eval_source(cfg):  # refused before training, not after it
+        _check_channel_readers(cfg, ctx, evaluation=True)
     host = make_input_pipeline(cfg.data, ctx.topology, field_size=cfg.model.field_size,
                                seed=cfg.run.seed, skip_batches=state.step,
                                permute_vocab=_permute_vocab(cfg))
     host = _tensors(host, pin=dev.type == "cuda")
     every = cfg.run.checkpoint_every_steps
-    eval_on = bool(cfg.data.val_data_dir) and cfg.run.eval_throttle_secs > 0
+    eval_on = _has_eval_source(cfg) and cfg.run.eval_throttle_secs > 0
     next_eval = time.time() + max(cfg.run.eval_start_delay_secs,
                                   cfg.run.eval_throttle_secs)
 
@@ -204,7 +279,8 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
     steps = examples = 0
     wait_s = 0.0
     t0 = time.perf_counter()
-    with Prefetcher(host, depth=cfg.data.prefetch_batches) as feed:
+    with _profiled(cfg.run.profile_dir, dev), \
+            Prefetcher(host, depth=cfg.data.prefetch_batches) as feed:
 
         def take():
             nonlocal wait_s
@@ -252,13 +328,29 @@ def _train(cfg: Config, ctx: DistContext, state: TrainState | None,
         log.event("preempted", step=state.step)
         ckpt.close()
         raise PreemptedError(f"preempted at step {state.step}")
-    if cfg.data.val_data_dir:
+    if _has_eval_source(cfg):
         run_eval(state.model, cfg, log=log, ctx=ctx)
     if cfg.run.servable_model_dir:
         path = _export(state, cfg, ctx, cfg.run.servable_model_dir)
         log.event("export", path=path)
     ckpt.close()
     return state
+
+
+def _profiled(profile_dir: str, dev: torch.device):
+    """A ``torch.profiler`` trace of what runs inside, written into
+    ``profile_dir`` as a Chrome trace (``*.pt.trace.json``, TensorBoard's
+    layout) when it is not empty, where JAX takes ``jax.profiler.trace``;
+    the card's kernels are recorded too on a card."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
 
 
 def _observed(batches: Iterator[dict], observer) -> Iterator[dict]:

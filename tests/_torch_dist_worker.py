@@ -75,6 +75,32 @@ def dp_train_files(rank: int, world: int, store: str, out: str, argv: list) -> N
         dist.destroy_process_group()
 
 
+def stream_train(rank: int, world: int, store: str, out: str, argvs: list,
+                 local_world: int) -> None:
+    """The train task in stream mode on this rank with its own argv (a
+    host's data directory) under ``LOCAL_WORLD_SIZE`` ``local_world``: its
+    log, step and final weights saved, or the ValueError that refused it."""
+    from deepfm_tpu_torch.launch.cli import resolve_config
+    from deepfm_tpu_torch.train.loop import run_train
+    from deepfm_tpu_torch.utils.logging import MetricLogger
+
+    os.environ.update(LOCAL_WORLD_SIZE=str(local_world), LOCAL_RANK=str(rank % local_world))
+    _join(rank, world, store)
+    try:
+        cfg, _ = resolve_config(argvs[rank])
+        stream = io.StringIO()
+        try:
+            state = run_train(cfg, device="cpu",
+                              log=MetricLogger(log_steps=cfg.run.log_steps, stream=stream))
+            result = {"log": stream.getvalue(), "final": state.model.state_dict(),
+                      "step": state.step}
+        except ValueError as e:
+            result = {"error": str(e)}
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 def _state_tensors(state) -> dict:
     """Every tensor a resume must restore, by name, the generator's too."""
     out = {f"model.{k}": v for k, v in state.model.state_dict().items()}

@@ -38,10 +38,6 @@ def test_the_jax_defaults_copy_matches_the_jax_package():
 # each field that changes the result, a value other than its default, and
 # the ROADMAP item the error names
 RAISING = [
-    ("data", "shuffle_buffer", 4096, "A6"),
-    ("data", "stream_mode", True, "A6"),
-    ("data", "multi_path", True, "A6"),
-    ("data", "eval_max_batches", 8, "A6"),
     ("model", "tiered_cold_url", "http://store:9000/bucket/cold", "A11"),
     ("elastic", "lease_ttl_secs", 0.0, "finite and > 0"),
     ("run", "workers_per_host", 2, "A7"),
@@ -61,6 +57,29 @@ def test_a_field_that_changes_the_result_raises(section, name, value, item):
                        if section != "mesh" else item) as e:
         Config.from_dict(d)
     assert name in str(e.value)
+
+
+# the input pipeline's modes (stream mode, the record shuffle, multi_path,
+# the bounded eval read) and the profiler's directory: carried, at JAX's
+# values, from a config.json and from --set
+CARRIED_A6 = [("data", "shuffle_buffer", 4096), ("data", "stream_mode", True),
+              ("data", "multi_path", True), ("data", "eval_max_batches", 8),
+              ("data", "training_channel_name", "train-ch"),
+              ("data", "evaluation_channel_name", "eval-ch"),
+              ("run", "profile_dir", "/tmp/prof")]
+
+
+@pytest.mark.parametrize("section,name,value", CARRIED_A6,
+                         ids=[f"{s}.{n}" for s, n, _ in CARRIED_A6])
+def test_the_input_modes_and_the_profile_dir_are_carried(section, name, value):
+    d = JaxConfig().to_dict()
+    d[section][name] = value
+    cfg = Config.from_dict(json.loads(json.dumps(d)))
+    assert getattr(getattr(cfg, section), name) == value
+    assert name not in JAX_ONLY_FIELDS.get(section, {})
+    assert getattr(getattr(Config().with_overrides(**{section: {name: value}}), section),
+                   name) == value
+    assert Config.from_dict(cfg.to_dict()) == cfg
 
 
 # the row-sharded grid's fields, carried with JAX's validation, and the
@@ -160,7 +179,7 @@ def test_unknown_fields_are_dropped_with_a_warning(caplog):
 
 def test_set_overrides_still_reject_what_is_not_carried():
     with pytest.raises(TypeError):
-        Config().with_overrides(data={"shuffle_buffer": 4096})
+        Config().with_overrides(run={"steps_per_loop": 8})
     assert Config().with_overrides(data={"permute_ids": True}).data.permute_ids
     assert Config().with_overrides(mesh={"data_parallel": 2}).mesh.data_parallel == 2
 

@@ -401,13 +401,71 @@ def test_join_follow_consumes_segments_as_published_then_stops(tmp_path):
     assert not t.is_alive() and done["n"] >= 2
 
 
-def test_join_and_writer_refuse_url_roots(tmp_path):
-    for make in (lambda: JoinService("http://h/b/imps", str(tmp_path), str(tmp_path),
-                                     attribution_window_secs=1.0),
-                 lambda: SegmentWriter("s3://bucket/out"),
-                 lambda: load_state("http://h/b/out")):
-        with pytest.raises(NotImplementedError, match="A21"):
-            make()
+@pytest.fixture()
+def store(tmp_path):
+    from deepfm_tpu_torch.utils.dev_object_store import serve
+
+    server, base = serve(str(tmp_path / "store_root"))
+    try:
+        yield f"{base}/bucket"
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_segment_writer_on_a_url_root_equals_jax(store):
+    """SegmentWriter on an object-store prefix: one PUT a segment, the
+    same names and bytes as JAX's writer on another prefix, and the
+    sequence continued after what the prefix holds."""
+    from deepfm_tpu_torch.data.object_store import get_store
+
+    records = [serialize_ctr_example(float(i % 2), [i] * FIELD, [0.5] * FIELD)
+               for i in range(20)]
+    port = SegmentWriter(f"{store}/p", roll_bytes=150, roll_age_secs=0)
+    jax = JaxSegmentWriter(f"{store}/j", roll_bytes=150, roll_age_secs=0)
+    assert [port.append(r) for r in records] == [jax.append(r) for r in records]
+    assert port.flush() == jax.flush()
+    a, b = _read_segments(f"{store}/p"), _read_segments(f"{store}/j")
+    assert len(a) >= 2 and a == b
+    assert [rec for name in sorted(a) for rec in read_records(
+        get_store().open_read_resuming(f"{store}/p/{name}"))] == records
+    assert SegmentWriter(f"{store}/p").next_seq == len(a)
+
+
+def test_the_join_reads_and_writes_url_roots_as_jax_does(store):
+    """The join with its impression and click logs, its output and its
+    state file on an object store, and JAX's join over the same input
+    prefixes: the same output segments byte for byte, the same counters
+    and cursors; the state loads back from the store.  (A URL log's
+    publish time is when the tail first listed a segment, in both.)"""
+    imps, clicks = _ids_at(1.0, True, 12, "u"), []
+    for seq in range(3):
+        pids = [f"{p}#0" for p in imps[4 * seq:4 * seq + 4]]
+        publish_segment(f"{store}/imps", segment_name(seq),
+                        b"".join(frame_record(_imp_record(p, seed=seq * 4 + i))
+                                 for i, p in enumerate(pids)))
+        clicks += pids[::2]
+    publish_segment(f"{store}/clicks", segment_name(0), b"".join(
+        frame_record(serialize_click(impression_id=p, ts_ms=int(T0 * 1000))) for p in clicks))
+    assert load_state(f"{store}/out_port") is None
+    kw = dict(attribution_window_secs=600.0)
+    port = JoinService(f"{store}/imps", f"{store}/clicks", f"{store}/out_port", **kw)
+    jax = JaxJoinService(f"{store}/imps", f"{store}/clicks", f"{store}/out_jax", **kw)
+    assert port.run(drain_at_eof=True) == jax.run(drain_at_eof=True) == 4
+    stats, jstats = port.stats(), jax.stats()
+    for k in ("lag_seconds", "watermark"):  # the tails' listing times
+        stats.pop(k), jstats.pop(k)
+    assert stats == jstats
+    assert (stats["positive_total"], stats["negative_total"]) == (6, 6)
+    a, b = _read_segments(f"{store}/out_port"), _read_segments(f"{store}/out_jax")
+    assert a and a == b
+    state = load_state(f"{store}/out_port")
+    from deepfm_tpu.flywheel.join import load_state as jax_load_state
+
+    jstate = jax_load_state(f"{store}/out_jax")
+    for k in ("imp_cursor", "click_cursor", "pending", "next_out_seq", "counters"):
+        assert state[k] == jstate[k], k
+    assert load_status(f"{store}/out_port")["counters"]["emitted"] == 12
 
 
 # ------------------------------------------------------------------ config

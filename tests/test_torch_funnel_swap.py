@@ -441,6 +441,45 @@ def test_recommend_after_a_swap_matches_jax_on_version_2(env, servables, tmp_pat
     assert not thread.is_alive()
 
 
+def test_funnel_swapper_over_object_store_publish_roots(env, servables, tmp_path):
+    """Versions 1 and 2 published by JAX's FunnelPublisher and the port's
+    into two prefixes of the port's dev store; each package's swapper
+    stages both from its prefix (fetched into its staging directory,
+    hash-checked, canaried) and swaps: the port then answers what JAX's
+    scorer answers on version 2."""
+    from deepfm_tpu_torch.utils.dev_object_store import serve as serve_store
+
+    jdir, pdir = servables["exact"]
+    server, base = serve_store(str(tmp_path / "store_root"))
+    jscorer = JaxFunnelScorer(jdir, build_serve_mesh(1, 1), buckets=BUCKETS, max_wait_ms=0.0)
+    scorer = FunnelScorer(pdir, device="cpu", buckets=BUCKETS, max_wait_ms=0.0)
+    try:
+        jroot, proot = f"{base}/bucket/jpub", f"{base}/bucket/ppub"
+        jswap = JaxFunnelSwapper(jscorer, jroot, staging_dir=str(tmp_path / "jstage"))
+        swap = FunnelSwapper(scorer, proot, staging_dir=str(tmp_path / "pstage"))
+        _publish_pair(env, jroot, proot, env["params"], env["qparams"], env["jindex"])
+        assert jswap.poll_once() and swap.poll_once()
+        assert jscorer.versions() == scorer.versions() == (1, 1)
+        jm, pm = _publish_pair(env, jroot, proot, *_version2(env))
+        assert jm.version == pm.version == 2 and jm.param_hash == pm.param_hash
+        assert jswap.poll_once() and swap.poll_once()
+        assert jscorer.versions() == scorer.versions() == (2, 2)
+        assert os.path.isdir(tmp_path / "pstage" / f"{2:08d}")
+        status = swap.status()
+        assert (status["swaps_total"], status["rollbacks_total"],
+                status["reload_source"]) == (2, 0, proot)
+        rng = np.random.default_rng(23)
+        for b, n in ((1, None), (8, RETURN_N)):
+            inst = _instances(rng, b)
+            assert _same_answer(scorer.recommend_instances(inst, n=n),
+                                jscorer.recommend_instances(inst, n=n))
+    finally:
+        scorer.close()
+        jscorer.close()
+        server.shutdown()
+        server.server_close()
+
+
 # ---------------------------------------------------------------------------
 # the version-skew drill
 
@@ -685,5 +724,3 @@ def test_funnel_refusals(servables):
         GroupMember(pdir, device="cpu", buckets=BUCKETS, tenants=[{"name": "exp"}])
     with pytest.raises(ValueError, match="item-corpus"):
         serve_forever(pdir, port=0, device="cpu", item_corpus="/corpus")
-    with pytest.raises(NotImplementedError, match="A21"):
-        FunnelSwapper(object(), "http://store/pub")

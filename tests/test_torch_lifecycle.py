@@ -295,6 +295,20 @@ def test_a_resumed_run_equals_the_uninterrupted_one_at_world_size_2(tmp_path):
         assert torch.equal(v, r0["whole"][f"model.{k}"]), k
 
 
+def test_profile_dir_leaves_a_trace_of_the_train_loop(trained, tmp_path):
+    """``run.profile_dir`` wraps the train loop in a torch.profiler trace
+    written into that directory (JAX: ``jax.profiler.trace``)."""
+    prof = tmp_path / "prof"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(_argv(trained["data"], tmp_path / "model", "--num_epochs", "1",
+                              "--set", f"run.profile_dir={prof}")) == 0
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
 def test_write_predictions_matches_jax_byte_for_byte(tmp_path):
     rng = np.random.default_rng(0)
     batches = [rng.random(7).astype(np.float32), np.float32(0.5),
@@ -302,8 +316,17 @@ def test_write_predictions_matches_jax_byte_for_byte(tmp_path):
     n = write_predictions(iter(batches), tmp_path / "port.txt")
     assert n == jax_write_predictions(iter(batches), tmp_path / "jax.txt") == 12
     assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
-    with pytest.raises(NotImplementedError, match="A6"):
-        write_predictions(iter(batches), "http://127.0.0.1:1/bucket/pred.txt")
+    # to an object-store URL: the same bytes, uploaded
+    from deepfm_tpu_torch.data.object_store import get_store
+    from deepfm_tpu_torch.utils.dev_object_store import serve
+
+    server, base = serve(str(tmp_path / "store"))
+    try:
+        assert write_predictions(iter(batches), f"{base}/bucket/pred.txt") == 12
+        assert get_store().get(f"{base}/bucket/pred.txt") == (tmp_path / "jax.txt").read_bytes()
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 class _Clock(MetricLogger):

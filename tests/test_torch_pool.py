@@ -305,6 +305,44 @@ def test_swap_under_traffic_zero_failed_zero_mixed(env):
                                    rtol=0, atol=TOL)
 
 
+def test_group_swapper_over_an_object_store_publish_root(env, tmp_path):
+    """The group-atomic swap from a publish root on the port's dev store:
+    both members stage version 2 from the URL (fetched into their staging
+    directories, hash-checked, canaried) and commit one generation; each
+    answers version 2 within 1e-5 of the plain forward of its weights.
+    JAX's reader takes the same manifest from the root."""
+    from deepfm_tpu.online.publisher import latest_manifest as jax_latest_manifest
+    from deepfm_tpu_torch.utils.dev_object_store import serve as serve_store
+
+    server, base = serve_store(str(tmp_path / "store_root"))
+    url = f"{base}/bucket/publish"
+    members = []
+    try:
+        pub = ModelPublisher(url)
+        assert pub.publish(env["cfg"], env["weights"][1], step=1).version == 1
+        want = pub.publish(env["cfg"], env["weights"][2], step=2)
+        members = [_member(env, source=url, member=m) for m in ("m0", "m1")]
+        sw = GroupSwapper([u for _, u, _ in members], url, group="g0")
+        assert sw.poll_once() is True
+        assert (sw.generation, sw.version, sw.rollbacks_total) == (1, 2, 0)
+        jm = jax_latest_manifest(url)
+        assert (jm.version, jm.step, jm.param_hash) == (2, 2, want.param_hash)
+        ids, vals = _features(3, seed=5)
+        for _, u, m in members:
+            assert (m.generation, m.version) == (1, 2)
+            doc = _post(f"{u}/v1/models/deepfm:predict", {"instances": _instances(ids, vals)})
+            assert (doc["model_version"], doc["group_generation"]) == (2, 1)
+            np.testing.assert_allclose(doc["predictions"],
+                                       _plain(env["cfg"], env["weights"][2], ids, vals),
+                                       rtol=0, atol=TOL)
+        assert sw.poll_once() is False  # nothing newer
+    finally:
+        for h, _, m in members:
+            _close(h, m)
+        server.shutdown()
+        server.server_close()
+
+
 def test_swapper_repairs_a_respawned_stale_member(env):
     """A member that restarted at generation 0 while its group moved on is
     staged and committed to the group's version and generation."""
@@ -477,6 +515,66 @@ def test_trace_propagates_router_worker_engine(env):
         names = {s["name"] for s in mt[0]["spans"]}
         assert {"predict[g0/m0].queue", "predict[g0/m0].dispatch"} <= names
         assert mt[0]["parent_span_id"] == rt[0]["span_id"]
+    finally:
+        _close(router, rh, h, m)
+
+
+def test_the_exit_report_is_one_write_of_one_line(monkeypatch):
+    """A pool's workers and members share their parent's stdout pipe and
+    exit together: each writes its kernel_runs line, newline included, in
+    one write, so an unbuffered stdout cannot interleave two processes'
+    lines (two JSON documents on one line broke the reader of phase 18)."""
+    import atexit as atexit_mod
+    import io
+    import signal as signal_mod
+
+    from deepfm_tpu_torch.serve import server
+
+    class Writes(io.StringIO):
+        calls: list = []
+
+        def write(self, s):
+            self.calls.append(s)
+            return super().write(s)
+
+    hooks = []
+    monkeypatch.setattr(atexit_mod, "register", hooks.append)
+    monkeypatch.setattr(signal_mod, "signal", lambda *a: None)
+    monkeypatch.setattr(sys, "stdout", Writes())
+    server.report_kernel_counts_at_exit("pool-worker")
+    assert len(hooks) == 1
+    hooks[0]()
+    assert len(Writes.calls) == 1 and Writes.calls[0].endswith("\n")
+    doc = json.loads(Writes.calls[0])
+    assert doc["kind"] == "kernel_runs" and doc["role"] == "pool-worker"
+
+
+@pytest.mark.parametrize("hop", ["router", "member"])
+def test_a_trace_is_recorded_before_its_response_is_written(env, hop):
+    """The router and the member finish a request's span before they write
+    its response, so a client that reads /v1/trace/recent as soon as it has
+    its answer always finds it: a finish held up 0.3 s still lands first."""
+    h, u, m = _member(env)
+    rh, rurl, router = start_router({"g0": [u]}, probe_interval_secs=60)
+    tracer = router.tracer if hop == "router" else m.tracer
+    finish = tracer.finish
+
+    def slow_finish(*args, **kwargs):
+        time.sleep(0.3)
+        finish(*args, **kwargs)
+
+    tracer.finish = slow_finish
+    try:
+        ids, vals = _features(1)
+        req = urllib.request.Request(
+            f"{rurl}/v1/models/deepfm:predict",
+            data=json.dumps({"instances": _instances(ids, vals)}).encode(),
+            headers={"Content-Type": "application/json", "X-Trace-Id": f"early-{hop}"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            r.read()
+        base = rurl if hop == "router" else u
+        assert [t for t in _get(f"{base}/v1/trace/recent")["traces"]
+                if t["trace_id"] == f"early-{hop}"]
     finally:
         _close(router, rh, h, m)
 

@@ -217,8 +217,6 @@ def test_breaker_skips_polls_while_the_root_fails(versions, servable, tmp_path):
     st = swapper.status()
     assert st["poll_errors_total"] == 3 and st["polls_skipped_total"] == 2
     assert st["breaker"]["state"] == "open" and st["rollbacks_total"] == 0
-    with pytest.raises(NotImplementedError, match="A21"):
-        HotSwapper(holder, predictor, "s3://bucket/publish", cfg)
 
 
 def _reload_lines(text: str) -> list[str]:
@@ -260,6 +258,55 @@ def test_status_and_metrics_match_the_jax_swapper(versions, tmp_path):
     assert js["last_error"] is None and ps["last_error"] is None
     assert (_reload_lines(jswap.registry.render_prometheus())
             == _reload_lines(pswap.registry.render_prometheus()))
+
+
+def test_hot_swapper_over_object_store_publish_root(versions, tmp_path):
+    """The train-to-serve transport over the S3 wire: both packages publish
+    to their own prefix of the port's dev store (v1 good, v2 NaN, v3 good),
+    and both swappers stage, hash-check, canary and swap from it with the
+    same outcomes and status; the port then serves v3 within 1e-4 of JAX's
+    prediction, from the version mirrored into its staging directory."""
+    from deepfm_tpu_torch.utils.dev_object_store import serve as serve_store
+
+    (cfg0, st0), (_, st1), (_, st2) = versions["states"]
+    jdir = tmp_path / "jax_v0"
+    jax_export_servable(cfg0, st0, jdir)
+    pdir = export_servable(*versions["port"][0], tmp_path / "port_v0")
+    nan_params = dict(st2.params)
+    nan_params["fm_v"] = np.full(np.shape(st2.params["fm_v"]), np.nan, np.float32)
+    nan_state = st2._replace(params=nan_params)
+    seq = [(st1, versions["port"][1][1]), (nan_state, _port(cfg0, nan_state)[1]),
+           (st2, versions["port"][2][1])]
+    server, base = serve_store(str(tmp_path / "store_root"))
+    try:
+        jpub = JaxPublisher(f"{base}/bucket/jpub", keep=2)
+        ppub = ModelPublisher(f"{base}/bucket/ppub", keep=2)
+        _, jpredict_with, jholder, jcfg = jax_load_swappable(str(jdir))
+        jswap = JaxSwapper(jholder, jpredict_with, jpub.root, jcfg,
+                           staging_dir=str(tmp_path / "jstage"))
+        predict, predictor, holder, pcfg = load_swappable_servable(pdir, device="cpu")
+        pswap = HotSwapper(holder, predictor, ppub.root, pcfg,
+                           staging_dir=str(tmp_path / "pstage"))
+        results = []
+        for jstate, sd in seq:
+            jpub.publish(cfg0, jstate)
+            ppub.publish(pcfg, sd)
+            results.append((jswap.poll_once(), pswap.poll_once()))
+        assert results == [(True, True), (False, False), (True, True)]
+        js, ps = jswap.status(), pswap.status()
+        for key in ("model_version", "swaps_total", "rollbacks_total", "poll_errors_total",
+                    "model_step"):
+            assert js[key] == ps[key], key
+        assert ps["model_version"] == 3 and ps["last_error"] is None
+        ids, vals = _rows(8, seed=22)
+        got = predict(ids, vals)
+        np.testing.assert_allclose(got, versions["jax"][2](ids, vals), rtol=TOL, atol=TOL)
+        mirrored, _ = load_servable(os.path.join(str(tmp_path / "pstage"), f"{3:08d}"),
+                                    device="cpu")
+        np.testing.assert_array_equal(got, mirrored(ids, vals))
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def _post(base, path, instances, timeout=60):

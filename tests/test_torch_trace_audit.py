@@ -124,3 +124,45 @@ def test_audit_elastic_holds_the_plan_and_the_restore_window():
                      "elastic-1x4->2x4-plan-not-minimal", "elastic-2x4->4x2-plan-not-minimal"}
     assert "memory-mapped" in WAIVERS["audit_elastic.host_round_trip"]
     assert "elastic trainer" in WAIVERS["online_trainer"]
+
+
+@pytest.mark.parametrize("audit", ["train step", "paged step"])
+def test_a_rebound_tensor_is_found_every_time_at_four_threads(audit, tmp_path):
+    """The snapshot holds the tensors it names, so a tensor a step rebinds
+    can never be allocated at a freed address and read as updated in
+    place.  With only the addresses kept, the train step's audit missed the
+    rebinding in about 6% of runs at four threads, and the paged state's
+    check whenever the rebound cache took the freed cache's address."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        if audit == "train step":
+            def rebinding(state, batch):
+                metrics = graphed_train_step(state, batch)
+                state.model.fm_b = nn.Parameter(state.model.fm_b.detach().clone())
+                return metrics
+
+            for _ in range(20):
+                findings = audit_train_step("cpu", step=rebinding)
+                assert [f.rule for f in findings] == ["trace-donation"]
+                assert "model.fm_b" in findings[0].message
+            return
+        from deepfm_tpu_torch.tiered import TieredTrainer
+
+        cfg = audit_cfg(lazy=True, fused_kernel="off", tiered_embeddings=True,
+                        tiered_page_rows=64)
+        bf = cfg.data.batch_size * cfg.model.field_size
+        with TieredTrainer.from_resident_state(cfg, create_train_state(cfg, "cpu"),
+                                               str(tmp_path / "cold"), capacity=bf,
+                                               stage_rows=bf, host_rows=4 * bf) as tr:
+            tr.train_batch(distinct_batches(cfg, 1)[0])
+            for _ in range(20):
+                before = _layout(state_tensors(tr.state))
+                rows = tr.state.hot.rows
+                kept = rows.pop("fm_v").clone()
+                rows["fm_v"] = torch.empty_like(kept).copy_(kept)  # freed, then rebound
+                findings = check_in_place(before, tr.state, "tiered", "paged step")
+                assert [f.rule for f in findings] == ["trace-donation"]
+                assert "hot.rows.fm_v" in findings[0].message
+    finally:
+        torch.set_num_threads(threads)
