@@ -202,11 +202,15 @@ the replays times the launches each capture recorded (``kernel_runs``):
               side stream, the capture, 5 replays) against the eager step,
               every step's metrics and every carried tensor bit for bit; a
               step's device time (CUDA events) and idle share, graphed and
-              eager, beside the train task's examples/s; then
+              eager, beside the train task's examples/s; then the port's
+              analyser, python -m deepfm_tpu_torch.analysis
+              deepfm_tpu_torch/ --concurrency --trace-audit, must exit 0:
+              engines 1 and 3 over the package at an empty baseline, and
               analysis/trace_audit.py run_trace_audit("cuda") (in place,
               dtype, graphed = eager, the captures under
               set_sync_debug_mode("error"), the bucket graphs and a hot
-              swap that captures nothing, the paged step) must find nothing;
+              swap that captures nothing, the paged step, the observability
+              of the captured bodies) finding nothing;
 16. tiered  - ROADMAP A11's tiered store at the flagship width
               (fused_kernel "off", lazy Adam, batch 1,024, a hot cache of
               65,536 slots, a host tier of 65,536 rows, pages of 1,024
@@ -4990,8 +4994,11 @@ def phase_graphed(seed: int, train: dict, lazy: dict) -> dict:
     then the capture and replays) against as many eager ``train_step``s,
     metrics and every carried tensor bit for bit; a step's device time
     (CUDA events) and idle share, graphed and eager, beside the train
-    task's examples/s; then ``run_trace_audit("cuda")`` must find nothing."""
-    from deepfm_tpu_torch.analysis import run_trace_audit
+    task's examples/s; then the port's analyser, ``python -m
+    deepfm_tpu_torch.analysis deepfm_tpu_torch/ --concurrency --trace-audit``
+    (engines 1 and 3 over the package, and engine 2's audits, the
+    observability of the captured bodies among them, on the card), must
+    exit 0."""
     from deepfm_tpu_torch.analysis.trace_audit import state_tensors as carried
     from deepfm_tpu_torch.core.config import Config
     from deepfm_tpu_torch.train.step import (WARMUP_STEPS, create_train_state,
@@ -5036,13 +5043,38 @@ def phase_graphed(seed: int, train: dict, lazy: dict) -> dict:
                "train_task_examples_per_sec": examples}
         print("graphed %s %s" % (mode, json.dumps(row)))
         out[mode] = row
-    findings = run_trace_audit("cuda")
-    if findings:
-        fail("graphed: run_trace_audit('cuda') found:\n" + "\n".join(f.render()
-                                                                    for f in findings))
+    out["analysis"] = run_analysis()
     out["seconds"] = time.perf_counter() - t0
-    print(f"graphed: run_trace_audit('cuda') found nothing; phase {out['seconds']:.1f} s")
+    print(f"graphed: the analyser found nothing; phase {out['seconds']:.1f} s")
     return out
+
+
+def run_analysis() -> dict:
+    """``python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --concurrency
+    --trace-audit`` (the device at its cuda default) from the repo root;
+    fails unless it exits 0.  Prints its counts and the seconds of engines
+    1 and 3 and of the trace audit (the CLI's stderr line)."""
+    torch.cuda.empty_cache()  # the audit's process shares the card
+    argv = [sys.executable, "-m", "deepfm_tpu_torch.analysis", "deepfm_tpu_torch/",
+            "--concurrency", "--trace-audit", "--format", "json"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("graphed: the analyser ran past 300 s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"graphed: the analyser exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+             f"\n{proc.stderr[-4000:]}")
+    counts = json.loads(proc.stdout)["counts"]
+    m = re.search(r"analysis: (\d+) files; engines 1\+3 ([0-9.]+) s; trace audit "
+                  r"([0-9.]+) s on cuda", proc.stderr)
+    if m is None:
+        fail(f"graphed: the analyser printed no timing line:\n{proc.stderr[-2000:]}")
+    row = {"files": int(m.group(1)), **counts, "engines_1_3_s": float(m.group(2)),
+           "trace_audit_s": float(m.group(3)), "process_s": wall}
+    print("analysis %s" % json.dumps(row))
+    return row
 
 
 # phase 16: the tiered store at the flagship width, its hot cache about half

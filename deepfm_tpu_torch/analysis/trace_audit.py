@@ -66,6 +66,17 @@ capture contracts run on the card (``tests/test_torch_cuda.py``,
   waived: the port restores each window from the commit's memory-mapped
   files on the host, by design.
 
+* **observability** (``trace-observability``, JAX ``audit_observability``):
+  the bodies the graphs capture (``GraphedPredictor``'s forward body from
+  its ``_bodies`` factory, and ``resident_body``, dense and lazy) run once
+  with every record path of ``obs/`` (metrics, trace spans, the flight
+  recorder) and the host timers (``time.perf_counter`` and its kin)
+  instrumented, on the auditing thread, with a trace active: none may be
+  reached, since a graph records a body's Python once and never runs it
+  again.  And two runs from copies of one state on the same inputs must
+  be bit-equal: a host value folded into a tensor would bake a different
+  constant into each capture.
+
 **Waived** (:data:`WAIVERS`): JAX's ``audit_spmd_exchange`` and
 ``audit_zero_update``.  The steps of a ``[data x model]`` grid and the
 data-parallel step stay eager: each reads host flags every step (the
@@ -79,6 +90,9 @@ from __future__ import annotations
 
 import os
 import tempfile
+import threading
+import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -735,10 +749,159 @@ def audit_elastic(device="cpu", *, planner=None) -> list[Finding]:
     return out
 
 
+# the host timers a captured body must not read
+_TIMERS = ("perf_counter", "perf_counter_ns", "monotonic", "monotonic_ns", "time",
+           "time_ns")
+
+
+def _obs_hooks() -> list[tuple[object, str]]:
+    """Every record path of ``obs/`` and the host timers, as (owner, name)."""
+    from ..obs import flight, metrics, trace
+
+    return [(metrics.Counter, "inc"), (metrics.Gauge, "set"), (metrics.Gauge, "inc"),
+            (metrics.Gauge, "dec"), (metrics.Histogram, "observe"),
+            (metrics.SlidingWindow, "record"), (metrics.MetricsRegistry, "_register"),
+            (trace.TraceContext, "add_span"), (trace.Tracer, "begin"),
+            (trace.Tracer, "finish"), (flight.FlightRecorder, "record"),
+            *((time, name) for name in _TIMERS)]
+
+
+class _ObsProbe:
+    """While entered, records in :attr:`calls` every call of an
+    :func:`_obs_hooks` path made on the entering thread, with a trace
+    context active so a ``span`` records.  Other threads run unrecorded."""
+
+    def __init__(self):
+        self.calls: list[str] = []
+
+    def __enter__(self) -> "_ObsProbe":
+        from ..obs import trace
+
+        ctx = trace.TraceContext("audit_observability", "trace_audit")
+        self._token = trace._CURRENT.set(ctx)
+        me, calls = threading.get_ident(), self.calls
+        self._saved = []
+        for owner, name in _obs_hooks():
+            orig = getattr(owner, name)
+            label = f"{getattr(owner, '__name__', owner)}.{name}"
+
+            def hooked(*args, _orig=orig, _label=label, **kwargs):
+                if threading.get_ident() == me:
+                    calls.append(_label)
+                return _orig(*args, **kwargs)
+
+            self._saved.append((owner, name, orig))
+            setattr(owner, name, hooked)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from ..obs import trace
+
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        trace._CURRENT.reset(self._token)
+
+
+def _obs_findings(name: str, calls: list[str], outs: list, where: str) -> list[Finding]:
+    slug = name.replace(" ", "-")
+    out = []
+    if calls:
+        out.append(_finding(
+            "trace-observability",
+            f"the captured {name} body reached {sorted(set(calls))}: a graph records "
+            f"its Python once, so the metric, span or timer runs at capture and "
+            f"never again", where, f"obs-{slug}-instrumented",
+            hint="record metrics and time AROUND the replay on the host "
+                 "(serve/batcher.py, train/loop.py), never inside a captured body"))
+    if any(not torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+        out.append(_finding(
+            "trace-observability",
+            f"two runs of the captured {name} body from copies of one state on one "
+            f"input differ: a host value (a clock reading, a sequence number) was "
+            f"folded into a tensor, and each capture would bake another constant",
+            where, f"obs-{slug}-nondeterministic",
+            hint="pass host values in through a static buffer, read on the card"))
+    return out
+
+
+def audit_observability(device="cpu", *, predict_builder=None,
+                        step_builder=None) -> list[Finding]:
+    """The observability contract (JAX ``audit_observability``) on the
+    bodies the graphs capture: no instrumentation inside them, and two
+    runs from copies of one state bit-equal (module docstring).
+
+    ``predict_builder(predictor)`` returns a ``bodies(slot, st)`` factory
+    (default: the predictor's own, ``GraphedPredictor._bodies``) and
+    ``step_builder(cfg)`` a ``body(state, batch, scalars)`` (default
+    ``train.step.resident_body``), so the tests feed seeded violations
+    through the same checks."""
+    from ..models.deepfm import DeepFM
+    from ..serve.graphs import GraphedPredictor
+    from ..train.step import _scalar_buffer, create_train_state, load_scalars, resident_body
+
+    where = "deepfm_tpu_torch/obs/metrics.py"
+    out: list[Finding] = []
+    cfg = audit_cfg()
+    dev = torch.device(device)
+    # -- the serving forward: slots 0 and 1 hold copies of one state --------
+    b, f, v = 16, cfg.model.field_size, cfg.model.feature_size
+    rng = np.random.default_rng(0)
+    st = SimpleNamespace(
+        bucket=b, ids=torch.from_numpy(rng.integers(0, v, (b, f))).to(dev),
+        vals=torch.from_numpy(rng.random((b, f), dtype=np.float32)).to(dev),
+        out=torch.zeros((b,), dtype=torch.float32, device=dev))
+    sd = DeepFM(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    predictor = GraphedPredictor(cfg.model, sd, device=dev, buckets=(b,))
+    bodies = (predict_builder or (lambda p: p._bodies))(predictor)
+    probe, outs = _ObsProbe(), []
+    try:
+        with torch.no_grad():
+            for body in bodies(0, st):  # the warm-up a capture is preceded by
+                body()
+            for slot in (0, 1):
+                with probe:
+                    for body in bodies(slot, st):
+                        body()
+                outs.append([st.out.clone()])
+    except Exception as e:
+        return [_finding("trace-observability", f"running the captured predict body "
+                         f"raised {type(e).__name__}: {e}", where, "obs-predict-run")]
+    out += _obs_findings("predict", probe.calls, outs, where)
+    # -- the train body, dense and lazy --------------------------------------
+    body = (step_builder or (lambda c: resident_body))(cfg)
+    for lazy in (False, True):
+        name = "lazy train step" if lazy else "train step"
+        scfg = audit_cfg(lazy)
+        states = [create_train_state(scfg, device) for _ in range(3)]
+        for s in states[1:]:
+            s.generator.set_state(states[0].generator.get_state())
+        batch = {k: t.to(dev) for k, t in distinct_batches(scfg, 1, seed=2)[0].items()}
+        probe, outs = _ObsProbe(), []
+        try:
+            for i, state in enumerate(states):
+                scalars = _scalar_buffer(state)
+                load_scalars(state, scalars)
+                if i == 0:  # the warm-up
+                    body(state, batch, scalars)
+                    continue
+                with probe:
+                    metrics = body(state, batch, scalars)
+                outs.append([metrics[k] for k in sorted(metrics)]
+                            + list(state_tensors(state).values()))
+        except Exception as e:
+            out.append(_finding("trace-observability", f"running the captured {name} "
+                                f"body raised {type(e).__name__}: {e}", where,
+                                f"obs-{name.replace(' ', '-')}-run"))
+            continue
+        out += _obs_findings(name, probe.calls, outs, where)
+    return out
+
+
 def run_trace_audit(device="cpu") -> list[Finding]:
     """Every contract above on ``device`` (the capture contracts only
     where it is the card); the waived ones are in :data:`WAIVERS`."""
     return (audit_train_step(device) + audit_train_step(device, lazy=True)
             + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
             + audit_group_buckets(device) + audit_sharded_predict(device)
-            + audit_control_plane(device) + audit_elastic(device))
+            + audit_control_plane(device) + audit_elastic(device)
+            + audit_observability(device))

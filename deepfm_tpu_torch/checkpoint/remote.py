@@ -149,7 +149,8 @@ class RemoteCheckpointer:
         if self._failed_steps:
             try:
                 self._failed_steps -= set(self._remote_steps())
-            except Exception:  # a listing outage: a re-upload is only waste
+            # da:allow[swallowed-exception] listing outage: re-uploading a committed step is idempotent waste, losing one is not
+            except Exception:
                 pass
         return sorted(self._failed_steps)
 

@@ -129,7 +129,8 @@ class LiveDeviceRegistry:
         try:
             live = tuple(self._backend())
             ids = tuple(d.id for d in live)
-        except Exception:  # a failing query is the signal (an empty view)
+        # da:allow[swallowed-exception] a failing device query IS the signal: it reads as an empty view
+        except Exception:
             live, ids = (), ()
         with self._lock:
             if ids == self._last_ids:
@@ -217,6 +218,7 @@ def board_backend(board: DeviceBoard, device_id: int, card: torch.device
         ids = board.read()
         try:
             ok = card_probe(card)
+        # da:allow[swallowed-exception] a card that stopped answering makes the probe raise; that IS the signal
         except Exception:
             ok = False
         return tuple(RankDevice(i, card_name) for i in ids if ok or i != device_id)

@@ -136,8 +136,7 @@ class ImpressionLogger:
     def _safe(self, fn, *args) -> None:
         try:
             fn(*args)
-        # advisory by contract: a log-store outage costs impressions
-        # (counted in errors_total), never a crash loop beside the router
+        # da:allow[swallowed-exception] advisory by contract: a log-store outage costs impressions — counted in errors_total — never a crash loop next to the serving process
         except Exception:
             self._c_errors.inc()
 

@@ -110,6 +110,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        # da:allow[blocking-under-lock] build-once lazy init: the lock exists to make the slow compile happen exactly once; callers blocking behind it is the design
         build()
         lib = ctypes.CDLL(LIB)
         lib.dfm_reader_open.restype = ctypes.c_void_p

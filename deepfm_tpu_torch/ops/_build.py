@@ -100,6 +100,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            # da:allow[blocking-under-lock] build-once lazy init: the lock exists to make the slow nvcc build happen exactly once; callers blocking behind it is the design
             build([name])
             lib = ctypes.CDLL(str(_library_path(name)))
             _loaded[name] = lib

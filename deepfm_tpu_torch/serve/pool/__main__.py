@@ -198,8 +198,7 @@ def _start_autoscaler(args, slo, router, shutdown, state_lock, groups,
                                             timeout=2) as r:
                     if json.load(r).get("ready"):
                         return True
-            # refused or reset while the group warms up is the not-ready
-            # signal; the deadline bounds the loop
+            # da:allow[swallowed-exception] readiness poll: refused/reset while the group warms up IS the not-ready signal; the deadline bounds the loop
             except Exception:
                 pass
             time.sleep(0.5)

@@ -171,9 +171,7 @@ class HostTier:
                             if r // self.cold.page_rows == page
                             and r not in self._idx_of]
                     for r in want:
-                        # the eviction flush runs under the lock (see
-                        # _alloc_locked): a victim slot is not reused before
-                        # its dirty rows reach the cold tier
+                        # da:allow[blocking-under-lock] eviction flush I/O deliberately runs under the lock (see _alloc_locked): a victim slot must not be reused until its dirty rows hit the cold tier — stall, never corrupt
                         i = self._alloc_locked()
                         self._buf[i] = recs[r - lo]
                         self._idx_of[r] = i
@@ -196,6 +194,7 @@ class HostTier:
                 r = int(r)
                 i = self._idx_of.get(r)
                 if i is None:
+                    # da:allow[blocking-under-lock] same eviction-under-lock contract as _ensure: the flush to the cold tier must complete before the slot is recycled
                     i = self._alloc_locked()
                     self._idx_of[r] = i
                     self._row_at[i] = r
@@ -256,8 +255,7 @@ class HostTier:
             dirty = np.flatnonzero(self._dirty & (self._row_at >= 0))
             before = self._stats["host_flushed_rows"]
             if dirty.size:
-                # the checkpoint and publish barrier: every dirty row is on
-                # the cold tier when it returns
+                # da:allow[blocking-under-lock] checkpoint/publish barrier: the stop-the-world flush IS the semantics — concurrent writers must observe all-dirty-rows-durable, not a torn snapshot
                 self._flush_indices_locked(dirty)
             return self._stats["host_flushed_rows"] - before
 

@@ -184,7 +184,7 @@ class DevicePager:
         before their slots are reused.  Returns ``(slot_ids int32, pack)``
         for the step's swap."""
         with self._lock:
-            # a fault completes under the lock: the map changes with the fill
+            # da:allow[blocking-under-lock] a page fault must complete under the lock: the slot map mutation is atomic with the miss fill, and the step cannot proceed without its rows anyway (stall-don't-corrupt, mirrors HostTier)
             return self._translate_locked(ids, hot)
 
     def _translate_locked(self, ids: np.ndarray, hot):
@@ -262,6 +262,7 @@ class DevicePager:
         with self._lock:
             dirty = np.flatnonzero(self._slot_dirty & (self._map.slot_row >= 0))
             if dirty.size:
+                # da:allow[blocking-under-lock] checkpoint/publish barrier (see HostTier.flush): every dirty slot must be durable before the barrier returns; a translate racing the flush must wait
                 self._writeback(dirty, hot)
         obs_flight.record("paging_flush", subsystem="tiered", rows=int(dirty.size))
         return int(dirty.size)

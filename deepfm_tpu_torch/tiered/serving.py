@@ -123,8 +123,13 @@ class TieredScorer:
                     self._stats["requests"] += 1
                     self._stats["scored_rows"] += int(ids.shape[0])
                     slot_ids = torch.from_numpy(slots[inv].astype(np.int32).reshape(ids.shape))
-                    return self._predict(self.model, self._hot, slot_ids.to(self.device),
-                                         vals.to(self.device)).cpu().numpy()
+                    # enqueued under the lock: a later refill's index_copy_
+                    # into the cache runs behind it on the stream
+                    probs = self._predict(self.model, self._hot, slot_ids.to(self.device),
+                                          vals.to(self.device))
+            if not miss_ix:
+                # the wait for the card, outside the lock
+                return probs.cpu().numpy()
             self._fault_in(uniq, miss_ix)
         raise RuntimeError(
             f"slot translation did not converge in {self._FAULT_ROUNDS} rounds: the "
@@ -173,6 +178,11 @@ class TieredScorer:
             self._map.release(take)
             sel = np.asarray([pos[j] for j in gap], np.int64)
             idx = torch.from_numpy(take).to(self.device)
+            # the refill must go on the stream that ``score`` enqueues its
+            # forwards on (every thread's default stream): a forward launched
+            # before it, whose result is read back after the lock is dropped,
+            # reads its rows before this overwrites them only by stream order.
+            # A forward or refill moved to a side stream needs an event here.
             for k, hot in self._hot.items():
                 src = np.ascontiguousarray(np.asarray(values[k])[sel])
                 hot.index_copy_(0, idx, torch.from_numpy(src).to(self.device))

@@ -899,6 +899,117 @@ def test_the_paged_step_replays_and_equals_the_resident_lazy_step(device, tmp_pa
         assert torch.equal(torch.from_numpy(v[k]), resident.lazy.v[k].cpu())
 
 
+def _tiered_scorers(device, tmp_path):
+    """A tiered publish (two steps from a seeded state) and a scorer of it
+    on ``device``: ``scorer(capacity, staging)``; with the config."""
+    from deepfm_tpu_torch.analysis.trace_audit import audit_cfg, distinct_batches
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.tiered import TieredScorer, TieredTrainer
+    from deepfm_tpu_torch.train.step import create_train_state
+
+    cfg = audit_cfg(lazy=True, fused_kernel="off", tiered_embeddings=True,
+                    tiered_page_rows=64)
+    bf = cfg.data.batch_size * cfg.model.field_size
+    with TieredTrainer.from_resident_state(cfg, create_train_state(cfg, device),
+                                           str(tmp_path / "cold"), capacity=bf,
+                                           stage_rows=bf, host_rows=4 * bf) as tr:
+        for batch in distinct_batches(cfg, 2, seed=3):
+            tr.train_batch(batch)
+        ModelPublisher(str(tmp_path / "pub"), keep=1).publish_tiered(cfg, tr)
+
+    def scorer(capacity, staging):
+        return TieredScorer.from_publish(str(tmp_path / "pub"), str(tmp_path / staging),
+                                         capacity=capacity,
+                                         host_rows=2 * cfg.model.feature_size,
+                                         device=device)
+
+    return cfg, scorer
+
+
+@pytest.mark.cuda
+def test_concurrent_tiered_scores_under_eviction_equal_serial_ones(device, tmp_path):
+    """Threads score through a serving cache of about half the vocabulary,
+    so their refills evict one another's rows on every pass; every result
+    equals, bit for bit, a serial scorer's whose cache holds the whole
+    vocabulary."""
+    import threading
+
+    import numpy as np
+
+    cfg, scorer = _tiered_scorers(device, tmp_path)
+    v, f = cfg.model.feature_size, cfg.model.field_size
+    threads, rows = 4, 4
+    rng = np.random.default_rng(7)
+    requests = [(rng.integers(0, v, (rows, f)), rng.random((rows, f), dtype=np.float32))
+                for _ in range(96)]
+    serial = scorer(v, "serial")
+    want = [serial.score(ids, vals) for ids, vals in requests]
+    # room for four requests a thread, so a request's fresh rows outlive its
+    # retry, yet the requests' rows outgrow the cache on every pass
+    shared = scorer(4 * threads * rows * f, "shared")
+    assert shared.capacity < v
+    got, errors = {}, []
+    start = threading.Barrier(threads)
+
+    def run(t):
+        try:
+            start.wait()
+            for _ in range(3):
+                for i in range(t, len(requests), threads):
+                    got.setdefault(i, []).append(shared.score(*requests[i]))
+        except Exception as e:  # noqa: BLE001 -- re-raised below, in the test's thread
+            errors.append(e)
+
+    pool = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    assert not errors, errors
+    assert sorted(got) == list(range(len(requests)))
+    for i, results in got.items():
+        for r in results:
+            np.testing.assert_array_equal(r, want[i])
+    assert shared.paging_snapshot()["evictions"] > len(requests)
+
+
+@pytest.mark.cuda
+def test_a_refill_waits_for_the_forward_in_flight_on_its_rows(device, tmp_path):
+    """``score`` launches its forward under the lock and reads it back after
+    releasing it.  Here a second request is scored in that gap, through a
+    cache that holds one request's rows, so its refill evicts and rewrites
+    every slot the first forward reads; both results must still equal a
+    serial scorer's bit for bit.  Only stream order (the refill enqueued
+    behind the forward on one stream) makes them equal."""
+    import numpy as np
+
+    cfg, scorer = _tiered_scorers(device, tmp_path)
+    v, f = cfg.model.feature_size, cfg.model.field_size
+    rows = 4
+    rng = np.random.default_rng(11)
+    ids = rng.permutation(v)[:2 * rows * f].reshape(2, rows, f)  # no row in both
+    first, second = [(ids[i], rng.random((rows, f), dtype=np.float32)) for i in (0, 1)]
+    serial = scorer(v, "serial")
+    want = [serial.score(*first), serial.score(*second)]
+    shared = scorer(rows * f, "shared")
+    predict, nested = shared._predict, []
+
+    class Pending:
+        def __init__(self, probs):
+            self.probs = probs
+
+        def cpu(self):
+            if not nested:  # only the first request's read-back scores the second
+                nested.append(None)
+                nested[0] = shared.score(*second)
+            return self.probs.cpu()
+
+    shared._predict = lambda *a: Pending(predict(*a))
+    np.testing.assert_array_equal(shared.score(*first), want[0])
+    np.testing.assert_array_equal(nested[0], want[1])
+    assert shared.paging_snapshot()["evictions"] == rows * f
+
+
 # ---------------------------------------------------------------------------
 # the funnel's graphs, hot swap and sharded index
 

@@ -405,6 +405,34 @@ class TestPublish:
                                                    batches[0]["feat_vals"]), want5)
         assert scorer.paging_snapshot()["misses"] > 0
 
+    def test_a_score_waits_for_the_card_outside_its_lock(self, cfg, tmp_path):
+        """The lock covers the probe and the predict's launch; the read of
+        the probabilities back to the host, a wait on the card, runs after
+        it is released (JAX's ``TieredScorer.score`` dispatches outside its
+        lock too), so concurrent requests do not queue behind one wait."""
+        with _fresh(cfg, tmp_path) as tr:
+            tr.train_batch(_batches(1)[0])
+            ModelPublisher(str(tmp_path / "pub"), keep=1).publish_tiered(cfg, tr)
+        scorer = TieredScorer.from_publish(str(tmp_path / "pub"), str(tmp_path / "staging"),
+                                           capacity=B * F, host_rows=2 * V, device="cpu")
+        batch = _batches(1)[0]
+        want = scorer.score(batch["feat_ids"], batch["feat_vals"])
+        held = []
+        predict = scorer._predict
+
+        class Probs:
+            def __init__(self, t):
+                self.t = t
+
+            def cpu(self):
+                held.append(scorer._lock.locked())
+                return self.t.cpu()
+
+        scorer._predict = lambda *a: Probs(predict(*a))
+        np.testing.assert_array_equal(scorer.score(batch["feat_ids"], batch["feat_vals"]),
+                                      want)
+        assert held == [False]
+
     def test_metrics_carry_the_paging_gauges(self, cfg, tmp_path):
         from deepfm_tpu_torch.serve.server import ScoringHTTPServer, make_handler
 
