@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
 run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 19, 8, 17,
-18, 14, 20).
+18, 14, 20, 21).
 Each phase's start goes to stderr with the script's clock; a run still
 going after WATCHDOG_S prints every thread's stack there, kills the
 processes it started and exits 3.
@@ -373,6 +373,38 @@ the replays times the launches each capture recorded (``kernel_runs``):
               resumes, the eval's examples and AUC, the reload's ms, the
               B1 and B1' runs and the phase's seconds; those runs are in
               the kernels line.
+21. families - ROADMAP A12 at benchmarks/model_zoo.py's widths (117,581 x
+              39 x 32, MLP 128/64/32, dropout 0.5, bf16, Adam 5e-4, batch
+              1,024; xDeepFM's CIN 128/128, DCN-v2's 3 cross layers):
+              for xDeepFM and DCN-v2 the train task through the CLI
+              (`--model_name xdeepfm|dcnv2`, the graphed dense step) on the
+              train phase's first 2 files (24 steps), the same with lazy
+              Adam (DCN-v2: fm_v alone), then the eval (AUC within 1e-6 of
+              the train task's), infer (pred.txt within TOL_PROB of the
+              servable) and export (params bit-equal) tasks; xDeepFM
+              must launch B1 and B1' every step (its gathers and first-order
+              term), DCN-v2 neither (its gather is a plain one).  One
+              float32 xDeepFM step through the kernels against the plain
+              versions (loss and every gradient within the parity phase's
+              limits), B1 and B1' (the zero cotangent of y_v) on the
+              unpadded table with their times, plain times and bounds; the
+              dense and lazy steps graphed against eager bit for bit (8
+              steps of distinct ids) with the graphed step's device ms and
+              its split (B1, B1', the CIN or the cross stack, the MLP, the
+              optimizer, each timed alone); each exported servable behind
+              GraphedPredictor at buckets 8 and 512: graphed vs eager
+              within TOL_GRAPH, vs plain within TOL_PROB.  Two-tower on
+              ratings written from --seed (65,536 train and 8,192
+              validation rows at 162,541 users and 62,423 items): the
+              train, eval and export tasks (`--model_name two_tower`), the
+              exported encoder through load_retrieval_servable equal to
+              the trained model's encode_queries, the step's device ms at
+              model_zoo's 8 user and 4 item fields, and a [2, 2] grid of
+              gloo ranks on the card (3 float32 steps) held to the
+              single-card step on the same global batches.  The `families`
+              line holds the card, each family's examples/s, step ms and
+              split, the two-tower metrics, and the phase's seconds; the B1
+              and B1' runs are in the kernels line.
 
 The script prints its total seconds; the last three lines of standard
 output are the kernels' JSON line, the card's name and power limit, and
@@ -1483,6 +1515,7 @@ def lazy_parity(seed: int, train_dir: str) -> None:
     every untouched row of each bit for bit as before the step."""
     from deepfm_tpu_torch.core.config import Config
     from deepfm_tpu_torch.data.pipeline import batched_ctr_batches, discover_files, record_stream
+    from deepfm_tpu_torch.models import deepfm as deepfm_mod
     from deepfm_tpu_torch.ops import fused_ctr
     from deepfm_tpu_torch.train import step as step_mod
 
@@ -1508,12 +1541,13 @@ def lazy_parity(seed: int, train_dir: str) -> None:
             _tables(plain)[key].copy_(t)
     before = {k: t.detach().clone() for k, t in _tables(kernel).items()}
     m_k = step_mod.train_step(kernel, batch)
-    saved = step_mod.fused_ctr_interaction
-    step_mod.fused_ctr_interaction = fused_ctr.fused_ctr_plain
+    # the lazy body reaches B1 through DeepFM's family hook
+    saved = deepfm_mod.fused_ctr_interaction
+    deepfm_mod.fused_ctr_interaction = fused_ctr.fused_ctr_plain
     try:
         m_p = step_mod.train_step(plain, batch)
     finally:
-        step_mod.fused_ctr_interaction = saved
+        deepfm_mod.fused_ctr_interaction = saved
     torch.cuda.synchronize()
     loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
@@ -1872,7 +1906,8 @@ def compact_rows(state, ids: torch.Tensor):
 
     model, sh = state.model, state.sharding
     if model.sharded is not None:
-        return model.sharded.lookup(model.fm_w, model.fm_v, ids)
+        tables, slot = model.sharded.lookup(model.tables(), ids)
+        return tables["fm_w"], tables["fm_v"], slot
     flat = ids.reshape(-1).long()
     mapped = torch.where((flat >= 0) & (flat < sh.true_vocab), flat, sh.total_rows)
     compact, slot, _ = spmd.assemble_rows(state, mapped)
@@ -6603,6 +6638,607 @@ def phase_stream(seed: int, workdir: str, card: str, train_dir: str, val_dir: st
             "seconds": seconds}
 
 
+# phase 21: the other model families (ROADMAP A12) at benchmarks/model_zoo.py's
+# widths: xDeepFM and DCN-v2 on the train phase's records (117,581 x 39 x 32,
+# MLP 128/64/32, dropout 0.5, bf16, Adam 5e-4, batch 1,024; CIN 128/128,
+# 3 cross layers), two-tower on synthetic ratings at MovieLens-25M's
+# vocabularies (162,541 users, 62,423 items; towers 64/32 -> 16, temperature
+# 0.05)
+FAM_FAMILIES = ("xdeepfm", "dcnv2")
+# the CLI's device flags (none on the card: its entry points default to it)
+FAM_DEVICE_ARGS: tuple[str, ...] = ()
+FAM_ARGS: tuple[str, ...] = ("--deep_layers", "128,64,32", "--dropout", "0.5,0.5,0.5",
+                             "--set", "model.cin_layers=[128,128]",
+                             "--set", "model.cross_layers=3")
+FAM_MODEL = {"deep_layers": (128, 64, 32), "dropout_keep": (0.5, 0.5, 0.5),
+             "cin_layers": (128, 128), "cross_layers": 3}
+FAM_TRAIN_FILES = 2
+FAM_BUCKETS = (8, 512)
+FAM_BATCH = 1024
+TT_USERS, TT_ITEMS = 162_541, 62_423
+TT_TRAIN_ROWS, TT_VAL_ROWS = 65_536, 8_192
+TT_MODEL = {"model_name": "two_tower", "embedding_size": 32, "tower_layers": (64, 32),
+            "tower_dim": 16, "temperature": 0.05}
+TT_STEP_FIELDS = (8, 4)
+TT_GRID, TT_GRID_STEPS, TT_GRID_LR = (2, 2), 3, 5e-4
+# the drill's loss limits by step, and its temperature: JAX's own sharded
+# vs dense two-tower test (tests/test_two_tower.py:138-186) holds its first
+# step within 2e-5 and later ones within 5e-4 at tau 0.5, since Adam
+# amplifies float32 reduction-order differences from the second step on
+TT_GRID_LOSS_RTOL, TT_GRID_TEMPERATURE = (2e-5, 5e-4, 5e-4), 0.5
+
+
+def family_argv(name: str, train_dir: str, val_dir: str, root: str, seed: int,
+                lazy: bool, task: str = "train") -> list[str]:
+    """The CLI's command line for ``name`` at phase 21's widths; its
+    checkpoints and servable under ``root``."""
+    return ["--task_type", task, "--model_name", name, "--training_data_dir", train_dir,
+            "--val_data_dir", val_dir, "--servable_model_dir", os.path.join(root, "servable"),
+            "--model_dir", os.path.join(root, "ckpt"), "--num_epochs", "1",
+            "--batch_size", str(FAM_BATCH), "--log_steps", str(LOG_STEPS), *FAM_ARGS,
+            *FAM_DEVICE_ARGS,
+            "--set", f"run.seed={seed}",
+            "--set", f"optimizer.lazy_embedding_updates={'true' if lazy else 'false'}"]
+
+
+def family_config(name: str, seed: int, lazy: bool = False, **model):
+    from deepfm_tpu_torch.core.config import Config
+
+    return Config.from_dict({"model": {"model_name": name, "feature_size": LIFE_VOCAB,
+                                       **FAM_MODEL, **model},
+                             "optimizer": {"lazy_embedding_updates": lazy},
+                             "data": {"batch_size": FAM_BATCH}, "run": {"seed": seed}})
+
+
+def family_tasks(name: str, seed: int, train_dir: str, val_dir: str, root: str) -> dict:
+    """The train task through the CLI, dense then lazy, each counted from 0;
+    then the eval, infer and export tasks from the dense run's
+    checkpoint, held to the train task's eval, servable and params."""
+    from deepfm_tpu_torch.serve.export import PARAMS_FILE, load_servable
+
+    kernel = name == "xdeepfm"
+    out = {"launches": 0, "backward_launches": 0}
+    for mode in ("dense", "lazy"):
+        argv = family_argv(name, train_dir, val_dir, os.path.join(root, mode), seed,
+                           mode == "lazy")
+        print(f"families {name} {mode}: python -m deepfm_tpu_torch " + " ".join(argv))
+        _, lines, fwd, bwd = run_logged(argv)
+        train, done = _kind(lines, "train"), _kind(lines, "train_done")[0]
+        ev = _kind(lines, "eval")[-1]
+        steps = done["steps"]
+        if not train or not all(np.isfinite(r["loss"]) for r in train):
+            fail(f"families {name} {mode}: a logged loss is not finite: {train}")
+        if not (0.0 <= ev["auc"] <= 1.0 and np.isfinite(ev["loss"])):
+            fail(f"families {name} {mode}: eval gave {ev}")
+        if not _kind(lines, "export"):
+            fail(f"families {name} {mode}: the train task exported no servable")
+        # xDeepFM gathers through B1 and B1'; DCN-v2's gather is a plain one
+        if DEVICE == "cuda" and ((kernel and (fwd < steps or bwd < steps))
+                                 or (not kernel and fwd + bwd)):
+            fail(f"families {name} {mode}: {steps} steps launched fused_ctr_forward "
+                 f"{fwd} and fused_ctr_backward {bwd} times")
+        out["launches"] += fwd
+        out["backward_launches"] += bwd
+        out[mode] = {"steps": steps, "examples_per_sec": done["examples_per_sec"],
+                     "input_wait_share": done["input_wait_share"], "eval_auc": ev["auc"],
+                     "eval_loss": ev["loss"], "ce_first": train[0]["ce"],
+                     "ce_last": train[-1]["ce"], "launches": [fwd, bwd]}
+    dense = os.path.join(root, "dense")
+    base = family_argv(name, train_dir, val_dir, dense, seed, False)
+    _, lines, fwd, _ = run_logged(base[:1] + ["eval"] + base[2:])
+    ev = _kind(lines, "eval")[-1]
+    if abs(ev["auc"] - out["dense"]["eval_auc"]) > 1e-6:
+        fail(f"families {name}: the eval task's AUC {ev['auc']} differs from the train "
+             f"task's {out['dense']['eval_auc']}")
+    out["launches"] += fwd
+    _, lines, fwd, _ = run_logged(base[:1] + ["infer"] + base[2:])
+    out["launches"] += fwd
+    preds = np.loadtxt(os.path.join(val_dir, "pred.txt"), dtype=np.float32)
+    predict, _ = load_servable(os.path.join(dense, "servable"), device=DEVICE)
+    batch = first_batch(val_dir, "val", FAM_BATCH, "cpu")
+    want = predict(batch["feat_ids"].numpy(), batch["feat_vals"].numpy())
+    infer_err = float(np.abs(preds[:FAM_BATCH] - want).max())
+    if preds.shape != (VAL_RECORDS,) or infer_err > TOL_PROB:
+        fail(f"families {name}: the infer task wrote {preds.shape} probabilities, "
+             f"{infer_err} from the servable's")
+    export = list(base)
+    export[export.index("--servable_model_dir") + 1] = os.path.join(dense, "exported")
+    run_logged(export[:1] + ["export"] + export[2:])
+    with np.load(os.path.join(dense, "servable", PARAMS_FILE)) as a, \
+            np.load(os.path.join(dense, "exported", PARAMS_FILE)) as b:
+        if a.files != b.files or any(not np.array_equal(a[k], b[k]) for k in a.files):
+            fail(f"families {name}: the export task's params differ from the train task's")
+    out["infer_max_abs_err"] = infer_err
+    return out
+
+
+def family_kernels(seed: int, train_dir: str) -> dict:
+    """xDeepFM through the kernels against the plain versions: one float32
+    forward and backward (loss, every gradient), and B1 and B1' (with the
+    zero cotangent of y_v xDeepFM's head gives them) at B = 1,024 on the
+    unpadded table, with their times, the plain versions' and their
+    bounds."""
+    from deepfm_tpu_torch.models.base import get_model
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.train.step import loss_terms
+
+    cfg = family_config("xdeepfm", seed, compute_dtype="float32",
+                        dropout_keep=(1.0, 1.0, 1.0)).model
+    model = get_model(cfg).build(cfg, device=DEVICE,
+                                 generator=torch.Generator().manual_seed(seed))
+    model.train()
+    batch = first_batch(train_dir, "train", FAM_BATCH, DEVICE)
+    params = dict(model.named_parameters())
+    ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
+    runs = []
+    for fused in (fused_ctr.fused_ctr_interaction, fused_ctr.fused_ctr_plain):
+        outs = fused(model.fm_w, model.fm_v, ids, vals)
+        loss, _ = loss_terms(model, model.head(*outs), batch["label"])
+        runs.append((outs, loss, torch.autograd.grad(loss, list(params.values()))))
+    (outs_k, loss_k, grads_k), (outs_p, loss_p, grads_p) = runs
+    e = [float((a - w).detach().abs().max()) for a, w in zip(outs_k, outs_p)]
+    if not (e[0] <= TOL_EMB and e[1] <= TOL_YW_REL * (1.0 + float(outs_p[1].abs().max()))):
+        fail(f"families: B1 on xDeepFM's table disagrees with its plain version: emb "
+             f"{e[0]}, y_w {e[1]}")
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not loss_err <= TOL_LOSS_REL:
+        fail(f"families: xDeepFM's loss through the kernels {float(loss_k)} vs plain "
+             f"{float(loss_p)}")
+    grad_err = {}
+    for name, a, w in zip(params, grads_k, grads_p):
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        if not err <= TOL_GRAD_REL * scale:
+            fail(f"families: xDeepFM's gradient of {name} through the kernels: max abs "
+                 f"err {err}, scale {scale}")
+        grad_err[name] = err / scale if scale else err
+    fm_w, fm_v = model.fm_w.detach(), model.fm_v.detach()
+    ids32 = ids.to(torch.int32)
+    b, f = ids.shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    g_emb = torch.randn((b, f, fm_v.shape[1]), generator=g, device=DEVICE)
+    g_yw = torch.randn((b,), generator=g, device=DEVICE)
+    g_yv = torch.zeros((b,), device=DEVICE)
+    # the CPU (a rehearsal) has no kernel: its plain version stands there
+    backward = (fused_ctr.fused_ctr_backward if DEVICE == "cuda"
+                else fused_ctr.fused_ctr_backward_plain)
+    got = backward(g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, False)
+    want = fused_ctr.fused_ctr_backward_plain(
+        *(t.double() for t in (g_emb, g_yw, g_yv, fm_w, fm_v)), ids32, vals.double(), False)
+    eb = []
+    for name, a, w in zip(("d_fm_w", "d_fm_v"), got, want):
+        err, scale = float((a.double() - w).abs().max()), float(w.abs().max())
+        if not err <= TOL_GRAD_REL * scale:
+            fail(f"families: B1' with g_yv = 0: {name} max abs err {err}, scale {scale}")
+        eb.append(err)
+    row = {"table_rows": int(fm_v.shape[0]), "forward_max_abs_err": e,
+           "backward_max_abs_err": eb, "loss_rel_err": loss_err,
+           "max_grad_rel_err": max(grad_err.values())}
+    if DEVICE == "cuda":
+        lib = fused_ctr._library()
+        d_w, d_v = torch.zeros_like(fm_w), torch.zeros_like(fm_v)
+        row["forward_ms"], _ = time_ms(lambda: fused_ctr.fused_ctr_interaction(
+            fm_w, fm_v, ids32, vals))
+        row["forward_plain_ms"], _ = time_ms(lambda: fused_ctr.fused_ctr_plain(
+            fm_w, fm_v, ids32, vals), reps=20)
+        row["forward_bound_ms"], row["forward_bound_by"], _ = fused_ctr_bound_ms(
+            fm_w, fm_v, ids32, b, f)
+        row["backward_ms"], row["backward_call_ms"] = time_ms(lambda: backward_kernel_only(
+            lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, d_w, d_v, None))
+        row["backward_plain_ms"], _ = time_ms(lambda: fused_ctr.fused_ctr_backward_plain(
+            g_emb, g_yw, g_yv, fm_w, fm_v, ids32, vals, False), reps=20)
+        row["backward_bound_ms"], row["backward_bound_by"], _ = fused_ctr_backward_bound_ms(
+            fm_w, fm_v, ids32, b, f, False)
+    print("families xdeepfm kernels B=%d %s" % (b, json.dumps(row)))
+    return row
+
+
+def family_batches(seed: int, n: int, vocab: int) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    b, f = FAM_BATCH, 39
+    pin = DEVICE == "cuda"
+    out = []
+    for _ in range(n):
+        batch = {"feat_ids": torch.from_numpy(rng.permutation(vocab)[:b * f].reshape(b, f)),
+                 "feat_vals": torch.from_numpy(rng.random((b, f), dtype=np.float32)),
+                 "label": torch.from_numpy((rng.random(b) < 0.25).astype(np.float32))}
+        out.append({k: v.pin_memory() if pin else v for k, v in batch.items()})
+    return out
+
+
+def family_graphed(name: str, seed: int) -> dict:
+    """The dense and lazy single-card steps of ``name`` graphed against
+    eager, GRAPH_STEPS steps of distinct ids from one state, metrics and
+    every carried tensor bit for bit; the graphed dense step's device ms
+    and its split, each part timed alone at the step's shapes (CUDA
+    graphs of that part; the MLP without dropout)."""
+    from deepfm_tpu_torch.analysis.trace_audit import state_tensors as carried
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.train.step import (WARMUP_STEPS, create_train_state,
+                                             graphed_train_step, train_step)
+
+    batches = family_batches(seed + 31, GRAPH_STEPS, LIFE_VOCAB)
+    on_card = [{k: v.to(DEVICE) for k, v in b.items()} for b in batches]
+    out = {}
+    for mode in ("dense", "lazy"):
+        cfg = family_config(name, seed, lazy=mode == "lazy")
+        eager, graphed = create_train_state(cfg, DEVICE), create_train_state(cfg, DEVICE)
+        graphed.generator.set_state(eager.generator.get_state())
+        for i, (host, dev) in enumerate(zip(batches, on_card)):
+            mg, me = graphed_train_step(graphed, host), train_step(eager, dev)
+            for k in mg:
+                if not torch.equal(mg[k], me[k]):
+                    fail(f"families {name} graphed {mode}: step {i + 1}'s {k} "
+                         f"{float(mg[k])} differs from the eager step's {float(me[k])}")
+        got, want = carried(graphed), carried(eager)
+        differs = [k for k in want if not torch.equal(got[k], want[k])]
+        if differs or got.keys() != want.keys():
+            fail(f"families {name} graphed {mode}: these tensors differ from the eager "
+                 f"steps': {differs[:8]}")
+        row = {"steps_bit_equal": GRAPH_STEPS, "tensors_bit_equal": len(want)}
+        if DEVICE == "cuda":
+            if graphed.graph.replays != GRAPH_STEPS - WARMUP_STEPS:
+                fail(f"families {name} graphed {mode}: {graphed.graph.replays} replays")
+            row["kernels_a_replay"] = list(graphed.graph.per_replay)
+            row["graphed_step_device_ms"] = _median_event_ms(
+                lambda: graphed_train_step(graphed, batches[0]), 1, 20)
+            row["eager_step_device_ms"] = _median_event_ms(
+                lambda: train_step(eager, on_card[0]), 1, 10)
+        out[mode] = row
+    if DEVICE == "cuda":
+        out["split_ms"] = family_split(name, seed, on_card[0])
+        out["dense"]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print("families %s graphed %s" % (name, json.dumps(out)))
+    return out
+
+
+def family_split(name: str, seed: int, batch: dict) -> dict:
+    """Each part of ``name``'s dense step at B = 1,024 alone, device ms from
+    a CUDA graph of it (time_ms): B1, B1' (kernel alone, g_yv = 0), the
+    CIN or the cross stack forward and backward, the MLP forward and
+    backward, the optimizer's update."""
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.ops.embedding import scaled_embedding
+    from deepfm_tpu_torch.train.step import _scalar_buffer, create_train_state, load_scalars
+
+    state = create_train_state(family_config(name, seed), DEVICE)
+    model = state.model
+    ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
+    split = {}
+    emb = scaled_embedding(model.fm_v.detach(), ids, vals)
+    if name == "xdeepfm":
+        fm_w, fm_v = model.fm_w.detach(), model.fm_v.detach()
+        split["b1"], _ = time_ms(lambda: fused_ctr.fused_ctr_interaction(fm_w, fm_v, ids, vals),
+                                 reps=20)
+        g_emb = torch.randn_like(emb)
+        g_yw, g_yv = torch.randn_like(vals[:, 0]), torch.zeros_like(vals[:, 0])
+        lib = fused_ctr._library()
+        d_w, d_v = torch.zeros_like(fm_w), torch.zeros_like(fm_v)
+        split["b1_backward"], _ = time_ms(lambda: backward_kernel_only(
+            lib, g_emb, g_yw, g_yv, fm_w, fm_v, ids, vals, d_w, d_v, None), reps=20)
+    head = model.cin if name == "xdeepfm" else model.cross
+    x = emb.clone().requires_grad_()
+    flat = emb.reshape(emb.shape[0], -1).clone().requires_grad_()
+    head_in = x if name == "xdeepfm" else flat
+    head_params = list(head.parameters())
+    split["cin" if name == "xdeepfm" else "cross"], _ = time_ms(
+        lambda: torch.autograd.grad(head(head_in).sum(), [head_in, *head_params]), reps=10)
+    model.eval()  # the MLP alone, without dropout's generator in the graph
+    mlp_params = list(model.mlp.parameters())
+    split["mlp"], _ = time_ms(
+        lambda: torch.autograd.grad(model.deep(flat).sum(), [flat, *mlp_params]), reps=10)
+    params = dict(model.named_parameters())
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    scalars = _scalar_buffer(state)
+    load_scalars(state, scalars)
+    split["optimizer"], _ = time_ms(
+        lambda: state.optimizer.update(params, grads, scalars[:3]), reps=10)
+    return split
+
+
+def write_ratings(path: str, rows: int, seed: int) -> None:
+    """``rows`` ratings at TT_USERS x TT_ITEMS from ``seed``: user u rates
+    items near 7·u (so the towers have something to learn), a CSV with
+    MovieLens's header."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, TT_USERS, rows)
+    items = (users * 7 + rng.integers(0, 64, rows)) % TT_ITEMS
+    stars = rng.integers(1, 11, rows) / 2
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+        f.writelines(f"{u},{i},{r},0\n" for u, i, r in zip(users, items, stars))
+
+
+def tt_argv(task: str, train_dir: str, val_dir: str, root: str, seed: int) -> list[str]:
+    return ["--task_type", task, "--model_name", "two_tower",
+            "--training_data_dir", train_dir, "--val_data_dir", val_dir,
+            "--model_dir", os.path.join(root, "ckpt"),
+            "--servable_model_dir", os.path.join(root, "servable"),
+            "--batch_size", str(FAM_BATCH), "--num_epochs", "1",
+            "--log_steps", str(LOG_STEPS), "--embedding_size", "32",
+            *FAM_DEVICE_ARGS,
+            "--set", f"model.user_vocab_size={TT_USERS}",
+            "--set", f"model.item_vocab_size={TT_ITEMS}",
+            "--set", "model.tower_layers=[64,32]", "--set", "model.tower_dim=16",
+            "--set", "model.temperature=0.05", "--set", f"run.seed={seed}"]
+
+
+def two_tower_tasks(seed: int, root: str) -> dict:
+    """The two-tower train, eval and export tasks through the CLI on
+    ratings written from ``seed``; the exported servable through the
+    two-tower loader against the trained model's query encoder."""
+    from deepfm_tpu_torch.models.two_tower import encode_queries
+    from deepfm_tpu_torch.serve.export import load_retrieval_servable
+
+    train_dir, val_dir = os.path.join(root, "train"), os.path.join(root, "val")
+    write_ratings(os.path.join(train_dir, "ratings.csv"), TT_TRAIN_ROWS, seed + 41)
+    write_ratings(os.path.join(val_dir, "ratings.csv"), TT_VAL_ROWS, seed + 42)
+    argv = tt_argv("train", train_dir, val_dir, root, seed)
+    print("families two_tower: python -m deepfm_tpu_torch " + " ".join(argv))
+    state, lines, fwd, bwd = run_logged(argv)
+    train, done = _kind(lines, "train"), _kind(lines, "train_done")[0]
+    ev = _kind(lines, "eval")[-1]
+    if not train or not all(np.isfinite(r["loss"]) for r in train):
+        fail(f"families two_tower: a logged loss is not finite: {train}")
+    if done["steps"] != TT_TRAIN_ROWS // FAM_BATCH or ev["examples"] != TT_VAL_ROWS:
+        fail(f"families two_tower: {done['steps']} steps, eval over {ev['examples']} rows")
+    if not (np.isfinite(ev["loss"]) and 0 <= ev["top1_acc"] <= ev["recall_at_10"] <= 1):
+        fail(f"families two_tower: eval gave {ev}")
+    _, lines, _, _ = run_logged(tt_argv("eval", train_dir, val_dir, root, seed))
+    if _kind(lines, "eval")[-1] != ev:
+        fail(f"families two_tower: the eval task gave {_kind(lines, 'eval')[-1]}, the "
+             f"train task {ev}")
+    export = tt_argv("export", train_dir, val_dir, root, seed)
+    export[export.index("--servable_model_dir") + 1] = os.path.join(root, "exported")
+    run_logged(export)
+    encode_user, _, cfg = load_retrieval_servable(os.path.join(root, "exported"),
+                                                  device=DEVICE)
+    users = np.random.default_rng(seed + 43).integers(0, TT_USERS, (64, 1))
+    got = encode_user(users, np.ones((64, 1), np.float32))
+    with torch.no_grad():
+        want = encode_queries(state.model, torch.from_numpy(users).to(DEVICE),
+                              torch.ones(64, 1, device=DEVICE)).cpu().numpy()
+    enc_err = float(np.abs(got - want).max())
+    if got.shape != (64, 16) or enc_err > TOL_GRAPH:
+        fail(f"families two_tower: the exported encoder is {enc_err} from the trained "
+             f"model's")
+    if fwd + bwd:
+        fail(f"families two_tower: the retrieval task launched B1 {fwd}, B1' {bwd} times")
+    return {"steps": done["steps"], "examples_per_sec": done["examples_per_sec"],
+            "loss_first": train[0]["loss"], "loss_last": train[-1]["loss"],
+            "eval": {k: ev[k] for k in ("loss", "top1_acc", "recall_at_10")},
+            "encoder_max_abs_err": enc_err}
+
+
+def two_tower_step_ms(seed: int) -> float | None:
+    """The single-card retrieval step's device ms (CUDA events) at
+    model_zoo's 8 user and 4 item fields, batch 1,024."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.train import retrieval
+
+    cfg = Config.from_dict({"model": {**TT_MODEL, "user_vocab_size": TT_USERS,
+                                      "item_vocab_size": TT_ITEMS,
+                                      "user_field_size": TT_STEP_FIELDS[0],
+                                      "item_field_size": TT_STEP_FIELDS[1]},
+                            "run": {"seed": seed}})
+    state = retrieval.create_retrieval_state(cfg, DEVICE)
+    rng = np.random.default_rng(seed + 44)
+    fu, fi = TT_STEP_FIELDS
+    batch = {"user_ids": torch.from_numpy(rng.integers(0, TT_USERS, (FAM_BATCH, fu))),
+             "user_vals": torch.ones(FAM_BATCH, fu),
+             "item_ids": torch.from_numpy(rng.integers(0, TT_ITEMS, (FAM_BATCH, fi))),
+             "item_vals": torch.ones(FAM_BATCH, fi)}
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    for _ in range(3):
+        retrieval.train_step(state, batch)
+    if DEVICE != "cuda":
+        return None
+    return _median_event_ms(lambda: retrieval.train_step(state, batch), 1, 20)
+
+
+def tt_grid_config(seed: int) -> dict:
+    from deepfm_tpu_torch.core.config import Config
+
+    return Config.from_dict({
+        "model": {**TT_MODEL, "user_vocab_size": TT_USERS, "item_vocab_size": TT_ITEMS,
+                  "compute_dtype": "float32", "temperature": TT_GRID_TEMPERATURE},
+        "optimizer": {"learning_rate": TT_GRID_LR},
+        "mesh": {"data_parallel": TT_GRID[0], "model_parallel": TT_GRID[1]},
+        "data": {"batch_size": FAM_BATCH}, "run": {"seed": seed}}).to_dict()
+
+
+def tt_grid_rank(rank: int, world: int, store: str, out: str, cfg_dict: dict,
+                 init: dict, batches: list) -> None:
+    """One rank of the two-tower drill (a spawned process, gloo on card 0):
+    the whole weights cut to its rows, TT_GRID_STEPS steps through
+    parallel/retrieval.py on its slice of each global batch, then the
+    metrics and the whole tables (gathered)."""
+    import torch.distributed as dist
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        from deepfm_tpu_torch.core.config import Config
+        from deepfm_tpu_torch.parallel import retrieval, spmd
+        from deepfm_tpu_torch.parallel.mesh import initialize_distributed
+
+        cfg = Config.from_dict(cfg_dict)
+        ctx = initialize_distributed(cfg.mesh, DEVICE)
+        state = retrieval.create_retrieval_dp_state(cfg, ctx)
+        sh = state.sharding
+        keys = sh.sharded_keys(init)
+        state.model.load_state_dict({
+            k: t[sh.window(k)[0]:sum(sh.window(k))] if k in keys else t
+            for k, t in init.items()})
+        metrics = []
+        for batch in batches:
+            m = retrieval.train_step(state, retrieval.local_batch(batch, ctx), ctx)
+            metrics.append({k: float(v) for k, v in m.items()})
+        full = {k: v.cpu() for k, v in spmd.full_state(state)["model"].items()}
+        torch.save({"metrics": metrics, "full": full if rank == 0 else None},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_two_tower_grid(seed: int, root: str) -> dict:
+    """Spawn the two-tower drill's TT_GRID ranks (gloo, on the card) on
+    their weights and global batches and return at once: their start
+    (an interpreter, torch and a card context each, most of the drill's
+    time) overlaps the rest of phase 21; :func:`finish_two_tower_grid`
+    joins and checks them."""
+    import torch.multiprocessing as tmp
+
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel.retrieval import padded_model_config
+    from deepfm_tpu_torch.train import retrieval
+
+    os.makedirs(root, exist_ok=True)
+    cfg_dict = tt_grid_config(seed)
+    cfg = Config.from_dict(cfg_dict)
+    ref = retrieval.create_retrieval_state(
+        cfg, DEVICE, model_cfg=padded_model_config(cfg, TT_GRID[1]))
+    with torch.no_grad():
+        for key, true in (("user_embedding", TT_USERS), ("item_embedding", TT_ITEMS)):
+            getattr(ref.model, key)[true:] = 0.0
+    init = {k: v.detach().cpu().clone() for k, v in ref.model.state_dict().items()}
+    rng = np.random.default_rng(seed + 45)
+    batches = [{"user_ids": rng.integers(0, TT_USERS, (FAM_BATCH, 1)),
+                "user_vals": np.ones((FAM_BATCH, 1), np.float32),
+                "item_ids": rng.integers(0, TT_ITEMS, (FAM_BATCH, 1)),
+                "item_vals": np.ones((FAM_BATCH, 1), np.float32)}
+               for _ in range(TT_GRID_STEPS)]
+    world = TT_GRID[0] * TT_GRID[1]
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(tt_grid_rank, args=(world, os.path.join(root, "store"), root,
+                                                  cfg_dict, init, batches),
+                              nprocs=world, join=False, start_method="spawn")
+    return {"ctx": ctx, "ref": ref, "batches": batches, "root": root, "t0": t0}
+
+
+def finish_two_tower_grid(started: dict) -> dict:
+    """The drill's ranks joined and held to the single-card step on the
+    same global batches from the same weights (float32, temperature
+    TT_GRID_TEMPERATURE): each step's loss within TT_GRID_LOSS_RTOL, every
+    weight within Adam's reach of a rounding difference (a near-zero
+    gradient's sign can flip a step by 2·lr; printed beside the measured
+    gap)."""
+    from deepfm_tpu_torch.train import retrieval
+
+    ctx, ref, batches, root = (started[k] for k in ("ctx", "ref", "batches", "root"))
+    world = TT_GRID[0] * TT_GRID[1]
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail("families two_tower grid: the ranks did not end within 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    want = [{k: float(v) for k, v in retrieval.train_step(ref, b).items()} for b in batches]
+    loss_err = 0.0
+    for r in ranks:
+        for got, w, rtol in zip(r["metrics"], want, TT_GRID_LOSS_RTOL):
+            err = abs(got["loss"] - w["loss"]) / abs(w["loss"])
+            if not err <= rtol:
+                fail(f"families two_tower grid: loss {got['loss']} vs the single-card "
+                     f"step's {w['loss']}")
+            loss_err = max(loss_err, err)
+    gap = max(float((ranks[0]["full"][k] - v.cpu()).abs().max())
+              for k, v in ref.model.state_dict().items())
+    if not gap <= 2 * TT_GRID_LR * TT_GRID_STEPS:
+        fail(f"families two_tower grid: a weight is {gap} from the single-card step's")
+    row = {"grid": list(TT_GRID), "steps": TT_GRID_STEPS, "loss_rel_err": loss_err,
+           "max_weight_gap": gap, "seconds": time.perf_counter() - started["t0"]}
+    print("families two_tower grid %s" % json.dumps(row))
+    return row
+
+
+def family_buckets(name: str, seed: int, servable: str) -> dict:
+    """The exported servable behind GraphedPredictor at FAM_BUCKETS: each
+    bucket's graphed answer against the eager forward (TOL_GRAPH) and the
+    plain one (TOL_PROB), and B1's runs through the replays."""
+    from deepfm_tpu_torch.core.config import load_config
+    from deepfm_tpu_torch.ops.fused_ctr import fused_ctr_plain
+    from deepfm_tpu_torch.serve import graphs
+    from deepfm_tpu_torch.serve.export import model_from_state, read_params
+
+    cfg, sd = load_config(servable), read_params(servable)
+    eager = model_from_state(cfg, sd, DEVICE)
+    predictor = graphs.GraphedPredictor(cfg, sd, device=DEVICE, buckets=FAM_BUCKETS)
+    predictor.precompile()
+    graphs.graph_kernel_runs["forward"] = 0
+    rng = np.random.default_rng(seed + 51)
+    errs = {}
+    for b in FAM_BUCKETS:
+        ids = make_ids(rng, b, 39, cfg.feature_size)
+        vals = rng.random((b, 39), dtype=np.float32)
+        got = predictor.predict_with(0, ids, vals)
+        with torch.no_grad():
+            t_ids, t_vals = eager.prepare(torch.from_numpy(ids).to(DEVICE),
+                                          torch.from_numpy(vals).to(DEVICE))
+            tables = eager.tables()
+            want = torch.sigmoid(eager.table_logits(tables, t_ids, t_vals)).cpu().numpy()
+            plain = (eager.head(*fused_ctr_plain(tables["fm_w"], tables["fm_v"], t_ids, t_vals))
+                     if name == "xdeepfm" else eager.table_logits(tables, t_ids, t_vals))
+            plain = torch.sigmoid(plain).cpu().numpy()
+        e_g, e_p = float(np.abs(got - want).max()), float(np.abs(got - plain).max())
+        if not (np.all(np.isfinite(got)) and e_g <= TOL_GRAPH and e_p <= TOL_PROB):
+            fail(f"families {name}: bucket {b} graphed vs eager {e_g}, vs plain {e_p}")
+        errs[b] = [e_g, e_p]
+    runs = graphs.graph_kernel_runs["forward"]
+    if DEVICE == "cuda" and (name == "xdeepfm") != (runs == len(FAM_BUCKETS)):
+        fail(f"families {name}: {runs} B1 runs through {len(FAM_BUCKETS)} replays")
+    return {"graphed_vs_eager_vs_plain": errs, "b1_runs": runs}
+
+
+def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: str) -> dict:
+    """Phase 21 (ROADMAP A12): the other model families through the port's
+    entry points at model_zoo's widths (module docstring)."""
+    t0 = time.perf_counter()
+    fam_train, fam_val = os.path.join(workdir, "train"), os.path.join(workdir, "val")
+    os.makedirs(fam_train)
+    os.makedirs(fam_val)
+    for i in range(FAM_TRAIN_FILES):
+        os.symlink(os.path.join(train_dir, f"train-{i}.tfrecords"),
+                   os.path.join(fam_train, f"train-{i}.tfrecords"))
+    os.symlink(os.path.join(val_dir, "val-0.tfrecords"), os.path.join(fam_val, "val-0.tfrecords"))
+    out = {"launches": 0, "backward_launches": 0}
+    line = {"card": card}
+    out["kernels"] = family_kernels(seed, train_dir)
+    drill = start_two_tower_grid(seed, os.path.join(workdir, "two_tower_grid"))
+    try:
+        for name in FAM_FAMILIES:
+            tasks = family_tasks(name, seed, fam_train, fam_val, os.path.join(workdir, name))
+            os.remove(os.path.join(fam_val, "pred.txt"))
+            out["launches"] += tasks.pop("launches")
+            out["backward_launches"] += tasks.pop("backward_launches")
+            tasks["buckets"] = family_buckets(
+                name, seed, os.path.join(workdir, name, "dense", "servable"))
+            out["launches"] += tasks["buckets"]["b1_runs"]
+            tasks["graphed"] = family_graphed(name, seed)
+            line[name] = tasks
+        tt = two_tower_tasks(seed, os.path.join(workdir, "two_tower"))
+        tt["step_device_ms_8_4_fields"] = two_tower_step_ms(seed)
+        tt["grid"] = finish_two_tower_grid(drill)
+    finally:  # the drill's ranks end with the phase, whatever happened
+        for p in drill["ctx"].processes:
+            if p.is_alive():
+                p.kill()
+    line["two_tower"] = tt
+    line["seconds"] = time.perf_counter() - t0
+    print("families %s" % json.dumps(line))
+    kernels = out["kernels"]
+    return {**out, "max_abs_err": max(kernels["forward_max_abs_err"]),
+            "backward_max_abs_err": max(kernels["backward_max_abs_err"]), "line": line}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -6688,6 +7324,9 @@ def main(argv: list[str] | None = None) -> int:
         begin("stream")
         stream = phase_stream(args.seed, os.path.join(workdir, "stream"), card, train_dir,
                               val_dir, life["readers"])
+        begin("families")
+        fam = phase_families(args.seed, os.path.join(workdir, "families"), card, train_dir,
+                             val_dir)
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
     bwd = backward["per_batch"][TRAIN_BATCHES[0]]
@@ -6703,10 +7342,10 @@ def main(argv: list[str] | None = None) -> int:
                      + online["launches"] + elastic["launches"] + funnel["forward_launches"]
                      + funnel["task_forward_launches"] + swap["forward_launches"]
                      + pool["forward_launches"] + prep["launches"] + tiered["launches"]
-                     + stream["launches"]),
+                     + stream["launches"] + fam["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
                            sharded["max_abs_err"], elastic["max_abs_err"],
-                           stream["max_abs_err"],
+                           stream["max_abs_err"], fam["max_abs_err"],
                            *tiered["hot_forward"]["max_abs_err"],
                            *tiered["compact"]["forward_max_abs_err"]),
         "ms": fwd["ms"],
@@ -6724,10 +7363,10 @@ def main(argv: list[str] | None = None) -> int:
                      + life["backward_launches"] + online["backward_launches"]
                      + elastic["backward_launches"]
                      + prep["backward_launches"] + tiered["backward_launches"]
-                     + stream["backward_launches"]),
+                     + stream["backward_launches"] + fam["backward_launches"]),
         "max_abs_err": max(backward["max_abs_err"], lazy["backward_max_abs_err"],
                            sharded["backward_max_abs_err"], elastic["backward_max_abs_err"],
-                           stream["backward_max_abs_err"],
+                           stream["backward_max_abs_err"], fam["backward_max_abs_err"],
                            *tiered["compact"]["backward_max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

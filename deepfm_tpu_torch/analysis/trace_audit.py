@@ -228,17 +228,25 @@ def _capture_findings(step_fn, state, batch, where: str, what: str):
                                f"{str(e).splitlines()[0][:300]}", where, f"{what}:capture")]
 
 
+# the other CTR families' widths in the audit (their CIN and cross layers
+# run inside the same StepGraph and bucket graphs as DeepFM's head)
+_AUDIT_VARIANT = {"cin_layers": (32, 32), "cross_layers": 2}
+
+
 def audit_train_step(device="cpu", *, lazy: bool = False, state=None, step=None,
-                     steps: int = _AUDIT_STEPS) -> list[Finding]:
+                     steps: int = _AUDIT_STEPS, model_name: str = "deepfm") -> list[Finding]:
     """The single-card step's contracts (JAX ``audit_train_step``): in
-    place, dtype, and graphed = eager.  ``state`` (default: a fresh state
-    of :func:`audit_cfg`) and ``step`` (default ``graphed_train_step``)
-    let a test seed a regression."""
+    place, dtype, and graphed = eager, for ``model_name``'s family.
+    ``state`` (default: a fresh state of :func:`audit_cfg`) and ``step``
+    (default ``graphed_train_step``) let a test seed a regression."""
     from ..train.step import create_train_state, graphed_train_step, train_step
 
     where = "deepfm_tpu_torch/train/step.py"
     what = "lazy step" if lazy else "dense step"
-    cfg = audit_cfg(lazy)
+    if model_name != "deepfm":
+        what = f"{model_name} {what}"
+    cfg = (audit_cfg(lazy) if model_name == "deepfm"
+           else audit_cfg(lazy, model_name=model_name, **_AUDIT_VARIANT))
     step = step or graphed_train_step
     state = state or create_train_state(cfg, device)
     twin = create_train_state(cfg, device)
@@ -276,22 +284,23 @@ def audit_train_step(device="cpu", *, lazy: bool = False, state=None, step=None,
     return out
 
 
-def audit_buckets(device="cpu", buckets=None) -> list[Finding]:
-    """The serving graphs (JAX ``audit_predict``/``audit_buckets``): the
-    graph count, every admissible size on a captured bucket, and on the
-    card a hot swap that captures nothing."""
-    from ..models.deepfm import DeepFM
+def audit_buckets(device="cpu", buckets=None, model_name: str = "deepfm") -> list[Finding]:
+    """The serving graphs (JAX ``audit_predict``/``audit_buckets``) of
+    ``model_name``'s family: the graph count, every admissible size on a
+    captured bucket, and on the card a hot swap that captures nothing."""
+    from ..models.base import get_model
     from ..serve.batcher import DEFAULT_BUCKETS, pick_bucket
     from ..serve.export import build_graphed_batcher, export_servable
     from ..serve.graphs import SLOTS
 
     where = "deepfm_tpu_torch/serve/graphs.py"
     buckets = tuple(buckets or DEFAULT_BUCKETS)
-    cfg = audit_cfg()
+    cfg = (audit_cfg() if model_name == "deepfm"
+           else audit_cfg(model_name=model_name, **_AUDIT_VARIANT))
     out: list[Finding] = []
     cuda = torch.device(device).type == "cuda"
     with tempfile.TemporaryDirectory(prefix="trace_audit_") as tmp:
-        sd = DeepFM(cfg.model, device="cpu").state_dict()
+        sd = get_model(cfg.model).build(cfg.model, device="cpu").state_dict()
         servable = export_servable(cfg.model, sd, os.path.join(tmp, "v0"))
         batcher, predictor, holder, mcfg, _ = build_graphed_batcher(
             servable, device=device, buckets=buckets)
@@ -317,15 +326,15 @@ def audit_buckets(device="cpu", buckets=None) -> list[Finding]:
 
 
 def _audit_swap(batcher, predictor, holder, mcfg, cfg, tmp, where) -> list[Finding]:
-    from ..models.deepfm import DeepFM
+    from ..models.base import get_model
     from ..online.publisher import ModelPublisher
     from ..ops import fused_ctr
     from ..serve.reload import HotSwapper
 
     pub = os.path.join(tmp, "pub")
     g = torch.Generator().manual_seed(1)
-    ModelPublisher(pub).publish(cfg, DeepFM(cfg.model, device="cpu",
-                                            generator=g).state_dict(), step=1)
+    ModelPublisher(pub).publish(cfg, get_model(cfg.model).build(
+        cfg.model, device="cpu", generator=g).state_dict(), step=1)
     graphs, captured = predictor.graph_count, fused_ctr.captured
     swapper = HotSwapper(holder, predictor, pub, mcfg, run=batcher.run_on_worker,
                          staging_dir=os.path.join(tmp, "staging"))
@@ -900,8 +909,12 @@ def audit_observability(device="cpu", *, predict_builder=None,
 def run_trace_audit(device="cpu") -> list[Finding]:
     """Every contract above on ``device`` (the capture contracts only
     where it is the card); the waived ones are in :data:`WAIVERS`."""
+    variants = [f for name in ("xdeepfm", "dcnv2")
+                for f in (audit_train_step(device, model_name=name)
+                          + audit_train_step(device, lazy=True, model_name=name)
+                          + audit_buckets(device, model_name=name))]
     return (audit_train_step(device) + audit_train_step(device, lazy=True)
-            + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
+            + variants + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
             + audit_group_buckets(device) + audit_sharded_predict(device)
             + audit_control_plane(device) + audit_elastic(device)
             + audit_observability(device))

@@ -11,6 +11,11 @@ takes the pytree as numpy arrays (any array type numpy can read):
                    "bn": {"layer_<i>": BNParams(scale, bias)}}      # batch_norm
     model_state = {"bn": {"layer_<i>": BNState(moving_mean, moving_var)}}
 
+and for the other CTR families xDeepFM's ``"cin": {"filter_<k>" [H_prev,
+F, H_out], "out": {"kernel", "bias"}}`` beside unpadded tables, or
+DCN-v2's ``"cross": {"layer_<l>": {"kernel", "bias"}, "out": {...}}``
+beside an unpadded fm_v and no fm_w.
+
 The batch-norm leaves are NamedTuples in JAX and may come back from a
 checkpoint as dicts or plain sequences; all three are accepted.  Every
 tensor is checked against the shape the config implies.
@@ -26,7 +31,7 @@ onto the port's grid with ``ctx``.  The dropout PRNG key does not carry:
 the port draws from its own ``torch.Generator``.
 
 ``params_to_jax`` is the inverse of ``params_from_jax``: the JAX-layout
-numpy ``(params, model_state)`` tree of a DeepFM ``state_dict``, which the
+numpy ``(params, model_state)`` tree of a CTR family's ``state_dict``, which the
 publisher hashes (online/publisher.py ``param_tree_hash``).
 
 ``online_payload_from_jax`` takes a JAX online commit
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from .core.config import Config, ModelConfig
+from .models.base import CTR_FAMILIES
 from .models.deepfm import fm_v_rows
 from .models.two_tower import item_vocab, user_vocab
 from .train.step import create_train_state
@@ -66,19 +72,31 @@ def _field(obj, name: str, index: int):
 
 
 def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """``state_dict`` key -> shape for a model of this config (DeepFM or
-    two-tower, by ``cfg.model_name``)."""
+    """``state_dict`` key -> shape for a model of this config (DeepFM,
+    xDeepFM, DCN-v2 or two-tower, by ``cfg.model_name``)."""
     if cfg.model_name == "two_tower":
         return _two_tower_shapes(cfg)
-    if cfg.model_name != "deepfm":
+    if cfg.model_name not in CTR_FAMILIES:
         raise ValueError(f"no state_dict layout for model {cfg.model_name!r}")
     k = cfg.embedding_size
-    shapes = {
-        "fm_b": (1,),
-        "fm_w": (cfg.feature_size,),
-        "fm_v": (fm_v_rows(cfg), k),
-    }
-    dims = [cfg.field_size * k, *cfg.deep_layers]
+    dim = cfg.field_size * k
+    shapes = {"fm_b": (1,)}
+    if cfg.model_name != "dcnv2":
+        shapes["fm_w"] = (cfg.feature_size,)
+    shapes["fm_v"] = (fm_v_rows(cfg), k)
+    if cfg.model_name == "xdeepfm":
+        sizes = [cfg.field_size, *cfg.cin_layers]
+        for i, (h_prev, h_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+            shapes[f"cin.filter_{i}"] = (h_prev, cfg.field_size, h_out)
+        shapes["cin.out.kernel"] = (sum(cfg.cin_layers), 1)
+        shapes["cin.out.bias"] = (1,)
+    if cfg.model_name == "dcnv2":
+        for i in range(cfg.cross_layers):
+            shapes[f"cross.layer_{i}.kernel"] = (dim, dim)
+            shapes[f"cross.layer_{i}.bias"] = (dim,)
+        shapes["cross.out.kernel"] = (dim, 1)
+        shapes["cross.out.bias"] = (1,)
+    dims = [dim, *cfg.deep_layers]
     for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
         shapes[f"mlp.layer_{i}.kernel"] = (d_in, d_out)
         shapes[f"mlp.layer_{i}.bias"] = (d_out,)
@@ -105,18 +123,30 @@ def _two_tower_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def _dense_leaves(tree: Mapping, prefix: str, names) -> dict:
+    """``{prefix.name.kernel/bias: leaf}`` of a ``{name: {"kernel", "bias"}}``
+    pytree."""
+    return {f"{prefix}.{n}.{leaf}": tree[n][leaf] for n in names
+            for leaf in ("kernel", "bias")}
+
+
 def _flat_params(params: Mapping, cfg: ModelConfig) -> dict:
     """The trainable leaves of a params-shaped pytree (parameters, or an
     optimizer moment of them, whose tree may hold the tables alone or lack
     them: the lazy path's two states) by ``state_dict`` key."""
     flat = {k: params[k] for k in ("fm_b", "fm_w", "fm_v") if k in params}
+    if "cin" in params:
+        cin = params["cin"]
+        flat.update({f"cin.filter_{i}": cin[f"filter_{i}"]
+                     for i in range(len(cfg.cin_layers))})
+        flat.update(_dense_leaves(cin, "cin", ["out"]))
+    if "cross" in params:
+        flat.update(_dense_leaves(params["cross"], "cross",
+                                  [*(f"layer_{i}" for i in range(cfg.cross_layers)), "out"]))
     if "mlp" in params:
-        mlp = params["mlp"]
-        for i in range(len(cfg.deep_layers)):
-            for leaf in ("kernel", "bias"):
-                flat[f"mlp.layer_{i}.{leaf}"] = mlp[f"layer_{i}"][leaf]
-        for leaf in ("kernel", "bias"):
-            flat[f"mlp.out.{leaf}"] = mlp["out"][leaf]
+        flat.update(_dense_leaves(params["mlp"], "mlp",
+                                  [*(f"layer_{i}" for i in range(len(cfg.deep_layers))),
+                                   "out"]))
     if cfg.batch_norm and "bn" in params:
         for i in range(len(cfg.deep_layers)):
             p = params["bn"][f"layer_{i}"]
@@ -142,8 +172,9 @@ def _checked(flat: dict, cfg: ModelConfig, what: str) -> dict[str, torch.Tensor]
 
 def params_from_jax(params: Mapping, model_state: Mapping,
                     cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """The port's float32 CPU ``state_dict`` for ``DeepFM(cfg)``; raises
-    ``ValueError`` on any shape that does not match ``cfg``."""
+    """The port's float32 CPU ``state_dict`` for the config's CTR family
+    (``DeepFM``, ``XDeepFM`` or ``DCNv2``); raises ``ValueError`` on any
+    shape that does not match ``cfg``."""
     flat = _flat_params(params, cfg)
     if cfg.batch_norm:
         for i in range(len(cfg.deep_layers)):
@@ -153,19 +184,25 @@ def params_from_jax(params: Mapping, model_state: Mapping,
     return _checked({k: flat[k] for k in expected_shapes(cfg)}, cfg, "")
 
 
+def _dense_tree(flat: dict, prefix: str, names) -> dict:
+    return {n: {leaf: flat[f"{prefix}.{n}.{leaf}"] for leaf in ("kernel", "bias")}
+            for n in names}
+
+
 def params_to_jax(state_dict: Mapping, cfg: ModelConfig) -> tuple[dict, dict]:
-    """The JAX-layout ``(params, model_state)`` of a DeepFM ``state_dict``
-    (tensors or arrays), as float32 numpy: the tree ``init_deepfm`` builds,
-    fm_v with its pad rows as the config gives them, Linear kernels
-    ``[in, out]`` (the port keeps JAX's layout, so nothing transposes), the
+    """The JAX-layout ``(params, model_state)`` of a CTR family's
+    ``state_dict`` (tensors or arrays), as float32 numpy: the tree the JAX
+    init builds (``init_deepfm``, ``init_xdeepfm`` or ``init_dcnv2``), fm_v
+    with its pad rows as the config gives them, Linear kernels ``[in,
+    out]`` (the port keeps JAX's layout, so nothing transposes), the
     batch-norm leaves as ``BNParams``/``BNState`` NamedTuples, and
     ``model_state`` ``{}`` without batch norm.  Shapes are checked against
     ``cfg``."""
     from .ops.batch_norm import BNParams, BNState
 
-    if cfg.model_name != "deepfm":
-        raise ValueError(f"params_to_jax takes a DeepFM state_dict, got "
-                         f"model {cfg.model_name!r}")
+    if cfg.model_name not in CTR_FAMILIES:
+        raise ValueError(f"params_to_jax takes a CTR family's state_dict "
+                         f"({'|'.join(CTR_FAMILIES)}), got model {cfg.model_name!r}")
     want = expected_shapes(cfg)
     if set(state_dict) != set(want):
         raise ValueError(
@@ -175,10 +212,14 @@ def params_to_jax(state_dict: Mapping, cfg: ModelConfig) -> tuple[dict, dict]:
     flat = {k: _checked({k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                          else v}, cfg, "")[k].numpy() for k, v in state_dict.items()}
     n = len(cfg.deep_layers)
-    mlp = {f"layer_{i}": {leaf: flat[f"mlp.layer_{i}.{leaf}"] for leaf in ("kernel", "bias")}
-           for i in range(n)}
-    mlp["out"] = {leaf: flat[f"mlp.out.{leaf}"] for leaf in ("kernel", "bias")}
-    params = {"fm_b": flat["fm_b"], "fm_w": flat["fm_w"], "fm_v": flat["fm_v"], "mlp": mlp}
+    params = {k: flat[k] for k in ("fm_b", "fm_w", "fm_v") if k in flat}
+    if cfg.model_name == "xdeepfm":
+        cin = {f"filter_{i}": flat[f"cin.filter_{i}"] for i in range(len(cfg.cin_layers))}
+        params["cin"] = {**cin, **_dense_tree(flat, "cin", ["out"])}
+    if cfg.model_name == "dcnv2":
+        params["cross"] = _dense_tree(
+            flat, "cross", [*(f"layer_{i}" for i in range(cfg.cross_layers)), "out"])
+    params["mlp"] = _dense_tree(flat, "mlp", [*(f"layer_{i}" for i in range(n)), "out"])
     model_state: dict = {}
     if cfg.batch_norm:
         params["bn"] = {f"layer_{i}": BNParams(flat[f"bn.layer_{i}.scale"],

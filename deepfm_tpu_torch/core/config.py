@@ -100,11 +100,6 @@ _A7 = ("the launcher's LOCAL_WORLD_SIZE gives the workers a host "
 # default changes what a one-card or data-parallel job computes, the ROADMAP
 # item that ports it; None marks a field that cannot change the result.
 JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
-    "model": {
-        # read by xdeepfm/dcnv2 only (not ported: get_model raises)
-        "cin_layers": ((128, 128), None),
-        "cross_layers": (3, None),
-    },
     "run": {
         "hosts": (("localhost",), None),
         "current_host": ("localhost", None),
@@ -220,8 +215,12 @@ class ModelConfig:
     batch_norm_decay: float = 0.9
     # L2 on fm_w and fm_v only: l2_reg * (½Σfm_w² + ½Σfm_v²)
     l2_reg: float = 0.0001
-    model_name: str = "deepfm"        # deepfm | two_tower
-    # two-tower retrieval (model_name="two_tower"; ignored by DeepFM):
+    model_name: str = "deepfm"        # deepfm | xdeepfm | dcnv2 | two_tower
+    # xDeepFM's CIN layer sizes and DCN-v2's cross depth (ignored by the
+    # other families)
+    cin_layers: tuple[int, ...] = (128, 128)
+    cross_layers: int = 3
+    # two-tower retrieval (model_name="two_tower"; ignored by CTR families):
     # separate user/item vocabularies and field counts, tower MLP widths,
     # output dim, and softmax temperature for in-batch negatives
     user_vocab_size: int = 0          # 0 -> feature_size
@@ -277,6 +276,7 @@ class ModelConfig:
     def __post_init__(self):
         object.__setattr__(self, "deep_layers", _parse_int_list(self.deep_layers))
         object.__setattr__(self, "dropout_keep", _parse_float_list(self.dropout_keep))
+        object.__setattr__(self, "cin_layers", _parse_int_list(self.cin_layers))
         object.__setattr__(self, "tower_layers", _parse_int_list(self.tower_layers))
         _check_tiered_fields(self)
         if len(self.dropout_keep) < len(self.deep_layers):

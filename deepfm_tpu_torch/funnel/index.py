@@ -136,7 +136,10 @@ def make_funnel_context(rank_cfg: ModelConfig, query_cfg: ModelConfig, *,
     ``top_k`` (under int8 ``top_k·oversample``) must fit one shard.
     ``item_field`` defaults to the ranker's last field; ``retrieval``
     ("exact" | "int8" | "auto") resolves against the padded capacity."""
+    from ..models.base import refuse_variant
     from ..parallel.spmd import padded_vocab
+
+    refuse_variant(rank_cfg.model_name, "the funnel's ranker")
 
     mp = int(model_parallel)
     if mp < 1:

@@ -109,8 +109,10 @@ def write_funnel_tree(dest: str, rank_cfg: ModelConfig, rank_state: dict,
                       index: FunnelIndex, meta: dict) -> str:
     """Write one funnel tree from two ``state_dict``s, the index and the
     meta; returns the directory."""
+    from ..models.base import refuse_variant
     from ..serve.export import export_servable
 
+    refuse_variant(rank_cfg.model_name, "the funnel's publisher")
     dest = os.path.abspath(dest)
     os.makedirs(dest, exist_ok=True)
     export_servable(rank_cfg, rank_state, os.path.join(dest, "rank"))
@@ -150,6 +152,9 @@ def load_funnel_artifact(directory: str) -> FunnelArtifact:
     rank_cfg, rank_state = _read_servable(os.path.join(directory, "rank"))
     if rank_cfg.model_name == "two_tower":
         raise ValueError("the funnel's rank/ servable must be a CTR model")
+    from ..models.base import refuse_variant
+
+    refuse_variant(rank_cfg.model_name, "the funnel's ranker")
     query_cfg, query_state = _read_servable(os.path.join(directory, "query"))
     if query_cfg.model_name != "two_tower":
         raise ValueError("the funnel's query/ servable must be two_tower")

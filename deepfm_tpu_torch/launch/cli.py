@@ -150,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deep_layers", help='e.g. "128,64,32"')
     p.add_argument("--dropout", help='keep probabilities, e.g. "0.5,0.5,0.5"')
     p.add_argument("--optimizer", help="Adam|Adagrad|Momentum|Ftrl")
-    p.add_argument("--model_name", help="deepfm")
+    p.add_argument("--model_name", help="deepfm|xdeepfm|dcnv2|two_tower")
     p.add_argument("--log_steps", type=int, help="a metrics line every N steps")
     p.add_argument("--clear_existing_model", action="store_true", default=None,
                    help="delete --model_dir before training")

@@ -3,10 +3,12 @@
 A family registers a constructor ``build(cfg, *, device, generator) ->
 nn.Module`` and its regularization penalty ``l2_penalty(module, l2_reg)
 -> scalar tensor``, which the training loss adds to its data loss.  A CTR
-family's module maps ``(feat_ids [B, F], feat_vals [B, F])`` to ``[B]``
+family's module (models/deepfm.py ``CTRModel``: ``deepfm``, ``xdeepfm``,
+``dcnv2``) maps ``(feat_ids [B, F], feat_vals [B, F])`` to ``[B]``
 float32 logits (train or eval mode by ``module.train()`` /
-``module.eval()``).  Ported so far: ``deepfm`` and the serving half of
-``two_tower`` (its encoders, models/two_tower.py).
+``module.eval()``) through its family hook ``table_logits``;
+``two_tower`` encodes users and items (models/two_tower.py) and trains
+through train/retrieval.py.
 """
 
 from __future__ import annotations
@@ -41,3 +43,23 @@ def get_model(name_or_cfg: str | ModelConfig) -> ModelDef:
         raise ValueError(
             f"unknown model {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None
+
+
+def registered_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+# the CTR families besides DeepFM: the paths that run DeepFM alone refuse
+# them by name (refuse_variant)
+VARIANTS = ("xdeepfm", "dcnv2")
+# every family that maps (feat_ids, feat_vals) to logits (models/deepfm.py
+# CTRModel); two_tower is the other
+CTR_FAMILIES = ("deepfm", *VARIANTS)
+
+
+def refuse_variant(model_name: str, where: str) -> None:
+    """Raise ValueError when ``model_name`` is xDeepFM or DCN-v2 on a path
+    (``where``) that runs DeepFM alone, rather than compute DeepFM there."""
+    if model_name in VARIANTS:
+        raise ValueError(f"{where} runs DeepFM only: model {model_name!r} is not "
+                         f"carried there yet (ROADMAP A12 remainder)")

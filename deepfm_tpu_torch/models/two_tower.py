@@ -1,7 +1,9 @@
-"""Two-tower encoders, serving half: counterpart of ``user_vocab``,
-``item_vocab``, ``init_two_tower``, ``_apply_tower`` and ``encode_tower`` in
-``deepfm_tpu/models/two_tower.py``, and of ``encode_queries`` /
-``encode_items`` in ``deepfm_tpu/parallel/retrieval.py``.
+"""Two-tower retrieval: counterpart of ``user_vocab``, ``item_vocab``,
+``init_two_tower``, ``_apply_tower``, ``encode_tower``,
+``in_batch_softmax_loss``, ``retrieval_metrics`` and
+``two_tower_l2_penalty`` in ``deepfm_tpu/models/two_tower.py``, and of
+``encode_queries`` / ``encode_items`` in
+``deepfm_tpu/parallel/retrieval.py``.
 
     u = normalize(MLP_u(flatten(E_u[user_ids] · user_vals)))   [B, D]
     i = normalize(MLP_i(flatten(E_i[item_ids] · item_vals)))   [B, D]
@@ -14,8 +16,17 @@ scaled by vals, the tower MLP (relu layers, then ``proj``) in
 ``user_embedding``, ``item_embedding``, ``{user,item}_tower.layer_<i>.
 {kernel,bias}`` and ``{user,item}_tower.proj.{kernel,bias}``.
 
-The in-batch softmax loss and its metrics belong to two-tower training,
-which is not ported yet.
+The tower forward exists once: serving, the funnel's index and training
+(train/retrieval.py, parallel/retrieval.py) all encode through
+:func:`encode_tower`.  A model whose tables are row shards of a grid
+(``sharded``, a ``parallel/embedding.py ShardedTables``) looks its rows up
+through the model group, and its L2 penalty sums the shards.
+
+Training scores every query against the batch's items (in-batch
+negatives): :func:`in_batch_softmax_loss` is the per-example
+cross-entropy of ``u·iᵀ / temperature`` at each query's positive, and
+:func:`retrieval_metrics` the top-1 accuracy and recall@10 of the
+positives in that score matrix.
 """
 
 from __future__ import annotations
@@ -86,6 +97,8 @@ class TwoTower(nn.Module):
         self.user_tower = Tower(cfg.user_field_size * k, cfg, g)
         self.item_tower = Tower(cfg.item_field_size * k, cfg, g)
         self.to(device)
+        # row-sharded tables (parallel/retrieval.py); None: whole tables
+        self.sharded = None
         self.eval()
 
     def forward(self, user_ids, user_vals, item_ids, item_vals):
@@ -105,7 +118,10 @@ def encode_tower(model: TwoTower, ids: torch.Tensor, vals: torch.Tensor, *,
     vocab = user_vocab(cfg) if side == "user" else item_vocab(cfg)
     ids = narrow_ids(ids.reshape(-1, field), vocab, cfg.narrow_ids)
     vals = vals.reshape(-1, field).to(torch.float32)
-    emb = dense_lookup(getattr(model, f"{side}_embedding"), ids) * vals[..., None]
+    table = getattr(model, f"{side}_embedding")
+    rows = (dense_lookup(table, ids) if model.sharded is None
+            else model.sharded.rows(table, ids))
+    emb = rows * vals[..., None]
     tower = getattr(model, f"{side}_tower")
     return tower(emb.reshape(emb.shape[0], field * cfg.embedding_size))
 
@@ -120,10 +136,37 @@ def encode_items(model: TwoTower, item_ids, item_vals) -> torch.Tensor:
     return encode_tower(model, item_ids, item_vals, side="item")
 
 
+def in_batch_softmax_loss(user: torch.Tensor, items: torch.Tensor,
+                          label_idx: torch.Tensor, *, temperature: float
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Softmax over in-batch negatives: ``user [b, D]`` queries against the
+    candidate pool ``items [N, D]`` (N >= b; the grid passes every data
+    index's items), ``label_idx [b]`` each query's positive in ``items``.
+    Returns (per-example cross-entropy [b], scores [b, N])."""
+    scores = (user @ items.T) / temperature
+    log_probs = torch.log_softmax(scores, dim=-1)
+    ce = -log_probs.gather(1, label_idx[:, None].long())[:, 0]
+    return ce, scores
+
+
+def retrieval_metrics(scores: torch.Tensor, label_idx: torch.Tensor,
+                      k: int = 10) -> dict[str, torch.Tensor]:
+    """Top-1 accuracy and recall@k of the positives within ``scores``."""
+    label_idx = label_idx.long()
+    top1 = (torch.argmax(scores, dim=-1) == label_idx).to(torch.float32)
+    true_score = scores.gather(1, label_idx[:, None])
+    rank = (scores > true_score).sum(dim=-1)
+    return {"top1_acc": top1.mean(),
+            f"recall_at_{k}": (rank < k).to(torch.float32).mean()}
+
+
 def two_tower_l2_penalty(model: TwoTower, l2_reg: float) -> torch.Tensor:
     """``l2_reg·½(Σ user_embedding² + Σ item_embedding²)``: both tables,
-    tower weights excluded, as in the reference."""
+    tower weights excluded, as in the reference; over every shard of
+    row-sharded tables."""
     total = model.user_embedding.square().sum() + model.item_embedding.square().sum()
+    if model.sharded is not None:
+        total = model.sharded.table_sum(total)
     return l2_reg * 0.5 * total
 
 

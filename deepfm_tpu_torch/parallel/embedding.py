@@ -415,10 +415,10 @@ def sharded_lookup(local_table: torch.Tensor, ids: torch.Tensor, axis: ModelAxis
 
 
 class ShardedTables:
-    """The DeepFM model's row-sharded fm_w/fm_v (models/deepfm.py reads
-    it): ``lookup`` runs one exchange for both tables and returns the
-    compact tables and the slots for the fused kernel, ``table_sum`` the
-    psum of a local sum."""
+    """A CTR model's row-sharded tables (models/deepfm.py ``CTRModel``
+    reads it): ``lookup`` runs one exchange for every table the family has
+    and returns the compact tables and the slots for the family hook,
+    ``table_sum`` the psum of a local sum."""
 
     def __init__(self, axis: ModelAxis, *, exchange: str, capacity: float,
                  table_grad: str):
@@ -427,17 +427,40 @@ class ShardedTables:
         self.capacity = capacity
         self.table_grad = table_grad
 
-    def lookup(self, fm_w: torch.Tensor, fm_v: torch.Tensor, ids: torch.Tensor):
-        """``(compact fm_w [n], compact fm_v [n, K], slots [B, F] int32)``."""
-        ex = exchange_rows((fm_v, fm_w), ids.reshape(-1), self.axis,
-                           exchange=self.exchange, capacity=self.capacity,
-                           table_grad=self.table_grad)
-        k = fm_v.shape[1]
-        return (ex.compact[:, k].contiguous(), ex.compact[:, :k].contiguous(),
-                ex.slot.view(ids.shape))
+    def lookup(self, tables: dict, ids: torch.Tensor):
+        """``({name: compact table [n] or [n, K]}, slots [B, F] int32)``
+        for ``tables`` (fm_v and, where the family has it, fm_w)."""
+        ex = exchange_rows(tuple(tables[k] for k in table_order(tables)),
+                           ids.reshape(-1), self.axis, exchange=self.exchange,
+                           capacity=self.capacity, table_grad=self.table_grad)
+        return split_compact(ex.compact, tables), ex.slot.view(ids.shape)
+
+    def rows(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """One row-sharded table's rows of ``ids`` (:func:`sharded_lookup`):
+        the two-tower encoders' lookup (models/two_tower.py)."""
+        return sharded_lookup(table, ids, self.axis, table_grad=self.table_grad,
+                              exchange=self.exchange, capacity=self.capacity)
 
     def table_sum(self, x: torch.Tensor) -> torch.Tensor:
         return psum(x, self.axis)
+
+
+def table_order(tables) -> list[str]:
+    """The column order of a compact table: fm_v's K columns, then fm_w's
+    one where the family has it."""
+    return [k for k in ("fm_v", "fm_w") if k in tables]
+
+
+def split_compact(compact: torch.Tensor, tables) -> dict[str, torch.Tensor]:
+    """A compact ``[n, K (+1)]`` table cut into its tables by name (each
+    contiguous; fm_w 1-D)."""
+    out, col = {}, 0
+    for k in table_order(tables):
+        width = tables[k].shape[1] if tables[k].dim() == 2 else 1
+        part = compact[:, col:col + width]
+        out[k] = (part if tables[k].dim() == 2 else part[:, 0]).contiguous()
+        col += width
+    return out
 
 
 def tables_from_config(cfg, axis: ModelAxis, data_parallel: int,

@@ -17,12 +17,14 @@ buffer):
 At ``model_parallel`` > 1 the same buffer (the row shards' gradients
 last) is all-reduced over the data group; the ranks of a model group then
 take model index 0's replicated part by broadcast and sum the flags.
-**Row-sharded tables** (``model_parallel`` M > 1): fm_w and fm_v are
-padded to :func:`padded_vocab` rows and split by rows over each model
-group; the rest of the model is replicated.  The ranks of a model group
-read the same batch, assemble its rows through the exchange
-(parallel/embedding.py: psum or the deduplicated all-to-all, with the psum
-fallback) and run the fused kernels on the compact table.  The L2 penalty
+**Row-sharded tables** (``model_parallel`` M > 1): the CTR family's
+tables (fm_w and fm_v; DCN-v2's fm_v alone) are padded to
+:func:`padded_vocab` rows and split by rows over each model group; the
+rest of the model is replicated.  The ranks of a model group read the
+same batch, assemble its rows through the exchange (parallel/embedding.py:
+psum or the deduplicated all-to-all, with the psum fallback) and run the
+family hook (``table_logits``: DeepFM's and xDeepFM's fused kernels) on
+the compact table.  The L2 penalty
 sums the shards over the group.  Gradients: every leaf is averaged over
 the data group; a replicated leaf then takes model index 0's value on
 every rank of the model group (JAX ``pmean``s identical values over the
@@ -38,7 +40,7 @@ carries the BN statistics, the metrics and the flags only.
 ``_build_lazy_local_step``): ids outside ``[0, feature_size)`` map to the
 sentinel ``total_rows`` (they gather zero rows and train none); the rows
 are assembled (the exchange at M > 1, a local sort at M 1) as a compact
-table, the fused kernels run on it, and the gradient is taken with
+table, the family hook runs on it, and the gradient is taken with
 respect to the compact rows: one summed gradient per slot.  Each data
 index's ``(slot row, gradient / dp)`` pairs are gathered over the data
 group (``update_full``) or, under the alltoall exchange at more than one
@@ -88,7 +90,6 @@ import torch.distributed as dist
 from ..models.base import get_model
 from ..models.deepfm import fm_v_rows, window_multiple
 from ..ops.embedding import sort_segments
-from ..ops.fused_ctr import fused_ctr_interaction
 from ..train.lazy import init_lazy_state, lazy_adam_update_shard
 from ..train.optimizer import (ZeroOptimizer, build_optimizer, resolve_zero_sharding,
                                schedule_value)
@@ -96,7 +97,8 @@ from ..train.step import (LAZY_TABLE_KEYS, TrainState, _check_lazy, _metrics,
                           apply_dense, dense_grads, graphed_train_step,
                           sigmoid_cross_entropy)
 from .embedding import (ModelAxis, exchange_capacity, exchange_rows,
-                        resolve_shard_exchange, tables_from_config)
+                        resolve_shard_exchange, split_compact, table_order,
+                        tables_from_config)
 from .mesh import DistContext
 
 _METRICS = ("loss", "ce", "pred_mean", "label_mean")
@@ -142,6 +144,10 @@ class Sharding:
     def axis(self) -> ModelAxis:
         return ModelAxis(self.ctx.model_group, self.mp, self.ctx.model_index)
 
+    def window(self, key: str) -> tuple[int, int]:
+        """(first row, rows) of table ``key`` on this rank."""
+        return self.offset, self.rows
+
     def sharded_keys(self, params) -> tuple[str, ...]:
         return tuple(k for k in LAZY_TABLE_KEYS if k in params) if self.mp > 1 else ()
 
@@ -182,18 +188,18 @@ def create_dp_train_state(cfg, ctx: DistContext) -> TrainState:
     if ctx.group is not None:
         _broadcast_weights(model, ctx)
     true_vocab = cfg.model.feature_size
-    tables = [getattr(model, k) for k in LAZY_TABLE_KEYS if hasattr(model, k)]
-    if mp > 1 and len(tables) < len(LAZY_TABLE_KEYS):
+    keys = [k for k in LAZY_TABLE_KEYS if hasattr(model, k)]
+    if mp > 1 and not keys:
         raise ValueError(f"mesh.model_parallel={mp} row-shards {LAZY_TABLE_KEYS}; "
                          f"model {cfg.model.model_name!r} has no such tables")
-    rows = min(t.shape[0] for t in tables) // mp if tables else 0
+    rows = min(getattr(model, k).shape[0] for k in keys) // mp if keys else 0
     if mp > 1:
-        with torch.no_grad():
-            model.fm_w[true_vocab:] = 0.0
-            model.fm_v[true_vocab:] = 0.0
         lo = ctx.model_index * rows
-        model.fm_w = torch.nn.Parameter(model.fm_w.detach()[lo:lo + rows].clone())
-        model.fm_v = torch.nn.Parameter(model.fm_v.detach()[lo:lo + rows].clone())
+        for k in keys:
+            with torch.no_grad():
+                getattr(model, k)[true_vocab:] = 0.0
+            setattr(model, k, torch.nn.Parameter(getattr(model, k).detach()[lo:lo + rows]
+                                                 .clone()))
     exchange = resolve_shard_exchange(cfg, dp, ctx.device.type)
     sharding = Sharding(ctx, true_vocab, rows * mp, rows, zero, exchange)
     if mp > 1:
@@ -357,21 +363,23 @@ def train_step(state: TrainState, batch: dict, ctx: DistContext, *,
 
 
 def assemble_rows(state: TrainState, mapped: torch.Tensor):
-    """The lazy step's compact table ``[n, K+1]`` (fm_v's K columns, then
-    fm_w), each lookup's slot and each slot's row (the sentinel
-    ``total_rows`` where none): the exchange at M > 1, a sort of the
-    local ids at M 1."""
-    sh, model = state.sharding, state.model
-    fm_w, fm_v = model.fm_w.detach(), model.fm_v.detach()
+    """The lazy step's compact table ``[n, K (+1)]`` (fm_v's K columns,
+    then fm_w's where the family has it, ``table_order``), each lookup's
+    slot and each slot's row (the sentinel ``total_rows`` where none): the
+    exchange at M > 1, a sort of the local ids at M 1."""
+    sh = state.sharding
+    tables = {k: t.detach() for k, t in state.model.tables().items()}
+    cols = [tables[k] for k in table_order(tables)]
     if sh.mp > 1:
-        ex = exchange_rows((fm_v, fm_w), mapped, sh.axis, exchange=sh.exchange,
-                           capacity=model.cfg.shard_exchange_capacity,
-                           table_grad=model.cfg.table_grad)
+        cfg = state.model.cfg
+        ex = exchange_rows(tuple(cols), mapped, sh.axis, exchange=sh.exchange,
+                           capacity=cfg.shard_exchange_capacity, table_grad=cfg.table_grad)
         return ex.compact, ex.slot, ex.slot_row
     order, seg, row_id, valid = sort_segments(mapped)
     live = valid & (row_id < sh.total_rows)
     idx = row_id.clamp(0, sh.rows - 1)
-    compact = torch.where(live[:, None], torch.cat([fm_v[idx], fm_w[idx][:, None]], 1), 0.0)
+    rows = torch.cat([t[idx].reshape(idx.shape[0], -1) for t in cols], 1)
+    compact = torch.where(live[:, None], rows, 0.0)
     slot = torch.empty_like(seg).scatter_(0, order, seg).to(torch.int32)
     return compact, slot, torch.where(live, row_id, sh.total_rows)
 
@@ -400,19 +408,20 @@ def lazy_train_step(state: TrainState, batch: dict, ctx: DistContext, *,
     model.train()
     ids, vals = model.prepare(batch["feat_ids"], batch["feat_vals"])
     b, f = ids.shape
-    k = model.fm_v.shape[1]
+    tables = model.tables()
+    keys = table_order(tables)
+    width_c = sum(tables[key].shape[1] if tables[key].dim() == 2 else 1 for key in keys)
     flat = ids.reshape(-1).long()
     mapped = torch.where((flat >= 0) & (flat < sh.true_vocab), flat, sh.total_rows)
     compact, slot, slot_row = assemble_rows(state, mapped)
-    c_w = compact[:, k].contiguous().requires_grad_()
-    c_v = compact[:, :k].contiguous().requires_grad_()
-    logits = model.head(*fused_ctr_interaction(c_w, c_v, slot.view(b, f), vals))
+    rows = {key: t.requires_grad_() for key, t in split_compact(compact, tables).items()}
+    logits = model.table_logits(rows, slot.view(b, f), vals)
     labels = batch["label"].reshape(-1).to(torch.float32)
     ce = torch.mean(sigmoid_cross_entropy(logits, labels))
     rest = {n: p for n, p in model.named_parameters() if n not in LAZY_TABLE_KEYS}
-    grads = torch.autograd.grad(ce, [*rest.values(), c_v, c_w])
+    grads = torch.autograd.grad(ce, [*rest.values(), *(rows[key] for key in keys)])
     g_rest = dict(zip(rest, grads[:len(rest)]))
-    g_rows = torch.cat([grads[-2], grads[-1][:, None]], 1)
+    g_rows = torch.cat([g.reshape(g.shape[0], -1) for g in grads[len(rest):]], 1)
     g_rest, metrics = _sync(g_rest, _metrics(ce, ce, logits, batch["label"]), state, ctx,
                             examples=examples, has_next=has_next, stop=stop,
                             eval_now=eval_now)
@@ -425,7 +434,7 @@ def lazy_train_step(state: TrainState, batch: dict, ctx: DistContext, *,
         width = max(width, sh.mp * cap_x + 1)
     pad = width - compact.shape[0]
     if pad:
-        g_rows = torch.cat([g_rows, g_rows.new_zeros(pad, k + 1)])
+        g_rows = torch.cat([g_rows, g_rows.new_zeros(pad, width_c)])
         slot_row = torch.cat([slot_row, slot_row.new_full((pad,), sh.total_rows)])
     dp = sh.dp
     cap = exchange_capacity(b * f, 1, model.cfg.shard_exchange_capacity or 0.5)
@@ -446,9 +455,9 @@ def lazy_train_step(state: TrainState, batch: dict, ctx: DistContext, *,
     lazy_updates["dedup" if dedup else "full"] += 1
     row_id, gsum, valid = _segment_sums(ids_g, g_g)
     lr = schedule_value(opt.lr, state.step) * opt.multiplier
-    for key, table, g in (("fm_v", model.fm_v, gsum[:, :k]), ("fm_w", model.fm_w, gsum[:, k])):
-        lazy_adam_update_shard(table.data, state.lazy.m[key], state.lazy.v[key], row_id, g,
-                               valid, sh.offset, state.step + 1, opt.cfg,
+    for key, g in split_compact(gsum, tables).items():
+        lazy_adam_update_shard(tables[key].data, state.lazy.m[key], state.lazy.v[key], row_id,
+                               g, valid, sh.offset, state.step + 1, opt.cfg,
                                learning_rate=lr, l2_reg=model.cfg.l2_reg)
     state.step += 1
     return metrics
@@ -563,10 +572,10 @@ def load_local_state(state: TrainState, local: dict) -> None:
 def load_full_state(state: TrainState, full: dict) -> None:
     """Load :func:`full_state`'s layout into ``state`` in place: each rank
     takes its rows of the whole tables, then :func:`load_local_state`."""
-    sh, keys = state.sharding, table_keys(state)
-    if keys:
-        full = map_tables(full, keys,
-                          lambda t: torch.as_tensor(t)[sh.offset:sh.offset + sh.rows])
+    sh = state.sharding
+    for key in table_keys(state):
+        lo, n = sh.window(key)
+        full = map_tables(full, (key,), lambda t, lo=lo, n=n: torch.as_tensor(t)[lo:lo + n])
     load_local_state(state, full)
 
 
@@ -578,5 +587,6 @@ def servable_state_dict(state: TrainState, model_cfg) -> dict:
     out = dict(sd)
     if "fm_w" in out:
         out["fm_w"] = sd["fm_w"][:model_cfg.feature_size]
+    if "fm_v" in out:
         out["fm_v"] = sd["fm_v"][:fm_v_rows(model_cfg)]
     return out

@@ -5,8 +5,9 @@ passed as an argument (``deepfm_tpu/serve/reload.py``, ``serve/batcher.py``).
 The JAX server compiles one executable per bucket shape and swaps weights
 under them without recompiling.  Here:
 
-* **Two weight slots** on the card, each a DeepFM holding its own copy of
-  the parameters and BN buffers (about 17 MB at the flagship width).  A
+* **Two weight slots** on the card, each a CTR model (DeepFM, xDeepFM or
+  DCN-v2) holding its own copy of the parameters and BN buffers (about 17
+  MB for DeepFM at the flagship width).  A
   slot is what a JAX "payload" is: :meth:`GraphedPredictor.predict_with`
   takes the slot to score with.
 * **One** ``torch.cuda.CUDAGraph`` **per (slot, bucket, stage)**, captured
@@ -14,9 +15,10 @@ under them without recompiling.  Here:
   per slot, each bucket warmed up on a side stream first (the cuBLAS
   workspace, the kernel library), under ``set_sync_debug_mode("error")``.
   The predictor has one stage, the forward; the funnel (funnel/graphs.py)
-  has two.  The forward launches kernel B1 (ops/fused_ctr.py) on the
-  current stream, which is what makes it capturable; nothing in it waits
-  on the host.
+  has two.  DeepFM's and xDeepFM's forward launch kernel B1
+  (ops/fused_ctr.py) on the current stream, which is what makes it
+  capturable (DCN-v2's gather is a plain one); nothing in it waits on the
+  host.
 * **Static inputs and outputs.**  Each bucket has device buffers for ids,
   vals and the output that every graph of that bucket reads or writes,
   and pinned host buffers for staging.  A dispatch fills the pinned
@@ -47,6 +49,7 @@ import torch
 
 from ..core.config import ModelConfig
 from ..core.platform import resolve_device
+from ..models.base import CTR_FAMILIES
 from ..ops import fused_ctr, retrieval
 from .batcher import DEFAULT_BUCKETS, pick_bucket
 
@@ -254,7 +257,8 @@ class SlotGraphs:
 
 
 class GraphedPredictor:
-    """A DeepFM servable's predict behind CUDA graphs, in ``slots``
+    """A CTR servable's predict (DeepFM, xDeepFM or DCN-v2) behind CUDA
+    graphs, in ``slots``
     (default ``SLOTS``) weight slots on ``device`` (default: the card;
     ``"cpu"`` runs eagerly).
 
@@ -266,8 +270,9 @@ class GraphedPredictor:
 
     def __init__(self, cfg: ModelConfig, state_dict: dict, *, device=None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, slots: int = SLOTS):
-        if cfg.model_name != "deepfm":
-            raise ValueError(f"GraphedPredictor serves DeepFM, got {cfg.model_name!r}")
+        if cfg.model_name not in CTR_FAMILIES:
+            raise ValueError(f"GraphedPredictor serves the CTR families "
+                             f"({'|'.join(CTR_FAMILIES)}), got {cfg.model_name!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(int(b) for b in buckets))

@@ -46,6 +46,7 @@ from torch import nn
 
 from ...core.config import ModelConfig, load_config
 from ...core.platform import resolve_device
+from ...models.base import refuse_variant
 from ...models.deepfm import window_multiple
 from ...ops.embedding import narrow_ids
 from ...ops.fused_ctr import fused_ctr_interaction
@@ -101,6 +102,7 @@ def make_serve_context(cfg: ModelConfig, data_parallel: int = 1, model_parallel:
     dp, mp = int(data_parallel), int(model_parallel)
     if dp < 1 or mp < 1:
         raise ValueError(f"a member's split needs dp, mp >= 1, got [{dp}, {mp}]")
+    refuse_variant(cfg.model_name, "a shard-group member")
     if cfg.model_name != "deepfm":
         raise ValueError(f"shard-group members serve DeepFM servables, got "
                          f"{cfg.model_name!r}")

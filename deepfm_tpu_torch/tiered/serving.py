@@ -50,8 +50,10 @@ class TieredScorer:
 
     def __init__(self, cfg: Config, cold: ColdTier, *, model, capacity: int = 0,
                  host_rows: int = 0, registry: MetricsRegistry | None = None):
+        from ..models.base import refuse_variant
         from .trainer import resolve_tiered
 
+        refuse_variant(cfg.model.model_name, "the tiered scorer")
         sizes = resolve_tiered(cfg)
         self.cfg = cfg
         self.cold = cold

@@ -40,6 +40,9 @@ _META = "tiered_meta.json"
 _LEAVES = "tiered_leaves.pt"
 
 
+from ..models.base import refuse_variant
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
@@ -61,7 +64,9 @@ def resolve_tiered(cfg: Config) -> dict:
 
 
 def _check_cfg(cfg: Config) -> None:
-    """JAX's refusals (``tiered/trainer.py:71-81``)."""
+    """JAX's refusals (``tiered/trainer.py:71-81``), and the other CTR
+    families (``refuse_variant``)."""
+    refuse_variant(cfg.model.model_name, "the tiered store's paged step")
     if cfg.model.fused_kernel != "off":
         raise ValueError(f"tiered embeddings with fused_kernel={cfg.model.fused_kernel!r}:"
                          " the JAX package refuses this pair, so the port does too (its "

@@ -57,10 +57,12 @@ servable.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import time
 from typing import Iterator
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -621,6 +623,183 @@ def run_publish(cfg: Config, *, device=None):
     return run_publisher(cfg)
 
 
+# -- the two-tower family's tasks (JAX train/loop.py:568-738) -------------------
+
+def _retrieval_batches(cfg: Config, sharding, data_dir: str, *, num_epochs: int,
+                       shuffle: bool) -> Iterator[dict]:
+    """The ratings under ``data_dir`` as global batches of
+    ``data.batch_size`` (data/ratings.py ``RatingsDataset``), after JAX's
+    checks of the whole file against both vocabularies: the step then
+    needs no range check of its own."""
+    from ..data.ratings import RatingsDataset
+
+    ds = RatingsDataset.from_path(data_dir)
+    true_u, true_i = (sharding.true_vocab[k] for k in ("user_embedding", "item_embedding"))
+    max_u, max_i = ds.max_ids()
+    if max_u >= true_u or max_i >= true_i:
+        raise ValueError(
+            f"ratings ids exceed configured vocabs: max user {max_u} vs "
+            f"user_vocab_size {true_u}, max item {max_i} vs "
+            f"item_vocab_size {true_i} — set model.user_vocab_size/"
+            f"model.item_vocab_size")
+    min_u, min_i = ds.min_ids()
+    if min_u < 0 or min_i < 0:
+        raise ValueError(
+            f"ratings contain negative ids (min user {min_u}, min item {min_i})")
+    return ds.batches(cfg.data.batch_size, num_epochs=num_epochs, shuffle=shuffle,
+                      seed=cfg.run.seed)
+
+
+def _retrieval_checkpointer(cfg: Config, ctx: DistContext, **kw):
+    from ..parallel.retrieval import checkpoint_context
+
+    return make_checkpointer(cfg.run.model_dir, ctx=checkpoint_context(ctx), **kw)
+
+
+def _retrieval_restored(cfg: Config, ctx: DistContext):
+    from ..parallel.retrieval import create_retrieval_dp_state
+
+    return _retrieval_checkpointer(cfg, ctx).restore(create_retrieval_dp_state(cfg, ctx))
+
+
+def run_retrieval_eval(cfg: Config, state: TrainState, ctx: DistContext,
+                       log: MetricLogger | None = None) -> dict:
+    """The two-tower eval (JAX ``run_retrieval_eval``): the mean
+    in-batch-softmax loss, top-1 accuracy and recall@10 over the full
+    batches of the validation ratings (the remainder dropped: the candidate
+    pool keeps one size); fewer rows than one batch raise."""
+    from ..parallel import retrieval
+
+    sums: dict[str, float] = {}
+    batches = 0
+    for batch in _retrieval_batches(cfg, state.sharding, cfg.data.val_data_dir,
+                                    num_epochs=1, shuffle=False):
+        m = retrieval.eval_step(state, retrieval.local_batch(batch, ctx), ctx)
+        batches += 1
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + v
+    if not batches:
+        raise ValueError(
+            f"validation ratings under {cfg.data.val_data_dir!r} have fewer "
+            f"rows than one batch ({cfg.data.batch_size}) — nothing to eval")
+    result = {"loss": sums["loss"] / batches, "top1_acc": sums["top1_acc"] / batches,
+              "recall_at_10": sums["recall_at_10"] / batches, "examples": sums["count"]}
+    if log is not None:
+        log.event("eval", **result)
+    return result
+
+
+def _retrieval_export(state: TrainState, ctx: DistContext, path: str) -> str:
+    """The two-tower servable at ``path`` (its config with the padded
+    vocabularies, as JAX exports its context's), written by rank 0 after
+    the tables are gathered."""
+    from ..parallel.retrieval import servable_state_dict
+
+    sd = servable_state_dict(state)
+    if ctx.rank == 0:
+        path = export_servable(state.model.cfg, sd, path)
+    return path
+
+
+def run_retrieval_train(cfg: Config, *, device=None,
+                        log: MetricLogger | None = None) -> TrainState:
+    """The two-tower train task (JAX ``run_retrieval_train``): ratings in,
+    in-batch-softmax steps (parallel/retrieval.py, on each rank of a grid),
+    a checkpoint every ``run.checkpoint_every_steps`` and at the end, a
+    resume that skips the batches the checkpoint trained on (the ratings
+    stream is seed-deterministic), then the eval over ``data.val_data_dir``
+    and the export.  A signal saves, logs ``preempted`` and raises
+    PreemptedError."""
+    with PreemptionGuard() as guard:
+        ctx = initialize_distributed(cfg.mesh, device)
+        try:
+            return _retrieval_train(cfg, ctx, log, guard)
+        finally:
+            shutdown(ctx)
+
+
+def _retrieval_train(cfg: Config, ctx: DistContext, log, guard) -> TrainState:
+    from ..parallel import retrieval
+
+    log = _Silent() if ctx.rank != 0 else log or MetricLogger(log_steps=cfg.run.log_steps)
+    if cfg.run.clear_existing_model:
+        if ctx.rank == 0:
+            maybe_clear(cfg.run.model_dir, True)
+        if ctx.group is not None:
+            dist.barrier(group=ctx.group)
+    ckpt = _retrieval_checkpointer(cfg, ctx, max_to_keep=cfg.run.keep_checkpoints)
+    state = retrieval.create_retrieval_dp_state(cfg, ctx)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        log.event("resume", step=state.step)
+    log.seed_step(state.step)
+    batches = iter(())
+    if not guard.should_stop:  # a signal during setup skips loading the ratings
+        batches = itertools.islice(
+            _retrieval_batches(cfg, state.sharding, cfg.data.training_data_dir,
+                               num_epochs=cfg.data.num_epochs, shuffle=True),
+            state.step, None)
+    every = cfg.run.checkpoint_every_steps
+    steps = examples = 0
+    stop = False
+    dev = state.model.user_embedding.device
+    t0 = time.perf_counter()
+    for batch in batches:
+        metrics = retrieval.train_step(state, retrieval.local_batch(batch, ctx), ctx,
+                                       stop=guard.should_stop)
+        stop = metrics.pop("any_stop")
+        b = int(np.asarray(batch["user_ids"]).shape[0])
+        steps += 1
+        examples += b
+        log.step(state.step, b, metrics)
+        if every and state.step % every == 0:
+            ckpt.save(state)
+        if stop:
+            break
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    loop_s = time.perf_counter() - t0
+    log.event("train_done", step=state.step, steps=steps, world_size=ctx.world_size,
+              examples=examples, seconds=loop_s,
+              examples_per_sec=examples / loop_s if loop_s > 0 else 0.0)
+    ckpt.save(state)
+    if stop or guard.should_stop:
+        log.event("preempted", step=state.step)
+        ckpt.close()
+        raise PreemptedError(f"preempted at step {state.step}")
+    if cfg.data.val_data_dir:
+        run_retrieval_eval(cfg, state, ctx, log)
+    if cfg.run.servable_model_dir:
+        path = _retrieval_export(state, ctx, cfg.run.servable_model_dir)
+        log.event("export", path=path)
+    ckpt.close()
+    return state
+
+
+def run_retrieval_task(cfg: Config, *, device=None):
+    """Two-tower task dispatch (JAX ``run_retrieval_task``): train, eval or
+    export from the latest checkpoint; infer is refused (it has no meaning
+    without a candidate corpus to rank: use eval, or load the servable and
+    encode corpora)."""
+    task = cfg.run.task_type
+    if task == "train":
+        return run_retrieval_train(cfg, device=device)
+    if task not in ("eval", "export"):
+        raise ValueError(f"task_type {task!r} unsupported for two_tower (train|eval|export)")
+    ctx = initialize_distributed(cfg.mesh, device)
+    try:
+        state = _retrieval_restored(cfg, ctx)
+        if task == "eval":
+            return run_retrieval_eval(cfg, state, ctx,
+                                      MetricLogger() if ctx.rank == 0 else None)
+        path = _retrieval_export(state, ctx, cfg.run.servable_model_dir)
+        if ctx.rank == 0:
+            MetricLogger().event("export", path=path)
+        return path
+    finally:
+        shutdown(ctx)
+
+
 TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
          "export": run_export, "serve": run_serve,
          "online-train": run_online, "online_train": run_online,
@@ -628,12 +807,21 @@ TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
          "publish": run_publish}
 
 
+# the tasks that dispatch on their own, whatever the family (JAX's run_task
+# reaches the two-tower dispatch after them)
+NON_MODEL_TASKS = ("serve", "online-train", "online_train", "feedback-train",
+                   "feedback_train", "publish")
+
+
 def run_task(cfg: Config, *, device=None):
     """Run ``cfg.run.task_type`` (train, eval, infer, export, serve,
     online-train, feedback-train or publish); returns the task's result: the train
     state, the eval metrics, the pred.txt path or the servable path (serve
-    blocks and returns None)."""
+    blocks and returns None).  The two-tower family's train, eval and
+    export are :func:`run_retrieval_task`'s."""
     task = cfg.run.task_type
+    if cfg.model.model_name == "two_tower" and task not in NON_MODEL_TASKS:
+        return run_retrieval_task(cfg, device=device)
     if task not in TASKS:
         raise ValueError(f"unknown task_type {task!r} ({'|'.join(TASKS)})")
     return TASKS[task](cfg, device=device)

@@ -31,13 +31,15 @@ With ``optimizer.lazy_embedding_updates`` the tables fm_w and fm_v train
 with lazy Adam (train/lazy.py) and the rest of the parameters with the
 dense optimizer and its own count.  The lazy step runs the model on COMPACT
 tables: the batch's B·F ids are sorted into segments at a fixed shape
-(``sort_segments``), ``fm_v[row_id]`` and ``fm_w[row_id]`` are gathered
-into ``[N, K]`` and ``[N]`` tables, and the forward runs through
-``fused_ctr_interaction`` with each lookup's segment as its id.  On the
-card that launches the forward kernel, and its backward kernel then writes
-the per-segment gradient sums, exactly the sums ``segment_rows`` forms, into
-``[N, K]`` and ``[N]`` (zero on padding segments): no ``[V, K]`` gradient
-exists and no dense pass over the table runs.
+(``sort_segments``), ``fm_v[row_id]`` and ``fm_w[row_id]`` (the tables
+the family has: DCN-v2 has no fm_w) are gathered into ``[N, K]`` and
+``[N]`` tables, and the forward runs through the family hook
+(``table_logits``, models/deepfm.py) with each lookup's segment as its id.
+For DeepFM and xDeepFM that is ``fused_ctr_interaction``: on the card the
+forward kernel, and its backward kernel then writes the per-segment
+gradient sums, exactly the sums ``segment_rows`` forms, into ``[N, K]``
+and ``[N]`` (zero on padding segments): no ``[V, K]`` gradient exists and
+no dense pass over the table runs.
 
 Metrics stay on the device, so a step never waits for the card; the caller
 reads them (``float(...)``) only where it logs.  The optimizer update runs
@@ -62,12 +64,11 @@ from ..models.base import get_model
 from ..ops.auc import AUCState, auc_update
 from ..ops.embedding import sort_segments
 from ..ops import fused_ctr
-from ..ops.fused_ctr import fused_ctr_interaction
 from .lazy import LazyAdamState, init_lazy_state, lazy_adam_rows
 from .optimizer import Optimizer, adam_bias_corrections, build_optimizer, schedule_value
 
-# tables eligible for lazy updates: the CTR families gather fm_w (1-D) and
-# fm_v (2-D) once per lookup
+# tables eligible for lazy updates: the CTR families gather fm_w (1-D, not
+# DCN-v2's) and fm_v (2-D) once per lookup
 LAZY_TABLE_KEYS = ("fm_w", "fm_v")
 METRIC_KEYS = ("loss", "ce", "pred_mean", "label_mean")
 # the step's per-step numbers, one float32 device buffer (step_scalars):
@@ -250,13 +251,15 @@ def lazy_body(model: nn.Module, optimizer: Optimizer, tables: dict, moments,
               ids: torch.Tensor, vals: torch.Tensor, labels: torch.Tensor,
               scalars: torch.Tensor) -> dict:
     """The lazy step (counterpart of ``_make_lazy_train_step``,
-    ``train/step.py:173-270``) on ``tables`` (``{"fm_w", "fm_v"}``: the
-    model's own, or the tiered store's hot cache) with their moments
-    (``m``, ``v``) and ``ids [B, F]`` that are rows of them.
+    ``train/step.py:173-270``) on ``tables`` (the family's tables,
+    ``{"fm_w", "fm_v"}`` or DCN-v2's ``{"fm_v"}``: the model's own, or the
+    tiered store's hot cache) with their moments (``m``, ``v``) and ``ids
+    [B, F]`` that are rows of them.
 
     The ids are clipped to the smallest table's rows (fm_w's: fm_v may
     carry pad rows, which so never train) and sorted into segments; the
-    forward and backward run on the compact tables, the loss is the CE
+    forward (the family hook ``table_logits``) and backward run on the
+    compact tables, the loss is the CE
     alone (the table L2 is the ``l2·w`` term of the row update), the
     model's other parameters take a dense step with their own count, and
     the tables' touched rows a lazy-Adam step, lr and bias corrections
@@ -269,8 +272,7 @@ def lazy_body(model: nn.Module, optimizer: Optimizer, tables: dict, moments,
         order, seg, row_id, valid = sort_segments(ids.reshape(-1).clamp(0, min_rows - 1))
         slot = torch.empty_like(seg).scatter_(0, order, seg).to(torch.int32).view(b, f)
         compact = {k: t.detach()[row_id].requires_grad_() for k, t in tables.items()}
-    logits = model.head(*fused_ctr_interaction(compact["fm_w"], compact["fm_v"],
-                                               slot, vals))
+    logits = model.table_logits(compact, slot, vals)
     ce = torch.mean(sigmoid_cross_entropy(logits, labels.reshape(-1).to(torch.float32)))
     grads = torch.autograd.grad(ce, [*rest.values(), *compact.values()])
     with record_function("train.optimizer"):

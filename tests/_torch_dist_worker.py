@@ -474,3 +474,59 @@ def grid_ckpt(rank: int, world: int, store: str, out: str, jobs: list) -> None:
         torch.save(results, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def retrieval_steps(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """Per job (a ``cfg`` dict whose mesh names the grid, whole padded
+    two-tower ``weights``, global ``batches``): the grid's retrieval state,
+    one step per batch on this data index's slice, then the metrics, the
+    eval step's metrics on the first batch, and the one-card layout
+    (``full_state``)."""
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.parallel import retrieval, spmd
+
+    _join(rank, world, store)
+    try:
+        results = []
+        for job in jobs:
+            cfg = Config.from_dict(job["cfg"])
+            ctx = _grid(cfg)
+            state = retrieval.create_retrieval_dp_state(cfg, ctx)
+            sh = state.sharding
+            keys = sh.sharded_keys(job["weights"])
+            state.model.load_state_dict({
+                n: torch.as_tensor(t)[slice(*_span(sh.window(n)))] if n in keys
+                else torch.as_tensor(t) for n, t in job["weights"].items()})
+            metrics = []
+            for batch in job["batches"]:
+                m = retrieval.train_step(state, retrieval.local_batch(batch, ctx), ctx)
+                metrics.append({k: float(v) for k, v in m.items()})
+            ev = retrieval.eval_step(state, retrieval.local_batch(job["batches"][0], ctx), ctx)
+            results.append({"metrics": metrics, "eval": ev, "step": state.step,
+                            "full": spmd.full_state(state),
+                            "grid": [ctx.data_index, ctx.model_index]})
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _span(window):
+    lo, n = window
+    return lo, lo + n
+
+
+def gather_items_grad(rank: int, world: int, store: str, out: str) -> None:
+    """``GatherItems`` on two ranks: rank r's items [2, 3] hold r; the loss
+    weighs the pool by (r + 1)·g, g = arange(12) as [4, 3]."""
+    from deepfm_tpu_torch.parallel.retrieval import GatherItems
+
+    _join(rank, world, store)
+    try:
+        items = torch.full((2, 3), float(rank), requires_grad=True)
+        pool = GatherItems.apply(items, None, world, rank)
+        g = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+        (pool * g * (rank + 1)).sum().backward()
+        torch.save({"pool": pool.detach().numpy(), "grad": items.grad.numpy()},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

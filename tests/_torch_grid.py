@@ -6,7 +6,8 @@ a train-step comparison on a ``[dp, mp]`` mesh of the virtual CPU devices
 
 Small widths: V = 301 (padded to 302 or 304 on a grid), F = 6, K = 8, a
 global batch of 32, MLP 16/8, float32, fused_kernel "off" (JAX's CPU
-forward is unfused either way), L2 1e-3, Adam at 1e-3."""
+forward is unfused either way), L2 1e-3, Adam at 1e-3; DeepFM, or xDeepFM
+and DCN-v2 with ``variant_widths``."""
 
 import time
 
@@ -82,6 +83,12 @@ def jax_cfg(dp, mp_, model=None, optimizer=None, keep=1.0):
         "mesh": {"data_parallel": dp, "model_parallel": mp_},
         "data": {"batch_size": B},
     })
+
+
+def variant_widths(name: str) -> dict:
+    """The model fields of another CTR family at these widths (xDeepFM's
+    CIN 8/8, DCN-v2's 2 cross layers), for ``jax_cfg``'s ``model``."""
+    return {"model_name": name, "cin_layers": (8, 8), "cross_layers": 2}
 
 
 def port_cfg(jcfg) -> dict:

@@ -343,7 +343,10 @@ def test_lazy_step_through_kernels_matches_plain(device, monkeypatch):
     m_k = step_mod.train_step(kernel, b)
     assert (fused_ctr.launches, fused_ctr.backward_launches) == (
         launches[0] + 1, launches[1] + 1)
-    monkeypatch.setattr(step_mod, "fused_ctr_interaction", fused_ctr.fused_ctr_plain)
+    # the lazy body reaches B1 through DeepFM's family hook
+    from deepfm_tpu_torch.models import deepfm as deepfm_mod
+
+    monkeypatch.setattr(deepfm_mod, "fused_ctr_interaction", fused_ctr.fused_ctr_plain)
     m_p = step_mod.train_step(plain, b)
     torch.cuda.synchronize()
     assert fused_ctr.launches == launches[0] + 1
@@ -1332,3 +1335,105 @@ def test_the_elastic_grid_steps_kernels_match_their_plain_versions(device, tmp_p
                 and y_v <= TOL["y_v"] * (1 + sv), err
             for e, scale in err["backward"]:
                 assert e <= 1e-5 * scale, err
+
+
+# -- the other CTR families (ROADMAP A12) ---------------------------------------
+
+def _variant_cfg(name, **model):
+    from deepfm_tpu_torch.core.config import ModelConfig
+
+    return ModelConfig(model_name=name, feature_size=5001, field_size=39, embedding_size=32,
+                       deep_layers=(64, 32), dropout_keep=(1.0, 1.0), cin_layers=(32, 16),
+                       cross_layers=2, **model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_xdeepfm_through_the_kernels_matches_plain(device, batch_norm):
+    """xDeepFM's forward and backward through B1 and B1' against the plain
+    versions (float32 MLP and CIN): its head drops y_v, so B1' runs with a
+    zero cotangent there; on an unpadded table of 5,001 rows."""
+    from deepfm_tpu_torch.models import XDeepFM
+    from deepfm_tpu_torch.train.step import loss_terms
+
+    cfg = _variant_cfg("xdeepfm", compute_dtype="float32", batch_norm=batch_norm)
+    model = XDeepFM(cfg, device=device, generator=torch.Generator().manual_seed(3))
+    assert model.fm_v.shape == (5001, 32) and model.fm_w.shape == (5001,)
+    model.train()
+    ids, vals = (torch.from_numpy(a).to(device) for a in _serve_rows(256, 5))
+    label = (torch.rand(256, generator=torch.Generator().manual_seed(6)) < 0.3).float()
+    params = dict(model.named_parameters())
+    runs = []
+    for fused in (fused_ctr.fused_ctr_interaction, fused_ctr.fused_ctr_plain):
+        i, v = model.prepare(ids, vals)
+        launches = (fused_ctr.launches, fused_ctr.backward_launches)
+        loss, _ = loss_terms(model, model.head(*fused(model.fm_w, model.fm_v, i, v)),
+                             label.to(device))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        runs.append((loss, grads, (fused_ctr.launches - launches[0],
+                                   fused_ctr.backward_launches - launches[1])))
+    (loss_k, grads_k, counted), (loss_p, grads_p, none) = runs
+    assert counted == (1, 1) and none == (0, 0)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-6, atol=0)
+    for name, a, w in zip(params, grads_k, grads_p):
+        _assert_rel(a, w, name)
+    # the forward model's own path is the kernel's
+    before = fused_ctr.launches
+    with torch.no_grad():
+        model.eval()(ids, vals)
+    assert fused_ctr.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xdeepfm", "dcnv2"])
+@pytest.mark.parametrize("lazy", [False, True], ids=["dense", "lazy"])
+def test_the_variants_graphed_step_equals_the_eager_step_bit_for_bit(device, name, lazy):
+    from deepfm_tpu_torch.analysis.trace_audit import audit_cfg, distinct_batches, state_tensors
+    from deepfm_tpu_torch.train.step import (WARMUP_STEPS, create_train_state,
+                                             graphed_train_step, train_step)
+
+    cfg = audit_cfg(lazy, model_name=name, cin_layers=(32, 32), cross_layers=2,
+                    dropout_keep=(0.5, 0.5, 0.5))
+    batches = [{k: v.pin_memory() for k, v in b.items()}
+               for b in distinct_batches(cfg, WARMUP_STEPS + 4, 1)]
+    graphed, eager = create_train_state(cfg, device), create_train_state(cfg, device)
+    eager.generator.set_state(graphed.generator.get_state())
+    for batch in batches:
+        mg = graphed_train_step(graphed, batch)
+        me = train_step(eager, {k: v.to(device) for k, v in batch.items()})
+        assert all(torch.equal(mg[k], me[k]) for k in mg)
+    got, want = state_tensors(graphed), state_tensors(eager)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert graphed.graph.replays == 4
+    # xDeepFM's step runs B1 and B1' in the graph; DCN-v2's gather is plain
+    assert graphed.graph.per_replay == ((1, 1) if name == "xdeepfm" else (0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xdeepfm", "dcnv2"])
+def test_the_variants_graphed_predict_matches_eager(device, name):
+    import numpy as np
+
+    from deepfm_tpu_torch.models import get_model
+    from deepfm_tpu_torch.serve.export import model_from_state
+    from deepfm_tpu_torch.serve.graphs import GraphedPredictor
+
+    cfg = _variant_cfg(name, batch_norm=True)
+    state = get_model(cfg).build(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(8)).state_dict()
+    pred = GraphedPredictor(cfg, state, device=device, buckets=SERVE_BUCKETS)
+    pred.precompile()
+    assert pred.graph_count == 2 * len(SERVE_BUCKETS)
+    assert pred.kernel_launches_per_replay == (1 if name == "xdeepfm" else 0)
+    eager = model_from_state(cfg, state, device)
+    for b in SERVE_BUCKETS:
+        ids, vals = _serve_rows(b - 1, seed=b)
+        with torch.inference_mode():
+            want = torch.sigmoid(eager(torch.from_numpy(ids).to(device),
+                                       torch.from_numpy(vals).to(device))).cpu().numpy()
+        for slot in (0, 1):
+            got = pred.predict_with(slot, ids, vals)
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -106,7 +106,7 @@ def test_convert_rejects_shape_mismatch():
 def test_registry_and_init():
     assert get_model(ModelConfig()).build is DeepFM
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("xdeepfm")
+        get_model("fibinet")
     cfg = ModelConfig(**dict(SMALL, fused_kernel="auto"))
     a = DeepFM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     b = DeepFM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
@@ -142,4 +142,5 @@ def test_config_validation_and_json_schema(tmp_path):
                                            cin_layers=(4,))})
     (tmp_path / "config.json").write_text(json.dumps(jcfg.to_dict()))
     got = load_config(tmp_path)
-    assert got == ModelConfig(**dict(SMALL, **JAX_ONLY, fused_kernel="auto"))
+    assert got == ModelConfig(**dict(SMALL, **JAX_ONLY, fused_kernel="auto",
+                                     cin_layers=(4,)))
