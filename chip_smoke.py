@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught; they
 run in the order 1, 2, 3, 7, 4, 5, 6, 9, 15, 10, 13, 11, 16, 12, 19, 8, 17,
-18, 14, 20, 21).
+18, 14, 20, 21, 22).
 Each phase's start goes to stderr with the script's clock; a run still
 going after WATCHDOG_S prints every thread's stack there, kills the
 processes it started and exits 3.
@@ -219,8 +219,8 @@ the replays times the launches each capture recorded (``kernel_runs``):
               step from one state, within TOL_LOSS_REL and TOL_GRAD_REL:
               repeated ids meet B1''s atomics; a cache of 49,152 slots,
               fewer than the 55,480 rows those batches touch) and on the
-              lifecycle's 24 batches of distinct ids (one trajectory, bit
-              for bit), both evicting and writing back, with the hit rate,
+              lifecycle's first 12 batches of distinct ids (one trajectory,
+              bit for bit), both evicting and writing back, with the hit rate,
               the staged and written-back bytes and the step's time; B1 on
               the hot cache [65,537, 32]
               with slot ids (the tiered scorer's lookup) and B1 and B1' on
@@ -230,9 +230,10 @@ the replays times the launches each capture recorded (``kernel_runs``):
               TieredScorer behind the port's server (1, 8 and 100
               instances within 1e-6 of the resident model's predict, each
               request one B1 launch, the paging gauges in /metrics); then the tiered train task through
-              cli.run stopped by a SIGTERM after step 12, resumed, and held
-              bit for bit (tables, moments, the rest of the model) against
-              an uninterrupted run.
+              cli.run on the lifecycle's first file (12 batches) stopped by
+              a SIGTERM after step 6, resumed, and held bit for bit
+              (tables, moments, the rest of the model) against an
+              uninterrupted run.
 
 17. funnel_swap - the funnel's versioned hot swap (ROADMAP A13) at phase
               8's width (117,581 items, top 32 -> 8, oversample 4, buckets 8
@@ -264,8 +265,9 @@ the replays times the launches each capture recorded (``kernel_runs``):
               with run.serve_workers=2 (two graphed servers on one port,
               each its own interpreter): every bucket 8-512 by JSON and
               binary bit-equal to the single-process graphed answer, 16
-              closed-loop clients by JSON and by binary beside phase 4's
-              single-process figures, a worker killed and respawned;
+              closed-loop clients from four client processes by JSON and
+              by binary beside one worker's under the same load and phase
+              4's figures, a worker killed and respawned;
               (b) the serve task with run.serve_groups=2 (a router and two
               [1, 1] member processes, the swapper adopting version 1,
               flywheel.enabled): every bucket bit-equal, version 2 swapped
@@ -405,6 +407,37 @@ the replays times the launches each capture recorded (``kernel_runs``):
               line holds the card, each family's examples/s, step ms and
               split, the two-tower metrics, and the phase's seconds; the B1
               and B1' runs are in the kernels line.
+22. fleet   - ROADMAP A18 and A19 at the flagship width (phase 18's
+              servable, buckets 8-512): (a) the serve task with
+              --serve_groups 1 and --serve_tenants (one [1, 1] member
+              process, the router, one swapper a tenant): tenants A and B
+              split 50/50, each from its own publish root with its own
+              weights from --seed, challenger C shadowing A at 100%; and,
+              in this process, a member's predictor at one and two tenants
+              (card bytes after capture, graph count); (b) 400 keyed
+              requests of 1-4 rows: each answered by the port's
+              TrafficSplit arm of its key, each within TOL_PROB of its
+              tenant's plain forward on the card; (c) A's version 2
+              published under 4 clients (two on A, two on B): A's swapper
+              converges, B's answers the same bytes and labels throughout,
+              A's labelled (1, 1) or (2, 2) only and held to their
+              version's plain forward, the member's graph count unchanged;
+              (d) /admin:split to 80/20 moves exactly the keys of the
+              shifted window; (e) the shadow scored A's stream with no
+              error, and no answer came from C; (f) `--task_type
+              region-front` in a subprocess over two regions, each an
+              in-process router over the member with its own store that
+              the front's replicator fills from a home root: every key
+              served by its rendezvous home (X-Region, X-Region-Home), a
+              version published at home visible in both stores only with
+              its whole tree, and one router stopped: its keys fail over
+              with the headers and the client's trace id, which the
+              surviving router records.  The `fleet` line holds the card,
+              the boot seconds, the member's card bytes at one (phase 18)
+              and three tenants, the per-tenant stage, canary and swap ms,
+              the shadow's stats, the failover ms and the phase's seconds;
+              the member's B1 runs (its exit line) are in the kernels
+              line.
 
 The script prints its total seconds; the last three lines of standard
 output are the kernels' JSON line, the card's name and power limit, and
@@ -3749,21 +3782,22 @@ def _check_ports_free(ports, what: str) -> None:
                      f"earlier run owns it; stop it first")
 
 
-def _router_member_urls(base: str, cli, timeout: float = 120.0) -> list[str]:
-    """The member URLs the router at ``base`` routes to, group by group,
-    from its ``/v1/metrics`` groups section (the router serves it before
-    its members are ready)."""
+def _router_member_urls(base: str, cli, timeout: float = 120.0,
+                        n: int = POOL_GROUPS) -> list[str]:
+    """The ``n`` member URLs the router at ``base`` routes to, group by
+    group, from its ``/v1/metrics`` groups section (the router serves it
+    before its members are ready)."""
     deadline = time.monotonic() + timeout
     while True:
         try:
             groups = get(f"{base}/v1/metrics")["groups"]
             urls = [u for g in sorted(groups) for u in groups[g]["member_urls"]]
-            if len(urls) == POOL_GROUPS:
+            if len(urls) == n:
                 return urls
         except (OSError, ValueError, KeyError):
             pass
         if cli.proc.poll() is not None or time.monotonic() > deadline:
-            cli.fail(f"{base}/v1/metrics did not list {POOL_GROUPS} members")
+            cli.fail(f"{base}/v1/metrics did not list {n} members")
         time.sleep(0.2)
 
 
@@ -3816,16 +3850,17 @@ def pool_reference(cfg, servable: str, rng: np.random.Generator):
 
 
 def pool_load(port: int, cfg, workdir: str) -> dict:
-    """16 closed-loop clients of LOAD_ROWS rows by JSON and by binary, from
-    one client process (phase 4's setting) and from four (so the client's
-    own interpreter lock does not cap a pool)."""
+    """16 closed-loop clients of LOAD_ROWS rows by JSON and by binary from
+    four client processes (so the client's own interpreter lock does not
+    cap a pool; the runs from one process, phase 4's setting, were cut to
+    keep the whole script within its time budget)."""
     from deepfm_tpu_torch.serve.server import encode_binary_request
 
     rng = np.random.default_rng(99)
     ids = make_ids(rng, LOAD_ROWS, cfg.field_size, cfg.feature_size)
     vals = rng.random((LOAD_ROWS, cfg.field_size)).astype(np.float32)
     out = {}
-    for procs in (1, 4):
+    for procs in (4,):
         for binary in (False, True):
             body = encode_binary_request(ids, vals) if binary else _instances_body(ids, vals)
             out[f"load_{'binary' if binary else 'json'}_{procs}proc"] = closed_loop(
@@ -4328,7 +4363,9 @@ def phase_pool(seed: int, workdir: str, card: str, funnel_servable: str,
         "worker_device_bytes": [w.get("device_max_reserved_bytes") for w in process["workers"]],
         "member_device_bytes": [m.get("device_max_reserved_bytes") for m in groups["members"]],
         "funnel_member_boot_s": funnel["boot_s"]}))
-    return {"forward_launches": forward, "retrieval_launches": retrieval, "seconds": seconds}
+    return {"forward_launches": forward, "retrieval_launches": retrieval, "seconds": seconds,
+            "member_device_bytes": [m.get("device_max_reserved_bytes")
+                                    for m in groups["members"]]}
 
 
 # the lifecycle phase: 24 steps of 1,024 records in 2 files, each batch's
@@ -5120,6 +5157,13 @@ def run_analysis() -> dict:
 # repeated ids then evict, write back and stage again on the card too
 TIERED_SLOTS, TIERED_HOST_ROWS, TIERED_PAGE_ROWS = 65_536, 65_536, 1024
 TIERED_TRAIN_SLOTS = 49_152
+# the tiered train task's depth: the lifecycle's first file (12 batches of
+# distinct ids), a SIGTERM after step 6 (cut from both files and step 12
+# to keep the whole script within its time budget)
+TIERED_TASK_FILES, TIERED_TASK_STOP = 1, 6
+# the paged step against the resident one on the lifecycle's first 12
+# batches of distinct ids (cut from 24 for the same budget)
+TIERED_DISTINCT_BATCHES = 12
 TIERED_SERVE_ROWS = (1, 8, 100)
 
 
@@ -5247,11 +5291,13 @@ def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict
     lazy step on the train phase's 48 batches (within the lazy phase's
     tolerances: B1''s atomics add repeated ids in any order; a cache
     smaller than the rows they touch, so repeated ids evict) and on the
-    lifecycle's 24 batches of distinct ids (bit for bit), with the hit
+    lifecycle's first TIERED_DISTINCT_BATCHES batches of distinct ids (bit
+    for bit), with the hit
     rate, the staged and written-back bytes and the step's time; (b) B1
     and B1' on the hot cache against their plain versions; (c) the tiered
-    train task through ``cli.run``: stopped by a SIGTERM after step 12,
-    resumed, and held bit for bit against an uninterrupted run; (d)
+    train task through ``cli.run`` on TIERED_TASK_FILES of the lifecycle's
+    files: stopped by a SIGTERM after step TIERED_TASK_STOP, resumed, and
+    held bit for bit against an uninterrupted run; (d)
     ``publish_tiered`` of (a)'s trainer and a TieredScorer behind the
     port's server answering requests within 1e-6 of the resident model."""
     from deepfm_tpu_torch.ops import fused_ctr
@@ -5270,7 +5316,7 @@ def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict
         os.path.join(workdir, "cold_a"),
         "train data", exact=False)
     tr.close()
-    distinct = host_batches(life_dir, "train")
+    distinct = host_batches(life_dir, "train")[:TIERED_DISTINCT_BATCHES]
     tr, resident, out["distinct"] = paged_against_resident(
         cfg, distinct, os.path.join(workdir, "cold_b"), "distinct ids", exact=True)
 
@@ -5350,16 +5396,23 @@ def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict
                     "forward_launches": serve_launches}
     print("tiered serve %s" % json.dumps(out["serve"]))
 
-    # (c) the tiered train task: a SIGTERM after step 12, the resume, and
-    # an uninterrupted run
+    # (c) the tiered train task: a SIGTERM after step TIERED_TASK_STOP, the
+    # resume, and an uninterrupted run, on the lifecycle's first files
+    task_dir = os.path.join(workdir, "task_data")
+    os.makedirs(task_dir)
+    for name in sorted(f for f in os.listdir(life_dir)
+                       if f.startswith("train"))[:TIERED_TASK_FILES]:
+        os.symlink(os.path.join(life_dir, name), os.path.join(task_dir, name))
+    task_steps = TIERED_TASK_FILES * LIFE_BATCHES_PER_FILE
+
     class SignalAt(MetricLogger):
         def step(self, step, *a, **kw):
             super().step(step, *a, **kw)
-            if step == LIFE_STOP:
+            if step == TIERED_TASK_STOP:
                 os.kill(os.getpid(), signal.SIGTERM)
 
     def argv(name: str) -> list[str]:
-        return ["--task_type", "train", "--training_data_dir", life_dir,
+        return ["--task_type", "train", "--training_data_dir", task_dir,
                 "--model_dir", os.path.join(workdir, name),
                 "--servable_model_dir", os.path.join(workdir, name + ".pub"),
                 "--num_epochs", "1", "--log_steps", str(LOG_STEPS),
@@ -5380,20 +5433,20 @@ def phase_tiered(seed: int, workdir: str, train_dir: str, life_dir: str) -> dict
     finally:
         loop.MetricLogger = real
     launches, backward = launches + fwd, backward + bwd
-    if not isinstance(stopped, PreemptedError) or \
-            _kind(lines, "preempted") != [{"kind": "preempted", "step": LIFE_STOP}]:
-        fail(f"tiered task: the SIGTERM after step {LIFE_STOP} did not stop the run: "
-             f"{stopped!r}")
+    if not isinstance(stopped, PreemptedError) or _kind(lines, "preempted") != [
+            {"kind": "preempted", "step": TIERED_TASK_STOP}]:
+        fail(f"tiered task: the SIGTERM after step {TIERED_TASK_STOP} did not stop the "
+             f"run: {stopped!r}")
     resumed, lines, fwd, bwd = run_logged(argv("split"))
     launches, backward = launches + fwd, backward + bwd
-    if _kind(lines, "resume") != [{"kind": "resume", "step": LIFE_STOP}] or \
-            resumed.step != LIFE_STEPS:
+    if _kind(lines, "resume") != [{"kind": "resume", "step": TIERED_TASK_STOP}] or \
+            resumed.step != task_steps:
         fail(f"tiered task: resume {_kind(lines, 'resume')}, finished at {resumed.step}")
     whole, lines, fwd, bwd = run_logged(argv("whole"))
     launches, backward = launches + fwd, backward + bwd
     done = _kind(lines, "tiered_done")[0]
-    if fwd < LIFE_STEPS or bwd < LIFE_STEPS or not _kind(lines, "publish_tiered"):
-        fail(f"tiered task: {LIFE_STEPS} steps ran B1 {fwd} and B1' {bwd} times, "
+    if fwd < task_steps or bwd < task_steps or not _kind(lines, "publish_tiered"):
+        fail(f"tiered task: {task_steps} steps ran B1 {fwd} and B1' {bwd} times, "
              f"events {[r['kind'] for r in lines]}")
     finals = []
     for name in ("split", "whole"):
@@ -7239,6 +7292,417 @@ def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: 
             "backward_max_abs_err": max(kernels["backward_max_abs_err"]), "line": line}
 
 
+# the fleet phase: tenants A and B split 50/50 over one [1, 1] member,
+# challenger C shadowing A, FLEET_KEYS keyed requests of 1 to 4 rows,
+# FLEET_CLIENTS clients across A's swap, two region routers over the member
+FLEET_KEYS, FLEET_CLIENTS, FLEET_REGIONS = 400, 4, ("use1", "euw1")
+
+
+def fleet_weights(seed: int, cfg) -> dict:
+    """Host state dicts at the flagship width: A v1, B v1 and C v1 from
+    their own seeds, A v2 = A v1 moved by 0.01·N(0, 1)."""
+    from deepfm_tpu_torch.models import DeepFM
+
+    out = {}
+    for i, t in enumerate("ABC"):
+        out[t, 1] = {k: v.numpy() for k, v in DeepFM(
+            cfg, device="cpu",
+            generator=torch.Generator().manual_seed(seed + 50 + i)).state_dict().items()}
+    rng = np.random.default_rng(seed + 53)
+    out["A", 2] = {k: (v + 0.01 * rng.standard_normal(v.shape)).astype(v.dtype)
+                   for k, v in out["A", 1].items()}
+    return out
+
+
+def fleet_slot_bytes(cfg, servable: str) -> dict:
+    """A member's predictor at one and at two tenants in this process, both
+    alive at once: the card bytes each one's slots and captured bucket
+    graphs hold (allocated, after capture) and its graph count."""
+    import gc
+
+    from deepfm_tpu_torch.serve.export import read_params
+    from deepfm_tpu_torch.serve.pool.sharded import ShardedPredictor, make_serve_context
+
+    out, kept = {}, []
+    if DEVICE != "cuda":
+        return out
+    sd = read_params(servable)
+    ctx = make_serve_context(cfg, 1, 1, device=DEVICE)
+    for n in (1, 2):
+        # earlier phases' garbage freed first, so no collection during the
+        # build lowers the count under it
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        kept.append(ShardedPredictor(ctx, sd, buckets=POOL_BUCKETS, tenants=n))
+        kept[-1].precompile()
+        torch.cuda.synchronize()
+        out[n] = {"allocated_bytes": torch.cuda.memory_allocated() - base,
+                  "graphs": kept[-1].graph_count,
+                  "build_and_capture_s": time.perf_counter() - t0}
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_body(rng: np.random.Generator, cfg, key: str | None = None):
+    n = int(rng.integers(1, 5))
+    ids = make_ids(rng, n, cfg.field_size, cfg.feature_size)
+    vals = rng.random((n, cfg.field_size)).astype(np.float32)
+    doc = {"instances": [{"feat_ids": a.tolist(), "feat_vals": b.tolist()}
+                         for a, b in zip(ids, vals)]}
+    if key is not None:
+        doc["key"] = key
+    return ids, vals, json.dumps(doc).encode()
+
+
+class _FleetPlain:
+    """Each (tenant, version)'s plain answers on the card: the eager model
+    of its weights through the plain B1, at the bucket a dispatch pads to."""
+
+    def __init__(self, cfg, weights: dict):
+        from deepfm_tpu_torch.serve.export import model_from_state
+
+        self.models = {tv: model_from_state(cfg, w, DEVICE) for tv, w in weights.items()}
+        self.worst = 0.0
+
+    def check(self, tv, ids, vals, preds, what: str) -> None:
+        from deepfm_tpu_torch.serve.batcher import pick_bucket
+
+        want = plain_probs(self.models[tv], ids, vals, pick_bucket(POOL_BUCKETS, len(ids)))
+        err = float(np.abs(np.asarray(preds, np.float32) - want).max())
+        self.worst = max(self.worst, err)
+        if not np.isfinite(preds).all() or err > TOL_PROB:
+            fail(f"fleet: {what}: tenant {tv[0]} v{tv[1]} answered {err} off its plain forward")
+
+
+def fleet_isolation(base: str, member: str, publish: dict, weights: dict, cfg, plain,
+                    seed: int, cli) -> dict:
+    """(c) A's v2 published under FLEET_CLIENTS clients, half on A, half on
+    B: A's swapper converges; B's answers stay the same bytes (each
+    labelled generation 1, version 1), A's are labelled (1, 1) or (2, 2)
+    only and held to their version's plain answers; the member captures
+    nothing."""
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+
+    rng = np.random.default_rng(seed + 54)
+    bodies = {t: [_fleet_body(rng, cfg) for _ in range(8)] for t in "AB"}
+    port = int(urllib.parse.urlsplit(base).port)
+    conn = _Client(port)
+    ref = {}
+    try:
+        for i, (_, _, body) in enumerate(bodies["B"]):
+            code, _, raw = conn.post("/v1/models/deepfm:predict", body,
+                                     {"Content-Type": "application/json", "X-Tenant": "B"})
+            ref[i] = json.loads(raw)["predictions"] if code == 200 else fail(
+                f"fleet: B's reference answered {code}")
+    finally:
+        conn.close()
+    graphs = get(f"{member}/v1/metrics")["reload"]["graphs"]
+    results, errors, stop = {"A": [], "B": []}, [], threading.Event()
+
+    def client(t: str, k: int):
+        c = _Client(port)
+        try:
+            j = k
+            while not stop.is_set():
+                j = (j + 1) % len(bodies[t])
+                code, _, raw = c.post("/v1/models/deepfm:predict", bodies[t][j][2],
+                                      {"Content-Type": "application/json", "X-Tenant": t})
+                (results[t] if code == 200 else errors).append((j, code, json.loads(raw)))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(t, k), daemon=True)
+               for t in "AB" for k in range(FLEET_CLIENTS // 2)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    ModelPublisher(publish["A"], keep=8).publish(cfg, weights["A", 2], step=2)
+    _wait_ready(member, cli, timeout=120,
+                want=lambda d: d["tenants"]["A"]["model_version"] == 2)
+    converged = time.perf_counter() - t0
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    b_bad = [d for j, _, d in results["B"]
+             if d["predictions"] != ref[j] or (d["group_generation"], d["model_version"],
+                                               d["tenant"]) != (1, 1, "B")]
+    pairs = {(d["group_generation"], d["model_version"]) for _, _, d in results["A"]}
+    mixed = [d for _, _, d in results["A"]
+             if (d["group_generation"], d["model_version"]) not in ((1, 1), (2, 2))]
+    if errors or b_bad or mixed or (2, 2) not in pairs or len(results["B"]) < 20:
+        fail(f"fleet: across A's swap {len(errors)} failed (first {errors[:2]}), "
+             f"{len(b_bad)} of B's {len(results['B'])} answers moved, A's pairs {pairs} "
+             f"({len(mixed)} mixed)")
+    for j, _, d in results["A"][::max(1, len(results["A"]) // 100)]:
+        ids, vals, _ = bodies["A"][j]
+        plain.check(("A", d["model_version"]), ids, vals, d["predictions"], "across A's swap")
+    metrics = get(f"{member}/v1/metrics")
+    if metrics["reload"]["graphs"] != graphs:
+        fail(f"fleet: the member's graphs went from {graphs} to {metrics['reload']['graphs']}")
+    return {"converged_after_publish_s": converged, "answered_a": len(results["A"]),
+            "answered_b": len(results["B"]), "b_moved": len(b_bad), "mixed": len(mixed),
+            "failed": len(errors), "a_pairs": sorted(pairs), "graphs": graphs,
+            "tenant_timings": metrics["reload"]["tenant_timings"]}
+
+
+def fleet_region_start(member: str, cfg, weights: dict, workdir: str) -> dict:
+    """(f)'s set-up, started while the pool boots: a home root with version
+    1, two regions each an in-process router over the member (they eject it
+    until it is ready) with its own store, and `--task_type region-front`
+    over them, whose replicator fills the stores."""
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.serve.pool.router import start_router
+
+    home = os.path.join(workdir, "region_home")
+    ModelPublisher(home, keep=8).publish(cfg, weights["B", 1], step=1)
+    routers = {name: start_router({"g0": [member]}, probe_interval_secs=0.2)
+               for name in FLEET_REGIONS}
+    stores = {name: os.path.join(workdir, f"region_store_{name}") for name in FLEET_REGIONS}
+    fport = _free_port()
+    regions = [{"name": n, "router_url": routers[n][1], "store_root": stores[n]}
+               for n in FLEET_REGIONS]
+    cli = _Cli("fleet region front", [
+        "--task_type", "region-front", "--set", "regions.enabled=true",
+        "--set", f"regions.home_root={home}", "--set", "regions.regions=" + json.dumps(regions),
+        "--set", f"regions.front_port={fport}", "--set", "regions.replication_poll_secs=0.1",
+        "--set", "regions.probe_interval_secs=0.2", "--set", "regions.failover_budget_pct=100",
+        "--set", "run.keep_checkpoints=3"], workdir, env=_pool_env(workdir, "region_front"))
+    return {"home": home, "routers": routers, "stores": stores, "cli": cli,
+            "front": f"http://127.0.0.1:{fport}"}
+
+
+def fleet_region_stop(region: dict) -> None:
+    _stop_tree(region["cli"])
+    for httpd, _, router in region["routers"].values():
+        httpd.shutdown()
+        httpd.server_close()
+        router.close()
+    region["routers"].clear()
+
+
+def fleet_region(region: dict, cfg, weights: dict) -> dict:
+    """(f) `--task_type region-front` over two regions, each a router over
+    the member with its own store that the front's replicator fills from a
+    home root: each key served by its rendezvous home; a version published
+    at home appears marker-last in both stores; one router stopped, its
+    keys fail over with X-Region, X-Region-Home and the client's trace
+    id."""
+    from deepfm_tpu_torch.fleet import rendezvous_ranking
+    from deepfm_tpu_torch.online.publisher import ModelPublisher, list_versions
+
+    home, routers, stores, cli = (region[k] for k in ("home", "routers", "stores", "cli"))
+    front = region["front"]
+    out = {}
+    _wait_ready(front, cli, timeout=120)
+    # every region back in (its router ejected the member until it was
+    # ready) and version 1 in both stores
+    deadline = time.monotonic() + 60
+    while any(list_versions(s) != [1] for s in stores.values()) or not all(
+            r["admitted"] for r in get(f"{front}/v1/metrics")["regions"].values()):
+        if time.monotonic() > deadline or cli.proc.poll() is not None:
+            cli.fail("the regions were not all admitted with version 1 in their stores")
+        time.sleep(0.05)
+    rng = np.random.default_rng(7)
+    names = sorted(FLEET_REGIONS)
+    for i in range(24):
+        key = f"region-user-{i}"
+        _, _, body = _fleet_body(rng, cfg, key)
+        req = urllib.request.Request(f"{front}/v1/models/deepfm:predict", data=body,
+                                     headers={"X-Tenant": "B"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            doc, hdrs = json.load(r), dict(r.headers)
+        home_region = rendezvous_ranking(key, names)[0]
+        if (doc["region"] != {"served": home_region, "home": home_region, "attempts": 1}
+                or (hdrs["X-Region"], hdrs["X-Region-Home"]) != (home_region,
+                                                                 home_region)):
+            fail(f"fleet: {key} was not served by its home {home_region}: "
+                 f"{doc['region']} {hdrs}")
+    # a version published at home: in each store the manifest appears
+    # only once its tree is whole
+    ModelPublisher(home, keep=8).publish(cfg, weights["A", 2], step=2)
+    home_tree = {f: os.path.getsize(os.path.join(home, "versions", "00000002", f))
+                 for f in os.listdir(os.path.join(home, "versions", "00000002"))}
+    t0, seen = time.perf_counter(), {}
+    while len(seen) < len(stores):
+        for name, store in stores.items():
+            if name not in seen and os.path.exists(
+                    os.path.join(store, "MANIFEST-00000002.json")):
+                tree = os.path.join(store, "versions", "00000002")
+                got = {f: os.path.getsize(os.path.join(tree, f)) for f in os.listdir(tree)}
+                if got != home_tree:
+                    fail(f"fleet: {name}'s manifest 2 is visible before its tree "
+                         f"({got} != {home_tree})")
+                seen[name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > 60:
+            fail(f"fleet: version 2 reached only {sorted(seen)}")
+        time.sleep(0.005)
+    out["replicated_s"] = seen
+    # one region's router stopped: its keys fail over with the headers
+    # and the client's trace id
+    down = FLEET_REGIONS[1]
+    up = next(n for n in FLEET_REGIONS if n != down)
+    httpd, _, router = routers.pop(down)
+    httpd.shutdown()
+    httpd.server_close()
+    router.close()
+    keys = [k for k in (f"failover-user-{i}" for i in range(200))
+            if rendezvous_ranking(k, names)[0] == down][:6]
+    lat = []
+    for i, key in enumerate(keys):
+        _, _, body = _fleet_body(rng, cfg, key)
+        trace = f"fleet-failover-{i:04d}"
+        t1 = time.perf_counter()
+        req = urllib.request.Request(f"{front}/v1/models/deepfm:predict", data=body,
+                                     headers={"X-Tenant": "B", "X-Trace-Id": trace})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            doc, hdrs = json.load(r), dict(r.headers)
+        lat.append((time.perf_counter() - t1) * 1e3)
+        if (doc["region"]["served"], doc["region"]["home"]) != (up, down) or (
+                hdrs["X-Region"], hdrs["X-Region-Home"], hdrs["X-Trace-Id"]) != (
+                up, down, trace):
+            fail(f"fleet: {key} after {down} stopped: {doc['region']} {hdrs}")
+    traced = {t["trace_id"] for t in routers[up][2].tracer.recent()}
+    if not {f"fleet-failover-{i:04d}" for i in range(len(keys))} <= traced:
+        fail("fleet: the surviving router did not see the failed-over trace ids")
+    out.update(failover_ms=lat, failover_keys=len(keys),
+               front=get(f"{front}/v1/metrics")["regions"])
+    cli.proc.send_signal(signal.SIGTERM)
+    if cli.finish(timeout=60) != 0:
+        cli.fail("SIGTERM did not stop the region front with exit 0")
+    return out
+
+
+def phase_fleet(seed: int, workdir: str, card: str, one_tenant_bytes: list) -> dict:
+    """Phase 22 (ROADMAP A18 and A19): the multi-tenant fleet and the
+    cross-region front at the flagship width (module docstring)."""
+    from deepfm_tpu_torch.fleet import TrafficSplit
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    cfg, servable, _, _ = pool_servable(seed, workdir)
+    weights = fleet_weights(seed, cfg)
+    publish = {t: os.path.join(workdir, f"publish_{t}") for t in "ABC"}
+    for t, root in publish.items():
+        ModelPublisher(root, keep=8).publish(cfg, weights[t, 1], step=1)
+    tenants = [{"name": "A", "source": publish["A"], "split_percent": 50},
+               {"name": "B", "source": publish["B"], "split_percent": 50},
+               {"name": "C", "source": publish["C"], "shadow_of": "A"}]
+    # the serve task's member binds the supervisor's default port
+    _check_ports_free([POOL_MEMBER_PORT_BASE], "fleet: the member's port")
+    member = f"http://127.0.0.1:{POOL_MEMBER_PORT_BASE}"
+    rport = _free_port()
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    t0 = time.perf_counter()
+    cli = _Cli("fleet pool", [
+        "--task_type", "serve", "--servable_model_dir", servable, "--serve_groups", "1",
+        "--serve_tenants", json.dumps(tenants), "--set", f"run.serve_router_port={rport}",
+        "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
+        "--set", "run.serve_reload_interval_secs=0.2",
+        "--set", "run.serve_health_interval_secs=0.2",
+        "--set", "fleet.shadow_sample_percent=100", *device_args],
+        workdir, env=_pool_env(workdir, "fleet_pool"))
+    base = f"http://127.0.0.1:{rport}"
+    region = None
+    try:
+        # while the pool boots: the region front's processes, this
+        # process's predictors at one and two tenants, the plain models
+        region = fleet_region_start(member, cfg, weights, workdir)
+        line = {"card": card, "slot_bytes_in_process": fleet_slot_bytes(cfg, servable)}
+        plain = _FleetPlain(cfg, weights)
+        if _router_member_urls(base, cli, n=1) != [member]:
+            fail(f"fleet: the router lists {_router_member_urls(base, cli, n=1)}")
+        _wait_ready(member, cli, want=lambda d: all(
+            t["model_version"] == 1 for t in d.get("tenants", {}).values()))
+        _wait_ready(base, cli)
+        line["boot_s"] = time.perf_counter() - t0
+        line["member_device_max_reserved_bytes"] = {
+            "1 tenant (phase 18's group members)": one_tenant_bytes,
+            "3 tenants": get(f"{member}/v1/metrics")["router"].get("device_max_reserved_bytes")}
+        # (b) keyed requests on the split's arms, each tenant's answers
+        # held to its plain forward
+        split = TrafficSplit({"A": 50.0, "B": 50.0})
+        rng = np.random.default_rng(seed + 55)
+        keyed = [(f"user-{i}", *_fleet_body(rng, cfg, f"user-{i}")) for i in range(FLEET_KEYS)]
+        conn = _Client(rport)
+        try:
+            arms = {}
+            for key, ids, vals, body in keyed:
+                code, _, raw = conn.post("/v1/models/deepfm:predict", body,
+                                         {"Content-Type": "application/json"})
+                doc = json.loads(raw)
+                if code != 200 or doc["tenant"] != split.arm(key):
+                    fail(f"fleet: {key} answered {code} by {doc.get('tenant')}, its arm is "
+                         f"{split.arm(key)}")
+                plain.check((doc["tenant"], 1), ids, vals, doc["predictions"], "split")
+                arms[key] = doc["tenant"]
+        finally:
+            conn.close()
+        line["split_counts"] = {t: list(arms.values()).count(t) for t in "AB"}
+        line["max_abs_err"] = plain.worst
+        # (c) A's swap under traffic leaves B's answers
+        line["isolation"] = fleet_isolation(base, member, publish, weights, cfg, plain, seed,
+                                            cli)
+        # (d) re-split to 80/20: exactly the keys of the shifted window move
+        code, doc = post(f"{base}/admin:split",
+                         json.dumps({"percentages": {"A": 80.0, "B": 20.0}}).encode())
+        if code != 200:
+            fail(f"fleet: /admin:split answered {code}: {doc}")
+        split.set_percentages({"A": 80.0, "B": 20.0})
+        conn = _Client(rport)
+        moved = []
+        try:
+            for key, ids, vals, body in keyed:
+                code, _, raw = conn.post("/v1/models/deepfm:predict", body,
+                                         {"Content-Type": "application/json"})
+                doc = json.loads(raw)
+                if code != 200 or doc["tenant"] != split.arm(key):
+                    fail(f"fleet: after the re-split {key} went to {doc.get('tenant')}")
+                if doc["tenant"] != arms[key]:
+                    moved.append(key)
+                plain.check((doc["tenant"], doc["model_version"]), ids, vals,
+                            doc["predictions"], "re-split")
+        finally:
+            conn.close()
+        want_moved = [k for k, _, _, _ in keyed if arms[k] == "B" and split.arm(k) == "A"]
+        if moved != want_moved or not moved:
+            fail(f"fleet: the re-split moved {len(moved)} keys, the window holds "
+                 f"{len(want_moved)}")
+        line["resplit_moved"] = len(moved)
+        # (e) the challenger scored A's stream, and no answer came from it
+        deadline = time.monotonic() + 30
+        while True:
+            shadow = get(f"{base}/v1/metrics")["tenants"]["C"]["shadow"]
+            if shadow["scored_total"] + shadow["errors_total"] + shadow["shed_total"] \
+                    >= shadow["offered_total"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        if shadow["scored_total"] <= 0 or shadow["errors_total"]:
+            fail(f"fleet: the shadow {shadow}")
+        line["shadow"] = shadow
+        line["region"] = fleet_region(region, cfg, weights)
+        cli.proc.send_signal(signal.SIGTERM)
+        if cli.finish(timeout=120) != 0:
+            cli.fail("SIGTERM did not stop the fleet pool with exit 0")
+    finally:
+        if region is not None:
+            fleet_region_stop(region)
+        _stop_tree(cli)
+    (member_line,) = cli.kind("kernel_runs")
+    if DEVICE == "cuda" and member_line["forward"] <= 0:
+        fail(f"fleet: the member launched no B1: {member_line}")
+    line["member_kernel_runs"] = member_line
+    line["seconds"] = time.perf_counter() - t_phase
+    print("fleet %s" % json.dumps(line))
+    return {"launches": member_line["forward"], "max_abs_err": plain.worst, "line": line}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one Hopper card.")
     ap.add_argument("--seed", type=int, default=0)
@@ -7327,6 +7791,9 @@ def main(argv: list[str] | None = None) -> int:
         begin("families")
         fam = phase_families(args.seed, os.path.join(workdir, "families"), card, train_dir,
                              val_dir)
+        begin("fleet")
+        fleet = phase_fleet(args.seed, os.path.join(workdir, "fleet"), card,
+                            pool["member_device_bytes"])
 
     fwd = kernel["per_bucket"][TRAIN_BATCHES[0]]
     bwd = backward["per_batch"][TRAIN_BATCHES[0]]
@@ -7342,10 +7809,10 @@ def main(argv: list[str] | None = None) -> int:
                      + online["launches"] + elastic["launches"] + funnel["forward_launches"]
                      + funnel["task_forward_launches"] + swap["forward_launches"]
                      + pool["forward_launches"] + prep["launches"] + tiered["launches"]
-                     + stream["launches"] + fam["launches"]),
+                     + stream["launches"] + fam["launches"] + fleet["launches"]),
         "max_abs_err": max(kernel["max_abs_err"], lazy["forward_max_abs_err"],
                            sharded["max_abs_err"], elastic["max_abs_err"],
-                           stream["max_abs_err"], fam["max_abs_err"],
+                           stream["max_abs_err"], fam["max_abs_err"], fleet["max_abs_err"],
                            *tiered["hot_forward"]["max_abs_err"],
                            *tiered["compact"]["forward_max_abs_err"]),
         "ms": fwd["ms"],

@@ -39,8 +39,20 @@ width, runs a few steps, and holds them to the same contracts:
   overflowing batches, reads its weights from the slot, and a swap
   captures nothing; admission, hedging, the shed gate and the autoscaler
   import no torch, and a degraded funnel dispatch replays the degraded
-  retrieve captured at boot.  JAX's ``audit_multitenant`` is waived
-  (ROADMAP A18).
+  retrieve captured at boot.
+* **the fleet** (JAX ``audit_multitenant``, restated for graphs): a
+  member's tenants share one graph set, so two distinct same-spec tenant
+  payloads record the same launches per replay (on the card); a tenant
+  whose tree differs from the member's slots is refused, naming the
+  diverging executable-spec fields; a ``copy_`` of a new payload into
+  tenant B's slot changes B's answers, leaves A's bit for bit and captures
+  nothing (``trace-recompile``); every slot of every tenant captures under
+  ``set_sync_debug_mode("error")`` on the card (``trace-transfer``).
+* **the region front** (JAX ``audit_region_front``): no module of
+  ``region/`` imports torch (an AST walk), the front runs fed as plain
+  host code, and with it alive the graphed serving predict still captures
+  under the sync guard (on the card; on the CPU its body runs under a
+  host-read guard) and answers the same twice (``trace-region-front``).
 * **the funnel** (JAX ``audit_funnel``, restated for graphs): both
   stages of every (slot, bucket) are captured under
   ``set_sync_debug_mode("error")`` (``trace-transfer``); the index is a
@@ -120,9 +132,6 @@ WAIVERS = {
         "memory-mapped row files on the host (checkpoint/reshard.py), by "
         "design: the drain commit is the exactly-once resume point, so the "
         "rows come from it, not device to device"),
-    "audit_multitenant": (
-        "a pool member serves one tenant (serve/pool/worker.py); multi-tenant "
-        "members sharing one graph set are ROADMAP A18"),
 }
 
 # small but structurally faithful: the flagship's MLP, dtype and dropout,
@@ -690,6 +699,202 @@ def audit_control_plane(device="cpu") -> list[Finding]:
     return out
 
 
+def audit_multitenant(device="cpu", *, tenant_models=None,
+                      predictor_builder=None) -> list[Finding]:
+    """The fleet's graph-sharing contract (JAX ``audit_multitenant``,
+    restated for graphs; module docstring).  ``tenant_models`` (each
+    tenant's model overrides, default two same-spec tenants) and
+    ``predictor_builder(ctx, state_dict, buckets, tenants)`` (default
+    ``ShardedPredictor``) let the tests seed a spec-divergent tenant and a
+    slot model that bakes its weights through the same checks."""
+    import dataclasses
+
+    from ..core.config import tenant_spec_divergence
+    from ..models.deepfm import DeepFM
+    from ..ops import fused_ctr
+    from ..serve import graphs as serve_graphs
+    from ..serve.graphs import leaf_specs
+    from ..serve.pool.sharded import (MEMBER_SLOTS, ShardedPredictor, make_serve_context,
+                                      stage_sharded_payload)
+
+    where = "deepfm_tpu_torch/fleet/registry.py"
+    out: list[Finding] = []
+    overrides = list(tenant_models) if tenant_models is not None else [{}, {}]
+    base = audit_cfg().model
+    ctx = make_serve_context(base, 1, 2, device=device)
+    buckets = (8,)
+    init = DeepFM(base, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    build = predictor_builder or (lambda c, sd, b, n: ShardedPredictor(c, sd, buckets=b,
+                                                                       tenants=n))
+    try:
+        pred = build(ctx, init, buckets, len(overrides))
+        pred.precompile()
+    except Exception as e:
+        return [_finding("trace-transfer", f"a {len(overrides)}-tenant member failed to "
+                         f"capture its slots under the sync guard: {type(e).__name__}: {e}",
+                         where, "multitenant-capture")]
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, base.feature_size, (buckets[0], base.field_size))
+    vals = rng.random((buckets[0], base.field_size)).astype(np.float32)
+    base_dict = dataclasses.asdict(base)
+    placed, runs = [], {}
+    for i, ov in enumerate(overrides):
+        diff = tenant_spec_divergence(base_dict, ov)
+        t_model = dataclasses.replace(base, **ov) if ov else base
+        sd = DeepFM(t_model, device="cpu",
+                    generator=torch.Generator().manual_seed(i + 1)).state_dict()
+        try:
+            payload = stage_sharded_payload(make_serve_context(t_model, 1, 2, device=device),
+                                            sd)
+            if leaf_specs(payload) != pred.slot_specs():
+                raise ValueError("its slot tree differs from the member's")
+            pred.load_slot(i * MEMBER_SLOTS, payload)
+        except Exception as e:
+            out.append(_finding(
+                "trace-recompile", f"tenant {i} cannot go into the member's captured slots "
+                f"({type(e).__name__}: {e}): a spec-divergent tenant is claiming one graph "
+                f"set" + (f" (diverging fields: {diff})" if diff else ""), where,
+                f"multitenant-{i}-spec",
+                hint="same-spec tenants only: serve a divergent spec from its own pool "
+                     "(core.config.EXECUTABLE_SPEC_FIELDS)"))
+            continue
+        before = serve_graphs.graph_kernel_runs["forward"] + fused_ctr.launches
+        pred.predict_with(i * MEMBER_SLOTS, ids, vals)
+        runs[i] = serve_graphs.graph_kernel_runs["forward"] + fused_ctr.launches - before
+        placed.append(i)
+    if len(set(runs.values())) > 1:
+        out.append(_finding("trace-recompile", f"same-spec tenants run different B1 "
+                            f"launches per replay {runs}: tenant identity leaked into the "
+                            f"graphs", where, "multitenant-launches"))
+    if len(placed) < 2:
+        return out
+    a, b = (s * MEMBER_SLOTS for s in placed[:2])
+    counts = (pred.graph_count, fused_ctr.captured)
+    a0, b0 = pred.predict_with(a, ids, vals), pred.predict_with(b, ids, vals)
+    fresh = DeepFM(base, device="cpu", generator=torch.Generator().manual_seed(99)).state_dict()
+    pred.load_slot(b, stage_sharded_payload(ctx, fresh))
+    a1, b1 = pred.predict_with(a, ids, vals), pred.predict_with(b, ids, vals)
+    if np.array_equal(b0, b1):
+        out.append(_finding("trace-recompile", "a new payload copied into tenant B's slot "
+                            "left B's answers unchanged: the slot's weights were baked in "
+                            "at capture", where, "multitenant-baked",
+                            hint="the bodies must read the slot's tensors, which a swap "
+                                 "copy_s into (serve/graphs.py load_leaves)"))
+    if not np.array_equal(a0, a1):
+        out.append(_finding("trace-recompile", "swapping tenant B changed tenant A's "
+                            "answers", where, "multitenant-crosstalk"))
+    if (pred.graph_count, fused_ctr.captured) != counts:
+        out.append(_finding("trace-recompile", "a tenant's swap captured again", where,
+                            "multitenant-swap-captured"))
+    return out
+
+
+# the region layer's modules: none may import torch
+_REGION_MODULES = ("region/__init__.py", "region/__main__.py", "region/front.py",
+                   "region/replicator.py")
+
+
+def _torch_imports(text: str) -> list[str]:
+    import ast
+
+    bad = []
+    for node in ast.walk(ast.parse(text)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names = [node.module]
+        bad += [n for n in names if n == "torch" or n.startswith("torch.")]
+    return bad
+
+
+def audit_region_front(device="cpu", *, region_sources=None,
+                       predict_builder=None) -> list[Finding]:
+    """The cross-region contract (JAX ``audit_region_front``; module
+    docstring): the region layer is host control plane.  ``region_sources``
+    (module name -> source text, default the files of ``region/``) and
+    ``predict_builder(cfg, state_dict, device)`` (default the serving
+    ``GraphedPredictor``) let the tests seed an importing module and a
+    predict that reads the host."""
+    from ..fleet.split import rendezvous_arm, rendezvous_ranking
+    from ..models.deepfm import DeepFM
+    from ..region.front import RegionFront
+    from ..serve.graphs import GraphedPredictor
+
+    where = "deepfm_tpu_torch/region"
+    out: list[Finding] = []
+    if region_sources is None:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        region_sources = {}
+        for rel in _REGION_MODULES:
+            with open(os.path.join(root, rel)) as fh:
+                region_sources[rel] = fh.read()
+    for name, text in region_sources.items():
+        bad = _torch_imports(text)
+        if bad:
+            out.append(_finding(
+                "trace-region-front", f"{name} imports {bad[0]}: the region layer is pure "
+                f"control plane and must stay importable (and correct) with no device "
+                f"runtime", where, "region-torch-import",
+                hint="route, replicate and drain on host state; model bytes never touch "
+                     "the front path"))
+    try:
+        regions = {n: {"router_url": f"http://invalid.test:1/{n}", "store_root": ""}
+                   for n in ("use1", "euw1", "apne1")}
+        front = RegionFront(regions, max_version_skew=2, readmit_version_skew=0)
+        for i in range(16):
+            key = f"user-{i}"
+            if rendezvous_arm(key, sorted(regions)) != rendezvous_ranking(
+                    key, sorted(regions))[0]:
+                raise AssertionError(f"{key}: the arm is not the ranking's head")
+        for n in regions:
+            front.note_store_version(n, 5)
+        front.note_home_version(5)
+        front.plan("user-0")
+        front.home("user-0")
+        front.note_home_version(9)            # skew 4 > 2: the drain edge
+        front.note_store_version("use1", 9)   # and the catch-up edge
+        front.retry_budget.note_request()
+        front.retry_budget.try_spend()
+        front.status()
+    except Exception as e:
+        out.append(_finding(
+            "trace-region-front", f"constructing or feeding the region front raised "
+            f"{type(e).__name__}: {e}: the region layer must run as plain host code", where,
+            "region-host-policy"))
+        return out
+    # with that front alive, the serving predict captures as it would
+    # without one, and answers the same twice
+    cfg = audit_cfg()
+    sd = DeepFM(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    build = predict_builder or (lambda c, state, dev: GraphedPredictor(
+        c.model, state, device=dev, buckets=(8,)))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.model.feature_size, (8, cfg.model.field_size))
+    vals = rng.random((8, cfg.model.field_size)).astype(np.float32)
+    try:
+        pred = build(cfg, sd, device)
+        pred.precompile()
+        if torch.device(device).type == "cpu":
+            with _HostReadGuard(), torch.no_grad():
+                pred._forward(0, torch.from_numpy(ids), torch.from_numpy(vals))
+        answers = [pred.predict_with(0, ids, vals) for _ in range(2)]
+    except Exception as e:
+        out.append(_finding(
+            "trace-region-front", f"the serving predict with the region front active "
+            f"failed to capture under the sync guard: {type(e).__name__}: {e}", where,
+            "region-predict-capture",
+            hint="home picks, drain edges and failover spends read host state; none of "
+                 "them may read a device tensor inside the predict"))
+        return out
+    if not np.array_equal(*answers):
+        out.append(_finding(
+            "trace-region-front", "two runs of the serving predict differ under the live "
+            "region front: a region reading was folded into the predict", where,
+            "region-predict-nondeterministic"))
+    return out
+
+
 _ELASTIC_AUDIT_MOVES = (
     ((2, 4), (1, 4)),   # shrink, width stable: zero table bytes
     ((1, 4), (2, 4)),   # grow back
@@ -916,5 +1121,6 @@ def run_trace_audit(device="cpu") -> list[Finding]:
     return (audit_train_step(device) + audit_train_step(device, lazy=True)
             + variants + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
             + audit_group_buckets(device) + audit_sharded_predict(device)
-            + audit_control_plane(device) + audit_elastic(device)
+            + audit_control_plane(device) + audit_multitenant(device)
+            + audit_region_front(device) + audit_elastic(device)
             + audit_observability(device))

@@ -16,12 +16,20 @@ validation.
   task's lifecycle, the serve task's single-process fields and the
   online tasks' cadence;
 * ``FlywheelConfig`` - the delayed-label join and ``feedback-train``;
-* ``RegionsConfig`` - the publish root's ``publish_keep_window``;
-* ``Config`` - the seven sections, read from and written to the JAX
+* ``FleetConfig`` - the multi-tenant fleet: tenant bindings, the shadow
+  sample and queue (``fleet/``, ``serve/pool/``), with
+  ``EXECUTABLE_SPEC_FIELDS``, ``tenant_spec_divergence`` and
+  ``validate_tenant_entries``;
+* ``RegionsConfig`` - the cross-region front and replicator (``region/``)
+  and the publish root's ``publish_keep_window``;
+* ``Config`` - the sections, read from and written to the JAX
   ``config.json`` schema (one dict per section), with JAX's cross-section
   checks: ``feedback-train`` names the join's output, the exchange
   capacity fits a record's ids, ``zero_sharding='on'`` at one data shard
-  warns, the funnel's top-k fits an index shard and a serve bucket; and
+  warns, the funnel's top-k fits an index shard and a serve bucket, a
+  fleet tenant shares the pool's executable spec, a shadow's sample and
+  the flywheel's differ (a warning), the home retention covers the
+  staleness SLO (a warning); and
   the port's own: ``fused_kernel='on'`` with row-sharded
   tables raises, as JAX's forward does.
 
@@ -34,10 +42,8 @@ the JAX dataclasses; a tier-1 test holds the copy against them):
 * at its JAX default it loads (and is dropped);
 * at another value it raises, naming the field and the ROADMAP item that
   ports it, where that value would change what a one-card or
-  data-parallel job computes (``fleet.tenants``, ``run.workers_per_host``,
-  ...);
-* it loads at any value where it cannot change the result (serving,
-  fleet, ...).
+  data-parallel job computes (``run.workers_per_host``, ...);
+* it loads at any value where it cannot change the result.
 
 A field neither side knows is dropped with a warning, as the JAX reader
 does, so configs and servables written by either package load here.
@@ -90,8 +96,6 @@ def _tuples(v: Any) -> Any:
 
 
 # Why a JAX field that changes a job's result raises, by ROADMAP item
-_A18 = ("not ported yet (ROADMAP A18, multi-tenant fleets: the serving pool "
-        "serves one tenant)")
 _A7 = ("the launcher's LOCAL_WORLD_SIZE gives the workers a host "
        "(ROADMAP A7, python -m torch.distributed.run)")
 
@@ -107,28 +111,102 @@ JAX_ONLY_FIELDS: dict[str, dict[str, tuple[Any, str | None]]] = {
         "workers_per_host": (1, _A7),
         "steps_per_loop": (1, None),
     },
-    # serving fleets, SLOs and regions: none of them changes what training
-    # computes
-    "fleet": {
-        # the pool serves one tenant, JAX's DEFAULT_TENANT
-        "tenants": ((), _A18),
-        "shadow_sample_percent": (100.0, None),
-        "shadow_queue_depth": (128, None),
-    },
-    "regions": {
-        "enabled": (False, None),
-        "regions": ((), None),
-        "home_root": ("", None),
-        "front_host": ("127.0.0.1", None),
-        "front_port": (8400, None),
-        "replication_poll_secs": (1.0, None),
-        "probe_interval_secs": (1.0, None),
-        "eject_after": (2, None),
-        "max_version_skew": (2, None),
-        "readmit_version_skew": (0, None),
-        "failover_budget_pct": (10.0, None),
-    },
 }
+
+
+# ---- multi-tenant fleet (fleet/, serve/pool/) -----------------------------
+
+# ModelConfig fields that determine the serving graphs: the slot tree's
+# shapes and the captured bucket bodies.  Two tenants share one member's
+# graph set iff they agree on all of these (the audit_multitenant contract
+# holds it); everything else (learning rate, l2, dropout: training-time
+# knobs) is tenant-local and free to differ.  JAX's list, unchanged.
+EXECUTABLE_SPEC_FIELDS = (
+    "model_name", "feature_size", "field_size", "embedding_size",
+    "deep_layers", "cin_layers", "cross_layers", "batch_norm",
+    "tower_layers", "tower_dim", "user_vocab_size", "item_vocab_size",
+    "user_field_size", "item_field_size", "compute_dtype", "narrow_ids",
+    "table_grad", "fused_kernel", "shard_exchange",
+    "shard_exchange_capacity", "tiered_embeddings",
+)
+
+# keys a fleet tenant entry may carry (one schema for the config and
+# fleet/registry.py; a typo'd key raises instead of doing nothing)
+TENANT_ENTRY_KEYS = ("name", "source", "split_percent", "shadow_of", "model")
+
+
+def _spec_norm(v: Any) -> Any:
+    return tuple(v) if isinstance(v, list) else v
+
+
+def tenant_spec_divergence(base_model: dict, overrides: dict) -> list[str]:
+    """Executable-spec fields where a tenant's ``model`` overrides diverge
+    from the pool's base model section.  Non-empty means the tenant cannot
+    share the member's captured graphs (its slot tree or bodies would
+    differ): the fleet refuses it at load instead of capturing again
+    mid-traffic."""
+    return sorted(
+        k for k in overrides
+        if k in EXECUTABLE_SPEC_FIELDS
+        and _spec_norm(overrides[k]) != _spec_norm(base_model.get(k))
+    )
+
+
+def validate_tenant_entries(entries) -> tuple:
+    """Normalize and validate a fleet tenant list (dicts or JSON text), as
+    JAX does: duplicate names raise, the serving (non-shadow) arms' split
+    percentages sum to 100 when any is set, a shadow names an existing
+    non-shadow incumbent and takes no split.  Returns the normalized tuple
+    of entry dicts.  Spec compatibility against the base model section is
+    ``Config.__post_init__``'s (and fleet/registry.py's)."""
+    if isinstance(entries, str):
+        entries = json.loads(entries) if entries.strip() else []
+    norm = []
+    for i, e in enumerate(entries):
+        if not isinstance(e, dict):
+            raise ValueError(
+                f"fleet.tenants[{i}] must be an object, got {type(e).__name__}")
+        unknown = sorted(set(e) - set(TENANT_ENTRY_KEYS))
+        if unknown:
+            raise ValueError(f"fleet.tenants[{i}] has unknown key(s) {unknown} "
+                             f"(known: {list(TENANT_ENTRY_KEYS)})")
+        name = str(e.get("name", "")).strip()
+        if not name:
+            raise ValueError(f"fleet.tenants[{i}] is missing a name")
+        norm.append({
+            "name": name,
+            "source": str(e.get("source", "")),
+            "split_percent": float(e.get("split_percent", 0.0)),
+            "shadow_of": str(e.get("shadow_of", "")),
+            "model": dict(e.get("model") or {}),
+        })
+    names = [e["name"] for e in norm]
+    dups = sorted({n for n in names if names.count(n) > 1})
+    if dups:
+        raise ValueError(f"duplicate fleet tenant name(s): {dups}")
+    by_name = {e["name"]: e for e in norm}
+    serving = [e for e in norm if not e["shadow_of"]]
+    for e in norm:
+        if e["split_percent"] < 0:
+            raise ValueError(f"tenant {e['name']!r}: split_percent must be >= 0, got "
+                             f"{e['split_percent']}")
+        if e["shadow_of"]:
+            ref = by_name.get(e["shadow_of"])
+            if ref is None or ref["shadow_of"]:
+                raise ValueError(
+                    f"shadow tenant {e['name']!r} references {e['shadow_of']!r}, which "
+                    f"is not a serving (non-shadow) tenant")
+            if e["split_percent"]:
+                raise ValueError(
+                    f"shadow tenant {e['name']!r} cannot take live split traffic "
+                    f"(split_percent={e['split_percent']}); it scores the sampled "
+                    f"stream off the response path")
+    total = sum(e["split_percent"] for e in serving)
+    if any(e["split_percent"] for e in serving) and abs(total - 100.0) > 1e-6:
+        raise ValueError(
+            f"fleet split percentages must sum to 100, got {total:g} over "
+            f"{[e['name'] for e in serving]} — every key must land on exactly one arm")
+    return tuple(norm)
 
 
 TIERED_URL_NOT_PORTED = ("an object-store cold tier is not ported yet "
@@ -713,16 +791,109 @@ class FlywheelConfig:
 
 
 @dataclass(frozen=True)
-class RegionsConfig:
-    """The one field of JAX's ``regions`` section that a publisher reads:
-    ``publish_keep_window`` widens the publish root's retention to
-    ``max(keep, publish_keep_window)`` versions (online/publisher.py).  The
-    cross-region front and replicator are not ported; their fields load
-    and are not read (``JAX_ONLY_FIELDS``)."""
+class FleetConfig:
+    """The multi-tenant fleet (``fleet/``, ``serve/pool/``), JAX's section
+    with JAX's validation: N same-spec model variants on one shard-group
+    pool.  Each member holds three weight slots a tenant, every slot's
+    bucket graphs captured at boot, so a tenant costs its slots and graphs
+    and a swap captures nothing.  The router splits traffic hash-stably
+    over the serving tenants, shadow tenants score a sampled slice of the
+    live stream off the response path, and each tenant hot-swaps
+    group-atomically without touching its neighbours."""
 
+    # tenant bindings: JSON text or a list of entry objects,
+    #   [{"name": "prod", "source": "<publish root>", "split_percent": 90},
+    #    {"name": "exp",  "source": "...", "split_percent": 10},
+    #    {"name": "challenger", "source": "...", "shadow_of": "prod"}]
+    # ``model`` may carry executable-neutral overrides; one that touches an
+    # executable-spec field is refused at load (Config.__post_init__)
+    tenants: tuple = ()
+    # percent of the incumbent's live stream the shadow challenger scores
+    # (hash-stable per key, like the split)
+    shadow_sample_percent: float = 100.0
+    # bounded shadow queue: offers beyond this depth are shed (counted)
+    shadow_queue_depth: int = 128
+
+    def __post_init__(self):
+        object.__setattr__(self, "tenants", validate_tenant_entries(self.tenants))
+        if not 0.0 <= self.shadow_sample_percent <= 100.0:
+            raise ValueError(f"fleet.shadow_sample_percent must be in [0, 100], got "
+                             f"{self.shadow_sample_percent}")
+        if self.shadow_queue_depth < 1:
+            raise ValueError(f"fleet.shadow_queue_depth must be >= 1, got "
+                             f"{self.shadow_queue_depth}")
+
+
+@dataclass(frozen=True)
+class RegionsConfig:
+    """Cross-region active-active serving (``region/``), JAX's section with
+    JAX's validation: one pool and one model store a region, the manifest
+    replicator keeping every region store behind but never torn, and the
+    front routing each user to a hash-stable home region with
+    staleness-gated failover.  Host-side control plane only
+    (``audit_region_front``).  ``publish_keep_window`` also widens a
+    publish root's retention (online/publisher.py)."""
+
+    # arm the region layer (task_type=region-front)
+    enabled: bool = False
+    # region cells: each {"name", "router_url", "store_root"}
+    regions: tuple = ()
+    # the home publish root the replicator mirrors into the region stores
+    home_root: str = ""
+    # front bind address
+    front_host: str = "127.0.0.1"
+    front_port: int = 8400
+    # replicator tail cadence over the home root
+    replication_poll_secs: float = 1.0
+    # whole-region health probe cadence, and consecutive failures (probed
+    # or seen in traffic) before ejection
+    probe_interval_secs: float = 1.0
+    eject_after: int = 2
+    # the staleness SLO, in committed versions: a region store further
+    # behind the home root drains until it catches up to
+    # readmit_version_skew (hysteresis)
+    max_version_skew: int = 2
+    readmit_version_skew: int = 0
+    # cross-region failover token budget, percent of the recent request
+    # rate; beyond it the front fails fast (503 + Retry-After)
+    failover_budget_pct: float = 10.0
+    # retention floor at a publish root: max(keep, publish_keep_window)
+    # versions (0 = no widening)
     publish_keep_window: int = 0
 
     def __post_init__(self):
+        if self.enabled:
+            if not self.regions:
+                raise ValueError("regions.enabled needs at least one region entry")
+            if not self.home_root:
+                raise ValueError("regions.enabled needs regions.home_root — the "
+                                 "replicator has nothing to tail")
+        names = []
+        for entry in self.regions:
+            if not isinstance(entry, dict) or not entry.get("name") \
+                    or not entry.get("router_url"):
+                raise ValueError(f"each regions.regions entry needs 'name' and "
+                                 f"'router_url' (got {entry!r})")
+            names.append(entry["name"])
+        if len(names) != len(set(names)):
+            raise ValueError(f"regions.regions names must be unique, got {names}")
+        if self.max_version_skew < 0 or self.readmit_version_skew < 0:
+            raise ValueError("regions version-skew bounds must be >= 0")
+        if self.readmit_version_skew > self.max_version_skew:
+            raise ValueError(
+                f"regions.readmit_version_skew={self.readmit_version_skew} must not "
+                f"exceed max_version_skew={self.max_version_skew} — the re-admit bar "
+                f"cannot be laxer than the drain bar")
+        if not (0.0 <= self.failover_budget_pct <= 100.0
+                and math.isfinite(self.failover_budget_pct)):
+            raise ValueError(f"regions.failover_budget_pct must be a percent in "
+                             f"[0, 100], got {self.failover_budget_pct}")
+        for name in ("replication_poll_secs", "probe_interval_secs"):
+            v = getattr(self, name)
+            if not (v > 0 and math.isfinite(v)):
+                raise ValueError(f"regions.{name} must be finite and > 0, got {v}")
+        if self.eject_after < 1:
+            raise ValueError(f"regions.eject_after must be >= 1, got {self.eject_after}")
         if self.publish_keep_window < 0:
             raise ValueError(f"regions.publish_keep_window must be >= 0, got "
                              f"{self.publish_keep_window}")
@@ -902,6 +1073,7 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     run: RunConfig = field(default_factory=RunConfig)
     flywheel: FlywheelConfig = field(default_factory=FlywheelConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     regions: RegionsConfig = field(default_factory=RegionsConfig)
     slo: SloConfig = field(default_factory=SloConfig)
     elastic: ElasticConfig = field(default_factory=ElasticConfig)
@@ -941,13 +1113,51 @@ class Config:
                 "ZeroOptimizer)", stacklevel=2)
         _check_tiered_geometry(m, self.data.batch_size)
         _check_funnel(self.run, m, mp)
+        # a fleet tenant whose model overrides touch an executable-spec
+        # field could not share the member's graphs: refuse at load,
+        # naming the fields
+        base_model = dataclasses.asdict(m)
+        for t in self.fleet.tenants:
+            diff = tenant_spec_divergence(base_model, t["model"])
+            if diff:
+                raise ValueError(
+                    f"fleet tenant {t['name']!r} diverges from its executable-sharing "
+                    f"group on {diff}: same-spec tenants must share ONE precompiled "
+                    f"executable set (EXECUTABLE_SPEC_FIELDS) — serve a divergent spec "
+                    f"from its own pool instead")
         # feedback-train is the online trainer on the join's output
+        fw = self.flywheel
         if (self.run.task_type in ("feedback-train", "feedback_train")
-                and not self.flywheel.join_output_url):
+                and not fw.join_output_url):
             raise ValueError(
                 "task_type=feedback-train needs flywheel.join_output_url — the "
                 "joined labeled stream the online trainer tails (run `python -m "
                 "deepfm_tpu_torch.flywheel.join` to produce it)")
+        # a shadow challenger beside the impression log: with other rates
+        # the join and the shadow read different slices of traffic
+        if fw.enabled and any(t.get("shadow_of") for t in self.fleet.tenants):
+            shadow_rate = self.fleet.shadow_sample_percent / 100.0
+            if abs(shadow_rate - fw.sample_rate) > 1e-9:
+                warnings.warn(
+                    f"flywheel.sample_rate={fw.sample_rate} differs from "
+                    f"fleet.shadow_sample_percent={self.fleet.shadow_sample_percent} "
+                    f"while a shadow challenger is armed: the flywheel join and shadow "
+                    f"scoring will read different traffic slices — align the rates if "
+                    f"the joined labels should explain the shadow's divergence",
+                    stacklevel=2)
+        # the home retention must cover the staleness SLO: a region up to
+        # max_version_skew behind fetches those versions while catching up
+        rg = self.regions
+        if rg.enabled:
+            window = max(self.run.keep_checkpoints, rg.publish_keep_window)
+            if window < rg.max_version_skew + 1:
+                warnings.warn(
+                    f"regions.publish_keep_window={rg.publish_keep_window} (effective "
+                    f"retention {window} with run.keep_checkpoints="
+                    f"{self.run.keep_checkpoints}) is under max_version_skew+1="
+                    f"{rg.max_version_skew + 1}: home retention can delete a version a "
+                    f"lagging-but-inside-SLO region is still catching up to — widen the "
+                    f"keep window", stacklevel=2)
 
     def with_overrides(self, **sections: dict[str, Any]) -> "Config":
         """A new Config with per-section field overrides, e.g.

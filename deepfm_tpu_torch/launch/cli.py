@@ -1,7 +1,7 @@
 """Launcher CLI: counterpart of ``deepfm_tpu/launch/cli.py``.
 
     python -m deepfm_tpu_torch --task_type train|eval|infer|export|serve|\
-        online-train|feedback-train|publish \
+        online-train|feedback-train|publish|region-front \
         --training_data_dir D --val_data_dir E --model_dir M \
         --servable_model_dir S [--test_data_dir T] \
         [--config cfg.json] [--set section.field=value ...] [--device cpu]
@@ -38,7 +38,13 @@ runs the process pool (``serve/server.py serve_pool``) and
 shard-group pool (``python -m deepfm_tpu_torch.serve.pool``, with the
 ``run.serve_group_*``, ``serve_router_port``, ``serve_retry_limit``,
 ``serve_eject_after`` and ``serve_health_interval_secs`` fields, and the
-router's impression log with ``flywheel.enabled``).
+router's impression log with ``flywheel.enabled``); ``--serve_tenants
+JSON`` (``fleet.tenants``) makes that pool a multi-tenant fleet (the
+traffic split, shadow challengers, one swapper a group and tenant).
+``region-front`` runs the cross-region front and manifest replicator
+(region/) over the ``regions`` section (``--set regions.home_root=PUB
+--set 'regions.regions=[{"name": ..., "router_url": ..., "store_root":
+...}]'``); it never touches the card.
 
 ``train`` checkpoints into ``--model_dir`` and resumes from it: run the
 same command again after a stop and it goes on from the latest
@@ -70,7 +76,7 @@ import sys
 from ..core.config import Config
 
 PORTED = ("train", "eval", "infer", "export", "serve", "online-train", "online_train",
-          "feedback-train", "feedback_train", "publish")
+          "feedback-train", "feedback_train", "publish", "region-front", "region_front")
 
 _FLAG_MAP = {
     "task_type": ("run", "task_type"),
@@ -100,6 +106,7 @@ _FLAG_MAP = {
     "funnel_pallas": ("run", "funnel_pallas"),
     "serve_groups": ("run", "serve_groups"),
     "serve_group_mp": ("run", "serve_group_model_parallel"),
+    "serve_tenants": ("fleet", "tenants"),
     "coordinator_url": ("elastic", "coordinator_url"),
     "lease_ttl_secs": ("elastic", "lease_ttl_secs"),
 }
@@ -119,7 +126,7 @@ def parse_set_pairs(pairs: list[str], sections: dict[str, dict]) -> dict:
         if "=" not in pair or "." not in pair.split("=", 1)[0]:
             raise SystemExit(
                 f"--set expects section.key=value, got {pair!r} "
-                f"(sections: model, optimizer, data, mesh, run, flywheel, regions, slo, "
+                f"(sections: model, optimizer, data, mesh, run, flywheel, fleet, regions, slo, "
                 f"elastic)"
             )
         key, value = pair.split("=", 1)
@@ -181,6 +188,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_group_mp", type=int,
                    help="row shards inside each serve group's member, all on its card "
                         "(0 = 1)")
+    p.add_argument("--serve_tenants",
+                   help="task_type=serve with --serve_groups: multi-tenant fleet "
+                        'bindings as JSON (fleet/) - [{"name","source","split_percent",'
+                        '"shadow_of"}...]; N variants share one pool\'s members, the '
+                        "router splits traffic hash-stably and runs shadow challengers")
     p.add_argument("--coordinator_url",
                    help="the elastic coordinator (python -m deepfm_tpu_torch.elastic.coord): "
                         "ranks hold TTL leases, agree on membership epochs and fence "

@@ -31,7 +31,10 @@ under them without recompiling.  Here:
 Graphs that share a pool, and graphs that share the static buffers, must
 never replay at the same time.  So every call here runs on one thread:
 the micro-batcher's worker (serve/batcher.py), which runs traffic,
-captures, uploads and canaries one after another (``run_on_worker``).
+captures, uploads and canaries one after another (``run_on_worker``).  A
+pool member with several tenants has one micro-batcher a tenant over one
+set of buffers; it runs each of those calls under its one dispatch lock
+(serve/pool/worker.py).
 
 On the CPU the same interface runs the slot's model eagerly: that is what
 the CPU tests exercise.  On the card a capture or replay failure raises;

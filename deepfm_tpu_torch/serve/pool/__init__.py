@@ -6,22 +6,24 @@
   on the assembled rows, one CUDA graph per (slot, bucket));
 * :mod:`.worker`: one member (``GroupMember``): the sharded scorer, or a
   funnel scorer, behind HTTP plus the member half of the group-atomic swap
-  (``/admin:stage|commit|rollback|abort``) and the generation-skew gate;
+  (``/admin:stage|commit|rollback|abort``) and the generation-skew gate,
+  for every tenant of a multi-tenant fleet (fleet/): three weight slots a
+  tenant, one engine a tenant, one dispatch lock over the shared bucket
+  buffers;
 * :mod:`.router`: the front (consistent hashing, ejection and
-  re-admission, generation pinning, bounded retry, hedging, the shed
-  gate, the impression log);
-* :mod:`.swap`: ``GroupSwapper``, the group-atomic hot swap and the repair
-  of a respawned member.
+  re-admission, generation pinning by (group, tenant), bounded retry,
+  hedging, the shed gate, the traffic split, shadow scoring, the
+  impression log);
+* :mod:`.swap`: ``GroupSwapper``, the group-atomic hot swap of one
+  (group, tenant) and the repair of a respawned member.
 
 ``python -m deepfm_tpu_torch.serve.pool`` (``__main__.py``) runs the whole
 tier: a supervisor that never initialises CUDA, one member process a
-group, the router and the swappers.  The process pool (``--workers N``) is
-``serve/server.py serve_pool``.  A member serves one tenant; multi-tenant
-fleets are ROADMAP A18.
+group, the router and the swappers (one a group and tenant with
+``--tenants``).  The process pool (``--workers N``) is
+``serve/server.py serve_pool``.
 """
 
-# the one tenant a member serves (JAX fleet/registry.py DEFAULT_TENANT)
-DEFAULT_TENANT = "default"
-TENANTS_NOT_PORTED = ("multi-tenant members, shadows and the traffic split are not "
-                      "ported yet (ROADMAP A18): a member serves one tenant, "
-                      f"{DEFAULT_TENANT!r}")
+from ...fleet.registry import DEFAULT_TENANT
+
+__all__ = ["DEFAULT_TENANT"]

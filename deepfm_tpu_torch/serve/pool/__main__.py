@@ -4,7 +4,7 @@
     python -m deepfm_tpu_torch.serve.pool --servable D --router \
         --groups 2 --group-dp 1 --group-mp 2 --port 8500 \
         [--reload-url PUBLISH_ROOT] [--slo JSON [--autoscale]] \
-        [--flywheel-log ROOT] [--device cpu]
+        [--flywheel-log ROOT] [--tenants JSON|@FILE] [--device cpu]
 
 The supervisor (this process) never initialises CUDA: it starts one
 MEMBER PROCESS per shard-group (each a fresh interpreter running this
@@ -22,8 +22,16 @@ version.  Each member prints its kernel runs as one JSON line at exit
 (``serve/server.py report_kernel_counts_at_exit``).
 
 All of a member's ``[dp, mp]`` shards sit on its one card; several
-members share the card when the machine has one.  A member serves one
-tenant: ``--tenants`` raises (ROADMAP A18).
+members share the card when the machine has one.
+
+``--tenants`` (inline JSON or ``@file``: ``[{"name", "source",
+"split_percent", "shadow_of"}, ...]``, fleet/registry.py) makes it a
+multi-tenant fleet: every member serves every tenant (three weight slots
+and one engine a tenant, all captured at boot), each (group, tenant) gets
+its own swapper over the tenant's publish root, the router splits
+traffic hash-stably over the serving tenants, and each challenger scores
+``--shadow-sample`` percent of its incumbent's stream off the response
+path through a queue of ``--shadow-queue``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,20 @@ import json
 import subprocess
 import sys
 import threading
+
+
+def _load_tenants(arg: str):
+    """Parse ``--tenants``: inline JSON, or ``@path`` to a JSON file.
+    Returns validated TenantSpecs (fleet/registry.py)."""
+    from ...fleet.registry import parse_tenants
+
+    if not arg:
+        return ()
+    text = arg
+    if arg.startswith("@"):
+        with open(arg[1:]) as f:
+            text = f.read()
+    return parse_tenants(text)
 
 
 def _parse_slo(arg: str):
@@ -75,6 +97,8 @@ def _member_argv(args, group: str, index: int, port: int) -> list[str]:
         argv += ["--slo", args.slo]
     if args.reload_url:
         argv += ["--reload-url", args.reload_url]
+    if args.tenants:
+        argv += ["--tenants", args.tenants]
     if args.funnel_top_k:
         argv += ["--funnel-top-k", str(args.funnel_top_k)]
     if args.funnel_return_n:
@@ -158,6 +182,7 @@ def _run_member(args) -> int:
         funnel_return_n=args.funnel_return_n,
         funnel_retrieval=args.funnel_retrieval,
         funnel_oversample=args.funnel_oversample,
+        tenants=_load_tenants(args.tenants) or None,
         slo=_parse_slo(args.slo),
     )
     return 0
@@ -305,7 +330,17 @@ def main(argv: list[str] | None = None) -> int:
                          "swap coordinator polling it")
     ap.add_argument("--reload-interval", type=float, default=2.0)
     ap.add_argument("--tenants", default="",
-                    help="multi-tenant fleets are ROADMAP A18: any value raises")
+                    help="multi-tenant fleet (fleet/): inline JSON or @file - "
+                         "[{\"name\", \"source\", \"split_percent\", \"shadow_of\"}...].  "
+                         "Members serve every tenant from slots captured at boot; the "
+                         "router splits traffic hash-stably and runs shadow "
+                         "challengers off the response path; each (group, tenant) "
+                         "gets its own group-atomic swap coordinator")
+    ap.add_argument("--shadow-sample", type=float, default=100.0,
+                    help="percent of the incumbent's stream the shadow challenger "
+                         "scores (hash-stable per key)")
+    ap.add_argument("--shadow-queue", type=int, default=128,
+                    help="bounded shadow queue depth; overflow sheds")
     ap.add_argument("--funnel-top-k", type=int, default=0,
                     help="funnel servables: candidates retrieved per user "
                          "(0 = the servable's funnel.json default)")
@@ -407,10 +442,7 @@ def main(argv: list[str] | None = None) -> int:
         # excepthook) plus clean/killed shutdown both leave the timeline
         obs_flight.install(args.flight_dump)
 
-    if args.tenants:
-        from . import TENANTS_NOT_PORTED
-
-        raise NotImplementedError(f"--tenants: {TENANTS_NOT_PORTED}")
+    tenant_specs = _load_tenants(args.tenants)
     slo = _parse_slo(args.slo)
     if args.autoscale and not args.router:
         ap.error("--autoscale requires --router (the router aggregates "
@@ -424,10 +456,17 @@ def main(argv: list[str] | None = None) -> int:
     groups: dict[str, dict] = {}
 
     def _start_swappers(g: str, url: str) -> list:
-        if not args.reload_url:
-            return []
+        # one group-atomic coordinator per (group, tenant with a source):
+        # each polls its tenant's publish root and converges only that
+        # tenant's slots
         from .swap import GroupSwapper
 
+        if tenant_specs:
+            return [GroupSwapper([url], spec.source, group=g, tenant=spec.name,
+                                 interval_secs=args.reload_interval).start()
+                    for spec in tenant_specs if spec.source]
+        if not args.reload_url:
+            return []
         return [GroupSwapper([url], args.reload_url, group=g,
                              interval_secs=args.reload_interval).start()]
 
@@ -474,7 +513,23 @@ def main(argv: list[str] | None = None) -> int:
             from .router import Router, make_router_handler
             from ..server import ScoringHTTPServer
 
+            split = shadow = None
             registry = None
+            if tenant_specs:
+                from ...fleet.registry import TenantRegistry
+                from ...fleet.shadow import ShadowScorer
+                from ...obs.metrics import MetricsRegistry
+
+                reg = TenantRegistry(tenant_specs)
+                split = reg.split()
+                # one registry for the router and the shadows: GET /metrics
+                # shows every challenger's divergence beside the routing
+                registry = MetricsRegistry()
+                # every configured challenger scores its incumbent's stream
+                shadow = [ShadowScorer(challenger, incumbent,
+                                       sample_percent=args.shadow_sample,
+                                       queue_depth=args.shadow_queue, registry=registry)
+                          for challenger, incumbent in reg.shadow_pairs()]
             # the SLO control plane (serve/control/): shared retry
             # budget, tail hedging (needs a deadline to define "tail"),
             # and the shadow shed gate — all off without --slo
@@ -512,7 +567,7 @@ def main(argv: list[str] | None = None) -> int:
                 retry_limit=args.retry_limit,
                 eject_after=args.eject_after,
                 probe_interval_secs=args.health_interval,
-                registry=registry,
+                split=split, shadow=shadow, registry=registry,
                 retry_budget=retry_budget, hedge=hedge,
                 shed_gate=shed_gate, flywheel=flywheel,
             ).start()

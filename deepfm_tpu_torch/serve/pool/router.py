@@ -1,6 +1,7 @@
 """The pool front: consistent hashing -> shard-group, health-driven
-ejection, generation pinning, bounded cross-group retry, hedging: the
-port's copy of ``deepfm_tpu/serve/pool/router.py`` for one tenant.
+ejection, generation pinning, bounded cross-group retry, hedging, the
+traffic split and shadow scoring: the port's copy of
+``deepfm_tpu/serve/pool/router.py``.
 
 Host-only control plane: nothing here touches CUDA, so the router runs
 in the supervisor (serve/pool/__main__.py), which never initialises it.
@@ -20,7 +21,17 @@ in the supervisor (serve/pool/__main__.py), which never initialises it.
 * **Generation pinning**: every forward carries ``X-Pinned-Generation``;
   a member mid-swap answers 409 (a skew abort) and the router re-reads
   the generation and retries, so no client sees a response scored across
-  a group commit.
+  a group commit.  Pins are keyed by (group, tenant): tenant A mid-swap
+  costs A a re-pin while B's pins stay valid.
+* **Traffic splitting** (fleet/split.py): with a ``TrafficSplit``
+  attached, each request's tenant is the explicit ``X-Tenant`` header or
+  the hash-stable split arm of its routing key, and rides the forward as
+  ``X-Tenant``; ``/admin:split`` re-splits live, refusing arms the fleet
+  does not serve.
+* **Shadow scoring** (fleet/shadow.py): with shadows attached, a
+  hash-stable sample of each incumbent's answered requests is offered to
+  its challenger off the response path (bounded queue, sheds, never adds
+  latency); only the incumbent's answer is returned.
 * **SLO control plane** (serve/control/, each optional): the shared
   retry/hedge :class:`~..control.hedge.TokenBudget` (an empty bucket
   fails fast with 503 + ``Retry-After``), hedged tails
@@ -31,11 +42,9 @@ in the supervisor (serve/pool/__main__.py), which never initialises it.
 * **Impression log** (flywheel/impressions.py): with an
   ``ImpressionLogger`` attached, every answered ``:predict`` is offered
   to it after the response is formed (sampled, bounded, never blocking).
-
-Multi-tenant routing (the traffic split, ``/admin:split``, shadow
-scoring) is ROADMAP A18: a split or a shadow raises, ``/admin:split``
-answers 400, and an ``X-Tenant`` other than the default is forwarded for
-the member to refuse.
+* **Metrics**: ``/v1/metrics`` has per-group and, with a fleet, per-tenant
+  sections (requests, latency, split share, each challenger's shadow
+  stats); tenant labels are bounded to the names the fleet serves.
 """
 
 from __future__ import annotations
@@ -54,7 +63,6 @@ from ...obs import flight as obs_flight
 from ...obs.metrics import MetricsRegistry
 from ...obs.trace import DEFAULT_SAMPLE_RATE, Tracer, current_trace
 from ..server import ScoringHTTPServer, _send_json, _send_text, traced_request
-from . import TENANTS_NOT_PORTED
 
 
 class HashRing:
@@ -220,8 +228,37 @@ class Router:
         self._c_budget_exhausted = r.counter(
             "deepfm_router_retry_budget_exhausted_total",
             "retries/hedges suppressed: shared token budget empty")
-        if split is not None or shadow is not None:
-            raise NotImplementedError(f"a traffic split or shadow: {TENANTS_NOT_PORTED}")
+        # the multi-tenant fleet (fleet/): the hash-stable split picks each
+        # request's tenant (unless X-Tenant names one) and each shadow
+        # re-scores a sampled slice of its incumbent's stream off the
+        # response path.  ``shadow`` is one ShadowScorer or a sequence
+        self._split = split
+        self._shadows = ([] if shadow is None
+                         else list(shadow) if isinstance(shadow, (list, tuple))
+                         else [shadow])
+        for sh in self._shadows:
+            # each challenger re-scores through the same routing, addressed
+            # to itself, with re-offering off
+            sh.bind(lambda body, _c=sh.challenger: self.handle_predict(
+                body, tenant=_c, _offer_shadow=False))
+            if self._shed_gate is not None:
+                # the shed ladder's first rung: while the gate reads
+                # sustained member backpressure, offers shed at the source
+                sh.set_gate(self._shed_gate.allow_shadow)
+        # tenant labels are bounded: only names the fleet serves (split
+        # arms, shadow pairs, tenants learned from member readiness) get
+        # metric children, so a client's X-Tenant cannot grow the registry
+        self._known_tenants: set[str] = set()
+        if split is not None:
+            self._known_tenants.update(split.arms())
+        for sh in self._shadows:
+            self._known_tenants.update((sh.challenger, sh.incumbent))
+        self._tenant_requests = r.counter(
+            "deepfm_router_tenant_requests_total",
+            "requests routed per tenant", labels=("tenant",))
+        self._tenant_latency = r.histogram(
+            "deepfm_router_tenant_latency_seconds",
+            "router-measured latency per tenant", labels=("tenant",))
         self._stop = threading.Event()
         self._prober: threading.Thread | None = None
 
@@ -282,6 +319,10 @@ class Router:
                     self._generation[(group, None)] = int(
                         doc["group_generation"]
                     )
+                for t, td in (doc.get("tenants") or {}).items():
+                    self._known_tenants.add(t)
+                    if "generation" in td:
+                        self._generation[(group, t)] = int(td["generation"])
             else:
                 m.fails += 1
                 if m.healthy and m.fails >= self._eject_after:
@@ -312,18 +353,35 @@ class Router:
                 target=self._probe_loop, daemon=True, name="router-prober"
             )
             self._prober.start()
+        for sh in self._shadows:
+            sh.start()
         return self
 
     def close(self) -> None:
         self._stop.set()
+        for sh in self._shadows:
+            sh.stop()
         if self._prober is not None:
             self._prober.join(timeout=10)
             self._prober = None
 
     # -- fleet control plane ------------------------------------------------
     def update_split(self, percentages: dict[str, float]) -> dict:
-        """JAX's live re-split of tenant arms: there are no arms here."""
-        raise ValueError(f"router has no traffic split configured: {TENANTS_NOT_PORTED}")
+        """Re-split live traffic across the tenant arms: only keys in the
+        shifted boundary windows change arms (fleet/split.py).  Recorded
+        in the flight timeline."""
+        if self._split is None:
+            raise ValueError("router has no traffic split configured")
+        # arm names must be tenants the fleet serves: a typo'd re-split
+        # would hash that share of live keys onto an arm every member 400s
+        unknown = sorted(set(percentages) - self._known_tenants)
+        if unknown:
+            raise ValueError(f"unknown tenant arm(s) {unknown}; the fleet serves "
+                             f"{sorted(self._known_tenants)}")
+        before = self._split.arms()
+        after = self._split.set_percentages(percentages)
+        obs_flight.record("split_change", subsystem="fleet", before=before, after=after)
+        return after
 
     # -- elastic topology ---------------------------------------------------
     def add_group(self, name: str, urls: list[str]) -> None:
@@ -436,6 +494,8 @@ class Router:
         a delayed hedge against the next healthy candidate."""
         target = path or f"/v1/models/{self.model_name}:predict"
         key = self.request_key(body)
+        if tenant is None and self._split is not None:
+            tenant = self._split.arm(key)
         rows = len(body.get("instances", []))
         plan = self._plan(key)
         self._c_requests.inc()
@@ -446,6 +506,10 @@ class Router:
                 and self._hedge.budget is not self._retry_budget):
             # a hedge budget configured as its own bucket accrues too
             self._hedge.budget.note_request()
+        if tenant is not None and tenant in self._known_tenants:
+            # known tenants only: a client-invented X-Tenant is forwarded
+            # (the member 400s it) but never mints a metric child
+            self._tenant_requests.labels(tenant).inc()
         # the request's trace context (set by the router handler): every
         # forward attempt becomes a span, and the SAME trace id rides the
         # propagation headers across retries — including the 409 re-pin
@@ -583,6 +647,8 @@ class Router:
                 dt = time.perf_counter() - t0
                 self._windows[group].observe(dt)
                 self._group_requests[group].inc()
+                if tenant is not None and tenant in self._known_tenants:
+                    self._tenant_latency.labels(tenant).observe(dt)
                 with self._lock:
                     if "group_generation" in doc:
                         self._generation[(group, tenant)] = int(
@@ -604,22 +670,29 @@ class Router:
                                  "attempts": state["attempts"]}
                 if tenant is not None:
                     doc["router"]["tenant"] = tenant
-                if _offer_shadow and "predictions" in doc \
-                        and self._flywheel is not None:
-                    # the scored impression into the flywheel log, after
-                    # the answer is formed (sampled, bounded, dropped
-                    # rather than waited on)
-                    self._flywheel.offer(
-                        key=key,
-                        trace_id=(tctx.trace_id if tctx is not None else ""),
-                        tenant=doc.get("tenant", tenant) or "",
-                        model_version=int(doc.get("model_version", -1)),
-                        instances=body.get("instances", ()),
-                        scores=doc["predictions"],
-                        deadline_class=(priority if priority is not None
-                                        else "deadline" if deadline_ms is not None
-                                        else "default"),
-                    )
+                # gate the shadow and the impression on the tenant the
+                # member reports it scored: unkeyed traffic of a split-less
+                # fleet routes as tenant None, but the member scored its
+                # default tenant, which may be a challenger's incumbent
+                scored_by = doc.get("tenant", tenant)
+                if _offer_shadow and "predictions" in doc:
+                    # offered after the answer is formed: bounded queues,
+                    # shed or dropped rather than waited on
+                    for sh in self._shadows:
+                        if scored_by == sh.incumbent:
+                            sh.offer(key, body, doc["predictions"])
+                    if self._flywheel is not None:
+                        self._flywheel.offer(
+                            key=key,
+                            trace_id=(tctx.trace_id if tctx is not None else ""),
+                            tenant=scored_by or "",
+                            model_version=int(doc.get("model_version", -1)),
+                            instances=body.get("instances", ()),
+                            scores=doc["predictions"],
+                            deadline_class=(priority if priority is not None
+                                            else "deadline" if deadline_ms is not None
+                                            else "default"),
+                        )
                 return 200, doc
             except urllib.error.HTTPError as e:
                 try:
@@ -752,6 +825,22 @@ class Router:
             # impression-logger counters, plus the join service's last
             # committed checkpoint when its output root is configured
             out["flywheel"] = self._flywheel.stats()
+        # the fleet view: per-tenant split share, routed requests and
+        # router-measured latency, plus each challenger's shadow stats
+        if self._split is not None or self._shadows:
+            tenants: dict[str, dict] = {}
+            arms = self._split.arms() if self._split is not None else {}
+            names = set(arms)
+            names.update(k[0] for k in self._tenant_requests.children())
+            for t in sorted(names):
+                tenants[t] = {
+                    "split_percent": arms.get(t),
+                    "requests_total": int(self._tenant_requests.labels(t).value),
+                    "latency_ms": self._tenant_latency.labels(t).snapshot(),
+                }
+            for sh in self._shadows:
+                tenants.setdefault(sh.challenger, {})["shadow"] = sh.stats()
+            out["tenants"] = tenants
         return out
 
 

@@ -30,8 +30,19 @@ psum ON THE DEVICE: both tables are built and the slots pick the psum
 half with ``torch.where`` on the overflow flag, as JAX's ``lax.cond``
 picks its branch inside the executable.  Nothing reads the flag on the
 host, so the whole predict of a (slot, bucket) is one CUDA graph
-(:class:`ShardedPredictor`, three weight slots: live, staged, and the
-previous version a rollback returns to).
+(:class:`ShardedPredictor`, three weight slots a tenant: live, staged, and
+the previous version a rollback returns to).
+
+**Tenants.**  A member of a multi-tenant fleet (fleet/) holds
+``MEMBER_SLOTS`` slots for each of its tenants: tenant ``i`` owns slots
+``[3i, 3i + 3)``, and every slot's bucket graphs are captured at boot.
+The JAX member serves its tenants from one executable set with the
+weights as arguments; here a tenant's weights live in its own slots, and
+a stage, commit or rollback of any tenant is a ``copy_`` into a slot or a
+repoint, so ``graph_count`` and B1's captured count never move after
+boot.  The graphs of every slot share each bucket's static buffers, so
+the member replays them one at a time under one dispatch lock
+(serve/pool/worker.py).
 """
 
 from __future__ import annotations
@@ -273,13 +284,14 @@ def _head_model(cfg: ModelConfig, state_dict: dict, device: torch.device):
 
 class ShardedPredictor(GraphedPredictor):
     """A member's predict behind CUDA graphs in ``MEMBER_SLOTS`` weight
-    slots on ``ctx.device`` (``"cpu"`` runs eagerly): the
+    slots a tenant (``tenants`` of them, every slot starting from
+    ``state_dict``) on ``ctx.device`` (``"cpu"`` runs eagerly): the
     :class:`~..graphs.GraphedPredictor` over :class:`ShardedDeepFM` slots,
     whose tensors are :func:`stage_sharded_payload`'s tree.  Every bucket
     must divide by ``dp``; B1 runs once a data slice in each replay."""
 
     def __init__(self, ctx: ServeGroupContext, state_dict: dict, *,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS):
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, tenants: int = 1):
         bad = [b for b in buckets if int(b) % ctx.data_parallel]
         if bad:
             raise ValueError(
@@ -288,7 +300,7 @@ class ShardedPredictor(GraphedPredictor):
                 f"member's data slices")
         self.ctx = ctx
         super().__init__(ctx.cfg, state_dict, device=ctx.device, buckets=buckets,
-                         slots=MEMBER_SLOTS)
+                         slots=MEMBER_SLOTS * int(tenants))
 
     def _slot_model(self, state_dict: dict) -> ShardedDeepFM:
         return ShardedDeepFM(self.ctx, state_dict)
@@ -309,7 +321,7 @@ def group_wire_bytes_est(ctx: ServeGroupContext, bucket: int) -> int:
 
 def load_sharded_servable(directory: str | os.PathLike, data_parallel: int = 1,
                           model_parallel: int = 1, *, device=None, exchange: str | None = None,
-                          buckets: Sequence[int] = DEFAULT_BUCKETS):
+                          buckets: Sequence[int] = DEFAULT_BUCKETS, tenants: int = 1):
     """A CTR servable row-sharded for one member: ``(predict, predictor,
     holder, ctx)``, the quartet of ``serve/reload.py
     load_swappable_servable`` (JAX returns ``predict_with`` where the port
@@ -317,8 +329,10 @@ def load_sharded_servable(directory: str | os.PathLike, data_parallel: int = 1,
 
     * ``predict(ids, vals)``: the live slot from ``holder``, through its
       graphs (what the micro-batcher calls, on its worker thread);
-    * ``predictor``: the :class:`ShardedPredictor`;
-    * ``holder``: a ``SwappableParams`` whose payload is the live slot;
+    * ``predictor``: the :class:`ShardedPredictor` (``MEMBER_SLOTS`` slots
+      for each of ``tenants``);
+    * ``holder``: a ``SwappableParams`` whose payload is the first
+      tenant's live slot;
     * ``ctx``: the :class:`ServeGroupContext`."""
     from ..export import read_params
     from ..reload import SwappableParams
@@ -330,7 +344,8 @@ def load_sharded_servable(directory: str | os.PathLike, data_parallel: int = 1,
                          "has no sharded predict path")
     ctx = make_serve_context(cfg, data_parallel, model_parallel, device=device,
                              exchange=exchange)
-    predictor = ShardedPredictor(ctx, read_params(directory), buckets=buckets)
+    predictor = ShardedPredictor(ctx, read_params(directory), buckets=buckets,
+                                 tenants=tenants)
     holder = SwappableParams(0, version=0)
 
     def predict(feat_ids, feat_vals) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Group-atomic hot swap, all members of a shard-group or none: the port's
-copy of ``deepfm_tpu/serve/pool/swap.py`` for single-tenant members.
+copy of ``deepfm_tpu/serve/pool/swap.py``, one coordinator per (group,
+tenant).
 
 ``serve/reload.py`` swaps ONE process; a shard-group is several members
 that must never serve different versions to the same traffic (the router
@@ -65,6 +66,7 @@ class GroupSwapper:
         source: str,
         *,
         group: str = "g0",
+        tenant: str | None = None,
         interval_secs: float = 2.0,
         admin_timeout_secs: float = 120.0,
         breaker: CircuitBreaker | None = None,
@@ -72,6 +74,12 @@ class GroupSwapper:
         if not members:
             raise ValueError("a shard-group needs at least one member")
         self.group = group
+        # one coordinator per (group, tenant): each tenant's publish root is
+        # its own manifest stream, staged and committed into that tenant's
+        # slots only, so tenant A's swap or rollback cannot touch tenant B
+        # (worker.py keys generations and slots by tenant).  None: the
+        # tenant-less protocol against single-tenant members
+        self.tenant = tenant
         self._members = list(members)
         self._source = str(source)
         self._interval = float(interval_secs)
@@ -96,6 +104,8 @@ class GroupSwapper:
 
     # -- member RPC ---------------------------------------------------------
     def _admin(self, member_url: str, verb: str, body: dict) -> dict:
+        if self.tenant is not None:
+            body = {**body, "tenant": self.tenant}
         req = urllib.request.Request(
             f"{member_url}/admin:{verb}",
             data=json.dumps(body).encode(),
@@ -199,8 +209,17 @@ class GroupSwapper:
                     doc = json.load(r)
             except (urllib.error.URLError, OSError, ValueError):
                 continue  # down or not ready: the next poll retries
-            gen = int(doc.get("group_generation", -1))
-            ver = int(doc.get("model_version", -1))
+            if self.tenant is not None:
+                # a respawned member restarts every tenant at generation 0;
+                # each tenant's coordinator repairs its own share
+                td = (doc.get("tenants") or {}).get(self.tenant)
+                if td is None:
+                    continue  # the member predates the tenant: next poll
+                gen = int(td.get("generation", -1))
+                ver = int(td.get("model_version", -1))
+            else:
+                gen = int(doc.get("group_generation", -1))
+                ver = int(doc.get("model_version", -1))
             if ver == self.version and gen == self.generation:
                 continue
             if gen > self.generation:
@@ -276,6 +295,7 @@ class GroupSwapper:
         with self._lock:
             return {
                 "group": self.group,
+                "tenant": self.tenant,
                 "members": len(self._members),
                 "generation": self.generation,
                 "version": self.version,

@@ -285,6 +285,10 @@ def make_handler(scorer, model_name: str, reload_status: Callable | None = None,
                 # scorer, tiered/serving.py) adds its hit rate and bytes
                 if "paging" not in snap and hasattr(scorer, "paging_snapshot"):
                     snap["paging"] = scorer.paging_snapshot()
+                # a multi-tenant pool member (serve/pool/worker.py) adds each
+                # tenant's generation, version and engine
+                if "tenants" not in snap and hasattr(scorer, "tenants_snapshot"):
+                    snap["tenants"] = scorer.tenants_snapshot()
                 if group_status is not None:
                     snap["router"] = group_status()
                 self._send(200, snap)

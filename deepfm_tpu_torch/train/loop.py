@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 import os
 import time
 from typing import Iterator
@@ -525,6 +526,12 @@ def pool_argv(cfg: Config, *, device=None) -> list[str]:
     if r.serve_reload_url:
         argv += ["--reload-url", r.serve_reload_url,
                  "--reload-interval", str(r.serve_reload_interval_secs)]
+    if cfg.fleet.tenants:
+        # the multi-tenant fleet: every member serves every tenant, the
+        # router splits traffic and runs the shadow challengers
+        argv += ["--tenants", json.dumps(list(cfg.fleet.tenants)),
+                 "--shadow-sample", str(cfg.fleet.shadow_sample_percent),
+                 "--shadow-queue", str(cfg.fleet.shadow_queue_depth)]
     if r.funnel_top_k:
         argv += ["--funnel-top-k", str(r.funnel_top_k)]
     if r.funnel_return_n:
@@ -800,22 +807,34 @@ def run_retrieval_task(cfg: Config, *, device=None):
         shutdown(ctx)
 
 
+def run_region_front(cfg: Config, *, device=None) -> None:
+    """The ``region-front`` task (JAX ``train/loop.py``): the manifest
+    replicator tailing ``regions.home_root`` into every region store and
+    the front (home-region routing, the staleness drain, budgeted
+    failover), until the process stops.  Host-only: ``device`` is not
+    read; each region's pool is a ``serve`` task of its own."""
+    from ..region import run_region_front as run_front
+
+    return run_front(cfg)
+
+
 TASKS = {"train": run_train, "eval": run_eval_task, "infer": run_infer,
          "export": run_export, "serve": run_serve,
          "online-train": run_online, "online_train": run_online,
          "feedback-train": run_feedback, "feedback_train": run_feedback,
-         "publish": run_publish}
+         "publish": run_publish,
+         "region-front": run_region_front, "region_front": run_region_front}
 
 
 # the tasks that dispatch on their own, whatever the family (JAX's run_task
 # reaches the two-tower dispatch after them)
 NON_MODEL_TASKS = ("serve", "online-train", "online_train", "feedback-train",
-                   "feedback_train", "publish")
+                   "feedback_train", "publish", "region-front", "region_front")
 
 
 def run_task(cfg: Config, *, device=None):
     """Run ``cfg.run.task_type`` (train, eval, infer, export, serve,
-    online-train, feedback-train or publish); returns the task's result: the train
+    online-train, feedback-train, publish or region-front); returns the task's result: the train
     state, the eval metrics, the pred.txt path or the servable path (serve
     blocks and returns None).  The two-tower family's train, eval and
     export are :func:`run_retrieval_task`'s."""

@@ -351,16 +351,17 @@ def _raw(pkg, files):
 def test_both_engines_find_the_same_debt_in_the_port_before_its_suppressions():
     """Over ``deepfm_tpu_torch/`` the carried-over rules flag the same lines
     through both packages (the port's device clause aside), and every one
-    of them is covered by a justified ``da:allow``: 5 swallowed
-    exceptions, 7 blocking calls under a lock (and the 3 best-effort closes
-    and teardowns that carried their reasons already)."""
+    of them is covered by a justified ``da:allow``: 15 swallowed
+    exceptions (seven of them the shadow worker's and the region layer's,
+    with JAX's reasons), 7 blocking calls under a lock (and the 3
+    best-effort closes and teardowns that carried their reasons already)."""
     files = _tree_files()
     mine = [f for f in _raw("deepfm_tpu_torch", files)
             if f.rule in CARRIED and "device-dispatch" not in f.message]
     theirs = [f for f in _raw("deepfm_tpu", files) if f.rule in CARRIED]
     assert _key(mine) == _key(theirs)
     assert sorted(f.rule for f in mine) == (["blocking-under-lock"] * 7
-                                           + ["swallowed-exception"] * 8)
+                                           + ["swallowed-exception"] * 15)
     extra = [f for f in _raw("deepfm_tpu_torch", files) if f not in mine]
     assert extra == [], [f.render() for f in extra]
 

@@ -142,7 +142,10 @@ INERT = {
     "slo": {"deadline_ms": 50.0},
     # carried since the online tasks were ported; a filled-in section loads
     "flywheel": {"enabled": True, "sample_rate": 0.5, "impression_log_url": "/tmp/imps"},
-    "regions": {"enabled": True, "front_port": 9400},
+    # carried since the region front was ported: JAX's validation needs a
+    # home root and a region when enabled
+    "regions": {"enabled": True, "front_port": 9400, "home_root": "/pub",
+                "regions": [{"name": "use1", "router_url": "http://127.0.0.1:1"}]},
 }
 
 
@@ -215,8 +218,10 @@ def test_the_serve_task_fields_are_carried_and_the_pools_raise(monkeypatch):
     """The run.serve_* fields, the shard-group pool's included, are the
     port's own and load at JAX's values.  The serve task takes both pools
     (serve_workers > 1: serve/server.py serve_pool; serve_groups > 0: the
-    pool's main with JAX's argv, --device added), and a fleet.tenants
-    value raises naming ROADMAP A18."""
+    pool's main with JAX's argv, --device added).  A fleet.tenants value
+    loads as JAX normalizes it and reaches the pool's argv as JAX's does
+    (--tenants, --shadow-sample, --shadow-queue); a tenant whose model
+    overrides touch an executable-spec field raises naming the fields."""
     import deepfm_tpu.serve.pool.__main__ as jax_pool_main
     import deepfm_tpu.serve.server as jax_server
     from deepfm_tpu.train.loop import run_task as jax_run_task
@@ -245,8 +250,20 @@ def test_the_serve_task_fields_are_carried_and_the_pools_raise(monkeypatch):
     jax_run_task(jcfg)
     assert _without_device(seen["groups"]) == seen["jax_groups"]
     assert "--reload-url" in seen["jax_groups"] and "--device" not in seen["jax_groups"]
-    d["fleet"]["tenants"] = [{"name": "exp", "source": "/pub"}]
-    with pytest.raises(ValueError, match="fleet.tenants.*A18"):
+    d["fleet"].update(tenants=[
+        {"name": "a", "source": "/pa", "split_percent": 50},
+        {"name": "b", "source": "/pb", "split_percent": 50, "model": {"l2_reg": 0.5}},
+        {"name": "c", "source": "/pc", "shadow_of": "a"}], shadow_sample_percent=25.0)
+    fleet_cfg = Config.from_dict(json.loads(json.dumps(d)))
+    jfleet = JaxConfig.from_dict(json.loads(json.dumps(d)))
+    assert fleet_cfg.fleet.tenants == jfleet.fleet.tenants
+    assert fleet_cfg.fleet.shadow_sample_percent == 25.0
+    run_serve(fleet_cfg.with_overrides(run=groups), device="cpu")
+    jax_run_task(jfleet.with_overrides(run=groups))
+    assert _without_device(seen["groups"]) == seen["jax_groups"]
+    assert "--tenants" in seen["groups"] and "--shadow-sample" in seen["groups"]
+    d["fleet"]["tenants"] = [{"name": "x", "model": {"embedding_size": 8, "l2_reg": 0.1}}]
+    with pytest.raises(ValueError, match=r"'x' diverges .*\['embedding_size'\]"):
         Config.from_dict(json.loads(json.dumps(d)))
 
 
@@ -266,12 +283,14 @@ ONLINE_FIELDS = {"run": {"online_publish_every_steps": 8, "online_max_batches": 
 def test_the_online_fields_are_carried_not_dropped():
     """run.online_*, regions.publish_keep_window and the flywheel section
     change what the online tasks do, so the port carries them (a JAX value
-    loads as itself) and they left JAX_ONLY_FIELDS; the rest of regions
-    stays JAX-only."""
+    loads as itself) and they left JAX_ONLY_FIELDS; so did the rest of
+    regions and the fleet section, which the region front and the
+    multi-tenant pool read."""
     assert "flywheel" not in JAX_ONLY_FIELDS
     assert not set(ONLINE_FIELDS["run"]) & set(JAX_ONLY_FIELDS["run"])
-    assert "publish_keep_window" not in JAX_ONLY_FIELDS["regions"]
-    assert {"enabled", "max_version_skew"} <= set(JAX_ONLY_FIELDS["regions"])
+    assert "regions" not in JAX_ONLY_FIELDS and "fleet" not in JAX_ONLY_FIELDS
+    assert {"enabled", "max_version_skew", "publish_keep_window"} <= set(
+        Config().to_dict()["regions"])
     d = JaxConfig().to_dict()
     for section, fields in ONLINE_FIELDS.items():
         d[section].update(fields)

@@ -1261,6 +1261,130 @@ def test_a_members_graphs_equal_the_single_process_graphs(device, tmp_path, dp, 
     assert not np.array_equal(pred.predict_with(2, ids, vals), pred.predict_with(0, ids, vals))
 
 
+def _fleet_member(device, tmp_path, tenants=("A", "B"), seed=10):
+    """A GroupMember on the card over a servable of ``_serve_cfg``, one
+    tenant a name, each tenant's publish root holding v1 (its own
+    weights) and v2; every tenant committed to v1."""
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.serve.export import export_servable
+    from deepfm_tpu_torch.serve.pool.worker import GroupMember
+
+    servable = export_servable(_serve_cfg(), _serve_state(0), tmp_path / "s")
+    specs = []
+    for i, t in enumerate(tenants):
+        root = str(tmp_path / f"pub_{t}")
+        for v in (1, 2):
+            ModelPublisher(root, keep=4).publish(_serve_cfg(), _serve_state(seed + 2 * i + v),
+                                                 step=v)
+        specs.append({"name": t, "source": root, "split_percent": 100 / len(tenants)})
+    m = GroupMember(servable, device=device, model_parallel=2, buckets=SERVE_BUCKETS,
+                    tenants=specs, staging_dir=str(tmp_path / "stage"))
+    for t in tenants:
+        m.stage(1, tenant=t)
+        m.commit(1, 1, tenant=t)
+    return m
+
+
+@pytest.mark.cuda
+def test_a_two_tenant_members_graphs_equal_its_eager_slots(device):
+    """Two tenants' slots in one member (``MEMBER_SLOTS`` each, every
+    slot's graphs captured at boot): each tenant's live slot answers
+    through its graphs bit for bit as its slot model does eagerly, at
+    every bucket filled."""
+    import numpy as np
+
+    from deepfm_tpu_torch.serve.pool.sharded import (MEMBER_SLOTS, ShardedPredictor,
+                                                     make_serve_context, stage_sharded_payload)
+
+    ctx = make_serve_context(_serve_cfg(), 1, 2, device=device)
+    pred = ShardedPredictor(ctx, _serve_state(0), buckets=SERVE_BUCKETS, tenants=2)
+    pred.precompile()
+    assert pred.graph_count == 2 * MEMBER_SLOTS * len(SERVE_BUCKETS)
+    pred.load_slot(MEMBER_SLOTS, stage_sharded_payload(ctx, _serve_state(1)))
+    for slot in (0, MEMBER_SLOTS):
+        for b in SERVE_BUCKETS:
+            ids, vals = _serve_rows(b, seed=b + slot)
+            with torch.inference_mode():
+                want = pred._forward(slot, torch.from_numpy(ids).to(device),
+                                     torch.from_numpy(vals).to(device)).cpu().numpy()
+            np.testing.assert_array_equal(pred.predict_with(slot, ids, vals), want)
+    ids, vals = _serve_rows(SERVE_BUCKETS[-1], seed=0)
+    assert not np.array_equal(pred.predict_with(0, ids, vals),
+                              pred.predict_with(MEMBER_SLOTS, ids, vals))
+
+
+@pytest.mark.cuda
+def test_one_tenants_swap_captures_nothing_and_leaves_the_other(device, tmp_path):
+    """A's stage, commit and rollback on the card: no graph captured, B1's
+    captured count unchanged, and B's answers the same bytes throughout."""
+    import numpy as np
+
+    m = _fleet_member(device, tmp_path)
+    try:
+        ids, vals = _serve_rows(100, seed=5)
+        b_engine, a_engine = m._tenant("B").engine, m._tenant("A").engine
+        b0, a1 = b_engine.score(ids, vals), a_engine.score(ids, vals)
+        counts = (m.graph_count, fused_ctr.captured)
+        m.stage(2, tenant="A")
+        np.testing.assert_array_equal(b_engine.score(ids, vals), b0)
+        m.commit(2, 2, tenant="A")
+        a2 = a_engine.score(ids, vals)
+        assert not np.array_equal(a2, a1)
+        np.testing.assert_array_equal(b_engine.score(ids, vals), b0)
+        m.rollback(tenant="A")
+        np.testing.assert_array_equal(a_engine.score(ids, vals), a1)
+        np.testing.assert_array_equal(b_engine.score(ids, vals), b0)
+        assert (m.graph_count, fused_ctr.captured) == counts
+        assert m.readiness()["tenants"]["B"] == {"generation": 1, "model_version": 1}
+    finally:
+        m.close()
+
+
+@pytest.mark.cuda
+def test_four_threads_over_two_tenants_equal_serial_scoring(device, tmp_path):
+    """Two threads a tenant score at once through the tenants' engines:
+    every answer equals the serial one bit for bit, which holds only if
+    the dispatch lock keeps the shared bucket buffers to one replay at a
+    time."""
+    import threading
+
+    import numpy as np
+
+    m = _fleet_member(device, tmp_path)
+    try:
+        batches = [_serve_rows(n, seed=n) for n in (1, 7, 30, 100, 200, 512)]
+        want = {t: [m._tenant(t).engine.score(i, v) for i, v in batches] for t in ("A", "B")}
+        errors = []
+
+        def client(t, k):
+            try:
+                for r in range(12):
+                    j = (r + k) % len(batches)
+                    got = m._tenant(t).engine.score(*batches[j])
+                    if not np.array_equal(got, want[t][j]):
+                        errors.append((t, j))
+            except Exception as e:
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t, k))
+                   for t in ("A", "B") for k in (0, 3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not errors, errors[:5]
+    finally:
+        m.close()
+
+
+@pytest.mark.cuda
+def test_the_fleet_and_region_audits_find_nothing_on_the_card(device):
+    from deepfm_tpu_torch.analysis.trace_audit import audit_multitenant, audit_region_front
+
+    findings = audit_multitenant(device) + audit_region_front(device)
+    assert findings == [], [f.render() for f in findings]
+
+
 @pytest.mark.cuda
 def test_the_degraded_retrieve_graph_equals_its_eager_stages(device):
     """The funnel's third graph, the retrieve at the degraded oversample,

@@ -688,7 +688,7 @@ def test_serve_task_passes_reload_and_model_parallel(servables, monkeypatch):
 def test_funnel_refusals(servables):
     """The funnel's data_parallel (the pool's row slices, ported) serves
     each slice's rows as one slice would; the corpus and URL refusals
-    stand, and a multi-tenant funnel member is ROADMAP A18."""
+    stand, and a funnel member refuses tenants with JAX's message."""
     from deepfm_tpu_torch.serve.pool.worker import GroupMember
 
     _, pdir = servables["exact"]
@@ -720,7 +720,7 @@ def test_funnel_refusals(servables):
         one.close()
     with pytest.raises(ValueError, match="not divisible"):
         FunnelScorer(pdir, device="cpu", buckets=(3, 8), data_parallel=2)
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(ValueError, match="a funnel member serves its one published funnel"):
         GroupMember(pdir, device="cpu", buckets=BUCKETS, tenants=[{"name": "exp"}])
     with pytest.raises(ValueError, match="item-corpus"):
         serve_forever(pdir, port=0, device="cpu", item_corpus="/corpus")

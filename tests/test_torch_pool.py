@@ -202,8 +202,13 @@ def test_member_exchange_resolution(mode, mp, want):
 def test_member_refuses_indivisible_buckets(env):
     with pytest.raises(ValueError, match="not divisible"):
         GroupMember(env["servable"], data_parallel=4, buckets=(2, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        GroupMember(env["servable"], device="cpu", tenants=[{"name": "exp"}])
+    # a multi-tenant member is held to the same bucket rule, and its tenant
+    # list to JAX's validation
+    with pytest.raises(ValueError, match="not divisible"):
+        GroupMember(env["servable"], data_parallel=4, buckets=(2, 8), device="cpu",
+                    tenants=[{"name": "a"}, {"name": "b"}])
+    with pytest.raises(ValueError, match="duplicate fleet tenant"):
+        GroupMember(env["servable"], device="cpu", tenants=[{"name": "exp"}, {"name": "exp"}])
 
 
 # ---------------------------------------------------------------- the swap
@@ -599,7 +604,8 @@ def test_member_and_router_prometheus_and_flight_surfaces(env):
         ready = _get(f"{u}/readyz")
         assert (ready["group_generation"], ready["model_version"]) == (1, 2)
         code, doc, _ = _status(f"{rurl}/admin:split", {"percentages": {"a": 100}})
-        assert code == 400 and "A18" in doc["error"]
+        # a router without a traffic split refuses a re-split
+        assert code == 400 and "no traffic split configured" in doc["error"]
     finally:
         _close(router, rh, h, m)
 

@@ -208,8 +208,10 @@ def test_config_reads_the_jax_schema():
     assert cfg.with_overrides(mesh={"model_parallel": 2}).mesh.model_parallel == 2
     with pytest.raises(ValueError, match="fused_kernel='on' requires"):
         cfg.with_overrides(model={"fused_kernel": "on"}, mesh={"model_parallel": 2})
+    # the fleet section is carried since the multi-tenant pool was ported
+    assert cfg.with_overrides(fleet={"shadow_queue_depth": 2}).fleet.shadow_queue_depth == 2
     with pytest.raises(ValueError, match="unknown config section"):
-        cfg.with_overrides(fleet={"shadow_queue_depth": 2})
+        cfg.with_overrides(not_a_section={"shadow_queue_depth": 2})
     with pytest.raises(TypeError):
         cfg.with_overrides(model={"no_such_field": 1})
 
@@ -316,7 +318,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         run(["--task_type", "publish", "--device", "cpu", "--model_dir", ""])
     # the serve task and both of its pools are ported: the CLI reaches
     # serve_pool with run.serve_workers and the pool's main with
-    # --serve_groups; a multi-tenant fleet is not (ROADMAP A18)
+    # --serve_groups, and a multi-tenant fleet (--serve_tenants or
+    # fleet.tenants) with --tenants
     import deepfm_tpu_torch.serve.pool.__main__ as pool_main
     from deepfm_tpu_torch.serve import server
 
@@ -331,9 +334,17 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     argv = seen["groups"]
     assert argv[argv.index("--groups") + 1] == "3" and argv[argv.index("--group-mp") + 1] == "2"
     assert argv[argv.index("--device") + 1] == "cpu"
-    with pytest.raises(ValueError, match="fleet.tenants.*A18"):
-        run(["--task_type", "serve", "--device", "cpu", "--set",
-             'fleet.tenants=[{"name": "exp"}]'])
+    tenants = [{"name": "exp", "source": "/pub", "split_percent": 100}]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pool_main, "main", lambda argv: seen.update(groups=argv))
+        run(["--task_type", "serve", "--device", "cpu", "--serve_groups", "1",
+             "--serve_tenants", json.dumps(tenants)])
+        fleet_argv = seen["groups"]
+        run(["--task_type", "serve", "--device", "cpu", "--serve_groups", "1", "--set",
+             "fleet.tenants=" + json.dumps(tenants)])
+    assert seen["groups"] == fleet_argv
+    assert [t["name"] for t in json.loads(
+        fleet_argv[fleet_argv.index("--tenants") + 1])] == ["exp"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(["--task_type", "train", "--training_data_dir", "/nonexistent"])
