@@ -261,7 +261,9 @@ the replays times the launches each capture recorded (``kernel_runs``):
               runs include this phase's main path (the server's boot,
               traffic and swaps).
 18. pool    - the serving pools (ROADMAP A14) at the flagship width, each
-              process under its own HOME and TMPDIR: (a) the serve task
+              process under its own HOME and TMPDIR, the four servers
+              below started together so that their boots overlap, each
+              check then run alone on its own server: (a) the serve task
               with run.serve_workers=2 (two graphed servers on one port,
               each its own interpreter): every bucket 8-512 by JSON and
               binary bit-equal to the single-process graphed answer, 16
@@ -403,10 +405,33 @@ the replays times the launches each capture recorded (``kernel_runs``):
               the trained model's encode_queries, the step's device ms at
               model_zoo's 8 user and 4 item fields, and a [2, 2] grid of
               gloo ranks on the card (3 float32 steps) held to the
-              single-card step on the same global batches.  The `families`
-              line holds the card, each family's examples/s, step ms and
-              split, the two-tower metrics, and the phase's seconds; the B1
-              and B1' runs are in the kernels line.
+              single-card step on the same global batches.  Then the
+              families on the other CTR paths (ROADMAP A12's remainder):
+              each family's servable as a [1, 2] psum shard-group member
+              (each of its tables in row shards) behind its bucket graphs,
+              bit for bit the single-card graphed predict at buckets 8 and
+              512; the online trainer of each family over 4 segments of
+              distinct ids (commits and publishes every 2 steps), bit for
+              bit one pass of the log, its versions of the family, the last
+              one's answers the state's; xDeepFM's paged step on the
+              tiered store (a hot cache of 65,536 slots that evicts) bit
+              for bit the resident lazy step on 4 distinct batches, B1 on
+              the hot cache and B1 and B1' on its compact rows against
+              their plain versions, publish_tiered scored by a
+              TieredScorer within 1e-6 of the resident model with one B1
+              launch; phase 8's funnel ranking through the exported
+              xDeepFM (FunnelScorer's graphs), held to the plain B2 and B1
+              on the same payload; and the xDeepFM elastic drill (lazy,
+              six rank processes started as warm standbys when these
+              paths begin): [2, 2] -> [1, 2] after 2 steps -> [2, 2] after
+              4, 6 steps, 0 table bytes moved on the shrink and more on
+              the grow, 6 strictly increasing cursors, every manifest of
+              xDeepFM at the true vocabulary, B1 and B1' on each rank's
+              first compact rows of an epoch against their plain
+              versions.  The `families` line holds the card, each
+              family's examples/s, step ms and split, the paths' results
+              and seconds, the two-tower metrics, and the phase's
+              seconds; the B1, B1' and B2 runs are in the kernels line.
 22. fleet   - ROADMAP A18 and A19 at the flagship width (phase 18's
               servable, buckets 8-512): (a) the serve task with
               --serve_groups 1 and --serve_tenants (one [1, 1] member
@@ -3273,16 +3298,16 @@ def plain_kernels():
     """The funnel's B2 and B1 calls swapped for their plain versions, on the
     same card, for a reference run of the served payload."""
     from deepfm_tpu_torch.funnel import index
-    from deepfm_tpu_torch.models import deepfm
+    from deepfm_tpu_torch.models import deepfm, xdeepfm
     from deepfm_tpu_torch.ops import fused_ctr, retrieval
 
-    saved = index.retrieval_topk, deepfm.fused_ctr_interaction
+    saved = index.retrieval_topk, deepfm.fused_ctr_interaction, xdeepfm.fused_ctr_interaction
     index.retrieval_topk = retrieval.retrieval_topk_plain
-    deepfm.fused_ctr_interaction = fused_ctr.fused_ctr_plain
+    deepfm.fused_ctr_interaction = xdeepfm.fused_ctr_interaction = fused_ctr.fused_ctr_plain
     try:
         yield
     finally:
-        index.retrieval_topk, deepfm.fused_ctr_interaction = saved
+        index.retrieval_topk, deepfm.fused_ctr_interaction, xdeepfm.fused_ctr_interaction = saved
 
 
 def check_served_user(items, rank_s, retr_s, ranked, n: int, what: str) -> tuple[float, float]:
@@ -3868,16 +3893,62 @@ def pool_load(port: int, cfg, workdir: str) -> dict:
     return out
 
 
-def pool_single(cfg, servable: str, workdir: str) -> dict:
+def pool_start(servable: str, publish: str, funnel_servable: str, workdir: str) -> dict:
+    """Phase 18's four servers started at once, so that their boots
+    (interpreters, the card, graph captures: 18-30 s each when started one
+    after another) overlap: the serve task with one worker and with
+    POOL_WORKERS, the shard-group pool and the funnel group.  Each check
+    below waits for its own server's readiness, then runs alone.  Returns
+    each server's ``_Cli``, ports and start time by name."""
+    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
+    buckets = ["--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS))]
+    # the serve task's members bind the supervisor's default ports (JAX's
+    # argv sets no member port base): a leftover member there would answer
+    # in place of this run's
+    _check_ports_free([POOL_MEMBER_PORT_BASE + i for i in range(POOL_GROUPS)],
+                      "pool groups: the shard-group members' port")
+    ports = set(range(POOL_MEMBER_PORT_BASE, POOL_MEMBER_PORT_BASE + POOL_GROUPS))
+
+    def port() -> int:
+        while (p := _free_port()) in ports:
+            pass
+        ports.add(p)
+        return p
+
+    started = {}
+    single, workers, rport, fport, fmport = port(), port(), port(), port(), port()
+    started["single"] = (_Cli("pool single", [
+        "--task_type", "serve", "--servable_model_dir", servable,
+        "--set", f"run.serve_port={single}", *buckets, *device_args],
+        workdir, env=_pool_env(workdir, "single_server")), single, time.perf_counter())
+    started["workers"] = (_Cli("pool workers", [
+        "--task_type", "serve", "--servable_model_dir", servable,
+        "--set", f"run.serve_workers={POOL_WORKERS}", "--set", f"run.serve_port={workers}",
+        *buckets, *device_args], workdir, env=_pool_env(workdir, "process_pool")),
+        workers, time.perf_counter())
+    imps = os.path.join(workdir, "impressions")
+    started["groups"] = (_Cli("pool groups", [
+        "--task_type", "serve", "--servable_model_dir", servable,
+        "--set", f"run.serve_groups={POOL_GROUPS}", "--set", f"run.serve_router_port={rport}",
+        *buckets,
+        "--set", f"run.serve_reload_url={publish}", "--set", "run.serve_reload_interval_secs=0.3",
+        "--set", "run.serve_health_interval_secs=0.3",
+        "--set", "flywheel.enabled=true", "--set", f"flywheel.impression_log_url={imps}",
+        "--set", "flywheel.segment_roll_age_secs=0.5", *device_args],
+        workdir, env=_pool_env(workdir, "group_pool")), rport, time.perf_counter())
+    started["funnel"] = (_Cli("pool funnel", [
+        "--servable", funnel_servable, "--router", "--groups", "1", "--port", str(fport),
+        "--member-port-base", str(fmport), "--buckets", ",".join(map(str, FUNNEL_BUCKETS)),
+        "--slo", json.dumps(POOL_FUNNEL_SLO), "--health-interval", "0.3", *device_args],
+        workdir, module="deepfm_tpu_torch.serve.pool", env=_pool_env(workdir, "funnel_pool")),
+        (fport, fmport), time.perf_counter())
+    return started
+
+
+def pool_single(cfg, started: tuple, workdir: str) -> dict:
     """The serve task with one worker (the single-process server) under
     pool_load: the same call's baseline for the process pool."""
-    port = _free_port()
-    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
-    cli = _Cli("pool single", ["--task_type", "serve", "--servable_model_dir", servable,
-                               "--set", f"run.serve_port={port}",
-                               "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
-                               *device_args],
-               workdir, env=_pool_env(workdir, "single_server"))
+    cli, port, _ = started
     try:
         _wait_ready(f"http://127.0.0.1:{port}", cli)
         out = pool_load(port, cfg, workdir)
@@ -3889,7 +3960,7 @@ def pool_single(cfg, servable: str, workdir: str) -> dict:
     return out
 
 
-def pool_process(cfg, servable: str, requests, want, workdir: str, single_ab: dict) -> dict:
+def pool_process(cfg, started: dict, requests, want, workdir: str, single_ab: dict) -> dict:
     """(a) The process pool through the serve task: POOL_WORKERS workers on
     one port, every bucket's answer (JSON and binary, sampling both
     workers) bit-equal to the single-process graphed answer, the load of
@@ -3897,16 +3968,8 @@ def pool_process(cfg, servable: str, requests, want, workdir: str, single_ab: di
     one worker killed and respawned."""
     from deepfm_tpu_torch.serve.server import encode_binary_request
 
-    single = pool_single(cfg, servable, workdir)
-    port = _free_port()
-    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
-    t0 = time.perf_counter()
-    cli = _Cli("pool workers", ["--task_type", "serve", "--servable_model_dir", servable,
-                                "--set", f"run.serve_workers={POOL_WORKERS}",
-                                "--set", f"run.serve_port={port}",
-                                "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
-                                *device_args],
-               workdir, env=_pool_env(workdir, "process_pool"))
+    single = pool_single(cfg, started["single"], workdir)
+    cli, port, t0 = started["workers"]
     out = {}
     try:
         base = f"http://127.0.0.1:{port}"
@@ -3963,7 +4026,7 @@ def pool_process(cfg, servable: str, requests, want, workdir: str, single_ab: di
     return out
 
 
-def pool_groups(cfg, servable: str, publish: str, weights: dict, requests, want,
+def pool_groups(cfg, started: tuple, publish: str, weights: dict, requests, want,
                 workdir: str, seed: int) -> dict:
     """(b) The shard-group pool through the serve task: a router and
     POOL_GROUPS [1, 1] members, the swapper adopting version 1; every
@@ -3980,24 +4043,8 @@ def pool_groups(cfg, servable: str, publish: str, weights: dict, requests, want,
     from deepfm_tpu_torch.serve.batcher import pick_bucket
     from deepfm_tpu_torch.serve.export import model_from_state
 
-    rport = _free_port()
-    # the serve task's members bind the supervisor's default ports (JAX's
-    # argv sets no member port base): a leftover member there would answer
-    # in place of this run's
-    _check_ports_free([POOL_MEMBER_PORT_BASE + i for i in range(POOL_GROUPS)],
-                      "pool groups: the shard-group members' port")
+    cli, rport, t0 = started
     imps = os.path.join(workdir, "impressions")
-    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
-    t0 = time.perf_counter()
-    cli = _Cli("pool groups", [
-        "--task_type", "serve", "--servable_model_dir", servable,
-        "--set", f"run.serve_groups={POOL_GROUPS}", "--set", f"run.serve_router_port={rport}",
-        "--set", "run.serve_buckets=" + ",".join(map(str, POOL_BUCKETS)),
-        "--set", f"run.serve_reload_url={publish}", "--set", "run.serve_reload_interval_secs=0.3",
-        "--set", "run.serve_health_interval_secs=0.3",
-        "--set", "flywheel.enabled=true", "--set", f"flywheel.impression_log_url={imps}",
-        "--set", "flywheel.segment_roll_age_secs=0.5", *device_args],
-        workdir, env=_pool_env(workdir, "group_pool"))
     base = f"http://127.0.0.1:{rport}"
     out, results, errors = {}, [], []
     stop = threading.Event()
@@ -4211,7 +4258,7 @@ def pool_sharded(cfg, servable: str, single, requests, want) -> dict:
     return out
 
 
-def pool_funnel(seed: int, servable: str, workdir: str) -> dict:
+def pool_funnel(seed: int, servable: str, started: tuple) -> dict:
     """(d) A funnel group with an SLO whose ladder degrades at a few
     queued rows: a burst of POOL_FUNNEL_BURST concurrent requests of
     POOL_FUNNEL_BURST_ROWS users engages it, then users one at a time
@@ -4222,16 +4269,7 @@ def pool_funnel(seed: int, servable: str, workdir: str) -> dict:
     from deepfm_tpu_torch.funnel import stage_funnel_payload
     from deepfm_tpu_torch.serve.export import model_from_state
 
-    rport, mport = _free_port(), _free_port()
-    buckets = ",".join(map(str, FUNNEL_BUCKETS))
-    device_args = ["--device", "cpu"] if DEVICE == "cpu" else []
-    t0 = time.perf_counter()
-    cli = _Cli("pool funnel", ["--servable", servable, "--router", "--groups", "1",
-                               "--port", str(rport), "--member-port-base", str(mport),
-                               "--buckets", buckets, "--slo", json.dumps(POOL_FUNNEL_SLO),
-                               "--health-interval", "0.3", *device_args],
-               workdir, module="deepfm_tpu_torch.serve.pool",
-               env=_pool_env(workdir, "funnel_pool"))
+    cli, (rport, mport), t0 = started
     murl, base = f"http://127.0.0.1:{mport}", f"http://127.0.0.1:{rport}"
     rng = np.random.default_rng(seed + 43)
     checked, served, degraded_requests = [], [], 0
@@ -4328,12 +4366,19 @@ def phase_pool(seed: int, workdir: str, card: str, funnel_servable: str,
 
     serve_graphs.graph_kernel_runs.update(forward=0)
     cfg, servable, publish, weights = pool_servable(seed, workdir)
-    requests, want, single = pool_reference(cfg, servable, np.random.default_rng(seed + 44))
-    process = pool_process(cfg, servable, requests, want, workdir, single_ab)
-    groups = pool_groups(cfg, servable, publish, weights, requests, want, workdir, seed)
-    sharded = pool_sharded(cfg, servable, single, requests, want)
-    del single
-    funnel = pool_funnel(seed, funnel_servable, workdir)
+    started = pool_start(servable, publish, funnel_servable, workdir)
+    try:
+        requests, want, single = pool_reference(cfg, servable,
+                                                np.random.default_rng(seed + 44))
+        process = pool_process(cfg, started, requests, want, workdir, single_ab)
+        groups = pool_groups(cfg, started["groups"], publish, weights, requests, want,
+                             workdir, seed)
+        sharded = pool_sharded(cfg, servable, single, requests, want)
+        del single
+        funnel = pool_funnel(seed, funnel_servable, started["funnel"])
+    finally:  # a check that failed leaves the other servers up: stop them
+        for cli, _, _ in started.values():
+            _stop_tree(cli)
     # the main path is the pool's processes; this process's runs (the
     # reference predictor, the in-process members held to it, the plain
     # checks' kernel pipeline) are comparisons, printed apart
@@ -7251,7 +7296,366 @@ def family_buckets(name: str, seed: int, servable: str) -> dict:
     return {"graphed_vs_eager_vs_plain": errs, "b1_runs": runs}
 
 
-def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: str) -> dict:
+# phase 21's other paths (ROADMAP A12's remainder): xDeepFM's paged step on
+# FAM_TIERED_STEPS batches of distinct ids through a hot cache of about half
+# the vocabulary (so it evicts) and its tiered scorer on FAM_TIERED_SERVE
+# rows; a [1, 2] psum member of each family; the funnel with xDeepFM ranking;
+# a short online run of each family (FAM_ONLINE_SEGMENTS of LIFE_BATCH
+# distinct-id records, a commit and a publish every FAM_ONLINE_EVERY); the
+# elastic drill of xDeepFM, lazy, [2, 2] -> [1, 2] after FAM_ELASTIC[0]
+# steps -> [2, 2] after FAM_ELASTIC[1], FAM_ELASTIC[2] steps in all, its rank
+# processes started as warm standbys when the phase begins
+FAM_TIERED_SLOTS, FAM_TIERED_STEPS, FAM_TIERED_SERVE = 65_536, 4, 100
+FAM_MEMBER = (1, 2, "psum")
+FAM_FUNNEL_REQUESTS = (1, 8)
+FAM_ONLINE_SEGMENTS, FAM_ONLINE_EVERY = 4, 2
+FAM_ELASTIC = (2, 4, 6)
+
+
+def family_tiered(seed: int, workdir: str) -> dict:
+    """xDeepFM on the tiered store: the paged step from a resident lazy
+    state against the resident lazy step on FAM_TIERED_STEPS batches of
+    distinct ids (one trajectory each: every loss, the final tables and
+    moments and the rest of the model bit for bit), the cache evicting; B1
+    on the hot cache with slot ids (the scorer's lookup) and B1 and B1' on
+    the compact rows gathered from it against their plain versions; then
+    ``publish_tiered`` and a TieredScorer of it answering FAM_TIERED_SERVE
+    rows within 1e-6 of the resident model, one B1 launch.  Counts: the
+    paged steps' and the scorer's runs."""
+    from deepfm_tpu_torch.online.publisher import ModelPublisher
+    from deepfm_tpu_torch.ops import fused_ctr
+    from deepfm_tpu_torch.tiered import TieredScorer, TieredTrainer
+    from deepfm_tpu_torch.tiered.trainer import rest_state_dict
+    from deepfm_tpu_torch.train.step import create_train_state, predict_step, train_step
+
+    cfg = family_config("xdeepfm", seed, lazy=True, fused_kernel="off",
+                        tiered_embeddings=True, tiered_hot_slots=FAM_TIERED_SLOTS,
+                        tiered_host_rows=FAM_TIERED_SLOTS, tiered_page_rows=TIERED_PAGE_ROWS)
+    batches = [{k: v.numpy() for k, v in b.items()}
+               for b in family_batches(seed + 61, FAM_TIERED_STEPS, LIFE_VOCAB)]
+    resident = create_train_state(cfg, DEVICE)
+    tr = TieredTrainer.from_resident_state(cfg, create_train_state(cfg, DEVICE),
+                                           os.path.join(workdir, "cold"))
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        paged = [float(tr.train_batch(b)["loss"]) for b in batches]  # float() waits
+        step_s = (time.perf_counter() - t0) / len(batches)
+        fwd, bwd = kernel_runs()
+        ref = [float(train_step(resident, {k: torch.from_numpy(v).to(DEVICE)
+                                           for k, v in b.items()})["loss"]) for b in batches]
+        if paged != ref:
+            fail(f"families tiered: the paged xDeepFM step's losses {paged} vs the resident "
+                 f"lazy step's {ref}")
+        if DEVICE == "cuda" and (fwd < len(batches) or bwd < len(batches)):
+            fail(f"families tiered: {len(batches)} paged steps ran B1 {fwd} and B1' {bwd} "
+                 f"times")
+        stats = tr.pager.stats()
+        if stats["evictions"] == 0 or stats["writeback_rows"] == 0:
+            fail(f"families tiered: the cache never evicted: {stats}")
+        rows, m, v = tr.export_tables()
+        for part, got in (("rows", rows), ("m", m), ("v", v)):
+            for k in ("fm_w", "fm_v"):
+                want = (getattr(resident.model, k) if part == "rows"
+                        else getattr(resident.lazy, part)[k]).detach().cpu().numpy()
+                if not np.array_equal(got[k], want):
+                    fail(f"families tiered: {part} {k} differ from the resident lazy state")
+        rest = rest_state_dict(resident.model)
+        for k, t in rest_state_dict(tr.state.model).items():
+            if not torch.equal(t, rest[k]):
+                fail(f"families tiered: {k} differs from the resident lazy state")
+        # the kernels on the hot cache at the last batch's slots
+        slot_ids, _ = tr.pager.translate(batches[-1]["feat_ids"], tr.state.hot)
+        hot = tr.state.hot.rows
+        ids = torch.from_numpy(slot_ids).to(DEVICE)
+        vals = torch.from_numpy(batches[-1]["feat_vals"]).to(DEVICE)
+        got = fused_ctr.fused_ctr_interaction(hot["fm_w"], hot["fm_v"], ids, vals)
+        want = fused_ctr.fused_ctr_plain(hot["fm_w"], hot["fm_v"], ids, vals)
+        e = [float((a - w).abs().max()) for a, w in zip(got, want)]
+        if not (e[0] <= TOL_EMB and e[1] <= TOL_YW_REL * (1 + float(want[1].abs().max()))):
+            fail(f"families tiered: fused_ctr_forward on the hot cache: {e}")
+        compact = (compact_kernel_check(hot["fm_w"], hot["fm_v"], ids, vals, seed,
+                                        "families tiered") if DEVICE == "cuda" else None)
+        pub = os.path.join(workdir, "pub")
+        manifest = ModelPublisher(pub).publish_tiered(cfg, tr)
+    finally:
+        tr.close()
+    scorer = TieredScorer.from_publish(pub, os.path.join(workdir, "staging"), device=DEVICE)
+    n = FAM_TIERED_SERVE
+    want = predict_step(resident.model, {
+        "feat_ids": torch.from_numpy(batches[0]["feat_ids"][:n]).to(DEVICE),
+        "feat_vals": torch.from_numpy(batches[0]["feat_vals"][:n]).to(DEVICE)}).cpu().numpy()
+    before = fused_ctr.launches
+    probs = scorer.score(batches[0]["feat_ids"][:n], batches[0]["feat_vals"][:n])
+    serve_runs = fused_ctr.launches - before
+    serve_err = float(np.abs(probs - want).max())
+    if not serve_err <= 1e-6 or (DEVICE == "cuda" and serve_runs != 1):
+        fail(f"families tiered: the scorer's {n} rows within {serve_err} of the resident "
+             f"model (1e-6), B1 launched {serve_runs} times")
+    out = {"steps": len(batches), "losses_bit_equal": True, "step_host_s": step_s,
+           "pager": stats, "hot_forward_max_abs_err": e, "published": manifest.version,
+           "serve_max_abs_err": serve_err, "serve_launches": serve_runs,
+           "launches": [fwd + serve_runs, bwd],
+           "compact_max_abs_err": compact and [compact["forward_max_abs_err"],
+                                               compact["backward_max_abs_err"]]}
+    print("families tiered %s" % json.dumps(out))
+    out["forward_errs"] = e + (compact["forward_max_abs_err"] if compact else [])
+    out["backward_errs"] = compact["backward_max_abs_err"] if compact else []
+    return out
+
+
+def family_member(name: str, servable: str) -> dict:
+    """A FAM_MEMBER shard-group member of ``name``'s exported servable (its
+    tables cut into row shards) behind its bucket graphs against the
+    single-card graphed predictor at FAM_BUCKETS: bit for bit, on a spread
+    batch and on ids past the vocabulary.  Counts: B1's runs through the
+    member's replays (xDeepFM once a replay, DCN-v2 none)."""
+    from deepfm_tpu_torch.core.config import load_config
+    from deepfm_tpu_torch.serve import graphs
+    from deepfm_tpu_torch.serve.export import read_params
+    from deepfm_tpu_torch.serve.pool.sharded import load_sharded_servable
+
+    dp, mp, exchange = FAM_MEMBER
+    cfg, sd = load_config(servable), read_params(servable)
+    single = graphs.GraphedPredictor(cfg, sd, device=DEVICE, buckets=FAM_BUCKETS)
+    single.precompile()
+    rng = np.random.default_rng(71 + FAM_FAMILIES.index(name))
+    requests = [(make_ids(rng, b, 39, cfg.feature_size),
+                 rng.random((b, 39), dtype=np.float32)) for b in FAM_BUCKETS]
+    want = [single.predict_with(0, ids, vals) for ids, vals in requests]
+    del single
+    t0 = time.perf_counter()
+    _, pred, _, ctx = load_sharded_servable(servable, dp, mp, device=DEVICE,
+                                            exchange=exchange, buckets=FAM_BUCKETS)
+    pred.precompile()
+    boot = time.perf_counter() - t0
+    graphs.graph_kernel_runs["forward"] = 0
+    for (ids, vals), ref in zip(requests, want):
+        if not np.array_equal(pred.predict_with(0, ids, vals), ref):
+            fail(f"families {name}: the [{dp}, {mp}] member's {len(ids)} rows differ from "
+                 f"the single-card graphed predict")
+    runs = graphs.graph_kernel_runs["forward"]
+    if DEVICE == "cuda" and (name == "xdeepfm") != (runs == len(FAM_BUCKETS)):
+        fail(f"families {name}: {runs} B1 runs through the member's {len(FAM_BUCKETS)} "
+             f"replays")
+    out = {"grid": [dp, mp], "exchange": ctx.exchange, "rows_local": ctx.rows_local,
+           "graphs": pred.graph_count, "boot_s": boot, "b1_runs": runs,
+           "bit_equal_buckets": list(FAM_BUCKETS)}
+    print(f"families {name} member %s" % json.dumps(out))
+    return out
+
+
+def family_funnel(seed: int, workdir: str, funnel_servable: str, servable: str) -> dict:
+    """The funnel of phase 8 (its query tower and int8 index of 117,581
+    items) ranking through the exported xDeepFM: a FunnelScorer on the card
+    (each stage a CUDA graph) answering FAM_FUNNEL_REQUESTS users, held to
+    the same payload through the plain B2 and B1.  Counts: B2's and B1's
+    runs on that path."""
+    from deepfm_tpu_torch.core.config import load_config
+    from deepfm_tpu_torch.funnel import load_funnel_artifact
+    from deepfm_tpu_torch.funnel.publish import write_funnel_tree
+    from deepfm_tpu_torch.funnel.serve import FunnelScorer
+    from deepfm_tpu_torch.serve.export import read_params
+
+    art = load_funnel_artifact(funnel_servable)
+    directory = write_funnel_tree(os.path.join(workdir, "funnel"), load_config(servable),
+                                  read_params(servable), art.query_cfg, art.query_state,
+                                  art.index, art.meta)
+    rng = np.random.default_rng(seed + 62)
+    requests = [funnel_requests(rng, n) for n in FAM_FUNNEL_REQUESTS]
+    reset_funnel_counts()
+    scorer = FunnelScorer(directory, device=DEVICE, buckets=FUNNEL_BUCKETS, max_wait_ms=2.0)
+    try:
+        served = [scorer.recommend_instances([
+            {"user_ids": a.tolist(), "user_vals": b.tolist(), "feat_ids": c.tolist(),
+             "feat_vals": d.tolist()} for a, b, c, d in zip(*req)]) for req in requests]
+        retr, fwd = funnel_kernel_runs()
+        ctx, payload = scorer.ctx, scorer.graphs.payload(scorer.holder.get())
+    finally:
+        scorer.close()
+    if ctx.rank_cfg.model_name != "xdeepfm" or (DEVICE == "cuda" and min(retr, fwd) <= 0):
+        fail(f"families funnel: ranker {ctx.rank_cfg.model_name}, B2 {retr} and B1 {fwd} "
+             f"runs")
+    stats = check_funnel_answers(ctx, payload, requests, served, FUNNEL_BUCKETS,
+                                 "families funnel")
+    out = {"ranker": ctx.rank_cfg.model_name, "retrieval": ctx.retrieval_mode,
+           "launches": [retr, fwd], "vs_plain": stats}
+    print("families funnel %s" % json.dumps(out))
+    return out
+
+
+def family_online(name: str, seed: int, workdir: str) -> dict:
+    """The online trainer of ``name`` (OnlineTrainer.run, the graphed
+    single-card step) over FAM_ONLINE_SEGMENTS segments of distinct ids,
+    committing and publishing every FAM_ONLINE_EVERY steps: every segment
+    trained, the final state bit-equal to one pass of the log
+    (replay_to_state), the versions of the family with the last one's
+    param_hash that state's, and its servable's answers that state's (the
+    serve task's reload source).  Counts: the trainer's B1 and B1' runs."""
+    from deepfm_tpu_torch.convert import params_to_jax
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.data.example_proto import parse_example
+    from deepfm_tpu_torch.online import (OnlineTrainer, latest_manifest, list_versions,
+                                         param_tree_hash, read_manifest, version_location)
+    from deepfm_tpu_torch.online.trainer import replay_to_state
+    from deepfm_tpu_torch.serve.export import load_servable
+    from deepfm_tpu_torch.train.step import predict_step
+
+    stream, pub = os.path.join(workdir, "events"), os.path.join(workdir, "publish")
+    write_online(stream, (online_records(seed + 63, s) for s in range(FAM_ONLINE_SEGMENTS)))
+    cfg = Config.from_dict({
+        "model": {"model_name": name, "feature_size": LIFE_VOCAB, **FAM_MODEL},
+        "optimizer": {"learning_rate": 5e-4},
+        "data": {"training_data_dir": stream, "batch_size": LIFE_BATCH},
+        "run": {"model_dir": os.path.join(workdir, "ckpt"), "servable_model_dir": pub,
+                "checkpoint_every_steps": FAM_ONLINE_EVERY,
+                "online_publish_every_steps": FAM_ONLINE_EVERY, "seed": seed,
+                "log_steps": 1000}})
+    reset_kernel_counts()
+    state = OnlineTrainer(cfg, device=DEVICE).run(follow=False)
+    fwd, bwd = kernel_runs()
+    steps = FAM_ONLINE_SEGMENTS
+    if state.step != steps:
+        fail(f"families {name} online: {state.step} steps over {steps} segments")
+    if DEVICE == "cuda" and ((name == "xdeepfm" and min(fwd, bwd) < steps)
+                             or (name != "xdeepfm" and fwd + bwd)):
+        fail(f"families {name} online: {steps} steps ran B1 {fwd} and B1' {bwd} times")
+    oracle = replay_to_state(cfg, device=DEVICE)
+    got, want = state.model.state_dict(), oracle.model.state_dict()
+    if any(not torch.equal(got[k], want[k]) for k in want):
+        fail(f"families {name} online: the trained state differs from one pass of the log")
+    versions = list_versions(pub)
+    manifests = [read_manifest(pub, v) for v in versions]
+    last = latest_manifest(pub)
+    if (len(versions) != steps // FAM_ONLINE_EVERY
+            or any(m.model_name != name for m in manifests)
+            or last.param_hash != param_tree_hash(*params_to_jax(
+                {k: v.cpu() for k, v in got.items()}, cfg.model))):
+        fail(f"families {name} online: manifests {[(m.version, m.model_name) for m in manifests]}")
+    predict, _ = load_servable(version_location(pub, last.version), device=DEVICE)
+    parsed = [parse_example(r) for r in online_records(seed + 63, 0)[:8]]
+    ids = np.stack([p["ids"] for p in parsed]).astype(np.int64)
+    vals = np.stack([p["values"] for p in parsed]).astype(np.float32)
+    served = predict(ids, vals)
+    ref = predict_step(state.model, {"feat_ids": torch.from_numpy(ids).to(DEVICE),
+                                     "feat_vals": torch.from_numpy(vals).to(DEVICE)})
+    err = float(np.abs(served - ref.cpu().numpy()).max())
+    if not err <= TOL_GRAPH:
+        fail(f"families {name} online: the published version answers {err} from the state")
+    out = {"steps": steps, "versions": versions, "launches": [fwd, bwd],
+           "replay_bit_equal": True, "published_vs_state": err}
+    print(f"families {name} online %s" % json.dumps(out))
+    return out
+
+
+def family_elastic_standby(seed: int, root: str) -> _ElasticJob:
+    """The xDeepFM elastic drill's job: elastic_doc's config at phase 21's
+    xDeepFM (model_zoo's MLP, the CIN 128/128, dropout off, lazy Adam),
+    commits and publishes every FAM_ELASTIC[0] steps; all six rank
+    processes started now as warm standbys (ranks 0-3 released by
+    family_elastic, 4 and 5 at the grow)."""
+    def doc_fn(url):
+        doc = elastic_doc(seed, root, url, True, False)
+        doc["model"].update(model_name="xdeepfm", deep_layers=list(FAM_MODEL["deep_layers"]),
+                            cin_layers=list(FAM_MODEL["cin_layers"]),
+                            dropout_keep=[1.0] * len(FAM_MODEL["deep_layers"]))
+        doc["run"].update(checkpoint_every_steps=FAM_ELASTIC[0],
+                          online_publish_every_steps=FAM_ELASTIC[0])
+        return doc
+
+    job = _ElasticJob(root, [0, 1, 2, 3], doc_fn)
+    for i in ELASTIC_IDS:
+        job.start(i, os.path.join(root, "grow" if i in ELASTIC_JOINERS else "release"))
+    return job
+
+
+def family_elastic(seed: int, job: _ElasticJob) -> dict:
+    """The xDeepFM drill on its standby job: [2, 2] -> [1, 2] after
+    FAM_ELASTIC[0] steps (devices 2 and 3 off the board) -> [2, 2] after
+    FAM_ELASTIC[1] (4 and 5 join), FAM_ELASTIC[2] steps: the reshards'
+    shapes (0 table bytes moved on the shrink, more on the grow; its CIN
+    moves as a replicated parameter), no step replayed, a strictly
+    increasing lineage, every manifest at the true vocabulary and of
+    xDeepFM, B1 and B1' on each rank's first compact rows of each epoch
+    against their plain versions, finite final weights.  Counts: the
+    ranks' B1 and B1' runs (main path)."""
+    from deepfm_tpu_torch.elastic.mpmd import read_payload_tree
+    from deepfm_tpu_torch.online import list_versions, read_manifest
+
+    shrink, grow, total = FAM_ELASTIC
+    t0 = time.perf_counter()
+    try:
+        job.feed(seed, 0, shrink)
+        open(os.path.join(job.root, "release"), "w").close()
+        job.wait_until(f"commit of step {shrink}", job.committed(shrink))
+        job.board.remove(2, 3)
+        job.wait_until("the epoch of devices 0 and 1", job.epoch_of([0, 1]))
+        for i in (2, 3):
+            job.finish(i)
+        job.feed(seed, shrink, grow)
+        job.wait_until(f"commit of step {grow}", job.committed(grow))
+        job.board.add(*ELASTIC_JOINERS)
+        open(os.path.join(job.root, "grow"), "w").close()
+        job.wait_until("the epoch of devices 0, 1, 4 and 5", job.epoch_of([0, 1, 4, 5]))
+        job.feed(seed, grow, total)
+        job.wait_until(f"commit of step {total}", job.committed(total))
+        job.stop((0, 1, *ELASTIC_JOINERS))
+    finally:
+        job.close()
+    seconds = time.perf_counter() - t0
+    results = job.results()
+    for i, r in zip(ELASTIC_IDS, results):
+        if r is None or r["error"] is not None:
+            fail(f"families elastic: device {i}: {r and r['error']}")
+    r0, doc = results[0], job.doc
+    shapes = [(r["from_mesh"], r["to_mesh"]) for r in r0["reshards"]]
+    if shapes != [([2, 2], [1, 2]), ([1, 2], [2, 2])] \
+            or not r0["reshards"][0]["moved_bytes"] == 0 < r0["reshards"][1]["moved_bytes"] \
+            or any(r["steps_replayed"] for r in r0["reshards"]):
+        fail("families elastic: reshards %s" % json.dumps(r0["reshards"]))
+    lineage = r0["lineage"]
+    if len(lineage) != total or not all(a < b for a, b in zip(lineage, lineage[1:])):
+        fail(f"families elastic: cursor lineage of {len(lineage)}: {lineage}")
+    if [r["left"] for r in results] != [i in (2, 3) for i in ELASTIC_IDS]:
+        fail(f"families elastic: left {[r['left'] for r in results]}")
+    pub = doc["run"]["servable_model_dir"]
+    manifests = [read_manifest(pub, v) for v in list_versions(pub)]
+    if len(manifests) < 2 or any((m.feature_size, m.model_name) != (LIFE_VOCAB, "xdeepfm")
+                                 for m in manifests):
+        fail(f"families elastic: manifests "
+             f"{[(m.version, m.feature_size, m.model_name) for m in manifests]}")
+    err, epochs = {"forward": 0.0, "backward": 0.0}, 0
+    for r in results:
+        for e in r["kernel_err"]:
+            epochs += 1
+            (emb, _), (y_w, sw), _ = e["forward"]
+            if not (emb <= TOL_EMB and y_w <= TOL_YW_REL * (1.0 + sw)):
+                fail(f"families elastic: fused_ctr_forward on a rank's compact rows: {e}")
+            for b_err, scale in e["backward"]:
+                if not b_err <= TOL_GRAD_REL * scale:
+                    fail(f"families elastic: fused_ctr_backward on a rank's compact rows: {e}")
+            err["forward"] = max(err["forward"], emb, y_w)
+            err["backward"] = max(err["backward"], *(x for x, _ in e["backward"]))
+    if DEVICE == "cuda" and any(r["launches"] < 1 or r["backward_launches"] < 1
+                                for r in results):
+        fail(f"families elastic: B1/B1' runs by rank "
+             f"{[(r['launches'], r['backward_launches']) for r in results]}")
+    final = read_payload_tree(doc["run"]["model_dir"], step=total)[1]["model"]
+    if "cin.filter_0" not in final or not all(torch.isfinite(t).all() for t in final.values()):
+        fail(f"families elastic: the final commit holds {sorted(final)[:8]}, not finite")
+    out = {"reshards": [{k: r[k] for k in ("from_mesh", "to_mesh", "moved_bytes",
+                                           "kept_bytes", "steps_replayed", "wall_secs")}
+                        for r in r0["reshards"]],
+           "steps": total, "versions": len(manifests), "epochs_kernel_checked": epochs,
+           "kernel_vs_plain_max_abs_err": err, "step_host_ms": r0["step_ms"],
+           "launches": [sum(r["launches"] for r in results),
+                        sum(r["backward_launches"] for r in results)], "seconds": seconds}
+    print("families elastic %s" % json.dumps(out))
+    return out
+
+
+def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: str,
+                   funnel_servable: str) -> dict:
     """Phase 21 (ROADMAP A12): the other model families through the port's
     entry points at model_zoo's widths (module docstring)."""
     t0 = time.perf_counter()
@@ -7262,10 +7666,12 @@ def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: 
         os.symlink(os.path.join(train_dir, f"train-{i}.tfrecords"),
                    os.path.join(fam_train, f"train-{i}.tfrecords"))
     os.symlink(os.path.join(val_dir, "val-0.tfrecords"), os.path.join(fam_val, "val-0.tfrecords"))
-    out = {"launches": 0, "backward_launches": 0}
+    out = {"launches": 0, "backward_launches": 0, "retrieval_launches": 0}
     line = {"card": card}
     out["kernels"] = family_kernels(seed, train_dir)
+    fwd_errs, bwd_errs = [], []
     drill = start_two_tower_grid(seed, os.path.join(workdir, "two_tower_grid"))
+    standby = None
     try:
         for name in FAM_FAMILIES:
             tasks = family_tasks(name, seed, fam_train, fam_val, os.path.join(workdir, name))
@@ -7277,10 +7683,46 @@ def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: 
             out["launches"] += tasks["buckets"]["b1_runs"]
             tasks["graphed"] = family_graphed(name, seed)
             line[name] = tasks
+        # the other CTR paths; the elastic drill's ranks boot meanwhile
+        standby = family_elastic_standby(seed, os.path.join(workdir, "elastic"))
+        path_s = {}
+        for name in FAM_FAMILIES:
+            tasks, t1 = line[name], time.perf_counter()
+            servable = os.path.join(workdir, name, "dense", "servable")
+            tasks["member"] = family_member(name, servable)
+            out["launches"] += tasks["member"]["b1_runs"]
+            tasks["online"] = family_online(name, seed, os.path.join(workdir, name, "online"))
+            out["launches"] += tasks["online"]["launches"][0]
+            out["backward_launches"] += tasks["online"]["launches"][1]
+            path_s[f"{name} member+online"] = time.perf_counter() - t1
+            if name == "xdeepfm":
+                t1 = time.perf_counter()
+                tiered = family_tiered(seed, os.path.join(workdir, name, "tiered"))
+                out["launches"] += tiered["launches"][0]
+                out["backward_launches"] += tiered["launches"][1]
+                fwd_errs += tiered.pop("forward_errs")
+                bwd_errs += tiered.pop("backward_errs")
+                tasks["tiered"] = tiered
+                path_s["xdeepfm tiered"] = t2 = time.perf_counter() - t1
+                tasks["funnel"] = family_funnel(seed, os.path.join(workdir, name),
+                                                funnel_servable, servable)
+                out["retrieval_launches"] += tasks["funnel"]["launches"][0]
+                out["launches"] += tasks["funnel"]["launches"][1]
+                path_s["xdeepfm funnel"] = time.perf_counter() - t1 - t2
+        elastic = family_elastic(seed, standby)
+        path_s["xdeepfm elastic"] = elastic["seconds"]
+        out["launches"] += elastic["launches"][0]
+        out["backward_launches"] += elastic["launches"][1]
+        fwd_errs.append(elastic["kernel_vs_plain_max_abs_err"]["forward"])
+        bwd_errs.append(elastic["kernel_vs_plain_max_abs_err"]["backward"])
+        line["xdeepfm"]["elastic"] = elastic
+        line["paths_s"] = path_s
         tt = two_tower_tasks(seed, os.path.join(workdir, "two_tower"))
         tt["step_device_ms_8_4_fields"] = two_tower_step_ms(seed)
         tt["grid"] = finish_two_tower_grid(drill)
-    finally:  # the drill's ranks end with the phase, whatever happened
+    finally:  # the drills' ranks end with the phase, whatever happened
+        if standby is not None:
+            standby.close()
         for p in drill["ctx"].processes:
             if p.is_alive():
                 p.kill()
@@ -7288,8 +7730,9 @@ def phase_families(seed: int, workdir: str, card: str, train_dir: str, val_dir: 
     line["seconds"] = time.perf_counter() - t0
     print("families %s" % json.dumps(line))
     kernels = out["kernels"]
-    return {**out, "max_abs_err": max(kernels["forward_max_abs_err"]),
-            "backward_max_abs_err": max(kernels["backward_max_abs_err"]), "line": line}
+    return {**out, "max_abs_err": max(*kernels["forward_max_abs_err"], *fwd_errs),
+            "backward_max_abs_err": max(*kernels["backward_max_abs_err"], *bwd_errs),
+            "line": line}
 
 
 # the fleet phase: tenants A and B split 50/50 over one [1, 1] member,
@@ -7790,7 +8233,7 @@ def main(argv: list[str] | None = None) -> int:
                               val_dir, life["readers"])
         begin("families")
         fam = phase_families(args.seed, os.path.join(workdir, "families"), card, train_dir,
-                             val_dir)
+                             val_dir, os.path.join(workdir, "funnel"))
         begin("fleet")
         fleet = phase_fleet(args.seed, os.path.join(workdir, "fleet"), card,
                             pool["member_device_bytes"])
@@ -7846,7 +8289,8 @@ def main(argv: list[str] | None = None) -> int:
         "source": "deepfm_tpu_torch/csrc/retrieval_topk.cu",
         "replaces": "deepfm_tpu/ops/pallas_retrieval.py:173",
         "launches": (funnel["retrieval_launches"] + funnel["task_retrieval_launches"]
-                     + swap["retrieval_launches"] + pool["retrieval_launches"]),
+                     + swap["retrieval_launches"] + pool["retrieval_launches"]
+                     + fam["retrieval_launches"]),
         "max_abs_err": b2["max_abs_err"],
         "ms": b2_row["ms"],
         "plain_ms": b2_row["plain_ms"],

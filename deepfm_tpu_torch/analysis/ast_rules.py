@@ -32,6 +32,11 @@ subclasses, typed attributes, module aliases), and further through
 * ``Cls.apply(...)`` of a project ``torch.autograd.Function`` subclass:
   its ``forward`` and ``backward`` (ops/fused_ctr.py ``FusedCTR``);
 * ``self.attr(...)`` of a typed attribute: the class's ``forward``;
+  ``self.attr.meth(...)``: the class's ``meth`` and its project
+  subclasses' overrides (an attribute is typed by ``self.attr =
+  Cls(...)`` or ``self.attr: Cls = ...``; serve/pool/sharded.py
+  ``ShardedCTR.head_model``, a ``CTRModel``, reaches every family's
+  ``table_logits``);
 * ``self.attr`` where the class set ``self.attr = factory(...)``: the
   factory (funnel/graphs.py ``self._retrieve = build_retrieve_with(ctx)``).
 
@@ -307,6 +312,15 @@ class _Captured:
                 self._capture(self._home[id(fn)], fn)
             self._attr_factories(cls, attr)
 
+    def _typed_receiver(self, cls, func: ast.AST):
+        """The project class of ``self.attr`` in a call ``self.attr.meth(...)``
+        when ``cls`` types ``attr``, else None."""
+        if cls is None or not isinstance(func, ast.Attribute):
+            return None
+        attr = _self_attr(func.value)
+        typed = cls.attr_types.get(attr) if attr is not None else None
+        return self.graph.find_class(typed[1], typed[0]) if typed else None
+
     def _constructed(self, path: str, cls, call: ast.Call):
         """The project class ``call`` constructs, if it is one."""
         got = self.graph.resolve_call(path, cls, call)
@@ -407,6 +421,11 @@ class _Captured:
             if found:
                 self._capture(*found)
                 return
+        typed = self._typed_receiver(cls, func)
+        if typed is not None:  # self.attr.meth(...): the class's and its subclasses'
+            for fn in self._methods(typed, func.attr):
+                self._capture(self._home[id(fn)], fn)
+            return
         got = self.graph.resolve_call(path, cls, call)
         if got is not None:
             tpath, _, node = got

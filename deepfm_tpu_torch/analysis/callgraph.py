@@ -258,6 +258,12 @@ class CallGraph:
                 elif ctor and ctor[0].isupper():
                     ce.attr_types.setdefault(attr, (
                         ctor, self._ctor_path(entry, sub.value.func)))
+        # annotated attributes: `self.x: Cls = value` anywhere in the class
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.AnnAssign) and _self_attr(sub.target) is not None:
+                ann = _last(_dotted(sub.annotation))
+                if ann and ann[0].isupper():
+                    ce.attr_types.setdefault(_self_attr(sub.target), (ann, None))
         # annotated-parameter aliasing: `def __init__(self, a: A)` then
         # `self._a = a` types the attribute (collaborator objects are
         # usually handed in, not constructed)

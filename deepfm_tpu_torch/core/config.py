@@ -209,13 +209,8 @@ def validate_tenant_entries(entries) -> tuple:
     return tuple(norm)
 
 
-TIERED_URL_NOT_PORTED = ("an object-store cold tier is not ported yet "
-                         "(ROADMAP A11); give a local directory")
-
-
 def _check_tiered_fields(m) -> None:
-    """JAX's checks of the tiered fields on their own, and the port's
-    refusal of an object-store cold root."""
+    """JAX's checks of the tiered fields on their own."""
     if m.tiered_page_rows < 1:
         raise ValueError(f"tiered_page_rows must be >= 1, got {m.tiered_page_rows}")
     for name in ("tiered_hot_slots", "tiered_stage_rows", "tiered_host_rows"):
@@ -230,9 +225,6 @@ def _check_tiered_fields(m) -> None:
             f"package refuses this pair, so the port does too (its paged step "
             f"runs the fused CUDA kernels on the hot cache either way); use "
             f"fused_kernel='off'")
-    if "://" in m.tiered_cold_url:
-        raise ValueError(f"model.tiered_cold_url={m.tiered_cold_url!r}: "
-                         f"{TIERED_URL_NOT_PORTED}")
 
 
 def _check_tiered_geometry(m, batch_size: int) -> None:
@@ -347,8 +339,8 @@ class ModelConfig:
     tiered_host_rows: int = 0
     # rows a cold-tier page (one read, one overlay write)
     tiered_page_rows: int = 1024
-    # the cold tier's root: a local directory ("" = <model_dir>/cold); an
-    # object-store prefix is ROADMAP A11
+    # the cold tier's root: a local directory or an object-store prefix
+    # (http://host:port/bucket/prefix); "" = <model_dir>/cold
     tiered_cold_url: str = ""
 
     def __post_init__(self):

@@ -84,7 +84,6 @@ import torch.distributed as dist
 from ..checkpoint import make_checkpointer, restore_resharded_payload
 from ..core.config import Config
 from ..core.platform import resolve_device
-from ..models.base import refuse_variant
 from ..models.deepfm import window_multiple
 from ..obs import flight as obs_flight
 from ..obs.metrics import MetricsRegistry
@@ -196,7 +195,6 @@ class ElasticTrainer:
         if cfg.model.model_name == "two_tower":
             raise ValueError("elastic training covers the CTR families (the event-log "
                              "schema; online/trainer.py has the same boundary)")
-        refuse_variant(cfg.model.model_name, "the elastic trainer")
         self.cfg = cfg
         self.device_id = int(device_id)
         self.card = resolve_device(device)

@@ -86,9 +86,10 @@ def servable_from_payload(cfg: Config, tree: dict) -> tuple[dict, dict]:
     """``(state_dict, cursor)`` to publish: the model's tables cut to the
     true vocabulary, as the trainer's inline publish cuts them."""
     sd = dict(tree["model"])
-    if "fm_w" in sd:
-        sd["fm_w"] = sd["fm_w"][:cfg.model.feature_size]
-        sd["fm_v"] = sd["fm_v"][:fm_v_rows(cfg.model)]
+    # every table the family has (DCN-v2: fm_v alone)
+    for k, rows in (("fm_w", cfg.model.feature_size), ("fm_v", fm_v_rows(cfg.model))):
+        if k in sd:
+            sd[k] = sd[k][:rows]
     online = tree["online"]
     cursor = cursor_from_arrays(online["cursor_segment"].numpy(),
                                 online["cursor_len"].numpy(), online["cursor_record"].numpy())

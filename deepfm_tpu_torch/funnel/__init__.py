@@ -1,11 +1,12 @@
 """Recommendation funnel: top-K retrieval over the two-tower index (on one
-card or row-sharded), then ranking through the DeepFM.  Counterpart of
+card or row-sharded), then ranking through a CTR model (DeepFM, xDeepFM
+or DCN-v2).  Counterpart of
 ``deepfm_tpu/funnel``.
 
 * ``index.py`` - the index (row-sharded over ``model_parallel`` shards),
   the exact and int8 retrieval stages (int8 through kernel B2,
   ops/retrieval.py) with the candidate-pack merge, the rank stage (kernel
-  B1) and the brute-force reference;
+  B1 for a DeepFM or xDeepFM ranker) and the brute-force reference;
 * ``graphs.py`` - both stages as CUDA graphs in two weight slots;
 * ``publish.py`` - the funnel servable (rank/, query/, index.npz,
   funnel.json), the int8 recall gate and ``FunnelPublisher``'s versions;

@@ -5,7 +5,7 @@ The item corpus is encoded once through the two-tower item tower into a
 ``[N, D]`` embedding matrix (:func:`build_index`).  A query batch is
 encoded by the user tower and scored against the index
 (:func:`build_retrieve_with`), and each query's K candidates are ranked
-through the live DeepFM (:func:`build_rank_topn_with`).
+through the live ranker (:func:`build_rank_topn_with`).
 
 The index is row-sharded over ``model_parallel`` shards, as JAX shards it
 over the serve mesh's ``model`` axis: the capacity rounds up to a
@@ -110,7 +110,7 @@ class FunnelContext(NamedTuple):
     """The funnel's static geometry."""
 
     query_cfg: ModelConfig     # two-tower config (user tower = query encoder)
-    rank_cfg: ModelConfig      # CTR ranker config (the live DeepFM)
+    rank_cfg: ModelConfig      # the ranker's config (any CTR family)
     capacity: int              # index rows (items plus pad rows), a multiple of M
     top_k: int                 # candidates retrieved per query
     return_n: int              # ranked items returned per query (<= top_k)
@@ -136,10 +136,7 @@ def make_funnel_context(rank_cfg: ModelConfig, query_cfg: ModelConfig, *,
     ``top_k`` (under int8 ``top_k·oversample``) must fit one shard.
     ``item_field`` defaults to the ranker's last field; ``retrieval``
     ("exact" | "int8" | "auto") resolves against the padded capacity."""
-    from ..models.base import refuse_variant
     from ..parallel.spmd import padded_vocab
-
-    refuse_variant(rank_cfg.model_name, "the funnel's ranker")
 
     mp = int(model_parallel)
     if mp < 1:
@@ -271,7 +268,8 @@ def build_rank_topn_with(ctx: FunnelContext) -> Callable:
 
     Each query row's ``[F]`` ranking features fan out to its K candidates
     (the candidate id in ``item_field``, val 1.0) and score through the
-    live DeepFM (``payload["rank"]``, kernel B1 on the card).  A sigmoid,
+    live ranker (``payload["rank"]``, a model of any CTR family; kernel B1
+    on the card for DeepFM and xDeepFM).  A sigmoid,
     -inf for pad candidates, then a stable sort by (-probability,
     retrieval order) keeps the top N.  Pack lanes: ``[:, 0]`` item ids (f32-exact),
     ``[:, 1]`` rank probabilities, ``[:, 2]`` retrieval scores."""
@@ -349,7 +347,7 @@ def index_shards(ctx: FunnelContext, index: FunnelIndex) -> list[dict[str, np.nd
 
 def stage_funnel_payload(ctx: FunnelContext, rank_model, query_model,
                          index: FunnelIndex) -> dict:
-    """The funnel payload: the ranker (``DeepFM``), the query encoder
+    """The funnel payload: the ranker (a ``CTRModel``), the query encoder
     (``TwoTower``) and the index shards (:func:`index_shards`), all on the
     models' device."""
     dev = rank_model.fm_v.device

@@ -109,10 +109,8 @@ def write_funnel_tree(dest: str, rank_cfg: ModelConfig, rank_state: dict,
                       index: FunnelIndex, meta: dict) -> str:
     """Write one funnel tree from two ``state_dict``s, the index and the
     meta; returns the directory."""
-    from ..models.base import refuse_variant
     from ..serve.export import export_servable
 
-    refuse_variant(rank_cfg.model_name, "the funnel's publisher")
     dest = os.path.abspath(dest)
     os.makedirs(dest, exist_ok=True)
     export_servable(rank_cfg, rank_state, os.path.join(dest, "rank"))
@@ -135,29 +133,25 @@ class FunnelArtifact(NamedTuple):
     meta: dict
 
 
-def _read_servable(directory: str) -> tuple[ModelConfig, dict]:
+def load_funnel_artifact(directory: str) -> FunnelArtifact:
+    """Read a funnel tree (rank and query servables, index, meta)."""
     from ..core.config import load_config
     from ..serve.export import read_params
 
-    return load_config(directory), read_params(directory)
-
-
-def load_funnel_artifact(directory: str) -> FunnelArtifact:
-    """Read a funnel tree (rank and query servables, index, meta)."""
     directory = os.path.abspath(directory)
     if not is_funnel_servable(directory):
         raise ValueError(f"{directory!r} is not a funnel servable (no {FUNNEL_META})")
     with open(os.path.join(directory, FUNNEL_META)) as f:
         meta = json.load(f)
-    rank_cfg, rank_state = _read_servable(os.path.join(directory, "rank"))
+    # each servable's config is checked before its weights are read, as JAX does
+    rank_cfg = load_config(os.path.join(directory, "rank"))
     if rank_cfg.model_name == "two_tower":
         raise ValueError("the funnel's rank/ servable must be a CTR model")
-    from ..models.base import refuse_variant
-
-    refuse_variant(rank_cfg.model_name, "the funnel's ranker")
-    query_cfg, query_state = _read_servable(os.path.join(directory, "query"))
+    rank_state = read_params(os.path.join(directory, "rank"))
+    query_cfg = load_config(os.path.join(directory, "query"))
     if query_cfg.model_name != "two_tower":
         raise ValueError("the funnel's query/ servable must be two_tower")
+    query_state = read_params(os.path.join(directory, "query"))
     with np.load(os.path.join(directory, INDEX_NPZ)) as z:
         index = FunnelIndex(item_ids=np.asarray(z["item_ids"], np.int32),
                             item_emb=np.asarray(z["item_emb"], np.float32))

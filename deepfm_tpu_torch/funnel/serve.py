@@ -14,7 +14,7 @@ the two stages replay as CUDA graphs of the live weight slot
                   shards' candidate packs -> K (id, score) candidates per
                   row (funnel/index.build_retrieve_with);
     2. rank     - each row's K candidates fan out to K ranking rows (the
-                  candidate id in ``item_field``), score through the DeepFM
+                  candidate id in ``item_field``), score through the ranker
                   (kernel B1 on the card) and keep the top N
                   (funnel/index.build_rank_topn_with).
 

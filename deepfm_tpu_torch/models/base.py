@@ -49,17 +49,9 @@ def registered_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# the CTR families besides DeepFM: the paths that run DeepFM alone refuse
-# them by name (refuse_variant)
+# the CTR families besides DeepFM
 VARIANTS = ("xdeepfm", "dcnv2")
 # every family that maps (feat_ids, feat_vals) to logits (models/deepfm.py
 # CTRModel); two_tower is the other
 CTR_FAMILIES = ("deepfm", *VARIANTS)
 
-
-def refuse_variant(model_name: str, where: str) -> None:
-    """Raise ValueError when ``model_name`` is xDeepFM or DCN-v2 on a path
-    (``where``) that runs DeepFM alone, rather than compute DeepFM there."""
-    if model_name in VARIANTS:
-        raise ValueError(f"{where} runs DeepFM only: model {model_name!r} is not "
-                         f"carried there yet (ROADMAP A12 remainder)")

@@ -222,7 +222,7 @@ class ModelPublisher:
     def publish(self, cfg, state_dict: dict, *, step: int = 0,
                 cursor: dict | None = None, watermark: float = 0.0,
                 extra: dict | None = None, fence=None) -> Manifest:
-        """Write ``state_dict`` (a DeepFM's, for ``cfg``: a port ``Config``
+        """Write ``state_dict`` (a CTR model's, for ``cfg``: a port ``Config``
         or its ``ModelConfig``) as the next version's servable, then its
         manifest last.  A crash before the manifest leaves an invisible
         partial tree, which the next publish of that number overwrites.

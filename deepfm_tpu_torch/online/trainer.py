@@ -49,7 +49,6 @@ import torch
 from ..checkpoint import make_checkpointer
 from ..core.config import Config
 from ..core.platform import resolve_device
-from ..models.base import refuse_variant
 from ..ops import fused_ctr
 from ..train.step import TrainState, create_train_state, train_step
 from ..utils.logging import MetricLogger
@@ -169,7 +168,6 @@ class OnlineTrainer:
         if cfg.model.model_name == "two_tower":
             raise ValueError("online training covers the CTR families; the two-tower "
                              "ratings feed has no event-log schema yet")
-        refuse_variant(cfg.model.model_name, "the online trainer")
         self.cfg = cfg
         if not cfg.data.training_data_dir:
             raise ValueError("online training needs data.training_data_dir "

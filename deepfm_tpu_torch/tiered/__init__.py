@@ -1,6 +1,7 @@
 """The tiered embedding store: the port's counterpart of
-``deepfm_tpu/tiered``.  fm_w, fm_v and their lazy-Adam moments page
-through three tiers instead of living on the card whole:
+``deepfm_tpu/tiered``.  The family's tables (fm_w and fm_v, DCN-v2's
+fm_v alone) and their lazy-Adam moments page through three tiers
+instead of living on the card whole:
 
 * **hot**: a fixed-capacity cache of row records on the card
   (``step.py``); the steady-state step is the lazy step on the cache with
@@ -8,8 +9,9 @@ through three tiers instead of living on the card whole:
 * **host**: a host-memory backing store (``host.py``), filled on a miss
   and ahead of the step by the input's id stream (``trainer.py``
   ``observer``);
-* **cold**: pages of records in a local directory (``store.py``): base
-  segments read by byte range and copy-on-write page overlays.
+* **cold**: pages of records in a local directory or under an
+  object-store prefix (``store.py``): base segments read by byte range
+  and copy-on-write page overlays.
 
 The pager (``pager.py``) translates a batch's ids to slots between steps,
 writes dirty victims back and stages the misses.  A checkpoint streams the

@@ -10,9 +10,9 @@ live trainer writing new overlays never changes the rows it reads.
 
 A request's misses fault in through host and cold tier outside the
 scorer's lock; the slot map's bookkeeping and the device work (the cache
-refill by ``index_copy_`` and the forward, kernel B1 on the cache with
-slot ids) run under it, so a refill never rewrites a slot that a forward
-in flight reads (JAX rebinds immutable arrays for the same end).  A cold
+refill by ``index_copy_`` and the forward, the family hook on the cache
+with slot ids: B1 for DeepFM and xDeepFM) run under it, so a refill
+never rewrites a slot that a forward in flight reads (JAX rebinds immutable arrays for the same end).  A cold
 tier that fails fails only the request that faults on it
 (``cold_errors``).
 
@@ -44,16 +44,15 @@ REST_FILE = "rest.pt"
 class TieredScorer:
     """Scores through a paged row cache of ``capacity`` slots on ``device``
     (default: the card) over ``cold``, with the model's non-table part
-    ``model`` (a DeepFM whose own tables are never read)."""
+    ``model`` (a model of any CTR family whose own tables are never
+    read)."""
 
     _FAULT_ROUNDS = 4
 
     def __init__(self, cfg: Config, cold: ColdTier, *, model, capacity: int = 0,
                  host_rows: int = 0, registry: MetricsRegistry | None = None):
-        from ..models.base import refuse_variant
         from .trainer import resolve_tiered
 
-        refuse_variant(cfg.model.model_name, "the tiered scorer")
         sizes = resolve_tiered(cfg)
         self.cfg = cfg
         self.cold = cold
@@ -78,13 +77,15 @@ class TieredScorer:
 
     @classmethod
     def from_publish(cls, root: str, staging_dir: str, *, version: int | None = None,
-                     cold_root: str | None = None, init_fn=None, capacity: int = 0,
-                     host_rows: int = 0, device=None,
+                     cold_root: str | None = None, init_fn=None, retry=None,
+                     capacity: int = 0, host_rows: int = 0, device=None,
                      registry: MetricsRegistry | None = None) -> "TieredScorer":
         """A scorer of a ``ModelPublisher.publish_tiered`` version (default:
         the latest): the manifest's ``extra["tiered"]`` snapshot pins the
         cold tier's ``page_versions``, the version's tree gives the config
-        and the non-table weights."""
+        and the non-table weights.  ``retry`` governs a cold tier on an
+        object store and should stay fail-fast: serving never stalls a
+        request on a store that is down."""
         from ..online import publisher as pub
         from .trainer import _template
 
@@ -105,7 +106,7 @@ class TieredScorer:
         cold = ColdTier(cold_root or snap["root"], rows=int(snap["rows"]), layout=layout,
                         page_rows=int(snap["page_rows"]),
                         pages_per_segment=int(snap["pages_per_segment"]), init_fn=init_fn,
-                        page_versions={int(p): int(v)
+                        retry=retry, page_versions={int(p): int(v)
                                        for p, v in snap["page_versions"].items()})
         return cls(cfg, cold, model=template.model, capacity=capacity,
                    host_rows=host_rows, registry=registry)

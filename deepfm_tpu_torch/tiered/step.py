@@ -13,8 +13,9 @@ with slot ids.  The batch arrives with its ids translated to cache slots
 the cache by one ``index_copy_`` a tensor (:func:`stage_swap`); the pack's
 pad entries all name row ``capacity``, the sink row, which no slot id
 reaches.  Then the segments are sorted over slot ids, the compact rows are
-gathered from the hot cache, B1 runs forward and B1′ backward on them, and
-lazy Adam updates the touched slots of the cache and its moments in place.
+gathered from the hot cache, the family hook ``table_logits`` runs on
+them (B1 forward and B1′ backward for DeepFM and xDeepFM), and lazy Adam
+updates the touched slots of the cache and its moments in place.
 On the card the whole of it, swap included, is one CUDA graph
 (train/step.py ``StepGraph``), whose only host bytes are the slot ids,
 the values, the labels and the stage pack, copied into static buffers
@@ -42,7 +43,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.fused_ctr import fused_ctr_interaction
 from ..train.optimizer import Optimizer
 from ..train.step import StepGraph, _advance, lazy_body, load_scalars, _scalar_buffer
 from .store import RecordLayout
@@ -61,9 +61,9 @@ class PagedHot(NamedTuple):
 @dataclass
 class PagedState:
     """What the paged step carries: the step count, the model's non-table
-    part (a DeepFM whose own fm_w and fm_v are never read: its MLP, fm_b,
-    batch norm and dropout generator), the dense optimizer over that part,
-    the hot cache and the record layout.  ``scalars`` and ``graph`` as in
+    part (a model of the family whose own tables are never read: its MLP,
+    fm_b, batch norm, CIN or cross weights and dropout generator), the
+    dense optimizer over that part, the hot cache and the record layout.  ``scalars`` and ``graph`` as in
     ``train.step.TrainState``."""
 
     step: int
@@ -154,14 +154,14 @@ def make_readback(layout: RecordLayout):
 
 def make_paged_predict():
     """``predict(model, hot_rows, slot_ids [B, F], vals [B, F]) ->
-    probs [B]`` in eval mode: B1 on the cache's values with slot ids,
-    then the model's head (the serving gather over a read-only cache)."""
+    probs [B]`` in eval mode: the family hook ``table_logits`` on the
+    cache's values with slot ids (the serving gather over a read-only
+    cache; B1 for DeepFM and xDeepFM, DCN-v2's plain gather)."""
 
     @torch.no_grad()
     def predict(model: nn.Module, hot_rows: dict, slot_ids: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
         model.eval()
-        emb = fused_ctr_interaction(hot_rows["fm_w"], hot_rows["fm_v"], slot_ids, vals)
-        return torch.sigmoid(model.head(*emb))
+        return torch.sigmoid(model.table_logits(hot_rows, slot_ids, vals))
 
     return predict

@@ -1,7 +1,12 @@
-"""Cold tier: row pages on a local directory with ranged reads and
-copy-on-write overlays.  A trimmed copy of ``deepfm_tpu/tiered/store.py``
-(that module imports no JAX; the port keeps its own copy): the JAX tier
-also takes an object-store prefix, which is ROADMAP A11 here and raises.
+"""Cold tier: row pages on a local directory or an object-store prefix,
+with ranged reads and copy-on-write overlays.  The port's copy of
+``deepfm_tpu/tiered/store.py`` (that module imports no JAX; the port keeps
+its own copy).  A root with a scheme (``http://host:port/bucket/prefix``)
+puts every segment and overlay at ``join_url(root, name)`` through
+``data/object_store.py HttpObjectStore``, with its retry policy: a page
+read of a base segment is one ranged GET, an overlay one GET, a write one
+PUT, a segment probe one HEAD.  Object names and bytes are the local
+tier's file names and bytes.
 
 The cold tier is the system of record for every row the hot and host
 tiers do not hold.  Rows are grouped into fixed-size **pages**
@@ -31,13 +36,12 @@ import time
 
 import numpy as np
 
+from ..data.object_store import HttpObjectStore, is_url, join_url
+
 # a cold read slower than this counts its excess toward ``stall_secs``
 _STALL_BUDGET_SECS = 0.5
 
 _ITEM = np.dtype(np.float32).itemsize
-
-COLD_URL_NOT_PORTED = ("an object-store cold tier is not ported yet (ROADMAP A11, "
-                       "data/object_store.py); give a local directory")
 
 
 class RecordLayout:
@@ -96,16 +100,18 @@ class RecordLayout:
 
 
 class ColdTier:
-    """Page-granular row storage under a local directory ``root``."""
+    """Page-granular row storage under ``root``: a local directory, or an
+    object-store prefix whose requests ``retry`` (a ``utils/retry.py``
+    policy; default the store's own) governs."""
 
     def __init__(self, root: str, *, rows: int, layout: RecordLayout,
                  page_rows: int = 1024, pages_per_segment: int = 64, init_fn=None,
-                 page_versions: dict[int, int] | None = None):
-        if "://" in str(root):
-            raise NotImplementedError(f"cold tier root {root!r}: {COLD_URL_NOT_PORTED}")
+                 retry=None, page_versions: dict[int, int] | None = None):
         if page_rows < 1 or pages_per_segment < 1:
             raise ValueError("page_rows and pages_per_segment must be >= 1")
         self.root = os.fspath(root).rstrip("/")
+        self._remote = is_url(self.root)
+        self._store = HttpObjectStore(retry=retry) if self._remote else None
         self.rows = int(rows)
         self.layout = layout
         self.page_rows = int(page_rows)
@@ -124,11 +130,15 @@ class ColdTier:
         }
 
     # -- keys ----------------------------------------------------------------
+    def _key(self, name: str) -> str:
+        return (join_url(self.root, name) if self._remote
+                else os.path.join(self.root, *name.split("/")))
+
     def _seg_key(self, seg: int) -> str:
-        return os.path.join(self.root, "segments", f"{seg:06d}.bin")
+        return self._key(f"segments/{seg:06d}.bin")
 
     def _page_key(self, page: int, version: int) -> str:
-        return os.path.join(self.root, "pages", f"{page:08d}.v{version:06d}.bin")
+        return self._key(f"pages/{page:08d}.v{version:06d}.bin")
 
     def page_len(self, page: int) -> int:
         return min(self.page_rows, self.rows - page * self.page_rows)
@@ -146,16 +156,13 @@ class ColdTier:
         t0 = time.monotonic()
         data = None
         if version is not None:
-            with open(self._page_key(page, version), "rb") as f:
-                data = f.read()
+            data = self._read_object(self._page_key(page, version))
         else:
             seg = page // self.pages_per_segment
             if self._segment_exists(seg):
                 off = (page % self.pages_per_segment) * self.page_rows \
                     * self.layout.width * _ITEM
-                with open(self._seg_key(seg), "rb") as f:
-                    f.seek(off)
-                    data = f.read(nbytes)
+                data = self._read_range(self._seg_key(seg), off, nbytes)
         elapsed = time.monotonic() - t0
         if data is None:
             if self._init_fn is None:
@@ -180,7 +187,8 @@ class ColdTier:
         with self._lock:
             if self._seg_exists.get(seg):
                 return True
-        found = os.path.isfile(self._seg_key(seg))
+        key = self._seg_key(seg)
+        found = self._store.exists(key) if self._remote else os.path.isfile(key)
         with self._lock:
             # only a positive probe is cached: a segment written later must
             # stay discoverable
@@ -188,13 +196,35 @@ class ColdTier:
                 self._seg_exists[seg] = True
         return found
 
-    @staticmethod
-    def _write_file(key: str, data: bytes) -> None:
+    def _read_object(self, key: str) -> bytes:
+        if self._remote:
+            return self._store.get(key)
+        with open(key, "rb") as f:
+            return f.read()
+
+    def _read_range(self, key: str, offset: int, length: int) -> bytes:
+        if self._remote:
+            return self._store.get_range(key, offset, length)
+        with open(key, "rb") as f:
+            f.seek(offset)
+            return f.read(length)
+
+    def _write_object(self, key: str, data: bytes) -> None:
+        """One object (a PUT) or file (written aside, then renamed)."""
+        if self._remote:
+            self._store.put(key, data)
+            return
         os.makedirs(os.path.dirname(key), exist_ok=True)
         tmp = key + ".tmp"
         with open(tmp, "wb") as f:
             f.write(data)
         os.replace(tmp, key)
+
+    def _delete_object(self, key: str) -> None:
+        if self._remote:
+            self._store.delete(key)
+        else:
+            os.remove(key)
 
     # -- write ---------------------------------------------------------------
     def write_page(self, page: int, recs: np.ndarray) -> int:
@@ -212,7 +242,7 @@ class ColdTier:
             if page in self._page_versions:
                 self._superseded.setdefault(page, []).append(self._page_versions[page])
         data = recs.tobytes()
-        self._write_file(self._page_key(page, version), data)
+        self._write_object(self._page_key(page, version), data)
         with self._lock:
             self._page_versions[page] = version
             self._stats["cold_writes"] += 1
@@ -238,7 +268,7 @@ class ColdTier:
         deleted = 0
         for p, ver in doomed:
             try:
-                os.remove(self._page_key(p, ver))
+                self._delete_object(self._page_key(p, ver))
                 deleted += 1
             except OSError:
                 logging.getLogger(__name__).warning(
@@ -257,7 +287,7 @@ class ColdTier:
                 {k: np.asarray(rows[k])[lo:hi] for k in self.layout.keys},
                 {k: np.asarray(m[k])[lo:hi] for k in self.layout.keys},
                 {k: np.asarray(v[k])[lo:hi] for k in self.layout.keys})
-            self._write_file(self._seg_key(seg), np.ascontiguousarray(recs).tobytes())
+            self._write_object(self._seg_key(seg), np.ascontiguousarray(recs).tobytes())
             with self._lock:
                 self._seg_exists[seg] = True
         return n_segs

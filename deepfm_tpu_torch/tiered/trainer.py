@@ -40,9 +40,6 @@ _META = "tiered_meta.json"
 _LEAVES = "tiered_leaves.pt"
 
 
-from ..models.base import refuse_variant
-
-
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
@@ -64,9 +61,7 @@ def resolve_tiered(cfg: Config) -> dict:
 
 
 def _check_cfg(cfg: Config) -> None:
-    """JAX's refusals (``tiered/trainer.py:71-81``), and the other CTR
-    families (``refuse_variant``)."""
-    refuse_variant(cfg.model.model_name, "the tiered store's paged step")
+    """JAX's refusals (``tiered/trainer.py:71-81``)."""
     if cfg.model.fused_kernel != "off":
         raise ValueError(f"tiered embeddings with fused_kernel={cfg.model.fused_kernel!r}:"
                          " the JAX package refuses this pair, so the port does too (its "
@@ -86,13 +81,27 @@ def _template(cfg: Config, device) -> TrainState:
     return create_train_state(small, device)
 
 
-def _widths(cfg: Config) -> dict[str, int]:
-    return {k: (1 if k == "fm_w" else cfg.model.embedding_size) for k in LAZY_TABLE_KEYS}
+def _table_keys(cfg: Config, model) -> list[str]:
+    """The lazy tables the family has (JAX ``_split_rest``): DeepFM's and
+    xDeepFM's fm_w and fm_v, DCN-v2's fm_v alone."""
+    params = dict(model.named_parameters())
+    keys = [k for k in LAZY_TABLE_KEYS if k in params]
+    if not keys:
+        raise ValueError(f"tiered embeddings need {LAZY_TABLE_KEYS} tables; "
+                         f"{cfg.model.model_name!r} has {sorted(params)}")
+    return keys
+
+
+def _widths(cfg: Config, model) -> dict[str, int]:
+    """Each paged table's row width (1 for a ``[V]`` table, K for ``[V,
+    K]``): the record layout of the family."""
+    return {k: int(np.prod(getattr(model, k).shape[1:])) for k in _table_keys(cfg, model)}
 
 
 def rest_state_dict(model) -> dict:
-    """The model's state_dict without the tables: what a paged state
-    keeps and publishes."""
+    """The model's state_dict without the tables (its fm_b, MLP, batch
+    norm and the family's CIN or cross weights): what a paged state keeps
+    and publishes."""
     return {k: v for k, v in model.state_dict().items() if k not in LAZY_TABLE_KEYS}
 
 
@@ -139,18 +148,19 @@ class TieredTrainer:
 
     # -- constructors ----------------------------------------------------------
     @classmethod
-    def from_resident_state(cls, cfg: Config, state: TrainState, cold_root: str,
-                            **sizes) -> "TieredTrainer":
-        """Seed the cold tier from a resident lazy train state (its tables
-        and moments as base segments) and go on paged from its step,
-        weights, optimizer and dropout generator."""
+    def from_resident_state(cls, cfg: Config, state: TrainState, cold_root: str, *,
+                            retry=None, **sizes) -> "TieredTrainer":
+        """Seed the cold tier (a directory or an object-store URL, whose
+        requests ``retry`` governs) from a resident lazy train state (its
+        tables and moments as base segments) and go on paged from its
+        step, weights, optimizer and dropout generator."""
+        model = state.model
+        layout = RecordLayout(_widths(cfg, model))
         if state.lazy is None:
             raise ValueError("tiered embeddings continue the LAZY optimizer layout; "
                              "build the source state with lazy_embedding_updates=True")
-        model = state.model
-        layout = RecordLayout(_widths(cfg))
         cold = ColdTier(cold_root, rows=cfg.model.feature_size, layout=layout,
-                        page_rows=resolve_tiered(cfg)["page_rows"])
+                        page_rows=resolve_tiered(cfg)["page_rows"], retry=retry)
         n = cfg.model.feature_size
         cold.import_dense(
             {k: getattr(model, k).detach()[:n].cpu().numpy() for k in layout.keys},
@@ -163,18 +173,19 @@ class TieredTrainer:
         return cls(cfg, cold, state=template, step0=state.step, **sizes)
 
     @classmethod
-    def create_virtual(cls, cfg: Config, cold_root: str, *, init_fn=None, device=None,
-                       **sizes) -> "TieredTrainer":
+    def create_virtual(cls, cfg: Config, cold_root: str, *, init_fn=None, retry=None,
+                       device=None, **sizes) -> "TieredTrainer":
         """A fresh trainer whose table never exists whole: a cold page comes
         from ``init_fn(page) -> [rows, width]`` (default
         :func:`default_init_fn`) until it is first written back."""
         _check_cfg(cfg)
-        layout = RecordLayout(_widths(cfg))
+        template = _template(cfg, resolve_device(device))
+        layout = RecordLayout(_widths(cfg, template.model))
         page_rows = resolve_tiered(cfg)["page_rows"]
         cold = ColdTier(cold_root, rows=cfg.model.feature_size, layout=layout,
-                        page_rows=page_rows,
+                        page_rows=page_rows, retry=retry,
                         init_fn=init_fn or default_init_fn(cfg, layout, page_rows))
-        return cls(cfg, cold, state=_template(cfg, resolve_device(device)), **sizes)
+        return cls(cfg, cold, state=template, **sizes)
 
     # -- training --------------------------------------------------------------
     def _tensor(self, x, dtype) -> torch.Tensor:
@@ -259,7 +270,7 @@ class TieredTrainer:
 
     @classmethod
     def restore(cls, cfg: Config, directory: str, *, cold_root: str | None = None,
-                init_fn=None, virtual: bool = False, device=None,
+                init_fn=None, virtual: bool = False, retry=None, device=None,
                 **sizes) -> "TieredTrainer":
         """Resume from a paged checkpoint with the cache cold.  ``cold_root``
         overrides the recorded root; ``virtual=True`` reinstates the
@@ -274,7 +285,7 @@ class TieredTrainer:
         cold = ColdTier(cold_root or snap["root"], rows=int(snap["rows"]), layout=layout,
                         page_rows=int(snap["page_rows"]),
                         pages_per_segment=int(snap["pages_per_segment"]),
-                        init_fn=init_fn,
+                        init_fn=init_fn, retry=retry,
                         page_versions={int(p): int(v)
                                        for p, v in snap["page_versions"].items()})
         template = _template(cfg, resolve_device(device))

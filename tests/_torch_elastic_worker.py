@@ -235,7 +235,7 @@ def reshard_restore(rank: int, world: int, store: str, out: str, jobs: list) -> 
             results.append({"local": spmd.local_state(fresh), "step": fresh.step,
                             "offset": sh.offset if sh.mp > 1 else 0,
                             "rows": {k: getattr(fresh.model, k).shape[0]
-                                     for k in ("fm_w", "fm_v")},
+                                     for k in ("fm_w", "fm_v") if hasattr(fresh.model, k)},
                             "resharded": ckpt.last_restore["resharded"],
                             "slices": list(reshard.last_restore["slices"]),
                             "tables": spmd.full_state(fresh)["model"] if job.get("gather")

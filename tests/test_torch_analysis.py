@@ -535,6 +535,61 @@ def test_the_torch_rules_catch_captured_host_ops_and_leave_host_code():
     assert found == TORCH_EXPECTED
 
 
+TYPED_ATTR_FIXTURES = {
+    "pkg/__init__.py": "",
+    "pkg/graphs.py": TORCH_FIXTURES["pkg/graphs.py"],
+    "pkg/models.py": '''
+class Head:
+    def logits(self, x):
+        raise NotImplementedError
+
+
+class Wide(Head):
+    def logits(self, x):
+        return x * x.sum().item()
+
+
+class Deep(Head):
+    def logits(self, x):
+        return x + 1
+''',
+    "pkg/member.py": '''
+from .graphs import SlotGraphs
+from .models import Head, Wide
+
+
+def make():
+    return Wide()
+
+
+class Member:
+    def __init__(self, device):
+        self.head: Head = make()
+        self.other = make()
+        self._slots = SlotGraphs(device, (8,), 4, lambda b: b, 1, self._bodies)
+
+    def _forward(self, x):
+        return self.head.logits(x) + self.other.logits(x)
+
+    def _bodies(self, slot, st):
+        return (lambda: st.out.copy_(self._forward(st.ids)),)
+''',
+}
+
+
+def test_a_typed_attribute_s_method_reaches_every_override():
+    """``self.head: Head = ...`` types the attribute: a captured call of
+    ``self.head.logits`` reaches ``Head.logits`` and each project
+    subclass's override (a host read in ``Wide.logits`` is found); the
+    untyped ``self.other`` stays opaque."""
+    found = {(f.path, f.line, f.rule) for f in run_ast_engine(TYPED_ATTR_FIXTURES)}
+    assert found == {("pkg/models.py", 9, "tracer-host-op")}
+    got = {(p, getattr(n, "name", "<lambda>"))
+           for p, n in captured_functions(TYPED_ATTR_FIXTURES).fns.values()}
+    assert {("pkg/models.py", "logits"), ("pkg/member.py", "_forward")} <= got
+    assert ("pkg/member.py", "make") not in got
+
+
 @pytest.mark.parametrize("expr, flagged", [
     ("(a * b).to(torch.int32)", True),
     ("x.sum().int()", True),

@@ -38,7 +38,6 @@ def test_the_jax_defaults_copy_matches_the_jax_package():
 # each field that changes the result, a value other than its default, and
 # the ROADMAP item the error names
 RAISING = [
-    ("model", "tiered_cold_url", "http://store:9000/bucket/cold", "A11"),
     ("elastic", "lease_ttl_secs", 0.0, "finite and > 0"),
     ("run", "workers_per_host", 2, "A7"),
     ("mesh", "coordinator_address", "10.0.0.1:1234", "torch.distributed.run"),
@@ -60,9 +59,11 @@ def test_a_field_that_changes_the_result_raises(section, name, value, item):
 
 
 # the input pipeline's modes (stream mode, the record shuffle, multi_path,
-# the bounded eval read) and the profiler's directory: carried, at JAX's
-# values, from a config.json and from --set
-CARRIED_A6 = [("data", "shuffle_buffer", 4096), ("data", "stream_mode", True),
+# the bounded eval read), the profiler's directory and the tiered store's
+# object-store cold root: carried, at JAX's values, from a config.json and
+# from --set
+CARRIED_A6 = [("model", "tiered_cold_url", "http://store:9000/bucket/cold"),
+              ("data", "shuffle_buffer", 4096), ("data", "stream_mode", True),
               ("data", "multi_path", True), ("data", "eval_max_batches", 8),
               ("data", "training_channel_name", "train-ch"),
               ("data", "evaluation_channel_name", "eval-ch"),
@@ -120,11 +121,15 @@ def test_the_grid_fields_warn_where_jax_warns():
 
 
 def test_the_model_section_alone_checks_too(tmp_path):
+    """A servable's model section alone: an object-store cold root is
+    taken as JAX takes it, and a tiered field JAX refuses raises."""
+    model = {**JaxModelConfig().__dict__, "tiered_embeddings": True,
+             "tiered_cold_url": "s3://bucket/cold"}
+    (tmp_path / "config.json").write_text(json.dumps({"model": model}, default=list))
+    assert load_config(tmp_path).tiered_cold_url == "s3://bucket/cold"
     (tmp_path / "config.json").write_text(json.dumps(
-        {"model": {**JaxModelConfig().__dict__, "tiered_embeddings": True,
-                   "tiered_cold_url": "s3://bucket/cold"}},
-        default=list))
-    with pytest.raises(ValueError, match="tiered_cold_url.*A11"):
+        {"model": {**model, "tiered_page_rows": 0}}, default=list))
+    with pytest.raises(ValueError, match="tiered_page_rows must be >= 1"):
         load_config(tmp_path)
 
 

@@ -1226,10 +1226,10 @@ def test_the_sharded_retrieve_graph_equals_the_eager_retrieve(device, mode):
                                             (2, 2, "alltoall"), (2, 4, "psum")])
 def test_a_members_graphs_equal_the_single_process_graphs(device, tmp_path, dp, mp, exchange):
     """A pool member's row-sharded predict (serve/pool/sharded.py), one
-    graph a slot and bucket with B1 a data slice, equals the
-    single-process graphed predict bit for bit at every bucket, on a batch
-    that overflows the all-to-all (the psum fallback, a device select)
-    too; a slot load captures nothing."""
+    graph a slot and bucket with B1 once over the data slices' compact
+    rows, equals the single-process graphed predict bit for bit at every
+    bucket, on a batch that overflows the all-to-all (the psum fallback, a
+    device select) too; a slot load captures nothing."""
     import numpy as np
 
     from deepfm_tpu_torch.serve.export import export_servable
@@ -1245,7 +1245,7 @@ def test_a_members_graphs_equal_the_single_process_graphs(device, tmp_path, dp, 
                                             exchange=exchange, buckets=SERVE_BUCKETS)
     pred.precompile()
     assert pred.graph_count == MEMBER_SLOTS * len(SERVE_BUCKETS)
-    assert pred.kernel_launches_per_replay == dp
+    assert pred.kernel_launches_per_replay == 1
     for b in SERVE_BUCKETS:
         ids, vals = _serve_rows(b, seed=b)
         np.testing.assert_array_equal(pred.predict_with(0, ids, vals),
@@ -1561,3 +1561,80 @@ def test_the_variants_graphed_predict_matches_eager(device, name):
             got = pred.predict_with(slot, ids, vals)
             assert np.isfinite(got).all()
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_xdeepfms_paged_predict_on_the_hot_cache_matches_plain(device, tmp_path):
+    """xDeepFM on the tiered store: after two paged steps of distinct ids
+    (B1 and B1' on the cache's compact rows), B1 on the hot cache with
+    slot ids against its plain version, and the paged predict (the
+    scorer's lookup, ``table_logits`` on the cache: one B1 launch) within
+    1e-6 of the resident model's eager predict."""
+    from deepfm_tpu_torch.analysis.trace_audit import distinct_batches
+    from deepfm_tpu_torch.core.config import Config
+    from deepfm_tpu_torch.tiered import TieredTrainer, make_paged_predict
+    from deepfm_tpu_torch.train.step import create_train_state, predict_step, train_step
+
+    model = _variant_cfg("xdeepfm", fused_kernel="off", tiered_embeddings=True,
+                         tiered_page_rows=64)
+    cfg = Config.from_dict({"model": model.to_dict(),
+                            "optimizer": {"lazy_embedding_updates": True},
+                            "data": {"batch_size": 64}})
+    bf = cfg.data.batch_size * cfg.model.field_size
+    resident = create_train_state(cfg, device)
+    batches = distinct_batches(cfg, 2, seed=7)
+    with TieredTrainer.from_resident_state(cfg, create_train_state(cfg, device),
+                                           str(tmp_path / "cold"), capacity=bf,
+                                           stage_rows=bf, host_rows=4 * bf) as tr:
+        for batch in batches:
+            got = tr.train_batch(batch)
+            want = train_step(resident, {k: v.to(device) for k, v in batch.items()})
+            assert torch.equal(got["loss"], want["loss"])
+        # the last batch's rows are all in the cache: no miss to stage
+        slot_ids, _ = tr.pager.translate(batches[1]["feat_ids"].numpy(), tr.state.hot)
+        ids = torch.from_numpy(slot_ids).to(device)
+        vals = batches[1]["feat_vals"].to(device)
+        hot = tr.state.hot.rows
+        _forward_matches_plain(hot["fm_w"], hot["fm_v"], ids, vals)
+        before = fused_ctr.launches
+        probs = make_paged_predict()(tr.state.model, hot, ids, vals)
+        assert fused_ctr.launches == before + 1
+    want = predict_step(resident.model, {"feat_ids": batches[1]["feat_ids"].to(device),
+                                         "feat_vals": vals})
+    torch.testing.assert_close(probs, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xdeepfm", "dcnv2"])
+def test_a_variant_members_graphs_equal_the_single_process_graphs(device, tmp_path, name):
+    """A [1, 2] member of xDeepFM or DCN-v2 (each table of the family cut
+    into row shards; ``table_logits`` on the compact rows): every bucket's
+    graph bit for bit the single-process graphed predict and within 1e-6
+    of the eager model; B1 once a replay for xDeepFM, never for DCN-v2."""
+    import numpy as np
+
+    from deepfm_tpu_torch.models import get_model
+    from deepfm_tpu_torch.serve.export import export_servable, model_from_state
+    from deepfm_tpu_torch.serve.graphs import GraphedPredictor
+    from deepfm_tpu_torch.serve.pool.sharded import MEMBER_SLOTS, load_sharded_servable
+
+    cfg = _variant_cfg(name, batch_norm=True)
+    state = get_model(cfg).build(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(9)).state_dict()
+    servable = export_servable(cfg, state, tmp_path / "s")
+    single = GraphedPredictor(cfg, state, device=device, buckets=SERVE_BUCKETS)
+    single.precompile()
+    _, pred, _, ctx = load_sharded_servable(servable, 1, 2, device=device, exchange="psum",
+                                            buckets=SERVE_BUCKETS)
+    pred.precompile()
+    assert pred.graph_count == MEMBER_SLOTS * len(SERVE_BUCKETS)
+    assert pred.kernel_launches_per_replay == (1 if name == "xdeepfm" else 0)
+    eager = model_from_state(cfg, state, device)
+    for b in SERVE_BUCKETS:
+        ids, vals = _serve_rows(b, seed=b)
+        got = pred.predict_with(0, ids, vals)
+        np.testing.assert_array_equal(got, single.predict_with(0, ids, vals))
+        with torch.inference_mode():
+            want = torch.sigmoid(eager(torch.from_numpy(ids).to(device),
+                                       torch.from_numpy(vals).to(device))).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

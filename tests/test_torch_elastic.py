@@ -16,7 +16,8 @@
   vocabulary, the final parameters within JAX's own tolerance
   (rtol=1e-4, atol=1e-5).  Two ranks killed without notice (no drain
   commit, their devices still on the board, a short lease): the
-  uncommitted step replays exactly once.  A restart
+  uncommitted step replays exactly once.  The lazy shrink and grow of
+  xDeepFM and DCN-v2 against JAX's the same way.  A restart
   on fewer ranks resumes the commit with no live reshard.  The capacity
   wait times out.
 """
@@ -360,8 +361,28 @@ def test_shrink_grow_mid_run_matches_uninterrupted_oracle(tmp_path, lazy):
     back to [2, 2] after step 6 (two new rank processes join), with drain
     commits: JAX's reshards summary, every event applied once along the
     lineage, JAX's final parameters, manifests at the true vocabulary."""
+    _shrink_grow(tmp_path, lazy)
+
+
+# the other CTR families at the widths above: xDeepFM's CIN and DCN-v2's
+# cross layers move as replicated parameters, their tables (DCN-v2: fm_v
+# alone) and lazy moments as row shards
+FAMILY_MODEL = {"xdeepfm": {"model_name": "xdeepfm", "cin_layers": [8, 8]},
+                "dcnv2": {"model_name": "dcnv2", "cross_layers": 2}}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_MODEL))
+def test_shrink_grow_of_each_family_matches_jax(tmp_path, name):
+    """The lazy shrink and grow of xDeepFM and DCN-v2 against JAX's
+    ElasticTrainer of the family under the same script: the reshards
+    summary (the tables each family has), the lineage, the final
+    parameters and the manifests (the family's model_name)."""
+    _shrink_grow(tmp_path, True, model=FAMILY_MODEL[name])
+
+
+def _shrink_grow(tmp_path, lazy, **overrides):
     root = str(tmp_path / "port")
-    doc = _doc(root, lazy=lazy)
+    doc = _doc(root, lazy=lazy, **overrides)
     _fill_stream(doc["data"]["training_data_dir"], segments=10)
     _seed_port_commit(doc)
     h = Harness([0, 1, 2, 3])
@@ -369,7 +390,7 @@ def test_shrink_grow_mid_run_matches_uninterrupted_oracle(tmp_path, lazy):
         jobs = _jobs(doc, h, root, [0, 1, 2, 3, 4, 5], joiners=(4, 5),
                      scripts={0: {3: [("drop", [2, 3])], 6: [("grow", [4, 5])]}})
         ranks = start_ranks(jobs)  # JAX's run goes on meanwhile
-        jdoc = _doc(str(tmp_path / "jax"), lazy=lazy)
+        jdoc = _doc(str(tmp_path / "jax"), lazy=lazy, **overrides)
         jdoc["data"]["training_data_dir"] = doc["data"]["training_data_dir"]
         jtrainer, jstate = _jax_run(jdoc, {3: lambda reg: reg.fail(2, 3),
                                            6: lambda reg: reg.restore(2, 3)})
@@ -397,7 +418,8 @@ def test_shrink_grow_mid_run_matches_uninterrupted_oracle(tmp_path, lazy):
     assert len(list_versions(pub)) >= 3
     for v in list_versions(pub):
         m = read_manifest(pub, v)
-        assert (m.feature_size, m.field_size) == (FEATURE, FIELD)
+        assert (m.feature_size, m.field_size, m.model_name) == (FEATURE, FIELD,
+                                                               cfg.model.model_name)
     assert latest_manifest(pub).step == 10
 
 

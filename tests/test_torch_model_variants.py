@@ -19,8 +19,10 @@ tables carry no pad rows), F = 6, K = 8, MLP 16/8, ``cin_layers`` (8, 8),
   (``_torch_dist_worker.grid_steps``, ``_torch_grid.py``);
 * the L2 penalty on the sparse tables only, the registry, the config
   round trip, export -> ``load_servable`` -> ``GraphedPredictor`` (eager on
-  the CPU), the CLI's train/eval/infer/export, and the paths outside this
-  slice refusing the variants by name.
+  the CPU), the CLI's train/eval/infer/export.  The tiered, pool, funnel,
+  online and elastic paths hold both families to JAX in
+  ``tests/test_torch_family_paths.py``, ``test_torch_elastic.py`` and
+  ``test_torch_reshard.py``.
 
 Tolerances: float32 1e-5 (the same float32 arithmetic with sums in another
 order; torch's einsum may contract the CIN in another order than XLA);
@@ -469,44 +471,3 @@ def test_cli_train_eval_infer_export(tmp_path, capsys, name, lazy):
                                    data_dir=str(tmp_path / "data"))))
     np.testing.assert_allclose(predict(first["feat_ids"], first["feat_vals"]), preds,
                                atol=1e-6)
-
-
-# -- the paths outside this slice --------------------------------------------
-
-def _refusing_entry_points(tmp_path, name):
-    from deepfm_tpu_torch.elastic.controller import ElasticTrainer
-    from deepfm_tpu_torch.funnel.index import make_funnel_context
-    from deepfm_tpu_torch.funnel.publish import write_funnel_tree
-    from deepfm_tpu_torch.online.trainer import OnlineTrainer
-    from deepfm_tpu_torch.serve.pool.sharded import make_serve_context
-    from deepfm_tpu_torch.tiered.serving import TieredScorer
-    from deepfm_tpu_torch.tiered.trainer import TieredTrainer
-
-    cfg = Config.from_dict({"model": dict(WIDTHS, model_name=name),
-                            "data": {"training_data_dir": str(tmp_path / "ev")},
-                            "run": {"servable_model_dir": str(tmp_path / "pub"),
-                                    "model_dir": str(tmp_path / "ckpt")},
-                            "optimizer": {"lazy_embedding_updates": True}})
-    qcfg = ModelConfig(model_name="two_tower", user_vocab_size=50, item_vocab_size=V)
-    return {
-        "tiered step": lambda: TieredTrainer.create_virtual(cfg, str(tmp_path / "cold"),
-                                                            device="cpu"),
-        "tiered scorer": lambda: TieredScorer(cfg, None, model=None),
-        "shard-group member": lambda: make_serve_context(cfg.model, 1, 2, device="cpu"),
-        "funnel ranker": lambda: make_funnel_context(cfg.model, qcfg, capacity=64, top_k=4),
-        "funnel publisher": lambda: write_funnel_tree(str(tmp_path / "f"), cfg.model, {},
-                                                      qcfg, {}, None, {}),
-        "online trainer": lambda: OnlineTrainer(cfg, device="cpu"),
-        "elastic trainer": lambda: ElasticTrainer(cfg, device="cpu"),
-    }
-
-
-REFUSING = ("tiered step", "tiered scorer", "shard-group member", "funnel ranker",
-            "funnel publisher", "online trainer", "elastic trainer")
-
-
-@pytest.mark.parametrize("name", FAMILIES)
-@pytest.mark.parametrize("path", REFUSING)
-def test_paths_outside_the_slice_refuse_the_variants_by_name(tmp_path, name, path):
-    with pytest.raises(ValueError, match=rf"DeepFM only: model '{name}'.*A12"):
-        _refusing_entry_points(tmp_path, name)[path]()

@@ -10,7 +10,9 @@ the gathered state at its new window (zeros past the old padding), the
 rest of the state equals it, and no slice the reshard copied out of a
 file holds more rows than the rank's window.  A non-zero row that the
 new padding drops raises ``ReshardDataLossError``.  The same weights
-through JAX's ``restore_resharded`` give the same whole tables."""
+through JAX's ``restore_resharded`` give the same whole tables.  A lazy
+``[2, 2]`` checkpoint of xDeepFM and of DCN-v2 (fm_v alone) restores at
+``[1, 4]`` and ``[1, 1]`` the same way."""
 
 import os
 
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 import _torch_elastic_worker as worker
-from _torch_grid import V, grid_batches, jax_cfg, port_cfg, spawn
+from _torch_grid import V, grid_batches, jax_cfg, port_cfg, spawn, variant_widths
 from deepfm_tpu.checkpoint import Checkpointer as JaxCheckpointer
 from deepfm_tpu.checkpoint import restore_resharded as jax_restore_resharded
 from deepfm_tpu.core.config import MeshConfig as JaxMeshConfig
@@ -162,3 +164,32 @@ def test_jax_restore_resharded_gives_the_same_tables(saved, tmp_path):
         want = np.asarray(jax.device_get(got.params[k]))
         assert tables[k].shape[0] == want.shape[0] == 304 and V < 304
         np.testing.assert_array_equal(tables[k].numpy(), want, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["xdeepfm", "dcnv2"])
+def test_a_variant_grid_checkpoint_restores_on_another_grid(tmp_path, name):
+    """A lazy [2, 2] checkpoint of the family after two steps restores at
+    [1, 4] on four ranks and at [1, 1] here: every table the family has,
+    its lazy moments, its Adam slots at the new window; the CIN or cross
+    weights as saved."""
+    model = {"shard_exchange": "alltoall", **variant_widths(name)}
+    d = str(tmp_path / "saved")
+    spawn(worker.reshard_save, tmp_path, 4,
+          [{"cfg": port_cfg(jax_cfg(2, 2, model=model, optimizer=MODES["lazy"])),
+            "batches": grid_batches(2, seed=5), "dir": d}])
+    ref = torch.load(os.path.join(d, "full.pt"), weights_only=True)
+    tables = {"xdeepfm": {"fm_w", "fm_v"}, "dcnv2": {"fm_v"}}[name]
+    assert set(ref["full"]["lazy"]["m"]) == tables
+    ranks = spawn(worker.reshard_restore, tmp_path, 4,
+                  [{"cfg": port_cfg(jax_cfg(1, 4, model=model, optimizer=MODES["lazy"])),
+                    "dir": d}])
+    for rank, (r,) in enumerate(ranks):
+        assert r["resharded"] and r["step"] == 2 and set(r["rows"]) == tables
+        _assert_window(r["local"], ref["full"], r["offset"], r["rows"], f"{name} rank {rank}")
+    cfg = Config.from_dict(port_cfg(jax_cfg(1, 1, model=model, optimizer=MODES["lazy"])))
+    fresh = create_train_state(cfg.with_overrides(run={"seed": 99}), "cpu")
+    restore_resharded(Checkpointer(d), fresh)
+    from deepfm_tpu_torch.parallel import spmd
+
+    rows = {k: getattr(fresh.model, k).shape[0] for k in tables}
+    _assert_window(spmd.local_state(fresh), ref["full"], 0, rows, f"{name} -> [1, 1]")

@@ -11,7 +11,9 @@
   dropout off: loss 1e-5 relative, tables and moments 1e-5 absolute);
 * the tiers: ranged page reads, the overlay and copy-on-write, the host
   tier's eviction flush, files of one package read by the other, and an
-  object-store root raising (ROADMAP A11);
+  object-store root taken by the tier and the config (ROADMAP A11; its
+  runs against a local directory and JAX's objects are in
+  ``tests/test_torch_family_paths.py``);
 * the train task with ``--set model.tiered_embeddings=true`` through
   ``python -m deepfm_tpu_torch --device cpu``: checkpoints, a resume, the
   publish and a scorer of it;
@@ -320,11 +322,31 @@ class TestTiers:
         np.testing.assert_array_equal(got[3], fresh[0])
         np.testing.assert_array_equal(np.delete(got, 3, axis=0), np.delete(read(0)[:8], 3, axis=0))
 
-    def test_an_object_store_root_raises(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="A11"):
-            ColdTier("http://127.0.0.1:9/bucket/cold", rows=10, layout=self._layout())
-        with pytest.raises(ValueError, match="tiered_cold_url.*A11"):
-            _cfg(tiered_cold_url="s3://bucket/cold")
+    def test_an_object_store_root_is_taken(self, tmp_path):
+        """A URL root pages through the object store: an import, a ranged
+        read and an overlay round-trip on the dev store; the config takes
+        the URL as JAX's does."""
+        from deepfm_tpu_torch.utils import dev_object_store
+
+        server, base = dev_object_store.serve(str(tmp_path / "store"))
+        try:
+            rows, mm, vv = self._dense(40)
+            cold = ColdTier(f"{base}/bucket/cold/", rows=40, layout=self._layout(),
+                            page_rows=16)
+            assert cold.root == f"{base}/bucket/cold"
+            cold.import_dense(rows, mm, vv)
+            assert (tmp_path / "store" / "bucket" / "cold" / "segments" / "000000.bin").is_file()
+            patched = cold.read_page(1)
+            patched[2] = 3.0
+            cold.write_page(1, patched)
+            np.testing.assert_array_equal(cold.read_page(1), patched)
+            np.testing.assert_array_equal(cold.export_dense()[0]["fm_w"][:16], rows["fm_w"][:16])
+            assert cold.stats()["cold_writes"] == 1
+        finally:
+            server.shutdown()
+            server.server_close()
+        assert _cfg(tiered_cold_url="s3://bucket/cold").model.tiered_cold_url == \
+            "s3://bucket/cold"
 
 
 class TestTrainTask:
