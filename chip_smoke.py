@@ -210,7 +210,12 @@ the replays times the launches each capture recorded (``kernel_runs``):
               dtype, graphed = eager, the captures under
               set_sync_debug_mode("error"), the bucket graphs and a hot
               swap that captures nothing, the paged step, the observability
-              of the captured bodies) finding nothing;
+              of the captured bodies, and the grid step's two collective
+              contracts on a spawned [2, 2] world of gloo ranks on the card:
+              dense psum, dense alltoall, lazy alltoall and ZeRO steps
+              recorded, the ZeRO update under the sync guard) finding
+              nothing and waiving neither collective contract; the
+              collective world's seconds on a line of their own;
 16. tiered  - ROADMAP A11's tiered store at the flagship width
               (fused_kernel "off", lazy Adam, batch 1,024, a hot cache of
               65,536 slots, a host tier of 65,536 rows, pages of 1,024
@@ -5169,8 +5174,13 @@ def phase_graphed(seed: int, train: dict, lazy: dict) -> dict:
 def run_analysis() -> dict:
     """``python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --concurrency
     --trace-audit`` (the device at its cuda default) from the repo root;
-    fails unless it exits 0.  Prints its counts and the seconds of engines
-    1 and 3 and of the trace audit (the CLI's stderr line)."""
+    fails unless it exits 0 and its audit waives neither of the grid step's
+    collective contracts (``audit_spmd_exchange``, ``audit_zero_update``: they
+    run on a spawned [2, 2] world of gloo ranks on the card).  Prints its
+    counts and the seconds of engines 1 and 3 and of the trace audit (the
+    CLI's stderr lines), and the collective world's seconds, its stages and
+    how long the audit waited for it after its other contracts (the world
+    runs beside them) on a line of their own."""
     torch.cuda.empty_cache()  # the audit's process shares the card
     argv = [sys.executable, "-m", "deepfm_tpu_torch.analysis", "deepfm_tpu_torch/",
             "--concurrency", "--trace-audit", "--format", "json"]
@@ -5188,9 +5198,30 @@ def run_analysis() -> dict:
                   r"([0-9.]+) s on cuda", proc.stderr)
     if m is None:
         fail(f"graphed: the analyser printed no timing line:\n{proc.stderr[-2000:]}")
+    w = re.search(r"analysis: trace audit waives (.*)", proc.stderr)
+    g = re.search(r"analysis: the collective world took ([0-9.]+) s on cuda; its ranks "
+                  r"launched B1 (\d+), B1' (\d+) times", proc.stderr)
+    st = re.search(r"analysis: the collective world's stages \(s\): (.*); waited for "
+                   r"([0-9.]+)", proc.stderr)
+    if w is None or g is None or st is None:
+        fail(f"graphed: the analyser printed no waiver or collective world lines:\n"
+             f"{proc.stderr[-2000:]}")
+    waived = [name.strip() for name in w.group(1).split(",")]
+    if {"audit_spmd_exchange", "audit_zero_update"} & set(waived):
+        fail(f"graphed: the trace audit still waives {waived}")
     row = {"files": int(m.group(1)), **counts, "engines_1_3_s": float(m.group(2)),
-           "trace_audit_s": float(m.group(3)), "process_s": wall}
+           "trace_audit_s": float(m.group(3)), "process_s": wall, "waived": waived,
+           "collective_world_s": float(g.group(1)),
+           "collective_world_launches": [int(g.group(2)), int(g.group(3))],
+           "collective_world_stages": {k: float(v) for k, v in (
+               x.rsplit(" ", 1) for x in st.group(1).split(", "))},
+           "collective_world_waited_s": float(st.group(2))}
     print("analysis %s" % json.dumps(row))
+    print(f"analysis: the [2, 2] collective world (audit_spmd_exchange, "
+          f"audit_zero_update) took {row['collective_world_s']:.3f} s on the card; its "
+          f"ranks launched B1 {g.group(2)}, B1' {g.group(3)} times (not in the kernels line); "
+          f"it ran beside the other audits, which then waited {st.group(2)} s for it; its "
+          f"stages (s): {st.group(1)}")
     return row
 
 

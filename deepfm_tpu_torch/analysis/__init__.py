@@ -8,7 +8,9 @@ the counterpart of ``deepfm_tpu/analysis``'s three engines:
 * **engine 2** (`trace_audit`, ``--trace-audit``) — runs the real entry
   points at a small width and holds their CUDA graphs to the trace-time
   contracts (in place, dtype, graphed = eager, buckets, the funnel, the
-  elastic reshard, the observability of the captured bodies);
+  elastic reshard, the observability of the captured bodies), and JAX's
+  two collective contracts of the grid step on a record of its eager step
+  (`collectives`);
 * **engine 3** (`callgraph`, `concurrency`, ``--concurrency``) — a
   parse-only interprocedural concurrency pass: lock-order cycles,
   blocking-under-lock, signal-handler lock safety, thread lifecycle.

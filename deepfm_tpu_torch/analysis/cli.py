@@ -6,6 +6,7 @@ suite (the counterpart of ``python -m deepfm_tpu.analysis``).
     python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --trace-audit  # + engine 2, on the card
     python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --trace-audit --device cpu
     python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --format json
+    python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --format github  # CI annotations
     python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/ --write-baseline
 
 Exit codes: 0 — clean (or everything baselined/suppressed); 1 — new
@@ -130,6 +131,42 @@ def _render_text(new, accepted, stale, *, out=None) -> None:
     )
 
 
+def _gh_escape(s: str, *, prop: bool = False) -> str:
+    # workflow-command data escaping per the Actions toolkit: %, CR, LF
+    # always; property values additionally ':' and ','
+    s = s.replace("%", "%25").replace("\r", "%0D").replace("\n", "%0A")
+    if prop:
+        s = s.replace(":", "%3A").replace(",", "%2C")
+    return s
+
+
+def _render_github(new, accepted, stale, *, out=None) -> None:
+    """GitHub workflow-command annotations: CI renders each NEW finding
+    anchored to its file:line in the diff view.  Baselined debt is a
+    notice (visible, non-blocking), matching the exit-code contract."""
+    out = out or sys.stdout
+    for f in new:
+        print(
+            f"::error file={_gh_escape(f.path, prop=True)},"
+            f"line={f.line},col={f.col},"
+            f"title={_gh_escape(f.rule, prop=True)}::"
+            + _gh_escape(f.message + (f"  fix: {f.hint}" if f.hint else "")),
+            file=out,
+        )
+    for f in accepted:
+        print(
+            f"::notice file={_gh_escape(f.path, prop=True)},"
+            f"line={f.line},title={_gh_escape(f.rule, prop=True)}::"
+            + _gh_escape(f"baselined (accepted debt): {f.message}"),
+            file=out,
+        )
+    print(
+        f"analysis: {len(new)} new, {len(accepted)} baselined, "
+        f"{len(stale)} stale",
+        file=out,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m deepfm_tpu_torch.analysis",
@@ -138,7 +175,10 @@ def main(argv: list[str] | None = None) -> int:
     )
     ap.add_argument("paths", nargs="*", default=[DEFAULT_PATH],
                     help=f"files/directories to analyze (default: {DEFAULT_PATH})")
-    ap.add_argument("--format", choices=("text", "json"), default="text")
+    ap.add_argument("--format", choices=("text", "json", "github"), default="text",
+                    help="github = workflow-command annotations "
+                         "(::error file=...) so CI anchors findings to "
+                         "file:line")
     ap.add_argument("--baseline", default=None,
                     help=f"baseline JSON (default: <root>/{DEFAULT_BASELINE} "
                          f"when present)")
@@ -210,6 +250,11 @@ def main(argv: list[str] | None = None) -> int:
           f"{t_engines:.3f} s; trace audit "
           + (f"{t_audit:.3f} s on {args.device}" if args.trace_audit else "not run"),
           file=sys.stderr)
+    if args.trace_audit:
+        from .trace_audit import WAIVERS
+
+        print(f"analysis: trace audit waives {', '.join(sorted(WAIVERS))}",
+              file=sys.stderr)
 
     # the default baseline lives under the ROOT the finding paths anchor to
     default_baseline = os.path.join(root, DEFAULT_BASELINE)
@@ -271,6 +316,8 @@ def main(argv: list[str] | None = None) -> int:
             sys.stdout, indent=2,
         )
         print()
+    elif args.format == "github":
+        _render_github(new, accepted, stale)
     else:
         _render_text(new, accepted, stale)
     return 1 if new else 0

@@ -89,13 +89,25 @@ capture contracts run on the card (``tests/test_torch_cuda.py``,
   be bit-equal: a host value folded into a tensor would bake a different
   constant into each capture.
 
-**Waived** (:data:`WAIVERS`): JAX's ``audit_spmd_exchange`` and
-``audit_zero_update``.  The steps of a ``[data x model]`` grid and the
-data-parallel step stay eager: each reads host flags every step (the
-exchange's overflow flag, ``parallel/embedding.py``; the step's
-next-batch, stop and eval flags and the lazy pack's flag,
-``parallel/spmd.py``), which a graph cannot read.  The online trainer
-(``online/trainer.py``) stays eager too.  No audit here claims them.
+* **the grid step's collectives** (JAX ``audit_spmd_exchange`` and
+  ``audit_zero_update``, ``trace-collective``): the steps of a ``[data x
+  model]`` grid stay eager (each reads host flags every step: the
+  exchange's overflow flag, ``parallel/embedding.py``; the step's flags
+  and the lazy pack's flag, ``parallel/spmd.py``), so instead of a capture
+  one eager step each of dense psum, dense alltoall, lazy alltoall and
+  dense ZeRO runs on a spawned ``[2, 2]`` world of gloo ranks with every
+  ``torch.distributed`` call recorded (analysis/collectives.py), and JAX's
+  rules read the record: in alltoall mode no dense row tensor moves
+  outside the overflow fallback's arm and the all-to-all is there; the
+  lazy step gathers the full slot stream only in its ``update_full`` arm;
+  under ZeRO every planned leaf is reduce-scattered and gathered back over
+  the data group, no data-group all-reduce carries a gradient, the moments
+  are 1/dp windows, and the update reads nothing back to the host
+  (``trace-transfer``) and keeps its tensors in place (``trace-donation``).
+
+**Waived** (:data:`WAIVERS`): the online trainer (``online/trainer.py``)
+stays eager, and so does the elastic trainer; the elastic reshard's host
+round trip is by design.  No audit here claims them.
 """
 
 from __future__ import annotations
@@ -113,15 +125,6 @@ from .findings import Finding
 
 # what the audit does not claim, and why
 WAIVERS = {
-    "audit_spmd_exchange": (
-        "the grid step (parallel/spmd.py, parallel/embedding.py) stays eager: "
-        "it reads the exchange's overflow flag, the step's flags and the lazy "
-        "pack's flag on the host every step; its collectives are held to the "
-        "single-card step by tests/test_torch_sharded*.py and chip_smoke.py's "
-        "sharded phase, not by a capture"),
-    "audit_zero_update": (
-        "the ZeRO update runs inside the eager grid step (train/optimizer.py "
-        "ZeroOptimizer); not captured"),
     "online_trainer": (
         "online/trainer.py steps eagerly: its loop reads the stream's cursor "
         "and commit flags between steps; so does the elastic trainer "
@@ -1111,16 +1114,462 @@ def audit_observability(device="cpu", *, predict_builder=None,
     return out
 
 
+# -- the grid step's collective contracts (JAX audit_spmd_exchange and
+# audit_zero_update), on a record of its eager step (analysis/collectives.py)
+
+# per-mode expected collective sets for the grid's train step: the contract
+# the audit enforces, recorded as data so tests, docs and the finding
+# messages share one source of truth.  The port's dense row tensors, from its
+# own layout: the exchange assembles [N, W], N = b·F the lookups of one data
+# index (the ranks of a model group share its batch), W the width of the
+# tables looked up together (fm_v's K columns and fm_w's one); the psum path
+# all-reduces it forward and backward.  The lazy step's update_full arm
+# all-gathers every slot of the data group: the slot rows [width] and their
+# gradients [width, W], width = max(b·F, M·C + 1) under alltoall (the
+# response buffer and its zero row) and b·F under psum; its update_dedup arm
+# gathers a pack of at most C = capacity·b·F distinct rows, [C] and [C, W].
+EXCHANGE_CONTRACT = {
+    "psum": {
+        "requires": "all_reduce over the dense [N, W] row tensor (zeros-plus-"
+                    "psum assembly, fwd+bwd)",
+        "forbids": None,
+    },
+    "alltoall": {
+        "requires": "all_to_all request/response pair in the exchange arm",
+        "forbids": "all_reduce/all_gather of the dense [N, W] row tensor "
+                   "outside the exchange.fallback arm (the capacity-overflow "
+                   "fallback)",
+    },
+    "alltoall_lazy": {
+        "requires": "all_to_all forward exchange; all_gather only of the "
+                    "capacity-bounded unique pack",
+        "forbids": "all_gather of the full [width, W] slot-gradient stream "
+                   "outside the lazy.update_full arm",
+    },
+}
+
+# the audit world's jobs, on WORLD_SHAPE: JAX's three exchange lowerings and
+# its zero-update lowering, one eager step each
+_GRID_JOBS = (("psum", {"shard_exchange": "psum"}, False, "off"),
+              ("alltoall", {"shard_exchange": "alltoall"}, False, "off"),
+              ("lazy", {"shard_exchange": "alltoall"}, True, "off"),
+              ("zero", {"shard_exchange": "alltoall"}, False, "on"))
+# ids drawn from this many distinct rows: no bucket of the all-to-all
+# overflows at the default capacity, and the lazy step takes the unique pack
+_GRID_HOT_ROWS = 96
+
+
+def grid_cfg(model=None, *, lazy: bool = False, zero: str = "off"):
+    """The audit's config on the audit world's mesh, its batch one data
+    index's share of ``_AUDIT_BATCH``."""
+    from .collectives import WORLD_SHAPE
+
+    dp, mp = WORLD_SHAPE
+    return audit_cfg(lazy).with_overrides(
+        model=model or {}, optimizer={"zero_sharding": zero},
+        data={"batch_size": _AUDIT_BATCH // dp},
+        mesh={"data_parallel": dp, "model_parallel": mp})
+
+
+def grid_job(name: str, *, model=None, lazy: bool = False, zero: str = "off",
+             builder=None) -> dict:
+    """One job of :class:`..collectives.World` (:func:`grid_cfg`): a
+    global batch of ``_AUDIT_BATCH`` rows, ids among ``_GRID_HOT_ROWS`` rows
+    of the vocabulary.  ``zero == "on"`` makes it the ZeRO contract's job."""
+    cfg = grid_cfg(model, lazy=lazy, zero=zero)
+    rng = np.random.default_rng(0)
+    f, v = cfg.model.field_size, cfg.model.feature_size
+    hot = rng.permutation(v)[:_GRID_HOT_ROWS]
+    batch = {"feat_ids": hot[rng.integers(0, _GRID_HOT_ROWS, (_AUDIT_BATCH, f))],
+             "feat_vals": rng.random((_AUDIT_BATCH, f), dtype=np.float32),
+             "label": (rng.random(_AUDIT_BATCH) < 0.3).astype(np.float32)}
+    return {"name": name, "cfg": cfg.to_dict(), "batch": batch, "builder": builder,
+            "zero_contract": zero == "on"}
+
+
+def start_grid_world(device="cpu", extra: tuple = ()):
+    """The audit world, started (:class:`..collectives.World`): one spawned
+    ``[2, 2]`` world runs the four jobs, and ``extra`` jobs after them but
+    before the ZeRO job (whose sync guard, tripped, leaves the ranks out of
+    step)."""
+    from .collectives import World
+
+    jobs = [grid_job(name, model=model, lazy=lazy, zero=zero)
+            for name, model, lazy, zero in _GRID_JOBS]
+    return World(device, jobs[:-1] + list(extra) + jobs[-1:])
+
+
+def grid_world(device="cpu", extra: tuple = ()) -> dict[str, dict]:
+    """The audit world's results by job name (:func:`start_grid_world`)."""
+    with start_grid_world(device, extra) as world:
+        return world.results()
+
+
+def exchange_dense_shapes(cfg, widths: int, *, lazy: bool = False) -> set[tuple[int, ...]]:
+    """The dense row tensors of the grid's step on ``cfg``'s mesh (the
+    comment above :data:`EXCHANGE_CONTRACT`); ``widths`` is W."""
+    from ..parallel.embedding import exchange_capacity
+
+    n = cfg.data.batch_size * cfg.model.field_size
+    shapes = {(n, widths)}
+    if lazy:
+        mp = cfg.mesh.model_parallel
+        width = n
+        if mp > 1 and cfg.model.shard_exchange == "alltoall":
+            width = max(n, mp * exchange_capacity(n, mp, cfg.model.shard_exchange_capacity)
+                        + 1)
+        shapes |= {(width, widths), (width,)}
+    return shapes
+
+
+def _n_elems(shapes) -> int:
+    best = 0
+    for s in shapes:
+        n = 1
+        for d in s:
+            n *= d
+        best = max(best, n)
+    return best
+
+
+def check_exchange_collectives(
+    record: list[dict],
+    dense_shapes: set[tuple[int, ...]],
+    *,
+    mode: str,
+    variant: str = "dense",
+    where: str = "deepfm_tpu_torch/parallel/embedding.py",
+) -> list[Finding]:
+    """Hold one recorded train step (:func:`..collectives.merge_records`) to
+    the per-mode collective contract (:data:`EXCHANGE_CONTRACT`).  Factored
+    out of :func:`audit_spmd_exchange` so the seeded-violation test can feed
+    a psum-mode record through the alltoall contract and watch it get
+    caught.  JAX's ``check_exchange_collectives`` with the arms of the host
+    branches for its ``stablehlo.case`` branches: a step that overflowed
+    ran the fallback arm in place of the all_to_all, which JAX's lowering
+    holds beside it."""
+    seen = sorted({(c["kind"], c["arm"] or "main") for c in record})
+
+    def is_dense(c):
+        return (c["kind"] in ("all_reduce", "all_gather")
+                and any(tuple(s) in dense_shapes for s in c["shapes"]))
+
+    out: list[Finding] = []
+    if mode == "psum":
+        if not any(is_dense(c) for c in record):
+            out.append(_finding(
+                "trace-collective",
+                f"psum-mode train step record shows NO dense row-tensor "
+                f"all-reduce/all-gather (expected {sorted(dense_shapes)}) "
+                f"— the collective detector or the step drifted; "
+                f"observed collectives: {seen}",
+                where, f"{variant}-psum-detector-blind",
+                hint="update the audit's shape derivation "
+                     "(exchange_dense_shapes) or the recorder "
+                     "(analysis/collectives.py)"))
+        return out
+    # alltoall contract: the main line may never move the dense row tensor;
+    # dense collectives may live only in a fallback arm, never alongside the
+    # all_to_all exchange
+    contract = EXCHANGE_CONTRACT["alltoall_lazy" if variant == "lazy" else "alltoall"]
+    main_dense = [c for c in record if is_dense(c) and c["arm"] is None]
+    if main_dense:
+        out.append(_finding(
+            "trace-collective",
+            f"{variant} train step in shard_exchange='alltoall' still "
+            f"moves the dense row tensor on the UNCONDITIONAL main line: "
+            f"{[(c['kind'], c['shapes']) for c in main_dense]} (dense "
+            f"shapes {sorted(dense_shapes)}); contract: "
+            f"{contract['forbids']}; observed collectives: {seen}",
+            where, f"{variant}-alltoall-dense-collective",
+            hint="the exchange must dedup and route owned rows via "
+                 "all_to_all; dense collectives belong only in the "
+                 "overflow fallback arm"))
+    arms: dict = {}
+    for c in record:
+        if c["arm"] is not None:
+            a = arms.setdefault(c["arm"], {"a2a": False, "dense": False})
+            a["a2a"] = a["a2a"] or c["kind"] == "all_to_all"
+            a["dense"] = a["dense"] or is_dense(c)
+    leaky = sorted(k for k, a in arms.items() if a["a2a"] and a["dense"])
+    if leaky:
+        out.append(_finding(
+            "trace-collective",
+            f"{variant} train step in shard_exchange='alltoall' has "
+            f"arm(s) {leaky} carrying BOTH the all_to_all exchange and a "
+            f"dense row-tensor collective — the dense traffic leaked into "
+            f"the exchange arm; observed collectives: {seen}",
+            where, f"{variant}-alltoall-dense-in-exchange-arm",
+            hint="only the fallback arm may be dense"))
+    if not any(c["kind"] == "all_to_all" or c["arm"] == "exchange.fallback"
+               for c in record):
+        out.append(_finding(
+            "trace-collective",
+            f"{variant} train step in shard_exchange='alltoall' ran "
+            f"WITHOUT any all_to_all (and no overflow fallback) — the "
+            f"exchange is not in effect; observed collectives: {seen}",
+            where, f"{variant}-alltoall-missing",
+            hint="check resolve_shard_exchange wiring "
+                 "(parallel/embedding.py, parallel/spmd.py)"))
+    return out
+
+
+def _world_failed(result: dict, where: str, slug: str) -> list[Finding]:
+    return [_finding("trace-collective", f"the audit world's {result['name']} step "
+                     f"failed: {result['error']}", where, slug)]
+
+
+def audit_spmd_exchange(device="cpu", world: dict | None = None) -> list[Finding]:
+    """Collective-traffic contract of the grid's train step (JAX
+    ``audit_spmd_exchange``): one eager step each of dense psum, dense
+    alltoall and lazy alltoall on the audit world (``world``, the results of
+    :func:`grid_world`, run here when None), recorded and held to
+    :data:`EXCHANGE_CONTRACT`."""
+    where = "deepfm_tpu_torch/parallel/embedding.py"
+    world = world or grid_world(device)
+    out: list[Finding] = []
+    for name, mode, lazy, variant in (("psum", "psum", False, "dense"),
+                                      ("alltoall", "alltoall", False, "dense"),
+                                      ("lazy", "alltoall", True, "lazy")):
+        result = world[name]
+        if "error" in result:
+            out += _world_failed(result, where, f"{variant}-{mode}-step-failed")
+            continue
+        cfg = grid_cfg({"shard_exchange": mode}, lazy=lazy)
+        shapes = exchange_dense_shapes(cfg, result["ranks"][0]["widths"], lazy=lazy)
+        out += check_exchange_collectives(result["record"], shapes, mode=mode,
+                                          variant=variant, where=where)
+    return out
+
+
+# the arms whose data-group all-reduce carries no gradient of a planned
+# leaf (parallel/branch.py): the ZeRO step's buffer of BN statistics,
+# metrics and flags, and an ineligible leaf's replicated update
+ZERO_ALLREDUCE_ARMS = ("sync.stats", "zero.ineligible")
+
+
+def check_zero_collectives(
+    record: list[dict], *, dp: int, mp: int, n_sharded_leaves: int,
+    where: str = "deepfm_tpu_torch/parallel/spmd.py",
+) -> list[Finding]:
+    """Hold one recorded train step to the sharded-weight-update traffic
+    contract (JAX ``check_zero_collectives``): dense grads must
+    REDUCE-SCATTER over the data group (one collective per planned leaf),
+    the fresh 1/dp param windows must ALL-GATHER back, and NO data-group
+    all-reduce may carry a gradient of a planned leaf.  Model-group
+    collectives (the row exchange, the replicated part's broadcast) are out
+    of scope.
+
+    The all-reduces that carry no planned leaf's gradient are told apart
+    by the arm they were issued in, which their source stamps
+    (:data:`ZERO_ALLREDUCE_ARMS`), never by their size.  JAX exempts
+    1-element all-reduces (its metric scalars), and so does this rule; the
+    port's step also all-reduces one flat buffer over the data group with
+    ZeRO (parallel/spmd.py ``pmean_grads`` called without gradients by
+    ``_sync``: the BN moving statistics, the four metrics and the five
+    flags), which is the ``sync.stats`` arm, and a leaf without a ZeRO
+    window takes the replicated update (train/optimizer.py
+    ``ZeroOptimizer.step``), the ``zero.ineligible`` arm.  A data-group
+    all-reduce of more than one element anywhere else is caught: the same
+    ``pmean_grads`` with gradients (the replicated step), or a planned
+    leaf's gradient all-reduced alone whatever its size.  Factored out of :func:`audit_zero_update` so the
+    seeded-violation test can feed a replicated-path (zero off) record
+    through the same checks."""
+    from .collectives import collective_axis
+
+    out: list[Finding] = []
+    data_ar = [
+        c for c in record
+        if c["kind"] == "all_reduce"
+        and collective_axis(c.get("groups"), dp, mp) == "data"
+        and _n_elems(c["shapes"]) > 1 and c["arm"] not in ZERO_ALLREDUCE_ARMS
+    ]
+    if data_ar:
+        out.append(_finding(
+            "trace-collective",
+            f"zero-sharded train step still ALL-REDUCES {len(data_ar)} "
+            f"grad-sized tensor(s) over the data group "
+            f"({[(c['kind'], c['shapes'], c['arm'] or 'main') for c in data_ar[:4]]}; "
+            f"only the arms {list(ZERO_ALLREDUCE_ARMS)} carry no planned leaf's "
+            f"gradient) — the replicated "
+            f"update's collective survived; the sharded update must "
+            f"reduce-scatter instead",
+            where, "zero-dense-allreduce",
+            hint="raw local grads must reach the ZeRO optimizer "
+                 "(parallel/spmd.py _sync must not pmean them when "
+                 "sharding.zero is on; train/optimizer.py ZeroOptimizer)"))
+    rs = [c for c in record if c["kind"] == "reduce_scatter"
+          and collective_axis(c.get("groups"), dp, mp) == "data"]
+    if len(rs) < n_sharded_leaves:
+        out.append(_finding(
+            "trace-collective",
+            f"zero-sharded train step records {len(rs)} data-group "
+            f"reduce-scatter(s) for {n_sharded_leaves} sharded param "
+            f"leaves — grads are not reduce-scattered per leaf",
+            where, "zero-reduce-scatter-missing",
+            hint="dist.reduce_scatter_tensor per leaf in "
+                 "train/optimizer.py ZeroOptimizer.step"))
+    ag = [c for c in record if c["kind"] == "all_gather"
+          and collective_axis(c.get("groups"), dp, mp) == "data"]
+    if len(ag) < n_sharded_leaves:
+        out.append(_finding(
+            "trace-collective",
+            f"zero-sharded train step records {len(ag)} data-group "
+            f"all-gather(s) for {n_sharded_leaves} sharded param leaves "
+            f"— the fresh 1/dp param windows are not gathered back to "
+            f"full width",
+            where, "zero-allgather-missing",
+            hint="dist.all_gather_into_tensor of the updated windows in "
+                 "train/optimizer.py ZeroOptimizer.step"))
+    return out
+
+
+def check_zero_state_sharding(layout: dict | None, *, dp: int,
+                              where: str = "deepfm_tpu_torch/parallel/spmd.py"
+                              ) -> list[Finding]:
+    """The moment-residency half of the zero contract (JAX
+    ``check_zero_state_sharding``), on a rank's
+    :func:`..collectives.zero_layout`: the optimizer must plan ZeRO windows
+    (its ``plans``, the port's ``zero_dp`` marker), and every moment slot of
+    a planned leaf must hold at most 1/dp of the padded leaf,
+    ``ceil(n / dp)`` entries.  No planned leaf (a replicated optimizer)
+    fails the marker check; a full-size slot behind a plan fails the
+    sizing."""
+    planned = {name: leaf for name, leaf in (layout or {}).items() if leaf["planned"]}
+    bad: list[str] = []
+    for name, leaf in sorted(planned.items()):
+        padded = -(-leaf["numel"] // dp) * dp
+        for slot, n in sorted(leaf["slots"].items()):
+            if n * dp > padded:
+                bad.append(f"{name}.{slot}: {n}/{padded} per rank")
+    if not planned:
+        return [_finding(
+            "trace-collective",
+            "the optimizer plans NO dp-partitioned (ZeRO) moment windows "
+            "— the optimizer state is fully replicated across the data "
+            "group (every rank redundantly holds and updates all moments)",
+            where, "zero-moments-unsharded",
+            hint="build the train state with optimizer.zero_sharding on|auto "
+                 "(parallel/spmd.py create_dp_train_state)")]
+    if bad:
+        return [_finding(
+            "trace-collective",
+            f"{len(bad)} zero-layout moment slot(s) are NOT dp-sharded "
+            f"(per-rank size exceeds padded/dp): {bad[:4]} — the moments "
+            f"are replicated despite the sharded-update layout",
+            where, "zero-moments-replicated",
+            hint="ZeroOptimizer must keep a ceil(n/dp) window of each "
+                 "planned leaf's moments (train/optimizer.py)")]
+    return []
+
+
+def audit_zero_update(device="cpu", context_builder=None,
+                      world: dict | None = None) -> list[Finding]:
+    """The ZeRO weight-update contract (JAX ``audit_zero_update``,
+    train/optimizer.py ``ZeroOptimizer`` + parallel/spmd.py): one eager step
+    of the dense grid step with ``optimizer.zero_sharding='on'`` on the
+    audit world, recorded:
+
+    * **reduce-scatter, not all-reduce**: :func:`check_zero_collectives`;
+    * **dp-sharded moments**: :func:`check_zero_state_sharding` on every
+      rank's optimizer;
+    * **transfer-guard-clean** (``zero-transfer-guard``): the update
+      (``ZeroOptimizer.step``) runs under
+      ``torch.cuda.set_sync_debug_mode("error")`` on the card, and under a
+      guard on host reads (:class:`_HostReadGuard`) on the CPU; a
+      collective runs with the guard lifted (analysis/collectives.py: gloo
+      stages through the host by design).  The step's host flags outside
+      the update are by design;
+    * **in place** (``zero-not-donated``): every parameter and moment
+      window keeps its storage over the step (:func:`check_in_place`), the
+      port's counterpart of JAX's donation.
+
+    ``world`` is :func:`grid_world`'s results (run here when None).
+    ``context_builder(cfg, ctx)`` builds the rank's train state in place
+    of ``parallel.spmd.create_dp_train_state`` (it runs in the spawned
+    ranks, so it must be importable there): the seeded-violation tests feed
+    replicated moments through the same checks, on a world of their own."""
+    from .collectives import WORLD_SHAPE, run_world
+
+    dp, mp = WORLD_SHAPE
+    where = "deepfm_tpu_torch/parallel/spmd.py"
+    if context_builder is None:
+        result = (world or grid_world(device))["zero"]
+    else:
+        result = run_world(device, [grid_job("zero", model=dict(_GRID_JOBS[-1][1]),
+                                             zero="on", builder=context_builder)])["zero"]
+    if "error" in result:
+        if "sync guard" in result["error"]:
+            return [_finding(
+                "trace-transfer",
+                f"the zero-sharded update under the sync guard raised "
+                f"{result['error']} — the sharded update moved host data "
+                f"implicitly", where, "zero-transfer-guard",
+                hint="the windowed update must stay on the device "
+                     "(train/optimizer.py ZeroOptimizer.step)")]
+        return _world_failed(result, where, "zero-step-failed")
+    ranks = result["ranks"]
+    out: list[Finding] = []
+    seen: set[str] = set()
+    for rank in ranks:
+        for f in check_zero_state_sharding(rank["zero"], dp=dp, where=where):
+            if f.source not in seen:
+                seen.add(f.source)
+                out.append(f)
+    r0 = ranks[0]
+    out += check_zero_collectives(result["record"], dp=dp, mp=mp,
+                                  n_sharded_leaves=r0["n_planned"], where=where)
+    moved = sorted({f.source.rsplit(":", 1)[-1] for rank in ranks for f in rank["in_place"]
+                    if f.rule == "trace-donation"})
+    if moved:
+        out.append(_finding(
+            "trace-donation",
+            f"{len(moved)} zero-sharded train-state tensor(s) are NOT updated "
+            f"in place ({moved[:4]}) — the dp-partitioned moments would copy "
+            f"every step instead of updating in place",
+            where, "zero-not-donated",
+            hint="ZeroOptimizer.step must write the windows and parameters "
+                 "in place (copy_, the inner optimizer's in-place update)"))
+    out += [f for rank in ranks[:1] for f in rank["in_place"] if f.rule == "trace-dtype"]
+    return out
+
+
 def run_trace_audit(device="cpu") -> list[Finding]:
     """Every contract above on ``device`` (the capture contracts only
-    where it is the card); the waived ones are in :data:`WAIVERS`."""
-    variants = [f for name in ("xdeepfm", "dcnv2")
-                for f in (audit_train_step(device, model_name=name)
-                          + audit_train_step(device, lazy=True, model_name=name)
-                          + audit_buckets(device, model_name=name))]
-    return (audit_train_step(device) + audit_train_step(device, lazy=True)
-            + variants + audit_buckets(device) + audit_paged_step(device) + audit_funnel(device)
-            + audit_group_buckets(device) + audit_sharded_predict(device)
-            + audit_control_plane(device) + audit_multitenant(device)
-            + audit_region_front(device) + audit_elastic(device)
-            + audit_observability(device))
+    where it is the card); the waived ones are in :data:`WAIVERS`.  The
+    collective contracts' world starts first and runs beside the others."""
+    with start_grid_world(device) as world:
+        variants = [f for name in ("xdeepfm", "dcnv2")
+                    for f in (audit_train_step(device, model_name=name)
+                              + audit_train_step(device, lazy=True, model_name=name)
+                              + audit_buckets(device, model_name=name))]
+        found = (audit_train_step(device) + audit_train_step(device, lazy=True)
+                 + variants + audit_buckets(device) + audit_paged_step(device)
+                 + audit_funnel(device) + audit_group_buckets(device)
+                 + audit_sharded_predict(device) + audit_control_plane(device)
+                 + audit_multitenant(device) + audit_region_front(device)
+                 + audit_elastic(device) + audit_observability(device))
+        waited = time.perf_counter()
+        results = world.results()
+        return found + grid_audits(device, results, time.perf_counter() - waited)
+
+
+def grid_audits(device, world: dict, waited: float = 0.0) -> list[Finding]:
+    """Both collective contracts on the audit world's results; on stderr
+    (``chip_smoke.py`` reads them) the world's seconds, its stages and its
+    ranks' B1 and B1' launches, and how long its caller ``waited`` for it
+    after its own work."""
+    import sys
+
+    ran = [r for r in world.values() if "seconds" in r]
+    b1 = sum(rank["launches"][0] for r in ran for rank in r["ranks"])
+    b1b = sum(rank["launches"][1] for r in ran for rank in r["ranks"])
+    print(f"analysis: the collective world took "
+          + (f"{ran[0]['seconds']:.3f} s" if ran else "no time (every job failed)")
+          + f" on {device}; its ranks launched B1 {b1}, B1' {b1b} times", file=sys.stderr)
+    if ran:
+        print("analysis: the collective world's stages (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ran[0]["stages"].items())
+              + f"; waited for {waited:.3f}", file=sys.stderr)
+    return (audit_spmd_exchange(device, world=world)
+            + audit_zero_update(device, world=world))

@@ -44,7 +44,12 @@ multi-process form: **one ElasticTrainer in every rank process**.
   device (elastic/coord.py), so once the lease expires the coordinator
   opens that epoch without it, though the board still lists it; the
   survivors resume from the last periodic commit, replaying the tail
-  exactly once (JAX's "drain commit failed" path).
+  exactly once (JAX's "drain commit failed" path).  The coordinator flips
+  the epoch on every change of its trainer leases, so a transition may
+  keep the device set (a joiner's lease lands before the views that add
+  its device; a leaving rank releases after the survivors re-formed): the
+  ranks then re-form the group and go on with their live state, which
+  records no reshard and moves nothing (``reform`` in the lifecycle).
 * **An idle tail** polls the registry at each of the reader's waits: the
   lease stays held, and a transition drains the ranks without a new
   batch.
@@ -59,9 +64,9 @@ multi-process form: **one ElasticTrainer in every rank process**.
 
 Observables are JAX's: ``reshards`` (from/to mesh, moved bytes,
 steps replayed, seconds), ``lifecycle`` (detect, drain_commit, replan,
-reshard, resume, publish, done, ...), ``cursor_lineage`` (the batch-end
-cursor of every batch applied along the surviving lineage, strictly
-increasing), and the ``deepfm_elastic_*`` families with
+reshard, resume, publish, done, ...; and the port's reform),
+``cursor_lineage`` (the batch-end cursor of every batch applied along the
+surviving lineage, strictly increasing), and the ``deepfm_elastic_*`` families with
 :meth:`ElasticTrainer.metrics_snapshot`.  The steps are the grid's eager
 steps (parallel/spmd.py): on the card they launch the B1 and B1' kernels
 on the exchange's compact rows.
@@ -489,18 +494,23 @@ class ElasticTrainer:
 
     # -- the reshard ---------------------------------------------------------
 
-    def _enter(self, stop, prior: tuple | None = None):
+    def _enter(self, stop, prior: tuple | None = None, live: tuple | None = None):
         """Form the group of the next epoch that includes this rank (waiting
         for capacity) and restore its state: the latest commit (re-cut to
         this rank's window), or a fresh state committed at step 0 when there
         is none.  ``prior`` is ``(topology, plan leaves)`` of a reshard, None
         at the start; after a reshard only an epoch later than the prior
         topology's is taken (a broken group's epoch never forms again).
+        ``live`` is the drained ``(state, cursor)`` when it is trusted (no
+        collective failed, the drain commit holds it): if the new epoch has
+        the prior grid and every rank of the new group holds such a state,
+        the group is a re-form (:meth:`_reforms`), and the live state goes
+        on, moved onto the new group.
         Returns ``(topology, state, cursor, published, plan)``: every rank
         of the new group learns (one all-reduce) whether any of them comes
         from a reshard, and then all publish once, so a rank joining a
         running job takes part in the survivors' post-reshard publish;
-        ``plan`` is the reshard's, None at the start."""
+        ``plan`` is the reshard's, None at the start and on a re-form."""
         after = prior[0].epoch if prior is not None else None
         while True:
             epoch, devices = self._wait_for_capacity(stop, after)
@@ -510,6 +520,13 @@ class ElasticTrainer:
             after = epoch
         self._log = (MetricLogger(log_steps=self.cfg.run.log_steps) if topo.ctx.rank == 0
                      else _Silent())
+        if self._reforms(topo, prior, live):
+            state, cursor = live
+            spmd.rebind_state(state, topo.cfg, topo.ctx)
+            self._admit(topo)
+            self._event("reform", epoch=topo.epoch, mesh=list(topo.shape),
+                        step=int(state.step))
+            return topo, state, cursor, False, None
         plan = None
         if prior is not None:
             plan = plan_reshard(prior[0].grid, topo.grid, prior[1])
@@ -540,13 +557,19 @@ class ElasticTrainer:
     def _reshard(self, topo: Topology, state: TrainState, cursor: StreamCursor, stop,
                  *, broken: bool = False):
         """detect -> drain -> commit -> replan -> reshard -> resume ->
-        publish.  Returns the new ``(topology, state, cursor)``, or None
-        when this rank left.  ``broken``: a collective failed, so the state
-        is not committed."""
+        publish.  Returns the new ``(topology, state, cursor, steps
+        replayed)``, or None when this rank left.  ``broken``: a collective
+        failed, so the state is not committed.  A transition to the grid
+        it left (the coordinator flips the epoch on every change of its
+        trainer leases, elastic/coord.py, and a lease may land before the
+        views that would change the device set) re-forms the group and
+        goes on with the live state: no reshard is recorded, no state
+        moves, no step replays."""
         t0 = time.perf_counter()
         step_before = int(state.step)
         self._event("detect", epoch=self._current_epoch(), from_mesh=list(topo.shape))
         fenced = bool(getattr(self.registry, "fenced", False))
+        trusted = not (fenced or broken)
         if self.cfg.elastic.drain_commit and not fenced and not broken:
             try:
                 t = time.perf_counter()
@@ -557,6 +580,7 @@ class ElasticTrainer:
                 self._event("drain_commit", step=step_before, segment=cursor.segment,
                             record=cursor.record)
             except Exception as e:
+                trusted = False
                 self._m_drain_failed.inc()
                 self._event("drain_commit_failed", error=f"{type(e).__name__}: {e}"[:200])
         elif fenced:
@@ -577,7 +601,10 @@ class ElasticTrainer:
             self._event("leave", step=step_before, device=self.device_id)
             self.left = True
             return None
-        new, state, cursor, _, plan = self._enter(stop, (topo, leaves))
+        new, state, cursor, _, plan = self._enter(stop, (topo, leaves),
+                                                  (state, cursor) if trusted else None)
+        if plan is None:  # a re-form
+            return new, state, cursor, 0
         # batches past the committed cursor were applied only to the
         # discarded state and replay: along the surviving lineage each once
         while self.cursor_lineage and self.cursor_lineage[-1] > cursor:
@@ -592,7 +619,24 @@ class ElasticTrainer:
         self._m_replayed.inc(max(0, record["steps_replayed"]))
         self._event("reshard", **{k: record[k] for k in (
             "from_mesh", "to_mesh", "wall_secs", "steps_replayed", "moved_bytes")})
-        return new, state, cursor
+        return new, state, cursor, record["steps_replayed"]
+
+    def _reforms(self, topo: Topology, prior: tuple | None, live: tuple | None) -> bool:
+        """Whether the new group is a re-form: every rank of it comes from
+        the prior topology's grid (the same device ids in the same order)
+        with a trusted live state.  One all-reduce (MIN) on every entry to
+        a group, so that a rank that starts or joins answers too."""
+        mine = float(prior is not None and live is not None and topo.grid == prior[0].grid)
+        if topo.ctx.group is None:
+            return mine > 0
+        word = torch.tensor([mine])
+        if dist.get_backend(topo.ctx.group) == "nccl":
+            word = word.to(topo.ctx.device)
+        try:
+            dist.all_reduce(word, op=dist.ReduceOp.MIN, group=topo.ctx.group)
+        except Exception as e:
+            raise _GroupFailed(str(e)) from e
+        return float(word.item()) > 0
 
     # -- the loop ------------------------------------------------------------
 
@@ -704,9 +748,9 @@ class ElasticTrainer:
             out = self._reshard(topo, state, cursor, stop, broken=broken)
             if out is None:  # this rank left the grid
                 return state
-            topo, state, cursor = out
+            topo, state, cursor, replayed = out
             step = int(state.step)
-            applied = max(0, applied - self.reshards[-1]["steps_replayed"])
+            applied = max(0, applied - replayed)
             last_committed = last_published = step
         ckpt = self._checkpointer(topo)
         try:

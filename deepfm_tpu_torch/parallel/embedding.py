@@ -67,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.embedding import sort_segments
+from .branch import arm, current_arm
 
 # odd multiplier for the bijective id-spreading permutation (Knuth-style)
 _HASH_MULT = 0x9E3779B1
@@ -259,7 +260,7 @@ class _PsumRows(torch.autograd.Function):
         out = _gather_rows(tables, idx, in_range).contiguous()
         dist.all_reduce(out, group=axis.group)
         counters["allreduce_bytes"] += _ring_bytes(out, axis.size)
-        ctx.axis, ctx.table_grad = axis, table_grad
+        ctx.axis, ctx.table_grad, ctx.arm = axis, table_grad, current_arm()
         ctx.save_for_backward(idx, in_range, *tables)
         return out
 
@@ -267,7 +268,8 @@ class _PsumRows(torch.autograd.Function):
     def backward(ctx, g):
         idx, in_range, *tables = ctx.saved_tensors
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.axis.group)
+        with arm(ctx.arm):
+            dist.all_reduce(g, group=ctx.axis.group)
         counters["allreduce_bytes"] += _ring_bytes(g, ctx.axis.size)
         return (None, None, None,
                 *_scatter_rows(tables, idx, in_range, g, ctx.table_grad))
@@ -290,7 +292,7 @@ class _AllToAllRows(torch.autograd.Function):
         dist.all_to_all_single(resp, got, group=axis.group)
         counters["alltoall_bytes"] += (_a2a_bytes(reqbuf, axis.size)
                                        + _a2a_bytes(got, axis.size))
-        ctx.axis, ctx.table_grad = axis, table_grad
+        ctx.axis, ctx.table_grad, ctx.arm = axis, table_grad, current_arm()
         ctx.save_for_backward(idx, mask, *tables)
         return resp
 
@@ -299,7 +301,8 @@ class _AllToAllRows(torch.autograd.Function):
         idx, mask, *tables = ctx.saved_tensors
         g_resp = g_resp.contiguous()
         g_got = torch.empty_like(g_resp)
-        dist.all_to_all_single(g_got, g_resp, group=ctx.axis.group)
+        with arm(ctx.arm):
+            dist.all_to_all_single(g_got, g_resp, group=ctx.axis.group)
         counters["alltoall_bytes"] += _a2a_bytes(g_resp, ctx.axis.size)
         return (None, None, None,
                 *_scatter_rows(tables, idx, mask, g_got, ctx.table_grad))
@@ -392,14 +395,17 @@ def exchange_rows(tables, flat_ids: torch.Tensor, axis: ModelAxis, *,
     cap = exchange_capacity(n, axis.size, capacity)
     plan = exchange_plan(flat_ids, rows, axis.size, cap)
     # a shard owns at most ``rows`` rows and a batch has at most ``n``
-    # distinct ones: at that capacity no bucket overflows
+    # distinct ones: at that capacity no bucket overflows.  The two arms are
+    # JAX's lax.cond branches (parallel/branch.py)
     if cap < min(n, rows):
         flag = plan.overflow.to(torch.int32).reshape(1)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=axis.group)
         if int(flag.item()):
             counters["fallbacks"] += 1
-            return _psum_exchange(tables, flat_ids, axis, table_grad)
-    return _alltoall_exchange(tables, plan, cap, axis, table_grad)
+            with arm("exchange.fallback"):
+                return _psum_exchange(tables, flat_ids, axis, table_grad)
+    with arm("exchange.alltoall"):
+        return _alltoall_exchange(tables, plan, cap, axis, table_grad)
 
 
 def sharded_lookup(local_table: torch.Tensor, ids: torch.Tensor, axis: ModelAxis, *,

@@ -82,7 +82,8 @@ checkpoints of the grid's first release.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from contextlib import nullcontext
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
@@ -96,6 +97,7 @@ from ..train.optimizer import (ZeroOptimizer, build_optimizer, resolve_zero_shar
 from ..train.step import (LAZY_TABLE_KEYS, TrainState, _check_lazy, _metrics,
                           apply_dense, dense_grads, graphed_train_step,
                           sigmoid_cross_entropy)
+from .branch import arm
 from .embedding import (ModelAxis, exchange_capacity, exchange_rows,
                         resolve_shard_exchange, split_compact, table_order,
                         tables_from_config)
@@ -223,6 +225,26 @@ def create_dp_train_state(cfg, ctx: DistContext) -> TrainState:
                       generator=model.dropout_generator, lazy=lazy, sharding=sharding)
 
 
+def rebind_state(state: TrainState, cfg, ctx: DistContext) -> None:
+    """Move ``state`` onto the groups of ``ctx``, a new process group of the
+    same grid at the same rank (an elastic cohort re-formed without a
+    reshard, elastic/controller.py): the sharding's context, the exchange
+    of the row-sharded tables and the ZeRO optimizer's groups.  The
+    tensors stay as they are."""
+    sh = state.sharding
+    if sh is None or (ctx.rank, ctx.world_size, ctx.model_parallel) != (
+            sh.ctx.rank, sh.ctx.world_size, sh.mp):
+        raise ValueError("rebind_state moves a grid state to a group of the same grid "
+                         "at the same rank")
+    state.sharding = replace(sh, ctx=ctx)
+    if sh.mp > 1:
+        state.model.sharded = tables_from_config(cfg, state.sharding.axis,
+                                                 ctx.data_parallel, ctx.device.type)
+    if isinstance(state.optimizer, ZeroOptimizer):
+        state.optimizer.data_group = ctx.data_group
+        state.optimizer.model_group = ctx.model_group
+
+
 def _unflatten_into(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
     offset = 0
     for t in tensors:
@@ -283,7 +305,10 @@ def pmean_grads(grads: dict, metrics: dict, state: TrainState, ctx: DistContext,
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in means] + [tail])
     n_mean = flat.numel() - tail.numel()
     if ctx.data_group is not None:
-        dist.all_reduce(flat, group=ctx.data_group)
+        # without gradients (the ZeRO step's ``_sync``) the buffer is the
+        # ``sync.stats`` arm: the ZeRO contract reads it as gradient-free
+        with arm("sync.stats") if not grads else nullcontext():
+            dist.all_reduce(flat, group=ctx.data_group)
     if ctx.model_parallel > 1:
         n_rep = n_mean - sum(grads[k].numel() for k in data_keys)
         dist.broadcast(flat[:n_rep], src=ctx.data_index * ctx.model_parallel,
@@ -447,11 +472,13 @@ def lazy_train_step(state: TrainState, batch: dict, ctx: DistContext, *,
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=ctx.data_group)
         dedup = not int(flag.item())
     if dedup:  # update_dedup: a pack of at most cap distinct rows
-        ids_g = _gather_data(torch.where(real[:cap], row_l[:cap], sh.total_rows), ctx)
-        g_g = _gather_data(g_l[:cap], ctx) / dp
+        with arm("lazy.update_dedup"):
+            ids_g = _gather_data(torch.where(real[:cap], row_l[:cap], sh.total_rows), ctx)
+            g_g = _gather_data(g_l[:cap], ctx) / dp
     else:      # update_full: every slot of every data index
-        ids_g = _gather_data(slot_row, ctx)
-        g_g = _gather_data(g_rows, ctx) / dp
+        with arm("lazy.update_full"):
+            ids_g = _gather_data(slot_row, ctx)
+            g_g = _gather_data(g_rows, ctx) / dp
     lazy_updates["dedup" if dedup else "full"] += 1
     row_id, gsum, valid = _segment_sums(ids_g, g_g)
     lr = schedule_value(opt.lr, state.step) * opt.multiplier

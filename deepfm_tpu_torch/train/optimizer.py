@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.config import OptimizerConfig
+from ..parallel.branch import arm
 
 # params whose updates embedding_lr_multiplier scales (by their last name
 # component): the CTR tables
@@ -190,11 +191,17 @@ class Optimizer:
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, torch.Tensor]) -> None:
         """One update of every parameter from its gradient, with this
-        count's scalars; advances the count."""
+        count's scalars; advances the count.  On the card the scalars go up
+        from a pinned stage by an asynchronous copy (the caching host
+        allocator keeps the stage until the copy has run): a plain upload
+        from pageable memory waits for the card, which the ZeRO update's
+        sync guard refuses (analysis/trace_audit.py ``audit_zero_update``)."""
         if params:
             dev = next(iter(params.values())).device
-            self.update(params, grads, torch.tensor(self.host_scalars(),
-                                                    dtype=torch.float32, device=dev))
+            scalars = torch.tensor(self.host_scalars(), dtype=torch.float32)
+            if dev.type == "cuda":
+                scalars = scalars.pin_memory().to(dev, non_blocking=True)
+            self.update(params, grads, scalars.to(dev))
         self.count += 1
 
 
@@ -425,7 +432,8 @@ class ZeroOptimizer:
             plan = self.plans[name]
             if plan is None:  # ineligible: the replicated update
                 g = g.clone()
-                dist.all_reduce(g, group=self.data_group)
+                with arm("zero.ineligible"):
+                    dist.all_reduce(g, group=self.data_group)
                 g_win[name], p_win[name] = g / self.dp, p
                 continue
             n, chunk = plan

@@ -3,6 +3,7 @@ whole script and to time phase 18 of two checkouts in turns.
 
     python3 scripts/chip_phases.py [pool] [families] [tests] [analysis]
     python3 scripts/chip_phases.py --ab OTHER_CHECKOUT [--rounds 1]
+    python3 scripts/chip_phases.py --ab-analysis OTHER_CHECKOUT [--rounds 1]
 
 The first form builds the kernels and the native reader, writes the
 train phase's synthetic files and phase 8's funnel servable, then runs
@@ -17,7 +18,11 @@ The second form runs phase 18 alone, in a fresh interpreter each time,
 of OTHER_CHECKOUT (another commit's tree, e.g. unpacked from ``git
 archive``) and of this one in turns: other, this, this, other, ``--rounds``
 times over; one ``AB <which> phase18 seconds ...`` line a run, with the
-card's name and power limit.
+card's name and power limit.  The third form does the same with phase 15's
+analyser run (``python -m deepfm_tpu_torch.analysis deepfm_tpu_torch/
+--concurrency --trace-audit`` from each checkout's root, its kernels built
+first): one ``AB <which> analysis seconds ... rc ...`` line a run, with the
+analyser's own timing lines.
 
 Needs one CUDA card (compute capability 9.0).
 """
@@ -96,6 +101,29 @@ def pool_alone(root: str, tag: str) -> None:
           f"{out['forward_launches']} {out['retrieval_launches']} card {card}", flush=True)
 
 
+def analysis_ab(other: str, rounds: int) -> int:
+    """Phase 15's analyser run of ``other`` and of this checkout in turns."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    roots = {"other": os.path.abspath(other), "this": ROOT}
+    for root in roots.values():
+        subprocess.run([sys.executable, "-c", "from deepfm_tpu_torch.ops import _build; "
+                        "_build.build()"], cwd=root, check=True)
+    for tag in ["other", "this", "this", "other"] * rounds:
+        t = time.time()
+        proc = subprocess.run([sys.executable, "-m", "deepfm_tpu_torch.analysis",
+                               "deepfm_tpu_torch/", "--concurrency", "--trace-audit"],
+                              cwd=roots[tag], capture_output=True, text=True)
+        lines = [x for x in proc.stderr.splitlines() if x.startswith("analysis:")]
+        print(f"AB {tag} analysis seconds {time.time() - t:.1f} rc {proc.returncode} "
+              f"card {card} | {' | '.join(lines)}", flush=True)
+        if proc.returncode:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            return proc.returncode
+    return 0
+
+
 PHASES = ("pool", "families", "tests", "analysis")
 
 
@@ -103,13 +131,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", nargs="*", help=f"any of {', '.join(PHASES)} (default: all)")
     ap.add_argument("--ab", help="another checkout whose phase 18 runs in turns with this one's")
+    ap.add_argument("--ab-analysis", metavar="OTHER",
+                    help="another checkout whose analyser run alternates with this one's")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="rounds of other, this, this, other (with --ab)")
+                    help="rounds of other, this, this, other (with --ab, --ab-analysis)")
     ap.add_argument("--pool-alone", nargs=2, metavar=("ROOT", "TAG"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.pool_alone:
         pool_alone(*args.pool_alone)
         return 0
+    if args.ab_analysis:
+        return analysis_ab(args.ab_analysis, args.rounds)
     if args.ab:
         for root, tag in [(args.ab, "other"), (ROOT, "this"), (ROOT, "this"),
                           (args.ab, "other")] * args.rounds:

@@ -11,8 +11,9 @@ JAX's (deepfm_tpu/analysis) on the CPU.
 * The torch rules (tracer-host-op and traced-nondeterminism inside
   captured bodies, the torch int32 casts) catch their seeded violations
   and leave host code alone.
-* The CLI's exit codes and JSON schema, and the observability audit of the
-  captured bodies.
+* The CLI's exit codes, JSON schema and ``--format github`` annotations
+  (JAX's lines, escaping and exit codes), and the observability audit of
+  the captured bodies.
 """
 
 from __future__ import annotations
@@ -665,6 +666,64 @@ def test_cli_json_schema_equals_jax_s(tmp_path, capsys):
     assert mine.keys() == theirs.keys() and mine["counts"] == theirs["counts"]
     assert [sorted(f) for f in mine["new"]] == [sorted(f) for f in theirs["new"]]
     assert mine == theirs
+
+
+@pytest.mark.parametrize("baselined", [False, True], ids=["new", "baselined"])
+def test_cli_github_annotations_equal_jax_s(tmp_path, capsys, monkeypatch, baselined):
+    """``--format github`` on one fixture tree (a new finding, or the same
+    finding baselined): the port's and JAX's CLIs print the same
+    ``::error``/``::notice`` lines and summary, and exit alike.  (JAX's
+    renderer binds ``sys.stdout`` when it is defined; it is handed the
+    captured one.)"""
+    render = jax_cli._render_github
+    monkeypatch.setattr(jax_cli, "_render_github",
+                        lambda *a, **k: render(*a, out=sys.stdout, **k))
+    path = _tree(tmp_path, SEEDED)
+    stored = tmp_path / "b.json"
+    if baselined:
+        baseline.write_baseline(str(stored), run_ast_engine({"pkg/m.py": SEEDED}))
+    else:
+        stored.write_text(json.dumps({"schema": 1, "findings": {}}))
+    args = [path, "--format", "github", "--concurrency", "--baseline", str(stored)]
+    code = cli.main(args)
+    mine = capsys.readouterr().out.splitlines()
+    assert jax_cli.main(args) == code == (0 if baselined else 1)
+    theirs = capsys.readouterr().out.splitlines()
+    assert mine == theirs
+    kind = "::notice" if baselined else "::error"
+    assert [line.split(" ", 1)[0] for line in mine] == [kind, "analysis:"]
+    assert mine[0].startswith(f"{kind} file=pkg/m.py,line=")
+    assert mine[-1] == ("analysis: 0 new, 1 baselined, 0 stale" if baselined
+                        else "analysis: 1 new, 0 baselined, 0 stale")
+
+
+def test_cli_github_on_a_clean_tree_prints_only_the_summary(tmp_path, capsys):
+    path = _tree(tmp_path, "def f():\n    return 1\n")
+    assert cli.main([path, "--format", "github"]) == 0
+    assert capsys.readouterr().out.splitlines() == ["analysis: 0 new, 0 baselined, 0 stale"]
+
+
+def test_cli_github_escapes_as_jax_s():
+    """``%``, CR and LF in the data; ``:`` and ``,`` too in a property (the
+    path, the title): JAX's ``_gh_escape``, and the rendered lines equal."""
+    import io
+
+    from deepfm_tpu_torch.analysis import Finding
+
+    text = "50% of a:b,c\r\nnext"
+    for prop in (False, True):
+        assert cli._gh_escape(text, prop=prop) == jax_cli._gh_escape(text, prop=prop)
+    assert cli._gh_escape(text) == "50%25 of a:b,c%0D%0Anext"
+    assert cli._gh_escape(text, prop=True) == "50%25 of a%3Ab%2Cc%0D%0Anext"
+    f = Finding("swallowed-exception", "pkg/a,b:c%.py", 3, 4, "line one\nline 2: 100%",
+                hint="fix, then: rerun")
+    mine, theirs = io.StringIO(), io.StringIO()
+    cli._render_github([f], [f], [], out=mine)
+    jax_cli._render_github([f], [f], [], out=theirs)
+    assert mine.getvalue() == theirs.getvalue()
+    assert mine.getvalue().splitlines()[0] == (
+        "::error file=pkg/a%2Cb%3Ac%25.py,line=3,col=4,title=swallowed-exception::"
+        "line one%0Aline 2: 100%25  fix: fix, then: rerun")
 
 
 def test_cli_write_baseline_merges_a_subset_then_runs_green(tmp_path, capsys):

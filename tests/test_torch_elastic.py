@@ -294,6 +294,70 @@ def test_a_rank_that_never_arrives_calls_the_epoch_off(tmp_path):
         h.close()
 
 
+def _lone_rank_run(root: str, monkeypatch, interloper_after: int | None = None):
+    """One rank (device 0) under a coordinator and a store, on a log of six
+    batches.  With ``interloper_after``, a joiner's train lease (device 1)
+    lands after that step while the rank's view, the board, still lists
+    device 0 alone: the coordinator opens a transition to the same device
+    set, and the step waits until the rank's registry sees it."""
+    from deepfm_tpu_torch.elastic.coord import CoordClient
+    from deepfm_tpu_torch.parallel import spmd
+
+    doc = _doc(root)
+    _fill_stream(doc["data"]["training_data_dir"], segments=6)
+    h = Harness([0])
+    joiner = CoordClient(h.coord_url, "d1-joiner", role="train", owns=(1,))
+    try:
+        trainer = ElasticTrainer(Config.from_dict(_rank_doc(doc, h)), device="cpu",
+                                 store=h.store)
+        train_step, tokens = spmd.train_step, []
+
+        def step(state, batch, ctx):
+            metrics = train_step(state, batch, ctx)
+            if state.step == interloper_after:
+                epoch = trainer._current_epoch()
+                tokens.append(trainer.registry.fence_token)
+                joiner.acquire(view=[0, 1])
+                deadline = time.monotonic() + 30
+                while trainer._current_epoch() == epoch:
+                    assert time.monotonic() < deadline, "the transition never opened"
+                    time.sleep(0.02)
+            return metrics
+
+        with monkeypatch.context() as m:
+            m.setattr(spmd, "train_step", step)
+            state = trainer.run(follow=False)
+        tokens.append(trainer.registry.fence_token)
+        trainer.registry.release()
+    finally:
+        joiner.release()
+        h.close()
+    return trainer, state, tokens
+
+
+def test_a_lease_that_keeps_the_device_set_re_forms_without_a_reshard(tmp_path, monkeypatch):
+    """A joiner's lease lands before the running rank's view includes its
+    device, so the coordinator flips the epoch to the same device set.  The
+    rank drains, forms the new epoch's group at the grid it left and goes on
+    with its live state: no reshard is recorded (JAX's trainer never makes
+    one to the same grid), the cohort holds a newer fencing token, every
+    batch is applied once, and the weights end bit-equal to a run without
+    the lease."""
+    trainer, state, tokens = _lone_rank_run(str(tmp_path / "lease"), monkeypatch,
+                                            interloper_after=3)
+    kinds = [e["kind"] for e in trainer.lifecycle]
+    assert trainer.reshards == [] and trainer.metrics_snapshot()["reshards_total"] == 0
+    assert "reform" in kinds and "replan" not in kinds and "reshard" not in kinds, kinds
+    assert tokens[1] > tokens[0]
+    lineage = trainer.cursor_lineage
+    assert len(lineage) == 6 and all(a < b for a, b in zip(lineage, lineage[1:]))
+    _, plain, _ = _lone_rank_run(str(tmp_path / "plain"), monkeypatch)
+    assert int(state.step) == int(plain.step) == 6
+    want = plain.model.state_dict()
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+
+
 # -- the lifecycle on rank processes -------------------------------------------
 
 class _FlipOnStep(JaxMetricLogger):

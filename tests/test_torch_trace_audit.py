@@ -5,6 +5,9 @@ in place, a float64 optimizer slot, a float64 lazy moment, a paged step
 whose hot cache is rebound).  The capture contracts run on the card
 (``tests/test_torch_cuda.py``)."""
 
+import contextlib
+from types import SimpleNamespace
+
 import pytest
 import torch
 from torch import nn
@@ -86,12 +89,24 @@ def test_findings_render_and_fingerprint_stably():
             "trace-recompile"} <= set(RULES)
 
 
-def test_the_grid_step_is_a_documented_waiver_not_a_pass():
-    assert {"audit_spmd_exchange", "audit_zero_update"} <= set(WAIVERS)
-    assert "overflow flag" in WAIVERS["audit_spmd_exchange"]
+def test_the_grid_step_s_contracts_are_audited_not_waived(monkeypatch):
+    """JAX's ``audit_spmd_exchange`` and ``audit_zero_update`` run on a
+    record of the eager grid step (tests/test_torch_collective_contracts.py):
+    ``WAIVERS`` names neither, and ``run_trace_audit`` runs both."""
     import deepfm_tpu_torch.analysis.trace_audit as ta
 
-    assert not hasattr(ta, "audit_spmd_exchange") and not hasattr(ta, "audit_zero_update")
+    assert not {"audit_spmd_exchange", "audit_zero_update"} & set(WAIVERS)
+    assert set(WAIVERS) == {"online_trainer", "audit_elastic.host_round_trip"}
+    for name in dir(ta):
+        if name.startswith("audit_") and name != "audit_cfg":
+            monkeypatch.setattr(ta, name, lambda *a, _n=name, **k: [Finding(
+                "trace-collective", "deepfm_tpu_torch/parallel/spmd.py", 0, 0, _n,
+                source=_n)])
+    # no world is spawned: the stubs read none
+    monkeypatch.setattr(ta, "start_grid_world", lambda device: contextlib.nullcontext(
+        SimpleNamespace(results=dict)))
+    ran = {f.source for f in run_trace_audit("cpu")}
+    assert {"audit_spmd_exchange", "audit_zero_update"} <= ran
 
 
 def test_the_state_tensors_cover_every_carried_tensor():
